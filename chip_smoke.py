@@ -8,16 +8,16 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. environment: torch/CUDA versions, the card's name and power limit;
    TF32 off for matmuls and cuDNN (f32 comparisons stay f32);
 2. build: nvcc builds every kernel of kernels/csrc/ in parallel;
-3. kernels: K1, K2 and K3 at the nc-AIFB shapes, each held against its
-   plain PyTorch version on the card (f32, max abs diff <= 1e-5 *
-   max(1, max|ref|): the kernels reorder f32 sums). "ms", "plain_ms" and
-   "library_ms" (K1's one-call yardstick) are device time per call, the
-   summed kernel time torch.profiler records over 50 calls; "call_ms",
-   "plain_call_ms" and "library_call_ms" are the CUDA-event time per call
-   of 50 calls back to back, which includes the host's launch cost when
-   that is the longer;
-4. serving, two paths, each with the launch counts zeroed just before it
-   and read just after: the main path, load_nc_server on
+3. kernels, nc-AIFB: K1, K2 and K3 at the nc-AIFB shapes, each held
+   against its plain PyTorch version on the card (f32, max abs diff <=
+   1e-5 * max(1, max|ref|): the kernels reorder f32 sums). "ms",
+   "plain_ms" and "library_ms" (the one-call yardstick) are device time
+   per call, the summed kernel time torch.profiler records over 50 calls;
+   "call_ms", "plain_call_ms" and "library_call_ms" are the CUDA-event
+   time per call of 50 calls back to back, which includes the host's
+   launch cost when that is the longer;
+4. serving nc-AIFB, two paths, each with the launch counts zeroed just
+   before it and read just after: the main path, load_nc_server on
    configs/rgcn/nc-AIFB.yaml with the AIFB-scale synthetic graph at full
    width (hidden 16, R' = 91), three classify requests of 8 test nodes
    and one probabilities request, must launch exactly K1 once and K2
@@ -25,10 +25,28 @@ Phases, in order; any failure exits non-zero and prints no result:
    (the K3 + K1 branch) must launch K3 once and K1 twice. The logits must
    be finite, (N, C), and match the same parameters run through the plain
    versions on the CPU (atol 1e-4), and the predicted classes must agree;
-5. summary: one JSON line of each path's launch counts, one of the TPU
-   kernels still to port, and the "kernels" line, whose "launches" for
-   each kernel is its count on the path named beside it;
-6. last line: {"ok": true, "device": {...}}.
+5. kernels, lp-WN18: K4 over the merged pair frame (shared rows, the main
+   path's shapes), K4 with per-basis rows and sum_bases (the form of the
+   featureless-basis forward and the training backward), K4 over the
+   unmerged destination layout, and K5 over the source-dedup'd frame, each
+   held against its plain version with the same tolerance and timed as in
+   phase 3; the yardstick is one torch.sparse.mm of the (nb*N, N) CSR
+   matrix carrying w[b, slot] at (b*N + dst, src) with x;
+6. serving lp-WN18, two paths, counts zeroed before each: the main path,
+   load_lp_server on configs/rgcn/lp-WN18.yaml with wn18_like() at full
+   width (200, basis 2), answering point scores of 8 test triples, top-10
+   tails of 32 (s, p) and heads of 32 (p, o) queries and one filtered
+   top-10 tail request, must launch exactly K4 once (one encode); the same
+   model over the EdgeSet whose merged layout carries the dedup frame
+   (dedup_k=2) must launch exactly K5 once. z must be finite, (N, 200),
+   and match the CPU plain run within atol 1e-4, as must the point scores;
+   top-k entities must equal the CPU's wherever the k-th and (k+1)-th CPU
+   scores are more than 1e-4 apart. Reports the encode time (host clock,
+   median of 20 refresh() calls) and one 1024-query top-10 tail batch;
+7. summary: one JSON line of each path's launch counts, one of the extra
+   K4 modes, and the "kernels" line, whose "launches" for each kernel is
+   its count on the path named beside it;
+8. last line: {"ok": true, "device": {...}}.
 
 Needs CUDA (exits 1 without it) and the repository around it.
 """
@@ -47,6 +65,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "rgcn", "nc-AIFB.yaml")
+LP_CONFIG = os.path.join(ROOT, "configs", "rgcn", "lp-WN18.yaml")
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s and
 # f32 CUDA-core FLOP/s. The kernels here are f32 on CUDA cores.
@@ -263,9 +282,18 @@ def phase_kernels(dev, data, edges):
     return rows
 
 
+def launches(**counts) -> dict:
+    """Expected launch counts: the named kernels, every other kernel 0."""
+    from rgcn_tpu_torch.kernels.build import SOURCES
+
+    return {name: counts.get(name, 0) for name in SOURCES}
+
+
 # launches per path: one serving forward (the server runs it at load)
-MAIN_PATH = {"k1_aggregate": 1, "k2_fused": 1, "k3_messages": 0}
-K3_BRANCH = {"k1_aggregate": 2, "k2_fused": 0, "k3_messages": 1}
+MAIN_PATH = dict(k1_aggregate=1, k2_fused=1)
+K3_BRANCH = dict(k1_aggregate=2, k3_messages=1)
+LP_MAIN = dict(k4_weighted_aggregate=1)
+LP_DEDUP = dict(k5_weighted_aggregate_dedup=1)
 
 
 def serve_path(label, build, requests, expect):
@@ -279,14 +307,14 @@ def serve_path(label, build, requests, expect):
     answers = [srv.classify(q) for q in requests]
     probs = srv.probabilities(requests[0])
     torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
+    counts = dict(kernels.LAUNCHES)
     log(f"serving [{label}]: build + forward + requests "
-        f"{time.perf_counter() - t0:.2f} s, launches {launches}")
-    if launches != expect:
-        fail(f"serving [{label}]: launches {launches}, expected {expect}")
+        f"{time.perf_counter() - t0:.2f} s, launches {counts}")
+    if counts != launches(**expect):
+        fail(f"serving [{label}]: launches {counts}, expected {launches(**expect)}")
     if not np.allclose(probs.sum(-1), 1.0, atol=1e-5):
         fail(f"serving [{label}]: probabilities do not sum to 1")
-    return srv, answers, launches
+    return srv, answers, counts
 
 
 def phase_serving(dev, data):
@@ -337,25 +365,248 @@ def phase_serving(dev, data):
     return {"main": main, "k3_k1_branch": branch}
 
 
-PENDING = [
-    {"name": "K4", "status": "pending",
-     "replaces": "rgcn_tpu/ops/pallas_basis.py:53"},
-    {"name": "K5", "status": "pending",
-     "replaces": "rgcn_tpu/ops/pallas_basis.py:188"},
-]
+def lp_csr(rows, cols, vals, shape):
+    """CSR matrix of (row, col, value) entries (duplicates summed), the
+    torch.sparse.mm yardstick's operand."""
+    import warnings
+
+    idx = torch.stack([rows, cols])
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_coo_tensor(idx, vals, shape).coalesce().to_sparse_csr()
+
+
+def slot_nodes(layout, local):
+    """Destination node of each slot of a DstLayout-like frame."""
+    block = layout.chunk_block.long().repeat_interleave(layout.chunk)
+    return block * layout.row_block + local.reshape(-1).long()
+
+
+def phase_lp_kernels(dev, edges, dedup):
+    """K4 (three modes) and K5 at the lp-WN18 shapes against their plain
+    versions; returns (main-path rows for K4 and K5, extra K4 modes)."""
+    from rgcn_tpu_torch.ops import basis as bs
+
+    rng = np.random.default_rng(1)
+    m = edges.merged
+    n, din, nb = m.num_nodes, 200, 2
+
+    def rand(*shape, scale=1.0):
+        a = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(a).to(dev)
+
+    x = torch.relu(rand(n, din))
+    comps = rand(m.num_rels, nb, scale=0.3)
+    rows = []
+    log("kernels (lp-WN18 shapes):")
+
+    def k4_row(label, table, src, w, layout, sum_bases, lib):
+        ref = bs.weighted_aggregate_plain(table, src, w, layout, n,
+                                          sum_bases=sum_bases)
+        got = bs.weighted_aggregate(table, src, w, layout, n, sum_bases=sum_bases)
+        torch.cuda.synchronize()
+        err = check_close(label, got, ref)
+        local = layout.local_dst.reshape(-1)
+        keep = local < layout.row_block
+        real = int(keep.sum().item())
+        # real slots read src and their nb weights; the table rows they
+        # reference are read once; local_dst and chunk_block for every slot
+        n_rows = int(torch.unique(src[keep]).numel())
+        tables = 1 if table.dim() == 2 else nb
+        k_bytes = real * (4 + nb * 4) + nbytes(layout.local_dst, layout.chunk_block) \
+            + tables * n_rows * din * 4 + got.numel() * 4
+        a, operand = lib
+        lib_out = torch.sparse.mm(a, operand)
+        lib_err = (lib_out.reshape(got.shape) - ref).abs().max().item()
+        log(f"  {label} torch.sparse.mm vs plain: max abs diff {lib_err:.3e}")
+        ms, call = timed(lambda: bs.weighted_aggregate(table, src, w, layout, n,
+                                                       sum_bases=sum_bases))
+        plain_ms, plain_call = timed(lambda: bs.weighted_aggregate_plain(
+            table, src, w, layout, n, sum_bases=sum_bases))
+        lib_ms, lib_call = timed(lambda: torch.sparse.mm(a, operand))
+        return dict(
+            name="K4", mode=label, route="cuda",
+            source="rgcn_tpu_torch/kernels/csrc/k4_weighted_aggregate.cu",
+            replaces="rgcn_tpu/ops/pallas_basis.py:53",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            call_ms=call, plain_call_ms=plain_call, library_call_ms=lib_call,
+            _bound=bound_ms(k_bytes, 2 * nb * real * din),
+        )
+
+    # K4, main path: merged frame, shared (N, 200) rows
+    lay = m.layout
+    w = bs.merged_wvec(m.coeff, comps)
+    keep = lay.local_dst.reshape(-1) < lay.row_block
+    node, src_k = slot_nodes(lay, lay.local_dst)[keep], m.src_sorted.long()[keep]
+    a = lp_csr(torch.cat([b * n + node for b in range(nb)]), src_k.repeat(nb),
+               w[:, keep].reshape(-1), (nb * n, n))
+    rows.append(k4_row("K4 merged", x, m.src_sorted, w, lay, False, (a, x)))
+
+    # K4, per-basis (nb, N, 200) rows summed over bases
+    xb = rand(nb, n, din)
+    a = lp_csr(node.repeat(nb), torch.cat([b * n + src_k for b in range(nb)]),
+               w[:, keep].reshape(-1), (n, nb * n))
+    extra = [k4_row("K4 per-basis sum_bases", xb, m.src_sorted, w, lay, True,
+                    (a, xb.reshape(nb * n, din)))]
+
+    # K4 over the unmerged destination layout
+    src_u, w_u = bs.sorted_inputs(edges, comps)
+    lay_u = edges.layout
+    keep_u = lay_u.local_dst.reshape(-1) < lay_u.row_block
+    node_u = slot_nodes(lay_u, lay_u.local_dst)[keep_u]
+    a = lp_csr(torch.cat([b * n + node_u for b in range(nb)]),
+               src_u.long()[keep_u].repeat(nb), w_u[:, keep_u].reshape(-1),
+               (nb * n, n))
+    extra.append(k4_row("K4 unmerged", x, src_u, w_u, lay_u, False, (a, x)))
+
+    # K5 over the source-dedup'd frame
+    dd = dedup.fwd_dedup
+    w_k = torch.einsum("klr,rb->kbl", dd.coeff_k, comps).contiguous()
+    ref = bs.weighted_aggregate_dedup_plain(x, dd.src_sorted, w_k, dd, n)
+    got = bs.weighted_aggregate_dedup(x, dd.src_sorted, w_k, dd, n)
+    torch.cuda.synchronize()
+    err = check_close("K5 dedup", got, ref)
+    check_close("K5 dedup vs K4 merged plain", got,
+                bs.weighted_aggregate_plain(x, m.src_sorted, w, lay, n))
+    lanes = dd.local_k.reshape(dd.num_k, -1) < dd.row_block
+    real_slots = lanes.any(0)
+    n_lanes = int(lanes.sum().item())
+    n_rows = int(torch.unique(dd.src_sorted[real_slots]).numel())
+    k5_bytes = int(real_slots.sum().item()) * 4 + n_lanes * nb * 4 \
+        + nbytes(dd.local_k, dd.chunk_block) + n_rows * din * 4 + got.numel() * 4
+    lane_rows, lane_cols, lane_vals = [], [], []
+    for k in range(dd.num_k):
+        kp = lanes[k]
+        nd = slot_nodes(dd, dd.local_k[k])[kp]
+        for b in range(nb):
+            lane_rows.append(b * n + nd)
+            lane_cols.append(dd.src_sorted.long()[kp])
+            lane_vals.append(w_k[k, b][kp])
+    a = lp_csr(torch.cat(lane_rows), torch.cat(lane_cols), torch.cat(lane_vals),
+               (nb * n, n))
+    ms, call = timed(lambda: bs.weighted_aggregate_dedup(x, dd.src_sorted, w_k, dd, n))
+    plain_ms, plain_call = timed(lambda: bs.weighted_aggregate_dedup_plain(
+        x, dd.src_sorted, w_k, dd, n))
+    lib_ms, lib_call = timed(lambda: torch.sparse.mm(a, x))
+    rows.append(dict(
+        name="K5", mode="K5 dedup", route="cuda",
+        source="rgcn_tpu_torch/kernels/csrc/k5_weighted_aggregate_dedup.cu",
+        replaces="rgcn_tpu/ops/pallas_basis.py:188",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        call_ms=call, plain_call_ms=plain_call, library_call_ms=lib_call,
+        _bound=bound_ms(k5_bytes, 2 * nb * n_lanes * din),
+    ))
+    for r in rows + extra:
+        r["bound_ms"], r["bound_by"] = r.pop("_bound")
+        log(json.dumps({"kernel_check": r}))
+    return rows, extra
+
+
+def topk_agree(name, got, cpu_scores, cpu_ents, k):
+    """Top-k entity sets equal the CPU's on rows where the CPU's k-th and
+    (k+1)-th scores are more than 1e-4 apart; returns the rows checked."""
+    clear = (cpu_scores[:, k - 1] - cpu_scores[:, k]) > 1e-4
+    for i in np.flatnonzero(clear):
+        if set(got[i].tolist()) != set(cpu_ents[i, :k].tolist()):
+            fail(f"{name}: row {i} top-{k} {sorted(got[i])} != CPU "
+                 f"{sorted(cpu_ents[i, :k])}")
+    return int(clear.sum())
+
+
+def phase_lp_serving(dev, data, dedup):
+    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch.serve import LinkPredictionServer, load_lp_server
+
+    test = np.asarray(data.test)
+    triples = test[:8]
+    sp, po = test[:32, :2], test[32:64, 1:]
+    k = 10
+
+    def requests(srv):
+        return (srv.score(triples), srv.topk_tails(sp, k=k),
+                srv.topk_heads(po, k=k), srv.topk_tails(sp, k=k, filtered=True))
+
+    def path(label, build, expect):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        srv = build()
+        answers = requests(srv)
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        log(f"serving [{label}]: build + encode + requests "
+            f"{time.perf_counter() - t0:.2f} s, launches {counts}")
+        if counts != launches(**expect):
+            fail(f"serving [{label}]: launches {counts}, expected {launches(**expect)}")
+        z = srv.z
+        if tuple(z.shape) != (data.num_nodes, 200) or not torch.isfinite(z).all():
+            fail(f"serving [{label}]: z {tuple(z.shape)} not finite (N, 200)")
+        return srv, answers, counts
+
+    srv, main_ans, main = path(
+        "lp main: merged frame", lambda: load_lp_server(LP_CONFIG, data, device=dev),
+        LP_MAIN)
+    if srv.edges.merged is None or srv.edges.merged.fwd_dedup is not None:
+        fail("lp serving: the main path's EdgeSet has no plain merged layout")
+    branch_edges = dataclasses.replace(srv.edges, merged=dedup)
+    train = np.asarray(data.train, dtype=np.int64)
+    dsrv, dedup_ans, branch = path(
+        "lp dedup branch",
+        lambda: LinkPredictionServer(srv.model, branch_edges, known_triples=train),
+        LP_DEDUP)
+
+    state = {key: v.detach().cpu() for key, v in srv.model.state_dict().items()}
+    cpu = load_lp_server(LP_CONFIG, data, state, device="cpu")
+    cpu_score = cpu.score(triples)
+    cpu_rank = [cpu.topk_tails(sp, k=k + 1), cpu.topk_heads(po, k=k + 1),
+                cpu.topk_tails(sp, k=k + 1, filtered=True)]
+    for label, s, ans in (("merged", srv, main_ans), ("dedup", dsrv, dedup_ans)):
+        dz = float((s.z.cpu() - cpu.z).abs().max())
+        ds = float(np.abs(ans[0] - cpu_score).max())
+        log(f"  [{label}] z vs CPU plain: max abs diff {dz:.3e}; "
+            f"point scores {ds:.3e}")
+        if not (dz <= 1e-4 and ds <= 1e-4):
+            fail(f"lp serving [{label}]: z or scores differ from the CPU beyond 1e-4")
+        checked = [topk_agree(f"lp {label} {what}", got[1], ref[0], ref[1], k)
+                   for what, got, ref in zip(("tails", "heads", "filtered tails"),
+                                             ans[1:], cpu_rank)]
+        log(f"  [{label}] top-{k} sets equal the CPU's on {checked} of 32 rows "
+            "each (rows with a k-th/(k+1)-th gap > 1e-4)")
+    log(f"  scores: {[round(float(v), 6) for v in main_ans[0]]}")
+
+    def host_ms(fn, iters=20):
+        out = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(out))
+
+    big = np.asarray(train[np.random.default_rng(2).integers(0, len(train), 1024), :2])
+    timing = {
+        "encode_ms_main": host_ms(srv.refresh),
+        "encode_ms_dedup": host_ms(dsrv.refresh),
+        "topk_tails_1024_ms": host_ms(lambda: srv.topk_tails(big, k=k), iters=10),
+    }
+    log(f"  lp timing (host clock, medians): {json.dumps(timing)}")
+    return {"lp_main": main, "lp_dedup_branch": branch}, timing
 
 
 def main():
+    t_start = time.perf_counter()
     name = phase_environment()
     sys.path.insert(0, ROOT)
     try:
         import rgcn_tpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"rgcn_tpu_torch is not importable next to this script: {e}")
-    if not os.path.isfile(CONFIG):
-        fail(f"config not found: {CONFIG}")
+    for cfg in (CONFIG, LP_CONFIG):
+        if not os.path.isfile(cfg):
+            fail(f"config not found: {cfg}")
 
-    from rgcn_tpu_torch.data.synthetic import aifb_like
+    from rgcn_tpu_torch.data.synthetic import aifb_like, wn18_like
+    from rgcn_tpu_torch.graph.coalesce import build_merged_layout
     from rgcn_tpu_torch.graph.structure import build_edge_set
 
     dev = torch.device("cuda")
@@ -373,11 +624,30 @@ def main():
     rows = phase_kernels(dev, data, edges)
     paths = phase_serving(dev, data)
 
+    lp = wn18_like()
+    lp_np = build_edge_set(lp.train, lp.num_nodes, lp.num_relations,
+                           tile_size=128, with_dst_layout=True,
+                           with_merged_layout=True)
+    dedup = build_merged_layout(lp_np.dst, lp_np.src, lp_np.rel, lp_np.val,
+                                lp_np.num_nodes, lp_np.num_rels, dedup_k=2).to(dev)
+    lp_edges = lp_np.to(dev)
+    m = lp_edges.merged
+    log(f"lp-WN18 graph: N {lp.num_nodes}, R' {lp_np.num_rels + 1}, train "
+        f"{len(lp.train)}, E_pad {lp_np.src.shape[0]}; merged {m.num_pairs} pairs "
+        f"in L {m.layout.perm.shape[0]} ({m.layout.num_chunks} chunks, "
+        f"{m.layout.num_row_blocks} blocks); dedup L "
+        f"{dedup.fwd_dedup.src_sorted.shape[0]} ({dedup.fwd_dedup.num_chunks} chunks)")
+    lp_rows, extra = phase_lp_kernels(dev, lp_edges, dedup)
+    lp_paths, timing = phase_lp_serving(dev, lp, dedup)
+    paths.update(lp_paths)
+
     # each kernel's count on the path that serves through it
     key = {"K1": ("k1_aggregate", "main"), "K2": ("k2_fused", "main"),
-           "K3": ("k3_messages", "k3_k1_branch")}
+           "K3": ("k3_messages", "k3_k1_branch"),
+           "K4": ("k4_weighted_aggregate", "lp_main"),
+           "K5": ("k5_weighted_aggregate_dedup", "lp_dedup_branch")}
     out = []
-    for r in rows:
+    for r in rows + lp_rows:
         kname, path = key[r["name"]]
         out.append({
             "name": r["name"], "route": r["route"], "source": r["source"],
@@ -390,7 +660,10 @@ def main():
             "library_call_ms": r["library_call_ms"],
         })
     print(json.dumps({"serve_launches": paths}), flush=True)
-    print(json.dumps({"pending_kernels": PENDING}), flush=True)
+    print(json.dumps({"lp_timing_ms": timing}), flush=True)
+    print(json.dumps({"k4_modes": extra}), flush=True)
+    print(json.dumps({"pending_kernels": []}), flush=True)
+    log(f"command time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

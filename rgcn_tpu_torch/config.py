@@ -1,8 +1,9 @@
-"""Node-classification experiment configs over the repo's YAML subset.
+"""Experiment configs over the repo's YAML subset.
 
-Counterpart of ``rgcn_tpu/config.py`` (the NC dataclasses and
-``load_experiment``). PyYAML is not a dependency of the port, so
-:func:`parse_yaml` reads the subset every file under ``configs/`` uses:
+Counterpart of ``rgcn_tpu/config.py``: node-classification and
+link-prediction dataclasses and ``load_experiment``. PyYAML is not a
+dependency of the port, so :func:`parse_yaml` reads the subset every file
+under ``configs/`` uses:
 nested ``key: scalar`` maps by indentation, ``#`` comments, and YAML 1.1
 plain scalars (bool, null, int, float, string) or quoted strings.
 """
@@ -22,8 +23,11 @@ __all__ = [
     "DecompositionConfig",
     "EdgeDropoutConfig",
     "RGCNConfig",
+    "EncoderConfig",
+    "DecoderConfig",
     "EvaluationConfig",
     "NodeClassificationExperiment",
+    "LinkPredictionExperiment",
     "parse_yaml",
     "load_experiment",
 ]
@@ -87,6 +91,36 @@ class RGCNConfig:
 
 
 @dataclass(frozen=True)
+class EncoderConfig:
+    """``encoder:`` section of link-prediction configs."""
+
+    model: str = "rgcn"  # 'rgcn' | 'c-rgcn'
+    num_layers: int = 2
+    node_embedding: Optional[int] = None
+    hidden1_size: Optional[int] = None
+    hidden2_size: Optional[int] = None
+    decomposition: Optional[DecompositionConfig] = None
+    edge_dropout: Optional[EdgeDropoutConfig] = None
+    weight_init: str = "glorot-normal"
+    include_gain: bool = False
+    bias_init: Optional[str] = None
+    node_embedding_l2_penalty: float = 0.0
+
+
+@dataclass(frozen=True)
+class DecoderConfig:
+    """``decoder:`` section of link-prediction configs."""
+
+    model: str = "distmult"
+    l2_penalty_type: Optional[str] = None
+    l2_penalty: float = 0.0
+    weight_init: str = "standard-normal"
+    include_gain: bool = False
+    bias_init: Optional[str] = None
+    bwd_dtype: Optional[str] = None  # the training backward's table dtype
+
+
+@dataclass(frozen=True)
 class EvaluationConfig:
     final_run: bool = False
     filtered: bool = False
@@ -102,6 +136,15 @@ class NodeClassificationExperiment:
     rgcn: RGCNConfig
     evaluation: EvaluationConfig
     repeats: int = 1
+
+
+@dataclass(frozen=True)
+class LinkPredictionExperiment:
+    dataset: DatasetConfig
+    training: TrainingConfig
+    encoder: EncoderConfig
+    decoder: DecoderConfig
+    evaluation: EvaluationConfig
 
 
 # --------------------------------------------------------------------------
@@ -237,29 +280,34 @@ def _build(cls, raw: Optional[Dict[str, Any]]):
     return cls(**kwargs)
 
 
-def load_experiment(path_or_dict) -> NodeClassificationExperiment:
-    """Load a node-classification YAML config file (or raw dict).
-
-    Link-prediction configs (``encoder:``/``decoder:`` sections) belong to
-    the LP slice of the port and raise ``NotImplementedError`` here.
-    """
+def load_experiment(path_or_dict):
+    """Load a YAML config file (or raw dict) into the right experiment
+    type: NC configs have an ``rgcn`` section, LP configs
+    ``encoder``/``decoder``."""
     if isinstance(path_or_dict, dict):
         raw = path_or_dict
     else:
         with open(path_or_dict, "r") as f:
             raw = parse_yaml(f.read())
 
+    dataset = _build(DatasetConfig, raw.get("dataset"))
+    training = _build(TrainingConfig, raw.get("training"))
+    evaluation = _build(EvaluationConfig, raw.get("evaluation"))
     if "rgcn" in raw:
         return NodeClassificationExperiment(
-            dataset=_build(DatasetConfig, raw.get("dataset")),
-            training=_build(TrainingConfig, raw.get("training")),
+            dataset=dataset,
+            training=training,
             rgcn=_build(RGCNConfig, raw.get("rgcn")),
-            evaluation=_build(EvaluationConfig, raw.get("evaluation")),
+            evaluation=evaluation,
             repeats=int(raw.get("repeats", 1)),
         )
     if "encoder" in raw:
-        raise NotImplementedError(
-            "link-prediction configs are not ported yet (LP slice)"
+        return LinkPredictionExperiment(
+            dataset=dataset,
+            training=training,
+            encoder=_build(EncoderConfig, raw.get("encoder")),
+            decoder=_build(DecoderConfig, raw.get("decoder")),
+            evaluation=evaluation,
         )
     raise ValueError(
         "config must contain an 'rgcn' (node classification) or 'encoder' "

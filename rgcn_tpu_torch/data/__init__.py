@@ -1,13 +1,24 @@
-from rgcn_tpu_torch.data.loaders import NodeClassificationData
+from rgcn_tpu_torch.data.loaders import LinkPredictionData, NodeClassificationData
 from rgcn_tpu_torch.data.synthetic import (
     aifb_like,
+    fb_toy_like,
+    synthetic_kg,
+    synthetic_link_prediction,
+    synthetic_lp_data,
     synthetic_nc_data,
     synthetic_node_classification,
+    wn18_like,
 )
 
 __all__ = [
+    "LinkPredictionData",
     "NodeClassificationData",
     "aifb_like",
+    "fb_toy_like",
+    "synthetic_kg",
+    "synthetic_link_prediction",
+    "synthetic_lp_data",
     "synthetic_nc_data",
     "synthetic_node_classification",
+    "wn18_like",
 ]

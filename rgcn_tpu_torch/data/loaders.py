@@ -1,5 +1,5 @@
-"""Node-classification data container (counterpart of the
-``NodeClassificationData`` part of ``rgcn_tpu/data/loaders.py``).
+"""Data containers (counterpart of ``NodeClassificationData`` and
+``LinkPredictionData`` in ``rgcn_tpu/data/loaders.py``).
 
 The RDF file loaders are not ported yet; the port serves synthetic graphs
 (:mod:`rgcn_tpu_torch.data.synthetic`).
@@ -8,11 +8,11 @@ The RDF file loaders are not ported yet; the port serves synthetic graphs
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Set, Tuple
 
 import numpy as np
 
-__all__ = ["NodeClassificationData"]
+__all__ = ["LinkPredictionData", "NodeClassificationData"]
 
 
 @dataclass
@@ -53,3 +53,28 @@ class NodeClassificationData:
             [self._class_code[int(split[n])] for n in split], dtype=np.int64
         )
         return idx, lbl
+
+
+@dataclass
+class LinkPredictionData:
+    """Link-prediction splits as ``(E, 3)`` int64 ``[s, p, o]`` arrays.
+
+    The JAX container's ``pad_nodes`` (null nodes for block
+    decomposition) comes with the block-decomposition slice.
+    """
+
+    train: np.ndarray
+    test: np.ndarray
+    all_triples: Set[Tuple[int, int, int]]
+    n2i: Dict[str, int]
+    i2n: List[str]
+    r2i: Dict[str, int]
+    i2r: List[str]
+
+    @property
+    def num_nodes(self) -> int:
+        return len(self.i2n)
+
+    @property
+    def num_relations(self) -> int:
+        return len(self.i2r)

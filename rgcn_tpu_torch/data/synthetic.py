@@ -1,4 +1,5 @@
-"""Deterministic synthetic node-classification graphs.
+"""Deterministic synthetic knowledge graphs (node classification and link
+prediction).
 
 Same numpy random stream as ``rgcn_tpu/data/synthetic.py``, so both
 packages build identical graphs from one seed.
@@ -6,11 +7,62 @@ packages build identical graphs from one seed.
 
 from __future__ import annotations
 
+from typing import Set, Tuple
+
 import numpy as np
 
-from rgcn_tpu_torch.data.loaders import NodeClassificationData
+from rgcn_tpu_torch.data.loaders import LinkPredictionData, NodeClassificationData
 
-__all__ = ["synthetic_node_classification", "aifb_like", "synthetic_nc_data"]
+__all__ = [
+    "synthetic_kg",
+    "synthetic_node_classification",
+    "synthetic_link_prediction",
+    "wn18_like",
+    "fb_toy_like",
+    "aifb_like",
+    "synthetic_nc_data",
+    "synthetic_lp_data",
+]
+
+
+def synthetic_kg(
+    num_nodes: int,
+    num_rels: int,
+    num_edges: int,
+    seed: int = 0,
+    zipf_nodes: float = 1.1,
+    zipf_rels: float = 1.2,
+    reciprocity: float = 0.0,
+) -> np.ndarray:
+    """Random KG with Zipf-skewed node degrees and relation frequencies.
+
+    ``reciprocity``: share of triples whose reciprocal ``(o, partner(p),
+    s)`` is also present, relations paired as ``(2k, 2k+1)`` (an odd
+    trailing relation is its own partner), as WN18 stores both directions
+    of its hierarchy relations. The triple count stays ~``num_edges``.
+    """
+    rng = np.random.default_rng(seed)
+
+    def zipf_choice(n, size, a):
+        w = 1.0 / np.arange(1, n + 1) ** a
+        w /= w.sum()
+        perm = rng.permutation(n)  # decouple id order from popularity
+        return perm[rng.choice(n, size=size, p=w)]
+
+    n_base = int(round(num_edges / (1.0 + max(reciprocity, 0.0))))
+    s = zipf_choice(num_nodes, n_base, zipf_nodes)
+    o = zipf_choice(num_nodes, n_base, zipf_nodes)
+    p = zipf_choice(num_rels, n_base, zipf_rels)
+    triples = np.stack([s, p, o], axis=1).astype(np.int64)
+    if reciprocity > 0.0:
+        flip = rng.random(n_base) < reciprocity
+        partner = triples[flip][:, [2, 1, 0]].copy()
+        pr = partner[:, 1]
+        partner[:, 1] = np.where((pr ^ 1) < num_rels, pr ^ 1, pr)
+        triples = np.concatenate([triples, partner], axis=0)
+    triples = np.unique(triples, axis=0)
+    rng.shuffle(triples)
+    return triples
 
 
 def synthetic_node_classification(
@@ -73,6 +125,53 @@ def synthetic_node_classification(
     )
 
 
+def synthetic_link_prediction(
+    num_nodes: int = 200,
+    num_rels: int = 6,
+    num_edges: int = 2000,
+    test_frac: float = 0.1,
+    seed: int = 0,
+    reciprocity: float = 0.0,
+) -> LinkPredictionData:
+    """:func:`synthetic_kg` split into test (first ``test_frac``) and
+    train triples."""
+    triples = synthetic_kg(
+        num_nodes, num_rels, num_edges, seed=seed, reciprocity=reciprocity
+    )
+    n_test = max(1, int(len(triples) * test_frac))
+    test, train = triples[:n_test], triples[n_test:]
+    all_triples: Set[Tuple[int, int, int]] = {
+        (int(a), int(b), int(c)) for a, b, c in triples
+    }
+    i2n = [f"node{i}" for i in range(num_nodes)]
+    i2r = [f"rel{i}" for i in range(num_rels)]
+    return LinkPredictionData(
+        train=train,
+        test=test,
+        all_triples=all_triples,
+        n2i={n: i for i, n in enumerate(i2n)},
+        i2n=i2n,
+        r2i={r: i for i, r in enumerate(i2r)},
+        i2r=i2r,
+    )
+
+
+def wn18_like(seed: int = 0, reciprocity: float = 0.9) -> LinkPredictionData:
+    """WN18-scale graph: 40,943 entities, 18 relations, WN18's
+    inverse-pair structure at ``reciprocity=0.9``."""
+    return synthetic_link_prediction(
+        num_nodes=40_943, num_rels=18, num_edges=146_500, test_frac=0.034,
+        seed=seed, reciprocity=reciprocity,
+    )
+
+
+def fb_toy_like(seed: int = 0) -> LinkPredictionData:
+    """FB-toy scale: ~280 entities, 112 relations."""
+    return synthetic_link_prediction(
+        num_nodes=280, num_rels=112, num_edges=5_000, test_frac=0.1, seed=seed
+    )
+
+
 def aifb_like(seed: int = 0) -> NodeClassificationData:
     """AIFB-scale NC graph: ~8.3k nodes, 45 relations, ~29k triples."""
     return synthetic_node_classification(
@@ -87,3 +186,14 @@ def synthetic_nc_data(dataset_name: str) -> NodeClassificationData:
     if dataset_name.lower() == "aifb":
         return aifb_like()
     return synthetic_node_classification(seed=0)
+
+
+def synthetic_lp_data(dataset_name: str) -> LinkPredictionData:
+    """Scale-matched synthetic stand-in for an LP config's dataset, as the
+    JAX CLIs' ``--synthetic`` picks it."""
+    name = dataset_name.lower()
+    if name == "wn18":
+        return wn18_like()
+    if name == "fb-toy":
+        return fb_toy_like()
+    return synthetic_link_prediction(seed=0)

@@ -8,7 +8,7 @@ multiple of ``tile_size`` so every tile has one relation (``tile_rel``).
 
 The builders produce numpy arrays bit-equal to the JAX package's NumPy
 builders. :meth:`EdgeSet.to` moves the whole structure (destination
-layout, fused layout, reversed edges) to a device once.
+layout, fused layout, merged pair layout, reversed edges) to a device once.
 """
 
 from __future__ import annotations
@@ -53,6 +53,11 @@ class EdgeSet:
     reverse: Optional["EdgeSet"] = None
     # fused relation-quantum layout (ops.fused.FusedLayout)
     fused: Optional[object] = None
+    # coalesced-pair layout (graph.coalesce.MergedPairLayout) that the basis
+    # ops prefer. It freezes a snapshot of `val` (and `fused` and `reverse`
+    # carry copies of it too): an EdgeSet whose `val` changes must rebuild
+    # or drop them, or the kernels compute with the old values.
+    merged: Optional[object] = None
 
     @property
     def num_tiles(self) -> int:
@@ -86,14 +91,19 @@ def build_edge_set(
     tile_size: int = 128,
     with_dst_layout: bool = False,
     layout_row_block: Optional[int] = None,
+    with_merged_layout: bool = False,
 ) -> EdgeSet:
     """Preprocess raw ``(s, p, o)`` triples into a static :class:`EdgeSet`.
 
     ``triples`` holds the original graph (relations in ``[0, R)``); inverse
     edges (relation ``p + R``) are generated here. ``with_dst_layout=True``
     attaches the destination layout (K1), the fused layout (K2) and the
-    reversed edge set with its own layouts.
+    reversed edge set with its own layouts. ``with_merged_layout=True``
+    attaches the coalesced-pair layout the basis ops prefer (K4), unless
+    the general relations exceed ``MERGED_MAX_RELS`` (then it is skipped:
+    the basis ops take the unmerged layout).
     """
+    from rgcn_tpu_torch.graph.coalesce import MERGED_MAX_RELS, build_merged_layout
     from rgcn_tpu_torch.ops.fused import build_fused_layout
 
     triples = np.asarray(triples, dtype=np.int64)
@@ -125,6 +135,9 @@ def build_edge_set(
         )
         rev = dataclasses.replace(rev, fused=build_fused_layout(rev))
         es = dataclasses.replace(es, reverse=rev, fused=build_fused_layout(es))
+    if with_merged_layout and es.num_rels <= MERGED_MAX_RELS:
+        es = dataclasses.replace(es, merged=build_merged_layout(
+            es.dst, es.src, es.rel, es.val, es.num_nodes, es.num_rels))
     return es
 
 

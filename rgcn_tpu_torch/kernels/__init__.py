@@ -24,6 +24,8 @@ __all__ = [
     "launch_k1_aggregate",
     "launch_k2_fused",
     "launch_k3_messages",
+    "launch_k4_weighted_aggregate",
+    "launch_k5_weighted_aggregate_dedup",
 ]
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in _build.SOURCES}
@@ -36,8 +38,16 @@ _ARGTYPES = {
     "k2_fused": [_P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "k3_messages": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "k4_weighted_aggregate": [_P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "k5_weighted_aggregate_dedup": [_P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _I, _P],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+# K4/K5 keep one sum per basis in registers: their launchers instantiate
+# 1 to 8 bases (csrc/k4_*.cu, k5_*.cu)
+_NB_MAX = 8
 
 
 def reset_launches() -> None:
@@ -71,6 +81,13 @@ def _check(t: torch.Tensor, what: str, dtype: torch.dtype, device,
         raise ValueError(f"{what}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: kernel needs a contiguous tensor")
+
+
+def _check_blocks(num_nodes: int, row_block: int, num_row_blocks: int) -> None:
+    # the output's rows must span exactly the blocks the layout addresses
+    if -(-num_nodes // row_block) != num_row_blocks:
+        raise ValueError(f"{num_nodes} nodes do not fill the layout's "
+                         f"{num_row_blocks} blocks of {row_block}")
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -199,5 +216,100 @@ def launch_k3_messages(
         "k3_messages", dev, x.data_ptr(), weights.data_ptr(), src.data_ptr(),
         val.data_ptr(), tile_rel.data_ptr(), out.data_ptr(),
         n_tiles, tile_size, din, dout,
+    )
+    return out
+
+
+def launch_k4_weighted_aggregate(
+    x: torch.Tensor,
+    src: torch.Tensor,
+    w: torch.Tensor,
+    local_dst: torch.Tensor,
+    chunk_block: torch.Tensor,
+    num_nodes: int,
+    row_block: int,
+    num_row_blocks: int,
+    *,
+    sum_bases: bool = False,
+) -> torch.Tensor:
+    """K4: ``out[b, n] = Σ_{slots l → n} w[b, l] · row(b, l)``, where
+    ``row(b, l)`` is ``x[src[l]]`` for a shared ``(rows, din)`` table or
+    ``x[b, src[l]]`` for per-basis ``(nb, rows, din)`` tables; the kernel
+    gathers the rows itself. ``sum_bases`` sums over ``b``. Returns
+    ``(nb or 1, num_nodes, din)``."""
+    dev = x.device
+    n_chunks, chunk = local_dst.shape
+    num_slots = n_chunks * chunk
+    _check(x, "x", torch.float32, None)
+    if x.dim() not in (2, 3):
+        raise ValueError(
+            f"x: expected (rows, din) or (nb, rows, din), got {tuple(x.shape)}")
+    _check(w, "w", torch.float32, dev)
+    nb = w.shape[0]
+    if w.dim() != 2 or w.shape[1] != num_slots or not 1 <= nb <= _NB_MAX:
+        raise ValueError(
+            f"w: expected (nb <= {_NB_MAX}, {num_slots}), got {tuple(w.shape)}")
+    per_basis = x.dim() == 3
+    if per_basis and x.shape[0] != nb:
+        raise ValueError(f"x: {x.shape[0]} per-basis tables for {nb} bases")
+    _check(src, "src", torch.int32, dev, (num_slots,))
+    _check(local_dst, "local_dst", torch.int32, dev)
+    _check(chunk_block, "chunk_block", torch.int32, dev, (n_chunks,))
+    _check_blocks(num_nodes, row_block, num_row_blocks)
+    din, rows = x.shape[-1], x.shape[-2]
+    out = torch.empty((1 if sum_bases else nb, num_nodes, din),
+                      dtype=torch.float32, device=dev)
+    if num_nodes == 0 or din == 0 or n_chunks == 0:
+        return out.zero_()
+    _launch(
+        "k4_weighted_aggregate", dev, x.data_ptr(), src.data_ptr(),
+        w.data_ptr(), local_dst.data_ptr(), chunk_block.data_ptr(),
+        out.data_ptr(), n_chunks, chunk, row_block, nb, din, rows, num_nodes,
+        int(per_basis), int(sum_bases),
+    )
+    return out
+
+
+def launch_k5_weighted_aggregate_dedup(
+    x: torch.Tensor,
+    src: torch.Tensor,
+    w_k: torch.Tensor,
+    local_k: torch.Tensor,
+    chunk_block: torch.Tensor,
+    num_nodes: int,
+    row_block: int,
+    num_row_blocks: int,
+) -> torch.Tensor:
+    """K5: ``out[b, n] = Σ_{slots l, lanes k → n} w_k[k, b, l] · x[src[l]]``
+    over a source-dedup'd frame (each slot's row gathered once, fanned out
+    to its K lanes). Returns ``(nb, num_nodes, din)``."""
+    dev = x.device
+    _check(local_k, "local_k", torch.int32, None)
+    if local_k.dim() != 3:
+        raise ValueError(
+            f"local_k: expected (K, n_chunks, CH), got {tuple(local_k.shape)}")
+    kk, n_chunks, chunk = local_k.shape
+    num_slots = n_chunks * chunk
+    _check(x, "x", torch.float32, local_k.device)
+    if x.dim() != 2:
+        raise ValueError(f"x: expected (rows, din), got {tuple(x.shape)}")
+    _check(w_k, "w_k", torch.float32, dev)
+    if w_k.dim() != 3 or w_k.shape[0] != kk or w_k.shape[2] != num_slots \
+            or not 1 <= w_k.shape[1] <= _NB_MAX:
+        raise ValueError(
+            f"w_k: expected ({kk}, nb <= {_NB_MAX}, {num_slots}), "
+            f"got {tuple(w_k.shape)}")
+    nb = w_k.shape[1]
+    _check(src, "src", torch.int32, dev, (num_slots,))
+    _check(chunk_block, "chunk_block", torch.int32, dev, (n_chunks,))
+    _check_blocks(num_nodes, row_block, num_row_blocks)
+    din = x.shape[1]
+    out = torch.empty((nb, num_nodes, din), dtype=torch.float32, device=dev)
+    if num_nodes == 0 or din == 0 or n_chunks == 0:
+        return out.zero_()
+    _launch(
+        "k5_weighted_aggregate_dedup", dev, x.data_ptr(), src.data_ptr(),
+        w_k.data_ptr(), local_k.data_ptr(), chunk_block.data_ptr(),
+        out.data_ptr(), n_chunks, chunk, row_block, kk, nb, din, num_nodes,
     )
     return out

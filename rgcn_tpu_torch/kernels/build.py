@@ -28,6 +28,8 @@ SOURCES = {
     "k1_aggregate": "k1_aggregate.cu",
     "k2_fused": "k2_fused.cu",
     "k3_messages": "k3_messages.cu",
+    "k4_weighted_aggregate": "k4_weighted_aggregate.cu",
+    "k5_weighted_aggregate_dedup": "k5_weighted_aggregate_dedup.cu",
 }
 
 NVCC_FLAGS = [

@@ -1,0 +1,143 @@
+"""Link-prediction R-GCN (counterpart of
+``rgcn_tpu/models/link_prediction.py::LinkPredictor`` and
+``rgcn_tpu/train/link_prediction.py::build_lp_model``).
+
+Learned node embeddings ``(N, emb_dim)`` plus a broadcast bias row, ReLU,
+1-2 R-GCN layers over ``2R + 1`` relations, then DistMult scores.
+``encode`` is separate from the scoring so a server encodes the graph once
+and sweeps all candidates densely. The JAX model's ``feature_blocks``
+option (embeddings stored as <=128-column blocks for a TPU gather fast
+path) and ``CompressionRelationPredictor`` (c-RGCN) are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from rgcn_tpu_torch.nn import init as rinit
+from rgcn_tpu_torch.nn.layers import DistMult, RGCNConv
+
+__all__ = ["LinkPredictor", "build_lp_model"]
+
+
+class LinkPredictor(nn.Module):
+    """Encoder-decoder link predictor (R-GCN -> DistMult).
+
+    Parameters are drawn from ``torch.Generator().manual_seed(seed)`` in
+    the order node embeddings, layers, decoder.
+    """
+
+    def __init__(
+        self,
+        num_nodes: int,
+        num_relations: int,  # original relation count R
+        emb_dim: int = 200,
+        hidden1_size: Optional[int] = None,
+        hidden2_size: Optional[int] = None,
+        num_layers: int = 1,
+        decomposition: Optional[str] = None,
+        num_bases: int = 0,
+        weight_init: str = "glorot-normal",
+        include_gain: bool = False,
+        bias_init: Optional[str] = None,
+        decoder_l2_type: Optional[str] = None,
+        decoder_l2: float = 0.0,
+        decoder_weight_init: str = "standard-normal",
+        decoder_include_gain: bool = False,
+        decoder_bias_init: Optional[str] = None,
+        seed: int = 0,
+    ):
+        super().__init__()
+        if not 0 < num_layers < 3:
+            raise ValueError("only 1 or 2 RGCN layers are supported")
+        self.num_layers = num_layers
+        self.decoder_l2_type = decoder_l2_type
+        self.decoder_l2 = decoder_l2
+        gen = torch.Generator().manual_seed(seed)
+        gain = rinit.relu_gain() if include_gain else 1.0
+        self.node_embeddings = nn.Parameter(
+            rinit.select_weight_init(weight_init, gain)((num_nodes, emb_dim), gen))
+        self.node_embeddings_bias = nn.Parameter(torch.zeros((1, emb_dim)))
+        r_aug = 2 * num_relations + 1
+
+        def conv(din, dout):
+            return RGCNConv(
+                num_nodes, r_aug, dout, in_features=din,
+                decomposition=decomposition, num_bases=num_bases,
+                weight_init=weight_init, weight_gain=include_gain,
+                bias_init=bias_init, generator=gen,
+            )
+
+        nhid1 = hidden1_size or emb_dim
+        self.rgc1 = conv(emb_dim, nhid1)
+        if num_layers == 2:
+            self.rgc2 = conv(nhid1, hidden2_size or nhid1)
+        self.scoring_function = DistMult(
+            num_nodes, num_relations, emb_dim,
+            weight_init=decoder_weight_init, weight_gain=decoder_include_gain,
+            bias_init=decoder_bias_init, generator=gen,
+        )
+
+    def encode(self, edges) -> torch.Tensor:
+        """Node embeddings after message passing: ``(N, emb_dim)``."""
+        x = torch.relu(self.node_embeddings + self.node_embeddings_bias)
+        x = self.rgc1(edges, x)
+        if self.num_layers == 2:
+            x = self.rgc2(edges, torch.relu(x))
+        return x
+
+    def compute_penalty(self, triples: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        """Decoder L2 penalty: Schlichtkrull's batch mean of squares, or the
+        relation matrix's sum of squares; zero when ``decoder_l2`` is 0."""
+        if self.decoder_l2 == 0.0:
+            return z.new_zeros(())
+        if self.decoder_l2_type == "schlichtkrull-l2":
+            return self.scoring_function.s_penalty(triples, z)
+        return self.scoring_function.l2_penalty()
+
+    def forward(self, edges, triples: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(scores (B,), penalty)`` of ``(B, 3)`` triples."""
+        z = self.encode(edges)
+        return self.scoring_function(triples, z), self.compute_penalty(triples, z)
+
+    def score_heads(self, batch: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        return self.scoring_function.score_heads(batch, z)
+
+    def score_tails(self, batch: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        return self.scoring_function.score_tails(batch, z)
+
+
+def build_lp_model(cfg, num_nodes: int, num_rels: int, seed: int = 0) -> LinkPredictor:
+    """The model a LinkPredictionExperiment config describes (``rgcn``
+    encoders). Edge dropout is a training option and not read here."""
+    enc, dec = cfg.encoder, cfg.decoder
+    if enc.model == "c-rgcn":
+        raise NotImplementedError(
+            "the c-rgcn encoder (CompressionRelationPredictor) is not ported "
+            "yet (c-RGCN slice)"
+        )
+    if enc.model != "rgcn":
+        raise NotImplementedError(f"{enc.model!r} encoder has not been implemented")
+    decomp = enc.decomposition
+    return LinkPredictor(
+        num_nodes=num_nodes,
+        num_relations=num_rels,
+        emb_dim=enc.node_embedding or 200,
+        hidden1_size=enc.hidden1_size,
+        hidden2_size=enc.hidden2_size,
+        num_layers=enc.num_layers,
+        decomposition=decomp.type if decomp else None,
+        num_bases=decomp.num_bases if decomp else 0,
+        weight_init=enc.weight_init,
+        include_gain=enc.include_gain,
+        bias_init=enc.bias_init,
+        decoder_l2_type=dec.l2_penalty_type,
+        decoder_l2=dec.l2_penalty,
+        decoder_weight_init=dec.weight_init,
+        decoder_include_gain=dec.include_gain,
+        decoder_bias_init=dec.bias_init,
+        seed=seed,
+    )

@@ -1,3 +1,3 @@
-from rgcn_tpu_torch.nn.layers import RGCNConv
+from rgcn_tpu_torch.nn.layers import DistMult, RGCNConv
 
-__all__ = ["RGCNConv"]
+__all__ = ["DistMult", "RGCNConv"]

@@ -8,11 +8,26 @@ Torch fan convention for a tensor of shape ``(d0, d1, *rest)``:
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Callable, Sequence, Tuple
 
 import torch
 
-__all__ = ["torch_fans", "relu_gain", "glorot_uniform"]
+__all__ = [
+    "torch_fans",
+    "relu_gain",
+    "schlichtkrull_std",
+    "glorot_uniform",
+    "glorot_normal",
+    "schlichtkrull_normal",
+    "schlichtkrull_uniform",
+    "standard_normal",
+    "standard_uniform",
+    "select_weight_init",
+    "select_bias_init",
+]
+
+#: ``init(shape, generator) -> f32 tensor``
+Initializer = Callable[[Sequence[int], torch.Generator], torch.Tensor]
 
 RELU_GAIN = math.sqrt(2.0)
 
@@ -39,3 +54,76 @@ def glorot_uniform(
     fan_in, fan_out = torch_fans(shape)
     a = gain * math.sqrt(6.0 / (fan_in + fan_out))
     return torch.empty(tuple(shape), dtype=dtype).uniform_(-a, a, generator=generator)
+
+
+def glorot_normal(
+    shape: Sequence[int], generator: torch.Generator, gain: float = 1.0,
+) -> torch.Tensor:
+    """N(0, std) with ``std = gain * sqrt(2 / (fan_in + fan_out))``."""
+    fan_in, fan_out = torch_fans(shape)
+    std = gain * math.sqrt(2.0 / (fan_in + fan_out))
+    return std * torch.randn(tuple(shape), generator=generator)
+
+
+def schlichtkrull_std(shape: Sequence[int], gain: float = 1.0) -> float:
+    """``gain * 3 / sqrt(shape[0] + shape[1])`` (only the first two entries
+    of ``shape`` count, as in the reference)."""
+    return gain * 3.0 / math.sqrt(float(shape[0] + shape[1]))
+
+
+def schlichtkrull_normal(
+    shape: Sequence[int], generator: torch.Generator, gain: float = 1.0,
+) -> torch.Tensor:
+    """N(0, std) with the Schlichtkrull std."""
+    std = schlichtkrull_std(shape, gain)
+    return std * torch.randn(tuple(shape), generator=generator)
+
+
+def schlichtkrull_uniform(
+    shape: Sequence[int], generator: torch.Generator, gain: float = 1.0,
+) -> torch.Tensor:
+    """U(-std, std) with the Schlichtkrull std."""
+    std = schlichtkrull_std(shape, gain)
+    return torch.empty(tuple(shape)).uniform_(-std, std, generator=generator)
+
+
+def standard_normal(shape: Sequence[int], generator: torch.Generator) -> torch.Tensor:
+    """N(0, 1) (torch's ``normal_`` defaults; no gain)."""
+    return torch.randn(tuple(shape), generator=generator)
+
+
+def standard_uniform(shape: Sequence[int], generator: torch.Generator) -> torch.Tensor:
+    """U(0, 1) (torch's ``uniform_`` defaults; no gain)."""
+    return torch.rand(tuple(shape), generator=generator)
+
+
+def select_weight_init(name: str, gain: float = 1.0) -> Initializer:
+    """Weight initializer by config name (the JAX package's dispatch)."""
+    name = (name or "").lower()
+    if name in ("glorot-uniform", "xavier-uniform"):
+        return lambda shape, g: glorot_uniform(shape, g, gain)
+    if name in ("glorot-normal", "xavier-normal"):
+        return lambda shape, g: glorot_normal(shape, g, gain)
+    if name == "schlichtkrull-uniform":
+        return lambda shape, g: schlichtkrull_uniform(shape, g, gain)
+    if name == "schlichtkrull-normal":
+        return lambda shape, g: schlichtkrull_normal(shape, g, gain)
+    if name in ("normal", "standard-normal"):
+        return standard_normal
+    if name == "uniform":
+        return standard_uniform
+    raise NotImplementedError(f"{name!r} initialisation has not been implemented")
+
+
+def select_bias_init(name) -> Initializer:
+    """Bias initializer by config name (the JAX package's dispatch)."""
+    key = str(name).lower() if name is not None else None
+    if key in ("zeros", "zero", "0"):
+        return lambda shape, g: torch.zeros(tuple(shape))
+    if key in ("ones", "one", "1"):
+        return lambda shape, g: torch.ones(tuple(shape))
+    if key == "uniform":
+        return standard_uniform
+    if key == "normal":
+        return standard_normal
+    raise NotImplementedError(f"{name!r} initialisation has not been implemented")

@@ -1,19 +1,26 @@
-"""R-GCN convolution (counterpart of ``rgcn_tpu/nn/layers.py::RGCNConv``).
+"""R-GCN convolution and the DistMult scorer (counterparts of
+``rgcn_tpu/nn/layers.py::RGCNConv`` and ``DistMult``).
 
-This slice ports the dense-weight branches, the plain R-GCN's:
+Ported weight layouts of :class:`RGCNConv`:
 
 * featureless (``in_features=None``, one-hot identity input): messages are
   rows of ``W[rel]`` gathered per edge, summed by K1 over the EdgeSet's
   destination layout;
 * featureful: :func:`~rgcn_tpu_torch.ops.rel_spmm.fwd_spmm` (K2, or K3
-  then K1).
+  then K1);
+* featureful basis decomposition with at most 8 bases (the LP encoder):
+  ``comps (R', nb)`` and ``bases (nb, din, dout)`` through the
+  aggregation-first :func:`~rgcn_tpu_torch.ops.basis.rel_spmm_basis` (K4
+  over the merged or destination layout, K5 over ``merged.fwd_dedup``).
 
-An EdgeSet without a destination layout takes the plain ``index_add_``
-paths of :mod:`rgcn_tpu_torch.ops.spmm`, on the CPU only: on any other
-device it raises, so the card never runs a forward without its kernels.
-The self-loop relation (index
-``R' - 1``) is applied densely, ``X @ W_self``. Basis, block and diagonal
-weights belong to later slices of the port and raise.
+An EdgeSet without a destination (or merged) layout takes the plain
+``index_add_`` paths of :mod:`rgcn_tpu_torch.ops.spmm`, on the CPU only: on
+any other device it raises, so the card never runs a forward without its
+kernels. The self-loop relation (index ``R' - 1``) is applied densely,
+``X @ W_self``. Self-loop dropout is a training option; serving runs the
+deterministic forward, where it is the identity. Featureless basis, more
+than 8 bases, block and diagonal weights belong to later slices of the
+port and raise.
 """
 
 from __future__ import annotations
@@ -23,12 +30,15 @@ from typing import Optional
 import torch
 from torch import nn
 
+from rgcn_tpu_torch.graph.coalesce import MAX_BASES
 from rgcn_tpu_torch.nn import init as rinit
+from rgcn_tpu_torch.ops import distmult as distmult_ops
 from rgcn_tpu_torch.ops import spmm as spmm_ops
 from rgcn_tpu_torch.ops.aggregate import aggregate_sorted
+from rgcn_tpu_torch.ops.basis import full_f32_matmul, rel_spmm_basis
 from rgcn_tpu_torch.ops.rel_spmm import fwd_spmm
 
-__all__ = ["RGCNConv", "check_plain_path"]
+__all__ = ["RGCNConv", "DistMult", "check_plain_path"]
 
 
 def _aggregate_k1(msgs, edges):
@@ -48,10 +58,13 @@ class RGCNConv(nn.Module):
     """Relational graph convolution over a static EdgeSet.
 
     ``num_relations`` is the augmented count ``R' = 2R + 1`` (the last
-    index is the self-loop). ``weights`` is ``(R', din, dout)`` with
-    ``din = num_nodes`` when featureless; ``bias`` is ``(dout,)``.
-    Parameters start glorot-uniform with the relu gain (zero bias), drawn
-    from ``generator``.
+    index is the self-loop). Without decomposition ``weights`` is ``(R',
+    din, dout)`` with ``din = num_nodes`` when featureless; with
+    ``decomposition="basis"`` the parameters are ``bases (nb, din, dout)``
+    and ``comps (R', nb)``. ``bias`` is ``(dout,)``, or absent when
+    ``bias_init`` is None. Parameters are drawn from ``generator`` with the
+    named initializers (NC layers: glorot-uniform with the relu gain, zero
+    bias).
     """
 
     def __init__(
@@ -61,7 +74,11 @@ class RGCNConv(nn.Module):
         out_features: int,
         in_features: Optional[int] = None,
         decomposition: Optional[str] = None,
+        num_bases: int = 0,
         diag: bool = False,
+        weight_init: str = "glorot-uniform",
+        weight_gain: bool = True,
+        bias_init: Optional[str] = "zeros",
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -69,27 +86,56 @@ class RGCNConv(nn.Module):
             raise NotImplementedError(
                 "diagonal weights (e-RGCN) are not ported yet (e-RGCN slice)"
             )
-        if decomposition is not None:
+        if decomposition not in (None, "basis"):
             raise NotImplementedError(
                 f"{decomposition!r} decomposition is not ported yet "
-                "(many-basis / LP slices)"
+                "(block-decomposition slice)"
             )
+        if decomposition == "basis":
+            if in_features is None:
+                raise NotImplementedError(
+                    "featureless basis decomposition is not ported yet "
+                    "(many-basis NC slice)"
+                )
+            if num_bases <= 0:
+                raise ValueError("basis decomposition needs num_bases > 0")
+            if num_bases > MAX_BASES:
+                raise NotImplementedError(
+                    f"basis decomposition with {num_bases} > {MAX_BASES} "
+                    "bases is not ported yet (many-basis NC slice)"
+                )
         self.num_nodes = num_nodes
         self.num_relations = num_relations
         self.in_features = in_features
         self.out_features = out_features
+        self.decomposition = decomposition
         din = num_nodes if in_features is None else in_features
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        shape = (num_relations, din, out_features)
-        self.weights = nn.Parameter(
-            rinit.glorot_uniform(shape, generator, rinit.relu_gain())
-        )
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        gain = rinit.relu_gain() if weight_gain else 1.0
+        w_init = rinit.select_weight_init(weight_init, gain)
+        if decomposition == "basis":
+            self.bases = nn.Parameter(w_init((num_bases, din, out_features), generator))
+            self.comps = nn.Parameter(w_init((num_relations, num_bases), generator))
+        else:
+            self.weights = nn.Parameter(
+                w_init((num_relations, din, out_features), generator))
+        if bias_init is None:
+            self.register_parameter("bias", None)
+        else:
+            self.bias = nn.Parameter(
+                rinit.select_bias_init(bias_init)((out_features,), generator))
 
     def forward(self, edges, x: Optional[torch.Tensor] = None) -> torch.Tensor:
         if (x is None) != (self.in_features is None):
             raise ValueError("features must be given iff in_features is set")
+        if self.decomposition == "basis":
+            out = self._basis(edges, x)
+        else:
+            out = self._dense(edges, x)
+        return out if self.bias is None else out + self.bias
+
+    def _dense(self, edges, x):
         w = self.weights
         if edges.layout is None:
             check_plain_path(w.device)
@@ -98,11 +144,83 @@ class RGCNConv(nn.Module):
                 edges, w[:-1],
                 aggregate=_aggregate_k1 if edges.layout is not None else None,
             )
-            self_msg = w[-1]  # X = I: node v receives W_self[v]
+            return agg + w[-1]  # X = I: node v receives W_self[v]
+        if edges.layout is not None:
+            agg = fwd_spmm(edges, x, w[:-1])
         else:
-            if edges.layout is not None:
-                agg = fwd_spmm(edges, x, w[:-1])
-            else:
-                agg = spmm_ops.rel_spmm(edges, x, w[:-1])
-            self_msg = x @ w[-1]
-        return agg + self_msg + self.bias
+            agg = spmm_ops.rel_spmm(edges, x, w[:-1])
+        return agg + x @ w[-1]
+
+    def _basis(self, edges, x):
+        bases, comps = self.bases, self.comps
+        if edges.merged is None and edges.layout is None:
+            check_plain_path(bases.device)
+            with full_f32_matmul():
+                w = torch.einsum("rb,bio->rio", comps[:-1], bases)
+            agg = spmm_ops.rel_spmm(edges, x, w)
+        else:
+            agg = rel_spmm_basis(edges, x, bases, comps[:-1])
+        with full_f32_matmul():
+            return agg + x @ torch.einsum("b,bio->io", comps[-1], bases)
+
+
+class DistMult(nn.Module):
+    """DistMult triple scorer: ``relations (R, emb_dim)`` and, with
+    ``bias_init``, per-node ``sbias``/``obias`` and per-relation ``pbias``.
+
+    The JAX scorer's scatter-free and structured training variants come
+    with LP training.
+    """
+
+    def __init__(
+        self,
+        num_nodes: int,
+        num_relations: int,  # original relation count R
+        emb_dim: int,
+        weight_init: str = "standard-normal",
+        weight_gain: bool = False,
+        bias_init: Optional[str] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        gain = rinit.relu_gain() if weight_gain else 1.0
+        self.relations = nn.Parameter(rinit.select_weight_init(weight_init, gain)(
+            (num_relations, emb_dim), generator))
+        if bias_init is None:
+            for name in ("sbias", "obias", "pbias"):
+                self.register_parameter(name, None)
+        else:
+            b_init = rinit.select_bias_init(bias_init)
+            self.sbias = nn.Parameter(b_init((num_nodes,), generator))
+            self.obias = nn.Parameter(b_init((num_nodes,), generator))
+            self.pbias = nn.Parameter(b_init((num_relations,), generator))
+
+    def _biases(self):
+        return dict(sbias=self.sbias, pbias=self.pbias, obias=self.obias)
+
+    def forward(self, triples: torch.Tensor, nodes: torch.Tensor) -> torch.Tensor:
+        """Scores ``(B,)`` of ``(B, 3)`` triples against ``nodes (N, d)``."""
+        return distmult_ops.distmult_score(triples, nodes, self.relations,
+                                           **self._biases())
+
+    def s_penalty(self, triples: torch.Tensor, nodes: torch.Tensor) -> torch.Tensor:
+        """Schlichtkrull L2: mean squares of the batch's embeddings."""
+        s, p, o = triples[..., 0], triples[..., 1], triples[..., 2]
+        per_row = (torch.mean(nodes[s] ** 2, dim=-1)
+                   + torch.mean(self.relations[p] ** 2, dim=-1)
+                   + torch.mean(nodes[o] ** 2, dim=-1))
+        return torch.mean(per_row)
+
+    def l2_penalty(self) -> torch.Tensor:
+        """Sum of squares of the relation matrix."""
+        return torch.sum(self.relations ** 2)
+
+    def score_heads(self, batch: torch.Tensor, nodes: torch.Tensor) -> torch.Tensor:
+        return distmult_ops.score_head_candidates(batch, nodes, self.relations,
+                                                  **self._biases())
+
+    def score_tails(self, batch: torch.Tensor, nodes: torch.Tensor) -> torch.Tensor:
+        return distmult_ops.score_tail_candidates(batch, nodes, self.relations,
+                                                  **self._biases())

@@ -1,0 +1,211 @@
+"""Aggregation-first basis-decomposition SpMM (K4, K5), forward only.
+
+Counterpart of the forward half of ``rgcn_tpu/ops/pallas_basis.py``. With
+basis decomposition the relational SpMM aggregates before any weight
+product:
+
+    out[s] = Σ_b ( Σ_e (val_e · comps[rel_e, b]) · x[src_e] )[s] @ B_b
+                   \\______________ Agg_b ______________/
+
+so the edge stage is a weighted destination sum with one scalar per
+(basis, slot) over a destination-sorted layout, and every matmul is one of
+``nb`` dense ``(N, din) @ (din, dout)`` products. :func:`weighted_aggregate`
+(K4) computes ``Agg`` over a :class:`~rgcn_tpu_torch.ops.aggregate.DstLayout`
+frame, gathering the source rows inside the kernel (the ``(L, din)``
+gathered rows never exist in device memory); :func:`weighted_aggregate_dedup`
+(K5) does the same over the source-dedup'd merged frame. On a CUDA tensor
+they launch ``kernels/csrc/k4_weighted_aggregate.cu`` and
+``k5_weighted_aggregate_dedup.cu``; on a CPU tensor they take the plain
+PyTorch versions beside them.
+
+The per-slot weight products (``coeff @ comps``) and the closing
+``einsum("bni,bio->no")`` are ordinary products outside the kernels; they
+run in full f32 (TF32 off), as the JAX package runs ``_merged_wvec`` at
+``precision="highest"``.
+
+This module is forward only. The custom VJPs of the JAX package
+(``pallas_basis.py:366-418, 501-551``) come with LP training.
+
+Snapshot of ``val``: over a merged layout the weights come from
+``merged.coeff`` (or ``fwd_dedup.coeff_k``), which froze the EdgeSet's
+``val`` when the layout was built; only the unmerged path
+(:func:`sorted_inputs`) reads ``edges.val`` as it is now. An EdgeSet whose
+``val`` changes must rebuild or drop ``merged`` before it reaches
+:func:`rel_spmm_basis`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from rgcn_tpu_torch import kernels
+
+__all__ = [
+    "full_f32_matmul",
+    "weighted_aggregate",
+    "weighted_aggregate_plain",
+    "weighted_aggregate_dedup",
+    "weighted_aggregate_dedup_plain",
+    "sorted_inputs",
+    "merged_wvec",
+    "rel_spmm_basis",
+]
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Matmuls in full f32 on the card (TF32 off) for the block's length."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _slot_rows(layout, local: torch.Tensor) -> torch.Tensor:
+    """Output row of each slot: ``chunk_block * RB + local``."""
+    block = layout.chunk_block.long().repeat_interleave(layout.chunk)
+    return block * layout.row_block + local
+
+
+def _check_nodes(layout, num_nodes: int) -> None:
+    """Both routes refuse an output that does not cover the layout's row
+    blocks exactly (the plain versions would slice, the kernels would
+    address rows past the output)."""
+    if -(-num_nodes // layout.row_block) != layout.num_row_blocks:
+        raise ValueError(
+            f"{num_nodes} nodes for a layout of {layout.num_row_blocks} row "
+            f"blocks of {layout.row_block}"
+        )
+
+
+def weighted_aggregate_plain(x, src, w, layout, num_nodes: int, *,
+                             sum_bases: bool = False) -> torch.Tensor:
+    """Plain version of K4: ``Agg[b, n] = Σ_{slots l → n} w[b, l] ·
+    row(b, l)`` with ``row(b, l) = x[src[l]]`` (shared ``(rows, din)``
+    table) or ``x[b, src[l]]`` (per-basis ``(nb, rows, din)`` tables), pads
+    (``local_dst == RB``) dropped. ``sum_bases`` sums over ``b``. Returns
+    ``(nb or 1, num_nodes, din)``."""
+    local = layout.local_dst.reshape(-1).long()
+    keep = local < layout.row_block
+    rows = _slot_rows(layout, local)[keep]
+    s = src.long()[keep]
+    wk = w[:, keep, None]
+    msgs = wk * (x[s][None] if x.dim() == 2 else x[:, s])
+    if sum_bases:
+        msgs = msgs.sum(0, keepdim=True)
+    out = torch.zeros(
+        (msgs.shape[0], layout.num_row_blocks * layout.row_block, x.shape[-1]),
+        dtype=torch.float32, device=x.device,
+    )
+    out.index_add_(1, rows, msgs)
+    return out[:, :num_nodes]
+
+
+def weighted_aggregate(x, src, w, layout, num_nodes: int, *,
+                       sum_bases: bool = False) -> torch.Tensor:
+    """K4 over a destination-sorted frame: ``x`` f32 ``(rows, din)`` or
+    ``(nb, rows, din)``, ``src (L,)`` int32 per-slot source rows, ``w (nb,
+    L)`` f32 per-slot weights, ``layout`` a DstLayout of ``L`` slots.
+    Returns ``(nb or 1, num_nodes, din)`` f32."""
+    if w.shape[-1] != layout.num_chunks * layout.chunk:
+        raise ValueError(
+            f"{w.shape[-1]} slot weights for a layout of "
+            f"{layout.num_chunks * layout.chunk} slots"
+        )
+    _check_nodes(layout, num_nodes)
+    if x.device.type == "cpu":
+        return weighted_aggregate_plain(x, src, w, layout, num_nodes,
+                                        sum_bases=sum_bases)
+    return kernels.launch_k4_weighted_aggregate(
+        x, src, w, layout.local_dst, layout.chunk_block, num_nodes,
+        layout.row_block, layout.num_row_blocks, sum_bases=sum_bases,
+    )
+
+
+def weighted_aggregate_dedup_plain(x, src, w_k, dd, num_nodes: int) -> torch.Tensor:
+    """Plain version of K5: ``Agg[b, n] = Σ_{slots l, lanes k → n}
+    w_k[k, b, l] · x[src[l]]`` over a DedupFwdLayout ``dd``, empty lanes
+    (``local_k == RB``) dropped. Returns ``(nb, num_nodes, din)``."""
+    kk = dd.local_k.shape[0]
+    local = dd.local_k.reshape(kk, -1).long()
+    xg = x[src.long()]
+    out = torch.zeros(
+        (w_k.shape[1], dd.num_row_blocks * dd.row_block, x.shape[-1]),
+        dtype=torch.float32, device=x.device,
+    )
+    for k in range(kk):
+        keep = local[k] < dd.row_block
+        out.index_add_(1, _slot_rows(dd, local[k])[keep],
+                       w_k[k][:, keep, None] * xg[keep][None])
+    return out[:, :num_nodes]
+
+
+def weighted_aggregate_dedup(x, src, w_k, dd, num_nodes: int) -> torch.Tensor:
+    """K5 over a source-dedup'd frame: ``x (rows, din)`` f32, ``src (Ld,)``
+    int32, ``w_k (K, nb, Ld)`` f32 per-lane weights. Returns ``(nb,
+    num_nodes, din)`` f32."""
+    if tuple(w_k.shape[::2]) != (dd.num_k, dd.num_chunks * dd.chunk):
+        raise ValueError(
+            f"lane weights {tuple(w_k.shape)} for a frame of {dd.num_k} "
+            f"lanes and {dd.num_chunks * dd.chunk} slots"
+        )
+    _check_nodes(dd, num_nodes)
+    if x.device.type == "cpu":
+        return weighted_aggregate_dedup_plain(x, src, w_k, dd, num_nodes)
+    return kernels.launch_k5_weighted_aggregate_dedup(
+        x, src, w_k, dd.local_k, dd.chunk_block, num_nodes, dd.row_block,
+        dd.num_row_blocks,
+    )
+
+
+def sorted_inputs(edges, comps: torch.Tensor):
+    """Per-slot ``(source, basis weights (nb, L))`` of the EdgeSet's
+    destination layout, from the live ``edges.val``; pads read 0."""
+    perm = edges.layout.perm.long()
+    src_z = torch.cat([edges.src, edges.src.new_zeros(1)])
+    wvec = edges.val[:, None] * comps[edges.rel.long()]  # (E_pad, nb)
+    wvec_z = torch.cat([wvec, wvec.new_zeros((1, comps.shape[1]))])
+    return src_z[perm], wvec_z[perm].T.contiguous()
+
+
+def merged_wvec(coeff: torch.Tensor, comps: torch.Tensor) -> torch.Tensor:
+    """``(nb, L)`` per-slot basis weights from the frozen ``(L, R')``
+    coefficients, in full f32."""
+    with full_f32_matmul():
+        return (coeff @ comps).T.contiguous()
+
+
+def rel_spmm_basis(edges, x: torch.Tensor, bases: torch.Tensor,
+                   comps: torch.Tensor) -> torch.Tensor:
+    """Aggregation-first basis SpMM, forward: ``bases (nb, din, dout)``,
+    ``comps (R', nb)`` over the general relations only (the self-loop term
+    is the caller's). Takes the EdgeSet's merged layout when it has one
+    (K5 over ``merged.fwd_dedup`` when that is set, else K4), else K4 over
+    its destination layout. Returns ``(N, dout)``."""
+    merged = edges.merged
+    if merged is not None:
+        dd = merged.fwd_dedup
+        if dd is not None:
+            with full_f32_matmul():
+                w_k = torch.einsum("klr,rb->kbl", dd.coeff_k, comps).contiguous()
+            agg = weighted_aggregate_dedup(x, dd.src_sorted, w_k, dd,
+                                           merged.num_nodes)
+        else:
+            agg = weighted_aggregate(x, merged.src_sorted,
+                                     merged_wvec(merged.coeff, comps),
+                                     merged.layout, merged.num_nodes)
+    elif edges.layout is not None:
+        src_sorted, wvec = sorted_inputs(edges, comps)
+        agg = weighted_aggregate(x, src_sorted, wvec, edges.layout,
+                                 edges.num_nodes)
+    else:
+        raise ValueError(
+            "rel_spmm_basis needs an EdgeSet with a merged or destination "
+            "layout (build_edge_set(..., with_dst_layout=True))"
+        )
+    with full_f32_matmul():
+        return torch.einsum("bni,bio->no", agg, bases)

@@ -1,27 +1,35 @@
-"""Where the time of one nc-AIFB serving forward goes, on the card.
+"""Where the time of one serving forward goes, on the card.
 
-    python -m rgcn_tpu_torch.profile_serve
+    python -m rgcn_tpu_torch.profile_serve [--lp]
 
-Builds the server as ``serve_nodes`` does (synthetic AIFB-scale graph,
-seeded parameters), then reports, as one JSON line, for the main path
-(fused layout: K1 + K2) and for the same model over the EdgeSet without
-its fused layout (the K3 + K1 branch):
+Without ``--lp``: builds the nc-AIFB server as ``serve_nodes`` does
+(synthetic AIFB-scale graph, seeded parameters) and reports, as one JSON
+line, the main path (fused layout: K1 + K2) and the same model over the
+EdgeSet without its fused layout (the K3 + K1 branch).
 
-* ``forward_ms``: host-clock time of ``refresh()`` (forward plus logits to
-  the host), median and min over 20 runs after warm-up;
+With ``--lp``: builds the lp-WN18 server as ``serve_links`` does
+(``wn18_like()``, width 200, basis 2, seeded parameters) and reports the
+encode over the merged frame (K4), the same model over the EdgeSet whose
+merged layout carries the source-dedup'd frame (K5), and one batch of
+1024 top-10 tail queries.
+
+For each:
+
+* ``host_ms``: host-clock time of the call (ended by a synchronize),
+  median and min over 20 runs after warm-up;
 * ``kernels_us``: device time per kernel name over a ``torch.profiler``
-  window of 20 forwards, per forward, and ``device_busy_share``
-  (summed device time over the window's host-clock time, profiler on);
+  window of 20 calls, per call, and ``device_busy_share`` (summed device
+  time over the window's host-clock time, profiler on);
 
-and ``row_blocks``: real slots per row block of the K1 and K2 layouts
-(max, median, count) -- one CTA owns one row block, so the largest block
-bounds the kernel.
+and ``row_blocks``: real slots per row block of each layout (max, median,
+count) -- the skew a kernel that gives one CTA a row block would meet.
 
 Needs CUDA.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -32,31 +40,40 @@ import torch
 
 from rgcn_tpu_torch.device import resolve_device
 
-_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                       "configs", "rgcn", "nc-AIFB.yaml")
+_CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "configs", "rgcn")
 ITERS = 20
 
 
-def _blocks(layout) -> dict:
-    local = layout.local_dst.reshape(-1).cpu().numpy()
-    offsets = layout.block_offsets.cpu().numpy() * layout.chunk
-    real = np.add.reduceat((local < layout.row_block).astype(np.int64),
+def _blocks(local_real, chunk_block, chunk: int, num_row_blocks: int) -> dict:
+    """Real and total slots per row block of a chunk layout."""
+    offsets = np.searchsorted(chunk_block.cpu().numpy(),
+                              np.arange(num_row_blocks + 1)) * chunk
+    real = np.add.reduceat(local_real.cpu().numpy().astype(np.int64),
                            offsets[:-1])
-    return {"count": int(layout.num_row_blocks), "max_real_slots": int(real.max()),
+    return {"count": int(num_row_blocks), "max_real_slots": int(real.max()),
             "median_real_slots": float(np.median(real)),
             "max_slots": int(np.diff(offsets).max())}
 
 
-def _profile(srv) -> dict:
+def _layout_blocks(layout) -> dict:
+    real = layout.local_dst.reshape(-1) < layout.row_block
+    return _blocks(real, layout.chunk_block, layout.chunk, layout.num_row_blocks)
+
+
+def _profile(fn) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
+    def call():
+        fn()
+        torch.cuda.synchronize()
+
     for _ in range(5):
-        srv.refresh()
+        call()
     host_ms = []
     for _ in range(ITERS):
-        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        srv.refresh()
+        call()
         host_ms.append((time.perf_counter() - t0) * 1e3)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -64,8 +81,7 @@ def _profile(srv) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(ITERS):
-            srv.refresh()
-        torch.cuda.synchronize()
+            call()
         window_us = (time.perf_counter() - t0) * 1e6
 
     per_name: dict = {}
@@ -74,33 +90,68 @@ def _profile(srv) -> dict:
             per_name[ev.name] = per_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
     busy_us = sum(per_name.values())
     return {
-        "forward_ms": {"median": float(np.median(host_ms)),
-                       "min": float(np.min(host_ms)), "iters": ITERS},
+        "host_ms": {"median": float(np.median(host_ms)),
+                    "min": float(np.min(host_ms)), "iters": ITERS},
         "kernels_us": {k: v / ITERS for k, v in
                        sorted(per_name.items(), key=lambda kv: -kv[1])},
         "device_busy_share": busy_us / window_us if per_name else None,
     }
 
 
-def main():
+def profile_nc(dev) -> dict:
     from rgcn_tpu_torch.config import load_experiment
     from rgcn_tpu_torch.data.synthetic import synthetic_nc_data
     from rgcn_tpu_torch.serve import NodeClassificationServer, load_nc_server
 
-    dev = resolve_device(None)
-    cfg = load_experiment(_CONFIG)
+    cfg = load_experiment(os.path.join(_CONFIGS, "nc-AIFB.yaml"))
     data = synthetic_nc_data(cfg.dataset.name)
     srv = load_nc_server(cfg, data, device=dev)
     branch = NodeClassificationServer(
         srv.model, dataclasses.replace(srv.edges, fused=None))
+    return {
+        "main": _profile(srv.refresh),
+        "k3_k1_branch": _profile(branch.refresh),
+        "row_blocks": {"k1_layout": _layout_blocks(srv.edges.layout),
+                       "k2_fused": _layout_blocks(srv.edges.fused)},
+    }
 
-    print(json.dumps({
-        "device": torch.cuda.get_device_name(dev),
-        "main": _profile(srv),
-        "k3_k1_branch": _profile(branch),
-        "row_blocks": {"k1_layout": _blocks(srv.edges.layout),
-                       "k2_fused": _blocks(srv.edges.fused)},
-    }))
+
+def profile_lp(dev) -> dict:
+    from rgcn_tpu_torch.config import load_experiment
+    from rgcn_tpu_torch.data.synthetic import synthetic_lp_data
+    from rgcn_tpu_torch.graph.coalesce import build_merged_layout
+    from rgcn_tpu_torch.serve import LinkPredictionServer, load_lp_server
+
+    cfg = load_experiment(os.path.join(_CONFIGS, "lp-WN18.yaml"))
+    data = synthetic_lp_data(cfg.dataset.name)
+    srv = load_lp_server(cfg, data, device=dev)
+    es = srv.edges
+    dedup = build_merged_layout(*(t.cpu().numpy() for t in (es.dst, es.src, es.rel, es.val)),
+                                es.num_nodes, es.num_rels, dedup_k=2).to(dev)
+    branch = LinkPredictionServer(srv.model, dataclasses.replace(es, merged=dedup))
+    train = np.asarray(data.train)
+    queries = train[np.random.default_rng(2).integers(0, len(train), 1024), :2]
+    dd = dedup.fwd_dedup
+    return {
+        "encode_k4_merged": _profile(srv.refresh),
+        "encode_k5_dedup_branch": _profile(branch.refresh),
+        "topk_tails_1024": _profile(lambda: srv.topk_tails(queries, k=10)),
+        "row_blocks": {
+            "k4_merged": _layout_blocks(es.merged.layout),
+            "k5_dedup": _blocks((dd.local_k < dd.row_block).any(0).reshape(-1),
+                                dd.chunk_block, dd.chunk, dd.num_row_blocks),
+        },
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--lp", action="store_true",
+                    help="profile lp-WN18 serving instead of nc-AIFB")
+    args = ap.parse_args(argv)
+    dev = resolve_device(None)
+    report = profile_lp(dev) if args.lp else profile_nc(dev)
+    print(json.dumps({"device": torch.cuda.get_device_name(dev), **report}))
 
 
 if __name__ == "__main__":

@@ -1,11 +1,15 @@
-"""Node-classification serving (counterpart of the NC part of
-``rgcn_tpu/serve.py``): one full forward at construction, queries are row
-lookups.
+"""Serving (counterpart of ``rgcn_tpu/serve.py``).
+
+* Node classification: one full forward at construction, queries are row
+  lookups.
+* Link prediction: the graph is encoded once at construction and ``z``
+  stays on the device; queries are DistMult algebra (a ``(B, d) @ (d, N)``
+  product and ``top-k``), only the ``(B, k)`` answers cross to the host.
 
 Checkpoint restore is not ported yet. Until it is, :func:`load_nc_server`
-takes a ``state_dict``: the port's own seeded initialisation when none is
-given, or parameters carried from the JAX package with
-:func:`rgcn_tpu_torch.weights.from_jax_params`.
+and :func:`load_lp_server` take a ``state_dict``: the port's own seeded
+initialisation when none is given, or parameters carried from the JAX
+package with :func:`rgcn_tpu_torch.weights.from_jax_params`.
 """
 
 from __future__ import annotations
@@ -17,7 +21,12 @@ import torch
 
 from rgcn_tpu_torch.device import resolve_device
 
-__all__ = ["NodeClassificationServer", "load_nc_server"]
+__all__ = [
+    "LinkPredictionServer",
+    "NodeClassificationServer",
+    "load_lp_server",
+    "load_nc_server",
+]
 
 
 class NodeClassificationServer:
@@ -82,3 +91,164 @@ def load_nc_server(
         tile_size=tile_size, with_dst_layout=True,
     ).to(dev)
     return NodeClassificationServer(model, edges)
+
+
+class LinkPredictionServer:
+    """Encode-once DistMult serving over a :class:`LinkPredictor`.
+
+    ``edges``: the full-graph EdgeSet to encode, on the model's device
+    (built with a merged layout for basis encoders, see
+    :func:`rgcn_tpu_torch.graph.coalesce.merge_applicable`). Requests are
+    answered in chunks of at most ``max_batch`` queries.
+
+    Two options of the JAX server are left out, with the same answers:
+    it pads each chunk to a power-of-two bucket so that XLA compiles one
+    program per bucket shape, and its ``exe_cache_dir`` persists those
+    compiled programs across processes. PyTorch runs eagerly and compiles
+    nothing per request, and the port's kernels are built once per
+    checkout (``kernels/build.py``), so neither has work to do here.
+    """
+
+    def __init__(self, model, edges, max_batch: int = 1024, known_triples=None):
+        self.model = model
+        self.edges = edges
+        self.max_batch = int(max_batch)
+        self._known_tails = None  # (s, p) -> [o] known-true tails
+        self._known_heads = None  # (p, o) -> [s] known-true heads
+        # filter maps build on the first filtered request: the loop over
+        # the known triples is slow at scale and unfiltered servers skip it
+        self._pending_filters = known_triples
+        self.z = self._encode()
+        self.num_nodes = int(self.z.shape[0])
+
+    def _encode(self) -> torch.Tensor:
+        with torch.inference_mode():
+            return self.model.encode(self.edges)
+
+    def _batches(self, rows: np.ndarray):
+        for lo in range(0, len(rows), self.max_batch):
+            hi = min(lo + self.max_batch, len(rows))
+            yield lo, hi, torch.as_tensor(
+                np.asarray(rows[lo:hi], dtype=np.int64), device=self.z.device)
+
+    # -- point scoring ----------------------------------------------------
+    def score(self, triples) -> np.ndarray:
+        """DistMult scores for ``(B, 3)`` ``(s, p, o)`` triples."""
+        triples = np.asarray(triples)
+        out = np.empty((len(triples),), np.float32)
+        with torch.inference_mode():
+            for lo, hi, t in self._batches(triples):
+                out[lo:hi] = self.model.scoring_function(t, self.z).cpu().numpy()
+        return out
+
+    # -- filtered ranking ---------------------------------------------------
+    def set_filters(self, known_triples) -> None:
+        """Register the known-true triples that ``filtered=True`` ranking
+        masks out (typically the training graph)."""
+        tails: dict = {}
+        heads: dict = {}
+        for s, p, o in np.asarray(known_triples):
+            tails.setdefault((int(s), int(p)), []).append(int(o))
+            heads.setdefault((int(p), int(o)), []).append(int(s))
+        self._known_tails = tails
+        self._known_heads = heads
+        self._pending_filters = None
+
+    def _filter_rows(self, queries: np.ndarray, tails: bool):
+        if self._known_tails is None and self._pending_filters is not None:
+            self.set_filters(self._pending_filters)
+        known = self._known_tails if tails else self._known_heads
+        if known is None:
+            raise ValueError(
+                "filtered=True requires known triples: construct the server "
+                "with known_triples=... or call set_filters() first"
+            )
+        if tails:
+            return [known.get((int(q[0]), int(q[1])), ()) for q in queries]
+        return [known.get((int(q[1]), int(q[2])), ()) for q in queries]
+
+    # -- ranking ----------------------------------------------------------
+    def topk_tails(self, sp, k: int = 10, filtered: bool = False):
+        """Top-``k`` tails for ``(B, 2)`` ``(s, p)`` queries: ``(scores (B,
+        k) f32, entities (B, k) int32)``, best first. ``filtered=True``
+        masks the known-true candidates to ``-inf``."""
+        sp = np.asarray(sp)
+        queries = np.stack([sp[:, 0], sp[:, 1], np.zeros(len(sp), sp.dtype)], axis=1)
+        return self._rank(queries, k, tails=True, filtered=filtered)
+
+    def topk_heads(self, po, k: int = 10, filtered: bool = False):
+        """Top-``k`` heads for ``(B, 2)`` ``(p, o)`` queries."""
+        po = np.asarray(po)
+        queries = np.stack([np.zeros(len(po), po.dtype), po[:, 0], po[:, 1]], axis=1)
+        return self._rank(queries, k, tails=False, filtered=filtered)
+
+    def refresh(self, state_dict: Optional[Dict[str, torch.Tensor]] = None):
+        """Re-encode, after loading ``state_dict`` if given (hot swap)."""
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict)
+        self.z = self._encode()
+        self.num_nodes = int(self.z.shape[0])
+
+    def _rank(self, queries: np.ndarray, k: int, tails: bool, filtered: bool):
+        rows = self._filter_rows(queries, tails) if filtered else None
+        score_fn = self.model.score_tails if tails else self.model.score_heads
+        scores = np.empty((len(queries), k), np.float32)
+        ents = np.empty((len(queries), k), np.int32)
+        with torch.inference_mode():
+            for lo, hi, q in self._batches(queries):
+                sc = score_fn(q, self.z)  # (B, N)
+                if filtered:
+                    lens = [len(r) for r in rows[lo:hi]]
+                    if sum(lens):
+                        flat = (np.repeat(np.arange(hi - lo), lens) * self.num_nodes
+                                + np.concatenate([np.asarray(r, np.int64)
+                                                  for r in rows[lo:hi] if len(r)]))
+                        sc.view(-1).index_fill_(
+                            0, torch.as_tensor(flat, device=sc.device), float("-inf"))
+                s, e = torch.topk(sc, k, dim=1)
+                scores[lo:hi] = s.cpu().numpy()
+                ents[lo:hi] = e.int().cpu().numpy()
+        return scores, ents
+
+
+def load_lp_server(
+    cfg,
+    data,
+    state_dict: Optional[Dict[str, torch.Tensor]] = None,
+    *,
+    device=None,
+) -> LinkPredictionServer:
+    """Build a link-prediction endpoint.
+
+    ``cfg``: a :class:`~rgcn_tpu_torch.config.LinkPredictionExperiment` or a
+    path to its YAML file; ``data``: the
+    :class:`~rgcn_tpu_torch.data.loaders.LinkPredictionData` to serve (its
+    train triples are the graph and the filter). ``state_dict``: parameters
+    to serve; None serves the port's initialisation from seed 0.
+    ``device``: None means CUDA, which must then be present; ``"cpu"`` runs
+    the plain versions. The EdgeSet is built as the JAX server builds it:
+    tile 128, destination layout, and the merged pair layout when a basis
+    encoder consumes it (``merge_applicable``).
+    """
+    from rgcn_tpu_torch.config import load_experiment
+    from rgcn_tpu_torch.graph.coalesce import merge_applicable
+    from rgcn_tpu_torch.graph.structure import build_edge_set
+    from rgcn_tpu_torch.models.link_prediction import build_lp_model
+
+    dev = resolve_device(device)
+    if not hasattr(cfg, "encoder"):
+        cfg = load_experiment(cfg)
+    num_nodes, num_rels = data.num_nodes, data.num_relations
+    model = build_lp_model(cfg, num_nodes, num_rels)
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    model = model.to(dev).eval()
+    decomp = cfg.encoder.decomposition
+    merge = decomp is not None and merge_applicable(
+        2 * num_rels, decomposition=decomp.type, num_bases=decomp.num_bases)
+    train = np.asarray(data.train, dtype=np.int64)
+    edges = build_edge_set(
+        train, num_nodes, num_rels, tile_size=128,
+        with_dst_layout=True, with_merged_layout=merge,
+    ).to(dev)
+    return LinkPredictionServer(model, edges, known_triples=train)

@@ -42,8 +42,12 @@ def test_nc_experiment_equals_jax(path):
 
 @pytest.mark.parametrize("path", LP_CONFIGS, ids=_id)
 def test_lp_configs_wait_for_lp_slice(path):
-    with pytest.raises(NotImplementedError, match="LP slice"):
-        tcfg.load_experiment(path)
+    """The LP slice has landed: every LP config (rgcn/ and c-rgcn/) loads
+    into the same LinkPredictionExperiment as the JAX package's."""
+    got = tcfg.load_experiment(path)
+    want = jcfg.load_experiment(path)
+    assert isinstance(got, tcfg.LinkPredictionExperiment)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 SNIPPETS = [

@@ -19,15 +19,20 @@ MODULES = [
     "rgcn_tpu_torch.config",
     "rgcn_tpu_torch.data",
     "rgcn_tpu_torch.graph",
+    "rgcn_tpu_torch.graph.coalesce",
     "rgcn_tpu_torch.ops.aggregate",
+    "rgcn_tpu_torch.ops.basis",
+    "rgcn_tpu_torch.ops.distmult",
     "rgcn_tpu_torch.ops.fused",
     "rgcn_tpu_torch.ops.rel_spmm",
     "rgcn_tpu_torch.ops.spmm",
     "rgcn_tpu_torch.kernels",
     "rgcn_tpu_torch.nn",
     "rgcn_tpu_torch.models",
+    "rgcn_tpu_torch.models.link_prediction",
     "rgcn_tpu_torch.serve",
     "rgcn_tpu_torch.serve_nodes",
+    "rgcn_tpu_torch.serve_links",
     "rgcn_tpu_torch.weights",
     "rgcn_tpu_torch.profile_serve",
 ]
@@ -106,6 +111,68 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                 i32[:1], i32[:2], 4, 4, 8, 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.launch_k3_messages(x, w, i32, torch.zeros(8), i32[:1], 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.launch_k4_weighted_aggregate(x, i32, torch.zeros((2, 8)),
+                                             i32.reshape(1, 8), i32[:1], 4, 4, 1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.launch_k5_weighted_aggregate_dedup(
+            x, i32, torch.zeros((2, 1, 8)), i32.reshape(2, 1, 4), i32[:1], 4, 4, 1)
+    assert kernels.LAUNCHES == before
+
+
+def test_basis_wrappers_take_plain_version_only_on_cpu():
+    """K4/K5 dispatch: CPU tensors take the plain versions and count no
+    launch; tensors elsewhere go to the launchers, which refuse what is
+    not on the card (the meta device stands in for it)."""
+    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch.graph.coalesce import build_merged_layout
+    from rgcn_tpu_torch.ops import basis
+
+    rng = np.random.default_rng(0)
+    dst, src = rng.integers(0, 30, 80), rng.integers(0, 30, 80)
+    m = build_merged_layout(dst, src, rng.integers(0, 4, 80),
+                            np.ones(80, np.float32), 30, 4, dedup_k=2)
+    m = m.to("cpu")
+    before = dict(kernels.LAUNCHES)
+    x = torch.ones((30, 5))
+    w = torch.ones((2, m.layout.num_chunks * m.layout.chunk))
+    out = basis.weighted_aggregate(x, m.src_sorted, w, m.layout, 30)
+    assert out.shape == (2, 30, 5) and kernels.LAUNCHES == before
+    dd = m.fwd_dedup
+    w_k = torch.ones((2, 2, dd.num_chunks * dd.chunk))
+    out = basis.weighted_aggregate_dedup(x, dd.src_sorted, w_k, dd, 30)
+    assert out.shape == (2, 30, 5) and kernels.LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        basis.weighted_aggregate(x.to("meta"), m.src_sorted, w, m.layout, 30)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        basis.weighted_aggregate_dedup(x.to("meta"), dd.src_sorted, w_k, dd, 30)
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("num_nodes", [20, 33])
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_basis_wrappers_refuse_node_count_off_layout(num_nodes, device):
+    """K4/K5 refuse a node count that does not span the layout's row blocks
+    (30 nodes in 4 blocks of 8), on the plain route (CPU tensors) and
+    before the kernel route (the meta device stands in for the card)."""
+    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch.graph.coalesce import build_merged_layout
+    from rgcn_tpu_torch.ops import basis
+
+    rng = np.random.default_rng(1)
+    dst, src = rng.integers(0, 30, 80), rng.integers(0, 30, 80)
+    m = build_merged_layout(dst, src, rng.integers(0, 4, 80),
+                            np.ones(80, np.float32), 30, 4, row_block=8,
+                            chunk=16, dedup_k=2).to("cpu")
+    before = dict(kernels.LAUNCHES)
+    x = torch.ones((30, 5), device=device)
+    w = torch.ones((2, m.layout.num_chunks * m.layout.chunk), device=device)
+    dd = m.fwd_dedup
+    w_k = torch.ones((2, 2, dd.num_chunks * dd.chunk), device=device)
+    with pytest.raises(ValueError, match="4 row blocks of 8"):
+        basis.weighted_aggregate(x, m.src_sorted, w, m.layout, num_nodes)
+    with pytest.raises(ValueError, match="4 row blocks of 8"):
+        basis.weighted_aggregate_dedup(x, dd.src_sorted, w_k, dd, num_nodes)
     assert kernels.LAUNCHES == before
 
 

@@ -7,7 +7,10 @@ never at collection). Run on a GPU machine with
 
 The shapes reach the kernels' edge cases the nc-AIFB run does not: K1's
 column split when RB x dout exceeds 48 KB, K2's opt-in shared memory above
-48 KB, K3 reading W through L2 when W[rel] exceeds 48 KB, small chunks.
+48 KB, K3 reading W through L2 when W[rel] exceeds 48 KB, small chunks;
+K4 in both table forms (shared and per-basis rows), with and without
+``sum_bases``, for 1 to 8 bases and widths that are not a multiple of 32,
+over merged and unmerged frames; K5 with 2 and 3 lanes.
 Tolerance: max abs diff <= 1e-5 * max(1, max|ref|) (f32 sums reordered by
 shared-memory atomics).
 """
@@ -20,7 +23,9 @@ import torch
 
 from rgcn_tpu_torch import kernels
 from rgcn_tpu_torch.graph.structure import build_edge_set
+from rgcn_tpu_torch.graph.coalesce import build_merged_layout
 from rgcn_tpu_torch.ops import aggregate as agg
+from rgcn_tpu_torch.ops import basis as bs
 from rgcn_tpu_torch.ops import fused as fz
 from rgcn_tpu_torch.ops import rel_spmm as rs
 from tests.conftest import make_random_triples
@@ -125,3 +130,111 @@ def test_wrappers_check_inputs(cuda):
         rs.rel_spmm_messages(es, x.t().contiguous().t(), _t(rng, cuda, 6, 8, 4))
     with pytest.raises(ValueError, match="CUDA tensor"):
         fz.rel_spmm_fused(es.fused.to("cpu"), 200, x, _t(rng, cuda, 6, 8, 4))
+
+
+def _merged(n, r, e, seed, dev, dedup_k=0, reciprocal=True, **kw):
+    """Merged pair layout of a random graph with parallel edges."""
+    rng = np.random.default_rng(seed)
+    t = make_random_triples(rng, n, r, e)
+    if reciprocal:  # (s, p, o) and (o, p', s): inverse augmentation makes pairs
+        t = np.unique(np.concatenate([t, t[: e // 2, ::-1]]), axis=0)
+    es = build_edge_set(t, n, r, with_dst_layout=True)
+    m = build_merged_layout(es.dst, es.src, es.rel, es.val, n, es.num_rels,
+                            dedup_k=dedup_k, **kw)
+    return m.to(dev), es.to(dev), rng
+
+
+@pytest.mark.parametrize("nb,din,per_basis,sum_bases", [
+    (2, 200, False, False), (1, 7, False, False), (3, 33, False, True),
+    (8, 64, False, False), (2, 200, True, True), (3, 40, True, False),
+    (8, 5, True, True),
+])
+def test_k4(cuda, nb, din, per_basis, sum_bases):
+    m, _, rng = _merged(1500, 5, 7000, 7, cuda)
+    lay = m.layout
+    n_slots = lay.num_chunks * lay.chunk
+    x = _t(rng, cuda, *((nb, 1500, din) if per_basis else (1500, din)))
+    w = _t(rng, cuda, nb, n_slots) * (lay.local_dst.reshape(-1) < lay.row_block)
+    n0 = kernels.LAUNCHES["k4_weighted_aggregate"]
+    got = bs.weighted_aggregate(x, m.src_sorted, w, lay, 1500, sum_bases=sum_bases)
+    ref = bs.weighted_aggregate_plain(x, m.src_sorted, w, lay, 1500,
+                                      sum_bases=sum_bases)
+    assert got.shape == (1 if sum_bases else nb, 1500, din)
+    _close(got, ref)
+    assert kernels.LAUNCHES["k4_weighted_aggregate"] == n0 + 1
+
+
+def test_k4_unmerged_and_small_chunks(cuda):
+    """The unmerged DstLayout frame (rel_spmm_basis without `merged`), and a
+    64-slot chunk layout (a warp's slots cross no chunk end)."""
+    m, es, rng = _merged(900, 4, 4000, 8, cuda, chunk=64)
+    comps = _t(rng, cuda, es.num_rels, 2)
+    src_sorted, wvec = bs.sorted_inputs(es, comps)
+    x = _t(rng, cuda, 900, 48)
+    _close(bs.weighted_aggregate(x, src_sorted, wvec, es.layout, 900),
+           bs.weighted_aggregate_plain(x, src_sorted, wvec, es.layout, 900))
+    w = bs.merged_wvec(m.coeff, comps)
+    _close(bs.weighted_aggregate(x, m.src_sorted, w, m.layout, 900),
+           bs.weighted_aggregate_plain(x, m.src_sorted, w, m.layout, 900))
+    bases = _t(rng, cuda, 2, 48, 24)
+    before = dict(kernels.LAUNCHES)
+    got = bs.rel_spmm_basis(es, x, bases, comps)
+    assert kernels.LAUNCHES["k4_weighted_aggregate"] == before["k4_weighted_aggregate"] + 1
+    _close(got, bs.rel_spmm_basis(es.to("cpu"), x.cpu(), bases.cpu(),
+                                  comps.cpu()).to(cuda))
+
+
+@pytest.mark.parametrize("kk,nb,din", [(2, 2, 200), (3, 1, 17), (2, 5, 64)])
+def test_k5(cuda, kk, nb, din):
+    m, es, rng = _merged(1200, 4, 6000, 9, cuda, dedup_k=kk)
+    dd = m.fwd_dedup
+    comps = _t(rng, cuda, es.num_rels, nb)
+    w_k = torch.einsum("klr,rb->kbl", dd.coeff_k, comps).contiguous()
+    x = _t(rng, cuda, 1200, din)
+    n0 = kernels.LAUNCHES["k5_weighted_aggregate_dedup"]
+    got = bs.weighted_aggregate_dedup(x, dd.src_sorted, w_k, dd, 1200)
+    _close(got, bs.weighted_aggregate_dedup_plain(x, dd.src_sorted, w_k, dd, 1200))
+    assert kernels.LAUNCHES["k5_weighted_aggregate_dedup"] == n0 + 1
+    # the same Agg as K4 over the plain merged frame
+    _close(got, bs.weighted_aggregate_plain(
+        x, m.src_sorted, bs.merged_wvec(m.coeff, comps), m.layout, 1200))
+
+
+def test_k4_k5_wrappers_check_inputs(cuda):
+    m, _, rng = _merged(300, 3, 1200, 10, cuda, dedup_k=2)
+    lay, dd = m.layout, m.fwd_dedup
+    x = _t(rng, cuda, 300, 8)
+    w = _t(rng, cuda, 2, lay.num_chunks * lay.chunk)
+    with pytest.raises(TypeError, match="dtype"):
+        bs.weighted_aggregate(x.double(), m.src_sorted, w, lay, 300)
+    with pytest.raises(ValueError, match="nb <= 8"):
+        bs.weighted_aggregate(x, m.src_sorted, w.repeat(5, 1), lay, 300)
+    with pytest.raises(ValueError, match="per-basis"):
+        bs.weighted_aggregate(_t(rng, cuda, 3, 300, 8), m.src_sorted, w, lay, 300)
+    w_k = _t(rng, cuda, 2, 2, dd.num_chunks * dd.chunk)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bs.weighted_aggregate_dedup(x, dd.src_sorted.cpu(), w_k, dd, 300)
+    with pytest.raises(ValueError, match="do not fill"):
+        kernels.launch_k4_weighted_aggregate(
+            x, m.src_sorted, w, lay.local_dst, lay.chunk_block, 100,
+            lay.row_block, lay.num_row_blocks)
+    with pytest.raises(ValueError, match="do not fill"):
+        kernels.launch_k5_weighted_aggregate_dedup(
+            x, dd.src_sorted, w_k, dd.local_k, dd.chunk_block, 600,
+            dd.row_block, dd.num_row_blocks)
+
+
+def test_k4_k5_drop_rows_past_the_output(cuda):
+    """A node count inside the layout's last block: the kernels drop the
+    rows past it, as the plain versions' slice does (300 nodes, 290 kept)."""
+    m, es, rng = _merged(300, 3, 1200, 11, cuda, dedup_k=2)
+    lay, dd = m.layout, m.fwd_dedup
+    x = _t(rng, cuda, 300, 40)
+    comps = _t(rng, cuda, es.num_rels, 2)
+    w = bs.merged_wvec(m.coeff, comps)
+    got = bs.weighted_aggregate(x, m.src_sorted, w, lay, 290)
+    assert got.shape == (2, 290, 40)
+    _close(got, bs.weighted_aggregate_plain(x, m.src_sorted, w, lay, 300)[:, :290])
+    w_k = torch.einsum("klr,rb->kbl", dd.coeff_k, comps).contiguous()
+    got = bs.weighted_aggregate_dedup(x, dd.src_sorted, w_k, dd, 290)
+    _close(got, bs.weighted_aggregate_dedup_plain(x, dd.src_sorted, w_k, dd, 300)[:, :290])

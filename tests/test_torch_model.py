@@ -166,5 +166,5 @@ def test_unported_branches_raise():
         build_nc_model(cfg, aifb_like())
     from rgcn_tpu_torch.weights import from_jax_params as f
 
-    with pytest.raises(NotImplementedError, match="bases"):
-        f({"params": {"rgc1": {"bases": np.zeros((2, 3, 4))}}})
+    with pytest.raises(NotImplementedError, match="blocks"):
+        f({"params": {"rgc1": {"blocks": np.zeros((2, 3, 4))}}})
