@@ -7,15 +7,21 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
    TF32 off for matmuls and cuDNN (f32 comparisons stay f32);
-2. build: nvcc builds every kernel of kernels/csrc/ in parallel;
-3. kernels, nc-AIFB: K1, K2 and K3 at the nc-AIFB shapes, each held
-   against its plain PyTorch version on the card (f32, max abs diff <=
-   1e-5 * max(1, max|ref|): the kernels reorder f32 sums). "ms",
-   "plain_ms" and "library_ms" (the one-call yardstick) are device time
-   per call, the summed kernel time torch.profiler records over 50 calls;
-   "call_ms", "plain_call_ms" and "library_call_ms" are the CUDA-event
-   time per call of 50 calls back to back, which includes the host's
-   launch cost when that is the longer;
+2. build: nvcc builds every kernel of kernels/csrc/ in parallel and
+   reports each source's entry points, registers and spill stores;
+3. kernels, nc-AIFB: K1 (layer 1, dout 16), K2 and K3 at the nc-AIFB
+   shapes, and K1 at the K3 branch's layer-2 width (dout 4, its own
+   torch.index_add yardstick), each held against its plain PyTorch
+   version on the card (f32, max abs diff <= 1e-5 * max(1, max|ref|): the
+   kernels reorder f32 sums). "ms", "plain_ms" and "library_ms" (the
+   one-call yardstick) are device time per call, the summed kernel time
+   torch.profiler records over 50 calls; "call_ms", "plain_call_ms" and
+   "library_call_ms" are the CUDA-event time per call of 50 calls back to
+   back, which includes the host's launch cost when that is the longer.
+   Then the hub case: K1 (dout 16 and 4) and K2 on a skewed graph where
+   one destination receives more than four chunks' worth of slots and a
+   row block holds pad chunks only (fused: gap quanta only), against their
+   plain versions;
 4. serving nc-AIFB, two paths, each with the launch counts zeroed just
    before it and read just after: the main path, load_nc_server on
    configs/rgcn/nc-AIFB.yaml with the AIFB-scale synthetic graph at full
@@ -44,7 +50,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    scores are more than 1e-4 apart. Reports the encode time (host clock,
    median of 20 refresh() calls) and one 1024-query top-10 tail batch;
 7. summary: one JSON line of each path's launch counts, one of the extra
-   K4 modes, and the "kernels" line, whose "launches" for each kernel is
+   nc modes (K1 at dout 4), one of the extra K4 modes, and the "kernels"
+   line, whose "launches" for each kernel is
    its count on the path named beside it;
 8. last line: {"ok": true, "device": {...}}.
 
@@ -178,10 +185,14 @@ def phase_build():
     built = build_all()
     log(f"build: {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
     for kname, info in built.items():
-        report = [ln.strip() for ln in info["log"].splitlines()
-                  if "registers" in ln or "spill" in ln]
-        log(f"  {kname}: {'cached' if info['cached'] else 'built'} "
-            f"{' | '.join(report)}")
+        # ptxas -v: one "Used N registers" and one spill line per entry point
+        regs = [int(w[w.index("Used") + 1]) for w in
+                (ln.split() for ln in info["log"].splitlines()) if "registers," in w]
+        spill = sum(int(w[w.index("spill") - 2]) for w in
+                    (ln.split() for ln in info["log"].splitlines()) if "spill" in w)
+        report = (f"{len(regs)} entry points, {min(regs)}-{max(regs)} registers, "
+                  f"{spill} bytes of spill stores" if regs else "no ptxas report")
+        log(f"  {kname}: {'cached' if info['cached'] else 'built'}, {report}")
 
 
 def phase_kernels(dev, data, edges):
@@ -215,23 +226,35 @@ def phase_kernels(dev, data, edges):
                 agg.aggregate_presorted(msgs_sorted, lay, n),
                 agg.aggregate_presorted_plain(msgs_sorted, lay, n))
     dst_long = edges.dst.long()
-    zeros = torch.zeros((n + 1, hidden), device=dev)
-    # pad slots (local_dst == RB) are dropped before perm or a message row
-    # is read: only real slots need those bytes
+    # the function needs each real slot's local_dst, perm index and message
+    # row (pads, local_dst == RB, contribute nothing), chunk_block, and the
+    # output written once
     real_slots = int((lay.local_dst < lay.row_block).sum().item())
-    k1_bytes = real_slots * (hidden * 4 + 4) \
-        + nbytes(lay.local_dst, lay.block_offsets) + n * hidden * 4
-    ms, call = timed(lambda: agg.aggregate_sorted(msgs, lay, n))
-    plain_ms, plain_call = timed(lambda: agg.aggregate_sorted_plain(msgs, lay, n))
-    lib_ms, lib_call = timed(lambda: torch.index_add(zeros, 0, dst_long, msgs))
-    rows.append(dict(
-        name="K1", route="cuda",
-        source="rgcn_tpu_torch/kernels/csrc/k1_aggregate.cu",
-        replaces="rgcn_tpu/ops/pallas_aggregate.py:203",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        call_ms=call, plain_call_ms=plain_call, library_call_ms=lib_call,
-        _bound=bound_ms(k1_bytes, real_slots * hidden),
-    ))
+
+    def k1_row(label, m, err):
+        dout = m.shape[1]
+        zeros = torch.zeros((n + 1, dout), device=dev)
+        k1_bytes = real_slots * (dout * 4 + 4 + 4) + nbytes(lay.chunk_block) \
+            + n * dout * 4
+        ms, call = timed(lambda: agg.aggregate_sorted(m, lay, n))
+        plain_ms, plain_call = timed(lambda: agg.aggregate_sorted_plain(m, lay, n))
+        lib_ms, lib_call = timed(lambda: torch.index_add(zeros, 0, dst_long, m))
+        return dict(
+            name="K1", mode=label, route="cuda",
+            source="rgcn_tpu_torch/kernels/csrc/k1_aggregate.cu",
+            replaces="rgcn_tpu/ops/pallas_aggregate.py:203",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            call_ms=call, plain_call_ms=plain_call, library_call_ms=lib_call,
+            _bound=bound_ms(k1_bytes, real_slots * dout),
+        )
+
+    rows.append(k1_row(f"K1 dout {hidden} (layer 1)", msgs, err))
+    # K1 at the K3 branch's layer-2 width: edge-order messages (E_pad, C)
+    msgs_c = rand(e_pad, classes) * edges.val[:, None]
+    err = check_close(f"K1 aggregate_sorted dout {classes}",
+                      agg.aggregate_sorted(msgs_c, lay, n),
+                      agg.aggregate_sorted_plain(msgs_c, lay, n))
+    modes = [k1_row(f"K1 dout {classes} (K3 branch layer 2)", msgs_c, err)]
 
     # K2 -- layer 2: x (N, hidden) through W (R, hidden, classes)
     x = torch.relu(rand(n, hidden))
@@ -242,12 +265,16 @@ def phase_kernels(dev, data, edges):
     got = fz.rel_spmm_fused(fl, n, x, w)
     torch.cuda.synchronize()
     err = check_close("K2 rel_spmm_fused", got, ref)
-    # src and val are read only for real slots (not a pad, not in a gap
-    # quantum); local_dst and quantum_rel are read for every slot
-    real = int(((fl.local_dst.reshape(-1) < fl.row_block)
-                & (fl.quantum_rel.repeat_interleave(fl.quantum) >= 0)).sum().item())
-    k2_bytes = real * 8 + nbytes(x, w, fl.local_dst, fl.quantum_rel,
-                                 fl.block_offsets) + n * classes * 4
+    # the function needs quantum_rel and chunk_block whole; local_dst, src
+    # and val of the real slots (not a pad, not in a gap quantum); the x
+    # rows and W[rel] those slots reference, once each; the output once
+    keep = (fl.local_dst.reshape(-1) < fl.row_block) \
+        & (fl.quantum_rel.repeat_interleave(fl.quantum) >= 0)
+    real = int(keep.sum().item())
+    x_rows = int(torch.unique(fl.src[keep]).numel())
+    w_rels = int(torch.unique(fl.quantum_rel[fl.quantum_rel >= 0]).numel())
+    k2_bytes = real * 12 + (x_rows + w_rels * classes) * hidden * 4 \
+        + nbytes(fl.quantum_rel, fl.chunk_block) + n * classes * 4
     ms, call = timed(lambda: fz.rel_spmm_fused(fl, n, x, w))
     plain_ms, plain_call = timed(lambda: fz.rel_spmm_fused_plain(fl, n, x, w))
     rows.append(dict(
@@ -276,10 +303,48 @@ def phase_kernels(dev, data, edges):
         call_ms=call, plain_call_ms=plain_call, library_call_ms=None,
         _bound=bound_ms(k3_bytes, e_pad * (2 * hidden * classes + classes)),
     ))
-    for r in rows:
+    for r in rows + modes:
         r["bound_ms"], r["bound_by"] = r.pop("_bound")
         log(json.dumps({"kernel_check": r}))
-    return rows
+    return rows, modes
+
+
+def phase_skew(dev):
+    """K1 and K2 on a hub graph against their plain versions: one
+    destination with more than four chunks' worth of slots, row blocks of
+    pad chunks only."""
+    from rgcn_tpu_torch.data.synthetic import skew_triples
+    from rgcn_tpu_torch.graph.structure import build_edge_set
+    from rgcn_tpu_torch.ops import aggregate as agg
+    from rgcn_tpu_torch.ops import fused as fz
+
+    n = 1536
+    es = build_edge_set(skew_triples(), n, 4, with_dst_layout=True).to(dev)
+    lay, fl = es.layout, es.fused
+    hub_slots = int((es.dst == 7).sum().item())
+    k1_hub = int((lay.chunk_block == 0).sum().item())
+    k2_hub = int((fl.chunk_block == 0).sum().item())
+    pad_chunks = int((lay.local_dst >= lay.row_block).all(1).sum().item())
+    gap_chunks = int((fl.quantum_rel.reshape(fl.num_chunks, -1) < 0).all(1).sum().item())
+    log(f"kernels (hub graph: N {n}, hub receives {hub_slots} slots; K1 hub "
+        f"block {k1_hub} chunks of {lay.chunk}, {pad_chunks} pad-only chunks; "
+        f"K2 hub block {k2_hub} chunks of {fl.chunk}, {gap_chunks} all-gap chunks):")
+    if not (hub_slots > 4 * fl.chunk and pad_chunks and gap_chunks):
+        fail("hub graph: no hub past four chunks, or no pad-only block")
+    rng = np.random.default_rng(4)
+
+    def rand(*shape, scale=1.0):
+        a = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(a).to(dev)
+
+    for dout in (16, 4):
+        m = rand(es.src.shape[0], dout)
+        check_close(f"K1 hub aggregate_sorted dout {dout}",
+                    agg.aggregate_sorted(m, lay, n),
+                    agg.aggregate_sorted_plain(m, lay, n))
+    x, w = torch.relu(rand(n, 16)), rand(8, 16, 4, scale=0.3)
+    check_close("K2 hub rel_spmm_fused", fz.rel_spmm_fused(fl, n, x, w),
+                fz.rel_spmm_fused_plain(fl, n, x, w))
 
 
 def launches(**counts) -> dict:
@@ -621,7 +686,8 @@ def main():
         f"E_pad {edges.src.shape[0]}, layout L {edges.layout.perm.shape[0]} "
         f"({edges.layout.num_row_blocks} blocks), fused L "
         f"{edges.fused.src.shape[0]} ({edges.fused.num_row_blocks} blocks)")
-    rows = phase_kernels(dev, data, edges)
+    rows, nc_modes = phase_kernels(dev, data, edges)
+    phase_skew(dev)
     paths = phase_serving(dev, data)
 
     lp = wn18_like()
@@ -661,6 +727,7 @@ def main():
         })
     print(json.dumps({"serve_launches": paths}), flush=True)
     print(json.dumps({"lp_timing_ms": timing}), flush=True)
+    print(json.dumps({"nc_modes": nc_modes}), flush=True)
     print(json.dumps({"k4_modes": extra}), flush=True)
     print(json.dumps({"pending_kernels": []}), flush=True)
     log(f"command time {time.perf_counter() - t_start:.1f} s")

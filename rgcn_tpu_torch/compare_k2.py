@@ -1,0 +1,123 @@
+"""K2 against the shared-memory-tile design it rejected, on the card.
+
+    python -m rgcn_tpu_torch.compare_k2
+
+K2 (``kernels/csrc/k2_fused.cu``) gives each relation quantum a CTA and
+adds every real slot's outputs straight into the zeroed output with global
+f32 atomics. The alternative (``kernels/csrc/variants/k2_fused_tile.cu``,
+built here and launched nowhere else) gives each chunk a CTA that sums its
+slots into a shared-memory (RB x dout) tile and then adds the tile's
+non-zero entries to the output; its per-slot product is K2's own code.
+
+Both run at the nc-AIFB layer-2 shapes (``aifb_like()``, x (N, 16), W
+(90, 16, 4), the fused layout ``load_nc_server`` builds), are held against
+``rel_spmm_fused_plain`` (max abs diff <= 1e-5 * max(1, max|ref|)), and are
+timed in the order K2, tile, tile, K2: device time per call, output memset
+included, summed over the kernels torch.profiler records for 20 calls
+(``profile_serve.profile_calls``). Prints the card's name and power limit
+(``nvidia-smi``), the variant's ptxas report, then one JSON line.
+
+Needs CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+
+import numpy as np
+import torch
+
+from rgcn_tpu_torch.device import resolve_device
+
+VARIANT = os.path.join("variants", "k2_fused_tile.cu")
+
+
+def build_tile():
+    """nvcc the tile variant (always afresh: it includes k2_fused.cu) and
+    bind it with K2's ctypes signature; returns (function, ptxas report)."""
+    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch.kernels import build
+
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    out = os.path.join(build.BUILD_DIR, "k2_fused_tile.so")
+    proc = subprocess.run(
+        [build._nvcc(), *build.NVCC_FLAGS, "-o", out, os.path.join(build.CSRC, VARIANT)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc {VARIANT} failed:\n{proc.stdout}{proc.stderr}")
+    fn = ctypes.CDLL(out).k2_fused_tile
+    fn.argtypes = kernels._ARGTYPES["k2_fused"]
+    fn.restype = ctypes.c_int
+    return fn, proc.stdout + proc.stderr
+
+
+def tile_call(fn, layout, num_nodes, x, weights):
+    """The tile variant on K2's operands; returns ``(num_nodes, dout)``."""
+    _, din, dout = weights.shape
+    out = torch.empty((num_nodes, dout), dtype=torch.float32, device=x.device)
+    err = fn(x.data_ptr(), weights.data_ptr(), layout.src.data_ptr(),
+             layout.val.data_ptr(), layout.local_dst.data_ptr(),
+             layout.quantum_rel.data_ptr(), layout.chunk_block.data_ptr(),
+             out.data_ptr(), layout.quantum_rel.shape[0], din, dout,
+             layout.row_block, layout.chunk, layout.quantum, num_nodes,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"k2_fused_tile: CUDA error {err} at launch")
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.parse_args(argv)
+    dev = resolve_device(None)
+
+    from rgcn_tpu_torch.data.synthetic import aifb_like
+    from rgcn_tpu_torch.graph.structure import build_edge_set
+    from rgcn_tpu_torch.ops import fused as fz
+    from rgcn_tpu_torch.profile_serve import profile_calls
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip(), flush=True)
+    fn, ptxas = build_tile()
+    print(ptxas.strip(), flush=True)
+
+    data = aifb_like()
+    edges = build_edge_set(data.triples, data.num_nodes, data.num_relations,
+                           tile_size=128, with_dst_layout=True).to(dev)
+    fl, n = edges.fused, data.num_nodes
+    rng = np.random.default_rng(0)
+    x = torch.relu(torch.from_numpy(
+        rng.standard_normal((n, 16)).astype(np.float32)).to(dev))
+    w = torch.from_numpy((rng.standard_normal((edges.num_rels, 16, data.num_classes))
+                          * 0.3).astype(np.float32)).to(dev)
+    ref = fz.rel_spmm_fused_plain(fl, n, x, w)
+    tol = 1e-5 * max(1.0, ref.abs().max().item())
+    designs = {
+        "k2_global_atomics": lambda: fz.rel_spmm_fused(fl, n, x, w),
+        "k2_shared_tile": lambda: tile_call(fn, fl, n, x, w),
+    }
+    report = {}
+    for name, call in designs.items():
+        err = (call() - ref).abs().max().item()
+        if not err <= tol:
+            raise RuntimeError(f"{name}: max abs err {err} > {tol}")
+        report[name] = {"max_abs_err": err, "tol": tol, "device_ms": []}
+    for name in ("k2_global_atomics", "k2_shared_tile",
+                 "k2_shared_tile", "k2_global_atomics"):
+        prof = profile_calls(designs[name])
+        report[name]["device_ms"].append(sum(prof["kernels_us"].values()) / 1e3)
+    print(json.dumps({"device": torch.cuda.get_device_name(dev),
+                      "shapes": {"x": list(x.shape), "w": list(w.shape),
+                                 "slots": fl.src.shape[0], "chunks": fl.num_chunks,
+                                 "quanta": fl.quantum_rel.shape[0]},
+                      "designs": report}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

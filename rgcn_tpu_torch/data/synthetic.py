@@ -2,7 +2,8 @@
 prediction).
 
 Same numpy random stream as ``rgcn_tpu/data/synthetic.py``, so both
-packages build identical graphs from one seed.
+packages build identical graphs from one seed (``skew_triples`` is the
+port's own).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ __all__ = [
     "wn18_like",
     "fb_toy_like",
     "aifb_like",
+    "skew_triples",
     "synthetic_nc_data",
     "synthetic_lp_data",
 ]
@@ -178,6 +180,25 @@ def aifb_like(seed: int = 0) -> NodeClassificationData:
         num_nodes=8_285, num_rels=45, num_edges=29_000, num_classes=4,
         labeled_frac=0.05, seed=seed,
     )
+
+
+def skew_triples(seed=3, num_nodes=1536, num_rels=4, num_edges=3000, hub=7,
+                 hub_edges=3000, isolated=(512, 1024)) -> np.ndarray:
+    """A skewed graph for the aggregation kernels' edge cases (no JAX
+    counterpart): random triples over the nodes outside ``isolated``
+    (nodes with no edge at all, so their row blocks hold only pads and the
+    fused layout gives them chunks of gap quanta only), plus ``hub_edges``
+    distinct triples whose subject (the receiver) is ``hub``: more than
+    four chunks' worth of slots for one destination in both layouts."""
+    rng = np.random.default_rng(seed)
+    nodes = np.setdiff1d(np.arange(num_nodes), np.arange(*isolated))
+    t = np.stack([rng.choice(nodes, num_edges),
+                  rng.integers(0, num_rels, num_edges),
+                  rng.choice(nodes, num_edges)], axis=1)
+    pair = rng.choice(num_rels * len(nodes), hub_edges, replace=False)
+    hub_t = np.stack([np.full(hub_edges, hub), pair // len(nodes),
+                      nodes[pair % len(nodes)]], axis=1)
+    return np.unique(np.concatenate([t, hub_t]), axis=0).astype(np.int64)
 
 
 def synthetic_nc_data(dataset_name: str) -> NodeClassificationData:

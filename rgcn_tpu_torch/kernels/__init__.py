@@ -36,7 +36,7 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "k1_aggregate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "k2_fused": [_P, _P, _P, _P, _P, _P, _P, _P,
-                 _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                 _I, _I, _I, _I, _I, _I, _I, _P],
     "k3_messages": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "k4_weighted_aggregate": [_P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -103,29 +103,34 @@ def launch_k1_aggregate(
     msgs: torch.Tensor,
     index: Optional[torch.Tensor],
     local_dst: torch.Tensor,
-    block_offsets: torch.Tensor,
+    chunk_block: torch.Tensor,
     num_nodes: int,
     row_block: int,
-    chunk: int,
+    num_row_blocks: int,
 ) -> torch.Tensor:
     """K1: ``out[n] = Σ_{slots l → n} msgs[index[l]]`` (``index`` None reads
-    slot ``l`` of destination-sorted ``msgs``). Returns ``(num_nodes, dout)``."""
+    slot ``l`` of destination-sorted ``msgs``) over a destination layout's
+    ``(n_chunks, CH)`` ``local_dst`` and ``chunk_block``. Returns
+    ``(num_nodes, dout)``; rows past ``num_nodes`` are dropped."""
     dev = msgs.device
-    n_chunks = local_dst.shape[0]
+    _check(local_dst, "local_dst", torch.int32, None)
+    if local_dst.dim() != 2:
+        raise ValueError(
+            f"local_dst: expected (n_chunks, CH), got {tuple(local_dst.shape)}")
+    n_chunks, chunk = local_dst.shape
     num_slots = n_chunks * chunk
-    nrb = block_offsets.shape[0] - 1
-    _check(msgs, "msgs", torch.float32, None)
+    _check(msgs, "msgs", torch.float32, local_dst.device)
     if msgs.dim() != 2:
         raise ValueError(f"msgs: expected (rows, dout), got {tuple(msgs.shape)}")
-    _check(local_dst, "local_dst", torch.int32, dev, (n_chunks, chunk))
-    _check(block_offsets, "block_offsets", torch.int32, dev)
+    _check(chunk_block, "chunk_block", torch.int32, dev, (n_chunks,))
     if index is None:
         if msgs.shape[0] != num_slots:
             raise ValueError(f"msgs rows {msgs.shape[0]} != layout slots {num_slots}")
     else:
         _check(index, "index", torch.int32, dev, (num_slots,))
-    if num_nodes > nrb * row_block:
-        raise ValueError(f"{num_nodes} nodes exceed {nrb} blocks of {row_block}")
+    if num_nodes > num_row_blocks * row_block:
+        raise ValueError(
+            f"{num_nodes} nodes exceed {num_row_blocks} blocks of {row_block}")
     dout = msgs.shape[1]
     out = torch.empty((num_nodes, dout), dtype=torch.float32, device=dev)
     if num_nodes == 0 or dout == 0:
@@ -133,8 +138,8 @@ def launch_k1_aggregate(
     _launch(
         "k1_aggregate", dev, msgs.data_ptr(),
         None if index is None else index.data_ptr(),
-        local_dst.data_ptr(), block_offsets.data_ptr(), out.data_ptr(),
-        nrb, row_block, chunk, dout, num_nodes,
+        local_dst.data_ptr(), chunk_block.data_ptr(), out.data_ptr(),
+        n_chunks, chunk, row_block, dout, num_nodes,
     )
     return out
 
@@ -146,19 +151,26 @@ def launch_k2_fused(
     val: torch.Tensor,
     local_dst: torch.Tensor,
     quantum_rel: torch.Tensor,
-    block_offsets: torch.Tensor,
+    chunk_block: torch.Tensor,
     num_nodes: int,
     row_block: int,
-    chunk: int,
+    num_row_blocks: int,
     quantum: int,
 ) -> torch.Tensor:
-    """K2: ``out[n] = Σ val·(x[src] @ W[rel_q])`` over a fused layout, with
-    the whole ``W`` in shared memory. Returns ``(num_nodes, dout)``."""
+    """K2: ``out[n] = Σ val·(x[src] @ W[rel_q])`` over a fused layout, one
+    quantum per CTA with its ``W[rel_q]`` staged in shared memory. Returns
+    ``(num_nodes, dout)``; rows past ``num_nodes`` are dropped."""
     dev = x.device
-    n_chunks = local_dst.shape[0]
+    _check(local_dst, "local_dst", torch.int32, None)
+    if local_dst.dim() != 2:
+        raise ValueError(
+            f"local_dst: expected (n_chunks, CH), got {tuple(local_dst.shape)}")
+    n_chunks, chunk = local_dst.shape
     num_slots = n_chunks * chunk
-    nrb = block_offsets.shape[0] - 1
-    _check(x, "x", torch.float32, None)
+    if quantum < 1 or chunk % quantum:
+        raise ValueError(f"quantum {quantum} does not divide the chunk {chunk}")
+    n_quanta = num_slots // quantum
+    _check(x, "x", torch.float32, local_dst.device)
     _check(weights, "weights", torch.float32, dev)
     if x.dim() != 2 or weights.dim() != 3 or weights.shape[1] != x.shape[1]:
         raise ValueError(
@@ -167,20 +179,20 @@ def launch_k2_fused(
         )
     _check(src, "src", torch.int32, dev, (num_slots,))
     _check(val, "val", torch.float32, dev, (num_slots,))
-    _check(local_dst, "local_dst", torch.int32, dev, (n_chunks, chunk))
-    _check(quantum_rel, "quantum_rel", torch.int32, dev, (num_slots // quantum,))
-    _check(block_offsets, "block_offsets", torch.int32, dev)
-    if num_nodes > nrb * row_block:
-        raise ValueError(f"{num_nodes} nodes exceed {nrb} blocks of {row_block}")
-    num_rels, din, dout = weights.shape
+    _check(quantum_rel, "quantum_rel", torch.int32, dev, (n_quanta,))
+    _check(chunk_block, "chunk_block", torch.int32, dev, (n_chunks,))
+    if num_nodes > num_row_blocks * row_block:
+        raise ValueError(
+            f"{num_nodes} nodes exceed {num_row_blocks} blocks of {row_block}")
+    _, din, dout = weights.shape
     out = torch.empty((num_nodes, dout), dtype=torch.float32, device=dev)
-    if num_nodes == 0 or dout == 0:
-        return out
+    if num_nodes == 0 or dout == 0 or din == 0:
+        return out.zero_()
     _launch(
         "k2_fused", dev, x.data_ptr(), weights.data_ptr(), src.data_ptr(),
         val.data_ptr(), local_dst.data_ptr(), quantum_rel.data_ptr(),
-        block_offsets.data_ptr(), out.data_ptr(),
-        nrb, num_rels, din, dout, row_block, chunk, quantum, num_nodes,
+        chunk_block.data_ptr(), out.data_ptr(),
+        n_quanta, din, dout, row_block, chunk, quantum, num_nodes,
     )
     return out
 

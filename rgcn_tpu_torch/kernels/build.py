@@ -62,11 +62,17 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
 
 
+def _log_path(library: str) -> str:
+    """nvcc's ptxas report kept beside a built library."""
+    return os.path.splitext(library)[0] + ".ptxas.txt"
+
+
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Build the named kernels (default: all) in parallel.
 
     Returns ``{name: {"path", "seconds", "log", "cached"}}``; ``log`` holds
-    nvcc's ptxas report. Raises ``RuntimeError`` with nvcc's output if any
+    nvcc's ptxas report (kept beside the library, so a cached build still
+    reports it). Raises ``RuntimeError`` with nvcc's output if any
     build fails.
     """
     names = list(SOURCES) if names is None else list(names)
@@ -78,7 +84,11 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     for name in names:
         out = library_path(name)
         if os.path.isfile(out):
-            result[name] = {"path": out, "seconds": 0.0, "log": "",
+            log = ""
+            if os.path.isfile(_log_path(out)):
+                with open(_log_path(out)) as f:
+                    log = f.read()
+            result[name] = {"path": out, "seconds": 0.0, "log": log,
                             "cached": True}
             continue
         nvcc = nvcc or _nvcc()
@@ -95,6 +105,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             if os.path.exists(tmp):
                 os.remove(tmp)
             continue
+        with open(_log_path(out), "w") as f:
+            f.write(log)
         os.replace(tmp, out)
         result[name] = {"path": out, "seconds": time.perf_counter() - t0,
                         "log": log, "cached": False}

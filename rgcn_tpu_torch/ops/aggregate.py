@@ -8,7 +8,11 @@ chunk, so every output row is written.
 
 On a CUDA tensor :func:`aggregate_presorted` and :func:`aggregate_sorted`
 launch the hand-written kernel ``kernels/csrc/k1_aggregate.cu``; on a CPU
-tensor they take the plain PyTorch version beside them.
+tensor they take the plain PyTorch version beside them. The kernel spreads
+each chunk over warps of lane groups that sum runs of one destination in
+registers and finish them with f32 atomics into a zeroed output, so a hub
+row block is spread over as many CTAs as it has chunks; a warp whose span
+holds only pads returns after loading its ``local_dst`` once.
 """
 
 from __future__ import annotations
@@ -25,7 +29,6 @@ __all__ = [
     "DstLayout",
     "build_dst_layout",
     "blocked_sum",
-    "chunk_offsets",
     "aggregate_presorted",
     "aggregate_presorted_plain",
     "aggregate_sorted",
@@ -40,15 +43,11 @@ class DstLayout:
     ``perm`` maps layout position -> edge index, with pad positions
     pointing one past the last edge (an appended zero row); ``num_edges``
     is that edge count, the rows edge-order messages must have.
-    ``block_offsets[b]`` is the first chunk of row block ``b``
-    (``block_offsets[nrb]`` = number of chunks): the kernel's per-block
-    chunk run, derived from the non-decreasing ``chunk_block``.
     """
 
     perm: object  # (L,) int32 — layout position -> edge index
     local_dst: object  # (n_chunks, CH) int32 in [0, RB]
     chunk_block: object  # (n_chunks,) int32 — row block of each chunk
-    block_offsets: object  # (nrb + 1,) int32
     num_edges: int
     num_row_blocks: int
     row_block: int
@@ -60,13 +59,6 @@ class DstLayout:
 
     def to(self, device) -> "DstLayout":
         return arrays_to(self, device)
-
-
-def chunk_offsets(chunk_block: np.ndarray, num_row_blocks: int) -> np.ndarray:
-    """First chunk of each row block (and the chunk count last)."""
-    return np.searchsorted(
-        chunk_block, np.arange(num_row_blocks + 1), side="left"
-    ).astype(np.int32)
 
 
 def build_dst_layout(
@@ -114,7 +106,6 @@ def build_dst_layout(
         perm=perm.astype(np.int32),
         local_dst=local.reshape(n_chunks, chunk),
         chunk_block=chunk_block,
-        block_offsets=chunk_offsets(chunk_block, num_row_blocks),
         num_edges=int(e),
         num_row_blocks=int(num_row_blocks),
         row_block=int(row_block),
@@ -169,8 +160,8 @@ def aggregate_presorted(
     if msgs_sorted.device.type == "cpu":
         return aggregate_presorted_plain(msgs_sorted, layout, num_nodes)
     return kernels.launch_k1_aggregate(
-        msgs_sorted, None, layout.local_dst, layout.block_offsets,
-        num_nodes, layout.row_block, layout.chunk,
+        msgs_sorted, None, layout.local_dst, layout.chunk_block,
+        num_nodes, layout.row_block, layout.num_row_blocks,
     )
 
 
@@ -188,6 +179,6 @@ def aggregate_sorted(
     if messages.device.type == "cpu":
         return aggregate_sorted_plain(messages, layout, num_nodes)
     return kernels.launch_k1_aggregate(
-        messages, layout.perm, layout.local_dst, layout.block_offsets,
-        num_nodes, layout.row_block, layout.chunk,
+        messages, layout.perm, layout.local_dst, layout.chunk_block,
+        num_nodes, layout.row_block, layout.num_row_blocks,
     )

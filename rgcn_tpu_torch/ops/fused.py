@@ -9,7 +9,10 @@ outside every run carry relation ``-1``; their slots have ``val == 0`` and
 
 On a CUDA tensor :func:`rel_spmm_fused` launches
 ``kernels/csrc/k2_fused.cu``; on a CPU tensor it takes
-:func:`rel_spmm_fused_plain`.
+:func:`rel_spmm_fused_plain`. The kernel gives each quantum its own CTA
+(a gap quantum returns after reading its relation), stages that quantum's
+``W[rel]`` alone in shared memory, computes each slot's outputs in
+registers and finishes them with f32 atomics into a zeroed output.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 
 from rgcn_tpu_torch import kernels
 from rgcn_tpu_torch.device import arrays_to
-from rgcn_tpu_torch.ops.aggregate import blocked_sum, chunk_offsets
+from rgcn_tpu_torch.ops.aggregate import blocked_sum
 
 __all__ = [
     "FusedLayout",
@@ -41,7 +44,6 @@ class FusedLayout:
     local_dst: object  # (n_chunks, CH) int32 in [0, RB]; pads = RB
     quantum_rel: object  # (n_quanta,) int32; -1 = gap quantum
     chunk_block: object  # (n_chunks,) int32
-    block_offsets: object  # (nrb + 1,) int32 — first chunk of each block
     num_rels: int  # relations quantum_rel indexes (the W rows)
     num_row_blocks: int
     row_block: int
@@ -136,7 +138,6 @@ def build_fused_layout(
         local_dst=local.reshape(n_chunks, chunk),
         quantum_rel=qrel,
         chunk_block=chunk_block,
-        block_offsets=chunk_offsets(chunk_block, num_row_blocks),
         num_rels=int(edges.num_rels),
         num_row_blocks=int(num_row_blocks),
         row_block=int(row_block),
@@ -175,13 +176,13 @@ def rel_spmm_fused(
     layout: FusedLayout, num_nodes: int, x: torch.Tensor, weights: torch.Tensor
 ) -> torch.Tensor:
     """``out[n] = Σ val·(x[src] @ W[rel_q])`` for ``x (N, din)`` and
-    ``weights (R, din, dout)``, f32. The kernel keeps the whole ``W`` in
-    shared memory: callers check it fits (``ops/rel_spmm.py``)."""
+    ``weights (R, din, dout)``, f32. The kernel stages one ``W[rel]`` per
+    CTA in shared memory; ``ops/rel_spmm.py`` decides when to take it."""
     check_operands(x, weights, num_nodes, layout.num_rels)
     if x.device.type == "cpu":
         return rel_spmm_fused_plain(layout, num_nodes, x, weights)
     return kernels.launch_k2_fused(
         x, weights, layout.src, layout.val, layout.local_dst,
-        layout.quantum_rel, layout.block_offsets, num_nodes,
-        layout.row_block, layout.chunk, layout.quantum,
+        layout.quantum_rel, layout.chunk_block, num_nodes,
+        layout.row_block, layout.num_row_blocks, layout.quantum,
     )

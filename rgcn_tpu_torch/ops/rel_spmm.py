@@ -26,15 +26,16 @@ __all__ = [
     "fwd_spmm",
 ]
 
-# Shared memory one H100 thread block may use (227 KB, opt-in above 48 KB).
-# K2 stages the whole W and its (RB, dout) f32 accumulator there; this
-# replaces the TPU path's 8 MB VMEM residency budget.
+# The JAX package takes the fused kernel only while the whole W and a
+# (RB, dout) f32 accumulator fit its VMEM budget; the port keeps that rule
+# with the shared memory one H100 thread block may use (227 KB). K2 itself
+# stages one W[rel] per CTA, so the rule is now stricter than the kernel.
 FUSED_SMEM_BUDGET = 232_448
 
 
 def fused_fits(weights: torch.Tensor, row_block: int) -> bool:
-    """Do ``W`` and K2's ``(row_block, dout)`` accumulator fit one block's
-    shared memory in f32?"""
+    """Do ``W`` and a ``(row_block, dout)`` accumulator fit
+    :data:`FUSED_SMEM_BUDGET` in f32?"""
     return (weights.numel() + row_block * weights.shape[-1]) * 4 <= FUSED_SMEM_BUDGET
 
 

@@ -61,7 +61,8 @@ def _layout_blocks(layout) -> dict:
     return _blocks(real, layout.chunk_block, layout.chunk, layout.num_row_blocks)
 
 
-def _profile(fn) -> dict:
+def profile_calls(fn) -> dict:
+    """Host-clock times of ``fn()`` and its device time per kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     def call():
@@ -109,8 +110,8 @@ def profile_nc(dev) -> dict:
     branch = NodeClassificationServer(
         srv.model, dataclasses.replace(srv.edges, fused=None))
     return {
-        "main": _profile(srv.refresh),
-        "k3_k1_branch": _profile(branch.refresh),
+        "main": profile_calls(srv.refresh),
+        "k3_k1_branch": profile_calls(branch.refresh),
         "row_blocks": {"k1_layout": _layout_blocks(srv.edges.layout),
                        "k2_fused": _layout_blocks(srv.edges.fused)},
     }
@@ -133,9 +134,9 @@ def profile_lp(dev) -> dict:
     queries = train[np.random.default_rng(2).integers(0, len(train), 1024), :2]
     dd = dedup.fwd_dedup
     return {
-        "encode_k4_merged": _profile(srv.refresh),
-        "encode_k5_dedup_branch": _profile(branch.refresh),
-        "topk_tails_1024": _profile(lambda: srv.topk_tails(queries, k=10)),
+        "encode_k4_merged": profile_calls(srv.refresh),
+        "encode_k5_dedup_branch": profile_calls(branch.refresh),
+        "topk_tails_1024": profile_calls(lambda: srv.topk_tails(queries, k=10)),
         "row_blocks": {
             "k4_merged": _layout_blocks(es.merged.layout),
             "k5_dedup": _blocks((dd.local_k < dd.row_block).any(0).reshape(-1),

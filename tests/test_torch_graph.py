@@ -32,14 +32,18 @@ def _eq_meta(got, want, fields, what):
         assert getattr(got, f) == getattr(want, f), f"{what}.{f}"
 
 
-def _check_offsets(layout):
-    """block_offsets is each row block's contiguous chunk run."""
-    cb = layout.chunk_block
-    bo = layout.block_offsets
-    assert bo[0] == 0 and bo[-1] == len(cb)
-    for b in range(layout.num_row_blocks):
-        run = cb[bo[b]:bo[b + 1]]
-        assert len(run) >= 1 and (run == b).all()
+def _chunk_fill(layout):
+    """Real slots of each chunk, after checking that they fill a prefix of
+    it (pads trail), that chunk_block is non-decreasing and that every row
+    block owns a chunk."""
+    real = layout.local_dst < layout.row_block
+    fill = real.sum(axis=1)
+    prefix = np.arange(layout.chunk)[None, :] < fill[:, None]
+    np.testing.assert_array_equal(real, prefix)
+    assert (np.diff(layout.chunk_block) >= 0).all()
+    np.testing.assert_array_equal(np.unique(layout.chunk_block),
+                                  np.arange(layout.num_row_blocks))
+    return fill
 
 
 def _eq_edge_set(got, want, what="es"):
@@ -49,8 +53,7 @@ def _eq_edge_set(got, want, what="es"):
     _eq_meta(got.layout, want.layout, LAYOUT_META, f"{what}.layout")
     _eq_arrays(got.fused, want.fused, FUSED_FIELDS, f"{what}.fused")
     _eq_meta(got.fused, want.fused, FUSED_META, f"{what}.fused")
-    _check_offsets(got.layout)
-    _check_offsets(got.fused)
+    _chunk_fill(got.layout)
 
 
 def _graph(kind):
@@ -133,7 +136,35 @@ def test_dst_layout_bit_equal(row_block, chunk):
                                  prefer_native=False)
     _eq_arrays(got, want, LAYOUT_FIELDS, "layout")
     _eq_meta(got, want, LAYOUT_META, "layout")
-    _check_offsets(got)
+    _chunk_fill(got)
+
+
+def test_skewed_layouts_bit_equal_and_filled():
+    """The skewed graph the kernel tests use (a hub spanning many chunks,
+    row blocks of pads only): the JAX-equal fields stay bit-equal, the
+    hub's chunks are full and the empty blocks' chunks hold pads only."""
+    t = tsyn.skew_triples()
+    got = tstruct.build_edge_set(t, 1536, 4, with_dst_layout=True)
+    want = jstruct.build_edge_set(t, 1536, 4, with_dst_layout=True,
+                                  prefer_native=False)
+    _eq_edge_set(got, want)
+    _eq_edge_set(got.reverse, want.reverse, "reverse")
+    lay = got.layout
+    fill = _chunk_fill(lay)
+    hub = lay.chunk_block == 0
+    assert hub.sum() > 4 and (fill[hub][:-1] == lay.chunk).all()
+    empty = (lay.chunk_block >= 4) & (lay.chunk_block < 8)  # nodes 512..1023
+    assert empty.sum() == 4 and (fill[empty] == 0).all()
+
+
+def test_aifb_like_chunk_fill():
+    """At nc-AIFB each chunk's real slots fill a prefix of it: 58,000 of the
+    layout's 66,816 slots, the rest trailing pads a K1 warp skips after
+    one vote."""
+    d = tsyn.aifb_like()
+    es = tstruct.build_edge_set(d.triples, d.num_nodes, d.num_relations,
+                                with_dst_layout=True)
+    assert int(_chunk_fill(es.layout).sum()) == 58_000 == es.num_edges
 
 
 @pytest.mark.parametrize("n", [1, 1000, 82_000, 300_000, 2_000_000])
@@ -161,6 +192,6 @@ def test_edge_set_to_device_keeps_values():
     assert dev.layout.perm.dtype == torch.int32
     assert dev.fused.quantum_rel.dtype == torch.int32
     np.testing.assert_array_equal(dev.reverse.fused.val.numpy(), es.reverse.fused.val)
-    np.testing.assert_array_equal(dev.layout.block_offsets.numpy(),
-                                  es.layout.block_offsets)
+    np.testing.assert_array_equal(dev.layout.chunk_block.numpy(),
+                                  es.layout.chunk_block)
     assert dev.num_tiles == es.num_tiles and dev.layout.num_chunks == es.layout.num_chunks

@@ -35,6 +35,7 @@ MODULES = [
     "rgcn_tpu_torch.serve_links",
     "rgcn_tpu_torch.weights",
     "rgcn_tpu_torch.profile_serve",
+    "rgcn_tpu_torch.compare_k2",
 ]
 
 
@@ -105,10 +106,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     i32 = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.launch_k1_aggregate(torch.zeros((8, 2)), None,
-                                    i32.reshape(1, 8), i32[:2], 4, 4, 8)
+                                    i32.reshape(1, 8), i32[:1], 4, 4, 1)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.launch_k2_fused(x, w, i32, torch.zeros(8), i32.reshape(1, 8),
-                                i32[:1], i32[:2], 4, 4, 8, 8)
+                                i32[:1], i32[:1], 4, 4, 1, 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.launch_k3_messages(x, w, i32, torch.zeros(8), i32[:1], 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -177,19 +178,48 @@ def test_basis_wrappers_refuse_node_count_off_layout(num_nodes, device):
 
 
 def test_ctypes_signatures_match_sources():
-    """Each launcher's ctypes argtypes match its C signature in csrc/."""
+    """Each launcher's ctypes argtypes match its C signature in csrc/, and
+    K2's tile variant (bound with K2's argtypes) has K2's signature."""
     import ctypes
 
-    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch import compare_k2, kernels
     from rgcn_tpu_torch.kernels import build
 
-    for name, src in build.SOURCES.items():
+    launchers = [(name, src, name) for name, src in build.SOURCES.items()]
+    launchers.append(("k2_fused_tile", compare_k2.VARIANT, "k2_fused"))
+    for name, src, bound_as in launchers:
         text = open(os.path.join(build.CSRC, src)).read()
         m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
         assert m, f"no extern C launcher {name} in {src}"
         params = [p.strip() for p in m.group(1).split(",")]
         want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
-        assert kernels._ARGTYPES[name] == want, name
+        assert kernels._ARGTYPES[bound_as] == want, name
+
+
+def test_compare_k2_needs_cuda(monkeypatch):
+    """The K2 design comparison runs on the card only: without CUDA it
+    raises before building anything."""
+    from rgcn_tpu_torch import compare_k2
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(compare_k2, "build_tile", lambda: pytest.fail("built"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compare_k2.main([])
+
+
+def test_cached_build_keeps_its_ptxas_report(tmp_path, monkeypatch):
+    """A kernel found built reports the registers and spills of the nvcc
+    run that built it (chip_smoke.py's build phase prints them)."""
+    from rgcn_tpu_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    lib = build.library_path("k1_aggregate")
+    open(lib, "w").close()
+    with open(build._log_path(lib), "w") as f:
+        f.write("ptxas info    : Used 40 registers, used 0 barriers\n")
+    got = build.build_all(["k1_aggregate"])["k1_aggregate"]
+    assert got["cached"] and got["path"] == lib
+    assert "Used 40 registers" in got["log"]
 
 
 def test_serve_nodes_cli_cpu(capsys):

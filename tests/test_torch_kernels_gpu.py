@@ -5,14 +5,18 @@ never at collection). Run on a GPU machine with
 
     python -m pytest -m gpu tests/test_torch_kernels_gpu.py
 
-The shapes reach the kernels' edge cases the nc-AIFB run does not: K1's
-column split when RB x dout exceeds 48 KB, K2's opt-in shared memory above
-48 KB, K3 reading W through L2 when W[rel] exceeds 48 KB, small chunks;
-K4 in both table forms (shared and per-basis rows), with and without
-``sum_bases``, for 1 to 8 bases and widths that are not a multiple of 32,
-over merged and unmerged frames; K5 with 2 and 3 lanes.
+The shapes reach the kernels' edge cases the nc-AIFB run does not: K1 at
+every lane mapping (dout 4, 16, 7 and 200: one, four, eight scalar and 32
+lanes per slot, the last with two column groups), with and without the
+perm index, on small chunks; K2 at several (din, dout), scalar and vector
+gathers; the skewed graph (``skew_triples``: one destination spanning
+many chunks, row blocks of pads only, all-gap fused chunks) and a node
+count inside the layout's last block; K3 reading W through L2 when W[rel]
+exceeds 48 KB; K4 in both table forms (shared and per-basis rows), with
+and without ``sum_bases``, for 1 to 8 bases and widths that are not a
+multiple of 32, over merged and unmerged frames; K5 with 2 and 3 lanes.
 Tolerance: max abs diff <= 1e-5 * max(1, max|ref|) (f32 sums reordered by
-shared-memory atomics).
+atomics).
 """
 
 import dataclasses
@@ -22,6 +26,7 @@ import pytest
 import torch
 
 from rgcn_tpu_torch import kernels
+from rgcn_tpu_torch.data.synthetic import skew_triples
 from rgcn_tpu_torch.graph.structure import build_edge_set
 from rgcn_tpu_torch.graph.coalesce import build_merged_layout
 from rgcn_tpu_torch.ops import aggregate as agg
@@ -59,7 +64,7 @@ def _t(rng, dev, *shape, scale=1.0):
         rng.standard_normal(shape).astype(np.float32) * scale).to(dev)
 
 
-@pytest.mark.parametrize("dout,rb", [(16, 128), (200, 128), (7, 64)])
+@pytest.mark.parametrize("dout,rb", [(16, 128), (4, 128), (200, 128), (7, 64)])
 def test_k1(cuda, dout, rb):
     es, rng = _edges(900, 5, 4000, 1, cuda, layout_row_block=rb)
     msgs = _t(rng, cuda, es.src.shape[0], dout)
@@ -81,7 +86,37 @@ def test_k1_small_chunks(cuda):
            agg.aggregate_presorted_plain(ms, lay, 300))
 
 
-@pytest.mark.parametrize("din,dout", [(16, 4), (32, 40), (64, 8)])
+@pytest.mark.parametrize("dout", [4, 16, 7, 200])
+def test_k1_skewed(cuda, dout):
+    """A destination spanning many chunks, and row blocks of pads only."""
+    es = build_edge_set(skew_triples(), 1536, 4, with_dst_layout=True).to(cuda)
+    lay = es.layout
+    hub_chunks = int((lay.chunk_block == 0).sum().item())
+    pad_chunks = int((lay.local_dst >= lay.row_block).all(1).sum().item())
+    assert hub_chunks > 4 and pad_chunks >= 4
+    rng = np.random.default_rng(3)
+    msgs = _t(rng, cuda, es.src.shape[0], dout)
+    got = agg.aggregate_sorted(msgs, lay, 1536)
+    _close(got, agg.aggregate_sorted_plain(msgs, lay, 1536))
+    assert (got[512:1024] == 0).all()  # the isolated nodes' rows
+    ms = _t(rng, cuda, lay.perm.shape[0], dout)
+    _close(agg.aggregate_presorted(ms, lay, 1536),
+           agg.aggregate_presorted_plain(ms, lay, 1536))
+
+
+@pytest.mark.parametrize("dout", [4, 16])
+def test_k1_drops_rows_past_the_output(cuda, dout):
+    """A node count inside the layout's last block (300 nodes, 290 kept)."""
+    rng = np.random.default_rng(4)
+    dst = rng.integers(0, 301, 2000).astype(np.int32)
+    lay = agg.build_dst_layout(dst, 300, row_block=64, chunk=64).to(cuda)
+    ms = _t(rng, cuda, lay.perm.shape[0], dout)
+    got = agg.aggregate_presorted(ms, lay, 290)
+    assert got.shape == (290, dout)
+    _close(got, agg.aggregate_presorted_plain(ms, lay, 300)[:290])
+
+
+@pytest.mark.parametrize("din,dout", [(16, 4), (32, 40), (64, 8), (6, 5)])
 def test_k2(cuda, din, dout):
     es, rng = _edges(1300, 6, 6000, 3, cuda)
     x = torch.relu(_t(rng, cuda, 1300, din))
@@ -91,6 +126,25 @@ def test_k2(cuda, din, dout):
     _close(fz.rel_spmm_fused(es.fused, 1300, x, w),
            fz.rel_spmm_fused_plain(es.fused, 1300, x, w))
     assert kernels.LAUNCHES["k2_fused"] == n0 + 1
+
+
+@pytest.mark.parametrize("din,dout", [(16, 4), (32, 40)])
+def test_k2_skewed(cuda, din, dout):
+    """A destination spanning more than four fused chunks, all-gap chunks,
+    and a node count inside the last row block."""
+    es = build_edge_set(skew_triples(), 1536, 4, with_dst_layout=True).to(cuda)
+    fl = es.fused
+    gap = (fl.quantum_rel.reshape(fl.num_chunks, -1) < 0).all(1)
+    assert int((fl.chunk_block == 0).sum().item()) > 4 and bool(gap.any())
+    rng = np.random.default_rng(5)
+    x = torch.relu(_t(rng, cuda, 1536, din))
+    w = _t(rng, cuda, 8, din, dout, scale=din ** -0.5)
+    got = fz.rel_spmm_fused(fl, 1536, x, w)
+    _close(got, fz.rel_spmm_fused_plain(fl, 1536, x, w))
+    assert (got[512:1024] == 0).all()
+    got = fz.rel_spmm_fused(fl, 1500, x, w)
+    assert got.shape == (1500, dout)
+    _close(got, fz.rel_spmm_fused_plain(fl, 1536, x, w)[:1500])
 
 
 @pytest.mark.parametrize("din,dout", [(16, 4), (128, 128)])

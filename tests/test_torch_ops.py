@@ -14,6 +14,7 @@ from rgcn_tpu.ops import pallas_aggregate as jagg
 from rgcn_tpu.ops import pallas_fused as jfused
 from rgcn_tpu.ops import pallas_spmm as jspmm
 from rgcn_tpu.ops import spmm as jops
+from rgcn_tpu_torch.data.synthetic import skew_triples
 from rgcn_tpu_torch.graph.structure import build_edge_set as t_build
 from rgcn_tpu_torch.ops import aggregate as tagg
 from rgcn_tpu_torch.ops import fused as tfused
@@ -26,7 +27,7 @@ TOL = dict(rtol=1e-5, atol=1e-6)
 
 def _graph(n, r, e, seed, **kw):
     rng = np.random.default_rng(seed)
-    t = make_random_triples(rng, n, r, e)
+    t = skew_triples(seed) if e is None else make_random_triples(rng, n, r, e)
     jes = j_build(t, n, r, with_dst_layout=True, prefer_native=False, **kw)
     tes = t_build(t, n, r, with_dst_layout=True, **kw).to("cpu")
     return jes, tes, rng
@@ -40,10 +41,13 @@ CASES = [
     dict(n=60, r=4, e=250, seed=1, tile_size=16),
     dict(n=700, r=5, e=3000, seed=2),  # several row blocks
     dict(n=300, r=3, e=1200, seed=3, layout_row_block=64),
+    # a hub spanning many chunks; row blocks of pads only, all-gap chunks
+    dict(n=1536, r=4, e=None, seed=4),
 ]
+IDS = ["small", "blocks", "rb64", "skewed"]
 
 
-@pytest.mark.parametrize("case", CASES, ids=["small", "blocks", "rb64"])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_k1_plain_matches_pallas(case):
     case = dict(case)
     n, r, e, seed = (case.pop(k) for k in ("n", "r", "e", "seed"))
@@ -62,7 +66,7 @@ def test_k1_plain_matches_pallas(case):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
-@pytest.mark.parametrize("case", CASES, ids=["small", "blocks", "rb64"])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_k2_plain_matches_pallas(case):
     case = dict(case)
     n, r, e, seed = (case.pop(k) for k in ("n", "r", "e", "seed"))
@@ -78,7 +82,7 @@ def test_k2_plain_matches_pallas(case):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
-@pytest.mark.parametrize("case", CASES, ids=["small", "blocks", "rb64"])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_k3_plain_matches_pallas(case):
     case = dict(case)
     n, r, e, seed = (case.pop(k) for k in ("n", "r", "e", "seed"))
