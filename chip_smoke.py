@@ -18,10 +18,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    torch.profiler records over 50 calls; "call_ms", "plain_call_ms" and
    "library_call_ms" are the CUDA-event time per call of 50 calls back to
    back, which includes the host's launch cost when that is the longer.
-   Then the hub case: K1 (dout 16 and 4) and K2 on a skewed graph where
-   one destination receives more than four chunks' worth of slots and a
-   row block holds pad chunks only (fused: gap quanta only), against their
-   plain versions;
+   Then the hub case: K1 (dout 16 and 4), K2, and K4 and K5 (width 200,
+   2 bases, over the graph's merged frame and its dedup frame) on a skewed
+   graph where one destination receives more than four chunks' worth of
+   slots and a row block holds pad chunks only (fused: gap quanta only),
+   against their plain versions; K4 and K5 write into memory that held NaN
+   and must leave the isolated nodes' rows 0 and return node-major storage;
 4. serving nc-AIFB, two paths, each with the launch counts zeroed just
    before it and read just after: the main path, load_nc_server on
    configs/rgcn/nc-AIFB.yaml with the AIFB-scale synthetic graph at full
@@ -37,7 +39,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    unmerged destination layout, and K5 over the source-dedup'd frame, each
    held against its plain version with the same tolerance and timed as in
    phase 3; the yardstick is one torch.sparse.mm of the (nb*N, N) CSR
-   matrix carrying w[b, slot] at (b*N + dst, src) with x;
+   matrix carrying w[b, slot] at (b*N + dst, src) with x. Then the encode's
+   closing product over K4's node-major output (one (N, nb*200) @
+   (nb*200, 200) GEMM) against the einsum over a basis-major copy, each
+   profiled (device time per kernel, one JSON line);
 6. serving lp-WN18, two paths, counts zeroed before each: the main path,
    load_lp_server on configs/rgcn/lp-WN18.yaml with wn18_like() at full
    width (200, basis 2), answering point scores of 8 test triples, top-10
@@ -106,23 +111,26 @@ def cuda_ms(fn, iters: int = TIMING_ITERS, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = TIMING_ITERS, warmup: int = 5) -> float:
+def device_ms(fn, iters: int = TIMING_ITERS, warmup: int = 5, tries: int = 3) -> float:
     """Summed device time of the kernels ``fn()`` launches, per call, from
-    torch.profiler over ``iters`` calls (host launch cost excluded)."""
+    torch.profiler over ``iters`` calls (host launch cost excluded). A
+    profile that holds no device event at all is taken again, up to
+    ``tries`` times (the profiler now and then delivers none)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        fail("torch.profiler recorded no device time")
-    return us / iters / 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / iters / 1e3
+    fail(f"torch.profiler recorded no device time in {tries} profiles")
 
 
 def timed(fn) -> tuple:
@@ -310,12 +318,15 @@ def phase_kernels(dev, data, edges):
 
 
 def phase_skew(dev):
-    """K1 and K2 on a hub graph against their plain versions: one
+    """K1, K2, K4 and K5 on a hub graph against their plain versions: one
     destination with more than four chunks' worth of slots, row blocks of
-    pad chunks only."""
+    pad chunks only (K4 and K5 into memory that held NaN: the rows no slot
+    reaches must come out 0 without a memset)."""
     from rgcn_tpu_torch.data.synthetic import skew_triples
+    from rgcn_tpu_torch.graph.coalesce import build_merged_layout
     from rgcn_tpu_torch.graph.structure import build_edge_set
     from rgcn_tpu_torch.ops import aggregate as agg
+    from rgcn_tpu_torch.ops import basis as bs
     from rgcn_tpu_torch.ops import fused as fz
 
     n = 1536
@@ -345,6 +356,35 @@ def phase_skew(dev):
     x, w = torch.relu(rand(n, 16)), rand(8, 16, 4, scale=0.3)
     check_close("K2 hub rel_spmm_fused", fz.rel_spmm_fused(fl, n, x, w),
                 fz.rel_spmm_fused_plain(fl, n, x, w))
+
+    # K4 (merged frame) and K5 (its dedup frame) at lp-WN18's width and bases
+    m = build_merged_layout(es.dst.cpu().numpy(), es.src.cpu().numpy(),
+                            es.rel.cpu().numpy(), es.val.cpu().numpy(), n,
+                            es.num_rels, dedup_k=2).to(dev)
+    lay, dd = m.layout, m.fwd_dedup
+    hub4 = int((lay.chunk_block == 0).sum().item())
+    hub5 = int((dd.chunk_block == 0).sum().item())
+    log(f"  K4 hub block {hub4} chunks of {lay.chunk}, K5 hub block {hub5} chunks")
+    if not (hub4 > 4 and hub5 > 4):
+        fail("hub graph: the merged or dedup frame has no hub past four chunks")
+    x, comps = torch.relu(rand(n, 200)), rand(es.num_rels, 2, scale=0.3)
+    wv = bs.merged_wvec(m.coeff, comps)
+    w_k = torch.einsum("klr,rb->kbl", dd.coeff_k, comps).contiguous()
+    for label, call, plain in (
+        ("K4 hub merged", lambda: bs.weighted_aggregate(x, m.src_sorted, wv, lay, n),
+         lambda: bs.weighted_aggregate_plain(x, m.src_sorted, wv, lay, n)),
+        ("K5 hub dedup", lambda: bs.weighted_aggregate_dedup(x, dd.src_sorted, w_k, dd, n),
+         lambda: bs.weighted_aggregate_dedup_plain(x, dd.src_sorted, w_k, dd, n)),
+    ):
+        junk = torch.full((n, 2, 200), float("nan"), device=dev)
+        del junk  # the caching allocator hands this memory to the output
+        got = call()
+        if not got.permute(1, 0, 2).is_contiguous():
+            fail(f"{label}: the output is not a view of node-major storage")
+        ref = plain()
+        check_close(label, got, ref)
+        if not bool((got[:, 512:1024] == 0).all()):
+            fail(f"{label}: the isolated nodes' rows are not 0")
 
 
 def launches(**counts) -> dict:
@@ -451,6 +491,7 @@ def phase_lp_kernels(dev, edges, dedup):
     """K4 (three modes) and K5 at the lp-WN18 shapes against their plain
     versions; returns (main-path rows for K4 and K5, extra K4 modes)."""
     from rgcn_tpu_torch.ops import basis as bs
+    from rgcn_tpu_torch.profile_serve import profile_calls
 
     rng = np.random.default_rng(1)
     m = edges.merged
@@ -506,6 +547,20 @@ def phase_lp_kernels(dev, edges, dedup):
     a = lp_csr(torch.cat([b * n + node for b in range(nb)]), src_k.repeat(nb),
                w[:, keep].reshape(-1), (nb * n, n))
     rows.append(k4_row("K4 merged", x, m.src_sorted, w, lay, False, (a, x)))
+
+    # the encode's closing product over K4's node-major output: one GEMM,
+    # against the einsum over a basis-major aggregate (the layout K4 wrote
+    # before), which copies its operand first; device time per kernel
+    agg = bs.weighted_aggregate(x, m.src_sorted, w, lay, n)
+    bases = rand(nb, din, 200, scale=din ** -0.5)
+    basis_major = agg.contiguous()
+    check_close("closing product vs einsum", bs.closing_product(agg, bases),
+                torch.einsum("bni,bio->no", basis_major, bases))
+    log(json.dumps({"closing_product_us": {
+        "node_major_gemm": profile_calls(lambda: bs.closing_product(agg, bases))["kernels_us"],
+        "basis_major_einsum": profile_calls(
+            lambda: torch.einsum("bni,bio->no", basis_major, bases))["kernels_us"],
+    }}))
 
     # K4, per-basis (nb, N, 200) rows summed over bases
     xb = rand(nb, n, din)

@@ -40,20 +40,13 @@ def build_tile():
     """nvcc the tile variant (always afresh: it includes k2_fused.cu) and
     bind it with K2's ctypes signature; returns (function, ptxas report)."""
     from rgcn_tpu_torch import kernels
-    from rgcn_tpu_torch.kernels import build
+    from rgcn_tpu_torch.kernels.build import build_variant
 
-    os.makedirs(build.BUILD_DIR, exist_ok=True)
-    out = os.path.join(build.BUILD_DIR, "k2_fused_tile.so")
-    proc = subprocess.run(
-        [build._nvcc(), *build.NVCC_FLAGS, "-o", out, os.path.join(build.CSRC, VARIANT)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc {VARIANT} failed:\n{proc.stdout}{proc.stderr}")
-    fn = ctypes.CDLL(out).k2_fused_tile
+    path, ptxas = build_variant(VARIANT)
+    fn = ctypes.CDLL(path).k2_fused_tile
     fn.argtypes = kernels._ARGTYPES["k2_fused"]
     fn.restype = ctypes.c_int
-    return fn, proc.stdout + proc.stderr
+    return fn, ptxas
 
 
 def tile_call(fn, layout, num_nodes, x, weights):
@@ -71,6 +64,35 @@ def tile_call(fn, layout, num_nodes, x, weights):
     return out
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    return smi.stdout.strip()
+
+
+def compare(designs: dict, order, ref: torch.Tensor) -> dict:
+    """Hold each of ``designs`` (name -> call) against ``ref`` (max abs
+    diff <= 1e-5 * max(1, max|ref|), else raise), then take each one's
+    device ms per call (``profile_calls``) in ``order``; returns ``{name:
+    {"max_abs_err", "tol", "device_ms": [...], "kernels_us": {...}}}``, the
+    last with the per-kernel split of the design's last profile."""
+    from rgcn_tpu_torch.profile_serve import profile_calls
+
+    tol = 1e-5 * max(1.0, ref.abs().max().item())
+    report = {}
+    for name, call in designs.items():
+        err = (call() - ref).abs().max().item()
+        if not err <= tol:
+            raise RuntimeError(f"{name}: max abs err {err} > {tol}")
+        report[name] = {"max_abs_err": err, "tol": tol, "device_ms": []}
+    for name in order:
+        prof = profile_calls(designs[name])
+        report[name]["device_ms"].append(sum(prof["kernels_us"].values()) / 1e3)
+        report[name]["kernels_us"] = prof["kernels_us"]
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.parse_args(argv)
@@ -79,11 +101,8 @@ def main(argv=None):
     from rgcn_tpu_torch.data.synthetic import aifb_like
     from rgcn_tpu_torch.graph.structure import build_edge_set
     from rgcn_tpu_torch.ops import fused as fz
-    from rgcn_tpu_torch.profile_serve import profile_calls
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip(), flush=True)
+    print(card(), flush=True)
     fn, ptxas = build_tile()
     print(ptxas.strip(), flush=True)
 
@@ -96,22 +115,13 @@ def main(argv=None):
         rng.standard_normal((n, 16)).astype(np.float32)).to(dev))
     w = torch.from_numpy((rng.standard_normal((edges.num_rels, 16, data.num_classes))
                           * 0.3).astype(np.float32)).to(dev)
-    ref = fz.rel_spmm_fused_plain(fl, n, x, w)
-    tol = 1e-5 * max(1.0, ref.abs().max().item())
     designs = {
         "k2_global_atomics": lambda: fz.rel_spmm_fused(fl, n, x, w),
         "k2_shared_tile": lambda: tile_call(fn, fl, n, x, w),
     }
-    report = {}
-    for name, call in designs.items():
-        err = (call() - ref).abs().max().item()
-        if not err <= tol:
-            raise RuntimeError(f"{name}: max abs err {err} > {tol}")
-        report[name] = {"max_abs_err": err, "tol": tol, "device_ms": []}
-    for name in ("k2_global_atomics", "k2_shared_tile",
-                 "k2_shared_tile", "k2_global_atomics"):
-        prof = profile_calls(designs[name])
-        report[name]["device_ms"].append(sum(prof["kernels_us"].values()) / 1e3)
+    report = compare(designs, ("k2_global_atomics", "k2_shared_tile",
+                               "k2_shared_tile", "k2_global_atomics"),
+                     fz.rel_spmm_fused_plain(fl, n, x, w))
     print(json.dumps({"device": torch.cuda.get_device_name(dev),
                       "shapes": {"x": list(x.shape), "w": list(w.shape),
                                  "slots": fl.src.shape[0], "chunks": fl.num_chunks,

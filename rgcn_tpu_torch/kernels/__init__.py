@@ -1,7 +1,10 @@
 """ctypes bindings of the hand-written Hopper kernels, with launch counters.
 
 Each ``launch_*`` function checks its tensors (CUDA device, dtype, shape,
-contiguity), allocates the output with ``torch.empty``, launches on
+contiguity), allocates the output with ``torch.empty`` (zeroing, where a
+kernel needs it, is the C launcher's: K1 and K2 memset their outputs; K4
+zeroes only the rows two chunks share, K5 the rows of row blocks with
+several chunks), launches on
 ``torch.cuda.current_stream()``, raises if the C launcher reports a CUDA
 error, and adds one to its kernel's count in :data:`LAUNCHES`. The count
 moves nowhere else, so a run that resets the counts and reads them after
@@ -46,7 +49,7 @@ _ARGTYPES = {
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 # K4/K5 keep one sum per basis in registers: their launchers instantiate
-# 1 to 8 bases (csrc/k4_*.cu, k5_*.cu)
+# 1 to 8 bases (csrc/weighted_runs.cuh)
 _NB_MAX = 8
 
 
@@ -247,8 +250,11 @@ def launch_k4_weighted_aggregate(
     """K4: ``out[b, n] = Σ_{slots l → n} w[b, l] · row(b, l)``, where
     ``row(b, l)`` is ``x[src[l]]`` for a shared ``(rows, din)`` table or
     ``x[b, src[l]]`` for per-basis ``(nb, rows, din)`` tables; the kernel
-    gathers the rows itself. ``sum_bases`` sums over ``b``. Returns
-    ``(nb or 1, num_nodes, din)``."""
+    gathers the rows itself. ``sum_bases`` sums over ``b``. The layout's
+    slots must be sorted by destination within each row block, as every
+    DstLayout builder makes them: a chunk stores the rows it owns outright.
+    Returns ``(nb or 1, num_nodes, din)``, a view of node-major
+    ``(num_nodes, nb or 1, din)`` storage."""
     dev = x.device
     n_chunks, chunk = local_dst.shape
     num_slots = n_chunks * chunk
@@ -269,17 +275,17 @@ def launch_k4_weighted_aggregate(
     _check(chunk_block, "chunk_block", torch.int32, dev, (n_chunks,))
     _check_blocks(num_nodes, row_block, num_row_blocks)
     din, rows = x.shape[-1], x.shape[-2]
-    out = torch.empty((1 if sum_bases else nb, num_nodes, din),
+    out = torch.empty((num_nodes, 1 if sum_bases else nb, din),
                       dtype=torch.float32, device=dev)
     if num_nodes == 0 or din == 0 or n_chunks == 0:
-        return out.zero_()
+        return out.zero_().permute(1, 0, 2)
     _launch(
         "k4_weighted_aggregate", dev, x.data_ptr(), src.data_ptr(),
         w.data_ptr(), local_dst.data_ptr(), chunk_block.data_ptr(),
         out.data_ptr(), n_chunks, chunk, row_block, nb, din, rows, num_nodes,
         int(per_basis), int(sum_bases),
     )
-    return out
+    return out.permute(1, 0, 2)
 
 
 def launch_k5_weighted_aggregate_dedup(
@@ -293,8 +299,9 @@ def launch_k5_weighted_aggregate_dedup(
     num_row_blocks: int,
 ) -> torch.Tensor:
     """K5: ``out[b, n] = Σ_{slots l, lanes k → n} w_k[k, b, l] · x[src[l]]``
-    over a source-dedup'd frame (each slot's row gathered once, fanned out
-    to its K lanes). Returns ``(nb, num_nodes, din)``."""
+    over a source-dedup'd frame (the lanes merged per destination on chip).
+    Returns ``(nb, num_nodes, din)``, a view of node-major ``(num_nodes, nb,
+    din)`` storage."""
     dev = x.device
     _check(local_k, "local_k", torch.int32, None)
     if local_k.dim() != 3:
@@ -316,12 +323,12 @@ def launch_k5_weighted_aggregate_dedup(
     _check(chunk_block, "chunk_block", torch.int32, dev, (n_chunks,))
     _check_blocks(num_nodes, row_block, num_row_blocks)
     din = x.shape[1]
-    out = torch.empty((nb, num_nodes, din), dtype=torch.float32, device=dev)
+    out = torch.empty((num_nodes, nb, din), dtype=torch.float32, device=dev)
     if num_nodes == 0 or din == 0 or n_chunks == 0:
-        return out.zero_()
+        return out.zero_().permute(1, 0, 2)
     _launch(
         "k5_weighted_aggregate_dedup", dev, x.data_ptr(), src.data_ptr(),
         w_k.data_ptr(), local_k.data_ptr(), chunk_block.data_ptr(),
         out.data_ptr(), n_chunks, chunk, row_block, kk, nb, din, num_nodes,
     )
-    return out
+    return out.permute(1, 0, 2)

@@ -3,21 +3,24 @@
 Each source under ``csrc/`` has a plain C interface and compiles on its own
 (one nvcc process per source, all started together) into
 ``build/rgcn_tpu_torch/<name>-<hash>.so`` at the root of the checkout, where
-``<hash>`` is taken over the source, so an edited source is rebuilt and an
-unchanged one is reused. Nothing is built at import: the first launch of a
-kernel builds it, or call :func:`build_all` first to build them all.
+``<hash>`` is taken over the source and the local headers it includes, so
+an edited source is rebuilt and an unchanged one is reused. Nothing is
+built at import: the first launch of a kernel builds it, or call
+:func:`build_all` first to build them all. :func:`build_variant` builds a
+rejected design kept under ``csrc/variants/`` for the comparison scripts.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from typing import Dict, Iterable, Optional
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "library_path"]
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "build_variant", "library_path"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "kernels", "csrc")
@@ -55,11 +58,17 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Path of the built library for kernel ``name`` (may not exist yet)."""
+    """Path of the built library for kernel ``name`` (may not exist yet);
+    the hash covers the source and the local headers it includes."""
     src = os.path.join(CSRC, SOURCES[name])
+    h = hashlib.sha256()
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+        text = f.read()
+    h.update(text)
+    for header in re.findall(rb'^#include "([^"]+)"', text, re.M):
+        with open(os.path.join(CSRC, header.decode()), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def _log_path(library: str) -> str:
@@ -113,3 +122,19 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return result
+
+
+def build_variant(source: str) -> tuple:
+    """nvcc ``csrc/<source>`` (a design kept for comparison, under
+    ``variants/``) afresh into ``build/rgcn_tpu_torch/``; returns
+    ``(library path, nvcc's ptxas report)``. Always rebuilt: a variant may
+    include a kernel's source or header."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, os.path.splitext(os.path.basename(source))[0] + ".so")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", out, os.path.join(CSRC, source)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc {source} failed:\n{proc.stdout}{proc.stderr}")
+    return out, proc.stdout + proc.stderr

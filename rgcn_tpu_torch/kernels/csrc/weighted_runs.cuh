@@ -1,0 +1,471 @@
+// The design K4 (k4_weighted_aggregate.cu) and K5
+// (k5_weighted_aggregate_dedup.cu) share: a weighted destination sum over a
+// chunked row-block frame, merged per destination on chip and written to a
+// node-major output once, for Hopper (sm_90a).
+//
+// Frame. Slot t of chunk c (global slot l = c * CH + t) holds one source
+// row src[l] and KK lanes; lane k targets node chunk_block[c] * RB +
+// local[k * L + l] (local == RB: an empty lane) with the weight
+// w[(k * NB + b) * L + l] for basis b < NB. K4 is the frame with KK = 1
+// (a DstLayout: local_dst, w (NB, L)); K5 the source-dedup'd frame (local_k
+// (KK, L), w_k (KK, NB, L)). The output is node-major, out[n][o][col] with
+// o < NB_OUT, and each lane adds
+//     shared rows (rows, din):        o = b:  w_b * x[src]
+//                                     sum_bases (NB_OUT 1): (sum_b w_b) * x[src]
+//     per-basis rows (NB, rows, din): o = b:  w_b * x[b][src]
+//                                     sum_bases: sum_b w_b * x[b][src]
+// Rows at or past num_nodes are dropped. A slot whose lanes are all empty
+// is a pad: its src and weights are never read.
+//
+// Bound on the H100: bytes. 2 * NB flops per lane and column against the
+// row gather (served mostly from the 50 MB L2) and one write of the whole
+// output; at lp-WN18 (N 40,943, din 200, NB 2) that write is 65.5 MB of
+// the ~83 MB the function must move.
+//
+// Design, one CTA per chunk, all din columns (the chunk's local, src and
+// weights are read by one CTA, once):
+//  1. The CTA counts its chunk's real lanes per local destination
+//     (shared-memory atomics, one per distinct destination of a warp,
+//     found with __match_any_sync), scans the counts into offsets, and
+//     places every real lane, with its source row and its nb weights, at
+//     its destination's place (a counting sort). Whatever order the frame
+//     has (K4's slots are destination-sorted, K5's source-sorted), each
+//     destination's lanes are now contiguous in shared memory.
+//  2. Groups of T threads (T = the power of two at or above the row's
+//     16-byte column vectors, at most the CTA, so that groups of 32 or more
+//     fill whole warps; scalars where din % 4 != 0 or a table is not
+//     16-byte aligned) split the sorted lanes into even spans; a thread
+//     owns one vector of every lane in its group's span, issues the row
+//     loads of several lanes before it sums them, and sums each run of one
+//     destination in registers.
+//  3. Each element of the output is written once where one CTA can own
+//     it. The CTA that holds the only chunk of its row block (known from
+//     chunk_block[c - 1] and chunk_block[c + 1]; the builders give every
+//     row block at least one chunk and keep a block's chunks adjacent) owns
+//     the whole block. In a destination-sorted frame (K4) a chunk of a
+//     longer block owns the rows from its first destination to the next
+//     chunk's (from 0 for the block's first chunk, to RB for its last),
+//     less the at most two rows it shares with a neighbouring chunk. An
+//     owning CTA moves its spans' ends to destination boundaries, so that
+//     every run is a whole destination: it stores each run with plain
+//     coalesced stores and stores zeros to the owned rows no lane reaches.
+//     The rows no CTA owns -- the shared rows of a sorted frame, every row
+//     of a longer block in K5's frame -- are zeroed by a small launch
+//     before (zero_shared_rows) and added to with vector f32 atomics
+//     (red.global.add.v4.f32). No other row is zeroed: the launchers issue
+//     no memset of the output.
+// Sums are taken in another order than a sequential sum (the counting
+// sort and the atomics order lanes freely): results equal it up to f32
+// reassociation.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace wruns {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr size_t kStaticSmem = 48 * 1024;  // above this only with the attribute set
+constexpr size_t kMaxSmem = 232448;        // dynamic shared memory a block may use
+constexpr int kZeroParts = 16;             // CTAs that zero one row block
+
+struct Args {
+  const float* x;          // (rows, din), or (NB, rows, din) per-basis tables
+  const int* src;          // (L,)
+  const float* w;          // (KK, NB, L)
+  const int* local;        // (KK, L)
+  const int* chunk_block;  // (n_chunks,)
+  float* out;              // (num_nodes, NB_OUT, din)
+  long long num_slots;     // L = n_chunks * CH
+  long long table_plane;   // rows * din: the stride of per-basis tables
+  int n_chunks, chunk, row_block, kk, din, num_nodes;
+  int sum_bases;
+  int dst_sorted;          // each row block's slots sorted by destination (K4)
+};
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+// Exclusive scan of a[0, n) in place, a[n] = the total; blockDim.x threads,
+// each a contiguous segment. Ends with the block synchronised.
+__device__ void block_exclusive_scan(int* a, int n, int* warp_sums) {
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int lo = min(static_cast<int>(threadIdx.x) * per, n);
+  const int hi = min(lo + per, n);
+  int s = 0;
+  for (int i = lo; i < hi; ++i) s += a[i];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  int v = s;  // inclusive scan over the warp
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(kFull, v, d);
+    if (lane >= d) v += t;
+  }
+  if (lane == 31) warp_sums[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    int ws = lane < n_warps ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(kFull, ws, d);
+      if (lane >= d) ws += t;
+    }
+    if (lane < n_warps) warp_sums[lane] = ws;
+  }
+  __syncthreads();
+  int run = v - s + (warp > 0 ? warp_sums[warp - 1] : 0);
+  for (int i = lo; i < hi; ++i) {
+    const int c = a[i];
+    a[i] = run;
+    run += c;
+  }
+  if (threadIdx.x == 0) a[n] = warp_sums[n_warps - 1];
+  __syncthreads();
+}
+
+// Shared-memory ints before the sorted lanes: the offsets and cursors and
+// the scan's warp sums, rounded up to 16 bytes.
+__host__ __device__ constexpr int head_ints(int row_block) {
+  return (2 * row_block + 2 + kWarps + 3) / 4 * 4;
+}
+
+// Shared-memory bytes of one CTA: the head, then a lane's {source row,
+// local destination} and its nb weights, then the groups' partial sums (nb
+// vectors of 4 floats a thread at most).
+inline size_t smem_bytes(int row_block, int kk, int chunk, int nb) {
+  return sizeof(int) * static_cast<size_t>(head_ints(row_block)) +
+         (sizeof(int2) + sizeof(float) * nb) * static_cast<size_t>(kk) * chunk +
+         sizeof(float) * 4 * kThreads * nb;
+}
+
+// Before the main kernel: zero the output rows that the main kernel adds
+// to with atomics. CTA (c, y) works for chunk c. A destination-sorted frame
+// (dst_sorted) needs only the rows its chunks split: the last row of chunk
+// c when chunk c + 1 of the same block starts with it. Any other frame
+// needs every row of a block with several chunks: part y of the block of
+// its first chunk c.
+__global__ void zero_shared_rows(const int* __restrict__ chunk_block,
+                                 const int* __restrict__ local,
+                                 float* __restrict__ out, int n_chunks, int chunk,
+                                 int row_block, int row_len, int num_nodes,
+                                 int dst_sorted) {
+  const int c = blockIdx.x;
+  const int blk = chunk_block[c];
+  if (c + 1 >= n_chunks || chunk_block[c + 1] != blk) return;
+  const long long base = static_cast<long long>(blk) * row_block;
+  long long r0, r1;
+  if (dst_sorted) {
+    const long long t = static_cast<long long>(c + 1) * chunk;
+    const int r = local[t];
+    if (blockIdx.y > 0 || local[t - 1] != r) return;
+    r0 = base + r;
+    r1 = r0 + 1;
+  } else {
+    if (c > 0 && chunk_block[c - 1] == blk) return;
+    r0 = base;
+    r1 = base + row_block;
+  }
+  r1 = min(r1, static_cast<long long>(num_nodes));
+  if (r1 <= r0) return;
+  float* p = out + r0 * row_len;
+  const long long n = (r1 - r0) * row_len;
+  // scalars up to a 16-byte boundary, then vectors, then the scalar tail
+  const long long head =
+      min(n, static_cast<long long>((4 - (reinterpret_cast<std::uintptr_t>(p) / 4) % 4) % 4));
+  const long long n4 = (n - head) / 4;
+  if (blockIdx.y == 0) {
+    if (threadIdx.x < head) p[threadIdx.x] = 0.f;
+    for (long long i = head + 4 * n4 + threadIdx.x; i < n; i += blockDim.x) p[i] = 0.f;
+  }
+  float4* p4 = reinterpret_cast<float4*>(p + head);
+  const long long part = (n4 + gridDim.y - 1) / gridDim.y;
+  const long long end = min(n4, (blockIdx.y + 1) * part);
+  for (long long i = blockIdx.y * part + threadIdx.x; i < end; i += blockDim.x)
+    p4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// One run's sums to its row: stored where this CTA owns the row, else added.
+template <int VEC, int NB>
+__device__ __forceinline__ void write_run(float* __restrict__ row, const float (&acc)[NB][VEC],
+                                          int nb_out, int din, bool store) {
+#pragma unroll
+  for (int o = 0; o < NB; ++o) {
+    if (o >= nb_out) break;
+    float* q = row + o * din;
+    if constexpr (VEC == 4) {
+      const float4 t = make_float4(acc[o][0], acc[o][1], acc[o][2], acc[o][3]);
+      if (store) *reinterpret_cast<float4*>(q) = t;
+      else atomicAdd(reinterpret_cast<float4*>(q), t);
+    } else {
+      if (store) *q = acc[o][0];
+      else atomicAdd(q, acc[o][0]);
+    }
+  }
+}
+
+// lanes a thread loads before it sums them: 4 rows, fewer where each lane
+// brings NB per-basis rows or NB accumulators take the registers. With up
+// to 2 bases the kernel is held to 64 registers, 4 CTAs (32 warps) an SM:
+// at lp-WN18 the warps in flight, more than the rows a warp loads at once,
+// set the kernel's pace.
+template <int NB, bool PER_BASIS>
+__host__ __device__ constexpr int batch() {
+  return PER_BASIS ? (NB >= 4 ? 1 : 4 / NB) : (NB <= 4 ? 4 : 2);
+}
+
+template <int VEC, int NB, bool PER_BASIS>
+__global__ void __launch_bounds__(kThreads, NB <= 2 ? 4 : 2) runs_kernel(const Args a) {
+  constexpr int NX = PER_BASIS ? NB : 1;  // row loads per lane
+  constexpr int B = batch<NB, PER_BASIS>();
+  extern __shared__ int smem[];
+  const int RB = a.row_block, CH = a.chunk;
+  int* off = smem;                   // RB + 1
+  int* cursor = off + RB + 1;        // RB + 1
+  int* warp_sums = cursor + RB + 1;  // kWarps
+  int2* lanes = reinterpret_cast<int2*>(smem + head_ints(RB));  // {source row, local dst}
+  float* lane_w = reinterpret_cast<float*>(lanes + a.kk * CH);  // NB weights a lane
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = blockIdx.x;
+  const long long slot0 = static_cast<long long>(c) * CH;
+  const int blk = a.chunk_block[c];
+  const bool first = c == 0 || a.chunk_block[c - 1] != blk;
+  const bool last = c == a.n_chunks - 1 || a.chunk_block[c + 1] != blk;
+  const int nb_out = a.sum_bases ? 1 : NB;
+  // rows [own_lo, own_hi) of the block are this CTA's to write whole: the
+  // whole block for its only chunk; in a destination-sorted frame, from its
+  // first destination (0 for the block's first chunk) to the next chunk's
+  // (RB for the last), less the rows it splits with its neighbours, which
+  // are zeroed before and added to (split_lo, split_hi). Otherwise nothing:
+  // every row is added to.
+  int own_lo = 0, own_hi = 0, split_lo = -1, split_hi = -1;
+  if (first && last) {
+    own_hi = RB;
+  } else if (a.dst_sorted) {
+    const int f0 = a.local[slot0];
+    own_lo = first ? 0 : f0;
+    own_hi = last ? RB : a.local[slot0 + CH];
+    if (!first && a.local[slot0 - 1] == f0) split_lo = f0;
+    if (!last && a.local[slot0 + CH - 1] == own_hi) split_hi = own_hi;
+  }
+
+  // 1. count lanes per destination, sort lanes by destination
+  for (int i = tid; i < RB; i += kThreads) off[i] = 0;
+  __syncthreads();
+  for (int t0 = warp * 32; t0 < CH; t0 += kThreads) {  // warp-uniform trips
+    const int t = t0 + lane;
+    for (int k = 0; k < a.kk; ++k) {
+      const int ld = t < CH ? a.local[k * a.num_slots + slot0 + t] : RB;
+      const unsigned peers = __match_any_sync(kFull, ld);
+      if (ld < RB && lane == __ffs(peers) - 1) atomicAdd(off + ld, __popc(peers));
+    }
+  }
+  __syncthreads();
+  block_exclusive_scan(off, RB, warp_sums);
+  for (int i = tid; i < RB; i += kThreads) cursor[i] = off[i];
+  __syncthreads();
+  for (int t0 = warp * 32; t0 < CH; t0 += kThreads) {
+    const int t = t0 + lane;
+    for (int k = 0; k < a.kk; ++k) {
+      const int ld = t < CH ? a.local[k * a.num_slots + slot0 + t] : RB;
+      const unsigned peers = __match_any_sync(kFull, ld);
+      if (ld < RB) {
+        const int leader = __ffs(peers) - 1;
+        int at = 0;
+        if (lane == leader) at = atomicAdd(cursor + ld, __popc(peers));
+        at = __shfl_sync(peers, at, leader) + __popc(peers & ((1u << lane) - 1));
+        lanes[at] = make_int2(a.src[slot0 + t], ld);
+        const float* wl = a.w + k * NB * a.num_slots + slot0 + t;
+#pragma unroll
+        for (int b = 0; b < NB; ++b) lane_w[at * NB + b] = wl[b * a.num_slots];
+      }
+    }
+  }
+  __syncthreads();
+
+  // 2-3. each group sums its span's runs and writes them; a run that goes
+  // on into the next groups' spans is finished by the group it starts in,
+  // which adds the partial sums those groups leave in shared memory
+  const long long base = static_cast<long long>(blk) * RB;
+  const long long row_len = static_cast<long long>(nb_out) * a.din;
+  const int n_lanes = off[RB];
+  const int nv = (a.din + VEC - 1) / VEC;
+  int T = 1;  // threads of a group: a power of two, so groups of 32 or more fill warps
+  while (T < nv && T < kThreads) T *= 2;
+  const int groups = kThreads / T;
+  const int g = tid / T, gt = tid - g * T;
+  const int span = (n_lanes + groups - 1) / groups;
+  const int lo = min(g * span, n_lanes), hi = min(lo + span, n_lanes);
+  const int prev_ld = lo > 0 && lo < hi ? lanes[lo - 1].y : -1;  // run shared with the
+  const int next_ld = hi > lo && hi < n_lanes ? lanes[hi].y : -1;  // neighbouring spans
+  float* partial = lane_w + a.kk * CH * NB + (g * nb_out * T + gt) * VEC;  // [g][o][gt][VEC]
+  const int n_pass = (nv + T - 1) / T;
+  for (int pass = 0; pass < n_pass; ++pass) {  // uniform: every thread meets the barriers
+    const int v = pass * T + gt;
+    const bool active = g < groups && lo < hi && v < nv;
+    const float* xc = a.x + v * VEC;
+    float* oc = a.out + v * VEC;
+    float acc[NB][VEC];
+#pragma unroll
+    for (int o = 0; o < NB; ++o)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[o][e] = 0.f;
+    int cur = -1;
+    bool head = true;  // the current run is the span's first
+    bool finish = false;
+    // a run ends: its row gets it, unless it goes on from the previous span
+    // (left in shared memory) or into the next (kept for after the barrier)
+    auto end_run = [&](bool last_run) {
+      if (head && cur == prev_ld) {
+#pragma unroll
+        for (int o = 0; o < NB; ++o)
+          if (o < nb_out)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) partial[o * T * VEC + e] = acc[o][e];
+      } else if (last_run && cur == next_ld) {
+        finish = true;
+      } else if (base + cur < a.num_nodes) {
+        write_run<VEC, NB>(oc + (base + cur) * row_len, acc, nb_out, a.din,
+                           cur >= own_lo && cur < own_hi && cur != split_lo && cur != split_hi);
+      }
+    };
+    if (active) {
+      for (int i0 = lo; i0 < hi; i0 += B) {
+        int ld[B];
+        float xv[B][NX][VEC];
+#pragma unroll
+        for (int j = 0; j < B; ++j) {
+          ld[j] = -1;
+          if (i0 + j < hi) {
+            const int2 e = lanes[i0 + j];
+            const long long row = static_cast<long long>(e.x) * a.din;
+            ld[j] = e.y;
+#pragma unroll
+            for (int q = 0; q < NX; ++q) load_vec<VEC>(xc + q * a.table_plane + row, xv[j][q]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < B; ++j) {
+          if (ld[j] < 0) break;  // past the span's end
+          if (ld[j] != cur) {
+            if (cur >= 0) {
+              end_run(false);
+              head = false;
+            }
+#pragma unroll
+            for (int o = 0; o < NB; ++o)
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) acc[o][e] = 0.f;
+            cur = ld[j];
+          }
+          const float* wv = lane_w + (i0 + j) * NB;
+          if (a.sum_bases) {
+            if constexpr (PER_BASIS) {
+#pragma unroll
+              for (int b = 0; b < NB; ++b)
+#pragma unroll
+                for (int e = 0; e < VEC; ++e) acc[0][e] += wv[b] * xv[j][b][e];
+            } else {
+              float ws = 0.f;
+#pragma unroll
+              for (int b = 0; b < NB; ++b) ws += wv[b];
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) acc[0][e] += ws * xv[j][0][e];
+            }
+          } else {
+#pragma unroll
+            for (int b = 0; b < NB; ++b)
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) acc[b][e] += wv[b] * xv[j][PER_BASIS ? b : 0][e];
+          }
+        }
+      }
+      end_run(true);
+    }
+    __syncthreads();
+    if (finish) {  // add the partials of the spans the run goes on into
+      for (int g2 = g + 1; g2 < groups; ++g2) {
+        const float* p2 = partial + (g2 - g) * nb_out * T * VEC;
+#pragma unroll
+        for (int o = 0; o < NB; ++o)
+          if (o < nb_out)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[o][e] += p2[o * T * VEC + e];
+        const int hi2 = min((g2 + 1) * span, n_lanes);
+        if (hi2 >= n_lanes || lanes[hi2].y != cur) break;  // the run ends in span g2
+      }
+      if (base + cur < a.num_nodes)
+        write_run<VEC, NB>(oc + (base + cur) * row_len, acc, nb_out, a.din,
+                           cur >= own_lo && cur < own_hi && cur != split_lo && cur != split_hi);
+    }
+    __syncthreads();  // the partials are reused by the next pass
+  }
+
+  // the owned rows that no lane reaches: zeros, a warp a row (a row of the
+  // node-major output is nb_out * din consecutive floats)
+  const int own_end = static_cast<int>(min(static_cast<long long>(own_hi), a.num_nodes - base));
+  const int n_vec = static_cast<int>(row_len / VEC);
+  for (int r = own_lo + warp; r < own_end; r += kWarps) {
+    if (off[r + 1] != off[r]) continue;  // warp-uniform
+    float* q = a.out + (base + r) * row_len;
+    for (int i = lane; i < n_vec; i += 32) {
+      if constexpr (VEC == 4) reinterpret_cast<float4*>(q)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      else q[i] = 0.f;
+    }
+  }
+}
+
+template <int VEC, int NB, bool PER_BASIS>
+cudaError_t launch_runs(const Args& a, size_t smem, cudaStream_t st) {
+  if (smem > kStaticSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        runs_kernel<VEC, NB, PER_BASIS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  runs_kernel<VEC, NB, PER_BASIS><<<a.n_chunks, kThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// Zero the rows the main kernel adds to, then run it (with per-basis tables
+// when PER_BASIS).
+template <bool PER_BASIS>
+cudaError_t run(const Args& a, int nb, cudaStream_t st) {
+  if (a.n_chunks < 1 || a.chunk < 1 || a.row_block < 1 || a.din < 1 || a.kk < 1 ||
+      nb < 1 || nb > 8 || (a.dst_sorted && a.kk != 1))
+    return cudaErrorInvalidValue;
+  const int nb_out = a.sum_bases ? 1 : nb;
+  const bool vec4 = a.din % 4 == 0 && reinterpret_cast<std::uintptr_t>(a.x) % 16 == 0 &&
+                    reinterpret_cast<std::uintptr_t>(a.out) % 16 == 0;
+  const size_t smem = smem_bytes(a.row_block, a.kk, a.chunk, nb);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  zero_shared_rows<<<dim3(a.n_chunks, a.dst_sorted ? 1 : kZeroParts), kThreads, 0, st>>>(
+      a.chunk_block, a.local, a.out, a.n_chunks, a.chunk, a.row_block, nb_out * a.din,
+      a.num_nodes, a.dst_sorted);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  switch (nb) {
+#define WR_CASE(N)                                                          \
+  case N:                                                                   \
+    return vec4 ? launch_runs<4, N, PER_BASIS>(a, smem, st)                 \
+                : launch_runs<1, N, PER_BASIS>(a, smem, st);
+    WR_CASE(1) WR_CASE(2) WR_CASE(3) WR_CASE(4)
+    WR_CASE(5) WR_CASE(6) WR_CASE(7) WR_CASE(8)
+#undef WR_CASE
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace wruns

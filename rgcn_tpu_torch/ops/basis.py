@@ -8,20 +8,22 @@ product:
                    \\______________ Agg_b ______________/
 
 so the edge stage is a weighted destination sum with one scalar per
-(basis, slot) over a destination-sorted layout, and every matmul is one of
-``nb`` dense ``(N, din) @ (din, dout)`` products. :func:`weighted_aggregate`
+(basis, slot) over a destination-sorted layout, and the ``nb`` dense
+``(N, din) @ (din, dout)`` products are one ``(N, nb·din) @ (nb·din,
+dout)`` product (:func:`closing_product`). :func:`weighted_aggregate`
 (K4) computes ``Agg`` over a :class:`~rgcn_tpu_torch.ops.aggregate.DstLayout`
 frame, gathering the source rows inside the kernel (the ``(L, din)``
 gathered rows never exist in device memory); :func:`weighted_aggregate_dedup`
 (K5) does the same over the source-dedup'd merged frame. On a CUDA tensor
 they launch ``kernels/csrc/k4_weighted_aggregate.cu`` and
 ``k5_weighted_aggregate_dedup.cu``; on a CPU tensor they take the plain
-PyTorch versions beside them.
+PyTorch versions beside them. Both routes return ``Agg`` as the JAX
+functions do, ``(nb, N, din)``, but as a view of node-major ``(N, nb,
+din)`` storage, so the closing product reads it without a copy.
 
-The per-slot weight products (``coeff @ comps``) and the closing
-``einsum("bni,bio->no")`` are ordinary products outside the kernels; they
-run in full f32 (TF32 off), as the JAX package runs ``_merged_wvec`` at
-``precision="highest"``.
+The per-slot weight products (``coeff @ comps``) and the closing product
+are ordinary products outside the kernels; they run in full f32 (TF32 off),
+as the JAX package runs ``_merged_wvec`` at ``precision="highest"``.
 
 This module is forward only. The custom VJPs of the JAX package
 (``pallas_basis.py:366-418, 501-551``) come with LP training.
@@ -44,6 +46,7 @@ from rgcn_tpu_torch import kernels
 
 __all__ = [
     "full_f32_matmul",
+    "closing_product",
     "weighted_aggregate",
     "weighted_aggregate_plain",
     "weighted_aggregate_dedup",
@@ -88,21 +91,21 @@ def weighted_aggregate_plain(x, src, w, layout, num_nodes: int, *,
     row(b, l)`` with ``row(b, l) = x[src[l]]`` (shared ``(rows, din)``
     table) or ``x[b, src[l]]`` (per-basis ``(nb, rows, din)`` tables), pads
     (``local_dst == RB``) dropped. ``sum_bases`` sums over ``b``. Returns
-    ``(nb or 1, num_nodes, din)``."""
+    ``(nb or 1, num_nodes, din)``, a view of node-major storage."""
     local = layout.local_dst.reshape(-1).long()
     keep = local < layout.row_block
     rows = _slot_rows(layout, local)[keep]
     s = src.long()[keep]
-    wk = w[:, keep, None]
-    msgs = wk * (x[s][None] if x.dim() == 2 else x[:, s])
+    wk = w[:, keep].T[:, :, None]  # (slots, nb, 1)
+    msgs = wk * (x[s][:, None] if x.dim() == 2 else x[:, s].transpose(0, 1))
     if sum_bases:
-        msgs = msgs.sum(0, keepdim=True)
+        msgs = msgs.sum(1, keepdim=True)
     out = torch.zeros(
-        (msgs.shape[0], layout.num_row_blocks * layout.row_block, x.shape[-1]),
+        (layout.num_row_blocks * layout.row_block, msgs.shape[1], x.shape[-1]),
         dtype=torch.float32, device=x.device,
     )
-    out.index_add_(1, rows, msgs)
-    return out[:, :num_nodes]
+    out.index_add_(0, rows, msgs)
+    return out[:num_nodes].permute(1, 0, 2)
 
 
 def weighted_aggregate(x, src, w, layout, num_nodes: int, *,
@@ -110,7 +113,8 @@ def weighted_aggregate(x, src, w, layout, num_nodes: int, *,
     """K4 over a destination-sorted frame: ``x`` f32 ``(rows, din)`` or
     ``(nb, rows, din)``, ``src (L,)`` int32 per-slot source rows, ``w (nb,
     L)`` f32 per-slot weights, ``layout`` a DstLayout of ``L`` slots.
-    Returns ``(nb or 1, num_nodes, din)`` f32."""
+    Returns ``(nb or 1, num_nodes, din)`` f32, a view of node-major
+    storage."""
     if w.shape[-1] != layout.num_chunks * layout.chunk:
         raise ValueError(
             f"{w.shape[-1]} slot weights for a layout of "
@@ -129,25 +133,26 @@ def weighted_aggregate(x, src, w, layout, num_nodes: int, *,
 def weighted_aggregate_dedup_plain(x, src, w_k, dd, num_nodes: int) -> torch.Tensor:
     """Plain version of K5: ``Agg[b, n] = Σ_{slots l, lanes k → n}
     w_k[k, b, l] · x[src[l]]`` over a DedupFwdLayout ``dd``, empty lanes
-    (``local_k == RB``) dropped. Returns ``(nb, num_nodes, din)``."""
+    (``local_k == RB``) dropped. Returns ``(nb, num_nodes, din)``, a view
+    of node-major storage."""
     kk = dd.local_k.shape[0]
     local = dd.local_k.reshape(kk, -1).long()
     xg = x[src.long()]
     out = torch.zeros(
-        (w_k.shape[1], dd.num_row_blocks * dd.row_block, x.shape[-1]),
+        (dd.num_row_blocks * dd.row_block, w_k.shape[1], x.shape[-1]),
         dtype=torch.float32, device=x.device,
     )
     for k in range(kk):
         keep = local[k] < dd.row_block
-        out.index_add_(1, _slot_rows(dd, local[k])[keep],
-                       w_k[k][:, keep, None] * xg[keep][None])
-    return out[:, :num_nodes]
+        out.index_add_(0, _slot_rows(dd, local[k])[keep],
+                       w_k[k][:, keep].T[:, :, None] * xg[keep][:, None])
+    return out[:num_nodes].permute(1, 0, 2)
 
 
 def weighted_aggregate_dedup(x, src, w_k, dd, num_nodes: int) -> torch.Tensor:
     """K5 over a source-dedup'd frame: ``x (rows, din)`` f32, ``src (Ld,)``
     int32, ``w_k (K, nb, Ld)`` f32 per-lane weights. Returns ``(nb,
-    num_nodes, din)`` f32."""
+    num_nodes, din)`` f32, a view of node-major storage."""
     if tuple(w_k.shape[::2]) != (dd.num_k, dd.num_chunks * dd.chunk):
         raise ValueError(
             f"lane weights {tuple(w_k.shape)} for a frame of {dd.num_k} "
@@ -179,6 +184,16 @@ def merged_wvec(coeff: torch.Tensor, comps: torch.Tensor) -> torch.Tensor:
         return (coeff @ comps).T.contiguous()
 
 
+def closing_product(agg: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
+    """``Σ_b agg[b] @ bases[b]`` for ``agg (nb, N, din)`` and ``bases (nb,
+    din, dout)``, as one full-f32 ``(N, nb·din) @ (nb·din, dout)`` product.
+    Over the node-major storage K4/K5 and their plain versions return,
+    ``agg.permute(1, 0, 2)`` is contiguous and the reshape copies nothing."""
+    nb, n, din = agg.shape
+    with full_f32_matmul():
+        return agg.permute(1, 0, 2).reshape(n, nb * din) @ bases.reshape(nb * din, -1)
+
+
 def rel_spmm_basis(edges, x: torch.Tensor, bases: torch.Tensor,
                    comps: torch.Tensor) -> torch.Tensor:
     """Aggregation-first basis SpMM, forward: ``bases (nb, din, dout)``,
@@ -207,5 +222,4 @@ def rel_spmm_basis(edges, x: torch.Tensor, bases: torch.Tensor,
             "rel_spmm_basis needs an EdgeSet with a merged or destination "
             "layout (build_edge_set(..., with_dst_layout=True))"
         )
-    with full_f32_matmul():
-        return torch.einsum("bni,bio->no", agg, bases)
+    return closing_product(agg, bases)

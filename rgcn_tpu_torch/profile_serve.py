@@ -61,8 +61,10 @@ def _layout_blocks(layout) -> dict:
     return _blocks(real, layout.chunk_block, layout.chunk, layout.num_row_blocks)
 
 
-def profile_calls(fn) -> dict:
-    """Host-clock times of ``fn()`` and its device time per kernel name."""
+def profile_calls(fn, tries: int = 3) -> dict:
+    """Host-clock times of ``fn()`` and its device time per kernel name. A
+    profile that holds no device event at all is taken again, up to
+    ``tries`` times (the profiler now and then delivers none)."""
     from torch.profiler import ProfilerActivity, profile
 
     def call():
@@ -77,18 +79,20 @@ def profile_calls(fn) -> dict:
         call()
         host_ms.append((time.perf_counter() - t0) * 1e3)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # the window starts after the profiler's own start-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(ITERS):
-            call()
-        window_us = (time.perf_counter() - t0) * 1e6
-
-    per_name: dict = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            per_name[ev.name] = per_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # the window starts after the profiler's own start-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ITERS):
+                call()
+            window_us = (time.perf_counter() - t0) * 1e6
+        per_name: dict = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                per_name[ev.name] = per_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+        if per_name:
+            break
     busy_us = sum(per_name.values())
     return {
         "host_ms": {"median": float(np.median(host_ms)),

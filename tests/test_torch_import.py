@@ -36,6 +36,7 @@ MODULES = [
     "rgcn_tpu_torch.weights",
     "rgcn_tpu_torch.profile_serve",
     "rgcn_tpu_torch.compare_k2",
+    "rgcn_tpu_torch.compare_k4_k5",
 ]
 
 
@@ -178,22 +179,26 @@ def test_basis_wrappers_refuse_node_count_off_layout(num_nodes, device):
 
 
 def test_ctypes_signatures_match_sources():
-    """Each launcher's ctypes argtypes match its C signature in csrc/, and
-    K2's tile variant (bound with K2's argtypes) has K2's signature."""
+    """Each launcher's ctypes argtypes match its C signature in csrc/; K2's
+    tile variant (bound with K2's argtypes) has K2's signature; the K4/K5
+    variants match the argtypes compare_k4_k5 binds them with."""
     import ctypes
 
-    from rgcn_tpu_torch import compare_k2, kernels
+    from rgcn_tpu_torch import compare_k2, compare_k4_k5, kernels
     from rgcn_tpu_torch.kernels import build
 
-    launchers = [(name, src, name) for name, src in build.SOURCES.items()]
-    launchers.append(("k2_fused_tile", compare_k2.VARIANT, "k2_fused"))
-    for name, src, bound_as in launchers:
+    launchers = [(name, src, kernels._ARGTYPES[name])
+                 for name, src in build.SOURCES.items()]
+    launchers.append(("k2_fused_tile", compare_k2.VARIANT, kernels._ARGTYPES["k2_fused"]))
+    launchers += [(name, src, argtypes)
+                  for name, (src, argtypes) in compare_k4_k5.VARIANTS.items()]
+    for name, src, argtypes in launchers:
         text = open(os.path.join(build.CSRC, src)).read()
         m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
         assert m, f"no extern C launcher {name} in {src}"
         params = [p.strip() for p in m.group(1).split(",")]
         want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
-        assert kernels._ARGTYPES[bound_as] == want, name
+        assert argtypes == want, name
 
 
 def test_compare_k2_needs_cuda(monkeypatch):
@@ -205,6 +210,31 @@ def test_compare_k2_needs_cuda(monkeypatch):
     monkeypatch.setattr(compare_k2, "build_tile", lambda: pytest.fail("built"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         compare_k2.main([])
+
+
+def test_compare_k4_k5_needs_cuda(monkeypatch):
+    """The K4/K5 design comparison runs on the card only: without CUDA it
+    raises before building anything."""
+    from rgcn_tpu_torch import compare_k4_k5
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(compare_k4_k5, "build_variants", lambda: pytest.fail("built"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compare_k4_k5.main([])
+
+
+def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
+    """K4's and K5's sources include weighted_runs.cuh: an edit of the header
+    alone must give them a new library path, so they are rebuilt."""
+    from rgcn_tpu_torch.kernels import build
+
+    for name in ("k4_weighted_aggregate.cu", "weighted_runs.cuh"):
+        (tmp_path / name).write_bytes(open(os.path.join(build.CSRC, name), "rb").read())
+    monkeypatch.setattr(build, "CSRC", str(tmp_path))
+    before = build.library_path("k4_weighted_aggregate")
+    with open(tmp_path / "weighted_runs.cuh", "a") as f:
+        f.write("// edited\n")
+    assert build.library_path("k4_weighted_aggregate") != before
 
 
 def test_cached_build_keeps_its_ptxas_report(tmp_path, monkeypatch):

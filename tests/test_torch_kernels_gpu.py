@@ -14,7 +14,14 @@ many chunks, row blocks of pads only, all-gap fused chunks) and a node
 count inside the layout's last block; K3 reading W through L2 when W[rel]
 exceeds 48 KB; K4 in both table forms (shared and per-basis rows), with
 and without ``sum_bases``, for 1 to 8 bases and widths that are not a
-multiple of 32, over merged and unmerged frames; K5 with 2 and 3 lanes.
+multiple of 32, over merged and unmerged frames; K5 with 2 and 3 lanes;
+K4 (every mode) and K5 on the hub graph's merged and dedup frames (one row
+block over more than four chunks, pad-only chunks, rows no slot reaches),
+for 1, 2, 3 and 8 bases, din 200 and widths that are not a multiple of 4,
+into an output whose memory held NaN before (the launchers zero nothing
+but the rows of row blocks with several chunks), checking that the result
+is a view of node-major storage; K4 and K5 on rows wider than a CTA and on
+a table that is not 16-byte aligned.
 Tolerance: max abs diff <= 1e-5 * max(1, max|ref|) (f32 sums reordered by
 atomics).
 """
@@ -292,3 +299,148 @@ def test_k4_k5_drop_rows_past_the_output(cuda):
     w_k = torch.einsum("klr,rb->kbl", dd.coeff_k, comps).contiguous()
     got = bs.weighted_aggregate_dedup(x, dd.src_sorted, w_k, dd, 290)
     _close(got, bs.weighted_aggregate_dedup_plain(x, dd.src_sorted, w_k, dd, 300)[:, :290])
+
+
+def _hub(dev, dedup_k=2):
+    """The hub graph's merged layout (with its dedup frame) on the card."""
+    es = build_edge_set(skew_triples(), 1536, 4, with_dst_layout=True)
+    m = build_merged_layout(es.dst, es.src, es.rel, es.val, 1536, es.num_rels,
+                            dedup_k=dedup_k)
+    return m.to(dev), es.num_rels
+
+
+def _nan_filled(*shape):
+    """Free a NaN-filled block of the output's size, so the caching
+    allocator hands that memory to the next ``torch.empty`` of the size."""
+    junk = torch.full(shape, float("nan"), device="cuda")
+    del junk
+
+
+def _untouched(layout, local):
+    """Nodes (of the first 1536) that no real lane of the frame reaches."""
+    block = layout.chunk_block.long().repeat_interleave(layout.chunk)
+    hit = torch.zeros(layout.num_row_blocks * layout.row_block, dtype=torch.bool,
+                      device=local.device)
+    for lk in local.reshape(-1, block.shape[0]):
+        real = lk < layout.row_block
+        hit[(block * layout.row_block + lk.long())[real]] = True
+    return ~hit[:1536]
+
+
+def _node_major(got, shape):
+    assert tuple(got.shape) == shape
+    assert got.permute(1, 0, 2).is_contiguous()
+
+
+@pytest.mark.parametrize("nb,din,per_basis,sum_bases", [
+    (2, 200, False, False), (1, 200, False, False), (3, 7, False, True),
+    (8, 200, False, False), (2, 13, True, False), (3, 200, True, True),
+    (8, 6, True, True), (2, 200, False, True),
+])
+def test_k4_hub_graph_node_major_no_memset(cuda, nb, din, per_basis, sum_bases):
+    m, _ = _hub(cuda)
+    lay = m.layout
+    assert int((lay.chunk_block == 0).sum().item()) > 4
+    assert int((lay.local_dst >= lay.row_block).all(1).sum().item()) >= 4
+    rng = np.random.default_rng(nb * 100 + din)
+    n_slots = lay.num_chunks * lay.chunk
+    x = _t(rng, cuda, *((nb, 1536, din) if per_basis else (1536, din)))
+    w = _t(rng, cuda, nb, n_slots) * (lay.local_dst.reshape(-1) < lay.row_block)
+    n_out = 1 if sum_bases else nb
+    _nan_filled(1536, n_out, din)
+    got = bs.weighted_aggregate(x, m.src_sorted, w, lay, 1536, sum_bases=sum_bases)
+    _node_major(got, (n_out, 1536, din))
+    _close(got, bs.weighted_aggregate_plain(x, m.src_sorted, w, lay, 1536,
+                                            sum_bases=sum_bases))
+    untouched = _untouched(lay, lay.local_dst)
+    assert bool(untouched[512:1024].all())
+    assert (got[:, untouched] == 0).all()
+
+
+@pytest.mark.parametrize("kk,nb,din", [(2, 2, 200), (2, 1, 7), (3, 3, 200),
+                                       (2, 8, 13), (3, 2, 6)])
+def test_k5_hub_graph_node_major_no_memset(cuda, kk, nb, din):
+    m, r_gen = _hub(cuda, dedup_k=kk)
+    dd = m.fwd_dedup
+    assert int((dd.chunk_block == 0).sum().item()) > 4
+    assert int((dd.local_k >= dd.row_block).all(0).all(1).sum().item()) >= 4
+    rng = np.random.default_rng(kk * 100 + nb * 10 + din)
+    comps = _t(rng, cuda, r_gen, nb)
+    w_k = torch.einsum("klr,rb->kbl", dd.coeff_k, comps).contiguous()
+    x = _t(rng, cuda, 1536, din)
+    _nan_filled(1536, nb, din)
+    n0 = kernels.LAUNCHES["k5_weighted_aggregate_dedup"]
+    got = bs.weighted_aggregate_dedup(x, dd.src_sorted, w_k, dd, 1536)
+    assert kernels.LAUNCHES["k5_weighted_aggregate_dedup"] == n0 + 1
+    _node_major(got, (nb, 1536, din))
+    _close(got, bs.weighted_aggregate_dedup_plain(x, dd.src_sorted, w_k, dd, 1536))
+    untouched = _untouched(dd, dd.local_k)
+    assert bool(untouched[512:1024].all())
+    assert (got[:, untouched] == 0).all()
+    _close(got, bs.weighted_aggregate_plain(
+        x, m.src_sorted, bs.merged_wvec(m.coeff, comps), m.layout, 1536))
+
+
+@pytest.mark.parametrize("chunk", [16, 256])
+def test_k4_k5_sparse_rows_come_out_zero(cuda, chunk):
+    """A sparse graph: most rows of every row block receive nothing, in
+    blocks of one chunk (256) and of several (16); those rows must be
+    exactly 0 though the output's memory held NaN."""
+    m, es, rng = _merged(1500, 5, 300, 13, cuda, dedup_k=2, chunk=chunk)
+    lay, dd = m.layout, m.fwd_dedup
+    blocks = torch.bincount(lay.chunk_block.long())
+    assert bool((blocks > 1).any()) == (chunk == 16)
+    comps = _t(rng, cuda, es.num_rels, 2)
+    x = _t(rng, cuda, 1500, 36)
+    w = bs.merged_wvec(m.coeff, comps)
+    w_k = torch.einsum("klr,rb->kbl", dd.coeff_k, comps).contiguous()
+    for got, ref, frame, local in (
+        (lambda: bs.weighted_aggregate(x, m.src_sorted, w, lay, 1500),
+         bs.weighted_aggregate_plain(x, m.src_sorted, w, lay, 1500), lay, lay.local_dst),
+        (lambda: bs.weighted_aggregate_dedup(x, dd.src_sorted, w_k, dd, 1500),
+         bs.weighted_aggregate_dedup_plain(x, dd.src_sorted, w_k, dd, 1500), dd, dd.local_k),
+    ):
+        _nan_filled(1500, 2, 36)
+        got = got()
+        _node_major(got, (2, 1500, 36))
+        _close(got, ref)
+        untouched = _untouched(frame, local)[:1500]
+        assert int(untouched.sum()) > 500
+        assert (got[:, untouched] == 0).all()
+
+
+@pytest.mark.parametrize("din", [200, 1100])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_k4_k5_wide_and_unaligned_rows(cuda, din, aligned):
+    """A row of more vectors than a CTA has threads (1100 columns: two
+    column passes, five in scalars), and a table whose rows are not 16-byte
+    aligned, which takes the scalar lanes."""
+    m, r_gen = _hub(cuda)
+    lay, dd = m.layout, m.fwd_dedup
+    rng = np.random.default_rng(din)
+    flat = _t(rng, cuda, 1536 * din + 1)
+    x = (flat[:-1] if aligned else flat[1:]).view(1536, din)
+    comps = _t(rng, cuda, r_gen, 2)
+    w = bs.merged_wvec(m.coeff, comps)
+    got = bs.weighted_aggregate(x, m.src_sorted, w, lay, 1536)
+    _node_major(got, (2, 1536, din))
+    _close(got, bs.weighted_aggregate_plain(x, m.src_sorted, w, lay, 1536))
+    w_k = torch.einsum("klr,rb->kbl", dd.coeff_k, comps).contiguous()
+    got = bs.weighted_aggregate_dedup(x, dd.src_sorted, w_k, dd, 1536)
+    _node_major(got, (2, 1536, din))
+    _close(got, bs.weighted_aggregate_dedup_plain(x, dd.src_sorted, w_k, dd, 1536))
+
+
+def test_rel_spmm_basis_closes_with_one_gemm(cuda):
+    """The encode's aggregation feeds the closing product without a copy:
+    K4's storage is the GEMM's operand."""
+    m, es, rng = _merged(800, 4, 3500, 12, cuda)
+    es = dataclasses.replace(es, merged=m)
+    x = _t(rng, cuda, 800, 40)
+    comps = _t(rng, cuda, es.num_rels, 2)
+    bases = _t(rng, cuda, 2, 40, 24)
+    agg = bs.weighted_aggregate(x, m.src_sorted, bs.merged_wvec(m.coeff, comps),
+                                m.layout, 800)
+    assert agg.permute(1, 0, 2).reshape(800, 80).data_ptr() == agg.data_ptr()
+    got = bs.rel_spmm_basis(es, x, bases, comps)
+    _close(got, torch.einsum("bni,bio->no", agg.contiguous(), bases))
