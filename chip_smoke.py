@@ -9,9 +9,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    TF32 off for matmuls and cuDNN (f32 comparisons stay f32);
 2. build: nvcc builds every kernel of kernels/csrc/ in parallel and
    reports each source's entry points, registers and spill stores;
-3. kernels, nc-AIFB: K1 (layer 1, dout 16), K2 and K3 at the nc-AIFB
-   shapes, and K1 at the K3 branch's layer-2 width (dout 4, its own
-   torch.index_add yardstick), each held against its plain PyTorch
+3. kernels, nc-AIFB: K1 (layer 1, dout 16), K2 and K3 (its small route)
+   at the nc-AIFB shapes, and K1 at the K3 branch's layer-2 width (dout
+   4, its own torch.index_add yardstick), each held against its plain PyTorch
    version on the card (f32, max abs diff <= 1e-5 * max(1, max|ref|): the
    kernels reorder f32 sums). "ms", "plain_ms" and "library_ms" (the
    one-call yardstick) are device time per call, the summed kernel time
@@ -54,11 +54,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    top-k entities must equal the CPU's wherever the k-th and (k+1)-th CPU
    scores are more than 1e-4 apart. Reports the encode time (host clock,
    median of 20 refresh() calls) and one 1024-query top-10 tail batch;
-7. summary: one JSON line of each path's launch counts, one of the extra
-   nc modes (K1 at dout 4), one of the extra K4 modes, and the "kernels"
-   line, whose "launches" for each kernel is
-   its count on the path named beside it;
-8. last line: {"ok": true, "device": {...}}.
+7. kernels, lp-FB-toy (the block layer's expanded weights, fb_toy_like(),
+   width 500): K3 at x (280, 500), W (224, 500, 500), 250 tiles of 128
+   (its tiled route: 3xTF32 on the tensor cores, held to the same f32
+   tolerance), its yardstick one torch.bmm over x[src] tiles and
+   W[tile_rel] gathered beforehand (TF32 off, the gathers not timed); its
+   bound counts the real rows' FLOPs only (pad rows are zeros by
+   contract); K1 at dout 500 over the FB-toy destination layout, with its
+   torch.index_add yardstick; each held and timed as in phase 3;
+8. serving lp-FB-toy, counts zeroed before it: load_lp_server on
+   configs/rgcn/lp-FB-toy.yaml with fb_toy_like() at full width (500, 100
+   blocks), the requests of phase 6, must launch exactly K3 once and K1
+   once (one encode); z, scores and top-k checked against the CPU plain
+   run as in phase 6; reports the encode's host-clock median of 20
+   refresh() calls;
+9. summary: one JSON line of each path's launch counts, one of the extra
+   nc modes (K1 at dout 4, K3 at nc-AIFB, K1 at dout 500 over the FB-toy
+   layout), one of the extra K4 modes, and the "kernels" line, whose
+   "launches" for each kernel is its count on the path named beside it;
+10. last line: {"ok": true, "device": {...}}.
 
 Needs CUDA (exits 1 without it) and the repository around it.
 """
@@ -78,6 +92,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "rgcn", "nc-AIFB.yaml")
 LP_CONFIG = os.path.join(ROOT, "configs", "rgcn", "lp-WN18.yaml")
+FB_CONFIG = os.path.join(ROOT, "configs", "rgcn", "lp-FB-toy.yaml")
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s and
 # f32 CUDA-core FLOP/s. The kernels here are f32 on CUDA cores.
@@ -303,13 +318,14 @@ def phase_kernels(dev, data, edges):
         + e_pad * classes * 4
     ms, call = timed(lambda: rs.rel_spmm_messages(edges, x, w))
     plain_ms, plain_call = timed(lambda: rs.rel_spmm_messages_plain(edges, x, w))
-    rows.append(dict(
-        name="K3", route="cuda",
+    real = int((edges.val != 0).sum().item())
+    modes.append(dict(
+        name="K3", mode="K3 nc-AIFB (K3 branch layer 2, small route)", route="cuda",
         source="rgcn_tpu_torch/kernels/csrc/k3_messages.cu",
         replaces="rgcn_tpu/ops/pallas_spmm.py:70",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
         call_ms=call, plain_call_ms=plain_call, library_call_ms=None,
-        _bound=bound_ms(k3_bytes, e_pad * (2 * hidden * classes + classes)),
+        _bound=bound_ms(k3_bytes, real * (2 * hidden * classes + classes)),
     ))
     for r in rows + modes:
         r["bound_ms"], r["bound_by"] = r.pop("_bound")
@@ -399,6 +415,7 @@ MAIN_PATH = dict(k1_aggregate=1, k2_fused=1)
 K3_BRANCH = dict(k1_aggregate=2, k3_messages=1)
 LP_MAIN = dict(k4_weighted_aggregate=1)
 LP_DEDUP = dict(k5_weighted_aggregate_dedup=1)
+FB_PATH = dict(k3_messages=1, k1_aggregate=1)
 
 
 def serve_path(label, build, requests, expect):
@@ -622,6 +639,78 @@ def phase_lp_kernels(dev, edges, dedup):
     return rows, extra
 
 
+def phase_fb_kernels(dev, edges):
+    """K3 and K1 at the lp-FB-toy shapes against their plain versions;
+    returns (the K3 row, the K1 dout-500 row)."""
+    from rgcn_tpu_torch.ops import aggregate as agg
+    from rgcn_tpu_torch.ops import rel_spmm as rs
+
+    rng = np.random.default_rng(5)
+    n, din, dout = edges.num_nodes, 500, 500
+    lay, e_pad = edges.layout, edges.src.shape[0]
+
+    def rand(*shape, scale=1.0):
+        a = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(a).to(dev)
+
+    log("kernels (lp-FB-toy shapes):")
+    x = torch.relu(rand(n, din))
+    w = rand(edges.num_rels, din, dout, scale=din ** -0.5)
+    if rs.fused_fits(w, edges.fused.row_block):
+        fail("K3: lp-FB-toy weights fit the fused budget; the path would take K2")
+    ref = rs.rel_spmm_messages_plain(edges, x, w)
+    got = rs.rel_spmm_messages(edges, x, w)
+    torch.cuda.synchronize()
+    err = check_close("K3 rel_spmm_messages (lp-FB-toy)", got, ref)
+    real = int((edges.val != 0).sum().item())
+    k3_bytes = nbytes(x, w, edges.src, edges.val, edges.tile_rel) + e_pad * dout * 4
+    # the yardstick's operands, gathered before it is timed
+    xg = x[edges.src.long()].reshape(edges.num_tiles, edges.tile_size, din)
+    wg = w[edges.tile_rel.long()]
+    lib = (torch.bmm(xg, wg).reshape(e_pad, dout) * edges.val[:, None] - ref).abs().max().item()
+    log(f"  K3 torch.bmm yardstick (times val) vs plain: max abs diff {lib:.3e}")
+    ms, call = timed(lambda: rs.rel_spmm_messages(edges, x, w))
+    plain_ms, plain_call = timed(lambda: rs.rel_spmm_messages_plain(edges, x, w))
+    lib_ms, lib_call = timed(lambda: torch.bmm(xg, wg))
+    del wg
+    k3 = dict(
+        name="K3", mode="K3 lp-FB-toy (tiled route)", route="cuda",
+        source="rgcn_tpu_torch/kernels/csrc/k3_messages.cu",
+        replaces="rgcn_tpu/ops/pallas_spmm.py:70",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        call_ms=call, plain_call_ms=plain_call, library_call_ms=lib_call,
+        library="torch.bmm over x[src] tiles and W[tile_rel] gathered "
+                "beforehand (TF32 off, gathers not timed)",
+        real_rows=real, tiles=edges.num_tiles,
+        _bound=bound_ms(k3_bytes, real * (2 * din * dout + dout)),
+    )
+
+    # K1 at dout 500: the encode's aggregation of K3's messages
+    msgs = rand(e_pad, dout) * edges.val[:, None]
+    err = check_close("K1 aggregate_sorted dout 500 (lp-FB-toy)",
+                      agg.aggregate_sorted(msgs, lay, n),
+                      agg.aggregate_sorted_plain(msgs, lay, n))
+    real_slots = int((lay.local_dst < lay.row_block).sum().item())
+    zeros = torch.zeros((n + 1, dout), device=dev)
+    dst_long = edges.dst.long()
+    ms, call = timed(lambda: agg.aggregate_sorted(msgs, lay, n))
+    plain_ms, plain_call = timed(lambda: agg.aggregate_sorted_plain(msgs, lay, n))
+    lib_ms, lib_call = timed(lambda: torch.index_add(zeros, 0, dst_long, msgs))
+    k1 = dict(
+        name="K1", mode=f"K1 dout {dout} (lp-FB-toy, {lay.num_chunks} chunks)",
+        route="cuda", source="rgcn_tpu_torch/kernels/csrc/k1_aggregate.cu",
+        replaces="rgcn_tpu/ops/pallas_aggregate.py:203",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        call_ms=call, plain_call_ms=plain_call, library_call_ms=lib_call,
+        _bound=bound_ms(real_slots * (dout * 4 + 4 + 4) + nbytes(lay.chunk_block)
+                        + n * dout * 4, real_slots * dout),
+    )
+    for r in (k3, k1):
+        r["bound_ms"], r["bound_by"] = r.pop("_bound")
+        log(json.dumps({"kernel_check": r}))
+    return k3, k1
+
+
 def topk_agree(name, got, cpu_scores, cpu_ents, k):
     """Top-k entity sets equal the CPU's on rows where the CPU's k-th and
     (k+1)-th scores are more than 1e-4 apart; returns the rows checked."""
@@ -633,24 +722,82 @@ def topk_agree(name, got, cpu_scores, cpu_ents, k):
     return int(clear.sum())
 
 
+def host_ms(fn, iters=20):
+    """Median host-clock ms of ``fn()``, each call ended by a synchronize."""
+    out = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def lp_requests(srv, data, k=10):
+    """Point scores of 8 test triples, top-k tails of 32 (s, p) and heads of
+    32 (p, o) test queries, one filtered top-k tail request."""
+    test = np.asarray(data.test)
+    sp, po = test[:32, :2], test[32:64, 1:]
+    return (srv.score(test[:8]), srv.topk_tails(sp, k=k),
+            srv.topk_heads(po, k=k), srv.topk_tails(sp, k=k, filtered=True))
+
+
+def check_lp_against_cpu(label, srv, answers, cpu, data, k=10):
+    """z and point scores within 1e-4 of the CPU plain run, top-k sets
+    equal wherever the CPU's k-th and (k+1)-th scores are apart."""
+    cpu_ans = lp_requests(cpu, data, k=k + 1)
+    dz = float((srv.z.cpu() - cpu.z).abs().max())
+    ds = float(np.abs(answers[0] - cpu_ans[0]).max())
+    log(f"  [{label}] z vs CPU plain: max abs diff {dz:.3e}; point scores {ds:.3e}")
+    if not (dz <= 1e-4 and ds <= 1e-4):
+        fail(f"lp serving [{label}]: z or scores differ from the CPU beyond 1e-4")
+    checked = [topk_agree(f"lp {label} {what}", got[1], ref[0], ref[1], k)
+               for what, got, ref in zip(("tails", "heads", "filtered tails"),
+                                         answers[1:], cpu_ans[1:])]
+    log(f"  [{label}] top-{k} sets equal the CPU's on {checked} of 32 rows "
+        "each (rows with a k-th/(k+1)-th gap > 1e-4)")
+
+
+def phase_fb_serving(dev, data):
+    """lp-FB-toy served at full width through the block layer: exactly K3
+    and K1 once for the one encode."""
+    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch.serve import load_lp_server
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    srv = load_lp_server(FB_CONFIG, data, device=dev)
+    answers = lp_requests(srv, data)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    log(f"serving [lp-FB-toy: block, expanded]: build + encode + requests "
+        f"{time.perf_counter() - t0:.2f} s, launches {counts}")
+    if counts != launches(**FB_PATH):
+        fail(f"serving [lp-FB-toy]: launches {counts}, expected {launches(**FB_PATH)}")
+    z = srv.z
+    if tuple(z.shape) != (data.num_nodes, 500) or not torch.isfinite(z).all():
+        fail(f"serving [lp-FB-toy]: z {tuple(z.shape)} not finite (N, 500)")
+    state = {key: v.detach().cpu() for key, v in srv.model.state_dict().items()}
+    cpu = load_lp_server(FB_CONFIG, data, state, device="cpu")
+    check_lp_against_cpu("lp-FB-toy", srv, answers, cpu, data)
+    log(f"  scores: {[round(float(v), 6) for v in answers[0]]}")
+    timing = {"encode_ms_fb_toy": host_ms(srv.refresh)}
+    log(f"  lp-FB-toy timing (host clock, median of 20): {json.dumps(timing)}")
+    return {"lp_fb_toy": counts}, timing
+
+
 def phase_lp_serving(dev, data, dedup):
     from rgcn_tpu_torch import kernels
     from rgcn_tpu_torch.serve import LinkPredictionServer, load_lp_server
 
-    test = np.asarray(data.test)
-    triples = test[:8]
-    sp, po = test[:32, :2], test[32:64, 1:]
     k = 10
-
-    def requests(srv):
-        return (srv.score(triples), srv.topk_tails(sp, k=k),
-                srv.topk_heads(po, k=k), srv.topk_tails(sp, k=k, filtered=True))
 
     def path(label, build, expect):
         kernels.reset_launches()
         t0 = time.perf_counter()
         srv = build()
-        answers = requests(srv)
+        answers = lp_requests(srv, data, k=k)
         torch.cuda.synchronize()
         counts = dict(kernels.LAUNCHES)
         log(f"serving [{label}]: build + encode + requests "
@@ -676,32 +823,9 @@ def phase_lp_serving(dev, data, dedup):
 
     state = {key: v.detach().cpu() for key, v in srv.model.state_dict().items()}
     cpu = load_lp_server(LP_CONFIG, data, state, device="cpu")
-    cpu_score = cpu.score(triples)
-    cpu_rank = [cpu.topk_tails(sp, k=k + 1), cpu.topk_heads(po, k=k + 1),
-                cpu.topk_tails(sp, k=k + 1, filtered=True)]
     for label, s, ans in (("merged", srv, main_ans), ("dedup", dsrv, dedup_ans)):
-        dz = float((s.z.cpu() - cpu.z).abs().max())
-        ds = float(np.abs(ans[0] - cpu_score).max())
-        log(f"  [{label}] z vs CPU plain: max abs diff {dz:.3e}; "
-            f"point scores {ds:.3e}")
-        if not (dz <= 1e-4 and ds <= 1e-4):
-            fail(f"lp serving [{label}]: z or scores differ from the CPU beyond 1e-4")
-        checked = [topk_agree(f"lp {label} {what}", got[1], ref[0], ref[1], k)
-                   for what, got, ref in zip(("tails", "heads", "filtered tails"),
-                                             ans[1:], cpu_rank)]
-        log(f"  [{label}] top-{k} sets equal the CPU's on {checked} of 32 rows "
-            "each (rows with a k-th/(k+1)-th gap > 1e-4)")
+        check_lp_against_cpu(label, s, ans, cpu, data, k=k)
     log(f"  scores: {[round(float(v), 6) for v in main_ans[0]]}")
-
-    def host_ms(fn, iters=20):
-        out = []
-        for _ in range(iters):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return float(np.median(out))
 
     big = np.asarray(train[np.random.default_rng(2).integers(0, len(train), 1024), :2])
     timing = {
@@ -721,11 +845,11 @@ def main():
         import rgcn_tpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"rgcn_tpu_torch is not importable next to this script: {e}")
-    for cfg in (CONFIG, LP_CONFIG):
+    for cfg in (CONFIG, LP_CONFIG, FB_CONFIG):
         if not os.path.isfile(cfg):
             fail(f"config not found: {cfg}")
 
-    from rgcn_tpu_torch.data.synthetic import aifb_like, wn18_like
+    from rgcn_tpu_torch.data.synthetic import aifb_like, fb_toy_like, wn18_like
     from rgcn_tpu_torch.graph.coalesce import build_merged_layout
     from rgcn_tpu_torch.graph.structure import build_edge_set
 
@@ -762,13 +886,26 @@ def main():
     lp_paths, timing = phase_lp_serving(dev, lp, dedup)
     paths.update(lp_paths)
 
+    fb = fb_toy_like()
+    fb_edges = build_edge_set(fb.train, fb.num_nodes, fb.num_relations,
+                              tile_size=128, with_dst_layout=True).to(dev)
+    log(f"lp-FB-toy graph: N {fb.num_nodes}, R' {fb_edges.num_rels + 1}, train "
+        f"{len(fb.train)}, E_pad {fb_edges.src.shape[0]} ({fb_edges.num_tiles} tiles, "
+        f"{fb_edges.num_edges} real); layout {fb_edges.layout.num_chunks} chunks, "
+        f"{fb_edges.layout.num_row_blocks} blocks")
+    k3_row, k1_fb = phase_fb_kernels(dev, fb_edges)
+    nc_modes.append(k1_fb)
+    fb_paths, fb_timing = phase_fb_serving(dev, fb)
+    paths.update(fb_paths)
+    timing.update(fb_timing)
+
     # each kernel's count on the path that serves through it
     key = {"K1": ("k1_aggregate", "main"), "K2": ("k2_fused", "main"),
-           "K3": ("k3_messages", "k3_k1_branch"),
+           "K3": ("k3_messages", "lp_fb_toy"),
            "K4": ("k4_weighted_aggregate", "lp_main"),
            "K5": ("k5_weighted_aggregate_dedup", "lp_dedup_branch")}
     out = []
-    for r in rows + lp_rows:
+    for r in rows + lp_rows + [k3_row]:
         kname, path = key[r["name"]]
         out.append({
             "name": r["name"], "route": r["route"], "source": r["source"],

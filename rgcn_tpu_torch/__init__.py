@@ -5,17 +5,19 @@ of it and no JAX. Modules keep the reference's names so a reader can find
 each counterpart:
 
 ```
-config.py           NC experiment configs over a YAML-subset reader
-data/               NodeClassificationData, synthetic NC graphs
-graph/              EdgeSet builders (numpy) with .to(device)
+config.py           NC and LP experiment configs over a YAML-subset reader
+data/               NC and LP data containers, synthetic graphs
+graph/              EdgeSet builders (numpy) with .to(device), merged frames
 ops/aggregate.py    K1  destination aggregation over a DstLayout
 ops/fused.py        K2  fused relation-quantum SpMM over a FusedLayout
 ops/rel_spmm.py     K3  per-tile messages, and the K2-or-K3+K1 dispatch
-ops/spmm.py         plain index_add_ oracle paths
+ops/basis.py        K4, K5  the aggregation-first basis path
+ops/spmm.py         plain index_add_ oracle paths (dense, block, featureless)
 kernels/            CUDA C++ sources, nvcc build, ctypes bindings
-nn/, models/        RGCNConv, NodeClassifier
-serve.py            NodeClassificationServer, load_nc_server
+nn/, models/        RGCNConv (dense, basis, block), NodeClassifier, LinkPredictor
+serve.py            NC and LP servers, load_nc_server, load_lp_server
 serve_nodes.py      python -m rgcn_tpu_torch.serve_nodes
+serve_links.py      python -m rgcn_tpu_torch.serve_links (lp-WN18, lp-FB-toy)
 ```
 
 Entry points run on the card unless the caller passes ``device="cpu"``;

@@ -57,11 +57,7 @@ class NodeClassificationData:
 
 @dataclass
 class LinkPredictionData:
-    """Link-prediction splits as ``(E, 3)`` int64 ``[s, p, o]`` arrays.
-
-    The JAX container's ``pad_nodes`` (null nodes for block
-    decomposition) comes with the block-decomposition slice.
-    """
+    """Link-prediction splits as ``(E, 3)`` int64 ``[s, p, o]`` arrays."""
 
     train: np.ndarray
     test: np.ndarray
@@ -78,3 +74,15 @@ class LinkPredictionData:
     @property
     def num_relations(self) -> int:
         return len(self.i2r)
+
+    def pad_nodes(self, block_size: int) -> int:
+        """Pad the node vocabulary with null nodes (``null0``, ``null1``,
+        ...) until N is divisible by ``block_size``, as block
+        decomposition needs. Returns the number of nodes added."""
+        added = 0
+        while len(self.i2n) % block_size != 0:
+            label = f"null{added}"
+            self.n2i[label] = len(self.i2n)
+            self.i2n.append(label)
+            added += 1
+        return added

@@ -209,7 +209,10 @@ def launch_k3_messages(
     tile_size: int,
 ) -> torch.Tensor:
     """K3: per relation-uniform tile, ``msgs = (x[src] @ W[tile_rel]) · val``
-    in edge order. Returns ``(E_pad, dout)``."""
+    in edge order; rows whose ``val`` is 0 come out 0 uncomputed. The
+    launcher takes a small route for ``dout <= 32`` (W[rel] within 48 KB)
+    and a tiled one otherwise. Returns ``(E_pad, dout)``, every element
+    stored by the kernel (no memset)."""
     dev = x.device
     n_tiles = tile_rel.shape[0]
     e_pad = n_tiles * tile_size

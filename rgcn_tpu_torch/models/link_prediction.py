@@ -40,6 +40,7 @@ class LinkPredictor(nn.Module):
         num_layers: int = 1,
         decomposition: Optional[str] = None,
         num_bases: int = 0,
+        num_blocks: int = 0,
         weight_init: str = "glorot-normal",
         include_gain: bool = False,
         bias_init: Optional[str] = None,
@@ -67,6 +68,8 @@ class LinkPredictor(nn.Module):
             return RGCNConv(
                 num_nodes, r_aug, dout, in_features=din,
                 decomposition=decomposition, num_bases=num_bases,
+                num_blocks=num_blocks,
+                separate_self_weight=(decomposition == "block"),
                 weight_init=weight_init, weight_gain=include_gain,
                 bias_init=bias_init, generator=gen,
             )
@@ -131,6 +134,7 @@ def build_lp_model(cfg, num_nodes: int, num_rels: int, seed: int = 0) -> LinkPre
         num_layers=enc.num_layers,
         decomposition=decomp.type if decomp else None,
         num_bases=decomp.num_bases if decomp else 0,
+        num_blocks=decomp.num_blocks if decomp else 0,
         weight_init=enc.weight_init,
         include_gain=enc.include_gain,
         bias_init=enc.bias_init,

@@ -8,7 +8,7 @@ Torch fan convention for a tensor of shape ``(d0, d1, *rest)``:
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -73,17 +73,21 @@ def schlichtkrull_std(shape: Sequence[int], gain: float = 1.0) -> float:
 
 def schlichtkrull_normal(
     shape: Sequence[int], generator: torch.Generator, gain: float = 1.0,
+    fan_shape: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
-    """N(0, std) with the Schlichtkrull std."""
-    std = schlichtkrull_std(shape, gain)
+    """N(0, std) with the Schlichtkrull std of ``fan_shape`` (default
+    ``shape``; the LP block layer passes ``((R'-1)//2, din // num_blocks)``)."""
+    std = schlichtkrull_std(shape if fan_shape is None else fan_shape, gain)
     return std * torch.randn(tuple(shape), generator=generator)
 
 
 def schlichtkrull_uniform(
     shape: Sequence[int], generator: torch.Generator, gain: float = 1.0,
+    fan_shape: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
-    """U(-std, std) with the Schlichtkrull std."""
-    std = schlichtkrull_std(shape, gain)
+    """U(-std, std) with the Schlichtkrull std of ``fan_shape`` (default
+    ``shape``)."""
+    std = schlichtkrull_std(shape if fan_shape is None else fan_shape, gain)
     return torch.empty(tuple(shape)).uniform_(-std, std, generator=generator)
 
 

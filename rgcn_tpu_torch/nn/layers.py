@@ -11,7 +11,13 @@ Ported weight layouts of :class:`RGCNConv`:
 * featureful basis decomposition with at most 8 bases (the LP encoder):
   ``comps (R', nb)`` and ``bases (nb, din, dout)`` through the
   aggregation-first :func:`~rgcn_tpu_torch.ops.basis.rel_spmm_basis` (K4
-  over the merged or destination layout, K5 over ``merged.fwd_dedup``).
+  over the merged or destination layout, K5 over ``merged.fwd_dedup``);
+* featureful block decomposition (the lp-FB-toy encoder): ``blocks (r, B,
+  din/B, dout/B)`` expanded to block-diagonal ``(r, din, dout)`` matrices
+  by one index scatter and run through ``fwd_spmm`` (K3 then K1 at
+  lp-FB-toy's width), as the JAX package does while ``r·din·dout`` stays
+  within 64M elements; above that, blockwise messages
+  (:func:`~rgcn_tpu_torch.ops.spmm.rel_spmm_block`) summed by K1.
 
 An EdgeSet without a destination (or merged) layout takes the plain
 ``index_add_`` paths of :mod:`rgcn_tpu_torch.ops.spmm`, on the CPU only: on
@@ -19,8 +25,8 @@ any other device it raises, so the card never runs a forward without its
 kernels. The self-loop relation (index ``R' - 1``) is applied densely,
 ``X @ W_self``. Self-loop dropout is a training option; serving runs the
 deterministic forward, where it is the identity. Featureless basis, more
-than 8 bases, block and diagonal weights belong to later slices of the
-port and raise.
+than 8 bases and diagonal weights belong to later slices of the port and
+raise.
 """
 
 from __future__ import annotations
@@ -38,11 +44,23 @@ from rgcn_tpu_torch.ops.aggregate import aggregate_sorted
 from rgcn_tpu_torch.ops.basis import full_f32_matmul, rel_spmm_basis
 from rgcn_tpu_torch.ops.rel_spmm import fwd_spmm
 
-__all__ = ["RGCNConv", "DistMult", "check_plain_path"]
+__all__ = ["RGCNConv", "DistMult", "check_plain_path", "expand_blocks"]
 
 
 def _aggregate_k1(msgs, edges):
     return aggregate_sorted(msgs, edges.layout, edges.num_nodes)
+
+
+def expand_blocks(blocks: torch.Tensor) -> torch.Tensor:
+    """Block-diagonal ``(r, din, dout)`` matrices of ``(r, B, ib, ob)``
+    blocks: one index scatter into zeros."""
+    r, nb, ib, ob = blocks.shape
+    din, dout = nb * ib, nb * ob
+    rows = torch.arange(din, device=blocks.device)
+    cols = (rows // ib)[:, None] * ob + torch.arange(ob, device=blocks.device)
+    w = blocks.new_zeros((r, din, dout))
+    w[:, rows[:, None], cols] = blocks.reshape(r, din, ob)
+    return w
 
 
 def check_plain_path(device: torch.device) -> None:
@@ -61,11 +79,19 @@ class RGCNConv(nn.Module):
     index is the self-loop). Without decomposition ``weights`` is ``(R',
     din, dout)`` with ``din = num_nodes`` when featureless; with
     ``decomposition="basis"`` the parameters are ``bases (nb, din, dout)``
-    and ``comps (R', nb)``. ``bias`` is ``(dout,)``, or absent when
-    ``bias_init`` is None. Parameters are drawn from ``generator`` with the
-    named initializers (NC layers: glorot-uniform with the relu gain, zero
-    bias).
+    and ``comps (R', nb)``; with ``decomposition="block"`` they are
+    ``blocks (R', B, din/B, dout/B)`` (NC layout: the last relation's blocks
+    give the blockwise self message) or, with ``separate_self_weight``
+    (LP layout), ``blocks (R' - 1, B, din/B, dout/B)`` and a dense
+    ``self_weight (din, dout)``, both drawn Schlichtkrull-normal with the
+    fan ``((R'-1)//2, din/B)`` whatever ``weight_init`` says. ``bias`` is
+    ``(dout,)``, or absent when ``bias_init`` is None. Parameters are drawn
+    from ``generator`` with the named initializers (NC layers:
+    glorot-uniform with the relu gain, zero bias).
     """
+
+    # Expanding block-diagonal weights costs r·din·dout elements; cap it.
+    _BLOCK_EXPAND_MAX_ELEMS = 64_000_000
 
     def __init__(
         self,
@@ -75,6 +101,8 @@ class RGCNConv(nn.Module):
         in_features: Optional[int] = None,
         decomposition: Optional[str] = None,
         num_bases: int = 0,
+        num_blocks: int = 0,
+        separate_self_weight: bool = False,
         diag: bool = False,
         weight_init: str = "glorot-uniform",
         weight_gain: bool = True,
@@ -86,10 +114,9 @@ class RGCNConv(nn.Module):
             raise NotImplementedError(
                 "diagonal weights (e-RGCN) are not ported yet (e-RGCN slice)"
             )
-        if decomposition not in (None, "basis"):
+        if decomposition not in (None, "basis", "block"):
             raise NotImplementedError(
-                f"{decomposition!r} decomposition is not ported yet "
-                "(block-decomposition slice)"
+                f"{decomposition!r} decomposition has not been implemented"
             )
         if decomposition == "basis":
             if in_features is None:
@@ -104,12 +131,27 @@ class RGCNConv(nn.Module):
                     f"basis decomposition with {num_bases} > {MAX_BASES} "
                     "bases is not ported yet (many-basis NC slice)"
                 )
+        din = num_nodes if in_features is None else in_features
+        if decomposition == "block":
+            if num_blocks <= 0:
+                raise ValueError("block decomposition needs num_blocks > 0")
+            if din % num_blocks or out_features % num_blocks:
+                raise ValueError(
+                    f"block decomposition needs dims ({din}, {out_features}) "
+                    f"divisible by num_blocks ({num_blocks})"
+                )
+            if in_features is None:
+                raise NotImplementedError(
+                    "featureless block decomposition is unused by the "
+                    "reference model family (block LP layers always receive "
+                    "embeddings)"
+                )
         self.num_nodes = num_nodes
         self.num_relations = num_relations
         self.in_features = in_features
         self.out_features = out_features
         self.decomposition = decomposition
-        din = num_nodes if in_features is None else in_features
+        self.separate_self_weight = separate_self_weight and decomposition == "block"
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         gain = rinit.relu_gain() if weight_gain else 1.0
@@ -117,6 +159,21 @@ class RGCNConv(nn.Module):
         if decomposition == "basis":
             self.bases = nn.Parameter(w_init((num_bases, din, out_features), generator))
             self.comps = nn.Parameter(w_init((num_relations, num_bases), generator))
+        elif decomposition == "block":
+            ib, ob = din // num_blocks, out_features // num_blocks
+            if self.separate_self_weight:
+                fan = ((num_relations - 1) // 2, ib)
+
+                def blk_init(shape):
+                    return rinit.schlichtkrull_normal(shape, generator, gain,
+                                                      fan_shape=fan)
+
+                self.blocks = nn.Parameter(
+                    blk_init((num_relations - 1, num_blocks, ib, ob)))
+                self.self_weight = nn.Parameter(blk_init((din, out_features)))
+            else:
+                self.blocks = nn.Parameter(
+                    w_init((num_relations, num_blocks, ib, ob), generator))
         else:
             self.weights = nn.Parameter(
                 w_init((num_relations, din, out_features), generator))
@@ -131,6 +188,8 @@ class RGCNConv(nn.Module):
             raise ValueError("features must be given iff in_features is set")
         if self.decomposition == "basis":
             out = self._basis(edges, x)
+        elif self.decomposition == "block":
+            out = self._block(edges, x)
         else:
             out = self._dense(edges, x)
         return out if self.bias is None else out + self.bias
@@ -162,6 +221,33 @@ class RGCNConv(nn.Module):
             agg = rel_spmm_basis(edges, x, bases, comps[:-1])
         with full_f32_matmul():
             return agg + x @ torch.einsum("b,bio->io", comps[-1], bases)
+
+
+    def _block_messages(self, edges, x, blocks):
+        """General-relation messages of ``blocks (r, B, ib, ob)``,
+        aggregated: the expanded matrices through ``fwd_spmm`` while
+        ``r·din·dout`` is within :attr:`_BLOCK_EXPAND_MAX_ELEMS`, else
+        blockwise messages summed by K1."""
+        r, nb, ib, ob = blocks.shape
+        if edges.layout is None:
+            check_plain_path(blocks.device)
+            return spmm_ops.rel_spmm_block(edges, x, blocks)
+        if r * (nb * ib) * (nb * ob) <= self._BLOCK_EXPAND_MAX_ELEMS:
+            return fwd_spmm(edges, x, expand_blocks(blocks))
+        with full_f32_matmul():
+            return spmm_ops.rel_spmm_block(edges, x, blocks, aggregate=_aggregate_k1)
+
+    def _block(self, edges, x):
+        blocks = self.blocks
+        if self.separate_self_weight:
+            agg = self._block_messages(edges, x, blocks)
+            with full_f32_matmul():
+                return agg + x @ self.self_weight
+        agg = self._block_messages(edges, x, blocks[:-1])
+        n, (nb, ib, ob) = x.shape[0], blocks.shape[1:]
+        with full_f32_matmul():
+            self_msg = torch.einsum("nbi,bio->nbo", x.reshape(n, nb, ib), blocks[-1])
+        return agg + self_msg.reshape(n, nb * ob)
 
 
 class DistMult(nn.Module):

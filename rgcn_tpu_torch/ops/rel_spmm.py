@@ -26,10 +26,14 @@ __all__ = [
     "fwd_spmm",
 ]
 
-# The JAX package takes the fused kernel only while the whole W and a
-# (RB, dout) f32 accumulator fit its VMEM budget; the port keeps that rule
-# with the shared memory one H100 thread block may use (227 KB). K2 itself
-# stages one W[rel] per CTA, so the rule is now stricter than the kernel.
+# The port takes K2 only while the whole W and a (RB, dout) f32 accumulator
+# fit the shared memory one H100 thread block may use (227 KB). The JAX
+# package's rule is another: W within 8 MiB (pallas_spmm.py:228-244,
+# _FUSED_VMEM_BUDGET). Results agree either way; only the route differs,
+# for a W between the two budgets (e.g. 8 relations of 72 x 72), which the
+# port sends through K3 + K1 and the JAX package through its fused kernel.
+# K2 stages one whole W[rel] per CTA, so a W[rel] past 227 KB (lp-FB-toy's
+# 1 MB) cannot take it whatever the rule.
 FUSED_SMEM_BUDGET = 232_448
 
 

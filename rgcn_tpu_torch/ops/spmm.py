@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["aggregate_messages", "rel_spmm", "rel_spmm_featureless"]
+__all__ = ["aggregate_messages", "rel_spmm", "rel_spmm_block", "rel_spmm_featureless"]
 
 
 def aggregate_messages(
@@ -33,6 +33,23 @@ def rel_spmm(edges, x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     xg = x[edges.src.long()].reshape(n_tiles, tile, x.shape[-1])
     msgs = torch.bmm(xg, weights[edges.tile_rel.long()])
     msgs = msgs.reshape(n_tiles * tile, -1) * edges.val[:, None]
+    return aggregate_messages(msgs, edges.dst, edges.num_nodes)
+
+
+def rel_spmm_block(edges, x: torch.Tensor, blocks: torch.Tensor, *,
+                   aggregate=None) -> torch.Tensor:
+    """Block-diagonal-weight SpMM; ``blocks (R, B, din // B, dout // B)``
+    covers the general relations. Messages are computed blockwise, one
+    ``(B, ib) @ (B, ib, ob)`` product per edge, so the block-diagonal
+    matrix never exists; ``aggregate(msgs, edges)`` overrides the
+    destination sum (e.g. K1 over the EdgeSet's layout)."""
+    tile, n_tiles = edges.tile_size, edges.num_tiles
+    _, nb, ib, ob = blocks.shape
+    xg = x[edges.src.long()].reshape(n_tiles, tile, nb, ib)
+    msgs = torch.einsum("tnbi,tbio->tnbo", xg, blocks[edges.tile_rel.long()])
+    msgs = msgs.reshape(n_tiles * tile, nb * ob) * edges.val[:, None]
+    if aggregate is not None:
+        return aggregate(msgs, edges)
     return aggregate_messages(msgs, edges.dst, edges.num_nodes)
 
 

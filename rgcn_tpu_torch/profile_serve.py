@@ -1,17 +1,19 @@
 """Where the time of one serving forward goes, on the card.
 
-    python -m rgcn_tpu_torch.profile_serve [--lp]
+    python -m rgcn_tpu_torch.profile_serve [--lp [--config configs/rgcn/lp-FB-toy.yaml]]
 
 Without ``--lp``: builds the nc-AIFB server as ``serve_nodes`` does
 (synthetic AIFB-scale graph, seeded parameters) and reports, as one JSON
 line, the main path (fused layout: K1 + K2) and the same model over the
 EdgeSet without its fused layout (the K3 + K1 branch).
 
-With ``--lp``: builds the lp-WN18 server as ``serve_links`` does
-(``wn18_like()``, width 200, basis 2, seeded parameters) and reports the
-encode over the merged frame (K4), the same model over the EdgeSet whose
-merged layout carries the source-dedup'd frame (K5), and one batch of
-1024 top-10 tail queries.
+With ``--lp``: builds the LP server of ``--config`` (default
+``configs/rgcn/lp-WN18.yaml``) as ``serve_links`` does (its synthetic graph,
+seeded parameters) and reports the encode and one batch of 1024 top-10
+tail queries. lp-WN18 (width 200, basis 2): the encode over the merged
+frame (K4) and the same model over the EdgeSet whose merged layout carries
+the source-dedup'd frame (K5). lp-FB-toy (width 500, 100 blocks): the
+encode through the expanded block weights (K3 then K1).
 
 For each:
 
@@ -121,23 +123,31 @@ def profile_nc(dev) -> dict:
     }
 
 
-def profile_lp(dev) -> dict:
+def profile_lp(dev, config: str) -> dict:
     from rgcn_tpu_torch.config import load_experiment
     from rgcn_tpu_torch.data.synthetic import synthetic_lp_data
     from rgcn_tpu_torch.graph.coalesce import build_merged_layout
     from rgcn_tpu_torch.serve import LinkPredictionServer, load_lp_server
 
-    cfg = load_experiment(os.path.join(_CONFIGS, "lp-WN18.yaml"))
+    cfg = load_experiment(config)
     data = synthetic_lp_data(cfg.dataset.name)
     srv = load_lp_server(cfg, data, device=dev)
     es = srv.edges
+    train = np.asarray(data.train)
+    queries = train[np.random.default_rng(2).integers(0, len(train), 1024), :2]
+    if es.merged is None:  # the block encoder: expanded weights, K3 then K1
+        return {
+            "config": os.path.basename(config),
+            "encode_k3_k1": profile_calls(srv.refresh),
+            "topk_tails_1024": profile_calls(lambda: srv.topk_tails(queries, k=10)),
+            "row_blocks": {"k1_layout": _layout_blocks(es.layout)},
+        }
     dedup = build_merged_layout(*(t.cpu().numpy() for t in (es.dst, es.src, es.rel, es.val)),
                                 es.num_nodes, es.num_rels, dedup_k=2).to(dev)
     branch = LinkPredictionServer(srv.model, dataclasses.replace(es, merged=dedup))
-    train = np.asarray(data.train)
-    queries = train[np.random.default_rng(2).integers(0, len(train), 1024), :2]
     dd = dedup.fwd_dedup
     return {
+        "config": os.path.basename(config),
         "encode_k4_merged": profile_calls(srv.refresh),
         "encode_k5_dedup_branch": profile_calls(branch.refresh),
         "topk_tails_1024": profile_calls(lambda: srv.topk_tails(queries, k=10)),
@@ -152,10 +162,12 @@ def profile_lp(dev) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--lp", action="store_true",
-                    help="profile lp-WN18 serving instead of nc-AIFB")
+                    help="profile LP serving (--config) instead of nc-AIFB")
+    ap.add_argument("--config", default=os.path.join(_CONFIGS, "lp-WN18.yaml"),
+                    help="the LP config --lp serves (default lp-WN18)")
     args = ap.parse_args(argv)
     dev = resolve_device(None)
-    report = profile_lp(dev) if args.lp else profile_nc(dev)
+    report = profile_lp(dev, args.config) if args.lp else profile_nc(dev)
     print(json.dumps({"device": torch.cuda.get_device_name(dev), **report}))
 
 

@@ -226,9 +226,12 @@ def load_lp_server(
     train triples are the graph and the filter). ``state_dict``: parameters
     to serve; None serves the port's initialisation from seed 0.
     ``device``: None means CUDA, which must then be present; ``"cpu"`` runs
-    the plain versions. The EdgeSet is built as the JAX server builds it:
-    tile 128, destination layout, and the merged pair layout when a basis
-    encoder consumes it (``merge_applicable``).
+    the plain versions. A block encoder first pads ``data`` with null
+    nodes until N is divisible by ``node_embedding // num_blocks``
+    (:meth:`LinkPredictionData.pad_nodes`, in place, as the JAX server
+    does). The EdgeSet is built as the JAX server builds it: tile 128,
+    destination layout, and the merged pair layout when a basis encoder
+    consumes it (``merge_applicable``).
     """
     from rgcn_tpu_torch.config import load_experiment
     from rgcn_tpu_torch.graph.coalesce import merge_applicable
@@ -238,12 +241,14 @@ def load_lp_server(
     dev = resolve_device(device)
     if not hasattr(cfg, "encoder"):
         cfg = load_experiment(cfg)
+    decomp = cfg.encoder.decomposition
+    if decomp is not None and decomp.type == "block":
+        data.pad_nodes(cfg.encoder.node_embedding // decomp.num_blocks)
     num_nodes, num_rels = data.num_nodes, data.num_relations
     model = build_lp_model(cfg, num_nodes, num_rels)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     model = model.to(dev).eval()
-    decomp = cfg.encoder.decomposition
     merge = decomp is not None and merge_applicable(
         2 * num_rels, decomposition=decomp.type, num_bases=decomp.num_bases)
     train = np.asarray(data.train, dtype=np.int64)

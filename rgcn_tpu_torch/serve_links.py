@@ -3,8 +3,10 @@
     python -m rgcn_tpu_torch.serve_links --config configs/rgcn/lp-WN18.yaml \\
         --synthetic [--queries f.tsv] [--topk 10] [--filtered] [--cpu]
 
-Encodes the graph once at load (the R-GCN encoder through K4, or K5 over a
-source-dedup'd frame), then answers queries with DistMult algebra.
+Encodes the graph once at load (a basis encoder such as lp-WN18 through
+K4, or K5 over a source-dedup'd frame; a block encoder such as lp-FB-toy
+through its expanded block weights, K3 then K1), then answers queries with
+DistMult algebra.
 ``--queries`` is a TSV of ``s p o`` rows (point scores) or ``s p ?`` /
 ``? p o`` rows (top-k tails / heads); entity and relation columns take
 names from the dataset vocabulary or integer ids. Without ``--queries``

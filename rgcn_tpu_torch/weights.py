@@ -1,8 +1,10 @@
 """Carry parameters from the JAX package's flax tree into the port.
 
 Layouts stay identical: ``(R', din, dout)`` weights with the self-loop
-relation last, ``(nb, din, dout)`` bases and ``(R', nb)`` comps, ``(dout,)``
-biases, ``(N, d)`` node embeddings, ``(R, d)`` DistMult relations.
+relation last, ``(nb, din, dout)`` bases and ``(R', nb)`` comps, ``(r, B,
+din/B, dout/B)`` blocks and the LP block layer's ``(din, dout)``
+self_weight, ``(dout,)`` biases, ``(N, d)`` node embeddings, ``(R, d)``
+DistMult relations.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ __all__ = ["from_jax_params"]
 
 # leaves the port's modules hold: top-level arrays, and those of a submodule
 _TOP_LEAVES = ("node_embeddings", "node_embeddings_bias")
-_MODULE_LEAVES = ("weights", "bias", "bases", "comps",
+_MODULE_LEAVES = ("weights", "bias", "bases", "comps", "blocks", "self_weight",
                   "relations", "sbias", "obias", "pbias")
 
 

@@ -36,6 +36,7 @@ MODULES = [
     "rgcn_tpu_torch.weights",
     "rgcn_tpu_torch.profile_serve",
     "rgcn_tpu_torch.compare_k2",
+    "rgcn_tpu_torch.compare_k3",
     "rgcn_tpu_torch.compare_k4_k5",
 ]
 
@@ -180,16 +181,19 @@ def test_basis_wrappers_refuse_node_count_off_layout(num_nodes, device):
 
 def test_ctypes_signatures_match_sources():
     """Each launcher's ctypes argtypes match its C signature in csrc/; K2's
-    tile variant (bound with K2's argtypes) has K2's signature; the K4/K5
-    variants match the argtypes compare_k4_k5 binds them with."""
+    tile variant and K3's FMA, edge-column and probe variants (bound with
+    K2's and K3's argtypes) have their kernels' signatures; the K4/K5 variants match the
+    argtypes compare_k4_k5 binds them with."""
     import ctypes
 
-    from rgcn_tpu_torch import compare_k2, compare_k4_k5, kernels
+    from rgcn_tpu_torch import compare_k2, compare_k3, compare_k4_k5, kernels
     from rgcn_tpu_torch.kernels import build
 
     launchers = [(name, src, kernels._ARGTYPES[name])
                  for name, src in build.SOURCES.items()]
     launchers.append(("k2_fused_tile", compare_k2.VARIANT, kernels._ARGTYPES["k2_fused"]))
+    launchers += [(name, src, kernels._ARGTYPES["k3_messages"])
+                  for name, src in {**compare_k3.VARIANTS, **compare_k3.PROBES}.items()]
     launchers += [(name, src, argtypes)
                   for name, (src, argtypes) in compare_k4_k5.VARIANTS.items()]
     for name, src, argtypes in launchers:
@@ -210,6 +214,17 @@ def test_compare_k2_needs_cuda(monkeypatch):
     monkeypatch.setattr(compare_k2, "build_tile", lambda: pytest.fail("built"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         compare_k2.main([])
+
+
+def test_compare_k3_needs_cuda(monkeypatch):
+    """The K3 design comparison runs on the card only: without CUDA it
+    raises before building anything."""
+    from rgcn_tpu_torch import compare_k3
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(compare_k3, "build_variants", lambda _: pytest.fail("built"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compare_k3.main([])
 
 
 def test_compare_k4_k5_needs_cuda(monkeypatch):

@@ -11,8 +11,14 @@ lanes per slot, the last with two column groups), with and without the
 perm index, on small chunks; K2 at several (din, dout), scalar and vector
 gathers; the skewed graph (``skew_triples``: one destination spanning
 many chunks, row blocks of pads only, all-gap fused chunks) and a node
-count inside the layout's last block; K3 reading W through L2 when W[rel]
-exceeds 48 KB; K4 in both table forms (shared and per-basis rows), with
+count inside the layout's last block; K3 on both routes (the small f32 one
+for dout <= 32, the tiled 3xTF32 one, held to the same tolerance) with din
+and dout that are not multiples of its 32-deep, 128-wide slabs or of 4,
+W[rel] far over 227 KB (lp-FB-toy's 500 x 500), tiles with no real row and
+zero-val rows in the middle, a relation whose tiles run past one CTA's
+64-row window, tiles of one window and of several, into memory that held
+NaN (every element is stored once, no memset); the lp-FB-toy encode
+through exactly K3 and K1; K4 in both table forms (shared and per-basis rows), with
 and without ``sum_bases``, for 1 to 8 bases and widths that are not a
 multiple of 32, over merged and unmerged frames; K5 with 2 and 3 lanes;
 K4 (every mode) and K5 on the hub graph's merged and dedup frames (one row
@@ -162,6 +168,81 @@ def test_k3(cuda, din, dout):
     n0 = kernels.LAUNCHES["k3_messages"]
     _close(rs.rel_spmm_messages(es, x, w), rs.rel_spmm_messages_plain(es, x, w))
     assert kernels.LAUNCHES["k3_messages"] == n0 + 1
+
+
+def _k3_check(es, x, w):
+    """K3 into memory that held NaN against its plain version; counts one
+    launch."""
+    junk = torch.full((es.src.shape[0], w.shape[-1]), float("nan"), device=x.device)
+    del junk  # the caching allocator hands this memory to the output
+    n0 = kernels.LAUNCHES["k3_messages"]
+    got = rs.rel_spmm_messages(es, x, w)
+    _close(got, rs.rel_spmm_messages_plain(es, x, w))
+    assert kernels.LAUNCHES["k3_messages"] == n0 + 1
+    assert (got[es.val == 0] == 0).all()
+
+
+@pytest.mark.parametrize("din,dout", [
+    (500, 500),  # lp-FB-toy: W[rel] 1 MB, 4 column slices, a partial one
+    (37, 70),    # neither a multiple of 4: 4-byte copies
+    (130, 260),  # multiples of 4, not of the 16-deep or 128-wide slabs
+    (8, 33),     # just past the small route
+    (16, 4),     # the small route (nc-AIFB's K3 branch)
+    (0, 40),     # no input columns: every message is 0
+])
+def test_k3_routes_and_ragged_widths(cuda, din, dout):
+    es, rng = _edges(300, 5, 1800, 8, cuda)
+    x = torch.relu(_t(rng, cuda, 300, din))
+    w = _t(rng, cuda, 10, din, dout, scale=max(din, 1) ** -0.5)
+    _k3_check(es, x, w)
+
+
+@pytest.mark.parametrize("dout", [500, 4])
+def test_k3_empty_tiles_and_dropped_rows(cuda, dout):
+    """A tile whose rows all have val 0, and zero-val rows in the middle of
+    others (dropped edges), come out 0."""
+    es, rng = _edges(300, 5, 1800, 9, cuda)
+    val = es.val.clone().reshape(es.num_tiles, es.tile_size)
+    val[1] = 0
+    val[3, ::3] = 0
+    es = dataclasses.replace(es, val=val.reshape(-1))
+    x = torch.relu(_t(rng, cuda, 300, 64))
+    _k3_check(es, x, _t(rng, cuda, 10, 64, dout, scale=0.125))
+
+
+@pytest.mark.parametrize("tile", [128, 256, 48])
+def test_k3_long_relation_runs(cuda, tile):
+    """One relation's tiles run far past one CTA's 64-row window (full
+    tiles, then a partial one); tiles of 128 and 256 rows take two and
+    four windows each, tiles of 48 one."""
+    rng = np.random.default_rng(10)
+    t = make_random_triples(rng, 400, 1, 1500)
+    es = build_edge_set(t, 400, 1, tile_size=tile, with_dst_layout=True).to(cuda)
+    assert int((es.tile_rel == 0).sum().item()) * tile > 4 * 128
+    x = torch.relu(_t(rng, cuda, 400, 96))
+    _k3_check(es, x, _t(rng, cuda, 2, 96, 200, scale=0.1))
+
+
+def test_lp_fb_toy_encode_launches_k3_and_k1(cuda):
+    """lp-FB-toy served at full width (500, 100 blocks): one encode is
+    exactly one K3 (the expanded weights) and one K1; z equals the CPU
+    plain run within 1e-4."""
+    import os
+
+    from rgcn_tpu_torch.data.synthetic import fb_toy_like
+    from rgcn_tpu_torch.serve import load_lp_server
+
+    cfg = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "configs", "rgcn", "lp-FB-toy.yaml")
+    kernels.reset_launches()
+    srv = load_lp_server(cfg, fb_toy_like(), device=cuda)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == \
+        {"k3_messages": 1, "k1_aggregate": 1}
+    state = {k: v.cpu() for k, v in srv.model.state_dict().items()}
+    cpu = load_lp_server(cfg, fb_toy_like(), state, device="cpu")
+    assert srv.z.shape == (280, 500)
+    assert (srv.z.cpu() - cpu.z).abs().max().item() <= 1e-4
 
 
 def test_fwd_spmm_branches(cuda):

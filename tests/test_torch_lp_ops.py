@@ -157,7 +157,9 @@ def test_basis_conv_unported_branches_raise():
         RGCNConv(10, 5, 4, decomposition="basis", num_bases=2)
     with pytest.raises(NotImplementedError, match="9 > 8 bases"):
         RGCNConv(10, 5, 4, in_features=3, decomposition="basis", num_bases=9)
-    with pytest.raises(NotImplementedError, match="block"):
+    with pytest.raises(NotImplementedError, match="diagonal"):
+        RGCNConv(10, 5, 4, in_features=4, diag=True)
+    with pytest.raises(ValueError, match="num_blocks > 0"):  # block is ported
         RGCNConv(10, 5, 4, in_features=4, decomposition="block")
     with pytest.raises(ValueError, match="num_bases > 0"):
         RGCNConv(10, 5, 4, in_features=3, decomposition="basis")

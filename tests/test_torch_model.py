@@ -166,5 +166,9 @@ def test_unported_branches_raise():
         build_nc_model(cfg, aifb_like())
     from rgcn_tpu_torch.weights import from_jax_params as f
 
-    with pytest.raises(NotImplementedError, match="blocks"):
-        f({"params": {"rgc1": {"blocks": np.zeros((2, 3, 4))}}})
+    with pytest.raises(NotImplementedError, match="kernel"):
+        f({"params": {"encoding_layer": {"kernel": np.zeros((2, 3))}}})
+    # block layers are ported: their leaves carry
+    assert set(f({"params": {"rgc1": {"blocks": np.zeros((2, 3, 4, 4)),
+                                      "self_weight": np.zeros((12, 12))}}})) \
+        == {"rgc1.blocks", "rgc1.self_weight"}
