@@ -68,11 +68,32 @@ Phases, in order; any failure exits non-zero and prints no result:
    once (one encode); z, scores and top-k checked against the CPU plain
    run as in phase 6; reports the encode's host-clock median of 20
    refresh() calls;
-9. summary: one JSON line of each path's launch counts, one of the extra
+9. serving the many-basis NC configs on their stand-in graph, counts
+   zeroed before each path: nc-MUTAG (30 bases, hidden 16) and nc-BGS (40
+   bases) on the 500-node graph serve_nodes picks, each exactly K1 once
+   (layer 1: the basis rows gathered and contracted per tile, then K1)
+   and K2 once (layer 2: comps @ bases expanded to dense weights); and
+   the few-basis branch, an nc config with 4 bases built in memory on
+   aifb_like(), exactly K4 twice (layer 1 over the per-basis tables with
+   sum_bases, layer 2 over the merged frame). Logits finite, (N, C),
+   within 1e-4 * max(1, max|ref|) of the CPU plain run, classes equal
+   the CPU's on three requests of 8 test nodes;
+10. nc-AM at AM scale (am_like(): 300,000 nodes, 266 relations, so R' 533;
+   747,518 triples; 40 bases, hidden 10, 11 classes): load_nc_server on
+   configs/rgcn/nc-AM.yaml, counts zeroed before it, exactly the launches
+   of AM_PATH, logits checked against the CPU plain run as in phase 9,
+   the forward's host-clock median of 20 refresh() calls; then, on the
+   served EdgeSet, K1 at dout 10 (layer 1) and 11 (layer 2 over K3 + K1),
+   K3 (small route) and K2 at layer 2's x (300,000, 10), W (532, 10, 11),
+   each held and timed as in phase 3, and layer 2's two routes (K2 over
+   the fused layout, K3 then K1 over the destination layout) held against
+   the plain version and timed in turns (K2, K3 + K1, K3 + K1, K2);
+11. summary: one JSON line of each path's launch counts, one of the extra
    nc modes (K1 at dout 4, K3 at nc-AIFB, K1 at dout 500 over the FB-toy
-   layout), one of the extra K4 modes, and the "kernels" line, whose
-   "launches" for each kernel is its count on the path named beside it;
-10. last line: {"ok": true, "device": {...}}.
+   layout, the nc-AM kernels with their launches on the nc-AM path), one
+   of the extra K4 modes, and the "kernels" line, whose "launches" for
+   each kernel is its count on the path named beside it;
+12. last line: {"ok": true, "device": {...}}.
 
 Needs CUDA (exits 1 without it) and the repository around it.
 """
@@ -93,6 +114,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "rgcn", "nc-AIFB.yaml")
 LP_CONFIG = os.path.join(ROOT, "configs", "rgcn", "lp-WN18.yaml")
 FB_CONFIG = os.path.join(ROOT, "configs", "rgcn", "lp-FB-toy.yaml")
+MUTAG_CONFIG = os.path.join(ROOT, "configs", "rgcn", "nc-MUTAG.yaml")
+BGS_CONFIG = os.path.join(ROOT, "configs", "rgcn", "nc-BGS.yaml")
+AM_CONFIG = os.path.join(ROOT, "configs", "rgcn", "nc-AM.yaml")
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s and
 # f32 CUDA-core FLOP/s. The kernels here are f32 on CUDA cores.
@@ -416,6 +440,12 @@ K3_BRANCH = dict(k1_aggregate=2, k3_messages=1)
 LP_MAIN = dict(k4_weighted_aggregate=1)
 LP_DEDUP = dict(k5_weighted_aggregate_dedup=1)
 FB_PATH = dict(k3_messages=1, k1_aggregate=1)
+NC_BASIS_PATH = dict(k1_aggregate=1, k2_fused=1)  # nc-MUTAG, nc-BGS stand-ins
+NC_FEW_BASES = dict(k4_weighted_aggregate=2)
+# nc-AM at AM scale: layer 1 K1; layer 2's W (532, 10, 11) with a (512, 11)
+# accumulator is past fused_fits' budget, so K3 then K1 (K2 there is the
+# slower route: phase 10 times both)
+AM_PATH = dict(k1_aggregate=2, k3_messages=1)
 
 
 def serve_path(label, build, requests, expect):
@@ -442,9 +472,7 @@ def serve_path(label, build, requests, expect):
 def phase_serving(dev, data):
     from rgcn_tpu_torch.serve import NodeClassificationServer, load_nc_server
 
-    test_ids = [data.n2i[name] for name in list(data.test)[:24]]
-    requests = [test_ids[i:i + 8] for i in range(0, 24, 8)]
-
+    requests = nc_requests(data)
     srv, answers, main = serve_path(
         "main: fused layout", lambda: load_nc_server(CONFIG, data, device=dev),
         requests, MAIN_PATH)
@@ -837,6 +865,202 @@ def phase_lp_serving(dev, data, dedup):
     return {"lp_main": main, "lp_dedup_branch": branch}, timing
 
 
+def nc_requests(data):
+    """Three requests of 8 test nodes."""
+    test_ids = [data.n2i[name] for name in list(data.test)[:24]]
+    return [test_ids[i:i + 8] for i in range(0, 24, 8)]
+
+
+def check_nc_against_cpu(label, srv, answers, requests, cfg, data):
+    """Logits finite (N, C) and within 1e-4 * max(1, max|ref|) of the same
+    parameters on the CPU plain path; classes equal on the requests."""
+    from rgcn_tpu_torch.serve import load_nc_server
+
+    n, c = data.num_nodes, data.num_classes
+    if srv.logits.shape != (n, c) or not np.isfinite(srv.logits).all():
+        fail(f"serving [{label}]: logits {srv.logits.shape} not finite (N, C) = {(n, c)}")
+    state = {k: v.detach().cpu() for k, v in srv.model.state_dict().items()}
+    t0 = time.perf_counter()
+    cpu = load_nc_server(cfg, data, state, device="cpu")
+    diff = float(np.abs(srv.logits - cpu.logits).max())
+    tol = 1e-4 * max(1.0, float(np.abs(cpu.logits).max()))
+    log(f"  [{label}] logits vs CPU plain: max abs diff {diff:.3e} (tol {tol:.3e}; "
+        f"CPU run {time.perf_counter() - t0:.1f} s)")
+    if not diff <= tol:
+        fail(f"serving [{label}]: logits differ from the CPU plain run beyond {tol}")
+    for q, a in zip(requests, answers):
+        want = cpu.classify(q)
+        if not np.array_equal(a, want):
+            fail(f"serving [{label}]: classes {a} != CPU {want}")
+    log(f"  [{label}] classify: {[a.tolist() for a in answers]}")
+    return diff
+
+
+def phase_nc_basis_serving(dev):
+    """nc-MUTAG and nc-BGS on their stand-in graph (exactly K1 and K2 once),
+    and the few-basis featureless branch on aifb_like() (exactly K4
+    twice)."""
+    from rgcn_tpu_torch.config import DecompositionConfig, load_experiment
+    from rgcn_tpu_torch.data.synthetic import aifb_like, synthetic_nc_data
+    from rgcn_tpu_torch.serve import load_nc_server
+
+    paths = {}
+    for key, path in (("nc_mutag", MUTAG_CONFIG), ("nc_bgs", BGS_CONFIG)):
+        cfg = load_experiment(path)
+        data = synthetic_nc_data(cfg.dataset.name)
+        requests = nc_requests(data)
+        srv, answers, paths[key] = serve_path(
+            f"{key}: {cfg.rgcn.decomposition.num_bases} bases, stand-in graph "
+            f"N {data.num_nodes}", lambda: load_nc_server(cfg, data, device=dev),
+            requests, NC_BASIS_PATH)
+        check_nc_against_cpu(key, srv, answers, requests, cfg, data)
+
+    base = load_experiment(CONFIG)
+    cfg = dataclasses.replace(base, rgcn=dataclasses.replace(
+        base.rgcn, decomposition=DecompositionConfig("basis", num_bases=4)))
+    data = aifb_like()
+    requests = nc_requests(data)
+    srv, answers, paths["nc_few_bases"] = serve_path(
+        "nc few bases: nc-AIFB with 4 bases, aifb_like()",
+        lambda: load_nc_server(cfg, data, device=dev), requests, NC_FEW_BASES)
+    if srv.edges.merged is None:
+        fail("nc few bases: the EdgeSet has no merged layout")
+    check_nc_against_cpu("nc_few_bases", srv, answers, requests, cfg, data)
+    return paths
+
+
+def phase_am(dev):
+    """nc-AM served at AM scale with its launch counts held, checked against
+    the CPU plain run and timed; then its kernels at their shapes."""
+    from rgcn_tpu_torch.data.synthetic import am_like
+    from rgcn_tpu_torch.serve import load_nc_server
+
+    t0 = time.perf_counter()
+    data = am_like()
+    log(f"nc-AM graph (am_like): N {data.num_nodes}, R' {2 * data.num_relations + 1}, "
+        f"{len(data.triples)} triples, {data.num_classes} classes "
+        f"({time.perf_counter() - t0:.1f} s)")
+    requests = nc_requests(data)
+    srv, answers, counts = serve_path(
+        "nc-AM at AM scale", lambda: load_nc_server(AM_CONFIG, data, device=dev),
+        requests, AM_PATH)
+    es = srv.edges
+    log(f"  E_pad {es.src.shape[0]} ({es.num_tiles} tiles), layout L "
+        f"{es.layout.perm.shape[0]} ({es.layout.num_chunks} chunks, "
+        f"{es.layout.num_row_blocks} blocks), fused L {es.fused.src.shape[0]}")
+    check_nc_against_cpu("nc_am", srv, answers, requests, AM_CONFIG, data)
+    timing = {"forward_ms_nc_am": host_ms(srv.refresh)}
+    log(f"  nc-AM timing (host clock, median of 20): {json.dumps(timing)}")
+    modes = phase_am_kernels(dev, es, hidden=10, classes=data.num_classes)
+    return {"nc_am": counts}, timing, modes
+
+
+def phase_am_kernels(dev, edges, hidden, classes):
+    """K1 (dout 10 and 11), K3 (small route) and K2 at nc-AM's shapes
+    against their plain versions, and layer 2's two routes timed in turns;
+    returns the mode rows."""
+    from rgcn_tpu_torch.ops import aggregate as agg
+    from rgcn_tpu_torch.ops import fused as fz
+    from rgcn_tpu_torch.ops import rel_spmm as rs
+
+    rng = np.random.default_rng(6)
+    n, r_gen, e_pad = edges.num_nodes, edges.num_rels, edges.src.shape[0]
+    lay, fl = edges.layout, edges.fused
+
+    def rand(*shape, scale=1.0):
+        a = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(a).to(dev)
+
+    log("kernels (nc-AM shapes):")
+    modes = []
+    real_slots = int((lay.local_dst < lay.row_block).sum().item())
+    dst_long = edges.dst.long()
+    for dout, what in ((hidden, "layer 1"), (classes, "layer 2, K3 + K1 route")):
+        m = rand(e_pad, dout) * edges.val[:, None]
+        err = check_close(f"K1 aggregate_sorted dout {dout} (nc-AM {what})",
+                          agg.aggregate_sorted(m, lay, n),
+                          agg.aggregate_sorted_plain(m, lay, n))
+        zeros = torch.zeros((n + 1, dout), device=dev)
+        ms, call = timed(lambda: agg.aggregate_sorted(m, lay, n))
+        plain_ms, plain_call = timed(lambda: agg.aggregate_sorted_plain(m, lay, n))
+        lib_ms, lib_call = timed(lambda: torch.index_add(zeros, 0, dst_long, m))
+        modes.append(dict(
+            name="K1", mode=f"K1 dout {dout} (nc-AM {what}, scalar lanes)",
+            route="cuda", source="rgcn_tpu_torch/kernels/csrc/k1_aggregate.cu",
+            replaces="rgcn_tpu/ops/pallas_aggregate.py:203",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            call_ms=call, plain_call_ms=plain_call, library_call_ms=lib_call,
+            _bound=bound_ms(real_slots * (dout * 4 + 4 + 4) + nbytes(lay.chunk_block)
+                            + n * dout * 4, real_slots * dout),
+        ))
+
+    x = torch.relu(rand(n, hidden))
+    w = rand(r_gen, hidden, classes, scale=hidden ** -0.5)
+    log(f"  layer 2 W {tuple(w.shape)}: fused_fits {rs.fused_fits(w, fl.row_block)}")
+    # K3, small route
+    ref = rs.rel_spmm_messages_plain(edges, x, w)
+    err = check_close("K3 rel_spmm_messages (nc-AM, small route)",
+                      rs.rel_spmm_messages(edges, x, w), ref)
+    real = int((edges.val != 0).sum().item())
+    xg = x[edges.src.long()].reshape(edges.num_tiles, edges.tile_size, hidden)
+    wg = w[edges.tile_rel.long()]
+    ms, call = timed(lambda: rs.rel_spmm_messages(edges, x, w))
+    plain_ms, plain_call = timed(lambda: rs.rel_spmm_messages_plain(edges, x, w))
+    lib_ms, lib_call = timed(lambda: torch.bmm(xg, wg))
+    modes.append(dict(
+        name="K3", mode="K3 nc-AM layer 2 (small route)", route="cuda",
+        source="rgcn_tpu_torch/kernels/csrc/k3_messages.cu",
+        replaces="rgcn_tpu/ops/pallas_spmm.py:70",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        call_ms=call, plain_call_ms=plain_call, library_call_ms=lib_call,
+        library="torch.bmm over x[src] tiles and W[tile_rel] gathered "
+                "beforehand (TF32 off, gathers not timed)",
+        _bound=bound_ms(nbytes(x, w, edges.src, edges.val, edges.tile_rel)
+                        + e_pad * classes * 4, real * (2 * hidden * classes + classes)),
+    ))
+    del xg, wg
+
+    # K2 over the fused layout
+    ref = fz.rel_spmm_fused_plain(fl, n, x, w)
+    err = check_close("K2 rel_spmm_fused (nc-AM layer 2)",
+                      fz.rel_spmm_fused(fl, n, x, w), ref)
+    keep = (fl.local_dst.reshape(-1) < fl.row_block) \
+        & (fl.quantum_rel.repeat_interleave(fl.quantum) >= 0)
+    real = int(keep.sum().item())
+    x_rows = int(torch.unique(fl.src[keep]).numel())
+    w_rels = int(torch.unique(fl.quantum_rel[fl.quantum_rel >= 0]).numel())
+    ms, call = timed(lambda: fz.rel_spmm_fused(fl, n, x, w))
+    plain_ms, plain_call = timed(lambda: fz.rel_spmm_fused_plain(fl, n, x, w))
+    modes.append(dict(
+        name="K2", mode=f"K2 nc-AM layer 2 (fused L {fl.src.shape[0]}, {real} real)",
+        route="cuda", source="rgcn_tpu_torch/kernels/csrc/k2_fused.cu",
+        replaces="rgcn_tpu/ops/pallas_fused.py:355",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        call_ms=call, plain_call_ms=plain_call, library_call_ms=None,
+        _bound=bound_ms(real * 12 + (x_rows + w_rels * classes) * hidden * 4
+                        + nbytes(fl.quantum_rel, fl.chunk_block) + n * classes * 4,
+                        real * (2 * hidden * classes + 2 * classes)),
+    ))
+
+    # layer 2's two routes, each against the plain two-stage version, in turns
+    ref = agg.aggregate_sorted_plain(rs.rel_spmm_messages_plain(edges, x, w), lay, n)
+    routes = {"k2": lambda: fz.rel_spmm_fused(fl, n, x, w),
+              "k3_k1": lambda: rs.rel_spmm_full(edges, lay, x, w)}
+    for key, fn in routes.items():
+        check_close(f"nc-AM layer 2 route {key} vs plain", fn(), ref)
+    order = ("k2", "k3_k1", "k3_k1", "k2")
+    times = [(key, timed(routes[key])) for key in order]
+    log(json.dumps({"nc_am_layer2_routes": {
+        "order": list(order),
+        "device_ms": [t[1][0] for t in times],
+        "call_ms": [t[1][1] for t in times],
+    }}))
+    for r in modes:
+        r["bound_ms"], r["bound_by"] = r.pop("_bound")
+        log(json.dumps({"kernel_check": r}))
+    return modes
+
+
 def main():
     t_start = time.perf_counter()
     name = phase_environment()
@@ -845,7 +1069,7 @@ def main():
         import rgcn_tpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"rgcn_tpu_torch is not importable next to this script: {e}")
-    for cfg in (CONFIG, LP_CONFIG, FB_CONFIG):
+    for cfg in (CONFIG, LP_CONFIG, FB_CONFIG, MUTAG_CONFIG, BGS_CONFIG, AM_CONFIG):
         if not os.path.isfile(cfg):
             fail(f"config not found: {cfg}")
 
@@ -899,6 +1123,15 @@ def main():
     paths.update(fb_paths)
     timing.update(fb_timing)
 
+    paths.update(phase_nc_basis_serving(dev))
+    am_paths, am_timing, am_modes = phase_am(dev)
+    paths.update(am_paths)
+    timing.update(am_timing)
+    kname = {"K1": "k1_aggregate", "K2": "k2_fused", "K3": "k3_messages"}
+    for r in am_modes:
+        r["path"], r["launches"] = "nc_am", am_paths["nc_am"][kname[r["name"]]]
+    nc_modes.extend(am_modes)
+
     # each kernel's count on the path that serves through it
     key = {"K1": ("k1_aggregate", "main"), "K2": ("k2_fused", "main"),
            "K3": ("k3_messages", "lp_fb_toy"),
@@ -918,7 +1151,7 @@ def main():
             "library_call_ms": r["library_call_ms"],
         })
     print(json.dumps({"serve_launches": paths}), flush=True)
-    print(json.dumps({"lp_timing_ms": timing}), flush=True)
+    print(json.dumps({"serve_timing_ms": timing}), flush=True)
     print(json.dumps({"nc_modes": nc_modes}), flush=True)
     print(json.dumps({"k4_modes": extra}), flush=True)
     print(json.dumps({"pending_kernels": []}), flush=True)

@@ -1,6 +1,7 @@
 from rgcn_tpu_torch.data.loaders import LinkPredictionData, NodeClassificationData
 from rgcn_tpu_torch.data.synthetic import (
     aifb_like,
+    am_like,
     fb_toy_like,
     synthetic_kg,
     synthetic_link_prediction,
@@ -14,6 +15,7 @@ __all__ = [
     "LinkPredictionData",
     "NodeClassificationData",
     "aifb_like",
+    "am_like",
     "fb_toy_like",
     "synthetic_kg",
     "synthetic_link_prediction",

@@ -21,6 +21,7 @@ __all__ = [
     "wn18_like",
     "fb_toy_like",
     "aifb_like",
+    "am_like",
     "skew_triples",
     "synthetic_nc_data",
     "synthetic_lp_data",
@@ -179,6 +180,34 @@ def aifb_like(seed: int = 0) -> NodeClassificationData:
     return synthetic_node_classification(
         num_nodes=8_285, num_rels=45, num_edges=29_000, num_classes=4,
         labeled_frac=0.05, seed=seed,
+    )
+
+
+def am_like(seed: int = 9) -> NodeClassificationData:
+    """AM-scale NC graph, as ``benchmarks/stress_nc.py`` (lines 25-29, 53,
+    66-68) builds it: ``synthetic_kg(300_000, 266, 1_000_000, seed=9)``
+    (747,518 unique triples) and 1,000 labeled nodes with 11 classes drawn
+    from ``default_rng(seed)``; the first half of them train, the rest
+    test. Real AM is not in the repository; the widths nc-AM runs at (40
+    bases, hidden 10) come from its config."""
+    num_nodes, num_rels, num_labeled = 300_000, 266, 1_000
+    triples = synthetic_kg(num_nodes, num_rels, 1_000_000, seed=seed)
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(num_nodes, num_labeled, replace=False)
+    lbl = rng.integers(0, 11, num_labeled)
+    i2n = [f"node{i}" for i in range(num_nodes)]
+    i2r = [f"rel{i}" for i in range(num_rels)]
+    labels = {i2n[i]: int(c) for i, c in zip(idx, lbl)}
+    names = list(labels)
+    split = num_labeled // 2
+    return NodeClassificationData(
+        triples=triples,
+        n2i={n: i for i, n in enumerate(i2n)},
+        i2n=i2n,
+        r2i={r: i for i, r in enumerate(i2r)},
+        i2r=i2r,
+        train={n: labels[n] for n in names[:split]},
+        test={n: labels[n] for n in names[split:]},
     )
 
 

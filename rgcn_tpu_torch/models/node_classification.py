@@ -16,8 +16,10 @@ __all__ = ["NodeClassifier", "build_nc_model"]
 class NodeClassifier(nn.Module):
     """Featureless 1-2 layer R-GCN returning logits for all nodes.
 
-    Layer 1 is featureless (one-hot identity input), layer 2 featureful.
-    Parameters are drawn from ``torch.Generator().manual_seed(seed)``.
+    Layer 1 is featureless (one-hot identity input), layer 2 featureful;
+    both take ``decomposition`` with ``num_bases`` or ``num_blocks``.
+    Parameters are drawn from ``torch.Generator().manual_seed(seed)``, layer
+    by layer in the JAX order (bases then comps under basis decomposition).
     """
 
     def __init__(
@@ -28,24 +30,24 @@ class NodeClassifier(nn.Module):
         hidden_size: int = 16,
         num_layers: int = 2,
         decomposition: Optional[str] = None,
+        num_bases: int = 0,
+        num_blocks: int = 0,
         seed: int = 0,
     ):
         super().__init__()
         if not 0 < num_layers < 3:
             raise ValueError("only 1 or 2 RGCN layers are supported")
         self.num_layers = num_layers
+        self.decomposition = decomposition
         r_aug = 2 * num_relations + 1
         nhid = num_classes if num_layers == 1 else hidden_size
         gen = torch.Generator().manual_seed(seed)
-        self.rgc1 = RGCNConv(
-            num_nodes, r_aug, nhid, in_features=None,
-            decomposition=decomposition, generator=gen,
-        )
+        decomp = dict(decomposition=decomposition, num_bases=num_bases,
+                      num_blocks=num_blocks, generator=gen)
+        self.rgc1 = RGCNConv(num_nodes, r_aug, nhid, in_features=None, **decomp)
         if num_layers == 2:
-            self.rgc2 = RGCNConv(
-                num_nodes, r_aug, num_classes, in_features=nhid,
-                decomposition=decomposition, generator=gen,
-            )
+            self.rgc2 = RGCNConv(num_nodes, r_aug, num_classes, in_features=nhid,
+                                 **decomp)
 
     def forward(self, edges) -> torch.Tensor:
         x = self.rgc1(edges)
@@ -54,8 +56,14 @@ class NodeClassifier(nn.Module):
         return x
 
     def layer1_l2(self) -> torch.Tensor:
-        """Sum of squares of the first layer's weights."""
-        return torch.sum(self.rgc1.weights ** 2)
+        """Sum of squares of the first layer's weights, decomposition-aware
+        (``bases`` and ``comps``, or ``blocks``, or ``weights``)."""
+        p1 = self.rgc1
+        if self.decomposition == "basis":
+            return torch.sum(p1.bases ** 2) + torch.sum(p1.comps ** 2)
+        if self.decomposition == "block":
+            return torch.sum(p1.blocks ** 2)
+        return torch.sum(p1.weights ** 2)
 
 
 def build_nc_model(cfg, data, seed: int = 0) -> NodeClassifier:
@@ -73,5 +81,7 @@ def build_nc_model(cfg, data, seed: int = 0) -> NodeClassifier:
         hidden_size=rg.hidden_size,
         num_layers=rg.num_layers,
         decomposition=decomp.type if decomp else None,
+        num_bases=decomp.num_bases if decomp else 0,
+        num_blocks=decomp.num_blocks if decomp else 0,
         seed=seed,
     )

@@ -8,10 +8,22 @@ Ported weight layouts of :class:`RGCNConv`:
   destination layout;
 * featureful: :func:`~rgcn_tpu_torch.ops.rel_spmm.fwd_spmm` (K2, or K3
   then K1);
-* featureful basis decomposition with at most 8 bases (the LP encoder):
-  ``comps (R', nb)`` and ``bases (nb, din, dout)`` through the
+* featureless basis decomposition (NC layer 1 of nc-MUTAG, nc-BGS,
+  nc-AM): ``W = comps @ bases`` is never expanded to ``(R', N, dout)``.
+  With more than 8 bases the basis rows are gathered per edge and
+  contracted with ``comps[tile_rel]`` per tile
+  (:func:`~rgcn_tpu_torch.ops.spmm.rel_spmm_featureless_basis`, grouped
+  under its element budget) and summed by K1; with at most 8, K4 sums the
+  per-basis tables with the weights ``val · comps[rel]``
+  (:func:`~rgcn_tpu_torch.ops.basis.rel_spmm_featureless_basis_fwd`). The
+  self message is ``comps[-1] @ bases``;
+* featureful basis decomposition: with at most 8 bases (the LP encoder)
+  ``comps (R', nb)`` and ``bases (nb, din, dout)`` go through the
   aggregation-first :func:`~rgcn_tpu_torch.ops.basis.rel_spmm_basis` (K4
   over the merged or destination layout, K5 over ``merged.fwd_dedup``);
+  with more (NC layer 2 of nc-MUTAG, nc-BGS, nc-AM) they are expanded to
+  dense ``(R', din, dout)`` weights in full f32 and take the featureful
+  path;
 * featureful block decomposition (the lp-FB-toy encoder): ``blocks (r, B,
   din/B, dout/B)`` expanded to block-diagonal ``(r, din, dout)`` matrices
   by one index scatter and run through ``fwd_spmm`` (K3 then K1 at
@@ -24,9 +36,8 @@ An EdgeSet without a destination (or merged) layout takes the plain
 any other device it raises, so the card never runs a forward without its
 kernels. The self-loop relation (index ``R' - 1``) is applied densely,
 ``X @ W_self``. Self-loop dropout is a training option; serving runs the
-deterministic forward, where it is the identity. Featureless basis, more
-than 8 bases and diagonal weights belong to later slices of the port and
-raise.
+deterministic forward, where it is the identity. Diagonal weights (e-RGCN)
+belong to a later slice of the port and raise.
 """
 
 from __future__ import annotations
@@ -41,7 +52,11 @@ from rgcn_tpu_torch.nn import init as rinit
 from rgcn_tpu_torch.ops import distmult as distmult_ops
 from rgcn_tpu_torch.ops import spmm as spmm_ops
 from rgcn_tpu_torch.ops.aggregate import aggregate_sorted
-from rgcn_tpu_torch.ops.basis import full_f32_matmul, rel_spmm_basis
+from rgcn_tpu_torch.ops.basis import (
+    full_f32_matmul,
+    rel_spmm_basis,
+    rel_spmm_featureless_basis_fwd,
+)
 from rgcn_tpu_torch.ops.rel_spmm import fwd_spmm
 
 __all__ = ["RGCNConv", "DistMult", "check_plain_path", "expand_blocks"]
@@ -118,19 +133,8 @@ class RGCNConv(nn.Module):
             raise NotImplementedError(
                 f"{decomposition!r} decomposition has not been implemented"
             )
-        if decomposition == "basis":
-            if in_features is None:
-                raise NotImplementedError(
-                    "featureless basis decomposition is not ported yet "
-                    "(many-basis NC slice)"
-                )
-            if num_bases <= 0:
-                raise ValueError("basis decomposition needs num_bases > 0")
-            if num_bases > MAX_BASES:
-                raise NotImplementedError(
-                    f"basis decomposition with {num_bases} > {MAX_BASES} "
-                    "bases is not ported yet (many-basis NC slice)"
-                )
+        if decomposition == "basis" and num_bases <= 0:
+            raise ValueError("basis decomposition needs num_bases > 0")
         din = num_nodes if in_features is None else in_features
         if decomposition == "block":
             if num_blocks <= 0:
@@ -191,11 +195,13 @@ class RGCNConv(nn.Module):
         elif self.decomposition == "block":
             out = self._block(edges, x)
         else:
-            out = self._dense(edges, x)
+            out = self._dense(edges, x, self.weights)
         return out if self.bias is None else out + self.bias
 
-    def _dense(self, edges, x):
-        w = self.weights
+    def _dense(self, edges, x, w):
+        """Dense ``w (R', din, dout)``: the general relations through the
+        kernels (or the plain path without a layout), the self-loop
+        densely."""
         if edges.layout is None:
             check_plain_path(w.device)
         if x is None:
@@ -208,20 +214,32 @@ class RGCNConv(nn.Module):
             agg = fwd_spmm(edges, x, w[:-1])
         else:
             agg = spmm_ops.rel_spmm(edges, x, w[:-1])
-        return agg + x @ w[-1]
+        with full_f32_matmul():
+            return agg + x @ w[-1]
 
     def _basis(self, edges, x):
         bases, comps = self.bases, self.comps
-        if edges.merged is None and edges.layout is None:
-            check_plain_path(bases.device)
+        many = comps.shape[1] > MAX_BASES
+        if x is None:
+            if edges.layout is None:
+                check_plain_path(bases.device)
+                agg = spmm_ops.rel_spmm_featureless_basis(edges, bases, comps[:-1])
+            elif many:
+                agg = spmm_ops.rel_spmm_featureless_basis(
+                    edges, bases, comps[:-1], aggregate=_aggregate_k1)
+            else:
+                agg = rel_spmm_featureless_basis_fwd(edges, bases, comps[:-1])
             with full_f32_matmul():
-                w = torch.einsum("rb,bio->rio", comps[:-1], bases)
-            agg = spmm_ops.rel_spmm(edges, x, w)
-        else:
-            agg = rel_spmm_basis(edges, x, bases, comps[:-1])
+                return agg + torch.einsum("b,bno->no", comps[-1], bases)
+        if many or (edges.merged is None and edges.layout is None):
+            # expand to dense per-relation weights: K4/K5 keep one sum per
+            # basis in registers and take at most MAX_BASES
+            with full_f32_matmul():
+                w = torch.einsum("rb,bio->rio", comps, bases)
+            return self._dense(edges, x, w)
+        agg = rel_spmm_basis(edges, x, bases, comps[:-1])
         with full_f32_matmul():
             return agg + x @ torch.einsum("b,bio->io", comps[-1], bases)
-
 
     def _block_messages(self, edges, x, blocks):
         """General-relation messages of ``blocks (r, B, ib, ob)``,

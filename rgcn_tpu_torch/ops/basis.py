@@ -19,7 +19,10 @@ they launch ``kernels/csrc/k4_weighted_aggregate.cu`` and
 ``k5_weighted_aggregate_dedup.cu``; on a CPU tensor they take the plain
 PyTorch versions beside them. Both routes return ``Agg`` as the JAX
 functions do, ``(nb, N, din)``, but as a view of node-major ``(N, nb,
-din)`` storage, so the closing product reads it without a copy.
+din)`` storage, so the closing product reads it without a copy. A
+featureless layer (identity features) needs no closing product:
+:func:`rel_spmm_featureless_basis_fwd` runs K4 over the per-basis tables
+with the sum over bases in the kernel.
 
 The per-slot weight products (``coeff @ comps``) and the closing product
 are ordinary products outside the kernels; they run in full f32 (TF32 off),
@@ -54,6 +57,7 @@ __all__ = [
     "sorted_inputs",
     "merged_wvec",
     "rel_spmm_basis",
+    "rel_spmm_featureless_basis_fwd",
 ]
 
 
@@ -192,6 +196,19 @@ def closing_product(agg: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
     nb, n, din = agg.shape
     with full_f32_matmul():
         return agg.permute(1, 0, 2).reshape(n, nb * din) @ bases.reshape(nb * din, -1)
+
+
+def rel_spmm_featureless_basis_fwd(edges, bases: torch.Tensor,
+                                   comps: torch.Tensor) -> torch.Tensor:
+    """Featureless basis SpMM, forward (counterpart of
+    ``pallas_basis.py::_fl_basis_fwd_impl``): with identity features
+    ``out[s] = Σ_b Σ_{e → s} (val_e · comps[rel_e, b]) · bases[b, src_e]``,
+    so K4 over the EdgeSet's destination layout gathers from the per-basis
+    tables ``bases (nb, N, dout)`` and sums over bases in the kernel.
+    ``comps (R, nb)`` covers the general relations. Returns ``(N, dout)``."""
+    src_sorted, wvec = sorted_inputs(edges, comps)
+    return weighted_aggregate(bases, src_sorted, wvec, edges.layout,
+                              edges.num_nodes, sum_bases=True)[0]
 
 
 def rel_spmm_basis(edges, x: torch.Tensor, bases: torch.Tensor,

@@ -160,11 +160,12 @@ def check_operands(x, weights, num_nodes: int, num_rels: int) -> None:
 def rel_spmm_fused_plain(
     layout: FusedLayout, num_nodes: int, x: torch.Tensor, weights: torch.Tensor
 ) -> torch.Tensor:
-    """Plain version of K2: per-slot messages ``(x[src] @ W[rel_q]) · val``
-    (gap quanta clamp to relation 0 and carry val 0), summed per row."""
-    rel = layout.quantum_rel.long().clamp(min=0).repeat_interleave(layout.quantum)
-    xg = x[layout.src.long()]
-    msgs = torch.bmm(xg.unsqueeze(1), weights[rel]).squeeze(1)
+    """Plain version of K2: per-slot messages ``(x[src] @ W[rel_q]) · val``,
+    one product per quantum (gap quanta clamp to relation 0 and carry val
+    0), summed per row."""
+    rel = layout.quantum_rel.long().clamp(min=0)
+    xg = x[layout.src.long()].reshape(rel.shape[0], layout.quantum, x.shape[-1])
+    msgs = torch.bmm(xg, weights[rel]).reshape(xg.shape[0] * layout.quantum, -1)
     msgs = msgs * layout.val[:, None]
     return blocked_sum(
         msgs, layout.local_dst, layout.chunk_block, layout.num_row_blocks,

@@ -33,7 +33,10 @@ __all__ = [
 # for a W between the two budgets (e.g. 8 relations of 72 x 72), which the
 # port sends through K3 + K1 and the JAX package through its fused kernel.
 # K2 stages one whole W[rel] per CTA, so a W[rel] past 227 KB (lp-FB-toy's
-# 1 MB) cannot take it whatever the rule.
+# 1 MB) cannot take it whatever the rule. A rule keyed on one W[rel] would
+# send nc-AM's layer 2 (W (532, 10, 11) over an 11.7M-slot fused layout) to
+# K2, which measured 2.80 ms there against 0.17 ms for K3 + K1 (chip_smoke.py
+# on an H100 80GB HBM3 at 700 W), so the rule keys on the whole W.
 FUSED_SMEM_BUDGET = 232_448
 
 

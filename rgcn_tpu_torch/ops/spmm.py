@@ -13,7 +13,20 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["aggregate_messages", "rel_spmm", "rel_spmm_block", "rel_spmm_featureless"]
+from rgcn_tpu_torch.ops.basis import full_f32_matmul
+
+__all__ = [
+    "aggregate_messages",
+    "rel_spmm",
+    "rel_spmm_block",
+    "rel_spmm_featureless",
+    "rel_spmm_featureless_basis",
+]
+
+# Cap (elements) on the gathered basis rows of the featureless basis
+# contraction, as in the JAX package; above it, tile groups run one after
+# another. Module-level so tests can lower it and reach the grouped branch.
+_ELEM_BUDGET = 64_000_000
 
 
 def aggregate_messages(
@@ -64,6 +77,45 @@ def rel_spmm_featureless(edges, weights: torch.Tensor, *, aggregate=None) -> tor
     flat = weights.reshape(num_rels * n_rows, dout)
     idx = edges.rel.long() * n_rows + edges.src.long()
     msgs = flat[idx] * edges.val[:, None]
+    if aggregate is not None:
+        return aggregate(msgs, edges)
+    return aggregate_messages(msgs, edges.dst, edges.num_nodes)
+
+
+def rel_spmm_featureless_basis(edges, bases: torch.Tensor, comps: torch.Tensor, *,
+                               aggregate=None) -> torch.Tensor:
+    """Featureless SpMM under basis decomposition, without expanding
+    ``comps @ bases`` to ``(R, N, dout)``: the message of edge ``(src,
+    rel)`` is ``Σ_b comps[rel, b] · bases[b, src]``, a contraction of the
+    gathered basis rows per relation-uniform tile.
+
+    ``bases (nb, N, dout)``, ``comps (R, nb)`` over the general relations
+    (the self-loop term is the caller's). The gather table is node-major
+    with the basis innermost, ``(N, dout, nb)``, so a group of ``g`` tiles
+    contracts as one ``(g, tile·dout, nb) @ (g, nb, 1)`` product of the
+    gathered rows as they lie, in full f32. While ``E_pad·nb·dout`` exceeds
+    :data:`_ELEM_BUDGET`, tiles go in groups whose size divides the tile
+    count (the JAX package's search), so the gathered rows of one group
+    exist at a time. ``aggregate(msgs, edges)`` overrides the destination
+    sum (e.g. K1 over the EdgeSet's layout).
+    """
+    tile, n_tiles = edges.tile_size, edges.num_tiles
+    nb, n_rows, dout = bases.shape
+    table = bases.permute(1, 2, 0).contiguous().view(n_rows, dout * nb)
+    coef = comps[edges.tile_rel.long()][:, :, None]  # (n_tiles, nb, 1)
+    group = n_tiles
+    if n_tiles * tile * nb * dout > _ELEM_BUDGET:
+        group = max(1, _ELEM_BUDGET // (tile * nb * dout))
+        while n_tiles % group:
+            group -= 1
+    src = edges.src.long()
+    msgs = torch.empty((n_tiles * tile, dout), dtype=bases.dtype, device=bases.device)
+    with full_f32_matmul():
+        for t0 in range(0, n_tiles, group):
+            lo, hi = t0 * tile, (t0 + group) * tile
+            rows = table.index_select(0, src[lo:hi]).view(group, tile * dout, nb)
+            torch.bmm(rows, coef[t0:t0 + group], out=msgs[lo:hi].view(group, tile * dout, 1))
+    msgs = msgs * edges.val[:, None]
     if aggregate is not None:
         return aggregate(msgs, edges)
     return aggregate_messages(msgs, edges.dst, edges.num_nodes)

@@ -1,11 +1,15 @@
 """Where the time of one serving forward goes, on the card.
 
-    python -m rgcn_tpu_torch.profile_serve [--lp [--config configs/rgcn/lp-FB-toy.yaml]]
+    python -m rgcn_tpu_torch.profile_serve [--nc-config configs/rgcn/nc-AM.yaml]
+    python -m rgcn_tpu_torch.profile_serve --lp [--config configs/rgcn/lp-FB-toy.yaml]
 
-Without ``--lp``: builds the nc-AIFB server as ``serve_nodes`` does
-(synthetic AIFB-scale graph, seeded parameters) and reports, as one JSON
-line, the main path (fused layout: K1 + K2) and the same model over the
-EdgeSet without its fused layout (the K3 + K1 branch).
+Without ``--lp``: builds the NC server of ``--nc-config`` (default
+``configs/rgcn/nc-AIFB.yaml``) with seeded parameters on its synthetic
+graph: AIFB-scale for nc-AIFB, the AM-scale graph (``am_like``: 300,000
+nodes, 266 relations) for nc-AM, the 500-node graph ``serve_nodes`` picks
+for nc-MUTAG and nc-BGS. It reports, as one JSON line, the main path (as
+the server routes it: for nc-AIFB K1 + K2) and the same model over the
+EdgeSet without its fused layout (layer 2 through K3 + K1).
 
 With ``--lp``: builds the LP server of ``--config`` (default
 ``configs/rgcn/lp-WN18.yaml``) as ``serve_links`` does (its synthetic graph,
@@ -105,17 +109,30 @@ def profile_calls(fn, tries: int = 3) -> dict:
     }
 
 
-def profile_nc(dev) -> dict:
+def nc_profile_data(cfg):
+    """The graph an NC config is profiled on: ``am_like()`` for AM, else
+    the synthetic stand-in ``serve_nodes --synthetic`` serves."""
+    from rgcn_tpu_torch.data.synthetic import am_like, synthetic_nc_data
+
+    if cfg.dataset.name.lower() == "am":
+        return am_like()
+    return synthetic_nc_data(cfg.dataset.name)
+
+
+def profile_nc(dev, config: str) -> dict:
     from rgcn_tpu_torch.config import load_experiment
-    from rgcn_tpu_torch.data.synthetic import synthetic_nc_data
     from rgcn_tpu_torch.serve import NodeClassificationServer, load_nc_server
 
-    cfg = load_experiment(os.path.join(_CONFIGS, "nc-AIFB.yaml"))
-    data = synthetic_nc_data(cfg.dataset.name)
+    cfg = load_experiment(config)
+    data = nc_profile_data(cfg)
     srv = load_nc_server(cfg, data, device=dev)
     branch = NodeClassificationServer(
         srv.model, dataclasses.replace(srv.edges, fused=None))
     return {
+        "config": os.path.basename(config),
+        "graph": {"nodes": data.num_nodes, "relations": data.num_relations,
+                  "triples": int(len(data.triples)),
+                  "e_pad": int(srv.edges.src.shape[0])},
         "main": profile_calls(srv.refresh),
         "k3_k1_branch": profile_calls(branch.refresh),
         "row_blocks": {"k1_layout": _layout_blocks(srv.edges.layout),
@@ -162,12 +179,14 @@ def profile_lp(dev, config: str) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--lp", action="store_true",
-                    help="profile LP serving (--config) instead of nc-AIFB")
+                    help="profile LP serving (--config) instead of NC")
     ap.add_argument("--config", default=os.path.join(_CONFIGS, "lp-WN18.yaml"),
                     help="the LP config --lp serves (default lp-WN18)")
+    ap.add_argument("--nc-config", default=os.path.join(_CONFIGS, "nc-AIFB.yaml"),
+                    help="the NC config served without --lp (default nc-AIFB)")
     args = ap.parse_args(argv)
     dev = resolve_device(None)
-    report = profile_lp(dev, args.config) if args.lp else profile_nc(dev)
+    report = profile_lp(dev, args.config) if args.lp else profile_nc(dev, args.nc_config)
     print(json.dumps({"device": torch.cuda.get_device_name(dev), **report}))
 
 

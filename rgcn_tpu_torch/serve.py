@@ -73,9 +73,12 @@ def load_nc_server(
     serves the port's initialisation from seed 0. ``device``: None means
     CUDA, which must then be present; ``"cpu"`` runs the plain versions.
     The EdgeSet is built as the JAX server builds it (tile 128, destination
-    layout, fused layout and reversed edges) and moved to the device once.
+    layout, fused layout and reversed edges, and the merged pair layout
+    when ``merge_applicable`` says a basis model with at most 8 bases reads
+    it) and moved to the device once.
     """
     from rgcn_tpu_torch.config import load_experiment
+    from rgcn_tpu_torch.graph.coalesce import merge_applicable
     from rgcn_tpu_torch.graph.structure import build_edge_set
     from rgcn_tpu_torch.models.node_classification import build_nc_model
 
@@ -86,9 +89,13 @@ def load_nc_server(
     if state_dict is not None:
         model.load_state_dict(state_dict)
     model = model.to(dev).eval()
+    decomp = cfg.rgcn.decomposition
+    merge = decomp is not None and merge_applicable(
+        2 * data.num_relations, decomposition=decomp.type,
+        num_bases=decomp.num_bases)
     edges = build_edge_set(
         data.triples, data.num_nodes, data.num_relations,
-        tile_size=tile_size, with_dst_layout=True,
+        tile_size=tile_size, with_dst_layout=True, with_merged_layout=merge,
     ).to(dev)
     return NodeClassificationServer(model, edges)
 

@@ -3,10 +3,16 @@
     python -m rgcn_tpu_torch.serve_nodes --config configs/rgcn/nc-AIFB.yaml \\
         --synthetic [--nodes node1 42] [--cpu]
 
-Runs one full forward of the R-GCN at load, then answers class queries as
-table lookups. Checkpoint restore is not ported yet: the served parameters
-are the port's seeded initialisation (seed 0), so the classes are those of
-an untrained model. Parameters carried from the JAX package go
+Serves the four ``configs/rgcn/nc-*.yaml``: nc-AIFB (no decomposition) and
+nc-MUTAG, nc-BGS, nc-AM (basis decomposition with 30, 40, 40 bases). Runs
+one full forward of the R-GCN at load, then answers class queries as
+table lookups. The synthetic graph is the one the JAX CLIs pick for the
+dataset: AIFB-scale for AIFB, a 500-node graph for the others (the
+AM-scale graph is ``rgcn_tpu_torch.data.synthetic.am_like``, which
+``chip_smoke.py`` and ``profile_serve --nc-config`` serve). Checkpoint
+restore is not ported yet: the served parameters are the port's seeded
+initialisation (seed 0), so the classes are those of an untrained model.
+Parameters carried from the JAX package go
 through ``rgcn_tpu_torch.weights.from_jax_params`` and
 ``rgcn_tpu_torch.serve.load_nc_server(state_dict=...)``. Only synthetic
 graphs are served for now (``--synthetic``). Without ``--cpu`` the run

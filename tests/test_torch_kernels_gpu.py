@@ -8,17 +8,22 @@ never at collection). Run on a GPU machine with
 The shapes reach the kernels' edge cases the nc-AIFB run does not: K1 at
 every lane mapping (dout 4, 16, 7 and 200: one, four, eight scalar and 32
 lanes per slot, the last with two column groups), with and without the
-perm index, on small chunks; K2 at several (din, dout), scalar and vector
+perm index, on small chunks, and at nc-AM's widths (dout 10 and 11,
+scalar lanes, also from a msgs view that is not 16-byte aligned, on a
+random and the hub graph); K2 at several (din, dout), scalar and vector
 gathers; the skewed graph (``skew_triples``: one destination spanning
 many chunks, row blocks of pads only, all-gap fused chunks) and a node
 count inside the layout's last block; K3 on both routes (the small f32 one
 for dout <= 32, the tiled 3xTF32 one, held to the same tolerance) with din
 and dout that are not multiples of its 32-deep, 128-wide slabs or of 4,
-W[rel] far over 227 KB (lp-FB-toy's 500 x 500), tiles with no real row and
+W[rel] far over 227 KB (lp-FB-toy's 500 x 500), nc-AM's layer-2
+(10, 11), tiles with no real row and
 zero-val rows in the middle, a relation whose tiles run past one CTA's
 64-row window, tiles of one window and of several, into memory that held
 NaN (every element is stored once, no memset); the lp-FB-toy encode
-through exactly K3 and K1; K4 in both table forms (shared and per-basis rows), with
+through exactly K3 and K1; the featureless basis forward (the
+per-tile contraction in tile groups then K1, and K4 with sum_bases) and
+the nc-MUTAG and 4-basis NC servers with their launch counts; K4 in both table forms (shared and per-basis rows), with
 and without ``sum_bases``, for 1 to 8 bases and widths that are not a
 multiple of 32, over merged and unmerged frames; K5 with 2 and 3 lanes;
 K4 (every mode) and K5 on the hub graph's merged and dedup frames (one row
@@ -88,6 +93,31 @@ def test_k1(cuda, dout, rb):
     _close(agg.aggregate_presorted(ms, es.layout, 900),
            agg.aggregate_presorted_plain(ms, es.layout, 900))
     assert kernels.LAUNCHES["k1_aggregate"] == n0 + 2
+
+
+@pytest.mark.parametrize("graph", ["random", "hub"])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dout", [10, 11])
+def test_k1_nc_am_widths(cuda, dout, aligned, graph):
+    """nc-AM's widths (layer 1 dout 10, layer 2 dout 11): scalar lanes, 16
+    a slot; msgs also as a view whose rows start 4 bytes past a 16-byte
+    boundary. On the hub graph one destination spans many chunks."""
+    if graph == "hub":
+        n = 1536
+        es = build_edge_set(skew_triples(), n, 4, with_dst_layout=True).to(cuda)
+        rng = np.random.default_rng(dout)
+    else:
+        n = 2000
+        es, rng = _edges(n, 7, 9000, dout, cuda)
+    rows = es.src.shape[0]
+    flat = _t(rng, cuda, rows * dout + 1)
+    msgs = (flat[:-1] if aligned else flat[1:]).view(rows, dout)
+    n0 = kernels.LAUNCHES["k1_aggregate"]
+    got = agg.aggregate_sorted(msgs, es.layout, n)
+    _close(got, agg.aggregate_sorted_plain(msgs, es.layout, n))
+    assert kernels.LAUNCHES["k1_aggregate"] == n0 + 1
+    if graph == "hub":
+        assert (got[512:1024] == 0).all()
 
 
 def test_k1_small_chunks(cuda):
@@ -188,6 +218,7 @@ def _k3_check(es, x, w):
     (130, 260),  # multiples of 4, not of the 16-deep or 128-wide slabs
     (8, 33),     # just past the small route
     (16, 4),     # the small route (nc-AIFB's K3 branch)
+    (10, 11),    # the small route at nc-AM layer 2: scalar rows
     (0, 40),     # no input columns: every message is 0
 ])
 def test_k3_routes_and_ragged_widths(cuda, din, dout):
@@ -243,6 +274,62 @@ def test_lp_fb_toy_encode_launches_k3_and_k1(cuda):
     cpu = load_lp_server(cfg, fb_toy_like(), state, device="cpu")
     assert srv.z.shape == (280, 500)
     assert (srv.z.cpu() - cpu.z).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("nb", [40, 4])
+def test_featureless_basis_forward(cuda, nb):
+    """Layer 1 of the many-basis NC configs: the basis rows gathered and
+    contracted per tile (torch.bmm, in tile groups under a lowered budget)
+    then K1 (nb 40), or K4 over the per-basis tables with sum_bases (nb
+    4), through RGCNConv, against the plain path on the CPU."""
+    from rgcn_tpu_torch.nn.layers import RGCNConv
+    from rgcn_tpu_torch.ops import spmm as spmm_ops
+
+    es, rng = _edges(1100, 6, 5000, 14, cuda)
+    conv = RGCNConv(1100, 13, 10, decomposition="basis", num_bases=nb,
+                    generator=torch.Generator().manual_seed(nb))
+    with torch.inference_mode():
+        want = conv(es.to("cpu"))
+        conv = conv.to(cuda)
+        budget = spmm_ops._ELEM_BUDGET
+        spmm_ops._ELEM_BUDGET = es.tile_size * nb * 10 * 5
+        try:
+            before = dict(kernels.LAUNCHES)
+            got = conv(es)
+        finally:
+            spmm_ops._ELEM_BUDGET = budget
+    used = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v > before[k]}
+    assert used == ({"k1_aggregate": 1} if nb > 8 else {"k4_weighted_aggregate": 1})
+    _close(got, want.to(cuda))
+
+
+def test_nc_basis_servers_launch(cuda):
+    """nc-MUTAG (30 bases) serves through exactly K1 and K2 once, an nc
+    config with 4 bases through K4 twice; logits equal the CPU plain run
+    within 1e-4 * max(1, max|ref|)."""
+    import os
+
+    from rgcn_tpu_torch.config import DecompositionConfig, load_experiment
+    from rgcn_tpu_torch.data.synthetic import synthetic_nc_data
+    from rgcn_tpu_torch.serve import load_nc_server
+
+    cfg = load_experiment(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "configs", "rgcn", "nc-MUTAG.yaml"))
+    few = dataclasses.replace(cfg, rgcn=dataclasses.replace(
+        cfg.rgcn, decomposition=DecompositionConfig("basis", num_bases=4)))
+    data = synthetic_nc_data("MUTAG")
+    for c, want in ((cfg, {"k1_aggregate": 1, "k2_fused": 1}),
+                    (few, {"k4_weighted_aggregate": 2})):
+        kernels.reset_launches()
+        srv = load_nc_server(c, data, device=cuda)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in kernels.LAUNCHES.items() if v} == want
+        state = {k: v.cpu() for k, v in srv.model.state_dict().items()}
+        cpu = load_nc_server(c, data, state, device="cpu")
+        assert srv.logits.shape == (500, data.num_classes)
+        tol = 1e-4 * max(1.0, float(np.abs(cpu.logits).max()))
+        assert float(np.abs(srv.logits - cpu.logits).max()) <= tol
 
 
 def test_fwd_spmm_branches(cuda):

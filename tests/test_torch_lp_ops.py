@@ -153,10 +153,11 @@ def test_basis_conv_matches_flax(frame):
 
 
 def test_basis_conv_unported_branches_raise():
-    with pytest.raises(NotImplementedError, match="featureless basis"):
-        RGCNConv(10, 5, 4, decomposition="basis", num_bases=2)
-    with pytest.raises(NotImplementedError, match="9 > 8 bases"):
-        RGCNConv(10, 5, 4, in_features=3, decomposition="basis", num_bases=9)
+    # featureless and many-basis layers are ported: they build
+    assert RGCNConv(10, 5, 4, decomposition="basis", num_bases=2).bases.shape \
+        == (2, 10, 4)
+    assert RGCNConv(10, 5, 4, in_features=3, decomposition="basis",
+                    num_bases=9).comps.shape == (5, 9)
     with pytest.raises(NotImplementedError, match="diagonal"):
         RGCNConv(10, 5, 4, in_features=4, diag=True)
     with pytest.raises(ValueError, match="num_blocks > 0"):  # block is ported

@@ -154,7 +154,8 @@ def test_seeded_init():
 
 
 def test_unported_branches_raise():
-    with pytest.raises(NotImplementedError, match="basis"):
+    # basis layers are ported; as in the JAX package, they need bases
+    with pytest.raises(ValueError, match="num_bases > 0"):
         NodeClassifier(10, 2, 3, decomposition="basis")
     with pytest.raises(ValueError, match="1 or 2"):
         NodeClassifier(10, 2, 3, num_layers=3)
