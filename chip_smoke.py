@@ -33,7 +33,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    (the K3 + K1 branch) must launch K3 once and K1 twice. The logits must
    be finite, (N, C), and match the same parameters run through the plain
    versions on the CPU (atol 1e-4), and the predicted classes must agree;
-5. kernels, lp-WN18: K4 over the merged pair frame (shared rows, the main
+5. training nc-AIFB, counts zeroed before each path: five epochs of
+   configs/rgcn/nc-AIFB.yaml on the AIFB-scale graph from the seed-0
+   initialisation, through the trainer on the card, held against the same
+   training on the CPU's plain versions (per-epoch loss within rtol 1e-4,
+   accuracies equal, final logits within 1e-4 * max(1, max|ref|)); every
+   parameter's gradient after one backward within 1e-5 * max(1,
+   max|ref|); the main path must launch exactly K1 2E + 1 and K2 3E + 1
+   times (E epochs; the extra K2 a step is layer 2's dx over
+   edges.reverse), the same training without fused layouts K1 5E + 2 and
+   K3 3E + 1; then K2 and K3 (small route) at the dx shape (g (N, 4), W^T
+   (90, 4, 16) over the reversed edges) held and timed as in phase 3, and
+   one warm training step profiled (train_timing_ms: host median of 20
+   steps, device time split into forward, backward and optimizer, busy
+   share);
+6. kernels, lp-WN18: K4 over the merged pair frame (shared rows, the main
    path's shapes), K4 with per-basis rows and sum_bases (the form of the
    featureless-basis forward and the training backward), K4 over the
    unmerged destination layout, and K5 over the source-dedup'd frame, each
@@ -43,7 +57,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    closing product over K4's node-major output (one (N, nb*200) @
    (nb*200, 200) GEMM) against the einsum over a basis-major copy, each
    profiled (device time per kernel, one JSON line);
-6. serving lp-WN18, two paths, counts zeroed before each: the main path,
+7. serving lp-WN18, two paths, counts zeroed before each: the main path,
    load_lp_server on configs/rgcn/lp-WN18.yaml with wn18_like() at full
    width (200, basis 2), answering point scores of 8 test triples, top-10
    tails of 32 (s, p) and heads of 32 (p, o) queries and one filtered
@@ -54,7 +68,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    top-k entities must equal the CPU's wherever the k-th and (k+1)-th CPU
    scores are more than 1e-4 apart. Reports the encode time (host clock,
    median of 20 refresh() calls) and one 1024-query top-10 tail batch;
-7. kernels, lp-FB-toy (the block layer's expanded weights, fb_toy_like(),
+8. kernels, lp-FB-toy (the block layer's expanded weights, fb_toy_like(),
    width 500): K3 at x (280, 500), W (224, 500, 500), 250 tiles of 128
    (its tiled route: 3xTF32 on the tensor cores, held to the same f32
    tolerance), its yardstick one torch.bmm over x[src] tiles and
@@ -62,13 +76,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    bound counts the real rows' FLOPs only (pad rows are zeros by
    contract); K1 at dout 500 over the FB-toy destination layout, with its
    torch.index_add yardstick; each held and timed as in phase 3;
-8. serving lp-FB-toy, counts zeroed before it: load_lp_server on
+9. serving lp-FB-toy, counts zeroed before it: load_lp_server on
    configs/rgcn/lp-FB-toy.yaml with fb_toy_like() at full width (500, 100
    blocks), the requests of phase 6, must launch exactly K3 once and K1
    once (one encode); z, scores and top-k checked against the CPU plain
    run as in phase 6; reports the encode's host-clock median of 20
    refresh() calls;
-9. serving the many-basis NC configs on their stand-in graph, counts
+10. serving the many-basis NC configs on their stand-in graph, counts
    zeroed before each path: nc-MUTAG (30 bases, hidden 16) and nc-BGS (40
    bases) on the 500-node graph serve_nodes picks, each exactly K1 once
    (layer 1: the basis rows gathered and contracted per tile, then K1)
@@ -78,7 +92,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    sum_bases, layer 2 over the merged frame). Logits finite, (N, C),
    within 1e-4 * max(1, max|ref|) of the CPU plain run, classes equal
    the CPU's on three requests of 8 test nodes;
-10. nc-AM at AM scale (am_like(): 300,000 nodes, 266 relations, so R' 533;
+11. nc-AM at AM scale (am_like(): 300,000 nodes, 266 relations, so R' 533;
    747,518 triples; 40 bases, hidden 10, 11 classes): load_nc_server on
    configs/rgcn/nc-AM.yaml, counts zeroed before it, exactly the launches
    of AM_PATH, logits checked against the CPU plain run as in phase 9,
@@ -88,12 +102,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    each held and timed as in phase 3, and layer 2's two routes (K2 over
    the fused layout, K3 then K1 over the destination layout) held against
    the plain version and timed in turns (K2, K3 + K1, K3 + K1, K2);
-11. summary: one JSON line of each path's launch counts, one of the extra
-   nc modes (K1 at dout 4, K3 at nc-AIFB, K1 at dout 500 over the FB-toy
-   layout, the nc-AM kernels with their launches on the nc-AM path), one
+12. summary: one JSON line of each path's launch counts (serving, and
+   training), the training step's timing, one of the extra nc modes (K1
+   at dout 4, K3 at nc-AIFB, K2 and K3 at the dx shape, K1 at dout 500
+   over the FB-toy layout, the nc-AM kernels with their launches on the
+   nc-AM path), one
    of the extra K4 modes, and the "kernels" line, whose "launches" for
    each kernel is its count on the path named beside it;
-12. last line: {"ok": true, "device": {...}}.
+13. last line: {"ok": true, "device": {...}}.
 
 Needs CUDA (exits 1 without it) and the repository around it.
 """
@@ -513,6 +529,220 @@ def phase_serving(dev, data):
     log(f"  serve forward (host clock, logits to host): median "
         f"{sorted(fwd_ms)[10]:.3f} ms over 20")
     return {"main": main, "k3_k1_branch": branch}
+
+
+TRAIN_EPOCHS = 5
+
+
+def train_main_path(epochs: int) -> dict:
+    """Launches of training nc-AIFB for ``epochs`` (fused layouts): per
+    epoch the train forward (K1 layer 1, K2 layer 2), the backward (K2 over
+    edges.reverse for layer 2's dx; K1's backward and layer 1's weight
+    gradient are a gather and a scatter, no kernel) and the eval forward
+    (K1, K2); then the final prediction's forward (K1, K2)."""
+    return dict(k1_aggregate=2 * epochs + 1, k2_fused=3 * epochs + 1)
+
+
+def train_k3_branch(epochs: int) -> dict:
+    """The same without fused layouts: layer 2's forward and its dx are K3
+    then K1 each, so K1 runs 1 + 1 (train forward) + 1 (dx) + 2 (eval) a
+    epoch and K3 3, plus one more forward."""
+    return dict(k1_aggregate=5 * epochs + 2, k3_messages=3 * epochs + 1)
+
+
+def without_fused(es):
+    """The EdgeSet with its and its reverse's fused layouts dropped."""
+    return dataclasses.replace(es, fused=None,
+                               reverse=dataclasses.replace(es.reverse, fused=None))
+
+
+def check_train_against_cpu(label, got, ref, logits, ref_logits):
+    """Records equal in name and step, losses within rtol 1e-4, accuracies
+    equal; final logits within 1e-4 * max(1, max|ref|)."""
+    if [r[:2] for r in got] != [r[:2] for r in ref]:
+        fail(f"training [{label}]: records {[r[:2] for r in got]} != CPU's")
+    worst = 0.0
+    for (metric, step, v), (_, _, w) in zip(got, ref):
+        if metric == "training.loss":
+            worst = max(worst, abs(v - w) / abs(w))
+            if not abs(v - w) <= 1e-4 * abs(w):
+                fail(f"training [{label}]: epoch {step} loss {v} != CPU {w} (rtol 1e-4)")
+        elif v != w:
+            fail(f"training [{label}]: {metric} at epoch {step}: {v} != CPU {w}")
+    diff = (logits.cpu() - ref_logits).abs().max().item()
+    tol = 1e-4 * max(1.0, ref_logits.abs().max().item())
+    log(f"  [{label}] losses vs CPU: max rel diff {worst:.3e}; accuracies equal; "
+        f"final logits max abs diff {diff:.3e} (tol {tol:.3e})")
+    if not diff <= tol:
+        fail(f"training [{label}]: final logits differ from the CPU beyond {tol}")
+    return worst, diff
+
+
+def phase_train(dev, data, edges):
+    """Train nc-AIFB on the card from the seed-0 initialisation, held
+    against the same training on the CPU's plain versions; gradients after
+    one backward; exact launch counts on both layer-2 routes; K2 and K3 at
+    the dx shapes; the step's timing. Returns (launches per path, the mode
+    rows, the timing line)."""
+    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch.config import load_experiment
+    from rgcn_tpu_torch.models.node_classification import build_nc_model
+    from rgcn_tpu_torch.profile_serve import profile_train_step
+    from rgcn_tpu_torch.train.node_classification import NodeClassificationTrainer
+    from rgcn_tpu_torch.utils.logging import ScalarLogger
+
+    class Records(ScalarLogger):
+        def __init__(self):
+            super().__init__(verbose=False)
+            self.records = []
+
+        def log_scalar(self, metric, value, step=None):
+            self.records.append((metric, step, float(value)))
+
+    base = load_experiment(CONFIG)
+    cfg = dataclasses.replace(base, training=dataclasses.replace(
+        base.training, epochs=TRAIN_EPOCHS))
+    init = build_nc_model(cfg, data, seed=0).state_dict()
+
+    def trainer(device):
+        return NodeClassificationTrainer(cfg, data, init_params=init, device=device)
+
+    # gradients after one backward, card against CPU
+    t0 = time.perf_counter()
+    cpu, card = trainer("cpu"), trainer(dev)
+    losses = []
+    for t in (cpu, card):
+        loss = t.loss()
+        loss.backward()
+        losses.append(loss.item())
+    log(f"training nc-AIFB ({TRAIN_EPOCHS} epochs, seed-0 init): first loss card "
+        f"{losses[1]:.7f}, CPU {losses[0]:.7f}")
+    ref_grads = dict(cpu.model.named_parameters())
+    for name, p in card.model.named_parameters():
+        check_close(f"grad {name}", p.grad.cpu(), ref_grads[name].grad)
+
+    ref = Records()
+    cpu.fit(ref)
+    ref_logits = cpu.logits()
+    log(f"  CPU plain training: {time.perf_counter() - t0:.1f} s with set-up; "
+        f"losses {[round(r[2], 6) for r in ref.records if r[0] == 'training.loss']}")
+
+    paths, checks = {}, {}
+    for key, label, build, expect in (
+        ("train_main", "main: fused layouts", lambda: trainer(dev),
+         train_main_path(TRAIN_EPOCHS)),
+        ("train_k3_k1_branch", "K3 + K1 branch", lambda: card,
+         train_k3_branch(TRAIN_EPOCHS)),
+    ):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        t = build()
+        if key == "train_k3_k1_branch":
+            t.edges = without_fused(t.edges)
+        got = Records()
+        t.fit(got)
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        log(f"training [{label}]: {TRAIN_EPOCHS} epochs + final prediction "
+            f"{time.perf_counter() - t0:.2f} s, launches {counts}")
+        if counts != launches(**expect):
+            fail(f"training [{label}]: launches {counts}, expected {launches(**expect)}")
+        logits = t.logits()
+        if tuple(logits.shape) != (data.num_nodes, data.num_classes) \
+                or not torch.isfinite(logits).all():
+            fail(f"training [{label}]: logits {tuple(logits.shape)} not finite (N, C)")
+        checks[key] = check_train_against_cpu(label, got.records, ref.records,
+                                              logits, ref_logits)
+        paths[key] = counts
+        if key == "train_main":
+            main = t
+    log(f"  accuracies (train, test) per epoch: "
+        f"{[r[2] for r in ref.records if r[0] != 'training.loss']}")
+
+    modes = phase_dx_kernels(dev, data, edges, paths)
+    prof = profile_train_step(main)
+    timing = {
+        "step_host_median": prof["step"]["host_ms"]["median"],
+        "step_host_min": prof["step"]["host_ms"]["min"],
+        "device_forward": prof["forward_us"] / 1e3,
+        "device_backward": prof["backward_us"] / 1e3,
+        "device_optimizer": prof["optimizer_us"] / 1e3,
+        "device_step": prof["step_us"] / 1e3,
+        "device_busy_share": prof["step"]["device_busy_share"],
+        "step_kernels_us": {k[:80]: v for k, v in
+                            list(prof["step"]["kernels_us"].items())[:12]},
+        "step_host_ops_us": prof["step"]["host_ops_us"],
+        "loss_max_rel_diff": {k: v[0] for k, v in checks.items()},
+        "logits_max_abs_diff": {k: v[1] for k, v in checks.items()},
+    }
+    return paths, modes, timing
+
+
+def phase_dx_kernels(dev, data, edges, paths):
+    """K2 and K3 (small route) at the shape of layer 2's dx, over the
+    reversed edges with Wᵀ, against their plain versions; timed as in
+    phase 3."""
+    from rgcn_tpu_torch.ops import fused as fz
+    from rgcn_tpu_torch.ops import rel_spmm as rs
+
+    rng = np.random.default_rng(7)
+    n, hidden, classes = data.num_nodes, 16, data.num_classes
+    rev = edges.reverse
+    fl = rev.fused
+    g = torch.from_numpy(rng.standard_normal((n, classes)).astype(np.float32)).to(dev)
+    w_t = torch.from_numpy((rng.standard_normal((rev.num_rels, classes, hidden))
+                            * 0.3).astype(np.float32)).to(dev)
+    log(f"kernels (layer 2's dx: g {tuple(g.shape)}, Wᵀ {tuple(w_t.shape)} over "
+        f"edges.reverse):")
+    if not rs.fused_fits(w_t, fl.row_block):
+        fail("K2 dx: Wᵀ does not fit the shared-memory budget")
+    err = check_close("K2 rel_spmm_fused dx", fz.rel_spmm_fused(fl, n, g, w_t),
+                      fz.rel_spmm_fused_plain(fl, n, g, w_t))
+    keep = (fl.local_dst.reshape(-1) < fl.row_block) \
+        & (fl.quantum_rel.repeat_interleave(fl.quantum) >= 0)
+    real = int(keep.sum().item())
+    x_rows = int(torch.unique(fl.src[keep]).numel())
+    w_rels = int(torch.unique(fl.quantum_rel[fl.quantum_rel >= 0]).numel())
+    ms, call = timed(lambda: fz.rel_spmm_fused(fl, n, g, w_t))
+    plain_ms, plain_call = timed(lambda: fz.rel_spmm_fused_plain(fl, n, g, w_t))
+    modes = [dict(
+        name="K2", mode=f"K2 dx (din {classes}, dout {hidden}, edges.reverse.fused)",
+        route="cuda", source="rgcn_tpu_torch/kernels/csrc/k2_fused.cu",
+        replaces="rgcn_tpu/ops/pallas_fused.py:355", path="train_main",
+        launches=paths["train_main"]["k2_fused"], dx_launches=TRAIN_EPOCHS,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        call_ms=call, plain_call_ms=plain_call, library_call_ms=None,
+        _bound=bound_ms(real * 12 + (x_rows + w_rels * hidden) * classes * 4
+                        + nbytes(fl.quantum_rel, fl.chunk_block) + n * hidden * 4,
+                        real * (2 * classes * hidden + 2 * hidden)),
+    )]
+
+    err = check_close("K3 rel_spmm_messages dx (small route)",
+                      rs.rel_spmm_messages(rev, g, w_t),
+                      rs.rel_spmm_messages_plain(rev, g, w_t))
+    real = int((rev.val != 0).sum().item())
+    gg = g[rev.src.long()].reshape(rev.num_tiles, rev.tile_size, classes)
+    wg = w_t[rev.tile_rel.long()]
+    ms, call = timed(lambda: rs.rel_spmm_messages(rev, g, w_t))
+    plain_ms, plain_call = timed(lambda: rs.rel_spmm_messages_plain(rev, g, w_t))
+    lib_ms, lib_call = timed(lambda: torch.bmm(gg, wg))
+    modes.append(dict(
+        name="K3", mode=f"K3 dx (K3 branch, small route, din {classes}, dout {hidden})",
+        route="cuda", source="rgcn_tpu_torch/kernels/csrc/k3_messages.cu",
+        replaces="rgcn_tpu/ops/pallas_spmm.py:70", path="train_k3_k1_branch",
+        launches=paths["train_k3_k1_branch"]["k3_messages"], dx_launches=TRAIN_EPOCHS,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        call_ms=call, plain_call_ms=plain_call, library_call_ms=lib_call,
+        library="torch.bmm over g[src] tiles and Wᵀ[tile_rel] gathered "
+                "beforehand (TF32 off, gathers not timed)",
+        _bound=bound_ms(nbytes(g, w_t, rev.src, rev.val, rev.tile_rel)
+                        + rev.src.shape[0] * hidden * 4,
+                        real * (2 * classes * hidden + hidden)),
+    ))
+    for r in modes:
+        r["bound_ms"], r["bound_by"] = r.pop("_bound")
+        log(json.dumps({"kernel_check": r}))
+    return modes
 
 
 def lp_csr(rows, cols, vals, shape):
@@ -1092,6 +1322,8 @@ def main():
     rows, nc_modes = phase_kernels(dev, data, edges)
     phase_skew(dev)
     paths = phase_serving(dev, data)
+    train_paths, train_modes, train_timing = phase_train(dev, data, edges)
+    nc_modes.extend(train_modes)
 
     lp = wn18_like()
     lp_np = build_edge_set(lp.train, lp.num_nodes, lp.num_relations,
@@ -1152,6 +1384,8 @@ def main():
         })
     print(json.dumps({"serve_launches": paths}), flush=True)
     print(json.dumps({"serve_timing_ms": timing}), flush=True)
+    print(json.dumps({"train_launches": train_paths}), flush=True)
+    print(json.dumps({"train_timing_ms": train_timing}), flush=True)
     print(json.dumps({"nc_modes": nc_modes}), flush=True)
     print(json.dumps({"k4_modes": extra}), flush=True)
     print(json.dumps({"pending_kernels": []}), flush=True)

@@ -24,6 +24,7 @@ from rgcn_tpu_torch.kernels import build as _build
 __all__ = [
     "LAUNCHES",
     "reset_launches",
+    "refuse_grad",
     "launch_k1_aggregate",
     "launch_k2_fused",
     "launch_k3_messages",
@@ -84,6 +85,17 @@ def _check(t: torch.Tensor, what: str, dtype: torch.dtype, device,
         raise ValueError(f"{what}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: kernel needs a contiguous tensor")
+
+
+def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+    """The launch branch of a wrapper without a backward: raise when grad
+    mode is on and an input requires grad, since the kernel's output would
+    carry no gradient back to it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward on the card: run it under "
+            "torch.no_grad(), or through a differentiable wrapper"
+        )
 
 
 def _check_blocks(num_nodes: int, row_block: int, num_row_blocks: int) -> None:

@@ -5,9 +5,11 @@ Ported weight layouts of :class:`RGCNConv`:
 
 * featureless (``in_features=None``, one-hot identity input): messages are
   rows of ``W[rel]`` gathered per edge, summed by K1 over the EdgeSet's
-  destination layout;
-* featureful: :func:`~rgcn_tpu_torch.ops.rel_spmm.fwd_spmm` (K2, or K3
-  then K1);
+  destination layout; in training autograd's index backward scatters the
+  weight gradient and K1's backward is the gather ``g[dst]``;
+* featureful: :func:`~rgcn_tpu_torch.ops.rel_spmm.rel_spmm_ad` (K2, or K3
+  then K1; in training its backward runs the same kernels over
+  ``edges.reverse`` for dx and a per-tile product for dW);
 * featureless basis decomposition (NC layer 1 of nc-MUTAG, nc-BGS,
   nc-AM): ``W = comps @ bases`` is never expanded to ``(R', N, dout)``.
   With more than 8 bases the basis rows are gathered per edge and
@@ -35,8 +37,9 @@ An EdgeSet without a destination (or merged) layout takes the plain
 ``index_add_`` paths of :mod:`rgcn_tpu_torch.ops.spmm`, on the CPU only: on
 any other device it raises, so the card never runs a forward without its
 kernels. The self-loop relation (index ``R' - 1``) is applied densely,
-``X @ W_self``. Self-loop dropout is a training option; serving runs the
-deterministic forward, where it is the identity. Diagonal weights (e-RGCN)
+``X @ W_self``. Self-loop dropout is not ported: the JAX NC layers train
+with it at 0, and serving runs the deterministic forward, where it is the
+identity. Diagonal weights (e-RGCN)
 belong to a later slice of the port and raise.
 """
 
@@ -57,13 +60,13 @@ from rgcn_tpu_torch.ops.basis import (
     rel_spmm_basis,
     rel_spmm_featureless_basis_fwd,
 )
-from rgcn_tpu_torch.ops.rel_spmm import fwd_spmm
+from rgcn_tpu_torch.ops.rel_spmm import fwd_spmm, rel_spmm_ad
 
 __all__ = ["RGCNConv", "DistMult", "check_plain_path", "expand_blocks"]
 
 
 def _aggregate_k1(msgs, edges):
-    return aggregate_sorted(msgs, edges.layout, edges.num_nodes)
+    return aggregate_sorted(msgs, edges.layout, edges.num_nodes, dst=edges.dst)
 
 
 def expand_blocks(blocks: torch.Tensor) -> torch.Tensor:
@@ -211,7 +214,7 @@ class RGCNConv(nn.Module):
             )
             return agg + w[-1]  # X = I: node v receives W_self[v]
         if edges.layout is not None:
-            agg = fwd_spmm(edges, x, w[:-1])
+            agg = rel_spmm_ad(edges, x, w[:-1])
         else:
             agg = spmm_ops.rel_spmm(edges, x, w[:-1])
         with full_f32_matmul():

@@ -13,11 +13,18 @@ each chunk over warps of lane groups that sum runs of one destination in
 registers and finish them with f32 atomics into a zeroed output, so a hub
 row block is spread over as many CTAs as it has chunks; a warp whose span
 holds only pads returns after loading its ``local_dst`` once.
+
+:func:`aggregate_sorted` has a backward (counterpart of ``_agg_ad``,
+``pallas_aggregate.py:316-346``): the sum is linear, so the messages'
+gradient is the gather ``g[dst]``, read from ``g`` with one zero row
+appended for the pad edges (``dst == num_nodes``). :func:`aggregate_presorted`
+has none: on the card it refuses inputs that need one.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -33,6 +40,7 @@ __all__ = [
     "aggregate_presorted_plain",
     "aggregate_sorted",
     "aggregate_sorted_plain",
+    "gather_by_dst",
 ]
 
 
@@ -151,7 +159,8 @@ def aggregate_presorted(
     msgs_sorted: torch.Tensor, layout: DstLayout, num_nodes: int
 ) -> torch.Tensor:
     """Aggregate already destination-sorted messages ``(L, dout)`` f32
-    into ``(num_nodes, dout)`` f32."""
+    into ``(num_nodes, dout)`` f32. No backward: on the card, grad mode
+    with ``msgs_sorted`` requiring grad raises."""
     if msgs_sorted.shape[0] != layout.num_chunks * layout.chunk:
         raise ValueError(
             f"{msgs_sorted.shape[0]} sorted messages for a layout of "
@@ -159,26 +168,65 @@ def aggregate_presorted(
         )
     if msgs_sorted.device.type == "cpu":
         return aggregate_presorted_plain(msgs_sorted, layout, num_nodes)
+    kernels.refuse_grad("aggregate_presorted (K1)", msgs_sorted)
     return kernels.launch_k1_aggregate(
         msgs_sorted, None, layout.local_dst, layout.chunk_block,
         num_nodes, layout.row_block, layout.num_row_blocks,
     )
 
 
-def aggregate_sorted(
-    messages: torch.Tensor, layout: DstLayout, num_nodes: int
-) -> torch.Tensor:
-    """Aggregate edge-order messages ``(E, dout)`` f32 into
-    ``(num_nodes, dout)``. The kernel reads each slot's row through
-    ``layout.perm``; the destination-sorted copy never exists."""
-    if messages.shape[0] != layout.num_edges:
-        raise ValueError(
-            f"{messages.shape[0]} messages for a layout of "
-            f"{layout.num_edges} edges"
-        )
+def gather_by_dst(g: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """``g[dst]`` over ``g`` with one zero row appended, so the pad edges'
+    ``dst == num_nodes`` read 0 (JAX clamps that index; on the card an
+    index past the end is a device assert, so it is never clamped here)."""
+    return torch.cat([g, g.new_zeros((1, g.shape[1]))])[dst.long()]
+
+
+def _aggregate_sorted(messages, layout, num_nodes):
     if messages.device.type == "cpu":
         return aggregate_sorted_plain(messages, layout, num_nodes)
     return kernels.launch_k1_aggregate(
         messages, layout.perm, layout.local_dst, layout.chunk_block,
         num_nodes, layout.row_block, layout.num_row_blocks,
     )
+
+
+class _AggregateSorted(torch.autograd.Function):
+    """K1 forward; backward :func:`gather_by_dst`."""
+
+    @staticmethod
+    def forward(ctx, messages, dst, layout, num_nodes):
+        ctx.save_for_backward(dst)
+        return _aggregate_sorted(messages, layout, num_nodes)
+
+    @staticmethod
+    def backward(ctx, g):
+        (dst,) = ctx.saved_tensors
+        return gather_by_dst(g, dst), None, None, None
+
+
+def aggregate_sorted(
+    messages: torch.Tensor, layout: DstLayout, num_nodes: int,
+    dst: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Aggregate edge-order messages ``(E, dout)`` f32 into
+    ``(num_nodes, dout)``. The kernel reads each slot's row through
+    ``layout.perm``; the destination-sorted copy never exists.
+
+    Differentiable in ``messages``: with grad enabled and ``messages``
+    requiring grad it runs as an autograd Function whose backward gathers
+    the output gradient by ``dst``, the edges' destinations (pads
+    ``num_nodes``), which must then be given."""
+    if messages.shape[0] != layout.num_edges:
+        raise ValueError(
+            f"{messages.shape[0]} messages for a layout of "
+            f"{layout.num_edges} edges"
+        )
+    if not (torch.is_grad_enabled() and messages.requires_grad):
+        return _aggregate_sorted(messages, layout, num_nodes)
+    if dst is None or dst.shape[0] != layout.num_edges:
+        raise ValueError(
+            "aggregate_sorted's backward needs dst, the destination of each "
+            f"of the layout's {layout.num_edges} edges"
+        )
+    return _AggregateSorted.apply(messages, dst, layout, num_nodes)

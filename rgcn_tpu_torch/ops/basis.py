@@ -29,7 +29,11 @@ are ordinary products outside the kernels; they run in full f32 (TF32 off),
 as the JAX package runs ``_merged_wvec`` at ``precision="highest"``.
 
 This module is forward only. The custom VJPs of the JAX package
-(``pallas_basis.py:366-418, 501-551``) come with LP training.
+(``pallas_basis.py:366-418, 501-551``) come with LP training; until then
+:func:`weighted_aggregate` and :func:`weighted_aggregate_dedup`, and so
+:func:`rel_spmm_basis` and :func:`rel_spmm_featureless_basis_fwd`, raise on
+the card when grad mode is on and an input requires grad (on the CPU the
+plain versions are differentiable by torch).
 
 Snapshot of ``val``: over a merged layout the weights come from
 ``merged.coeff`` (or ``fwd_dedup.coeff_k``), which froze the EdgeSet's
@@ -118,7 +122,8 @@ def weighted_aggregate(x, src, w, layout, num_nodes: int, *,
     ``(nb, rows, din)``, ``src (L,)`` int32 per-slot source rows, ``w (nb,
     L)`` f32 per-slot weights, ``layout`` a DstLayout of ``L`` slots.
     Returns ``(nb or 1, num_nodes, din)`` f32, a view of node-major
-    storage."""
+    storage. No backward: on the card, grad mode with ``x`` or ``w``
+    requiring grad raises."""
     if w.shape[-1] != layout.num_chunks * layout.chunk:
         raise ValueError(
             f"{w.shape[-1]} slot weights for a layout of "
@@ -128,6 +133,7 @@ def weighted_aggregate(x, src, w, layout, num_nodes: int, *,
     if x.device.type == "cpu":
         return weighted_aggregate_plain(x, src, w, layout, num_nodes,
                                         sum_bases=sum_bases)
+    kernels.refuse_grad("weighted_aggregate (K4)", x, w)
     return kernels.launch_k4_weighted_aggregate(
         x, src, w, layout.local_dst, layout.chunk_block, num_nodes,
         layout.row_block, layout.num_row_blocks, sum_bases=sum_bases,
@@ -156,7 +162,8 @@ def weighted_aggregate_dedup_plain(x, src, w_k, dd, num_nodes: int) -> torch.Ten
 def weighted_aggregate_dedup(x, src, w_k, dd, num_nodes: int) -> torch.Tensor:
     """K5 over a source-dedup'd frame: ``x (rows, din)`` f32, ``src (Ld,)``
     int32, ``w_k (K, nb, Ld)`` f32 per-lane weights. Returns ``(nb,
-    num_nodes, din)`` f32, a view of node-major storage."""
+    num_nodes, din)`` f32, a view of node-major storage. No backward: on
+    the card, grad mode with ``x`` or ``w_k`` requiring grad raises."""
     if tuple(w_k.shape[::2]) != (dd.num_k, dd.num_chunks * dd.chunk):
         raise ValueError(
             f"lane weights {tuple(w_k.shape)} for a frame of {dd.num_k} "
@@ -165,6 +172,7 @@ def weighted_aggregate_dedup(x, src, w_k, dd, num_nodes: int) -> torch.Tensor:
     _check_nodes(dd, num_nodes)
     if x.device.type == "cpu":
         return weighted_aggregate_dedup_plain(x, src, w_k, dd, num_nodes)
+    kernels.refuse_grad("weighted_aggregate_dedup (K5)", x, w_k)
     return kernels.launch_k5_weighted_aggregate_dedup(
         x, src, w_k, dd.local_k, dd.chunk_block, num_nodes, dd.row_block,
         dd.num_row_blocks,
@@ -205,7 +213,8 @@ def rel_spmm_featureless_basis_fwd(edges, bases: torch.Tensor,
     ``out[s] = Σ_b Σ_{e → s} (val_e · comps[rel_e, b]) · bases[b, src_e]``,
     so K4 over the EdgeSet's destination layout gathers from the per-basis
     tables ``bases (nb, N, dout)`` and sums over bases in the kernel.
-    ``comps (R, nb)`` covers the general relations. Returns ``(N, dout)``."""
+    ``comps (R, nb)`` covers the general relations. Returns ``(N, dout)``.
+    No backward yet: K4 refuses grad on the card."""
     src_sorted, wvec = sorted_inputs(edges, comps)
     return weighted_aggregate(bases, src_sorted, wvec, edges.layout,
                               edges.num_nodes, sum_bases=True)[0]
@@ -217,7 +226,8 @@ def rel_spmm_basis(edges, x: torch.Tensor, bases: torch.Tensor,
     ``comps (R', nb)`` over the general relations only (the self-loop term
     is the caller's). Takes the EdgeSet's merged layout when it has one
     (K5 over ``merged.fwd_dedup`` when that is set, else K4), else K4 over
-    its destination layout. Returns ``(N, dout)``."""
+    its destination layout. Returns ``(N, dout)``. No backward yet: K4 and
+    K5 refuse grad on the card."""
     merged = edges.merged
     if merged is not None:
         dd = merged.fwd_dedup

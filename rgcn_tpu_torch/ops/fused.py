@@ -178,10 +178,14 @@ def rel_spmm_fused(
 ) -> torch.Tensor:
     """``out[n] = Σ val·(x[src] @ W[rel_q])`` for ``x (N, din)`` and
     ``weights (R, din, dout)``, f32. The kernel stages one ``W[rel]`` per
-    CTA in shared memory; ``ops/rel_spmm.py`` decides when to take it."""
+    CTA in shared memory; ``ops/rel_spmm.py`` decides when to take it. No
+    backward of its own (``ops/rel_spmm.py::rel_spmm_ad`` has one, over
+    this function): on the card, grad mode with ``x`` or ``weights``
+    requiring grad raises."""
     check_operands(x, weights, num_nodes, layout.num_rels)
     if x.device.type == "cpu":
         return rel_spmm_fused_plain(layout, num_nodes, x, weights)
+    kernels.refuse_grad("rel_spmm_fused (K2)", x, weights)
     return kernels.launch_k2_fused(
         x, weights, layout.src, layout.val, layout.local_dst,
         layout.quantum_rel, layout.chunk_block, num_nodes,

@@ -1,4 +1,4 @@
-"""Relational SpMM message stage (K3) and the forward dispatch.
+"""Relational SpMM message stage (K3), the forward dispatch and its backward.
 
 Counterpart of ``rgcn_tpu/ops/pallas_spmm.py``. :func:`fwd_spmm` computes
 
@@ -6,7 +6,17 @@ Counterpart of ``rgcn_tpu/ops/pallas_spmm.py``. :func:`fwd_spmm` computes
 
 through the fused kernel (K2) when the EdgeSet carries a fused layout and
 ``W`` fits the shared-memory budget, else through per-tile messages (K3)
-aggregated by K1.
+aggregated by K1. :func:`rel_spmm_ad` is the same function with a backward
+(counterpart of ``rel_spmm_pallas_ad``, ``pallas_spmm.py:247-289``), whose
+cotangents are the same class of computation as the forward:
+
+    dx[s] = Σ_{e: src_e = s} val_e · g[dst_e] @ W[rel_e]ᵀ   (fwd_spmm over edges.reverse)
+    dW[r] = Σ_{e ∈ r} val_e · x[src_e]ᵀ ⊗ g[dst_e]          (per-tile products, summed by tile_rel)
+
+so dx runs K2 (or K3 then K1) over the reversed edges, and dW, an XLA einsum
+in the JAX package, is one ``torch.bmm`` and one ``index_add_`` here.
+:func:`rel_spmm_messages` has no backward: on the card it refuses inputs
+that need one.
 """
 
 from __future__ import annotations
@@ -14,7 +24,8 @@ from __future__ import annotations
 import torch
 
 from rgcn_tpu_torch import kernels
-from rgcn_tpu_torch.ops.aggregate import aggregate_sorted
+from rgcn_tpu_torch.ops.aggregate import aggregate_sorted, gather_by_dst
+from rgcn_tpu_torch.ops.basis import full_f32_matmul
 from rgcn_tpu_torch.ops.fused import check_operands, rel_spmm_fused
 
 __all__ = [
@@ -24,6 +35,8 @@ __all__ = [
     "rel_spmm_messages_plain",
     "rel_spmm_full",
     "fwd_spmm",
+    "rel_spmm_weight_grad",
+    "rel_spmm_ad",
 ]
 
 # The port takes K2 only while the whole W and a (RB, dout) f32 accumulator
@@ -56,10 +69,13 @@ def rel_spmm_messages_plain(edges, x: torch.Tensor, weights: torch.Tensor) -> to
 
 def rel_spmm_messages(edges, x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Per-edge messages ``(E_pad, dout)`` f32 in edge order, for
-    ``x (N, din)`` and general-relation ``weights (R, din, dout)``."""
+    ``x (N, din)`` and general-relation ``weights (R, din, dout)``. No
+    backward: on the card, grad mode with ``x`` or ``weights`` requiring
+    grad raises."""
     check_operands(x, weights, edges.num_nodes, edges.num_rels)
     if x.device.type == "cpu":
         return rel_spmm_messages_plain(edges, x, weights)
+    kernels.refuse_grad("rel_spmm_messages (K3)", x, weights)
     return kernels.launch_k3_messages(
         x, weights, edges.src, edges.val, edges.tile_rel, edges.tile_size
     )
@@ -68,7 +84,7 @@ def rel_spmm_messages(edges, x: torch.Tensor, weights: torch.Tensor) -> torch.Te
 def rel_spmm_full(edges, layout, x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Two-stage SpMM: K3 messages, then K1 over the destination layout."""
     msgs = rel_spmm_messages(edges, x, weights)
-    return aggregate_sorted(msgs, layout, edges.num_nodes)
+    return aggregate_sorted(msgs, layout, edges.num_nodes, dst=edges.dst)
 
 
 def fwd_spmm(edges, x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -76,3 +92,55 @@ def fwd_spmm(edges, x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     if edges.fused is not None and fused_fits(weights, edges.fused.row_block):
         return rel_spmm_fused(edges.fused, edges.num_nodes, x, weights)
     return rel_spmm_full(edges, edges.layout, x, weights)
+
+
+def rel_spmm_weight_grad(edges, x: torch.Tensor, g: torch.Tensor,
+                         num_rels: int) -> torch.Tensor:
+    """``dW (num_rels, din, dout)``: per tile ``x[src]ᵀ @ (g[dst] · val)``
+    in full f32, summed by ``tile_rel``; the pad edges read a zero row of
+    ``g``."""
+    tile, n_tiles = edges.tile_size, edges.num_tiles
+    xg = x[edges.src.long()].reshape(n_tiles, tile, x.shape[-1])
+    gd = (gather_by_dst(g, edges.dst) * edges.val[:, None]).reshape(n_tiles, tile, -1)
+    with full_f32_matmul():
+        partials = torch.bmm(xg.transpose(1, 2), gd)
+    dw = partials.new_zeros((num_rels, x.shape[-1], g.shape[1]))
+    return dw.index_add_(0, edges.tile_rel.long(), partials)
+
+
+class _RelSpmm(torch.autograd.Function):
+    """:func:`fwd_spmm` with its backward; the EdgeSet rides on ``ctx``."""
+
+    @staticmethod
+    def forward(ctx, x, weights, edges):
+        ctx.edges = edges
+        ctx.save_for_backward(x, weights)
+        return fwd_spmm(edges, x, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weights = ctx.saved_tensors
+        edges = ctx.edges
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = fwd_spmm(edges.reverse, g, weights.transpose(1, 2).contiguous())
+        if ctx.needs_input_grad[1]:
+            dw = rel_spmm_weight_grad(edges, x, g, weights.shape[0])
+        return dx, dw, None
+
+
+def rel_spmm_ad(edges, x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Differentiable :func:`fwd_spmm` for ``x (N, din)`` and general-relation
+    ``weights (R, din, dout)``. Needs ``edges.layout`` and ``edges.reverse``
+    (``build_edge_set(..., with_dst_layout=True)``). With grad enabled and
+    ``x`` or ``weights`` requiring grad it runs as an autograd Function, whose
+    backward launches the same kernels over the reversed edges."""
+    if edges.layout is None or edges.reverse is None:
+        raise ValueError(
+            "rel_spmm_ad needs an EdgeSet built with with_dst_layout=True "
+            "(layout + reverse present)"
+        )
+    if torch.is_grad_enabled() and (x.requires_grad or weights.requires_grad):
+        return _RelSpmm.apply(x, weights, edges)
+    return fwd_spmm(edges, x, weights)

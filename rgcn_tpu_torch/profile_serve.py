@@ -1,7 +1,8 @@
-"""Where the time of one serving forward goes, on the card.
+"""Where the time of one serving forward, or one training step, goes on the card.
 
     python -m rgcn_tpu_torch.profile_serve [--nc-config configs/rgcn/nc-AM.yaml]
     python -m rgcn_tpu_torch.profile_serve --lp [--config configs/rgcn/lp-FB-toy.yaml]
+    python -m rgcn_tpu_torch.profile_serve --train [--nc-config configs/rgcn/nc-AIFB.yaml]
 
 Without ``--lp``: builds the NC server of ``--nc-config`` (default
 ``configs/rgcn/nc-AIFB.yaml``) with seeded parameters on its synthetic
@@ -18,6 +19,13 @@ tail queries. lp-WN18 (width 200, basis 2): the encode over the merged
 frame (K4) and the same model over the EdgeSet whose merged layout carries
 the source-dedup'd frame (K5). lp-FB-toy (width 500, 100 blocks): the
 encode through the expanded block weights (K3 then K1).
+
+With ``--train``: builds the NC trainer of ``--nc-config`` (seed 0, its
+synthetic graph, on the card) and reports one warm training step
+(forward, backward, optimizer, the loss read back) as ``step``, and the
+step's device time split into ``forward_us`` (the loss), ``backward_us``
+(forward and backward, less the forward) and ``optimizer_us``, each from
+its own profiler window (:func:`profile_train_step`).
 
 For each:
 
@@ -67,10 +75,12 @@ def _layout_blocks(layout) -> dict:
     return _blocks(real, layout.chunk_block, layout.chunk, layout.num_row_blocks)
 
 
-def profile_calls(fn, tries: int = 3) -> dict:
+def profile_calls(fn, tries: int = 3, host_ops: int = 0) -> dict:
     """Host-clock times of ``fn()`` and its device time per kernel name. A
     profile that holds no device event at all is taken again, up to
-    ``tries`` times (the profiler now and then delivers none)."""
+    ``tries`` times (the profiler now and then delivers none). With
+    ``host_ops`` > 0 also the that many host ops with the most self CPU
+    time per call (``host_ops_us``; profiler on)."""
     from torch.profiler import ProfilerActivity, profile
 
     def call():
@@ -95,18 +105,27 @@ def profile_calls(fn, tries: int = 3) -> dict:
             window_us = (time.perf_counter() - t0) * 1e6
         per_name: dict = {}
         for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
+            # a record_function range (e.g. "Optimizer.step#Adam.step") also
+            # shows on the device timeline, spanning kernels counted already
+            if ev.device_type == torch.autograd.DeviceType.CUDA \
+                    and not ev.is_user_annotation:
                 per_name[ev.name] = per_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
         if per_name:
             break
     busy_us = sum(per_name.values())
-    return {
+    report = {
         "host_ms": {"median": float(np.median(host_ms)),
                     "min": float(np.min(host_ms)), "iters": ITERS},
         "kernels_us": {k: v / ITERS for k, v in
                        sorted(per_name.items(), key=lambda kv: -kv[1])},
         "device_busy_share": busy_us / window_us if per_name else None,
     }
+    if host_ops:
+        ops = sorted((a for a in prof.key_averages()
+                      if a.device_type == torch.autograd.DeviceType.CPU),
+                     key=lambda a: -a.self_cpu_time_total)[:host_ops]
+        report["host_ops_us"] = {a.key: a.self_cpu_time_total / ITERS for a in ops}
+    return report
 
 
 def nc_profile_data(cfg):
@@ -137,6 +156,54 @@ def profile_nc(dev, config: str) -> dict:
         "k3_k1_branch": profile_calls(branch.refresh),
         "row_blocks": {"k1_layout": _layout_blocks(srv.edges.layout),
                        "k2_fused": _layout_blocks(srv.edges.fused)},
+    }
+
+
+def _device_us(report: dict) -> float:
+    return sum(report["kernels_us"].values())
+
+
+def profile_train_step(trainer) -> dict:
+    """One warm training step of a
+    :class:`~rgcn_tpu_torch.train.node_classification.NodeClassificationTrainer`
+    (``step``: host clock, device time per kernel, busy share) and its
+    device time split into forward, backward and optimizer, each phase
+    profiled in a window of its own. The optimizer window steps the
+    parameters again and again: profile after what needs them."""
+
+    def fwd_bwd():
+        trainer.optimizer.zero_grad(set_to_none=True)
+        trainer.loss().backward()
+
+    forward = profile_calls(trainer.loss)
+    backward = profile_calls(fwd_bwd)
+    optimizer = profile_calls(trainer.optimizer.step)
+    step = profile_calls(trainer.step, host_ops=12)
+    return {
+        "step": step,
+        "forward_us": _device_us(forward),
+        "backward_us": _device_us(backward) - _device_us(forward),
+        "optimizer_us": _device_us(optimizer),
+        "step_us": _device_us(step),
+        "forward_kernels_us": forward["kernels_us"],
+        "backward_kernels_us": backward["kernels_us"],
+        "optimizer_kernels_us": optimizer["kernels_us"],
+    }
+
+
+def profile_train(dev, config: str) -> dict:
+    from rgcn_tpu_torch.config import load_experiment
+    from rgcn_tpu_torch.train.node_classification import NodeClassificationTrainer
+
+    cfg = load_experiment(config)
+    data = nc_profile_data(cfg)
+    trainer = NodeClassificationTrainer(cfg, data, device=dev)
+    return {
+        "config": os.path.basename(config),
+        "graph": {"nodes": data.num_nodes, "relations": data.num_relations,
+                  "triples": int(len(data.triples)),
+                  "e_pad": int(trainer.edges.src.shape[0])},
+        "train": profile_train_step(trainer),
     }
 
 
@@ -182,11 +249,19 @@ def main(argv=None):
                     help="profile LP serving (--config) instead of NC")
     ap.add_argument("--config", default=os.path.join(_CONFIGS, "lp-WN18.yaml"),
                     help="the LP config --lp serves (default lp-WN18)")
+    ap.add_argument("--train", action="store_true",
+                    help="profile one training step of --nc-config instead")
     ap.add_argument("--nc-config", default=os.path.join(_CONFIGS, "nc-AIFB.yaml"),
-                    help="the NC config served without --lp (default nc-AIFB)")
+                    help="the NC config served (or, with --train, trained) "
+                         "without --lp (default nc-AIFB)")
     args = ap.parse_args(argv)
     dev = resolve_device(None)
-    report = profile_lp(dev, args.config) if args.lp else profile_nc(dev, args.nc_config)
+    if args.lp:
+        report = profile_lp(dev, args.config)
+    elif args.train:
+        report = profile_train(dev, args.nc_config)
+    else:
+        report = profile_nc(dev, args.nc_config)
     print(json.dumps({"device": torch.cuda.get_device_name(dev), **report}))
 
 

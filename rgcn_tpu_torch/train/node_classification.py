@@ -1,0 +1,215 @@
+"""Node-classification training (counterpart of
+``rgcn_tpu/train/node_classification.py``).
+
+The epoch is the JAX trainer's: full-batch cross-entropy over the train
+nodes (mean) plus ``layer1_l2_penalty · layer1_l2()``, one optimizer step,
+the loss read back, then one forward under ``torch.no_grad()`` whose
+argmax gives the train and test accuracy; after the last epoch one more
+prediction gives the final test accuracy. The records go to a
+:class:`~rgcn_tpu_torch.utils.logging.ScalarLogger` under the JAX
+package's names and suffixes. The EdgeSet is built as the JAX trainer
+builds it (destination, fused and reversed layouts; the merged layout where
+``merge_applicable`` says so; ``auto_nc_row_block``) and moved to the
+device once.
+
+On the card the dense R-GCN (nc-AIFB) trains through the kernels: layer
+1's K1 with the gather ``g[dst]`` as its backward, layer 2's K2 (or K3
+then K1) with dx over ``edges.reverse`` on the same kernels
+(:func:`~rgcn_tpu_torch.ops.rel_spmm.rel_spmm_ad`). Configs whose layers
+have no backward here yet raise ``NotImplementedError`` naming the
+ROADMAP item that brings them. Checkpoints and the JAX package's
+executable cache are not ported.
+"""
+
+from __future__ import annotations
+
+import statistics
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from rgcn_tpu_torch.device import resolve_device
+from rgcn_tpu_torch.models.node_classification import build_nc_model
+from rgcn_tpu_torch.train.evaluate import accuracy
+from rgcn_tpu_torch.train.optim import make_optimizer
+from rgcn_tpu_torch.utils.logging import ScalarLogger
+
+__all__ = [
+    "NodeClassificationTrainer",
+    "build_nc_model",
+    "run_repeats",
+    "train_node_classifier",
+]
+
+
+def _check_trainable(cfg) -> None:
+    """Raise ``NotImplementedError`` for a config whose layers have no
+    backward in the port yet, naming the ROADMAP item (queue 1) that
+    brings it."""
+    rg = cfg.rgcn
+    if rg.model != "rgcn":
+        raise NotImplementedError(
+            f"training {rg.model!r} is not ported yet (ROADMAP queue 1, "
+            "item 5: e-RGCN NC)"
+        )
+    decomp = rg.decomposition
+    if decomp is None:
+        return
+    if decomp.type == "basis" and decomp.num_bases > 8:
+        raise NotImplementedError(
+            f"training with {decomp.num_bases} bases is not ported yet: the "
+            "JAX trainer takes the unique-(src, rel) pair path there "
+            "(ROADMAP queue 1, item 2)"
+        )
+    raise NotImplementedError(
+        f"training with {decomp.type} decomposition is not ported yet: the "
+        "K4 basis VJPs and the block layer's backward come with LP "
+        "training (ROADMAP queue 1, item 3)"
+    )
+
+
+class NodeClassificationTrainer:
+    """One model, its optimizer and its EdgeSet on the device: the state
+    :func:`train_node_classifier` carries from epoch to epoch.
+
+    ``init_params``: a port state dict to start from (e.g. carried from the
+    JAX package by ``weights.from_jax_params``); None draws the port's own
+    initialisation from ``seed``. ``device``: None means CUDA, which must
+    then be present; ``"cpu"`` runs the plain versions."""
+
+    def __init__(self, cfg, data, seed: int = 0, tile_size: int = 128,
+                 init_params: Optional[Dict[str, torch.Tensor]] = None,
+                 device=None):
+        from rgcn_tpu_torch.graph.coalesce import merge_applicable
+        from rgcn_tpu_torch.graph.structure import auto_nc_row_block, build_edge_set
+
+        _check_trainable(cfg)
+        rg = cfg.rgcn
+        if rg.node_embedding_l2_penalty > 0.0:
+            raise ValueError(
+                f"cannot apply L2-regularisation on node embeddings for "
+                f"{rg.model} model"
+            )
+        dev = resolve_device(device)
+        decomp = rg.decomposition
+        merge_ok = merge_applicable(
+            2 * data.num_relations,
+            decomposition=decomp.type if decomp else None,
+            num_bases=decomp.num_bases if decomp else 0,
+        )
+        self.edges = build_edge_set(
+            data.triples, data.num_nodes, data.num_relations,
+            tile_size=tile_size, with_dst_layout=True,
+            with_merged_layout=merge_ok,
+            layout_row_block=auto_nc_row_block(data.num_nodes),
+        ).to(dev)
+        self.train_idx_np, self.train_lbl_np = data.index_labels(data.train)
+        self.test_idx_np, self.test_lbl_np = data.index_labels(data.test)
+        self.train_idx = torch.as_tensor(self.train_idx_np, device=dev)
+        self.train_lbl = torch.as_tensor(self.train_lbl_np, device=dev)
+
+        model = build_nc_model(cfg, data, seed=seed)
+        if init_params is not None:
+            model.load_state_dict(init_params)
+        self.model = model.to(dev)
+        opt = cfg.training.optimiser
+        self.optimizer = make_optimizer(self.model.parameters(), opt.algorithm,
+                                        opt.learn_rate, opt.weight_decay)
+        self.l1_pen = rg.layer1_l2_penalty
+        self.epochs = cfg.training.epochs
+
+    def loss(self) -> torch.Tensor:
+        """The training loss, with the graph for its backward."""
+        logits = self.model(self.edges)
+        loss = F.cross_entropy(logits[self.train_idx], self.train_lbl)
+        if self.l1_pen > 0.0:
+            loss = loss + self.l1_pen * self.model.layer1_l2()
+        return loss
+
+    def step(self) -> float:
+        """One update: forward, backward, optimizer step; returns the loss."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.loss()
+        loss.backward()
+        self.optimizer.step()
+        return loss.item()
+
+    def logits(self) -> torch.Tensor:
+        with torch.no_grad():
+            return self.model(self.edges)
+
+    def predict(self) -> np.ndarray:
+        """Predicted class of every node, on the host."""
+        return self.logits().argmax(-1).cpu().numpy()
+
+    def fit(self, logger: Optional[ScalarLogger] = None, log_suffix: str = "") -> float:
+        """Train for the config's epochs; returns the final test accuracy
+        (percent)."""
+        logger = logger or ScalarLogger()
+        for epoch in range(1, self.epochs + 1):
+            t1 = time.time()
+            loss = self.step()
+            t2 = time.time()
+
+            pred = self.predict()
+            train_acc = accuracy(pred[self.train_idx_np], self.train_lbl_np)
+            test_acc = accuracy(pred[self.test_idx_np], self.test_lbl_np)
+            t3 = time.time()
+
+            logger.log_scalar(f"training.loss{log_suffix}", loss, step=epoch)
+            logger.log_scalar(f"training.accuracy{log_suffix}", train_acc, step=epoch)
+            logger.log_scalar(f"test.accuracy{log_suffix}", test_acc, step=epoch)
+            logger.info(
+                f"[Epoch {epoch}] Loss: {loss:.5f} Step: {(t2 - t1):.3f}s "
+                f"Eval: {(t3 - t2):.3f}s Train Accuracy: {train_acc:.2f} "
+                f"Test Accuracy: {test_acc:.2f}"
+            )
+
+        pred = self.predict()
+        test_acc = accuracy(pred[self.test_idx_np], self.test_lbl_np)
+        logger.log_scalar(f"test.accuracy{log_suffix}", test_acc)
+        logger.info(f"[Evaluation] Test Accuracy: {test_acc:.2f}")
+        return test_acc
+
+
+def train_node_classifier(
+    cfg,
+    data,
+    seed: int = 0,
+    logger: Optional[ScalarLogger] = None,
+    tile_size: int = 128,
+    log_suffix: str = "",
+    init_params: Optional[Dict[str, torch.Tensor]] = None,
+    device=None,
+) -> float:
+    """Train one model; returns the final test accuracy (percent). See
+    :class:`NodeClassificationTrainer` for ``init_params`` and ``device``."""
+    trainer = NodeClassificationTrainer(cfg, data, seed=seed, tile_size=tile_size,
+                                        init_params=init_params, device=device)
+    return trainer.fit(logger, log_suffix)
+
+
+def run_repeats(cfg, data, logger: Optional[ScalarLogger] = None,
+                tile_size: int = 128, device=None) -> Tuple[float, float]:
+    """Repeat training (repeat ``i`` seeded with ``i``) and report mean ±
+    standard error (``classify_nodes.py:159-178``)."""
+    logger = logger or ScalarLogger()
+    accs = [
+        train_node_classifier(cfg, data, seed=i, logger=logger,
+                              tile_size=tile_size, log_suffix=f"_{i}",
+                              device=device)
+        for i in range(1, cfg.repeats + 1)
+    ]
+    avg = sum(accs) / len(accs)
+    std = statistics.stdev(accs) if len(accs) > 1 else 0.0
+    ste = std / (len(accs) ** 0.5)
+    logger.log_scalar("test.accuracy", round(avg, 2))
+    logger.log_scalar("test.accuracy_ste", round(ste, 2))
+    logger.info(
+        f"[Summary] Test Accuracy: {avg:.2f} -/+ {ste:.2f}"
+        + (f" ({cfg.repeats} runs)" if cfg.repeats > 1 else "")
+    )
+    return avg, ste

@@ -38,6 +38,13 @@ MODULES = [
     "rgcn_tpu_torch.compare_k2",
     "rgcn_tpu_torch.compare_k3",
     "rgcn_tpu_torch.compare_k4_k5",
+    "rgcn_tpu_torch.train",
+    "rgcn_tpu_torch.train.optim",
+    "rgcn_tpu_torch.train.evaluate",
+    "rgcn_tpu_torch.train.node_classification",
+    "rgcn_tpu_torch.utils",
+    "rgcn_tpu_torch.utils.logging",
+    "rgcn_tpu_torch.classify_nodes",
 ]
 
 

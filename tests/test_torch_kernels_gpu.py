@@ -32,7 +32,12 @@ for 1, 2, 3 and 8 bases, din 200 and widths that are not a multiple of 4,
 into an output whose memory held NaN before (the launchers zero nothing
 but the rows of row blocks with several chunks), checking that the result
 is a view of node-major storage; K4 and K5 on rows wider than a CTA and on
-a table that is not 16-byte aligned.
+a table that is not 16-byte aligned. Training: K1's and the SpMM's
+autograd Functions with their backward on the card against the CPU (dx
+through K2 at (dout, din), nc-AIFB's (4, 16) among them, or K3's small
+route then K1; dW), the wrappers without a backward refusing grad, and
+three epochs of NC training on the card against the CPU with exact launch
+counts on both layer-2 routes.
 Tolerance: max abs diff <= 1e-5 * max(1, max|ref|) (f32 sums reordered by
 atomics).
 """
@@ -612,3 +617,141 @@ def test_rel_spmm_basis_closes_with_one_gemm(cuda):
     assert agg.permute(1, 0, 2).reshape(800, 80).data_ptr() == agg.data_ptr()
     got = bs.rel_spmm_basis(es, x, bases, comps)
     _close(got, torch.einsum("bni,bio->no", agg.contiguous(), bases))
+
+
+def _no_fused(es):
+    return dataclasses.replace(es, fused=None,
+                               reverse=dataclasses.replace(es.reverse, fused=None))
+
+
+@pytest.mark.parametrize("dout", [16, 4, 11])
+def test_k1_function_backward(cuda, dout):
+    """K1's autograd Function on the card: forward K1, backward the gather
+    g[dst] over a zero row for the pads, against the CPU."""
+    es, rng = _edges(900, 5, 4000, 20 + dout, cuda)
+    msgs = _t(rng, cuda, es.src.shape[0], dout) * es.val[:, None]
+    g = _t(rng, cuda, 900, dout)
+    grads = []
+    for dev_es, m in ((es, msgs), (es.to("cpu"), msgs.cpu())):
+        m = m.clone().requires_grad_()
+        n0 = kernels.LAUNCHES["k1_aggregate"]
+        out = agg.aggregate_sorted(m, dev_es.layout, 900, dst=dev_es.dst)
+        out.backward(g.to(m.device))
+        grads.append((out.detach(), m.grad, kernels.LAUNCHES["k1_aggregate"] - n0))
+    (out, dm, launched), (ref_out, ref_dm, _) = grads
+    assert launched == 1
+    _close(out, ref_out.to(cuda))
+    _close(dm, ref_dm.to(cuda))
+    assert (dm[es.dst == 900] == 0).all()
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["k2", "k3_k1"])
+@pytest.mark.parametrize("din,dout", [(16, 4), (10, 11), (32, 40)])
+def test_spmm_function_backward(cuda, fused, din, dout):
+    """The SpMM Function's dx (the forward kernels over edges.reverse with
+    Wᵀ: K2 at (dout, din), e.g. nc-AIFB's (4, 16), or K3's small route then
+    K1) and dW on the card against the CPU, with the launches of one
+    forward and one backward."""
+    es, rng = _edges(1300, 6, 6000, din + dout, cuda)
+    if not fused:
+        es = _no_fused(es)
+    x = torch.relu(_t(rng, cuda, 1300, din))
+    w = _t(rng, cuda, es.num_rels, din, dout, scale=din ** -0.5)
+    g = _t(rng, cuda, 1300, dout)
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        xt = x.detach().to(dev).requires_grad_()
+        wt = w.detach().to(dev).requires_grad_()
+        before = dict(kernels.LAUNCHES)
+        out = rs.rel_spmm_ad(es.to(dev), xt, wt)
+        out.backward(g.to(dev))
+        used = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v > before[k]}
+        got[dev.type] = (out.detach(), xt.grad, wt.grad, used)
+    out, dx, dw, used = got["cuda"]
+    for a, b in zip((out, dx, dw), got["cpu"][:3]):
+        _close(a, b.to(cuda))
+    assert got["cpu"][3] == {}
+    assert used == ({"k2_fused": 2} if fused else {"k3_messages": 2, "k1_aggregate": 2})
+
+
+def test_kernels_without_backward_refuse_grad(cuda):
+    """K4 (the few-basis routes), K5, K2, K3 and K1 presorted have no
+    backward: on the card, grad mode with an input requiring grad raises
+    before any launch; under no_grad they run."""
+    m, es, rng = _merged(600, 4, 2500, 21, cuda, dedup_k=2)
+    es = dataclasses.replace(es, merged=m)
+    x = _t(rng, cuda, 600, 8)
+    bases = _t(rng, cuda, 2, 8, 5).requires_grad_()
+    comps = _t(rng, cuda, es.num_rels, 2).requires_grad_()
+    w = _t(rng, cuda, es.num_rels, 8, 3).requires_grad_()
+    before = dict(kernels.LAUNCHES)
+    for call in (
+        lambda: bs.rel_spmm_basis(es, x, bases, comps),
+        lambda: bs.rel_spmm_basis(dataclasses.replace(es, merged=None), x, bases, comps),
+        lambda: bs.rel_spmm_featureless_basis_fwd(
+            es, _t(rng, cuda, 2, 600, 5), comps),
+        lambda: fz.rel_spmm_fused(es.fused, 600, x, w),
+        lambda: rs.rel_spmm_messages(es, x, w),
+        lambda: agg.aggregate_presorted(
+            _t(rng, cuda, es.layout.perm.shape[0], 3).requires_grad_(), es.layout, 600),
+    ):
+        with pytest.raises(RuntimeError, match="no backward on the card"):
+            call()
+    assert kernels.LAUNCHES == before
+    with torch.no_grad():
+        bs.rel_spmm_basis(es, x, bases, comps)  # the dedup frame: K5
+        bs.rel_spmm_basis(dataclasses.replace(es, merged=None), x, bases, comps)
+        fz.rel_spmm_fused(es.fused, 600, x, w)
+    torch.cuda.synchronize()
+    used = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v > before[k]}
+    assert used == {"k5_weighted_aggregate_dedup": 1, "k4_weighted_aggregate": 1,
+                    "k2_fused": 1}
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["k2", "k3_k1"])
+def test_nc_training_on_the_card(cuda, fused):
+    """Three epochs of the nc-AIFB config on the 500-node synthetic graph
+    from one initialisation, on the card and on the CPU: losses within
+    rtol 1e-4, accuracies equal, exact launch counts."""
+    import os
+
+    from rgcn_tpu_torch.config import load_experiment
+    from rgcn_tpu_torch.data.synthetic import synthetic_node_classification
+    from rgcn_tpu_torch.models.node_classification import build_nc_model
+    from rgcn_tpu_torch.train.node_classification import NodeClassificationTrainer
+    from rgcn_tpu_torch.utils.logging import ScalarLogger
+
+    class Records(ScalarLogger):
+        def __init__(self):
+            super().__init__(verbose=False)
+            self.records = []
+
+        def log_scalar(self, metric, value, step=None):
+            self.records.append((metric, step, float(value)))
+
+    cfg = load_experiment(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "configs", "rgcn", "nc-AIFB.yaml"))
+    cfg = dataclasses.replace(cfg, training=dataclasses.replace(cfg.training, epochs=3))
+    data = synthetic_node_classification(seed=0)
+    init = build_nc_model(cfg, data, seed=0).state_dict()
+    runs = {}
+    for dev in ("cpu", cuda):
+        t = NodeClassificationTrainer(cfg, data, init_params=init, device=dev)
+        if not fused:
+            t.edges = _no_fused(t.edges)
+        rec = Records()
+        kernels.reset_launches()
+        t.fit(rec)
+        torch.cuda.synchronize()
+        runs[str(dev)] = (rec.records, {k: v for k, v in kernels.LAUNCHES.items() if v})
+    (ref, none), (got, used) = runs["cpu"], runs["cuda"]
+    assert none == {}
+    assert used == ({"k1_aggregate": 7, "k2_fused": 10} if fused
+                    else {"k1_aggregate": 17, "k3_messages": 10})
+    assert [r[:2] for r in got] == [r[:2] for r in ref]
+    for (metric, _, v), (_, _, w) in zip(got, ref):
+        if metric == "training.loss":
+            assert abs(v - w) <= 1e-4 * abs(w)
+        else:
+            assert v == w
