@@ -18,7 +18,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    torch.profiler records over 50 calls; "call_ms", "plain_call_ms" and
    "library_call_ms" are the CUDA-event time per call of 50 calls back to
    back, which includes the host's launch cost when that is the longer.
-   Then the hub case: K1 (dout 16 and 4), K2, and K4 and K5 (width 200,
+   Then the hub case: K1 (dout 16 and 4, and 400 and 440, the pair
+   path's dT widths, through its perm), K2, and K4 and K5 (width 200,
    2 bases, over the graph's merged frame and its dedup frame) on a skewed
    graph where one destination receives more than four chunks' worth of
    slots and a row block holds pad chunks only (fused: gap quanta only),
@@ -102,14 +103,30 @@ Phases, in order; any failure exits non-zero and prints no result:
    each held and timed as in phase 3, and layer 2's two routes (K2 over
    the fused layout, K3 then K1 over the destination layout) held against
    the plain version and timed in turns (K2, K3 + K1, K3 + K1, K2);
-12. summary: one JSON line of each path's launch counts (serving, and
-   training), the training step's timing, one of the extra nc modes (K1
-   at dout 4, K3 at nc-AIFB, K2 and K3 at the dx shape, K1 at dout 500
-   over the FB-toy layout, the nc-AM kernels with their launches on the
-   nc-AM path), one
+12. training the many-basis configs on the unique-(src, rel) pair path,
+   counts zeroed before each path: nc-MUTAG and nc-BGS on the 500-node
+   stand-in for 5 epochs, nc-AM at AM scale (the graph of phase 11) for 2,
+   each from the seed-0 initialisation on the card and on the CPU's plain
+   versions: every gradient after one backward within 1e-5 * max(1,
+   max|ref|), per-epoch loss within rtol 1e-4, accuracies equal, final
+   logits within 1e-4 * max(1, max|ref|), and exactly K1 8E + 2 launches
+   and no other kernel (per epoch: train forward 2, backward 4 (each
+   layer's pair-message gradient and basis-table gradient), eval forward
+   2; then the final prediction's 2), with the run's peak device memory;
+   then K1 in the path's modes at nc-AM's shapes, held and timed as in
+   phase 3 with a torch.index_add yardstick (the composed forward at dout
+   10 and 11, the pair messages' gradient over grad_layout at 10 and 11,
+   the basis table's gradient over src_layout at 400 and 440), and the
+   AM-scale step profiled as in phase 5;
+13. summary: one JSON line of each path's launch counts (serving, and
+   training), the training steps' timing (nc-AIFB and nc-AM), one of the
+   extra nc modes (K1 at dout 4, K3 at nc-AIFB, K2 and K3 at the dx shape,
+   K1 at dout 500 over the FB-toy layout, the nc-AM kernels with their
+   launches on the nc-AM path, K1's pair-path modes with their launches
+   on the nc-AM training path), one
    of the extra K4 modes, and the "kernels" line, whose "launches" for
    each kernel is its count on the path named beside it;
-13. last line: {"ok": true, "device": {...}}.
+14. last line: {"ok": true, "device": {...}}.
 
 Needs CUDA (exits 1 without it) and the repository around it.
 """
@@ -404,7 +421,7 @@ def phase_skew(dev):
         a = rng.standard_normal(shape).astype(np.float32) * scale
         return torch.from_numpy(a).to(dev)
 
-    for dout in (16, 4):
+    for dout in (16, 4, 400, 440):  # 400, 440: the pair path's dT widths
         m = rand(es.src.shape[0], dout)
         check_close(f"K1 hub aggregate_sorted dout {dout}",
                     agg.aggregate_sorted(m, lay, n),
@@ -556,6 +573,30 @@ def without_fused(es):
                                reverse=dataclasses.replace(es.reverse, fused=None))
 
 
+def records_logger():
+    """A ScalarLogger that keeps the (metric, step, value) records."""
+    from rgcn_tpu_torch.utils.logging import ScalarLogger
+
+    class Records(ScalarLogger):
+        def __init__(self):
+            super().__init__(verbose=False)
+            self.records = []
+
+        def log_scalar(self, metric, value, step=None):
+            self.records.append((metric, step, float(value)))
+
+    return Records()
+
+
+def top_kernels(kernels_us: dict, n: int) -> dict:
+    """The ``n`` largest device times by kernel name cut to 80 characters
+    (names that share their first 80 are summed)."""
+    cut: dict = {}
+    for name, us in kernels_us.items():
+        cut[name[:80]] = cut.get(name[:80], 0.0) + us
+    return dict(sorted(cut.items(), key=lambda kv: -kv[1])[:n])
+
+
 def check_train_against_cpu(label, got, ref, logits, ref_logits):
     """Records equal in name and step, losses within rtol 1e-4, accuracies
     equal; final logits within 1e-4 * max(1, max|ref|)."""
@@ -578,73 +619,70 @@ def check_train_against_cpu(label, got, ref, logits, ref_logits):
     return worst, diff
 
 
-def phase_train(dev, data, edges):
-    """Train nc-AIFB on the card from the seed-0 initialisation, held
-    against the same training on the CPU's plain versions; gradients after
-    one backward; exact launch counts on both layer-2 routes; K2 and K3 at
-    the dx shapes; the step's timing. Returns (launches per path, the mode
-    rows, the timing line)."""
+def train_against_cpu(name, cfg, data, dev, runs):
+    """Train ``cfg`` on ``data`` on the card and on the CPU's plain versions
+    from the seed-0 initialisation. Every gradient after one backward must
+    be within 1e-5 * max(1, max|ref|); then the CPU trains, and each of
+    ``runs`` (key, label, ``edit`` of the EdgeSet, the launches expected)
+    trains on the card with the counts zeroed just before it, held to
+    exactly those launches and to the CPU's records and final logits
+    (check_train_against_cpu). The first run reuses the trainer whose
+    gradients were checked (it took no step). Returns (launches per key,
+    the checks per key, the first run's trainer, that run's peak device
+    GB)."""
     from rgcn_tpu_torch import kernels
-    from rgcn_tpu_torch.config import load_experiment
     from rgcn_tpu_torch.models.node_classification import build_nc_model
-    from rgcn_tpu_torch.profile_serve import profile_train_step
     from rgcn_tpu_torch.train.node_classification import NodeClassificationTrainer
-    from rgcn_tpu_torch.utils.logging import ScalarLogger
 
-    class Records(ScalarLogger):
-        def __init__(self):
-            super().__init__(verbose=False)
-            self.records = []
-
-        def log_scalar(self, metric, value, step=None):
-            self.records.append((metric, step, float(value)))
-
-    base = load_experiment(CONFIG)
-    cfg = dataclasses.replace(base, training=dataclasses.replace(
-        base.training, epochs=TRAIN_EPOCHS))
     init = build_nc_model(cfg, data, seed=0).state_dict()
 
     def trainer(device):
         return NodeClassificationTrainer(cfg, data, init_params=init, device=device)
 
-    # gradients after one backward, card against CPU
     t0 = time.perf_counter()
     cpu, card = trainer("cpu"), trainer(dev)
+    es, pi = card.edges, card.edges.pairs
+    pairs = "" if pi is None else (
+        f", {pi.num_pairs} pairs (U_pad {pi.pair_src.shape[0]}), grad_layout L "
+        f"{pi.agg.grad_layout.perm.shape[0]}, src_layout L {pi.src_layout.perm.shape[0]}")
+    log(f"training {name} ({cfg.training.epochs} epochs, seed-0 init): N "
+        f"{data.num_nodes}, E_pad {es.src.shape[0]}, layout L {es.layout.perm.shape[0]}"
+        f"{pairs} (set-up {time.perf_counter() - t0:.1f} s)")
     losses = []
     for t in (cpu, card):
         loss = t.loss()
         loss.backward()
         losses.append(loss.item())
-    log(f"training nc-AIFB ({TRAIN_EPOCHS} epochs, seed-0 init): first loss card "
-        f"{losses[1]:.7f}, CPU {losses[0]:.7f}")
+    log(f"  first loss card {losses[1]:.7f}, CPU {losses[0]:.7f}")
     ref_grads = dict(cpu.model.named_parameters())
-    for name, p in card.model.named_parameters():
-        check_close(f"grad {name}", p.grad.cpu(), ref_grads[name].grad)
+    for pname, p in card.model.named_parameters():
+        check_close(f"[{name}] grad {pname}", p.grad.cpu(), ref_grads[pname].grad)
 
-    ref = Records()
+    t0 = time.perf_counter()
+    ref = records_logger()
     cpu.fit(ref)
     ref_logits = cpu.logits()
-    log(f"  CPU plain training: {time.perf_counter() - t0:.1f} s with set-up; "
-        f"losses {[round(r[2], 6) for r in ref.records if r[0] == 'training.loss']}")
+    log(f"  CPU plain training {time.perf_counter() - t0:.1f} s; losses "
+        f"{[round(r[2], 6) for r in ref.records if r[0] == 'training.loss']}; "
+        f"accuracies (train, test) {[r[2] for r in ref.records if r[0] != 'training.loss']}")
+    del cpu
 
-    paths, checks = {}, {}
-    for key, label, build, expect in (
-        ("train_main", "main: fused layouts", lambda: trainer(dev),
-         train_main_path(TRAIN_EPOCHS)),
-        ("train_k3_k1_branch", "K3 + K1 branch", lambda: card,
-         train_k3_branch(TRAIN_EPOCHS)),
-    ):
+    paths, checks, first, peak_gb = {}, {}, None, None
+    for key, label, edit, expect in runs:
+        t = card if first is None else trainer(dev)
+        t.edges = edit(t.edges)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         t0 = time.perf_counter()
-        t = build()
-        if key == "train_k3_k1_branch":
-            t.edges = without_fused(t.edges)
-        got = Records()
+        got = records_logger()
         t.fit(got)
         torch.cuda.synchronize()
         counts = dict(kernels.LAUNCHES)
-        log(f"training [{label}]: {TRAIN_EPOCHS} epochs + final prediction "
-            f"{time.perf_counter() - t0:.2f} s, launches {counts}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"training [{label}]: {cfg.training.epochs} epochs + final prediction "
+            f"{time.perf_counter() - t0:.2f} s, launches {counts}, peak memory "
+            f"{peak:.3f} GB")
         if counts != launches(**expect):
             fail(f"training [{label}]: launches {counts}, expected {launches(**expect)}")
         logits = t.logits()
@@ -654,11 +692,29 @@ def phase_train(dev, data, edges):
         checks[key] = check_train_against_cpu(label, got.records, ref.records,
                                               logits, ref_logits)
         paths[key] = counts
-        if key == "train_main":
-            main = t
-    log(f"  accuracies (train, test) per epoch: "
-        f"{[r[2] for r in ref.records if r[0] != 'training.loss']}")
+        if first is None:
+            first, peak_gb = t, peak
+    return paths, checks, first, peak_gb
 
+
+def phase_train(dev, data, edges):
+    """Train nc-AIFB on the card from the seed-0 initialisation, held
+    against the same training on the CPU's plain versions; gradients after
+    one backward; exact launch counts on both layer-2 routes; K2 and K3 at
+    the dx shapes; the step's timing. Returns (launches per path, the mode
+    rows, the timing line)."""
+    from rgcn_tpu_torch.config import load_experiment
+    from rgcn_tpu_torch.profile_serve import profile_train_step
+
+    base = load_experiment(CONFIG)
+    cfg = dataclasses.replace(base, training=dataclasses.replace(
+        base.training, epochs=TRAIN_EPOCHS))
+    paths, checks, main, _ = train_against_cpu("nc-AIFB", cfg, data, dev, (
+        ("train_main", "main: fused layouts", lambda es: es,
+         train_main_path(TRAIN_EPOCHS)),
+        ("train_k3_k1_branch", "K3 + K1 branch", without_fused,
+         train_k3_branch(TRAIN_EPOCHS)),
+    ))
     modes = phase_dx_kernels(dev, data, edges, paths)
     prof = profile_train_step(main)
     timing = {
@@ -669,8 +725,7 @@ def phase_train(dev, data, edges):
         "device_optimizer": prof["optimizer_us"] / 1e3,
         "device_step": prof["step_us"] / 1e3,
         "device_busy_share": prof["step"]["device_busy_share"],
-        "step_kernels_us": {k[:80]: v for k, v in
-                            list(prof["step"]["kernels_us"].items())[:12]},
+        "step_kernels_us": top_kernels(prof["step"]["kernels_us"], 12),
         "step_host_ops_us": prof["step"]["host_ops_us"],
         "loss_max_rel_diff": {k: v[0] for k, v in checks.items()},
         "logits_max_abs_diff": {k: v[1] for k, v in checks.items()},
@@ -1159,17 +1214,12 @@ def phase_nc_basis_serving(dev):
     return paths
 
 
-def phase_am(dev):
-    """nc-AM served at AM scale with its launch counts held, checked against
-    the CPU plain run and timed; then its kernels at their shapes."""
-    from rgcn_tpu_torch.data.synthetic import am_like
+def phase_am(dev, data):
+    """nc-AM served at AM scale (``data``: am_like()) with its launch counts
+    held, checked against the CPU plain run and timed; then its kernels at
+    their shapes."""
     from rgcn_tpu_torch.serve import load_nc_server
 
-    t0 = time.perf_counter()
-    data = am_like()
-    log(f"nc-AM graph (am_like): N {data.num_nodes}, R' {2 * data.num_relations + 1}, "
-        f"{len(data.triples)} triples, {data.num_classes} classes "
-        f"({time.perf_counter() - t0:.1f} s)")
     requests = nc_requests(data)
     srv, answers, counts = serve_path(
         "nc-AM at AM scale", lambda: load_nc_server(AM_CONFIG, data, device=dev),
@@ -1291,6 +1341,166 @@ def phase_am_kernels(dev, edges, hidden, classes):
     return modes
 
 
+PAIR_EPOCHS = 5  # nc-MUTAG, nc-BGS on the stand-in
+AM_EPOCHS = 2  # nc-AM at AM scale
+
+
+def train_pair_path(epochs: int) -> dict:
+    """Launches of training a many-basis config on the pair path for
+    ``epochs``: per epoch the train forward (K1 once a layer over the
+    composed pair layout), the backward (per layer K1 for the pair
+    messages' gradient over grad_layout and K1 for the basis table's over
+    src_layout) and the eval forward (K1 twice); then the final
+    prediction's forward (K1 twice). No other kernel."""
+    return dict(k1_aggregate=8 * epochs + 2)
+
+
+def phase_train_pairs(dev, am_data):
+    """nc-MUTAG and nc-BGS on the stand-in, nc-AM at AM scale: trained on
+    the pair path and held against the CPU (train_against_cpu); then K1
+    in the path's new modes at nc-AM's shapes and the AM-scale step's
+    timing. Returns (launches per path, the mode rows, the timing)."""
+    from rgcn_tpu_torch.config import load_experiment
+    from rgcn_tpu_torch.data.synthetic import synthetic_nc_data
+    from rgcn_tpu_torch.profile_serve import profile_train_step
+
+    paths, checks = {}, {}
+    for key, path, epochs in (("train_nc_mutag", MUTAG_CONFIG, PAIR_EPOCHS),
+                              ("train_nc_bgs", BGS_CONFIG, PAIR_EPOCHS),
+                              ("train_nc_am", AM_CONFIG, AM_EPOCHS)):
+        base = load_experiment(path)
+        cfg = dataclasses.replace(base, training=dataclasses.replace(
+            base.training, epochs=epochs))
+        data = am_data if key == "train_nc_am" else synthetic_nc_data(cfg.dataset.name)
+        got, check, card, peak_gb = train_against_cpu(
+            key, cfg, data, dev, ((key, key, lambda es: es, train_pair_path(epochs)),))
+        if card.edges.pairs is None or card.edges.pairs.agg is None:
+            fail(f"training [{key}]: the trainer built no composed pair layout")
+        paths.update(got)
+        checks.update(check)
+    modes = phase_pair_kernels(dev, card, counts=paths["train_nc_am"])
+    prof = profile_train_step(card)
+    timing = {
+        "config": "nc-AM at AM scale (am_like)",
+        "step_host_median": prof["step"]["host_ms"]["median"],
+        "step_host_min": prof["step"]["host_ms"]["min"],
+        "device_forward": prof["forward_us"] / 1e3,
+        "device_backward": prof["backward_us"] / 1e3,
+        "device_optimizer": prof["optimizer_us"] / 1e3,
+        "device_step": prof["step_us"] / 1e3,
+        "device_busy_share": prof["step"]["device_busy_share"],
+        "peak_memory_gb": peak_gb,
+        "step_kernels_us": top_kernels(prof["step"]["kernels_us"], 16),
+        "step_host_ops_us": prof["step"]["host_ops_us"],
+        "loss_max_rel_diff": {k: v[0] for k, v in checks.items()},
+        "logits_max_abs_diff": {k: v[1] for k, v in checks.items()},
+    }
+    log(json.dumps({"train_nc_am_step": timing}))
+    return paths, modes, timing
+
+
+def phase_pair_kernels(dev, trainer, counts):
+    """K1 in the pair path's modes at the shapes of ``trainer`` (nc-AM),
+    against its plain version, timed with its bound and a torch.index_add
+    yardstick: the composed forward (destination-sorted slot rows over the
+    layout) at dout hidden and classes (10, 11), the pair messages'
+    gradient over grad_layout (U_pad segments) at the same widths, the
+    basis table's gradient over src_layout through its perm at dout
+    nb*hidden and nb*classes (400, 440)."""
+    from rgcn_tpu_torch.ops import aggregate as agg
+
+    rng = np.random.default_rng(8)
+    edges = trainer.edges
+    n, pi = edges.num_nodes, edges.pairs
+    u_pad = pi.pair_src.shape[0]
+    lay, glay, slay = edges.layout, pi.agg.grad_layout, pi.src_layout
+    nb, hidden, classes = trainer.model.rgc2.bases.shape
+    ag = pi.agg
+    # each slot's output row as index_add takes it (pad slots: one spare row)
+    slot_dst = ag.slot_dst.long()
+    grad_pair = torch.cat([ag.slot_pair, ag.slot_pair.new_tensor([u_pad])]
+                          )[glay.perm.long()].long()
+    epochs = AM_EPOCHS
+    log(f"kernels (nc-AM pair path: U_pad {u_pad}, layout L {lay.perm.shape[0]}, "
+        f"grad_layout L {glay.perm.shape[0]} ({glay.num_row_blocks} blocks of "
+        f"{glay.row_block}), src_layout L {slay.perm.shape[0]} "
+        f"({slay.num_row_blocks} blocks of {slay.row_block})):")
+
+    def rand(*shape):
+        a = rng.standard_normal(shape).astype(np.float32)
+        return torch.from_numpy(a).to(dev)
+
+    def zero_row(t):
+        return torch.cat([t, t.new_zeros((1, t.shape[1]))])
+
+    # the rows each mode sums, formed as the path forms them from random
+    # pair messages (forward) or output gradients (backward)
+    def slot_rows(dout):  # m_z[slot_pair] * slot_val
+        return zero_row(rand(u_pad, dout))[ag.slot_pair.long()] * ag.slot_val[:, None]
+
+    def grad_rows(dout):  # g_z[grad_dst] * grad_val
+        return zero_row(rand(n, dout))[ag.grad_dst.long()] * ag.grad_val[:, None]
+
+    def real(layout):
+        return int((layout.local_dst < layout.row_block).sum().item())
+
+    modes = []
+    for label, layout, rows_n, dout, make, lib_idx, launched in (
+        ("composed forward, layer 1", lay, n, hidden, slot_rows, slot_dst, 2 * epochs + 1),
+        ("composed forward, layer 2", lay, n, classes, slot_rows, slot_dst, 2 * epochs + 1),
+        ("d_m over grad_layout, layer 1", glay, u_pad, hidden, grad_rows, grad_pair, epochs),
+        ("d_m over grad_layout, layer 2", glay, u_pad, classes, grad_rows, grad_pair, epochs),
+        ("dT over src_layout, layer 1", slay, n, nb * hidden, None, pi.pair_src.long(),
+         epochs),
+        ("dT over src_layout, layer 2", slay, n, nb * classes, None, pi.pair_src.long(),
+         epochs),
+    ):
+        perm = make is None
+        if perm:  # the rows' cotangent (U_pad, dout), read through the perm
+            m = rand(layout.num_edges, dout)
+
+            def call(m=m, layout=layout, rows_n=rows_n):
+                return agg.aggregate_sorted(m, layout, rows_n)
+
+            def plain(m=m, layout=layout, rows_n=rows_n):
+                return agg.aggregate_sorted_plain(m, layout, rows_n)
+        else:  # destination-sorted slot rows
+            m = make(dout)
+
+            def call(m=m, layout=layout, rows_n=rows_n):
+                return agg.aggregate_presorted(m, layout, rows_n)
+
+            def plain(m=m, layout=layout, rows_n=rows_n):
+                return agg.aggregate_presorted_plain(m, layout, rows_n)
+        lib_rows = m
+        err = check_close(f"K1 {label} (dout {dout})", call(), plain())
+        zeros = torch.zeros((rows_n + 1, dout), device=dev)
+        ms, call_ms = timed(call)
+        plain_ms, plain_call = timed(plain)
+        lib_ms, lib_call = timed(
+            lambda z=zeros, i=lib_idx, r=lib_rows: torch.index_add(z, 0, i, r))
+        r_slots = real(layout)
+        # real slots' local_dst (and perm index) and message row,
+        # chunk_block, the output once
+        k_bytes = r_slots * (dout * 4 + 4 + (4 if perm else 0)) \
+            + nbytes(layout.chunk_block) + rows_n * dout * 4
+        modes.append(dict(
+            name="K1", mode=f"K1 {label} (dout {dout}, {r_slots} real slots)",
+            route="cuda", source="rgcn_tpu_torch/kernels/csrc/k1_aggregate.cu",
+            replaces="rgcn_tpu/ops/pallas_aggregate.py:203", path="train_nc_am",
+            launches=counts["k1_aggregate"], mode_launches=launched,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            call_ms=call_ms, plain_call_ms=plain_call, library_call_ms=lib_call,
+            library="torch.index_add of the same rows by destination",
+            _bound=bound_ms(k_bytes, r_slots * dout),
+        ))
+        del m, lib_rows, zeros
+    for r in modes:
+        r["bound_ms"], r["bound_by"] = r.pop("_bound")
+        log(json.dumps({"kernel_check": r}))
+    return modes
+
+
 def main():
     t_start = time.perf_counter()
     name = phase_environment()
@@ -1303,7 +1513,7 @@ def main():
         if not os.path.isfile(cfg):
             fail(f"config not found: {cfg}")
 
-    from rgcn_tpu_torch.data.synthetic import aifb_like, fb_toy_like, wn18_like
+    from rgcn_tpu_torch.data.synthetic import aifb_like, am_like, fb_toy_like, wn18_like
     from rgcn_tpu_torch.graph.coalesce import build_merged_layout
     from rgcn_tpu_torch.graph.structure import build_edge_set
 
@@ -1356,13 +1566,22 @@ def main():
     timing.update(fb_timing)
 
     paths.update(phase_nc_basis_serving(dev))
-    am_paths, am_timing, am_modes = phase_am(dev)
+    t0 = time.perf_counter()
+    am_data = am_like()
+    log(f"nc-AM graph (am_like): N {am_data.num_nodes}, R' "
+        f"{2 * am_data.num_relations + 1}, {len(am_data.triples)} triples, "
+        f"{am_data.num_classes} classes ({time.perf_counter() - t0:.1f} s)")
+    am_paths, am_timing, am_modes = phase_am(dev, am_data)
     paths.update(am_paths)
     timing.update(am_timing)
     kname = {"K1": "k1_aggregate", "K2": "k2_fused", "K3": "k3_messages"}
     for r in am_modes:
         r["path"], r["launches"] = "nc_am", am_paths["nc_am"][kname[r["name"]]]
     nc_modes.extend(am_modes)
+    pair_paths, pair_modes, pair_timing = phase_train_pairs(dev, am_data)
+    train_paths.update(pair_paths)
+    train_timing = {"nc_aifb": train_timing, "nc_am": pair_timing}
+    nc_modes.extend(pair_modes)
 
     # each kernel's count on the path that serves through it
     key = {"K1": ("k1_aggregate", "main"), "K2": ("k2_fused", "main"),

@@ -8,7 +8,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "arrays_to"]
+__all__ = ["resolve_device", "arrays_to", "check_plain_path"]
 
 
 def arrays_to(obj, device: torch.device):
@@ -40,3 +40,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def check_plain_path(device: torch.device) -> None:
+    """The layout-free plain paths are the CPU oracle; elsewhere, raise."""
+    if device.type != "cpu":
+        raise ValueError(
+            f"EdgeSet on {device} has no destination layout, so the kernels "
+            "cannot run: build it with build_edge_set(..., with_dst_layout=True)"
+        )

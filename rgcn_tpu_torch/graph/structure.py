@@ -8,7 +8,13 @@ multiple of ``tile_size`` so every tile has one relation (``tile_rel``).
 
 The builders produce numpy arrays bit-equal to the JAX package's NumPy
 builders. :meth:`EdgeSet.to` moves the whole structure (destination
-layout, fused layout, merged pair layout, reversed edges) to a device once.
+layout, fused layout, merged pair layout, reversed edges, the
+unique-(src, rel) pair index with its composed layouts) to a device once.
+
+Snapshots of ``val``: ``merged``, ``fused``, ``reverse`` and the pair
+layout's ``slot_val`` / ``grad_val`` copy the edge values when they are
+built. An EdgeSet whose ``val`` changes goes through
+:func:`reweight_edge_set`, which drops all of them.
 """
 
 from __future__ import annotations
@@ -23,9 +29,15 @@ from rgcn_tpu_torch.graph.augment import inverse_triples
 
 __all__ = [
     "EdgeSet",
+    "PairAggLayout",
+    "SrcRelPairs",
     "auto_nc_row_block",
     "build_edge_set",
+    "build_pair_agg",
+    "build_pair_src_layout",
+    "build_src_rel_pairs",
     "edge_normalization",
+    "reweight_edge_set",
 ]
 
 
@@ -58,6 +70,8 @@ class EdgeSet:
     # carry copies of it too): an EdgeSet whose `val` changes must rebuild
     # or drop them, or the kernels compute with the old values.
     merged: Optional[object] = None
+    # unique-(src, rel) pair index (SrcRelPairs) of the many-basis paths
+    pairs: Optional["SrcRelPairs"] = None
 
     @property
     def num_tiles(self) -> int:
@@ -66,6 +80,61 @@ class EdgeSet:
     def to(self, device) -> "EdgeSet":
         """The same structure with every array a tensor on ``device``."""
         return arrays_to(self, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class PairAggLayout:
+    """The pair fan-out composed with the destination layout.
+
+    Forward: slot ``l`` of ``EdgeSet.layout`` reads pair ``slot_pair[l]``
+    of the ``(U_pad, dout)`` pair-message table (``U_pad``, an appended
+    zero row, for pad slots) scaled by the slot's edge value. Backward:
+    ``d_m[u] = Σ_{l: slot_pair_l = u} v_l · g[slot_dst_l]`` is a second
+    destination sum over ``grad_layout`` (slots grouped by pair, ``U_pad``
+    segments), its rows gathered through ``grad_edge`` / ``grad_dst``
+    (sentinels ``E_pad`` / ``num_nodes`` index appended zero rows).
+
+    It freezes the composition with the build-time ``layout.perm``, and
+    ``slot_val`` (``val_z[layout.perm]``) and ``grad_val``
+    (``val_z[grad_edge]``) freeze ``val`` itself: an EdgeSet whose
+    ``val`` changes must drop them (:func:`reweight_edge_set` does; the
+    aggregation then gathers the live values through ``layout.perm`` and
+    ``grad_edge``), and one whose ``layout`` or ``pairs`` changes must drop
+    the whole layout.
+    """
+
+    slot_pair: object  # (L,) int32 in [0, U_pad]
+    slot_dst: object  # (L,) int32 in [0, num_nodes]
+    grad_layout: object  # DstLayout over slot_pair (U_pad segments)
+    grad_edge: object  # (Lb,) int32 in [0, E_pad]
+    grad_dst: object  # (Lb,) int32 in [0, num_nodes]
+    slot_val: Optional[object] = None  # (L,) f32, a snapshot of val
+    grad_val: Optional[object] = None  # (Lb,) f32, a snapshot of val
+
+
+@dataclasses.dataclass(frozen=True)
+class SrcRelPairs:
+    """Unique ``(src, rel)`` pairs of an EdgeSet's real edges.
+
+    A many-basis message depends only on ``(src, rel)``, so it is
+    contracted once per pair and fanned out to the pair's edges.
+    ``pair_src`` / ``pair_rel`` are padded to a multiple of the builder's
+    ``pad_multiple`` by repeating pair 0; ``edge_pair`` maps every edge to
+    its pair (pad edges to pair 0, with ``val == 0``). The index itself
+    freezes only ``(src, rel)``; ``agg`` may freeze ``val`` too (see
+    :class:`PairAggLayout`).
+    """
+
+    pair_src: object  # (U_pad,) int32
+    pair_rel: object  # (U_pad,) int32
+    edge_pair: object  # (E_pad,) int32
+    num_pairs: int  # real unique pairs (<= U_pad)
+    # the composed aggregation layout (PairAggLayout)
+    agg: Optional[PairAggLayout] = None
+    # pairs grouped by source: a DstLayout over pair_src with num_nodes
+    # segments, so the wide gather's backward is one destination sum (K1);
+    # pad pairs (pair_src 0) are included, their cotangents are zero
+    src_layout: Optional[object] = None
 
 
 def edge_normalization(rel: np.ndarray, dst: np.ndarray, num_nodes: int) -> np.ndarray:
@@ -84,6 +153,119 @@ def auto_nc_row_block(num_nodes: int, chunk: int = 256) -> int:
     return rb
 
 
+def build_src_rel_pairs(es: EdgeSet, pad_multiple: int = 1024,
+                        order: str = "rel") -> SrcRelPairs:
+    """Unique-(src, rel) index over an EdgeSet's real edges (numpy).
+
+    ``order="rel"`` sorts the pairs by ``(rel, src)``, ``"src"`` by
+    ``(src, rel)``. Pad edges (``dst == num_nodes``) map to pair 0; the
+    pair axis is padded to a multiple of ``pad_multiple`` by repeating
+    pair 0.
+    """
+    src, dst, rel = (np.asarray(a) for a in (es.src, es.dst, es.rel))
+    real = dst < es.num_nodes
+    if order == "src":
+        key = src.astype(np.int64) * (es.num_rels + 1) + rel
+    elif order == "rel":
+        key = rel.astype(np.int64) * (es.num_nodes + 1) + src
+    else:
+        raise ValueError(f"unknown pair order {order!r}")
+    uniq, inv = np.unique(key[real], return_inverse=True)
+    num_pairs = int(uniq.shape[0])
+    u_pad = max(pad_multiple, -(-num_pairs // pad_multiple) * pad_multiple)
+
+    pair_src = np.zeros(u_pad, dtype=np.int64)
+    pair_rel = np.zeros(u_pad, dtype=np.int64)
+    if order == "src":
+        pair_src[:num_pairs] = uniq // (es.num_rels + 1)
+        pair_rel[:num_pairs] = uniq % (es.num_rels + 1)
+    else:
+        pair_src[:num_pairs] = uniq % (es.num_nodes + 1)
+        pair_rel[:num_pairs] = uniq // (es.num_nodes + 1)
+    edge_pair = np.zeros(src.shape[0], dtype=np.int64)
+    edge_pair[real] = inv
+    return SrcRelPairs(
+        pair_src=pair_src.astype(np.int32),
+        pair_rel=pair_rel.astype(np.int32),
+        edge_pair=edge_pair.astype(np.int32),
+        num_pairs=num_pairs,
+    )
+
+
+def build_pair_agg(es: EdgeSet) -> PairAggLayout:
+    """Compose an EdgeSet's pair fan-out with its destination layout
+    (numpy; needs ``es.pairs`` and ``es.layout``). The layout's pad slots
+    point at ``E_pad``, which composes to the pair sentinel ``U_pad`` and
+    the destination sentinel ``num_nodes``. The JAX builder's
+    ``grad_pad_to`` (uniform shapes across the shards of an
+    edge-partitioned graph) is left out until the multi-device port.
+    """
+    if es.pairs is None or es.layout is None:
+        raise ValueError("build_pair_agg needs pairs and a dst layout")
+    from rgcn_tpu_torch.ops.aggregate import build_dst_layout
+
+    pi = es.pairs
+    perm = np.asarray(es.layout.perm)
+    e_pad = es.src.shape[0]
+    u_pad = pi.pair_src.shape[0]
+    edge_pair_z = np.concatenate([np.asarray(pi.edge_pair), [u_pad]]).astype(np.int64)
+    dst_z = np.concatenate([np.asarray(es.dst), [es.num_nodes]]).astype(np.int64)
+    slot_pair = edge_pair_z[perm].astype(np.int32)
+    slot_dst = dst_z[perm].astype(np.int32)
+
+    # slots grouped by pair; pad slots carry the U_pad sentinel and drop
+    chunk = es.layout.chunk
+    grad_layout = build_dst_layout(
+        slot_pair, u_pad, row_block=auto_nc_row_block(u_pad, chunk=chunk),
+        chunk=chunk)
+    perm_z = np.concatenate([perm, [e_pad]]).astype(np.int64)
+    grad_edge = perm_z[np.asarray(grad_layout.perm)].astype(np.int32)
+    grad_dst = dst_z[grad_edge].astype(np.int32)  # E_pad -> num_nodes
+    val_z = np.concatenate([np.asarray(es.val, dtype=np.float32), [0.0]]).astype(np.float32)
+    return PairAggLayout(
+        slot_pair=slot_pair,
+        slot_dst=slot_dst,
+        grad_layout=grad_layout,
+        grad_edge=grad_edge,
+        grad_dst=grad_dst,
+        slot_val=val_z[np.minimum(perm, e_pad)],
+        grad_val=val_z[grad_edge],
+    )
+
+
+def build_pair_src_layout(es: EdgeSet):
+    """Pairs grouped by source: a DstLayout over ``pair_src`` with
+    ``num_nodes`` segments (numpy), for the wide gather's backward. Pad
+    pairs (``pair_src == 0``) are included; their cotangents are zero. The
+    JAX builder's ``pad_to`` (shard-uniform shapes) is left out until the
+    multi-device port."""
+    if es.pairs is None or es.layout is None:
+        raise ValueError("build_pair_src_layout needs pairs and a layout")
+    from rgcn_tpu_torch.ops.aggregate import build_dst_layout
+
+    chunk = es.layout.chunk
+    return build_dst_layout(
+        np.asarray(es.pairs.pair_src), es.num_nodes,
+        row_block=auto_nc_row_block(es.num_nodes, chunk=chunk), chunk=chunk)
+
+
+def reweight_edge_set(es: EdgeSet, val) -> EdgeSet:
+    """The EdgeSet with per-edge values ``val``, and every structure that
+    froze the old ones dropped: ``merged``, ``fused``, ``reverse`` (it
+    carries ``val[r_order]`` and its own fused layout) and the pair
+    layout's ``slot_val`` / ``grad_val``. The destination layout, the pair
+    index, the composed maps and ``src_layout`` freeze only the topology
+    and stay; the composed aggregation then gathers the live values.
+    Dropping ``reverse`` and ``fused`` takes away the dense SpMM's backward
+    and its K2 route: rebuild with :func:`build_edge_set` for those."""
+    pairs = es.pairs
+    if pairs is not None and pairs.agg is not None:
+        pairs = dataclasses.replace(pairs, agg=dataclasses.replace(
+            pairs.agg, slot_val=None, grad_val=None))
+    return dataclasses.replace(es, val=val, merged=None, pairs=pairs,
+                               fused=None, reverse=None)
+
+
 def build_edge_set(
     triples: np.ndarray,
     num_nodes: int,
@@ -92,6 +274,8 @@ def build_edge_set(
     with_dst_layout: bool = False,
     layout_row_block: Optional[int] = None,
     with_merged_layout: bool = False,
+    with_pair_index: bool = False,
+    with_pair_agg: bool = False,
 ) -> EdgeSet:
     """Preprocess raw ``(s, p, o)`` triples into a static :class:`EdgeSet`.
 
@@ -101,7 +285,12 @@ def build_edge_set(
     reversed edge set with its own layouts. ``with_merged_layout=True``
     attaches the coalesced-pair layout the basis ops prefer (K4), unless
     the general relations exceed ``MERGED_MAX_RELS`` (then it is skipped:
-    the basis ops take the unmerged layout).
+    the basis ops take the unmerged layout). ``with_pair_index=True``
+    attaches the unique-(src, rel) pair index (:func:`build_src_rel_pairs`,
+    order ``"rel"``), and with ``with_pair_agg=True`` (needs
+    ``with_dst_layout``) also its composed aggregation layout and its
+    pairs-by-source layout, as the JAX NC trainer builds them for more
+    than 8 bases.
     """
     from rgcn_tpu_torch.graph.coalesce import MERGED_MAX_RELS, build_merged_layout
     from rgcn_tpu_torch.ops.fused import build_fused_layout
@@ -135,6 +324,15 @@ def build_edge_set(
         )
         rev = dataclasses.replace(rev, fused=build_fused_layout(rev))
         es = dataclasses.replace(es, reverse=rev, fused=build_fused_layout(es))
+    if with_pair_index:
+        es = dataclasses.replace(es, pairs=build_src_rel_pairs(es))
+        if with_pair_agg:
+            if es.layout is None:
+                raise ValueError("with_pair_agg requires with_dst_layout")
+            es = dataclasses.replace(es, pairs=dataclasses.replace(
+                es.pairs, agg=build_pair_agg(es)))
+            es = dataclasses.replace(es, pairs=dataclasses.replace(
+                es.pairs, src_layout=build_pair_src_layout(es)))
     if with_merged_layout and es.num_rels <= MERGED_MAX_RELS:
         es = dataclasses.replace(es, merged=build_merged_layout(
             es.dst, es.src, es.rel, es.val, es.num_nodes, es.num_rels))

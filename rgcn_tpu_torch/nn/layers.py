@@ -12,7 +12,11 @@ Ported weight layouts of :class:`RGCNConv`:
   ``edges.reverse`` for dx and a per-tile product for dW);
 * featureless basis decomposition (NC layer 1 of nc-MUTAG, nc-BGS,
   nc-AM): ``W = comps @ bases`` is never expanded to ``(R', N, dout)``.
-  With more than 8 bases the basis rows are gathered per edge and
+  With more than 8 bases and the EdgeSet's unique-(src, rel) pair index
+  (``edges.pairs``, built by the trainer) the basis rows are contracted
+  once per pair and summed by K1 through the composed pair layout, with
+  K1 as both backward sums (:mod:`rgcn_tpu_torch.ops.spmm`'s pair
+  paths); without it (serving) they are gathered per edge and
   contracted with ``comps[tile_rel]`` per tile
   (:func:`~rgcn_tpu_torch.ops.spmm.rel_spmm_featureless_basis`, grouped
   under its element budget) and summed by K1; with at most 8, K4 sums the
@@ -23,9 +27,11 @@ Ported weight layouts of :class:`RGCNConv`:
   ``comps (R', nb)`` and ``bases (nb, din, dout)`` go through the
   aggregation-first :func:`~rgcn_tpu_torch.ops.basis.rel_spmm_basis` (K4
   over the merged or destination layout, K5 over ``merged.fwd_dedup``);
-  with more (NC layer 2 of nc-MUTAG, nc-BGS, nc-AM) they are expanded to
-  dense ``(R', din, dout)`` weights in full f32 and take the featureful
-  path;
+  with more (NC layer 2 of nc-MUTAG, nc-BGS, nc-AM) and ``edges.pairs``,
+  :func:`~rgcn_tpu_torch.ops.spmm.rel_spmm_basis_pairs` (``H = stack_b(x
+  @ bases_b)`` contracted once per pair, then K1 as above); with more and
+  no pairs (serving) they are expanded to dense ``(R', din, dout)``
+  weights in full f32 and take the featureful path;
 * featureful block decomposition (the lp-FB-toy encoder): ``blocks (r, B,
   din/B, dout/B)`` expanded to block-diagonal ``(r, din, dout)`` matrices
   by one index scatter and run through ``fwd_spmm`` (K3 then K1 at
@@ -50,6 +56,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from rgcn_tpu_torch.device import check_plain_path
 from rgcn_tpu_torch.graph.coalesce import MAX_BASES
 from rgcn_tpu_torch.nn import init as rinit
 from rgcn_tpu_torch.ops import distmult as distmult_ops
@@ -79,15 +86,6 @@ def expand_blocks(blocks: torch.Tensor) -> torch.Tensor:
     w = blocks.new_zeros((r, din, dout))
     w[:, rows[:, None], cols] = blocks.reshape(r, din, ob)
     return w
-
-
-def check_plain_path(device: torch.device) -> None:
-    """The layout-free plain path is the CPU oracle; elsewhere, raise."""
-    if device.type != "cpu":
-        raise ValueError(
-            f"EdgeSet on {device} has no destination layout, so the kernels "
-            "cannot run: build it with build_edge_set(..., with_dst_layout=True)"
-        )
 
 
 class RGCNConv(nn.Module):
@@ -234,6 +232,13 @@ class RGCNConv(nn.Module):
                 agg = rel_spmm_featureless_basis_fwd(edges, bases, comps[:-1])
             with full_f32_matmul():
                 return agg + torch.einsum("b,bno->no", comps[-1], bases)
+        if many and edges.pairs is not None:
+            # H = stack_b(x @ bases_b), contracted once per (src, rel) pair
+            agg = spmm_ops.rel_spmm_basis_pairs(
+                edges, x, bases, comps[:-1],
+                aggregate=_aggregate_k1 if edges.layout is not None else None)
+            with full_f32_matmul():
+                return agg + x @ torch.einsum("b,bio->io", comps[-1], bases)
         if many or (edges.merged is None and edges.layout is None):
             # expand to dense per-relation weights: K4/K5 keep one sum per
             # basis in registers and take at most MAX_BASES

@@ -19,6 +19,13 @@ holds only pads returns after loading its ``local_dst`` once.
 gradient is the gather ``g[dst]``, read from ``g`` with one zero row
 appended for the pad edges (``dst == num_nodes``). :func:`aggregate_presorted`
 has none: on the card it refuses inputs that need one.
+
+:func:`aggregate_pairs` (counterpart of ``aggregate_pairs_ad``,
+``pallas_aggregate.py:388-453``) sums a ``(U_pad, dout)`` pair-message
+table fanned out to the edges, through a
+:class:`~rgcn_tpu_torch.graph.structure.PairAggLayout`: K1 over the
+destination layout forward, K1 over the slots-grouped-by-pair layout for
+the messages' gradient.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ __all__ = [
     "aggregate_presorted_plain",
     "aggregate_sorted",
     "aggregate_sorted_plain",
+    "aggregate_pairs",
     "gather_by_dst",
 ]
 
@@ -230,3 +238,75 @@ def aggregate_sorted(
             f"of the layout's {layout.num_edges} edges"
         )
     return _AggregateSorted.apply(messages, dst, layout, num_nodes)
+
+
+def _zero_row(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with one zero row (or element) appended, for the sentinels."""
+    return torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])
+
+
+def _pair_values(frozen, val, index):
+    """The slots' edge values: the frozen copy when the PairAggLayout has
+    one, else the live ``val`` gathered through ``index`` (sentinel
+    ``E_pad`` reads 0)."""
+    if frozen is not None:
+        return frozen
+    return _zero_row(val).index_select(0, index.long())
+
+
+def _aggregate_pairs(m, val, agg, layout, num_nodes):
+    v_slot = _pair_values(agg.slot_val, val, layout.perm)
+    msgs = _zero_row(m).index_select(0, agg.slot_pair.long()) * v_slot[:, None]
+    return aggregate_presorted(msgs, layout, num_nodes)
+
+
+class _AggregatePairs(torch.autograd.Function):
+    """K1 over the composed layout; backward K1 over ``grad_layout``."""
+
+    @staticmethod
+    def forward(ctx, m, val, edge_pair, dst, agg, layout, num_nodes):
+        ctx.save_for_backward(m, val, edge_pair, dst)
+        ctx.agg = agg
+        return _aggregate_pairs(m, val, agg, layout, num_nodes)
+
+    @staticmethod
+    def backward(ctx, g):
+        m, val, edge_pair, dst = ctx.saved_tensors
+        agg = ctx.agg
+        g_pad = _zero_row(g)
+        d_m = d_val = None
+        if ctx.needs_input_grad[0]:
+            # d_m[u] = Σ_{slots l of pair u} v_l · g[slot_dst_l]
+            v_grad = _pair_values(agg.grad_val, val, agg.grad_edge)
+            rows = g_pad.index_select(0, agg.grad_dst.long()) * v_grad[:, None]
+            d_m = aggregate_presorted(rows, agg.grad_layout, m.shape[0])
+        if ctx.needs_input_grad[1]:
+            d_val = (_zero_row(m).index_select(0, edge_pair.long())
+                     * g_pad.index_select(0, dst.long())).sum(-1)
+        return d_m, d_val, None, None, None, None, None
+
+
+def aggregate_pairs(m: torch.Tensor, val: torch.Tensor, edge_pair: torch.Tensor,
+                    dst: torch.Tensor, agg, layout: DstLayout,
+                    num_nodes: int) -> torch.Tensor:
+    """``out[n] = Σ_{edges e → n} val_e · m[edge_pair_e]`` for pair
+    messages ``m (U_pad, dout)`` f32, without the ``(E, dout)`` fan-out:
+    the slots of ``layout`` read their pair's row through
+    ``agg.slot_pair`` (pad slots an appended zero row) scaled by the
+    slot's value, and K1 sums them.
+
+    The values are ``agg.slot_val`` / ``agg.grad_val`` when the layout
+    froze them at build time, else ``val`` gathered through
+    ``layout.perm`` / ``agg.grad_edge`` (what remains after
+    :func:`~rgcn_tpu_torch.graph.structure.reweight_edge_set`), so an
+    EdgeSet reweighted through it stays exact.
+
+    Differentiable in ``m`` and ``val`` when grad is on: the gradient of
+    ``m`` is K1 over ``agg.grad_layout`` (``U_pad`` segments) of
+    ``v · g[grad_dst]``, that of ``val`` (computed only when asked for)
+    ``Σ_cols m[edge_pair] · g[dst]``; ``edge_pair`` and ``dst`` (pads
+    ``num_nodes``) serve only the latter. Otherwise K1 runs with no
+    Function."""
+    if torch.is_grad_enabled() and (m.requires_grad or val.requires_grad):
+        return _AggregatePairs.apply(m, val, edge_pair, dst, agg, layout, num_nodes)
+    return _aggregate_pairs(m, val, agg, layout, num_nodes)

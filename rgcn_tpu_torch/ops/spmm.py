@@ -7,17 +7,32 @@ Counterpart of ``rgcn_tpu/ops/spmm.py``: every weight layout computes
 over a relation-sorted, tile-padded EdgeSet, with the destination sum as
 one ``index_add_`` into ``num_nodes + 1`` rows (the last swallows pads).
 Layers take these paths when the EdgeSet has no destination layout.
+
+The many-basis paths over an EdgeSet's unique-(src, rel) pair index
+(``edges.pairs``, the JAX trainer's route for more than 8 bases) contract
+the basis rows once per pair (:func:`pair_contract`) and hand the pair
+messages to K1 through the composed layout
+(:func:`~rgcn_tpu_torch.ops.aggregate.aggregate_pairs`); the wide gather's
+backward is K1 too (:func:`gather_rows_agg`), so the training step has no
+scatter.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from rgcn_tpu_torch.device import check_plain_path
+from rgcn_tpu_torch.ops.aggregate import aggregate_pairs, aggregate_sorted
 from rgcn_tpu_torch.ops.basis import full_f32_matmul
 
 __all__ = [
     "aggregate_messages",
+    "gather_rows_agg",
+    "pair_contract",
+    "pair_fan_aggregate",
     "rel_spmm",
+    "rel_spmm_basis_pairs",
     "rel_spmm_block",
     "rel_spmm_featureless",
     "rel_spmm_featureless_basis",
@@ -27,6 +42,10 @@ __all__ = [
 # contraction, as in the JAX package; above it, tile groups run one after
 # another. Module-level so tests can lower it and reach the grouped branch.
 _ELEM_BUDGET = 64_000_000
+# The same cap for the gathered rows of the pair contraction (the JAX
+# package's 512M): nc-AM's layers, 236M and 260M elements at AM scale, stay
+# ungrouped. Module-level so tests can lower it.
+_PAIR_ELEM_BUDGET = 512_000_000
 
 
 def aggregate_messages(
@@ -90,7 +109,10 @@ def rel_spmm_featureless_basis(edges, bases: torch.Tensor, comps: torch.Tensor, 
     gathered basis rows per relation-uniform tile.
 
     ``bases (nb, N, dout)``, ``comps (R, nb)`` over the general relations
-    (the self-loop term is the caller's). The gather table is node-major
+    (the self-loop term is the caller's). With ``edges.pairs`` the rows
+    are contracted once per unique (src, rel) pair (:func:`pair_contract`)
+    and fanned out to the edges (:func:`pair_fan_aggregate`). Otherwise,
+    per edge: the gather table is node-major
     with the basis innermost, ``(N, dout, nb)``, so a group of ``g`` tiles
     contracts as one ``(g, tile·dout, nb) @ (g, nb, 1)`` product of the
     gathered rows as they lie, in full f32. While ``E_pad·nb·dout`` exceeds
@@ -102,6 +124,9 @@ def rel_spmm_featureless_basis(edges, bases: torch.Tensor, comps: torch.Tensor, 
     tile, n_tiles = edges.tile_size, edges.num_tiles
     nb, n_rows, dout = bases.shape
     table = bases.permute(1, 2, 0).contiguous().view(n_rows, dout * nb)
+    if edges.pairs is not None:
+        m = pair_contract(table, comps, edges.pairs, nb, dout)
+        return pair_fan_aggregate(m, edges, aggregate)
     coef = comps[edges.tile_rel.long()][:, :, None]  # (n_tiles, nb, 1)
     group = n_tiles
     if n_tiles * tile * nb * dout > _ELEM_BUDGET:
@@ -119,3 +144,117 @@ def rel_spmm_featureless_basis(edges, bases: torch.Tensor, comps: torch.Tensor, 
     if aggregate is not None:
         return aggregate(msgs, edges)
     return aggregate_messages(msgs, edges.dst, edges.num_nodes)
+
+
+class _GatherRowsAgg(torch.autograd.Function):
+    """``table[idx]``; backward K1 over ``layout`` through its perm."""
+
+    @staticmethod
+    def forward(ctx, table, idx, layout):
+        ctx.layout, ctx.num_rows = layout, table.shape[0]
+        return table.index_select(0, idx.long())
+
+    @staticmethod
+    def backward(ctx, g):
+        d_table = aggregate_sorted(g.contiguous(), ctx.layout, ctx.num_rows)
+        return d_table, None, None
+
+
+def gather_rows_agg(table: torch.Tensor, idx: torch.Tensor, layout) -> torch.Tensor:
+    """``table[idx]`` whose gradient is a destination sum instead of a
+    scatter (counterpart of ``_gather_rows_agg_bwd``, ``ops/spmm.py:369-395``):
+    ``layout`` is a DstLayout over ``idx`` with ``table.shape[0]``
+    segments, and ``d_table = Σ_{u: idx_u = n} g[u]`` is K1 reading the
+    rows of ``g`` through ``layout.perm`` (pad slots are never read, so
+    ``g`` is not copied). Without grad, the gather alone."""
+    if not (torch.is_grad_enabled() and table.requires_grad):
+        return table.index_select(0, idx.long())
+    return _GatherRowsAgg.apply(table, idx, layout)
+
+
+def _contract(rows: torch.Tensor, coef: torch.Tensor, dout: int, nb: int) -> torch.Tensor:
+    """``m[u] = rows[u] · coef[u]`` for rows laid out ``(dout, nb)``."""
+    return torch.bmm(rows.view(-1, dout, nb), coef.unsqueeze(-1)).view(-1, dout)
+
+
+def _contract_group(table, src, coef, dout, nb):
+    return _contract(table.index_select(0, src), coef, dout, nb)
+
+
+def pair_contract(table: torch.Tensor, comps: torch.Tensor, pairs, nb: int,
+                  dout: int) -> torch.Tensor:
+    """Per-pair contraction ``m[u] = Σ_b comps[pair_rel_u, b] ·
+    table[pair_src_u][:, b]`` (counterpart of ``_pair_contract``,
+    ``ops/spmm.py:410-456``) of a ``(N, dout·nb)`` table laid out ``(N,
+    dout, nb)`` (basis innermost); returns ``(U_pad, dout)`` in full f32.
+
+    The rows are gathered through :func:`gather_rows_agg` when
+    ``pairs.src_layout`` exists and contracted as they lie, one ``(U,
+    dout, nb) @ (U, nb, 1)`` ``torch.bmm``: unlike the JAX package's GEMM
+    form (``_expand_collapse``), no ``(U, nb·dout)`` expanded coefficient
+    tensor is written and read again, and the product is the same sum per
+    pair. ``comps[pair_rel]`` is an ``index_select``, whose backward is an
+    atomic ``index_add_``. While ``U_pad·nb·dout`` exceeds
+    :data:`_PAIR_ELEM_BUDGET` the pairs go in groups whose size divides
+    ``U_pad`` (the JAX package's search), each under
+    ``torch.utils.checkpoint``, so one group's rows exist at a time and
+    the backward gathers them again (the JAX ``jax.checkpoint``).
+    """
+    src = pairs.pair_src.long()
+    u_pad = src.shape[0]
+    coef = comps.index_select(0, pairs.pair_rel.long())  # (U_pad, nb)
+    with full_f32_matmul():
+        if u_pad * nb * dout <= _PAIR_ELEM_BUDGET:
+            if pairs.src_layout is not None:
+                rows = gather_rows_agg(table, pairs.pair_src, pairs.src_layout)
+            else:
+                rows = table.index_select(0, src)
+            return _contract(rows, coef, dout, nb)
+        group = max(1, _PAIR_ELEM_BUDGET // (nb * dout))
+        while u_pad % group:
+            group -= 1
+        grad = torch.is_grad_enabled() and (table.requires_grad or coef.requires_grad)
+        parts = []
+        for lo in range(0, u_pad, group):
+            args = (table, src[lo:lo + group], coef[lo:lo + group], dout, nb)
+            parts.append(checkpoint(_contract_group, *args, use_reentrant=False)
+                         if grad else _contract_group(*args))
+        return torch.cat(parts)
+
+
+def pair_fan_aggregate(m: torch.Tensor, edges, aggregate=None) -> torch.Tensor:
+    """Fan the ``(U_pad, dout)`` pair messages out to the edges, scale by
+    ``val`` and sum by destination (counterpart of ``_pair_fan_aggregate``).
+    With ``aggregate`` given (the layer's K1 route) and the composed layout
+    present (``edges.pairs.agg`` and ``edges.layout``): K1 reads the pair
+    rows straight through it (:func:`aggregate_pairs`), and the ``(E,
+    dout)`` messages never exist. Otherwise, on the CPU only, the explicit
+    fan-out ``m[edge_pair] · val`` then ``aggregate`` or the plain
+    ``index_add_``."""
+    pi = edges.pairs
+    if aggregate is not None and pi.agg is not None and edges.layout is not None:
+        return aggregate_pairs(m, edges.val, pi.edge_pair, edges.dst, pi.agg,
+                               edges.layout, edges.num_nodes)
+    check_plain_path(m.device)
+    msgs = m[pi.edge_pair.long()] * edges.val[:, None]
+    if aggregate is not None:
+        return aggregate(msgs, edges)
+    return aggregate_messages(msgs, edges.dst, edges.num_nodes)
+
+
+def rel_spmm_basis_pairs(edges, x: torch.Tensor, bases: torch.Tensor,
+                         comps: torch.Tensor, *, aggregate=None) -> torch.Tensor:
+    """Featureful basis SpMM through the unique-(src, rel) pair index
+    (counterpart of ``rel_spmm_basis_pairs``, ``ops/spmm.py:459-493``):
+    ``H[n] = stack_b(x[n] @ bases_b)``, one ``(N, din) @ (din, dout·nb)``
+    product laid out ``(N, dout, nb)``, contracted once per pair
+    (:func:`pair_contract`) and fanned out (:func:`pair_fan_aggregate`).
+    ``bases (nb, din, dout)``, ``comps (R, nb)`` over the general
+    relations; the weights are never expanded to ``(R, din, dout)``."""
+    if edges.pairs is None:
+        raise ValueError("rel_spmm_basis_pairs requires edges.pairs")
+    nb, din, dout = bases.shape
+    with full_f32_matmul():
+        h = x @ bases.permute(1, 2, 0).reshape(din, dout * nb)
+    m = pair_contract(h, comps, edges.pairs, nb, dout)
+    return pair_fan_aggregate(m, edges, aggregate)

@@ -25,7 +25,9 @@ synthetic graph, on the card) and reports one warm training step
 (forward, backward, optimizer, the loss read back) as ``step``, and the
 step's device time split into ``forward_us`` (the loss), ``backward_us``
 (forward and backward, less the forward) and ``optimizer_us``, each from
-its own profiler window (:func:`profile_train_step`).
+its own profiler window (:func:`profile_train_step`), and the peak device
+memory over those windows (``peak_memory_gb``). nc-AM trains at AM scale
+(``am_like``) on the unique-(src, rel) pair path.
 
 For each:
 
@@ -198,12 +200,15 @@ def profile_train(dev, config: str) -> dict:
     cfg = load_experiment(config)
     data = nc_profile_data(cfg)
     trainer = NodeClassificationTrainer(cfg, data, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    report = profile_train_step(trainer)
     return {
         "config": os.path.basename(config),
         "graph": {"nodes": data.num_nodes, "relations": data.num_relations,
                   "triples": int(len(data.triples)),
                   "e_pad": int(trainer.edges.src.shape[0])},
-        "train": profile_train_step(trainer),
+        "train": report,
+        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
     }
 
 

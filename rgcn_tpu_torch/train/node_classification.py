@@ -9,16 +9,21 @@ prediction gives the final test accuracy. The records go to a
 :class:`~rgcn_tpu_torch.utils.logging.ScalarLogger` under the JAX
 package's names and suffixes. The EdgeSet is built as the JAX trainer
 builds it (destination, fused and reversed layouts; the merged layout where
-``merge_applicable`` says so; ``auto_nc_row_block``) and moved to the
-device once.
+``merge_applicable`` says so; for basis configs with more than 8 bases the
+unique-(src, rel) pair index with its composed and by-source layouts;
+``auto_nc_row_block``) and moved to the device once.
 
-On the card the dense R-GCN (nc-AIFB) trains through the kernels: layer
-1's K1 with the gather ``g[dst]`` as its backward, layer 2's K2 (or K3
-then K1) with dx over ``edges.reverse`` on the same kernels
-(:func:`~rgcn_tpu_torch.ops.rel_spmm.rel_spmm_ad`). Configs whose layers
-have no backward here yet raise ``NotImplementedError`` naming the
-ROADMAP item that brings them. Checkpoints and the JAX package's
-executable cache are not ported.
+On the card two families train through the kernels. The dense R-GCN
+(nc-AIFB): layer 1's K1 with the gather ``g[dst]`` as its backward, layer
+2's K2 (or K3 then K1) with dx over ``edges.reverse`` on the same kernels
+(:func:`~rgcn_tpu_torch.ops.rel_spmm.rel_spmm_ad`). Basis decomposition
+with more than 8 bases (nc-MUTAG, nc-BGS, nc-AM): both layers on the pair
+path, K1 as the forward sum and as both backward sums (the pair messages'
+gradient over the slots grouped by pair, the basis table's over the pairs
+grouped by source; :mod:`rgcn_tpu_torch.ops.spmm`). Configs whose layers
+have no backward here yet (at most 8 bases, block decomposition, e-RGCN)
+raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+Checkpoints and the JAX package's executable cache are not ported.
 """
 
 from __future__ import annotations
@@ -59,11 +64,7 @@ def _check_trainable(cfg) -> None:
     if decomp is None:
         return
     if decomp.type == "basis" and decomp.num_bases > 8:
-        raise NotImplementedError(
-            f"training with {decomp.num_bases} bases is not ported yet: the "
-            "JAX trainer takes the unique-(src, rel) pair path there "
-            "(ROADMAP queue 1, item 2)"
-        )
+        return  # the unique-(src, rel) pair path
     raise NotImplementedError(
         f"training with {decomp.type} decomposition is not ported yet: the "
         "K4 basis VJPs and the block layer's backward come with LP "
@@ -100,10 +101,14 @@ class NodeClassificationTrainer:
             decomposition=decomp.type if decomp else None,
             num_bases=decomp.num_bases if decomp else 0,
         )
+        # the JAX trainer's pair_ok: many-basis layers contract once per
+        # unique (src, rel) pair
+        pair_ok = decomp is not None and decomp.type == "basis" and decomp.num_bases > 8
         self.edges = build_edge_set(
             data.triples, data.num_nodes, data.num_relations,
             tile_size=tile_size, with_dst_layout=True,
             with_merged_layout=merge_ok,
+            with_pair_index=pair_ok, with_pair_agg=pair_ok,
             layout_row_block=auto_nc_row_block(data.num_nodes),
         ).to(dev)
         self.train_idx_np, self.train_lbl_np = data.index_labels(data.train)

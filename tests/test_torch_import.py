@@ -20,6 +20,8 @@ MODULES = [
     "rgcn_tpu_torch.data",
     "rgcn_tpu_torch.graph",
     "rgcn_tpu_torch.graph.coalesce",
+    "rgcn_tpu_torch.graph.structure",
+    "rgcn_tpu_torch.device",
     "rgcn_tpu_torch.ops.aggregate",
     "rgcn_tpu_torch.ops.basis",
     "rgcn_tpu_torch.ops.distmult",
@@ -28,7 +30,9 @@ MODULES = [
     "rgcn_tpu_torch.ops.spmm",
     "rgcn_tpu_torch.kernels",
     "rgcn_tpu_torch.nn",
+    "rgcn_tpu_torch.nn.layers",
     "rgcn_tpu_torch.models",
+    "rgcn_tpu_torch.models.node_classification",
     "rgcn_tpu_torch.models.link_prediction",
     "rgcn_tpu_torch.serve",
     "rgcn_tpu_torch.serve_nodes",

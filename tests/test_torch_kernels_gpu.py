@@ -37,7 +37,13 @@ autograd Functions with their backward on the card against the CPU (dx
 through K2 at (dout, din), nc-AIFB's (4, 16) among them, or K3's small
 route then K1; dW), the wrappers without a backward refusing grad, and
 three epochs of NC training on the card against the CPU with exact launch
-counts on both layer-2 routes.
+counts on both layer-2 routes. The pair path: ``aggregate_pairs`` forward
+and backward (K1 over the composed layout, then over ``grad_layout``) at
+nc-AM's widths with frozen and live values, on a graph whose hub pair
+spans several chunks; ``gather_rows_agg``'s backward (K1 through the
+by-source layout's perm) at dout 400 and 440, also with one source
+owning thousands of rows; and three epochs of nc-MUTAG and nc-BGS with
+exactly 8E + 2 K1 launches.
 Tolerance: max abs diff <= 1e-5 * max(1, max|ref|) (f32 sums reordered by
 atomics).
 """
@@ -50,12 +56,14 @@ import torch
 
 from rgcn_tpu_torch import kernels
 from rgcn_tpu_torch.data.synthetic import skew_triples
-from rgcn_tpu_torch.graph.structure import build_edge_set
+from rgcn_tpu_torch.graph.structure import (auto_nc_row_block, build_edge_set,
+                                            reweight_edge_set)
 from rgcn_tpu_torch.graph.coalesce import build_merged_layout
 from rgcn_tpu_torch.ops import aggregate as agg
 from rgcn_tpu_torch.ops import basis as bs
 from rgcn_tpu_torch.ops import fused as fz
 from rgcn_tpu_torch.ops import rel_spmm as rs
+from rgcn_tpu_torch.ops import spmm as sp
 from tests.conftest import make_random_triples
 
 pytestmark = pytest.mark.gpu
@@ -708,11 +716,11 @@ def test_kernels_without_backward_refuse_grad(cuda):
                     "k2_fused": 1}
 
 
-@pytest.mark.parametrize("fused", [True, False], ids=["k2", "k3_k1"])
-def test_nc_training_on_the_card(cuda, fused):
-    """Three epochs of the nc-AIFB config on the 500-node synthetic graph
-    from one initialisation, on the card and on the CPU: losses within
-    rtol 1e-4, accuracies equal, exact launch counts."""
+def _train_on_card_and_cpu(cuda, config, edit=lambda es: es, epochs=3):
+    """``epochs`` of ``configs/rgcn/<config>`` on the 500-node synthetic
+    graph from one initialisation, on the card and on the CPU (the EdgeSet
+    passed through ``edit``): losses within rtol 1e-4, accuracies equal.
+    Returns the card run's launches."""
     import os
 
     from rgcn_tpu_torch.config import load_experiment
@@ -731,15 +739,15 @@ def test_nc_training_on_the_card(cuda, fused):
 
     cfg = load_experiment(os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "configs", "rgcn", "nc-AIFB.yaml"))
-    cfg = dataclasses.replace(cfg, training=dataclasses.replace(cfg.training, epochs=3))
+        "configs", "rgcn", config))
+    cfg = dataclasses.replace(cfg, training=dataclasses.replace(cfg.training,
+                                                                epochs=epochs))
     data = synthetic_node_classification(seed=0)
     init = build_nc_model(cfg, data, seed=0).state_dict()
     runs = {}
     for dev in ("cpu", cuda):
         t = NodeClassificationTrainer(cfg, data, init_params=init, device=dev)
-        if not fused:
-            t.edges = _no_fused(t.edges)
+        t.edges = edit(t.edges)
         rec = Records()
         kernels.reset_launches()
         t.fit(rec)
@@ -747,11 +755,102 @@ def test_nc_training_on_the_card(cuda, fused):
         runs[str(dev)] = (rec.records, {k: v for k, v in kernels.LAUNCHES.items() if v})
     (ref, none), (got, used) = runs["cpu"], runs["cuda"]
     assert none == {}
-    assert used == ({"k1_aggregate": 7, "k2_fused": 10} if fused
-                    else {"k1_aggregate": 17, "k3_messages": 10})
     assert [r[:2] for r in got] == [r[:2] for r in ref]
     for (metric, _, v), (_, _, w) in zip(got, ref):
         if metric == "training.loss":
             assert abs(v - w) <= 1e-4 * abs(w)
         else:
             assert v == w
+    return used
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["k2", "k3_k1"])
+def test_nc_training_on_the_card(cuda, fused):
+    """Three epochs of the nc-AIFB config on the 500-node synthetic graph
+    from one initialisation, on the card and on the CPU: losses within
+    rtol 1e-4, accuracies equal, exact launch counts."""
+    used = _train_on_card_and_cpu(cuda, "nc-AIFB.yaml",
+                                  edit=(lambda es: es) if fused else _no_fused)
+    assert used == ({"k1_aggregate": 7, "k2_fused": 10} if fused
+                    else {"k1_aggregate": 17, "k3_messages": 10})
+
+
+def _pair_edges(dev, seed):
+    """A graph with a hub pair: node 7 is the subject of predicate 0
+    towards 1,000 objects, so its inverse edges share one (src, rel)
+    pair, whose slots span several chunks of grad_layout."""
+    rng = np.random.default_rng(seed)
+    t = make_random_triples(rng, 1200, 5, 6000)
+    hub = np.array([[7, 0, o] for o in range(100, 1100)])
+    t = np.unique(np.concatenate([t, hub]), axis=0)
+    es = build_edge_set(t, 1300, 5, with_dst_layout=True, with_pair_index=True,
+                        with_pair_agg=True)
+    return es, rng
+
+
+@pytest.mark.parametrize("frozen", [True, False], ids=["slot_val", "live_val"])
+@pytest.mark.parametrize("dout", [10, 11])
+def test_aggregate_pairs_forward_backward(cuda, dout, frozen):
+    """The composed pair aggregation on the card against the CPU: forward
+    K1 over the layout, backward K1 over grad_layout (d_m) and the value
+    gradient; one launch each."""
+    es, rng = _pair_edges(cuda, dout)
+    if not frozen:
+        es = reweight_edge_set(es, es.val * (rng.random(es.val.shape[0]) > 0.3))
+    gl = es.pairs.agg.grad_layout
+    hub_chunks = np.bincount(gl.chunk_block).max()
+    assert hub_chunks > 4
+    u_pad = es.pairs.pair_src.shape[0]
+    m, g = _t(rng, cuda, u_pad, dout), _t(rng, cuda, 1300, dout)
+    got = []
+    for dev in (cuda, torch.device("cpu")):
+        e = es.to(dev)
+        mt = m.detach().to(dev).requires_grad_()
+        vt = e.val.clone().requires_grad_()
+        before = dict(kernels.LAUNCHES)
+        out = agg.aggregate_pairs(mt, vt, e.pairs.edge_pair, e.dst, e.pairs.agg,
+                                  e.layout, 1300)
+        out.backward(g.to(dev))
+        used = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v > before[k]}
+        got.append((out.detach(), mt.grad, vt.grad, used))
+    (*card, used), (*ref, none) = got
+    for a, b in zip(card, ref):
+        _close(a, b.to(cuda))
+    assert used == {"k1_aggregate": 2} and none == {}
+
+
+@pytest.mark.parametrize("hub", [False, True])
+@pytest.mark.parametrize("dout", [400, 440])
+def test_gather_rows_agg_backward(cuda, dout, hub):
+    """The wide gather's backward at the pair path's dT widths: K1 reads
+    g's rows through the by-source layout's perm (4 column groups of 32
+    lanes); with ``hub`` one source owns 5,000 of the 20,000 rows."""
+    n = 3000
+    rng = np.random.default_rng(dout + hub)
+    idx = rng.integers(0, n, 20_000)
+    if hub:
+        idx[rng.choice(20_000, 5_000, replace=False)] = 7
+    lay = agg.build_dst_layout(idx, n, row_block=auto_nc_row_block(n), chunk=256)
+    if hub:
+        assert np.bincount(lay.chunk_block).max() > 4
+    table, g = _t(rng, cuda, n, dout), _t(rng, cuda, 20_000, dout)
+    idx_t = torch.from_numpy(idx.astype(np.int32))
+    got = []
+    for dev in (cuda, torch.device("cpu")):
+        tt = table.detach().to(dev).requires_grad_()
+        before = kernels.LAUNCHES["k1_aggregate"]
+        out = sp.gather_rows_agg(tt, idx_t.to(dev), lay.to(dev))
+        out.backward(g.to(dev))
+        got.append((out.detach(), tt.grad, kernels.LAUNCHES["k1_aggregate"] - before))
+    (out, d_table, launched), (ref_out, ref_d, none) = got
+    _close(out, ref_out.to(cuda))
+    _close(d_table, ref_d.to(cuda))
+    assert (launched, none) == (1, 0)
+
+
+@pytest.mark.parametrize("config", ["nc-MUTAG.yaml", "nc-BGS.yaml"])
+def test_many_basis_training_on_the_card(cuda, config):
+    """Three epochs of the many-basis configs on the pair path: K1 only,
+    8 a epoch (forward 2, backward 4, eval 2) and 2 for the final
+    prediction."""
+    assert _train_on_card_and_cpu(cuda, config) == {"k1_aggregate": 8 * 3 + 2}

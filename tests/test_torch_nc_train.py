@@ -53,8 +53,7 @@ from tests.conftest import make_random_triples
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = {name: os.path.join(ROOT, "configs", *name.split("/"))
-       for name in ("rgcn/nc-AIFB.yaml", "rgcn/nc-MUTAG.yaml", "rgcn/nc-AM.yaml",
-                    "e-rgcn/nc-AIFB.yaml")}
+       for name in ("rgcn/nc-AIFB.yaml", "e-rgcn/nc-AIFB.yaml")}
 ATOL = 1e-5
 
 
@@ -312,7 +311,6 @@ def test_trainer_matches_jax_trainer(tmp_path, graph, epochs, penalty):
 
 
 @pytest.mark.parametrize("config,match", [
-    ("rgcn/nc-MUTAG.yaml", "item 2"), ("rgcn/nc-AM.yaml", "item 2"),
     ("e-rgcn/nc-AIFB.yaml", "item 5"), ("basis-4", "item 3"), ("block", "item 3"),
 ])
 def test_trainer_refuses_untrainable_configs(config, match):
