@@ -118,15 +118,36 @@ Phases, in order; any failure exits non-zero and prints no result:
    10 and 11, the pair messages' gradient over grad_layout at 10 and 11,
    the basis table's gradient over src_layout at 400 and 440), and the
    AM-scale step profiled as in phase 5;
-13. summary: one JSON line of each path's launch counts (serving, and
-   training), the training steps' timing (nc-AIFB and nc-AM), one of the
-   extra nc modes (K1 at dout 4, K3 at nc-AIFB, K2 and K3 at the dx shape,
+13. training lp-WN18 (wn18_like(), width 200, 2 bases, batch 30,000, 10
+   negatives a positive) and lp-FB-toy (fb_toy_like(), width 500, 100
+   blocks, batch 300) for 3 epochs each through the trainer's production
+   step (subgraph, negatives and scoring layouts built on the host; the
+   structured DistMult scorer), counts zeroed before each path: from the
+   seed-0 initialisation on the card and on the CPU's plain versions,
+   every gradient after one backward within 1e-5 * max(1, max|ref|),
+   per-epoch loss within rtol 1e-4, the final filtered MRR within 1e-3
+   and at least 99% of the ranks of the whole test split equal; exactly
+   K4 4E + 1 and K1 2E (lp-WN18: per step K4 forward, K4 dx over the
+   reversed subgraph, two K4 terms of the corrupted entities, K1 for the
+   subjects' and the objects' rows; one K4 encode over the merged frame
+   to evaluate) and K3 2E + 1, K1 4E + 1, K4 2E (lp-FB-toy: K3 then K1
+   forward and dx, the same decoder; one K3 + K1 encode) and nothing
+   else; then the new modes held and timed as in phase 3 at the paths'
+   shapes (K4 per-basis sum_bases over the reversed subgraph, the two
+   corrupted-entity terms at Ns 300,000, K1 over the subjects' and
+   objects' layouts at P 30,000, d 200; K3 with W^T and K1 at dout 500
+   over lp-FB-toy's reversed subgraph), and each step profiled as in
+   phase 5 with the card's name and power limit beside it;
+14. summary: one JSON line of each path's launch counts (serving, and
+   training), the training steps' timing (nc-AIFB, nc-AM, lp-WN18,
+   lp-FB-toy), one of the extra nc modes (K1 at dout 4, K3 at nc-AIFB, K2 and K3 at the dx shape,
    K1 at dout 500 over the FB-toy layout, the nc-AM kernels with their
    launches on the nc-AM path, K1's pair-path modes with their launches
    on the nc-AM training path), one
-   of the extra K4 modes, and the "kernels" line, whose "launches" for
-   each kernel is its count on the path named beside it;
-14. last line: {"ok": true, "device": {...}}.
+   of the extra K4 modes, one of the LP training modes, and the "kernels"
+   line, whose "launches" for each kernel is its count on the path named
+   beside it and "train_launches" its count on each training path;
+15. last line: {"ok": true, "device": {...}}.
 
 Needs CUDA (exits 1 without it) and the repository around it.
 """
@@ -220,13 +241,16 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def check_close(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+def check_close(name: str, got: torch.Tensor, ref: torch.Tensor,
+                floor: float = 1.0) -> float:
+    """Max abs error, held to 1e-5 * max(floor, max|ref|); ``floor=0``
+    makes the tolerance relative to the output alone."""
     if got.shape != ref.shape:
         fail(f"{name}: shape {tuple(got.shape)} != plain {tuple(ref.shape)}")
     if not torch.isfinite(got).all():
         fail(f"{name}: non-finite output")
     err = (got - ref).abs().max().item() if got.numel() else 0.0
-    tol = 1e-5 * max(1.0, ref.abs().max().item() if ref.numel() else 0.0)
+    tol = 1e-5 * max(floor, ref.abs().max().item() if ref.numel() else 0.0)
     log(f"  {name}: max_abs_err {err:.3e} (tol {tol:.3e})")
     if not err <= tol:
         fail(f"{name}: max abs err {err} > {tol}")
@@ -236,13 +260,8 @@ def check_close(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
 # --------------------------------------------------------------------------
 
 
-def phase_environment():
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}")
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
-    name = torch.cuda.get_device_name(0)
-    log(f"device: {name} (count {torch.cuda.device_count()})")
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -250,7 +269,17 @@ def phase_environment():
     )
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    log(smi.stdout.strip().splitlines()[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_environment():
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
+    name = torch.cuda.get_device_name(0)
+    log(f"device: {name} (count {torch.cuda.device_count()})")
+    log(card_line())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
@@ -952,6 +981,19 @@ def phase_lp_kernels(dev, edges, dedup):
     return rows, extra
 
 
+def k3_needed_bytes(edges, x, w) -> int:
+    """What K3 must move: the x rows and W[rel] matrices its rows with a
+    non-zero value reference (rows with val 0 are zeros by contract), src,
+    val and tile_rel, and every message row written once."""
+    live = edges.val != 0
+    live_tiles = live.reshape(edges.num_tiles, -1).any(1)
+    n_rels = int(torch.unique(edges.tile_rel[live_tiles]).numel())
+    n_rows = int(torch.unique(edges.src[live]).numel())
+    _, din, dout = w.shape
+    return (n_rels * din * dout + n_rows * din) * 4 \
+        + nbytes(edges.src, edges.val, edges.tile_rel) + edges.src.shape[0] * dout * 4
+
+
 def phase_fb_kernels(dev, edges):
     """K3 and K1 at the lp-FB-toy shapes against their plain versions;
     returns (the K3 row, the K1 dout-500 row)."""
@@ -976,7 +1018,7 @@ def phase_fb_kernels(dev, edges):
     torch.cuda.synchronize()
     err = check_close("K3 rel_spmm_messages (lp-FB-toy)", got, ref)
     real = int((edges.val != 0).sum().item())
-    k3_bytes = nbytes(x, w, edges.src, edges.val, edges.tile_rel) + e_pad * dout * 4
+    k3_bytes = k3_needed_bytes(edges, x, w)
     # the yardstick's operands, gathered before it is timed
     xg = x[edges.src.long()].reshape(edges.num_tiles, edges.tile_size, din)
     wg = w[edges.tile_rel.long()]
@@ -1501,6 +1543,301 @@ def phase_pair_kernels(dev, trainer, counts):
     return modes
 
 
+LP_TRAIN_EPOCHS = 3  # lp-WN18 and lp-FB-toy at full width
+
+
+def train_lp_path(decomposition: str, epochs: int) -> dict:
+    """Launches of training an LP config for ``epochs`` and its final
+    evaluation (check_every is past ``epochs``, so one encode). A step:
+    the encoder's forward and its dx over the reversed edges (basis: K4
+    each; block: K3 then K1 each), the decoder's backward (K4 twice for
+    the corrupted entities, K1 for the subjects' and the objects' rows).
+    The evaluation encodes the whole graph once (basis: K4 over the
+    merged frame; block: K3 then K1)."""
+    if decomposition == "basis":
+        return dict(k4_weighted_aggregate=4 * epochs + 1, k1_aggregate=2 * epochs)
+    return dict(k3_messages=2 * epochs + 1, k1_aggregate=4 * epochs + 1,
+                k4_weighted_aggregate=2 * epochs)
+
+
+def lp_train_against_cpu(key, path, data, dev, epochs):
+    """Train an LP config on the card and on the CPU's plain versions from
+    the seed-0 initialisation and the same epoch schedule: every gradient
+    after one backward within 1e-5 * max|ref| of its own parameter (the
+    gradients of a mean over 300k scores are far below 1, so a floor of 1
+    would pass a wrong backward); per-epoch loss
+    within rtol 1e-4; the final filtered MRR within 1e-3 and at least 99%
+    of the test ranks equal, over the whole test split; exactly
+    train_lp_path's launches, counts zeroed just before the card's run.
+    Returns (launches, checks, the card's trainer, its peak device GB)."""
+    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch.config import load_experiment
+    from rgcn_tpu_torch.train.link_prediction import LinkPredictionTrainer
+
+    base = load_experiment(path)
+    cfg = dataclasses.replace(base, training=dataclasses.replace(
+        base.training, epochs=epochs))
+    quiet = records_logger()
+    t0 = time.perf_counter()
+    cpu = LinkPredictionTrainer(cfg, data, device="cpu", logger=quiet)
+    card = LinkPredictionTrainer(cfg, data, device=dev, logger=quiet)
+    losses = []
+    for t in (cpu, card):
+        t.set_epoch(1)
+        loss = t.loss()
+        loss.backward()
+        losses.append(loss.item())
+    b = card.batch
+    log(f"training {key} ({epochs} epochs, seed-0 init): N {data.num_nodes}, P "
+        f"{b.positives.shape[0]}, Ns {b.corrupt_ent.shape[0]}, E_pad "
+        f"{b.edges.src.shape[0]} (layout L {b.edges.layout.perm.shape[0]}, row block "
+        f"{b.edges.layout.row_block}), reverse E_pad {b.edges.reverse.src.shape[0]} "
+        f"(L {b.edges.reverse.layout.perm.shape[0]}), c_lay L "
+        f"{b.layouts[0].perm.shape[0]}, s_lay L {b.layouts[1].perm.shape[0]} "
+        f"(set-up {time.perf_counter() - t0:.1f} s)")
+    log(f"  first loss card {losses[1]:.7f}, CPU {losses[0]:.7f}")
+    ref_grads = dict(cpu.model.named_parameters())
+    for pname, p in card.model.named_parameters():
+        check_close(f"[{key}] grad {pname}", p.grad.cpu(), ref_grads[pname].grad,
+                    floor=0.0)
+
+    t0 = time.perf_counter()
+    ref = records_logger()
+    ref_mrr, ref_hits, ref_ranks = cpu.fit(ref)
+    log(f"  CPU plain training {time.perf_counter() - t0:.1f} s; losses "
+        f"{[round(r[2], 6) for r in ref.records if r[0] == 'training.loss']}; "
+        f"MRR {ref_mrr:.6f}, Hits@1/3/10 {ref_hits}")
+    del cpu
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = records_logger()
+    mrr, hits, ranks = card.fit(got)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    expect = launches(**train_lp_path(cfg.encoder.decomposition.type, epochs))
+    log(f"training [{key}]: {epochs} epochs + final evaluation "
+        f"{time.perf_counter() - t0:.2f} s, launches {counts}, peak memory "
+        f"{peak:.3f} GB")
+    if counts != expect:
+        fail(f"training [{key}]: launches {counts}, expected {expect}")
+    if [r[:2] for r in got.records] != [r[:2] for r in ref.records]:
+        fail(f"training [{key}]: records {[r[:2] for r in got.records]} != CPU's")
+    worst = 0.0
+    for (metric, step, v), (_, _, w) in zip(got.records, ref.records):
+        if metric == "training.loss":
+            worst = max(worst, abs(v - w) / abs(w))
+            if not abs(v - w) <= 1e-4 * abs(w):
+                fail(f"training [{key}]: epoch {step} loss {v} != CPU {w} (rtol 1e-4)")
+    same = float(np.mean(ranks == ref_ranks))
+    log(f"  [{key}] losses vs CPU: max rel diff {worst:.3e}; MRR {mrr:.6f} (CPU "
+        f"{ref_mrr:.6f}), Hits@1/3/10 {hits} (CPU {ref_hits}); {same:.4%} of "
+        f"{len(ranks)} ranks equal")
+    if not (abs(mrr - ref_mrr) <= 1e-3 and same >= 0.99 and np.isfinite(mrr)):
+        fail(f"training [{key}]: MRR {mrr} vs CPU {ref_mrr} (tol 1e-3) or ranks "
+             f"equal {same} < 0.99")
+    checks = dict(loss_max_rel_diff=worst, mrr=mrr, cpu_mrr=ref_mrr, hits=hits,
+                  cpu_hits=ref_hits, ranks_equal=same)
+    return counts, checks, card, peak
+
+
+def mode_row(name, label, call, plain, library, k_bytes, flops, **meta):
+    """Hold ``call()`` against ``plain()`` and time both and the yardstick
+    ``library`` as in phase 3; one kernel_check row."""
+    source = {"K1": ("k1_aggregate.cu", "rgcn_tpu/ops/pallas_aggregate.py:203"),
+              "K3": ("k3_messages.cu", "rgcn_tpu/ops/pallas_spmm.py:70"),
+              "K4": ("k4_weighted_aggregate.cu", "rgcn_tpu/ops/pallas_basis.py:53")}[name]
+    err = check_close(label, call(), plain())
+    ms, call_ms = timed(call)
+    plain_ms, plain_call = timed(plain)
+    lib_ms, lib_call = timed(library)
+    bound, by = bound_ms(k_bytes, flops)
+    row = dict(name=name, mode=label, route="cuda",
+               source=f"rgcn_tpu_torch/kernels/csrc/{source[0]}", replaces=source[1],
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound, bound_by=by, call_ms=call_ms, plain_call_ms=plain_call,
+               library_call_ms=lib_call, **meta)
+    log(json.dumps({"kernel_check": row}))
+    return row
+
+
+def real_slot_mask(layout):
+    return layout.local_dst.reshape(-1) < layout.row_block
+
+
+def lp_wn18_modes(dev, trainer, counts):
+    """K4 and K1 in lp-WN18 training's new modes at its shapes (the last
+    epoch's batch): K4 with the per-basis tables G and sum_bases over the
+    reversed subgraph (dx), its two corrupted-entity terms over c_lay
+    (Ns 300,000), K1 over s_lay and o_lay through their perm (P 30,000,
+    d 200). Yardsticks: torch.sparse.mm of the same weighted sum, and
+    torch.index_add of the same rows."""
+    from rgcn_tpu_torch.ops import aggregate as agg
+    from rgcn_tpu_torch.ops import basis as bs
+
+    rng = np.random.default_rng(12)
+    b, n = trainer.batch, trainer.num_nodes
+    d = trainer.model.node_embeddings.shape[1]
+    p_count, ns_total = b.positives.shape[0], b.corrupt_ent.shape[0]
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    meta = dict(path="train_lp_wn18")
+    modes = []
+    log("kernels (lp-WN18 training modes):")
+    # dx: K4 over the reversed subgraph with per-basis tables, sum_bases
+    rev = b.edges.reverse
+    comps = trainer.model.rgc1.comps.detach()[:-1]
+    nb = comps.shape[1]
+    rsrc, rw = bs.sorted_inputs(rev, comps)
+    g_tab = rand(nb, n, d)
+    keep = real_slot_mask(rev.layout)
+    node = slot_nodes(rev.layout, rev.layout.local_dst)[keep]
+    a = lp_csr(node.repeat(nb), torch.cat([i * n + rsrc.long()[keep] for i in range(nb)]),
+               rw[:, keep].reshape(-1), (n, nb * n))
+    flat = g_tab.reshape(nb * n, d)
+    real = int(keep.sum().item())
+    n_rows = int(torch.unique(rsrc[keep]).numel())
+    modes.append(mode_row(
+        "K4", f"K4 per-basis sum_bases, dx over the reversed subgraph ({real} real slots)",
+        lambda: bs.weighted_aggregate(g_tab, rsrc, rw, rev.layout, n, sum_bases=True),
+        lambda: bs.weighted_aggregate_plain(g_tab, rsrc, rw, rev.layout, n, sum_bases=True),
+        lambda: torch.sparse.mm(a, flat),
+        real * (4 + nb * 4) + nbytes(rev.layout.local_dst, rev.layout.chunk_block)
+        + nb * n_rows * d * 4 + n * d * 4, 2 * nb * real * d,
+        launches=counts["k4_weighted_aggregate"], mode_launches=LP_TRAIN_EPOCHS, **meta))
+
+    # the decoder's corrupted entities: two shared-table K4 sums over c_lay
+    c_lay, s_lay, o_lay, (ce_sorted, qk_idx) = b.layouts
+    z, rel = rand(n, d), rand(trainer.num_rels, d)
+    pos = b.positives
+    q, k = z[pos[:, 0]] * rel[pos[:, 1]], rel[pos[:, 1]] * z[pos[:, 2]]
+    qk = torch.cat([q, k])
+    perm = c_lay.perm.long()
+    # O(1) weights: K4 is linear in w, and the step's own weights (~1e-6
+    # after the mean over P + Ns scores) would sit below any useful tolerance
+    ge = torch.cat([rand(ns_total), z.new_zeros(1)])[perm][None]
+    pwz = torch.cat([rand(ns_total), z.new_zeros(1)])[perm][None]
+    keep = real_slot_mask(c_lay)
+    node = slot_nodes(c_lay, c_lay.local_dst)[keep]
+    real = int(keep.sum().item())
+    for label, table, src, w in (("[q ; k] term", qk, qk_idx, ge),
+                                 ("nodes term", z, ce_sorted, pwz)):
+        a_t = lp_csr(node, src.long()[keep], w[0, keep], (n, table.shape[0]))
+        n_rows = int(torch.unique(src[keep]).numel())
+        modes.append(mode_row(
+            "K4", f"K4 corrupted entities, {label} over c_lay ({real} real slots)",
+            lambda t=table, s=src, w=w: bs.weighted_aggregate(t, s, w, c_lay, n),
+            lambda t=table, s=src, w=w: bs.weighted_aggregate_plain(t, s, w, c_lay, n),
+            lambda a=a_t, t=table: torch.sparse.mm(a, t),
+            real * 8 + nbytes(c_lay.local_dst, c_lay.chunk_block) + n_rows * d * 4
+            + n * d * 4, 2 * real * d,
+            launches=counts["k4_weighted_aggregate"], mode_launches=LP_TRAIN_EPOCHS,
+            **meta))
+
+    # the positives' subjects and objects: K1 through the layouts' perm
+    zeros = torch.zeros((n, d), device=dev)
+    for label, lay, col in (("s_lay", s_lay, 0), ("o_lay", o_lay, 2)):
+        rows = rand(p_count, d)
+        ids = pos[:, col]
+        real = int(real_slot_mask(lay).sum().item())
+        modes.append(mode_row(
+            "K1", f"K1 {label} through perm (P {p_count}, d {d})",
+            lambda r=rows, lay=lay: agg.aggregate_sorted(r, lay, n),
+            lambda r=rows, lay=lay: agg.aggregate_sorted_plain(r, lay, n),
+            lambda r=rows, i=ids: torch.index_add(zeros, 0, i, r),
+            real * (d * 4 + 8) + nbytes(lay.chunk_block) + n * d * 4, real * d,
+            launches=counts["k1_aggregate"], mode_launches=LP_TRAIN_EPOCHS, **meta))
+    return modes
+
+
+def lp_fb_modes(dev, trainer, counts):
+    """K3 with Wᵀ and K1 at dout 500 over lp-FB-toy training's reversed
+    subgraph (the block layer's dx), at the last epoch's batch; yardsticks
+    one torch.bmm over pre-gathered tiles and torch.index_add."""
+    from rgcn_tpu_torch.nn.layers import expand_blocks
+    from rgcn_tpu_torch.ops import aggregate as agg
+    from rgcn_tpu_torch.ops import rel_spmm as rs
+
+    rng = np.random.default_rng(13)
+    rev, n = trainer.batch.edges.reverse, trainer.num_nodes
+    with torch.no_grad():
+        wt = expand_blocks(trainer.model.rgc1.blocks).transpose(1, 2).contiguous()
+    din, dout = wt.shape[1:]
+    g = torch.from_numpy(rng.standard_normal((n, din)).astype(np.float32)).to(dev)
+    meta = dict(path="train_lp_fb_toy")
+    log("kernels (lp-FB-toy training modes):")
+    real = int((rev.val != 0).sum().item())
+    xg = g[rev.src.long().clamp_max(n - 1)].reshape(rev.num_tiles, rev.tile_size, din)
+    wg = wt[rev.tile_rel.long()]
+    k3 = mode_row(
+        "K3", f"K3 dx, W^T over the reversed subgraph ({rev.num_tiles} tiles, {real} "
+        "real rows)",
+        lambda: rs.rel_spmm_messages(rev, g, wt),
+        lambda: rs.rel_spmm_messages_plain(rev, g, wt),
+        lambda: torch.bmm(xg, wg),
+        k3_needed_bytes(rev, g, wt), real * (2 * din * dout + dout),
+        launches=counts["k3_messages"], mode_launches=LP_TRAIN_EPOCHS, **meta)
+    del xg, wg
+    msgs = rs.rel_spmm_messages(rev, g, wt)
+    lay = rev.layout
+    real = int(real_slot_mask(lay).sum().item())
+    zeros = torch.zeros((n + 1, dout), device=dev)
+    dst = rev.dst.long()
+    k1 = mode_row(
+        "K1", f"K1 dout {dout} over the reversed subgraph ({real} real slots)",
+        lambda: agg.aggregate_sorted(msgs, lay, n),
+        lambda: agg.aggregate_sorted_plain(msgs, lay, n),
+        lambda: torch.index_add(zeros, 0, dst, msgs),
+        real * (dout * 4 + 8) + nbytes(lay.chunk_block) + n * dout * 4, real * dout,
+        launches=counts["k1_aggregate"], mode_launches=LP_TRAIN_EPOCHS, **meta)
+    return [k3, k1]
+
+
+def phase_train_lp(dev):
+    """lp-WN18 (wn18_like) and lp-FB-toy (fb_toy_like) trained at full width
+    on the card against the CPU (lp_train_against_cpu), each path with its
+    counts zeroed just before it; then the kernels' new modes at the
+    paths' shapes and each step's timing. Returns (launches per path, the
+    mode rows, the timing)."""
+    from rgcn_tpu_torch.data.synthetic import fb_toy_like, wn18_like
+    from rgcn_tpu_torch.profile_serve import profile_train_step
+
+    paths, modes, timing = {}, [], {}
+    card = card_line()
+    for key, path, data, mode_fn in (
+            ("train_lp_wn18", LP_CONFIG, wn18_like(), lp_wn18_modes),
+            ("train_lp_fb_toy", FB_CONFIG, fb_toy_like(), lp_fb_modes)):
+        counts, checks, trainer, peak = lp_train_against_cpu(
+            key, path, data, dev, LP_TRAIN_EPOCHS)
+        paths[key] = counts
+        modes.extend(mode_fn(dev, trainer, counts))
+        torch.cuda.reset_peak_memory_stats()
+        prof = profile_train_step(trainer)
+        timing[key] = {
+            "card": card,
+            "step_host_median": prof["step"]["host_ms"]["median"],
+            "step_host_min": prof["step"]["host_ms"]["min"],
+            "device_forward": prof["forward_us"] / 1e3,
+            "device_backward": prof["backward_us"] / 1e3,
+            "device_optimizer": prof["optimizer_us"] / 1e3,
+            "device_step": prof["step_us"] / 1e3,
+            "device_busy_share": prof["step"]["device_busy_share"],
+            "peak_memory_gb_training_run": peak,
+            "peak_memory_gb_profiled_step": torch.cuda.max_memory_allocated() / 1e9,
+            "step_kernels_us": top_kernels(prof["step"]["kernels_us"], 16),
+            "step_host_ops_us": prof["step"]["host_ops_us"],
+            **checks,
+        }
+        log(json.dumps({f"{key}_step": timing[key]}))
+        del trainer
+    return paths, modes, timing
+
+
 def main():
     t_start = time.perf_counter()
     name = phase_environment()
@@ -1582,6 +1919,9 @@ def main():
     train_paths.update(pair_paths)
     train_timing = {"nc_aifb": train_timing, "nc_am": pair_timing}
     nc_modes.extend(pair_modes)
+    lp_train_paths, lp_train_modes, lp_train_timing = phase_train_lp(dev)
+    train_paths.update(lp_train_paths)
+    train_timing.update(lp_train_timing)
 
     # each kernel's count on the path that serves through it
     key = {"K1": ("k1_aggregate", "main"), "K2": ("k2_fused", "main"),
@@ -1595,6 +1935,7 @@ def main():
             "name": r["name"], "route": r["route"], "source": r["source"],
             "replaces": r["replaces"], "status": "ported",
             "path": path, "launches": paths[path][kname],
+            "train_launches": {tp: c[kname] for tp, c in train_paths.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -1607,6 +1948,7 @@ def main():
     print(json.dumps({"train_timing_ms": train_timing}), flush=True)
     print(json.dumps({"nc_modes": nc_modes}), flush=True)
     print(json.dumps({"k4_modes": extra}), flush=True)
+    print(json.dumps({"lp_train_modes": lp_train_modes}), flush=True)
     print(json.dumps({"pending_kernels": []}), flush=True)
     log(f"command time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}), flush=True)

@@ -10,8 +10,8 @@ accuracy -/+ its standard error); ``--run-dir`` also writes the records to
 ``metrics.jsonl``. Trainable so far: the dense R-GCN (nc-AIFB) and basis
 configs with more than 8 bases (nc-MUTAG, nc-BGS, nc-AM: the unique-(src,
 rel) pair path); the other configs raise ``NotImplementedError`` naming
-the ROADMAP item that brings them. Only synthetic graphs for now (``--synthetic``: AIFB-scale for AIFB,
-the 500-node graph for the others). Without ``--cpu`` the run needs CUDA
+what is missing. Only synthetic graphs for now (``--synthetic``:
+AIFB-scale for AIFB, the 500-node graph for the others). Without ``--cpu`` the run needs CUDA
 and fails without it. Not ported yet: ``--data-root``, ``--mesh``,
 ``--distributed``, ``--backend``, ``--checkpoint-*``, ``--exe-*`` and
 ``--profile-dir``.

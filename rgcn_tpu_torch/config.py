@@ -146,6 +146,18 @@ class LinkPredictionExperiment:
     decoder: DecoderConfig
     evaluation: EvaluationConfig
 
+    def structured_decoder_ok(self, pallas: bool) -> bool:
+        """Does the structured-negatives decoder (3P+Ns query gathers, the
+        scatter-free backward: ``ops/distmult_train.py``) apply? Bias-free
+        scoring with a Schlichtkrull-or-off L2, on the kernel path
+        (``pallas``: the JAX package's name for it)."""
+        return (
+            pallas
+            and self.decoder.bias_init is None
+            and (self.decoder.l2_penalty == 0.0
+                 or self.decoder.l2_penalty_type == "schlichtkrull-l2")
+        )
+
 
 # --------------------------------------------------------------------------
 # YAML subset reader

@@ -5,14 +5,17 @@
 Learned node embeddings ``(N, emb_dim)`` plus a broadcast bias row, ReLU,
 1-2 R-GCN layers over ``2R + 1`` relations, then DistMult scores.
 ``encode`` is separate from the scoring so a server encodes the graph once
-and sweeps all candidates densely. The JAX model's ``feature_blocks``
-option (embeddings stored as <=128-column blocks for a TPU gather fast
-path) and ``CompressionRelationPredictor`` (c-RGCN) are not ported yet.
+and sweeps all candidates densely. Training scores structured batches
+(:meth:`LinkPredictor.structured_scores`) with each layer's self-loop
+dropout under a keep mask the trainer draws (``self_masks``). The JAX
+model's ``feature_blocks`` option (embeddings stored as <=128-column blocks
+for a TPU gather fast path) and ``CompressionRelationPredictor`` (c-RGCN)
+are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -44,6 +47,7 @@ class LinkPredictor(nn.Module):
         weight_init: str = "glorot-normal",
         include_gain: bool = False,
         bias_init: Optional[str] = None,
+        self_loop_dropout: float = 0.0,
         decoder_l2_type: Optional[str] = None,
         decoder_l2: float = 0.0,
         decoder_weight_init: str = "standard-normal",
@@ -71,7 +75,8 @@ class LinkPredictor(nn.Module):
                 num_blocks=num_blocks,
                 separate_self_weight=(decomposition == "block"),
                 weight_init=weight_init, weight_gain=include_gain,
-                bias_init=bias_init, generator=gen,
+                bias_init=bias_init, self_loop_dropout=self_loop_dropout,
+                generator=gen,
             )
 
         nhid1 = hidden1_size or emb_dim
@@ -84,12 +89,16 @@ class LinkPredictor(nn.Module):
             bias_init=decoder_bias_init, generator=gen,
         )
 
-    def encode(self, edges) -> torch.Tensor:
-        """Node embeddings after message passing: ``(N, emb_dim)``."""
+    def encode(self, edges, self_masks: Optional[Sequence[torch.Tensor]] = None
+               ) -> torch.Tensor:
+        """Node embeddings after message passing: ``(N, emb_dim)``.
+        ``self_masks``: one bool ``(N, dout)`` keep mask per layer for the
+        self-loop dropout, or None (the deterministic forward)."""
+        masks = self_masks or (None,) * self.num_layers
         x = torch.relu(self.node_embeddings + self.node_embeddings_bias)
-        x = self.rgc1(edges, x)
+        x = self.rgc1(edges, x, masks[0])
         if self.num_layers == 2:
-            x = self.rgc2(edges, torch.relu(x))
+            x = self.rgc2(edges, torch.relu(x), masks[1])
         return x
 
     def compute_penalty(self, triples: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -106,6 +115,15 @@ class LinkPredictor(nn.Module):
         z = self.encode(edges)
         return self.scoring_function(triples, z), self.compute_penalty(triples, z)
 
+    def structured_scores(self, edges, positives, corrupt_head, corrupt_ent, pw,
+                          layouts, self_masks=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Training scores over ``[positives ; structured negatives]`` and
+        the Schlichtkrull penalty (see
+        :func:`~rgcn_tpu_torch.ops.distmult_train.structured_scores`)."""
+        z = self.encode(edges, self_masks)
+        return self.scoring_function.structured_scores_with_penalty(
+            positives, corrupt_head, corrupt_ent, z, pw, layouts)
+
     def score_heads(self, batch: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         return self.scoring_function.score_heads(batch, z)
 
@@ -115,7 +133,9 @@ class LinkPredictor(nn.Module):
 
 def build_lp_model(cfg, num_nodes: int, num_rels: int, seed: int = 0) -> LinkPredictor:
     """The model a LinkPredictionExperiment config describes (``rgcn``
-    encoders). Edge dropout is a training option and not read here."""
+    encoders), with the self-loop dropout rate of a
+    ``schlichtkrull-dropout`` config (general edge dropout is the
+    trainer's)."""
     enc, dec = cfg.encoder, cfg.decoder
     if enc.model == "c-rgcn":
         raise NotImplementedError(
@@ -124,7 +144,9 @@ def build_lp_model(cfg, num_nodes: int, num_rels: int, seed: int = 0) -> LinkPre
         )
     if enc.model != "rgcn":
         raise NotImplementedError(f"{enc.model!r} encoder has not been implemented")
-    decomp = enc.decomposition
+    decomp, ed = enc.decomposition, enc.edge_dropout
+    sl_dropout = (ed.self_loop if ed is not None
+                  and ed.self_loop_type == "schlichtkrull-dropout" else 0.0)
     return LinkPredictor(
         num_nodes=num_nodes,
         num_relations=num_rels,
@@ -138,6 +160,7 @@ def build_lp_model(cfg, num_nodes: int, num_rels: int, seed: int = 0) -> LinkPre
         weight_init=enc.weight_init,
         include_gain=enc.include_gain,
         bias_init=enc.bias_init,
+        self_loop_dropout=sl_dropout,
         decoder_l2_type=dec.l2_penalty_type,
         decoder_l2=dec.l2_penalty,
         decoder_weight_init=dec.weight_init,

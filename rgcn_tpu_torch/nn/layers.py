@@ -34,7 +34,7 @@ Ported weight layouts of :class:`RGCNConv`:
   weights in full f32 and take the featureful path;
 * featureful block decomposition (the lp-FB-toy encoder): ``blocks (r, B,
   din/B, dout/B)`` expanded to block-diagonal ``(r, din, dout)`` matrices
-  by one index scatter and run through ``fwd_spmm`` (K3 then K1 at
+  by one index scatter and run through ``rel_spmm_ad`` (K3 then K1 at
   lp-FB-toy's width), as the JAX package does while ``r·din·dout`` stays
   within 64M elements; above that, blockwise messages
   (:func:`~rgcn_tpu_torch.ops.spmm.rel_spmm_block`) summed by K1.
@@ -43,10 +43,19 @@ An EdgeSet without a destination (or merged) layout takes the plain
 ``index_add_`` paths of :mod:`rgcn_tpu_torch.ops.spmm`, on the CPU only: on
 any other device it raises, so the card never runs a forward without its
 kernels. The self-loop relation (index ``R' - 1``) is applied densely,
-``X @ W_self``. Self-loop dropout is not ported: the JAX NC layers train
-with it at 0, and serving runs the deterministic forward, where it is the
-identity. Diagonal weights (e-RGCN)
-belong to a later slice of the port and raise.
+``X @ W_self``. Self-loop dropout (``schlichtkrull-dropout``, the JAX
+layer's flax ``Dropout`` over the ``(N, dout)`` self message) takes its
+keep mask as an argument, ``self_mask``: the LP trainer draws it on the
+host, so the card and the CPU train on the same masks; without one (the
+deterministic forward serving runs) it is the identity. In training,
+the featureful basis layer with at most 8 bases over an unmerged layout
+(the LP training subgraph) differentiates through
+:func:`~rgcn_tpu_torch.ops.basis.rel_spmm_basis` (K4 forward, K4 over the
+reversed edges for dx) and the expanded block
+weights go through ``rel_spmm_ad`` (K3 then K1 both ways at lp-FB-toy's
+width; the expansion's index scatter carries the gradient back to the
+blocks). Diagonal weights (e-RGCN) belong to a later slice of the port and
+raise.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ from rgcn_tpu_torch.device import check_plain_path
 from rgcn_tpu_torch.graph.coalesce import MAX_BASES
 from rgcn_tpu_torch.nn import init as rinit
 from rgcn_tpu_torch.ops import distmult as distmult_ops
+from rgcn_tpu_torch.ops import distmult_train
 from rgcn_tpu_torch.ops import spmm as spmm_ops
 from rgcn_tpu_torch.ops.aggregate import aggregate_sorted
 from rgcn_tpu_torch.ops.basis import (
@@ -67,7 +77,7 @@ from rgcn_tpu_torch.ops.basis import (
     rel_spmm_basis,
     rel_spmm_featureless_basis_fwd,
 )
-from rgcn_tpu_torch.ops.rel_spmm import fwd_spmm, rel_spmm_ad
+from rgcn_tpu_torch.ops.rel_spmm import rel_spmm_ad
 
 __all__ = ["RGCNConv", "DistMult", "check_plain_path", "expand_blocks"]
 
@@ -103,7 +113,8 @@ class RGCNConv(nn.Module):
     fan ``((R'-1)//2, din/B)`` whatever ``weight_init`` says. ``bias`` is
     ``(dout,)``, or absent when ``bias_init`` is None. Parameters are drawn
     from ``generator`` with the named initializers (NC layers:
-    glorot-uniform with the relu gain, zero bias).
+    glorot-uniform with the relu gain, zero bias). ``self_loop_dropout`` is
+    the rate of the self message's dropout where a keep mask is given.
     """
 
     # Expanding block-diagonal weights costs r·din·dout elements; cap it.
@@ -123,6 +134,7 @@ class RGCNConv(nn.Module):
         weight_init: str = "glorot-uniform",
         weight_gain: bool = True,
         bias_init: Optional[str] = "zeros",
+        self_loop_dropout: float = 0.0,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -156,6 +168,7 @@ class RGCNConv(nn.Module):
         self.in_features = in_features
         self.out_features = out_features
         self.decomposition = decomposition
+        self.self_loop_dropout = float(self_loop_dropout)
         self.separate_self_weight = separate_self_weight and decomposition == "block"
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -188,18 +201,30 @@ class RGCNConv(nn.Module):
             self.bias = nn.Parameter(
                 rinit.select_bias_init(bias_init)((out_features,), generator))
 
-    def forward(self, edges, x: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, edges, x: Optional[torch.Tensor] = None,
+                self_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``self_mask``: a bool ``(N, dout)`` keep mask of the self
+        message's dropout (kept entries scaled by ``1 / (1 - rate)``, the
+        others 0, as flax ``Dropout`` computes); None, or a rate of 0,
+        leaves it whole."""
         if (x is None) != (self.in_features is None):
             raise ValueError("features must be given iff in_features is set")
         if self.decomposition == "basis":
-            out = self._basis(edges, x)
+            out = self._basis(edges, x, self_mask)
         elif self.decomposition == "block":
-            out = self._block(edges, x)
+            out = self._block(edges, x, self_mask)
         else:
-            out = self._dense(edges, x, self.weights)
+            out = self._dense(edges, x, self.weights, self_mask)
         return out if self.bias is None else out + self.bias
 
-    def _dense(self, edges, x, w):
+    def _self(self, self_msg: torch.Tensor, mask) -> torch.Tensor:
+        """The self message after dropout under the keep mask ``mask``."""
+        if mask is None or self.self_loop_dropout == 0.0:
+            return self_msg
+        return torch.where(mask, self_msg / (1.0 - self.self_loop_dropout),
+                           self_msg.new_zeros(()))
+
+    def _dense(self, edges, x, w, mask):
         """Dense ``w (R', din, dout)``: the general relations through the
         kernels (or the plain path without a layout), the self-loop
         densely."""
@@ -210,15 +235,15 @@ class RGCNConv(nn.Module):
                 edges, w[:-1],
                 aggregate=_aggregate_k1 if edges.layout is not None else None,
             )
-            return agg + w[-1]  # X = I: node v receives W_self[v]
+            return agg + self._self(w[-1], mask)  # X = I: node v receives W_self[v]
         if edges.layout is not None:
             agg = rel_spmm_ad(edges, x, w[:-1])
         else:
             agg = spmm_ops.rel_spmm(edges, x, w[:-1])
         with full_f32_matmul():
-            return agg + x @ w[-1]
+            return agg + self._self(x @ w[-1], mask)
 
-    def _basis(self, edges, x):
+    def _basis(self, edges, x, mask):
         bases, comps = self.bases, self.comps
         many = comps.shape[1] > MAX_BASES
         if x is None:
@@ -231,27 +256,30 @@ class RGCNConv(nn.Module):
             else:
                 agg = rel_spmm_featureless_basis_fwd(edges, bases, comps[:-1])
             with full_f32_matmul():
-                return agg + torch.einsum("b,bno->no", comps[-1], bases)
+                self_msg = torch.einsum("b,bno->no", comps[-1], bases)
+                return agg + self._self(self_msg, mask)
         if many and edges.pairs is not None:
             # H = stack_b(x @ bases_b), contracted once per (src, rel) pair
             agg = spmm_ops.rel_spmm_basis_pairs(
                 edges, x, bases, comps[:-1],
                 aggregate=_aggregate_k1 if edges.layout is not None else None)
             with full_f32_matmul():
-                return agg + x @ torch.einsum("b,bio->io", comps[-1], bases)
+                self_msg = x @ torch.einsum("b,bio->io", comps[-1], bases)
+                return agg + self._self(self_msg, mask)
         if many or (edges.merged is None and edges.layout is None):
             # expand to dense per-relation weights: K4/K5 keep one sum per
             # basis in registers and take at most MAX_BASES
             with full_f32_matmul():
                 w = torch.einsum("rb,bio->rio", comps, bases)
-            return self._dense(edges, x, w)
+            return self._dense(edges, x, w, mask)
         agg = rel_spmm_basis(edges, x, bases, comps[:-1])
         with full_f32_matmul():
-            return agg + x @ torch.einsum("b,bio->io", comps[-1], bases)
+            self_msg = x @ torch.einsum("b,bio->io", comps[-1], bases)
+            return agg + self._self(self_msg, mask)
 
     def _block_messages(self, edges, x, blocks):
         """General-relation messages of ``blocks (r, B, ib, ob)``,
-        aggregated: the expanded matrices through ``fwd_spmm`` while
+        aggregated: the expanded matrices through ``rel_spmm_ad`` while
         ``r·din·dout`` is within :attr:`_BLOCK_EXPAND_MAX_ELEMS`, else
         blockwise messages summed by K1."""
         r, nb, ib, ob = blocks.shape
@@ -259,29 +287,30 @@ class RGCNConv(nn.Module):
             check_plain_path(blocks.device)
             return spmm_ops.rel_spmm_block(edges, x, blocks)
         if r * (nb * ib) * (nb * ob) <= self._BLOCK_EXPAND_MAX_ELEMS:
-            return fwd_spmm(edges, x, expand_blocks(blocks))
+            return rel_spmm_ad(edges, x, expand_blocks(blocks))
         with full_f32_matmul():
             return spmm_ops.rel_spmm_block(edges, x, blocks, aggregate=_aggregate_k1)
 
-    def _block(self, edges, x):
+    def _block(self, edges, x, mask):
         blocks = self.blocks
         if self.separate_self_weight:
             agg = self._block_messages(edges, x, blocks)
             with full_f32_matmul():
-                return agg + x @ self.self_weight
+                return agg + self._self(x @ self.self_weight, mask)
         agg = self._block_messages(edges, x, blocks[:-1])
         n, (nb, ib, ob) = x.shape[0], blocks.shape[1:]
         with full_f32_matmul():
             self_msg = torch.einsum("nbi,bio->nbo", x.reshape(n, nb, ib), blocks[-1])
-        return agg + self_msg.reshape(n, nb * ob)
+        return agg + self._self(self_msg.reshape(n, nb * ob), mask)
 
 
 class DistMult(nn.Module):
     """DistMult triple scorer: ``relations (R, emb_dim)`` and, with
     ``bias_init``, per-node ``sbias``/``obias`` and per-relation ``pbias``.
 
-    The JAX scorer's scatter-free and structured training variants come
-    with LP training.
+    Training scores structured batches
+    (:meth:`structured_scores_with_penalty`, bias-free only); the JAX
+    scorer's other scatter-free variants are not ported.
     """
 
     def __init__(
@@ -328,6 +357,17 @@ class DistMult(nn.Module):
     def l2_penalty(self) -> torch.Tensor:
         """Sum of squares of the relation matrix."""
         return torch.sum(self.relations ** 2)
+
+    def structured_scores_with_penalty(self, positives, corrupt_head, corrupt_ent,
+                                       nodes, pw, layouts):
+        """``(scores [positives ; negatives], Schlichtkrull penalty)`` of a
+        structured batch, with the scatter-free backward
+        (:func:`~rgcn_tpu_torch.ops.distmult_train.structured_scores`).
+        Bias-free scoring only."""
+        if self.sbias is not None:
+            raise ValueError("structured scoring is bias-free only")
+        return distmult_train.structured_scores(
+            positives, corrupt_head, corrupt_ent, nodes, self.relations, pw, layouts)
 
     def score_heads(self, batch: torch.Tensor, nodes: torch.Tensor) -> torch.Tensor:
         return distmult_ops.score_head_candidates(batch, nodes, self.relations,

@@ -82,10 +82,14 @@ def build_dst_layout(
     num_nodes: int,
     row_block: int = 128,
     chunk: int = 256,
+    pad_to: Optional[int] = None,
 ) -> DstLayout:
     """Host-side layout construction for a static graph.
 
     ``dst`` is the per-edge destination (any order; pads = num_nodes).
+    ``pad_to`` pads the layout to a fixed slot count: the appended chunks
+    hold pads only and repeat the last row block (the host-built training
+    subgraphs take the JAX package's shape-stable totals).
     """
     dst = np.asarray(dst)
     e = dst.shape[0]
@@ -106,6 +110,14 @@ def build_dst_layout(
     total = max(total, chunk)
 
     pos = offsets[block_of] + (np.arange(order.shape[0]) - starts[block_of])
+
+    if pad_to is not None:
+        if pad_to < total or pad_to % chunk:
+            raise ValueError(
+                f"pad_to={pad_to} < layout total {total} or not a multiple "
+                f"of chunk {chunk}"
+            )
+        total = pad_to
 
     perm = np.full(total, e, dtype=np.int32)  # pad -> one-past-end slot
     perm[pos] = order

@@ -1,8 +1,7 @@
-"""Aggregation-first basis-decomposition SpMM (K4, K5), forward only.
+"""Aggregation-first basis-decomposition SpMM (K4, K5) and its VJP.
 
-Counterpart of the forward half of ``rgcn_tpu/ops/pallas_basis.py``. With
-basis decomposition the relational SpMM aggregates before any weight
-product:
+Counterpart of ``rgcn_tpu/ops/pallas_basis.py``. With basis decomposition
+the relational SpMM aggregates before any weight product:
 
     out[s] = Σ_b ( Σ_e (val_e · comps[rel_e, b]) · x[src_e] )[s] @ B_b
                    \\______________ Agg_b ______________/
@@ -24,16 +23,24 @@ featureless layer (identity features) needs no closing product:
 :func:`rel_spmm_featureless_basis_fwd` runs K4 over the per-basis tables
 with the sum over bases in the kernel.
 
-The per-slot weight products (``coeff @ comps``) and the closing product
-are ordinary products outside the kernels; they run in full f32 (TF32 off),
-as the JAX package runs ``_merged_wvec`` at ``precision="highest"``.
+:func:`rel_spmm_basis` over an unmerged destination layout with its
+reversed edges (the training subgraphs of LP) is differentiable, the
+counterpart of ``_basis_ad_core`` (``pallas_basis.py:346-418``): the
+forward is K4 then the closing product, saving ``Agg``; the backward is
 
-This module is forward only. The custom VJPs of the JAX package
-(``pallas_basis.py:366-418, 501-551``) come with LP training; until then
-:func:`weighted_aggregate` and :func:`weighted_aggregate_dedup`, and so
-:func:`rel_spmm_basis` and :func:`rel_spmm_featureless_basis_fwd`, raise on
-the card when grad mode is on and an input requires grad (on the CPU the
-plain versions are differentiable by torch).
+    dbases_b = Agg_bᵀ g                       one f32 product
+    G_b      = g @ B_bᵀ                       (nb, N, din)
+    dx       = K4 over edges.reverse with the per-basis tables G, sum_bases
+    dcomps   = Σ_{reverse slots} val · <x[rdst], G_b[rsrc]>, summed by rel
+
+The per-slot weight products (``coeff @ comps``), the closing product and
+the backward's products are ordinary products outside the kernels; they
+run in full f32 (TF32 off), as the JAX package runs them at
+``precision="highest"``. The merged frame's VJP (``_basis_merged_bwd``)
+and the featureless layer's are not ported: on the card, grad through
+:func:`rel_spmm_basis` over a merged layout, or through
+:func:`rel_spmm_featureless_basis_fwd`, raises (K4 and K5 refuse grad);
+on the CPU the plain versions are differentiable by torch.
 
 Snapshot of ``val``: over a merged layout the weights come from
 ``merged.coeff`` (or ``fwd_dedup.coeff_k``), which froze the EdgeSet's
@@ -181,12 +188,15 @@ def weighted_aggregate_dedup(x, src, w_k, dd, num_nodes: int) -> torch.Tensor:
 
 def sorted_inputs(edges, comps: torch.Tensor):
     """Per-slot ``(source, basis weights (nb, L))`` of the EdgeSet's
-    destination layout, from the live ``edges.val``; pads read 0."""
+    destination layout, from the live ``edges.val``; pads read 0. A
+    source past the last node (a reversed pad edge, weight 0) is clamped
+    to it, as JAX's gather clamps it."""
     perm = edges.layout.perm.long()
     src_z = torch.cat([edges.src, edges.src.new_zeros(1)])
     wvec = edges.val[:, None] * comps[edges.rel.long()]  # (E_pad, nb)
     wvec_z = torch.cat([wvec, wvec.new_zeros((1, comps.shape[1]))])
-    return src_z[perm], wvec_z[perm].T.contiguous()
+    return (src_z[perm].clamp_max(edges.num_nodes - 1),
+            wvec_z[perm].T.contiguous())
 
 
 def merged_wvec(coeff: torch.Tensor, comps: torch.Tensor) -> torch.Tensor:
@@ -220,14 +230,59 @@ def rel_spmm_featureless_basis_fwd(edges, bases: torch.Tensor,
                               edges.num_nodes, sum_bases=True)[0]
 
 
+class _BasisAD(torch.autograd.Function):
+    """K4's ``Agg`` over an unmerged destination layout and the closing
+    product, with the VJP of ``_basis_ad_core``; the EdgeSet rides on
+    ``ctx``."""
+
+    @staticmethod
+    def forward(ctx, x, bases, comps, edges):
+        src_sorted, wvec = sorted_inputs(edges, comps)
+        agg = weighted_aggregate(x, src_sorted, wvec, edges.layout, edges.num_nodes)
+        ctx.edges = edges
+        ctx.save_for_backward(x, bases, comps, agg)
+        return closing_product(agg, bases)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, bases, comps, agg = ctx.saved_tensors
+        edges, rev = ctx.edges, ctx.edges.reverse
+        g = g.contiguous()
+        nb, din, dout = bases.shape
+        n = edges.num_nodes
+        with full_f32_matmul():
+            # Agg_bᵀ g for every basis, as one (nb·din, N) @ (N, dout) product
+            dbases = (agg.permute(1, 0, 2).reshape(n, nb * din).T @ g
+                      ).reshape(nb, din, dout)
+            G = torch.matmul(g, bases.transpose(1, 2))  # (nb, N, din)
+        rsrc, rwvec = sorted_inputs(rev, comps)
+        dx = weighted_aggregate(G, rsrc, rwvec, rev.layout, n, sum_bases=True)[0]
+        # dcomps in the reverse frame: the reverse slots' sources are the
+        # forward receivers, their receivers the forward sources
+        perm = rev.layout.perm.long()
+        z = rev.src.new_zeros(1)
+        rdst = torch.cat([rev.dst, z])[perm].clamp_max(n - 1)
+        rrel = torch.cat([rev.rel, z])[perm].long()
+        rval = torch.cat([rev.val, rev.val.new_zeros(1)])[perm]
+        gg = G[:, rsrc.long()]  # (nb, L', din)
+        with full_f32_matmul():
+            t = torch.einsum("bli,li->lb", gg, x[rdst.long()]) * rval[:, None]
+        dcomps = torch.zeros_like(comps).index_add_(0, rrel, t)
+        return dx.contiguous(), dbases, dcomps, None
+
+
 def rel_spmm_basis(edges, x: torch.Tensor, bases: torch.Tensor,
                    comps: torch.Tensor) -> torch.Tensor:
-    """Aggregation-first basis SpMM, forward: ``bases (nb, din, dout)``,
-    ``comps (R', nb)`` over the general relations only (the self-loop term
-    is the caller's). Takes the EdgeSet's merged layout when it has one
-    (K5 over ``merged.fwd_dedup`` when that is set, else K4), else K4 over
-    its destination layout. Returns ``(N, dout)``. No backward yet: K4 and
-    K5 refuse grad on the card."""
+    """Aggregation-first basis SpMM: ``bases (nb, din, dout)``, ``comps
+    (R', nb)`` over the general relations only (the self-loop term is the
+    caller's). Takes the EdgeSet's merged layout when it has one (K5 over
+    ``merged.fwd_dedup`` when that is set, else K4; no backward: K4 and K5
+    refuse grad on the card), else K4 over its destination layout. Over the
+    destination layout, with grad enabled and an input requiring grad, it
+    runs as an autograd Function whose backward launches K4 over
+    ``edges.reverse`` (as the training subgraphs of
+    :func:`~rgcn_tpu_torch.graph.dynamic.build_edge_set_dynamic_host` carry
+    it). Returns ``(N, dout)``."""
     merged = edges.merged
     if merged is not None:
         dd = merged.fwd_dedup
@@ -240,13 +295,20 @@ def rel_spmm_basis(edges, x: torch.Tensor, bases: torch.Tensor,
             agg = weighted_aggregate(x, merged.src_sorted,
                                      merged_wvec(merged.coeff, comps),
                                      merged.layout, merged.num_nodes)
-    elif edges.layout is not None:
-        src_sorted, wvec = sorted_inputs(edges, comps)
-        agg = weighted_aggregate(x, src_sorted, wvec, edges.layout,
-                                 edges.num_nodes)
-    else:
+    elif edges.layout is None:
         raise ValueError(
             "rel_spmm_basis needs an EdgeSet with a merged or destination "
             "layout (build_edge_set(..., with_dst_layout=True))"
         )
+    elif torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, bases, comps)):
+        if edges.reverse is None or edges.reverse.layout is None:
+            raise ValueError(
+                "the backward of rel_spmm_basis needs the EdgeSet's reversed "
+                "edges with their destination layout (with_dst_layout=True)"
+            )
+        return _BasisAD.apply(x, bases, comps, edges)
+    else:
+        src_sorted, wvec = sorted_inputs(edges, comps)
+        agg = weighted_aggregate(x, src_sorted, wvec, edges.layout, edges.num_nodes)
     return closing_product(agg, bases)

@@ -1,0 +1,167 @@
+"""Structured DistMult training scorer with its scatter-free backward
+(counterpart of the structured half of ``rgcn_tpu/ops/pallas_distmult.py``).
+
+The training batch is ``[positives ; negatives]``, with negative ``j`` of
+positive ``i = j // ns`` corrupted on one side by the entity ``ce_j`` (the
+head where ``ch_j``, else the tail). The uncorrupted side's query rows are
+repeats, so the forward gathers ``q = z[s]·r[p]`` and ``k = r[p]·z[o]`` once
+per positive and one fresh row per negative: 3P + Ns row gathers instead
+of 3(P + Ns). The backward adds every row cotangent into ``d nodes``
+through destination sums over layouts built on the host
+(:func:`build_structured_layouts`), never a scatter:
+
+* the corrupted entities' rows ``ge_j · [q ; k][idx_j] + (pc · pw_j) ·
+  nodes[ce_j]``: the sum is linear, so K4 over the corrupted-entity layout
+  ``c_lay`` sums each term with its source rows gathered inside the
+  kernel, two shared-table launches (weights ``ge`` over ``[q ; k]`` with
+  ``qk_idx``, then ``pc · pw`` over ``nodes`` with ``ce_sorted``), where
+  the JAX package makes one two-basis launch over one concatenated table;
+* the positives' subjects and objects: the negatives' cotangents reduced
+  densely over ``ns`` first, then K1 over ``s_lay`` / ``o_lay`` through
+  their perm (:func:`~rgcn_tpu_torch.ops.aggregate.aggregate_sorted`, as
+  JAX's ``_rows_to_nodes``);
+* ``d relations``: P rows summed by relation with ``index_add_`` (the JAX
+  package's one-hot product over a small vocabulary).
+
+Bias-free scoring with the Schlichtkrull penalty (or none) only, as
+``LinkPredictionExperiment.structured_decoder_ok`` admits. The JAX
+package's other training scorers (``distmult_score_agg_ad`` and its
+penalty variant) and the narrow ``bwd_dtype`` option are not ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from rgcn_tpu_torch.ops.aggregate import aggregate_sorted, build_dst_layout
+from rgcn_tpu_torch.ops.basis import weighted_aggregate
+
+__all__ = ["build_structured_layouts", "structured_scores"]
+
+
+def build_structured_layouts(positives: np.ndarray, corrupt_ent: np.ndarray,
+                             corrupt_head: np.ndarray, num_nodes: int,
+                             row_block: int = 128, chunk: int = 256):
+    """Host layouts of the structured backward, each padded to its static
+    total ``nrb·chunk + ceil(len/chunk)·chunk``: the corrupted entities
+    (Ns), the positives' subjects and objects (P); then ``(ce_sorted,
+    qk_idx)``, each corrupted slot's entity and its query row in ``[q ;
+    k]`` (``parent + P`` for a head corruption), in ``c_lay``'s slot order
+    (pads read 0). The JAX builder's form with ``sorted_corrupt=True``."""
+    positives = np.asarray(positives)
+    corrupt_ent = np.asarray(corrupt_ent)
+
+    def lay(ids):
+        total = -(-num_nodes // row_block) * chunk + -(-len(ids) // chunk) * chunk
+        return build_dst_layout(ids, num_nodes, row_block=row_block, chunk=chunk,
+                                pad_to=total)
+
+    c_lay, s_lay, o_lay = lay(corrupt_ent), lay(positives[:, 0]), lay(positives[:, 2])
+    p_count, ns_total = len(positives), corrupt_ent.shape[0]
+    perm = c_lay.perm.astype(np.int64)
+    valid = perm < ns_total
+    safe = np.where(valid, perm, 0)
+    ce_sorted = np.where(valid, corrupt_ent[safe], 0)
+    qk_idx = safe // (ns_total // p_count) \
+        + p_count * np.asarray(corrupt_head).astype(np.int64)[safe]
+    qk_idx = np.where(valid, qk_idx, 0)
+    return c_lay, s_lay, o_lay, (ce_sorted.astype(np.int32), qk_idx.astype(np.int32))
+
+
+def _forward(positives, ch, corrupt_ent, nodes, relations, pw):
+    p_count = positives.shape[0]
+    ns = corrupt_ent.shape[0] // p_count
+    d = nodes.shape[-1]
+    zs, zo = nodes[positives[:, 0]], nodes[positives[:, 2]]
+    rp = relations[positives[:, 1]]
+    pos_scores = torch.sum(zs * rp * zo, dim=-1)
+    q, k = zs * rp, rp * zo  # tail- and head-corruption queries
+    zc = nodes[corrupt_ent].reshape(p_count, ns, d)
+    ch = ch.reshape(p_count, ns)
+    qk = torch.where(ch[..., None], k[:, None, :], q[:, None, :])
+    scores = torch.cat([pos_scores, torch.sum(qk * zc, dim=-1).reshape(-1)])
+
+    # the Schlichtkrull penalty: per-row means of squares, the uncorrupted
+    # side's reused from its positive
+    a2, b2, c2 = (torch.mean(t ** 2, dim=-1) for t in (zs, rp, zo))
+    zc2 = torch.mean(zc ** 2, dim=-1)  # (P, ns)
+    neg_rows = zc2 + torch.where(ch, (b2 + c2)[:, None], (a2 + b2)[:, None])
+    pw_pos, pw_neg = pw[:p_count], pw[p_count:].reshape(p_count, ns)
+    penalty = torch.sum((a2 + b2 + c2) * pw_pos) + torch.sum(neg_rows * pw_neg)
+    return scores, penalty, (ch, zs, zo, rp, q, k, zc, pw_pos, pw_neg)
+
+
+class _Structured(torch.autograd.Function):
+    """Scores and penalty of a structured batch; gradients for ``nodes``
+    and ``relations`` only. The layouts ride on ``ctx``."""
+
+    @staticmethod
+    def forward(ctx, nodes, relations, positives, ch, corrupt_ent, pw, layouts):
+        scores, penalty, res = _forward(positives, ch, corrupt_ent, nodes,
+                                        relations, pw)
+        ctx.layouts = layouts
+        ctx.num_rels = relations.shape[0]
+        ctx.save_for_backward(nodes, positives, *res)
+        return scores, penalty
+
+    @staticmethod
+    def backward(ctx, gs, gp):
+        nodes, positives, ch, zs, zo, rp, q, k, zc, pw_pos, pw_neg = ctx.saved_tensors
+        c_lay, s_lay, o_lay, (ce_sorted, qk_idx) = ctx.layouts
+        num_nodes = nodes.shape[0]
+        p_count, ns, d = zc.shape
+        gs_pos, gs_neg = gs[:p_count], gs[p_count:].reshape(p_count, ns)
+        pc = gp * (2.0 / d)
+        chf = ch[..., None].to(zc.dtype)
+
+        # 1) corrupted entities: two K4 sums over c_lay in its slot order
+        perm = c_lay.perm.long()
+        zero = gs.new_zeros(1)
+        ge = torch.cat([gs_neg.reshape(-1), zero])[perm]
+        pwz = torch.cat([pw_neg.reshape(-1), zero])[perm]
+        dz = weighted_aggregate(torch.cat([q, k]), qk_idx, ge[None], c_lay,
+                                num_nodes)[0]
+        dz = dz + weighted_aggregate(nodes, ce_sorted, (pc * pwz)[None], c_lay,
+                                     num_nodes)[0]
+
+        # 2) positives' subjects: the positive, the tail-corrupted negatives
+        gzc_tail = torch.sum((1.0 - chf) * gs_neg[..., None] * zc, dim=1)
+        pw_tail = torch.sum(torch.where(ch, 0.0, pw_neg), dim=1)
+        s_rows = (gs_pos[:, None] * rp * zo + rp * gzc_tail
+                  + (pc * (pw_pos + pw_tail))[:, None] * zs)
+        dz = dz + aggregate_sorted(s_rows, s_lay, num_nodes)
+
+        # 3) positives' objects: the head-corrupted negatives
+        gzc_head = torch.sum(chf * gs_neg[..., None] * zc, dim=1)
+        pw_head = torch.sum(torch.where(ch, pw_neg, 0.0), dim=1)
+        o_rows = (gs_pos[:, None] * rp * zs + rp * gzc_head
+                  + (pc * (pw_pos + pw_head))[:, None] * zo)
+        dz = dz + aggregate_sorted(o_rows, o_lay, num_nodes)
+
+        # d relations: P rows, the negatives reduced over ns
+        pw_all = pw_pos + torch.sum(pw_neg, dim=1)
+        rel_rows = (gs_pos[:, None] * zs * zo + zo * gzc_head + zs * gzc_tail
+                    + (pc * pw_all)[:, None] * rp)
+        drel = rel_rows.new_zeros((ctx.num_rels, d)).index_add_(
+            0, positives[:, 1], rel_rows)
+        return dz, drel, None, None, None, None, None
+
+
+def structured_scores(positives: torch.Tensor, corrupt_head: torch.Tensor,
+                      corrupt_ent: torch.Tensor, nodes: torch.Tensor,
+                      relations: torch.Tensor, pw: torch.Tensor, layouts):
+    """``(scores [positives ; negatives] (P + Ns,), Schlichtkrull penalty)``
+    of a structured batch: ``positives (P, 3)``, ``corrupt_head (Ns,)``
+    bool, ``corrupt_ent (Ns,)`` (Ns = P·ns, negative ``j`` of positive ``j
+    // ns``), ``pw (P + Ns,)`` per-row penalty weights, ``layouts`` the
+    4-tuple of :func:`build_structured_layouts` (on the device). The penalty is ``Σ_rows pw · (mean z_s² + mean r_p² + mean
+    z_o²)``. With grad enabled and ``nodes`` or ``relations`` requiring
+    grad the backward runs on K4 and K1."""
+    positives, corrupt_ent = positives.long(), corrupt_ent.long()
+    if torch.is_grad_enabled() and (nodes.requires_grad or relations.requires_grad):
+        return _Structured.apply(nodes, relations, positives, corrupt_head,
+                                 corrupt_ent, pw, layouts)
+    scores, penalty, _ = _forward(positives, corrupt_head, corrupt_ent, nodes,
+                                  relations, pw)
+    return scores, penalty

@@ -60,9 +60,12 @@ def fused_fits(weights: torch.Tensor, row_block: int) -> bool:
 
 
 def rel_spmm_messages_plain(edges, x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """Plain version of K3: ``(x[src] @ W[tile_rel]) · val`` per tile."""
+    """Plain version of K3: ``(x[src] @ W[tile_rel]) · val`` per tile. A
+    source past the last row (a reversed pad edge of a training subgraph,
+    ``val == 0``) is clamped; K3 never reads the source of such a row."""
     tile, n_tiles = edges.tile_size, edges.num_tiles
-    xg = x[edges.src.long()].reshape(n_tiles, tile, x.shape[-1])
+    src = edges.src.long().clamp_max(x.shape[0] - 1)
+    xg = x[src].reshape(n_tiles, tile, x.shape[-1])
     msgs = torch.bmm(xg, weights[edges.tile_rel.long()])
     return msgs.reshape(n_tiles * tile, -1) * edges.val[:, None]
 

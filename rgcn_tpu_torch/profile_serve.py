@@ -3,6 +3,7 @@
     python -m rgcn_tpu_torch.profile_serve [--nc-config configs/rgcn/nc-AM.yaml]
     python -m rgcn_tpu_torch.profile_serve --lp [--config configs/rgcn/lp-FB-toy.yaml]
     python -m rgcn_tpu_torch.profile_serve --train [--nc-config configs/rgcn/nc-AIFB.yaml]
+    python -m rgcn_tpu_torch.profile_serve --train --lp [--config configs/rgcn/lp-FB-toy.yaml]
 
 Without ``--lp``: builds the NC server of ``--nc-config`` (default
 ``configs/rgcn/nc-AIFB.yaml``) with seeded parameters on its synthetic
@@ -27,7 +28,10 @@ step's device time split into ``forward_us`` (the loss), ``backward_us``
 (forward and backward, less the forward) and ``optimizer_us``, each from
 its own profiler window (:func:`profile_train_step`), and the peak device
 memory over those windows (``peak_memory_gb``). nc-AM trains at AM scale
-(``am_like``) on the unique-(src, rel) pair path.
+(``am_like``) on the unique-(src, rel) pair path. With ``--train --lp``:
+the same for one LP training step of ``--config`` (default lp-WN18) on its
+synthetic graph, epoch 1's subgraph and negatives (lp-WN18: batch 30,000,
+10 negatives each; lp-FB-toy: batch 300).
 
 For each:
 
@@ -212,6 +216,31 @@ def profile_train(dev, config: str) -> dict:
     }
 
 
+def profile_lp_train(dev, config: str) -> dict:
+    from rgcn_tpu_torch.config import load_experiment
+    from rgcn_tpu_torch.data.synthetic import synthetic_lp_data
+    from rgcn_tpu_torch.train.link_prediction import LinkPredictionTrainer
+
+    cfg = load_experiment(config)
+    data = synthetic_lp_data(cfg.dataset.name)
+    trainer = LinkPredictionTrainer(cfg, data, device=dev)
+    trainer.set_epoch(1)
+    es = trainer.batch.edges
+    torch.cuda.reset_peak_memory_stats(dev)
+    report = profile_train_step(trainer)
+    return {
+        "config": os.path.basename(config),
+        "graph": {"nodes": data.num_nodes, "relations": data.num_relations,
+                  "train_triples": int(len(data.train)),
+                  "positives": int(trainer.batch.positives.shape[0]),
+                  "negatives": int(trainer.batch.corrupt_ent.shape[0]),
+                  "e_pad": int(es.src.shape[0]), "layout_slots": int(es.layout.perm.shape[0]),
+                  "reverse_e_pad": int(es.reverse.src.shape[0])},
+        "train": report,
+        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+    }
+
+
 def profile_lp(dev, config: str) -> dict:
     from rgcn_tpu_torch.config import load_experiment
     from rgcn_tpu_torch.data.synthetic import synthetic_lp_data
@@ -251,7 +280,8 @@ def profile_lp(dev, config: str) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--lp", action="store_true",
-                    help="profile LP serving (--config) instead of NC")
+                    help="profile LP serving (--config) instead of NC; with "
+                         "--train, one LP training step")
     ap.add_argument("--config", default=os.path.join(_CONFIGS, "lp-WN18.yaml"),
                     help="the LP config --lp serves (default lp-WN18)")
     ap.add_argument("--train", action="store_true",
@@ -261,7 +291,9 @@ def main(argv=None):
                          "without --lp (default nc-AIFB)")
     args = ap.parse_args(argv)
     dev = resolve_device(None)
-    if args.lp:
+    if args.lp and args.train:
+        report = profile_lp_train(dev, args.config)
+    elif args.lp:
         report = profile_lp(dev, args.config)
     elif args.train:
         report = profile_train(dev, args.nc_config)

@@ -1,0 +1,355 @@
+"""Link-prediction training (counterpart of
+``rgcn_tpu/train/link_prediction.py``, its production step: the training
+subgraph and the negatives built on the host, the structured DistMult
+scorer).
+
+Each epoch is one step on a freshly sampled positive subgraph:
+
+* positives: ``select_sampler(cfg)`` with ``np.random.default_rng((seed,
+  epoch))`` (the whole train set when the batch covers it);
+* the subgraph: :func:`~rgcn_tpu_torch.graph.dynamic.build_edge_set_dynamic_host`
+  with general edge dropout drawn from ``default_rng((seed, epoch, 7))``,
+  its layouts at the row block :func:`auto_layout_row_block` picks (chunk
+  256) and its reversed edges;
+* negatives: :func:`~rgcn_tpu_torch.train.negative.corrupt_batch_host`
+  from ``default_rng((seed, epoch, 11))``, scored structurally over
+  :func:`~rgcn_tpu_torch.ops.distmult_train.build_structured_layouts`
+  (row block 512, chunk 256);
+* self-loop dropout (``schlichtkrull-dropout``): one bool ``(N, dout)``
+  keep mask per layer, ``rng.random((N, dout), dtype=float32) < 1 - rate``
+  in layer order from ``default_rng((seed, epoch, 13))``. The JAX trainer
+  draws these with ``jax.random``, which numpy cannot reproduce; every
+  other draw above is the JAX trainer's own.
+
+The loss is the mean sigmoid cross-entropy over ``[positives ;
+negatives]`` plus ``l2_penalty`` times the Schlichtkrull penalty; one
+optimizer step (``train/optim.py``) follows. A background thread builds the
+next two epochs' host data while the card runs the step; each epoch's draws
+depend only on ``(seed, epoch)``, so the schedule is the same as without
+it. Every ``check_every`` epochs (not the last) and after the last,
+:func:`evaluate_link_predictor` encodes the whole training graph once (the
+merged layout where the encoder reads one, as the JAX trainer builds it)
+and ranks the test triples. Records go to a
+:class:`~rgcn_tpu_torch.utils.logging.ScalarLogger` under the JAX
+package's names.
+
+On the card the step runs on the kernels: a basis encoder (lp-WN18) K4
+forward and K4 over the reversed edges for dx; a block encoder (lp-FB-toy)
+K3 then K1 both ways; the decoder's backward two K4 sums for the corrupted
+entities and K1 for the subjects' and objects' rows. Not ported:
+checkpoints, the JAX package's executable cache, its in-jit step (the
+traced graph builder and ``jax.random`` negatives) and its non-structured
+scorers (a config whose decoder has biases, or an L2 other than
+Schlichtkrull's, raises).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from rgcn_tpu_torch.device import resolve_device
+from rgcn_tpu_torch.models.link_prediction import build_lp_model
+from rgcn_tpu_torch.train.evaluate import (
+    build_filters,
+    ranking_metrics,
+    ranks_from_scores,
+)
+from rgcn_tpu_torch.train.optim import make_optimizer
+from rgcn_tpu_torch.utils.logging import ScalarLogger
+
+__all__ = [
+    "LinkPredictionTrainer",
+    "evaluate_link_predictor",
+    "train_link_predictor",
+]
+
+PREFETCH_DEPTH = 2
+
+
+def evaluate_link_predictor(model, eval_edges, test: np.ndarray, filters,
+                            batch_size: int = 512, verbose: bool = False,
+                            logger: Optional[ScalarLogger] = None):
+    """Filtered (or, with ``filters`` None, raw) MRR and Hits@{1,3,10} over
+    head and tail prediction of ``test``: one encode of ``eval_edges``, then
+    each batch's candidate scores and ranks on the model's device. Returns
+    ``(mrr, hits, ranks)``, the head ranks first."""
+    dev = model.node_embeddings.device
+    num_test = len(test)
+    test_t = torch.as_tensor(np.asarray(test, dtype=np.int64), device=dev)
+    with torch.no_grad():
+        z = model.encode(eval_edges)
+        n = z.shape[0]
+        ranks = []
+        for tag, score_fn, filt, col in (
+            ("head", model.score_heads, None if filters is None else filters.heads, 0),
+            ("tail", model.score_tails, None if filters is None else filters.tails, 2),
+        ):
+            t0 = time.time()
+            filt = torch.as_tensor(
+                np.full((num_test, 1), n, np.int32) if filt is None else filt,
+                device=dev)
+            parts = [
+                ranks_from_scores(score_fn(test_t[lo:lo + batch_size], z),
+                                  test_t[lo:lo + batch_size, col],
+                                  filt[lo:lo + batch_size])
+                for lo in range(0, num_test, batch_size)
+            ]
+            ranks.append(torch.cat(parts).cpu().numpy())
+            if verbose:
+                (logger.info if logger is not None else print)(
+                    f"  {tag} sweep: {num_test} triples x {n} candidates "
+                    f"in {time.time() - t0:.2f}s")
+    ranks = np.concatenate(ranks)
+    mrr, hits = ranking_metrics(ranks)
+    return mrr, hits, ranks
+
+
+@dataclasses.dataclass
+class EpochBatch:
+    """One epoch's step inputs: numpy from :meth:`LinkPredictionTrainer.sample_epoch`,
+    tensors after :meth:`to`."""
+
+    positives: object  # (P, 3)
+    edges: object  # EdgeSet of the subgraph, with layouts and reverse
+    corrupt_head: object  # (Ns,) bool
+    corrupt_ent: object  # (Ns,)
+    labels: object  # (P + Ns,) f32
+    layouts: tuple  # (c_lay, s_lay, o_lay, (ce_sorted, qk_idx))
+    self_masks: Optional[list]  # per layer (N, dout) bool, or None
+
+    def to(self, device) -> "EpochBatch":
+        def t(a):
+            return torch.as_tensor(a).to(device)
+
+        c_lay, s_lay, o_lay, (ce_sorted, qk_idx) = self.layouts
+        return EpochBatch(
+            positives=t(self.positives).long(), edges=self.edges.to(device),
+            corrupt_head=t(self.corrupt_head), corrupt_ent=t(self.corrupt_ent).long(),
+            labels=t(self.labels),
+            layouts=(c_lay.to(device), s_lay.to(device), o_lay.to(device),
+                     (t(ce_sorted), t(qk_idx))),
+            self_masks=None if self.self_masks is None
+            else [t(m) for m in self.self_masks],
+        )
+
+
+class LinkPredictionTrainer:
+    """A link predictor, its optimizer and its evaluation graph on the
+    device, and the epoch schedule of the JAX trainer's production step.
+
+    ``init_state``: a port state dict to start from (e.g. the JAX
+    initialisation through ``weights.from_jax_params``); None draws the
+    port's own from ``seed``. ``device``: None means CUDA, which must then
+    be present; ``"cpu"`` runs the plain versions. A block encoder first
+    pads ``data`` with null nodes (in place) until N is divisible by
+    ``node_embedding // num_blocks``."""
+
+    def __init__(self, cfg, data, seed: int = 0, tile_size: int = 128,
+                 init_state: Optional[Dict[str, torch.Tensor]] = None,
+                 device=None, logger: Optional[ScalarLogger] = None):
+        from rgcn_tpu_torch.graph.coalesce import merge_applicable
+        from rgcn_tpu_torch.graph.structure import build_edge_set
+        from rgcn_tpu_torch.train.samplers import select_sampler
+
+        logger = logger or ScalarLogger()
+        enc, dec = cfg.encoder, cfg.decoder
+        ed = enc.edge_dropout
+        if ed is not None and ed.self_loop_type != "schlichtkrull-dropout" \
+                and ed.self_loop > 0.0:
+            raise NotImplementedError(
+                f"self-loop dropout of type {ed.self_loop_type!r} is not "
+                "ported (the LP configs use schlichtkrull-dropout)")
+        if not cfg.structured_decoder_ok(True):
+            raise NotImplementedError(
+                "the port trains LP through the structured DistMult scorer "
+                "only: a bias-free decoder with a schlichtkrull-l2 (or no) "
+                "penalty")
+        dev = resolve_device(device)
+        decomp = enc.decomposition
+        if decomp is not None and decomp.type == "block":
+            if not enc.node_embedding:
+                raise ValueError("block decomposition requires node_embedding")
+            added = data.pad_nodes(enc.node_embedding // decomp.num_blocks)
+            if added:
+                logger.info(
+                    f"nodes padded to {data.num_nodes} to make it divisible by "
+                    f"{enc.node_embedding // decomp.num_blocks} (added {added} "
+                    "null nodes).")
+        self.cfg, self.seed, self.tile_size, self.device = cfg, seed, tile_size, dev
+        self.num_nodes, self.num_rels = data.num_nodes, data.num_relations
+        self.train_np = np.asarray(data.train, dtype=np.int64)
+        self.test_np = np.asarray(data.test, dtype=np.int64)
+
+        model = build_lp_model(cfg, self.num_nodes, self.num_rels, seed=seed)
+        if init_state is not None:
+            model.load_state_dict(init_state)
+        self.model = model.to(dev)
+        opt = cfg.training.optimiser
+        self.optimizer = make_optimizer(self.model.parameters(), opt.algorithm,
+                                        opt.learn_rate, opt.weight_decay)
+
+        self.general_dropout = ed.general if ed else 0.0
+        self.batch_size = min(cfg.training.graph_batch_size or len(self.train_np),
+                              len(self.train_np))
+        ns_cfg = cfg.training.negative_sampling
+        self.num_neg = ns_cfg.sampling_rate if ns_cfg else 10
+        self.head_prob = ns_cfg.head_prob if ns_cfg else 0.5
+        self.sampler = select_sampler(cfg.training.sampling_method)
+        self.l2 = dec.l2_penalty
+        self.want_pen = dec.l2_penalty > 0.0 and dec.l2_penalty_type == "schlichtkrull-l2"
+        self.epochs = cfg.training.epochs
+
+        merge_eval = decomp is not None and merge_applicable(
+            2 * self.num_rels, decomposition=decomp.type, num_bases=decomp.num_bases)
+        self.eval_edges = build_edge_set(
+            self.train_np, self.num_nodes, self.num_rels, tile_size=tile_size,
+            with_dst_layout=True, with_merged_layout=merge_eval).to(dev)
+        self.filters = (build_filters(self.test_np, data.all_triples, self.num_nodes)
+                        if cfg.evaluation.filtered else None)
+        self.batch: Optional[EpochBatch] = None
+
+    # -- the epoch's host data ----------------------------------------------
+    def sample_epoch(self, epoch: int) -> EpochBatch:
+        """Epoch ``epoch``'s positives, subgraph, negatives, scoring layouts
+        and self-loop masks, drawn on the host from ``(seed, epoch)``."""
+        from rgcn_tpu_torch.graph.dynamic import (
+            auto_layout_row_block,
+            build_edge_set_dynamic_host,
+        )
+        from rgcn_tpu_torch.ops.distmult_train import build_structured_layouts
+        from rgcn_tpu_torch.train.negative import corrupt_batch_host
+
+        seed, n = self.seed, self.num_nodes
+        if self.batch_size >= len(self.train_np):
+            positives = self.train_np
+        else:
+            positives = self.sampler(self.train_np, self.batch_size,
+                                     np.random.default_rng((seed, epoch)))
+        edges = build_edge_set_dynamic_host(
+            positives, n, self.num_rels, tile_size=self.tile_size,
+            dropout_rate=self.general_dropout,
+            dropout_rng=np.random.default_rng((seed, epoch, 7)),
+            with_dst_layout=True,
+            row_block=auto_layout_row_block(n, 2 * len(positives)), layout_chunk=256)
+        ch, ce = corrupt_batch_host(
+            np.random.default_rng((seed, epoch, 11)), positives, n,
+            self.num_neg, self.head_prob, structure_only=True)
+        layouts = build_structured_layouts(positives, ce, ch, n, row_block=512,
+                                           chunk=256)
+        labels = np.concatenate([np.ones(len(positives), np.float32),
+                                 np.zeros(len(ce), np.float32)])
+        masks = None
+        rate = self.model.rgc1.self_loop_dropout
+        if rate > 0.0:
+            rng = np.random.default_rng((seed, epoch, 13))
+            masks = [rng.random((n, conv.out_features), dtype=np.float32) < 1.0 - rate
+                     for conv in self._convs()]
+        return EpochBatch(positives, edges, ch, ce, labels, layouts, masks)
+
+    def _convs(self):
+        m = self.model
+        return [m.rgc1] + ([m.rgc2] if m.num_layers == 2 else [])
+
+    def set_epoch(self, epoch: int, host: Optional[EpochBatch] = None) -> None:
+        """Move epoch ``epoch``'s data (``host``, or drawn now) to the
+        device for :meth:`loss` and :meth:`step`."""
+        self.batch = (host or self.sample_epoch(epoch)).to(self.device)
+
+    # -- the step -------------------------------------------------------------
+    def loss(self) -> torch.Tensor:
+        """The current epoch's training loss, with the graph for its
+        backward."""
+        b = self.batch
+        total = b.labels.shape[0]
+        pw = torch.full((total,), 1.0 / total if self.want_pen else 0.0,
+                        device=self.device)
+        scores, penalty = self.model.structured_scores(
+            b.edges, b.positives, b.corrupt_head, b.corrupt_ent, pw, b.layouts,
+            b.self_masks)
+        return F.binary_cross_entropy_with_logits(scores, b.labels) + self.l2 * penalty
+
+    def step(self) -> float:
+        """One update on the current epoch's data; returns the loss."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.loss()
+        loss.backward()
+        self.optimizer.step()
+        return loss.item()
+
+    def evaluate(self, verbose: bool = False, logger=None):
+        ev = self.cfg.evaluation
+        return evaluate_link_predictor(self.model, self.eval_edges, self.test_np,
+                                       self.filters, batch_size=ev.batch_size,
+                                       verbose=verbose, logger=logger)
+
+    def fit(self, logger: Optional[ScalarLogger] = None):
+        """Train for the config's epochs; returns the final ``(mrr, hits,
+        ranks)``."""
+        logger = logger or ScalarLogger()
+        epochs = self.epochs
+        ev = self.cfg.evaluation
+        tag = "filtered" if ev.filtered else "raw"
+        pool = ThreadPoolExecutor(max_workers=1)
+        pending: dict = {}
+
+        def host_epoch(epoch):
+            fut = pending.pop(epoch, None)
+            out = fut.result() if fut is not None else self.sample_epoch(epoch)
+            for e in range(epoch + 1, min(epoch + 1 + PREFETCH_DEPTH, epochs + 1)):
+                if e not in pending:
+                    pending[e] = pool.submit(self.sample_epoch, e)
+            return out
+
+        try:
+            for epoch in range(1, epochs + 1):
+                self.set_epoch(epoch, host_epoch(epoch))
+                t1 = time.time()
+                loss = self.step()
+                t2 = time.time()
+                if epoch % ev.check_every == 0 and epoch != epochs:
+                    logger.info("Starting evaluation...")
+                    mrr, hits, _ = self.evaluate(ev.verbose, logger)
+                    logger.log_scalar("training.loss", loss, step=epoch)
+                    logger.log_scalar("test.mrr", mrr, step=epoch)
+                    for k, h in zip((1, 3, 10), hits):
+                        logger.log_scalar(f"test.hits_at_{k}", h, step=epoch)
+                    logger.info(
+                        f"[Epoch {epoch}] Loss: {loss:.5f} Step: {(t2 - t1):.3f}s "
+                        f"MRR({tag}): {mrr:.4f} Hits@1: {hits[0]:.4f} "
+                        f"Hits@3: {hits[1]:.4f} Hits@10: {hits[2]:.4f}")
+                else:
+                    logger.log_scalar("training.loss", loss, step=epoch)
+                    logger.info(f"[Epoch {epoch}] Loss: {loss:.5f} Step: {(t2 - t1):.3f}s")
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+
+        logger.info("Starting final evaluation...")
+        mrr, hits, ranks = self.evaluate(ev.verbose, logger)
+        logger.log_scalar("test.mrr", mrr, step=epochs)
+        for k, h in zip((1, 3, 10), hits):
+            logger.log_scalar(f"test.hits_at_{k}", h, step=epochs)
+        logger.info(
+            f"[Final Scores] Total Epoch {epochs} MRR({tag}): {mrr:.4f} "
+            f"Hits@1: {hits[0]:.4f} Hits@3: {hits[1]:.4f} Hits@10: {hits[2]:.4f}")
+        return mrr, hits, ranks
+
+
+def train_link_predictor(cfg, data, seed: int = 0,
+                         logger: Optional[ScalarLogger] = None,
+                         tile_size: int = 128,
+                         init_state: Optional[Dict[str, torch.Tensor]] = None,
+                         device=None):
+    """Train and evaluate; returns ``(mrr, hits, ranks, model)``. See
+    :class:`LinkPredictionTrainer` for ``init_state`` and ``device``."""
+    trainer = LinkPredictionTrainer(cfg, data, seed=seed, tile_size=tile_size,
+                                    init_state=init_state, device=device,
+                                    logger=logger)
+    mrr, hits, ranks = trainer.fit(logger)
+    return mrr, hits, ranks, trainer.model

@@ -22,7 +22,7 @@ path, K1 as the forward sum and as both backward sums (the pair messages'
 gradient over the slots grouped by pair, the basis table's over the pairs
 grouped by source; :mod:`rgcn_tpu_torch.ops.spmm`). Configs whose layers
 have no backward here yet (at most 8 bases, block decomposition, e-RGCN)
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+raise ``NotImplementedError`` naming what is missing.
 Checkpoints and the JAX package's executable cache are not ported.
 """
 
@@ -52,8 +52,7 @@ __all__ = [
 
 def _check_trainable(cfg) -> None:
     """Raise ``NotImplementedError`` for a config whose layers have no
-    backward in the port yet, naming the ROADMAP item (queue 1) that
-    brings it."""
+    backward in the port yet, naming what is missing."""
     rg = cfg.rgcn
     if rg.model != "rgcn":
         raise NotImplementedError(
@@ -65,10 +64,16 @@ def _check_trainable(cfg) -> None:
         return
     if decomp.type == "basis" and decomp.num_bases > 8:
         return  # the unique-(src, rel) pair path
+    if decomp.type == "basis":
+        raise NotImplementedError(
+            "training NC with at most 8 bases is not ported yet: its layer 1 "
+            "needs the featureless basis VJP (rgcn_tpu/ops/pallas_basis.py:607) "
+            "and its layer 2 the merged frame's (:516) (ROADMAP queue 2, K4)"
+        )
     raise NotImplementedError(
-        f"training with {decomp.type} decomposition is not ported yet: the "
-        "K4 basis VJPs and the block layer's backward come with LP "
-        "training (ROADMAP queue 1, item 3)"
+        f"training NC with {decomp.type} decomposition is not ported yet: the "
+        "NC block layer (blocks over every relation, the last one's blockwise "
+        "self message) has no backward in the port (ROADMAP queue 2, K3)"
     )
 
 

@@ -20,11 +20,13 @@ MODULES = [
     "rgcn_tpu_torch.data",
     "rgcn_tpu_torch.graph",
     "rgcn_tpu_torch.graph.coalesce",
+    "rgcn_tpu_torch.graph.dynamic",
     "rgcn_tpu_torch.graph.structure",
     "rgcn_tpu_torch.device",
     "rgcn_tpu_torch.ops.aggregate",
     "rgcn_tpu_torch.ops.basis",
     "rgcn_tpu_torch.ops.distmult",
+    "rgcn_tpu_torch.ops.distmult_train",
     "rgcn_tpu_torch.ops.fused",
     "rgcn_tpu_torch.ops.rel_spmm",
     "rgcn_tpu_torch.ops.spmm",
@@ -46,9 +48,13 @@ MODULES = [
     "rgcn_tpu_torch.train.optim",
     "rgcn_tpu_torch.train.evaluate",
     "rgcn_tpu_torch.train.node_classification",
+    "rgcn_tpu_torch.train.link_prediction",
+    "rgcn_tpu_torch.train.negative",
+    "rgcn_tpu_torch.train.samplers",
     "rgcn_tpu_torch.utils",
     "rgcn_tpu_torch.utils.logging",
     "rgcn_tpu_torch.classify_nodes",
+    "rgcn_tpu_torch.predict_links",
 ]
 
 

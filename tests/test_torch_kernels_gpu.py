@@ -43,11 +43,16 @@ nc-AM's widths with frozen and live values, on a graph whose hub pair
 spans several chunks; ``gather_rows_agg``'s backward (K1 through the
 by-source layout's perm) at dout 400 and 440, also with one source
 owning thousands of rows; and three epochs of nc-MUTAG and nc-BGS with
-exactly 8E + 2 K1 launches.
+exactly 8E + 2 K1 launches. LP training: the basis layer's Function on
+a training subgraph (K4 forward, K4 dx over the reversed subgraph, whose
+pad sources are one past the last row), the LP block layer (K3 then K1
+both ways, the blocks' gradient through the expansion, no K2) and the
+structured DistMult scorer (two K4 sums and K1 twice in its backward).
 Tolerance: max abs diff <= 1e-5 * max(1, max|ref|) (f32 sums reordered by
 atomics).
 """
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -683,9 +688,11 @@ def test_spmm_function_backward(cuda, fused, din, dout):
 
 
 def test_kernels_without_backward_refuse_grad(cuda):
-    """K4 (the few-basis routes), K5, K2, K3 and K1 presorted have no
-    backward: on the card, grad mode with an input requiring grad raises
-    before any launch; under no_grad they run."""
+    """K4 over the merged and featureless frames, K5, K2, K3 and K1
+    presorted have no backward: on the card, grad mode with an input
+    requiring grad raises before any launch; under no_grad they run. (Over
+    an unmerged layout rel_spmm_basis is differentiable:
+    test_basis_function_backward.)"""
     m, es, rng = _merged(600, 4, 2500, 21, cuda, dedup_k=2)
     es = dataclasses.replace(es, merged=m)
     x = _t(rng, cuda, 600, 8)
@@ -695,7 +702,6 @@ def test_kernels_without_backward_refuse_grad(cuda):
     before = dict(kernels.LAUNCHES)
     for call in (
         lambda: bs.rel_spmm_basis(es, x, bases, comps),
-        lambda: bs.rel_spmm_basis(dataclasses.replace(es, merged=None), x, bases, comps),
         lambda: bs.rel_spmm_featureless_basis_fwd(
             es, _t(rng, cuda, 2, 600, 5), comps),
         lambda: fz.rel_spmm_fused(es.fused, 600, x, w),
@@ -854,3 +860,114 @@ def test_many_basis_training_on_the_card(cuda, config):
     8 a epoch (forward 2, backward 4, eval 2) and 2 for the final
     prediction."""
     assert _train_on_card_and_cpu(cuda, config) == {"k1_aggregate": 8 * 3 + 2}
+
+
+# -- LP training: the basis Function, the block layer, the structured scorer --
+
+
+def _lp_subgraph(n, r, b, seed, dev, tile=8):
+    """An LP training subgraph with edge dropout, its layouts and reversed
+    edges (forward pads become val-0 reverse edges whose source is n)."""
+    from rgcn_tpu_torch.graph.dynamic import build_edge_set_dynamic_host
+
+    rng = np.random.default_rng(seed)
+    pos = make_random_triples(rng, n, r, b)
+    es = build_edge_set_dynamic_host(
+        pos, n, r, tile_size=tile, dropout_rate=0.3, dropout_rng=rng,
+        with_dst_layout=True, row_block=64, layout_chunk=32)
+    return pos, es.to("cpu"), es.to(dev), rng
+
+
+def _grads_on_card_and_cpu(fn, inputs, dev, g):
+    """fn's output and its inputs' gradients under the cotangent g, on the
+    CPU and the card, and the card's launches."""
+    out = []
+    for d in ("cpu", dev):
+        xs = [x.detach().to(d).requires_grad_() for x in inputs]
+        before = dict(kernels.LAUNCHES)
+        y = fn(d, *xs)
+        y.backward(g.to(d))
+        torch.cuda.synchronize()
+        launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        out.append((y.detach().cpu(), [x.grad.cpu() for x in xs], launched))
+    return out
+
+
+@pytest.mark.parametrize("nb,din,dout", [(2, 200, 200), (3, 16, 12)])
+def test_basis_function_backward(cuda, nb, din, dout):
+    """rel_spmm_basis over a training subgraph on the card against the
+    CPU: K4 forward, K4 over the reversed subgraph with per-basis tables
+    for dx (its pad sources clamped), dbases and dcomps by products."""
+    _, cpu_es, card_es, rng = _lp_subgraph(300, 4, 700, 31, cuda)
+    ins = [_t(rng, "cpu", 300, din), _t(rng, "cpu", nb, din, dout, scale=0.1),
+           _t(rng, "cpu", cpu_es.num_rels, nb)]
+    g = _t(rng, "cpu", 300, dout)
+    (ref, ref_g, _), (got, got_g, launched) = _grads_on_card_and_cpu(
+        lambda d, *xs: bs.rel_spmm_basis(cpu_es if d == "cpu" else card_es, *xs),
+        ins, cuda, g)
+    _close(got, ref)
+    for a, b in zip(got_g, ref_g):
+        _close(a, b)
+    assert launched["k4_weighted_aggregate"] == 2 and sum(launched.values()) == 2
+
+
+def test_block_layer_backward(cuda):
+    """The LP block layer over a training subgraph: K3 then K1 forward and
+    dx (W^T over the reversed subgraph), the blocks' gradient through the
+    expansion; K2 never (the subgraph has no fused layout)."""
+    from rgcn_tpu_torch.nn.layers import RGCNConv
+
+    _, cpu_es, card_es, rng = _lp_subgraph(120, 3, 300, 32, cuda)
+    conv = RGCNConv(120, 7, 40, in_features=40, decomposition="block", num_blocks=4,
+                    separate_self_weight=True, weight_init="schlichtkrull-normal",
+                    weight_gain=False)
+    x, g = _t(rng, "cpu", 120, 40), _t(rng, "cpu", 120, 40)
+    res = []
+    for d, es in (("cpu", cpu_es), (cuda, card_es)):
+        c = copy.deepcopy(conv).to(d)
+        xd = x.detach().to(d).requires_grad_()
+        before = dict(kernels.LAUNCHES)
+        y = c(es, xd)
+        y.backward(g.to(d))
+        torch.cuda.synchronize()
+        res.append((y.detach().cpu(), xd.grad.cpu(), c.blocks.grad.cpu(),
+                    c.self_weight.grad.cpu(),
+                    {k: kernels.LAUNCHES[k] - before[k] for k in before}))
+    for a, b in zip(res[1][:4], res[0][:4]):
+        _close(a, b)
+    assert res[1][4] == {"k1_aggregate": 2, "k2_fused": 0, "k3_messages": 2,
+                         "k4_weighted_aggregate": 0, "k5_weighted_aggregate_dedup": 0}
+
+
+@pytest.mark.parametrize("ns,d", [(10, 200), (3, 13)])
+def test_structured_scorer_backward(cuda, ns, d):
+    """The structured DistMult scorer on the card against the CPU: two K4
+    sums over the corrupted entities' layout and K1 over the subjects' and
+    objects' layouts in the backward, nothing in the forward."""
+    from rgcn_tpu_torch.ops import distmult_train as dmt
+    from rgcn_tpu_torch.train.negative import corrupt_batch_host
+
+    rng = np.random.default_rng(33)
+    n, r = 500, 6
+    pos = make_random_triples(rng, n, r, 400)
+    ch, ce = corrupt_batch_host(rng, pos, n, ns, 0.5, structure_only=True)
+    lays = dmt.build_structured_layouts(pos, ce, ch, n, row_block=128, chunk=64)
+    total = len(pos) * (1 + ns)
+    out = []
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
+        layouts = tuple(lay.to(dev) for lay in lays[:3]) + (tuple(t(a) for a in lays[3]),)
+        nodes = _t(np.random.default_rng(1), dev, n, d).requires_grad_()
+        rels = _t(np.random.default_rng(2), dev, r, d).requires_grad_()
+        pw = torch.full((total,), 1.0 / total, device=dev)
+        before = dict(kernels.LAUNCHES)
+        s, p = dmt.structured_scores(t(pos), t(ch), t(ce), nodes, rels, pw, layouts)
+        torch.autograd.backward([s, p], [torch.ones_like(s) / total, torch.ones_like(p)])
+        torch.cuda.synchronize()
+        out.append((s.detach().cpu(), p.detach().cpu(), nodes.grad.cpu(),
+                    rels.grad.cpu(),
+                    {k: kernels.LAUNCHES[k] - before[k] for k in before}))
+    for a, b in zip(out[1][:4], out[0][:4]):
+        _close(a, b)
+    assert out[1][4]["k4_weighted_aggregate"] == 2 and out[1][4]["k1_aggregate"] == 2
+    assert sum(out[1][4].values()) == 4

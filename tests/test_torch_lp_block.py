@@ -167,8 +167,8 @@ def test_block_errors_match_jax():
 @pytest.mark.parametrize("over_cap", [False, True])
 def test_block_route_by_expansion_cap(monkeypatch, over_cap):
     """At or under _BLOCK_EXPAND_MAX_ELEMS the blocks are expanded and go
-    through fwd_spmm; above it through rel_spmm_block with K1 as the
-    aggregation. Both give the same output."""
+    through rel_spmm_ad; above it through rel_spmm_block with K1
+    as the aggregation. Both give the same output."""
     n, r, din, dout, nb = 50, 2, 10, 10, 5
     _, _, tes = _graph(n, r, 300, 5, 16)
     conv = RGCNConv(n, 2 * r + 1, dout, in_features=din, decomposition="block",
@@ -179,9 +179,9 @@ def test_block_route_by_expansion_cap(monkeypatch, over_cap):
     elems = 2 * r * din * dout
     monkeypatch.setattr(RGCNConv, "_BLOCK_EXPAND_MAX_ELEMS", elems - 1 if over_cap else elems)
     calls = []
-    fwd, blockwise = layers.fwd_spmm, spmm_ops.rel_spmm_block
-    monkeypatch.setattr(layers, "fwd_spmm",
-                        lambda *a, **k: calls.append("expand") or fwd(*a, **k))
+    fwd_ad, blockwise = layers.rel_spmm_ad, spmm_ops.rel_spmm_block
+    monkeypatch.setattr(layers, "rel_spmm_ad",
+                        lambda *a, **k: calls.append("expand") or fwd_ad(*a, **k))
     monkeypatch.setattr(spmm_ops, "rel_spmm_block",
                         lambda *a, **k: calls.append(("block", k["aggregate"]))
                         or blockwise(*a, **k))

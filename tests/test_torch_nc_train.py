@@ -311,7 +311,8 @@ def test_trainer_matches_jax_trainer(tmp_path, graph, epochs, penalty):
 
 
 @pytest.mark.parametrize("config,match", [
-    ("e-rgcn/nc-AIFB.yaml", "item 5"), ("basis-4", "item 3"), ("block", "item 3"),
+    ("e-rgcn/nc-AIFB.yaml", "item 5"), ("basis-4", "pallas_basis.py:607"),
+    ("block", "blockwise self message"),
 ])
 def test_trainer_refuses_untrainable_configs(config, match):
     from rgcn_tpu_torch.config import DecompositionConfig
