@@ -7,9 +7,10 @@
 Trains the config's model ``repeats`` times (repeat ``i`` from seed ``i``)
 and prints each epoch's loss and accuracies and a summary line (mean test
 accuracy -/+ its standard error); ``--run-dir`` also writes the records to
-``metrics.jsonl``. Trainable so far: the dense R-GCN (nc-AIFB) and basis
+``metrics.jsonl``. Trainable so far: the dense R-GCN (nc-AIFB), basis
 configs with more than 8 bases (nc-MUTAG, nc-BGS, nc-AM: the unique-(src,
-rel) pair path); the other configs raise ``NotImplementedError`` naming
+rel) pair path) and e-RGCN (``configs/e-rgcn/nc-*.yaml``: the diagonal
+layer on K1); the other configs raise ``NotImplementedError`` naming
 what is missing. Only synthetic graphs for now (``--synthetic``:
 AIFB-scale for AIFB, the 500-node graph for the others). Without ``--cpu`` the run needs CUDA
 and fails without it. Not ported yet: ``--data-root``, ``--mesh``,

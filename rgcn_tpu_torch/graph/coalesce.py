@@ -1,4 +1,4 @@
-"""Edge coalescing for basis-decomposed SpMM (numpy builders).
+"""Edge coalescing for the basis and diagonal SpMMs (numpy builders).
 
 Counterpart of ``rgcn_tpu/graph/coalesce.py``, bit-equal to it. With basis
 decomposition the per-edge weight is a scalar per basis,
@@ -10,7 +10,9 @@ merge into one slot whose weight is the sum of theirs:
 
 The merge is kept as a static per-slot coefficient matrix
 ``coeff[l, r] = Σ_{e on pair(l), rel_e = r} val_e`` (``(L, R')``), so the
-per-slot weights are one small product, ``w = (coeff @ comps).T``.
+per-slot weights are one small product, ``w = (coeff @ comps).T``. The
+diagonal layer (e-RGCN) merges the same way: its per-slot weight is the
+vector ``coeff @ dw`` (:mod:`rgcn_tpu_torch.ops.diag`).
 
 Snapshot of ``val``: ``coeff`` (and ``fwd_dedup.coeff_k``, ``rev_coeff``)
 freeze the EdgeSet's ``val`` as it was when the layout was built. An
@@ -53,13 +55,16 @@ def merge_applicable(
     *,
     decomposition: Optional[str] = None,
     num_bases: int = 0,
+    diag: bool = False,
 ) -> bool:
-    """Will the basis layer path consume a merged layout? For ``0 <
-    num_bases <=`` :data:`MAX_BASES`, and never above
-    :data:`MERGED_MAX_RELS` general relations. (The JAX package's diagonal
-    path also takes one; the port has no diagonal layer yet.)"""
+    """Will some layer path consume a merged layout? The diagonal layer
+    (e-RGCN, ``diag=True``) always does; the basis layer for ``0 <
+    num_bases <=`` :data:`MAX_BASES`; nothing above
+    :data:`MERGED_MAX_RELS` general relations."""
     if num_general_rels > MERGED_MAX_RELS:
         return False
+    if diag:
+        return True
     return decomposition == "basis" and 0 < num_bases <= MAX_BASES
 
 
@@ -98,7 +103,8 @@ class DedupFwdLayout:
 
 @dataclasses.dataclass(frozen=True)
 class MergedPairLayout:
-    """Coalesced ``(receiver, source)`` pair layout for the basis kernels.
+    """Coalesced ``(receiver, source)`` pair layout for the basis kernels
+    and the diagonal layer.
 
     Forward frame (receiver = destination): ``layout`` (a
     :class:`DstLayout` over the unique pairs), ``src_sorted (L,)`` (pads ->

@@ -1,16 +1,19 @@
-"""Link-prediction R-GCN (counterpart of
+"""Link-prediction R-GCN and c-RGCN (counterparts of
 ``rgcn_tpu/models/link_prediction.py::LinkPredictor`` and
+``::CompressionRelationPredictor``, and of
 ``rgcn_tpu/train/link_prediction.py::build_lp_model``).
 
 Learned node embeddings ``(N, emb_dim)`` plus a broadcast bias row, ReLU,
-1-2 R-GCN layers over ``2R + 1`` relations, then DistMult scores.
+1-2 R-GCN layers over ``2R + 1`` relations, then DistMult scores. c-RGCN
+runs the R-GCN at the compressed width ``hidden1_size`` between two
+:class:`~rgcn_tpu_torch.nn.layers.TorchLinear` layers and adds the node
+embeddings back: ``z = E + decode(rgc(encode(relu(E + b))))``.
 ``encode`` is separate from the scoring so a server encodes the graph once
 and sweeps all candidates densely. Training scores structured batches
 (:meth:`LinkPredictor.structured_scores`) with each layer's self-loop
 dropout under a keep mask the trainer draws (``self_masks``). The JAX
 model's ``feature_blocks`` option (embeddings stored as <=128-column blocks
-for a TPU gather fast path) and ``CompressionRelationPredictor`` (c-RGCN)
-are not ported yet.
+for a TPU gather fast path) is not ported.
 """
 
 from __future__ import annotations
@@ -21,9 +24,9 @@ import torch
 from torch import nn
 
 from rgcn_tpu_torch.nn import init as rinit
-from rgcn_tpu_torch.nn.layers import DistMult, RGCNConv
+from rgcn_tpu_torch.nn.layers import DistMult, RGCNConv, TorchLinear
 
-__all__ = ["LinkPredictor", "build_lp_model"]
+__all__ = ["CompressionRelationPredictor", "LinkPredictor", "build_lp_model"]
 
 
 class LinkPredictor(nn.Module):
@@ -79,15 +82,18 @@ class LinkPredictor(nn.Module):
                 generator=gen,
             )
 
-        nhid1 = hidden1_size or emb_dim
-        self.rgc1 = conv(emb_dim, nhid1)
-        if num_layers == 2:
-            self.rgc2 = conv(nhid1, hidden2_size or nhid1)
+        self._encoder_layers(conv, gen, emb_dim, hidden1_size or emb_dim,
+                             hidden2_size)
         self.scoring_function = DistMult(
             num_nodes, num_relations, emb_dim,
             weight_init=decoder_weight_init, weight_gain=decoder_include_gain,
             bias_init=decoder_bias_init, generator=gen,
         )
+
+    def _encoder_layers(self, conv, gen, emb_dim, nhid1, hidden2_size):
+        self.rgc1 = conv(emb_dim, nhid1)
+        if self.num_layers == 2:
+            self.rgc2 = conv(nhid1, hidden2_size or nhid1)
 
     def encode(self, edges, self_masks: Optional[Sequence[torch.Tensor]] = None
                ) -> torch.Tensor:
@@ -131,23 +137,52 @@ class LinkPredictor(nn.Module):
         return self.scoring_function.score_tails(batch, z)
 
 
+class CompressionRelationPredictor(LinkPredictor):
+    """c-RGCN: the bottlenecked encoder with a residual decode.
+
+    The R-GCN layers run at ``hidden1_size`` (and ``hidden2_size``)
+    between ``encoding_layer`` (``emb_dim -> hidden1_size``) and
+    ``decoding_layer`` (back to ``emb_dim``), both
+    :class:`~rgcn_tpu_torch.nn.layers.TorchLinear`; ``z = E +
+    decoding_layer(x)``, so ``E`` reaches ``z`` through the ReLU and
+    directly, and its gradient is the sum of both paths. The decoder,
+    penalty and scoring are :class:`LinkPredictor`'s. Parameters are drawn
+    from ``torch.Generator().manual_seed(seed)`` in the order node
+    embeddings, bias (zeros), encoding layer, decoding layer, R-GCN
+    layer(s), decoder.
+    """
+
+    def _encoder_layers(self, conv, gen, emb_dim, nhid1, hidden2_size):
+        nhid2 = hidden2_size or nhid1
+        self.encoding_layer = TorchLinear(emb_dim, nhid1, gen)
+        self.decoding_layer = TorchLinear(nhid2 if self.num_layers == 2 else nhid1,
+                                          emb_dim, gen)
+        super()._encoder_layers(conv, gen, nhid1, nhid1, hidden2_size)
+
+    def encode(self, edges, self_masks: Optional[Sequence[torch.Tensor]] = None
+               ) -> torch.Tensor:
+        masks = self_masks or (None,) * self.num_layers
+        e = self.node_embeddings
+        x = self.encoding_layer(torch.relu(e + self.node_embeddings_bias))
+        x = self.rgc1(edges, x, masks[0])
+        if self.num_layers == 2:
+            x = self.rgc2(edges, torch.relu(x), masks[1])
+        return e + self.decoding_layer(x)
+
+
 def build_lp_model(cfg, num_nodes: int, num_rels: int, seed: int = 0) -> LinkPredictor:
-    """The model a LinkPredictionExperiment config describes (``rgcn``
-    encoders), with the self-loop dropout rate of a
+    """The model a LinkPredictionExperiment config describes (``rgcn`` and
+    ``c-rgcn`` encoders), with the self-loop dropout rate of a
     ``schlichtkrull-dropout`` config (general edge dropout is the
     trainer's)."""
     enc, dec = cfg.encoder, cfg.decoder
-    if enc.model == "c-rgcn":
-        raise NotImplementedError(
-            "the c-rgcn encoder (CompressionRelationPredictor) is not ported "
-            "yet (c-RGCN slice)"
-        )
-    if enc.model != "rgcn":
+    models = {"rgcn": LinkPredictor, "c-rgcn": CompressionRelationPredictor}
+    if enc.model not in models:
         raise NotImplementedError(f"{enc.model!r} encoder has not been implemented")
     decomp, ed = enc.decomposition, enc.edge_dropout
     sl_dropout = (ed.self_loop if ed is not None
                   and ed.self_loop_type == "schlichtkrull-dropout" else 0.0)
-    return LinkPredictor(
+    return models[enc.model](
         num_nodes=num_nodes,
         num_relations=num_rels,
         emb_dim=enc.node_embedding or 200,

@@ -1,5 +1,6 @@
-"""Node-classification R-GCN (counterpart of
-``rgcn_tpu/models/node_classification.py::NodeClassifier``)."""
+"""Node-classification R-GCN and e-RGCN (counterparts of
+``rgcn_tpu/models/node_classification.py::NodeClassifier`` and
+``::EmbeddingNodeClassifier``)."""
 
 from __future__ import annotations
 
@@ -8,9 +9,10 @@ from typing import Optional
 import torch
 from torch import nn
 
+from rgcn_tpu_torch.nn import init as rinit
 from rgcn_tpu_torch.nn.layers import RGCNConv
 
-__all__ = ["NodeClassifier", "build_nc_model"]
+__all__ = ["EmbeddingNodeClassifier", "NodeClassifier", "build_nc_model"]
 
 
 class NodeClassifier(nn.Module):
@@ -66,22 +68,65 @@ class NodeClassifier(nn.Module):
         return torch.sum(p1.weights ** 2)
 
 
-def build_nc_model(cfg, data, seed: int = 0) -> NodeClassifier:
-    """The model a NodeClassificationExperiment config describes."""
+class EmbeddingNodeClassifier(nn.Module):
+    """e-RGCN: learned node embeddings ``(N, emb_dim)`` (kaiming-normal,
+    fan-in), a diagonal-weight R-GCN layer ``rgcn_no_hidden`` at width
+    ``emb_dim`` (no bias), ReLU, then ``rgc1``, an R-GCN layer to the class
+    logits (glorot-uniform with the relu gain, zero bias) that takes
+    ``decomposition``. Parameters are drawn from
+    ``torch.Generator().manual_seed(seed)`` in the order embeddings,
+    ``rgcn_no_hidden``, ``rgc1``.
+    """
+
+    def __init__(
+        self,
+        num_nodes: int,
+        num_relations: int,  # original relation count R
+        num_classes: int,
+        emb_dim: int = 32,
+        decomposition: Optional[str] = None,
+        num_bases: int = 0,
+        num_blocks: int = 0,
+        seed: int = 0,
+    ):
+        super().__init__()
+        r_aug = 2 * num_relations + 1
+        gen = torch.Generator().manual_seed(seed)
+        self.node_embeddings = nn.Parameter(
+            rinit.kaiming_normal_fan_in((num_nodes, emb_dim), gen))
+        self.rgcn_no_hidden = RGCNConv(num_nodes, r_aug, emb_dim, in_features=emb_dim,
+                                       diag=True, generator=gen)
+        self.rgc1 = RGCNConv(num_nodes, r_aug, num_classes, in_features=emb_dim,
+                             decomposition=decomposition, num_bases=num_bases,
+                             num_blocks=num_blocks, generator=gen)
+
+    def forward(self, edges) -> torch.Tensor:
+        x = torch.relu(self.rgcn_no_hidden(edges, self.node_embeddings))
+        return self.rgc1(edges, x)
+
+    def embedding_l2(self) -> torch.Tensor:
+        """Sum of squares of the node embeddings."""
+        return torch.sum(self.node_embeddings ** 2)
+
+
+def build_nc_model(cfg, data, seed: int = 0) -> nn.Module:
+    """The model a NodeClassificationExperiment config describes: a
+    :class:`NodeClassifier` (``rgcn``) or an
+    :class:`EmbeddingNodeClassifier` (``e-rgcn``)."""
     rg = cfg.rgcn
-    if rg.model != "rgcn":
-        raise NotImplementedError(
-            f"{rg.model!r} model is not ported yet (e-RGCN slice)"
-        )
     decomp = rg.decomposition
-    return NodeClassifier(
+    common = dict(
         num_nodes=data.num_nodes,
         num_relations=data.num_relations,
         num_classes=data.num_classes,
-        hidden_size=rg.hidden_size,
-        num_layers=rg.num_layers,
         decomposition=decomp.type if decomp else None,
         num_bases=decomp.num_bases if decomp else 0,
         num_blocks=decomp.num_blocks if decomp else 0,
         seed=seed,
     )
+    if rg.model == "rgcn":
+        return NodeClassifier(hidden_size=rg.hidden_size, num_layers=rg.num_layers,
+                              **common)
+    if rg.model == "e-rgcn":
+        return EmbeddingNodeClassifier(emb_dim=rg.node_embeddings, **common)
+    raise NotImplementedError(f"{rg.model!r} model has not been implemented")

@@ -22,6 +22,9 @@ __all__ = [
     "schlichtkrull_uniform",
     "standard_normal",
     "standard_uniform",
+    "kaiming_normal_fan_in",
+    "torch_linear_weight",
+    "torch_linear_bias",
     "select_weight_init",
     "select_bias_init",
 ]
@@ -99,6 +102,30 @@ def standard_normal(shape: Sequence[int], generator: torch.Generator) -> torch.T
 def standard_uniform(shape: Sequence[int], generator: torch.Generator) -> torch.Tensor:
     """U(0, 1) (torch's ``uniform_`` defaults; no gain)."""
     return torch.rand(tuple(shape), generator=generator)
+
+
+def kaiming_normal_fan_in(shape: Sequence[int], generator: torch.Generator) -> torch.Tensor:
+    """Torch ``kaiming_normal_(mode='fan_in')`` with the leaky-relu gain
+    ``sqrt(2)``: N(0, sqrt(2 / fan_in)), ``fan_in`` from :func:`torch_fans`
+    (``shape[1]``, the embedding width, for an ``(N, d)`` table). The
+    e-RGCN node embeddings."""
+    fan_in, _ = torch_fans(shape)
+    return math.sqrt(2.0 / fan_in) * torch.randn(tuple(shape), generator=generator)
+
+
+def torch_linear_weight(shape: Sequence[int], generator: torch.Generator) -> torch.Tensor:
+    """Torch ``nn.Linear``'s default weight, U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)), for a kernel stored ``(in, out)`` as the JAX package
+    stores it: ``fan_in = shape[0]``. The c-RGCN bottleneck layers."""
+    bound = 1.0 / math.sqrt(shape[0])
+    return torch.empty(tuple(shape)).uniform_(-bound, bound, generator=generator)
+
+
+def torch_linear_bias(fan_in: int) -> Initializer:
+    """Torch ``nn.Linear``'s default bias, U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)) with the layer's input width ``fan_in``."""
+    bound = 1.0 / math.sqrt(fan_in)
+    return lambda shape, g: torch.empty(tuple(shape)).uniform_(-bound, bound, generator=g)
 
 
 def select_weight_init(name: str, gain: float = 1.0) -> Initializer:

@@ -54,8 +54,15 @@ the featureful basis layer with at most 8 bases over an unmerged layout
 reversed edges for dx) and the expanded block
 weights go through ``rel_spmm_ad`` (K3 then K1 both ways at lp-FB-toy's
 width; the expansion's index scatter carries the gradient back to the
-blocks). Diagonal weights (e-RGCN) belong to a later slice of the port and
-raise.
+blocks). Diagonal weights (the e-RGCN first layer, ``diag=True``) are
+``weights (R', din)`` with no bias: on the card
+:func:`~rgcn_tpu_torch.ops.diag.rel_spmm_diag_ad` (K1 over the merged pair
+frame, or over the destination layout in slot order, both ways), on a CPU
+tensor the plain :func:`~rgcn_tpu_torch.ops.spmm.rel_spmm_diag`; the self
+message is ``x ⊙ weights[-1]``.
+
+:class:`TorchLinear` is the c-RGCN bottleneck: ``x @ kernel + bias`` with
+the flax layout ``kernel (din, dout)``.
 """
 
 from __future__ import annotations
@@ -77,9 +84,10 @@ from rgcn_tpu_torch.ops.basis import (
     rel_spmm_basis,
     rel_spmm_featureless_basis_fwd,
 )
+from rgcn_tpu_torch.ops.diag import rel_spmm_diag_ad
 from rgcn_tpu_torch.ops.rel_spmm import rel_spmm_ad
 
-__all__ = ["RGCNConv", "DistMult", "check_plain_path", "expand_blocks"]
+__all__ = ["RGCNConv", "DistMult", "TorchLinear", "check_plain_path", "expand_blocks"]
 
 
 def _aggregate_k1(msgs, edges):
@@ -110,7 +118,9 @@ class RGCNConv(nn.Module):
     give the blockwise self message) or, with ``separate_self_weight``
     (LP layout), ``blocks (R' - 1, B, din/B, dout/B)`` and a dense
     ``self_weight (din, dout)``, both drawn Schlichtkrull-normal with the
-    fan ``((R'-1)//2, din/B)`` whatever ``weight_init`` says. ``bias`` is
+    fan ``((R'-1)//2, din/B)`` whatever ``weight_init`` says. With
+    ``diag=True`` (the e-RGCN first layer) ``weights`` is ``(R', din)``,
+    the output is ``din`` wide and there is no bias. ``bias`` is
     ``(dout,)``, or absent when ``bias_init`` is None. Parameters are drawn
     from ``generator`` with the named initializers (NC layers:
     glorot-uniform with the relu gain, zero bias). ``self_loop_dropout`` is
@@ -138,10 +148,8 @@ class RGCNConv(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if diag:
-            raise NotImplementedError(
-                "diagonal weights (e-RGCN) are not ported yet (e-RGCN slice)"
-            )
+        if diag and in_features is None:
+            raise ValueError("diagonal weights require explicit features")
         if decomposition not in (None, "basis", "block"):
             raise NotImplementedError(
                 f"{decomposition!r} decomposition has not been implemented"
@@ -168,12 +176,18 @@ class RGCNConv(nn.Module):
         self.in_features = in_features
         self.out_features = out_features
         self.decomposition = decomposition
+        self.diag = diag
         self.self_loop_dropout = float(self_loop_dropout)
         self.separate_self_weight = separate_self_weight and decomposition == "block"
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         gain = rinit.relu_gain() if weight_gain else 1.0
         w_init = rinit.select_weight_init(weight_init, gain)
+        if diag:
+            # no bias (torch_rgcn/layers.py:151)
+            self.weights = nn.Parameter(w_init((num_relations, din), generator))
+            self.register_parameter("bias", None)
+            return
         if decomposition == "basis":
             self.bases = nn.Parameter(w_init((num_bases, din, out_features), generator))
             self.comps = nn.Parameter(w_init((num_relations, num_bases), generator))
@@ -209,6 +223,8 @@ class RGCNConv(nn.Module):
         leaves it whole."""
         if (x is None) != (self.in_features is None):
             raise ValueError("features must be given iff in_features is set")
+        if self.diag:
+            return self._diag(edges, x, self_mask)
         if self.decomposition == "basis":
             out = self._basis(edges, x, self_mask)
         elif self.decomposition == "block":
@@ -223,6 +239,17 @@ class RGCNConv(nn.Module):
             return self_msg
         return torch.where(mask, self_msg / (1.0 - self.self_loop_dropout),
                            self_msg.new_zeros(()))
+
+    def _diag(self, edges, x, mask):
+        """Diagonal weights: the plain path on a CPU tensor, else K1 (or
+        raise, without a layout)."""
+        dw = self.weights
+        if x.device.type == "cpu" or edges.layout is None:
+            check_plain_path(x.device)
+            agg = spmm_ops.rel_spmm_diag(edges, x, dw[:-1])
+        else:
+            agg = rel_spmm_diag_ad(edges, x, dw[:-1])
+        return agg + self._self(x * dw[-1], mask)
 
     def _dense(self, edges, x, w, mask):
         """Dense ``w (R', din, dout)``: the general relations through the
@@ -376,3 +403,24 @@ class DistMult(nn.Module):
     def score_tails(self, batch: torch.Tensor, nodes: torch.Tensor) -> torch.Tensor:
         return distmult_ops.score_tail_candidates(batch, nodes, self.relations,
                                                   **self._biases())
+
+
+class TorchLinear(nn.Module):
+    """Dense layer with torch ``nn.Linear``'s default initialisation in the
+    flax layout: ``kernel (din, dout)`` (``nn.Linear`` stores ``(out,
+    in)``) and ``bias (dout,)``, both U(-1/sqrt(din), 1/sqrt(din)), drawn
+    kernel first. Counterpart of ``rgcn_tpu/nn/layers.py::TorchLinear``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.kernel = nn.Parameter(
+            rinit.torch_linear_weight((in_features, out_features), generator))
+        self.bias = nn.Parameter(
+            rinit.torch_linear_bias(in_features)((out_features,), generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with full_f32_matmul():
+            return x @ self.kernel + self.bias

@@ -143,16 +143,18 @@ def build_dst_layout(
 
 def blocked_sum(msgs_sorted, local_dst, chunk_block, num_row_blocks,
                  row_block, num_nodes):
-    """Plain sum of destination-sorted rows into their row blocks."""
+    """Plain sum of destination-sorted rows into their row blocks, in f32
+    (in f64 for f64 rows: an exact reference for a kernel's f32 sums)."""
     chunk = local_dst.shape[1]
     local = local_dst.reshape(-1).long()
     rows = chunk_block.long().repeat_interleave(chunk) * row_block + local
     keep = local < row_block
+    dtype = torch.float64 if msgs_sorted.dtype == torch.float64 else torch.float32
     out = torch.zeros(
         (num_row_blocks * row_block, msgs_sorted.shape[-1]),
-        dtype=torch.float32, device=msgs_sorted.device,
+        dtype=dtype, device=msgs_sorted.device,
     )
-    out.index_add_(0, rows[keep], msgs_sorted[keep].float())
+    out.index_add_(0, rows[keep], msgs_sorted[keep].to(dtype))
     return out[:num_nodes]
 
 

@@ -1,0 +1,144 @@
+"""Diagonal-weight relational SpMM on K1 (the e-RGCN first layer).
+
+Counterpart of ``rgcn_tpu/ops/pallas_diag.py``. A diagonal message,
+``x[src] ⊙ dw[rel] · val``, is cheap enough to build directly in the
+destination-sorted slot order of a :class:`~rgcn_tpu_torch.ops.aggregate.DstLayout`,
+so K1 sums it slot by slot (``index`` None) with no edge-order copy and no
+permutation. Two frames, each one ``torch.autograd.Function``:
+
+* unmerged (:class:`_DiagUnmerged`): the slot-order ``src/rel/val`` are the
+  EdgeSet's arrays with ``(0, 0, 0.0)`` appended, gathered through
+  ``layout.perm`` (pad slots point one past the last edge). ``dx`` is the
+  same pipeline over ``edges.reverse`` with the cotangent rows in place of
+  ``x``; ``d dw[r] = Σ_{e ∈ r} val_e · x[src_e] ⊙ g[dst_e]`` is one
+  ``index_add_`` in edge order, with ``g`` read through
+  :func:`~rgcn_tpu_torch.ops.aggregate.gather_by_dst` (a zero row for the
+  pad edges' ``dst == num_nodes``; JAX clamps that index);
+* merged (:class:`_DiagMerged`, over ``edges.merged``): parallel edges of
+  one ``(receiver, source)`` pair share a slot whose weight is the vector
+  ``dvec = coeff @ dw``, so K1 sums ``x[src_sorted] ⊙ dvec`` over
+  ``merged.layout``; ``dx`` is K1 over ``merged.rev_layout`` with
+  ``rev_coeff @ dw``, and the cotangent rows it gathers are reused for
+  ``d dw = rev_coeffᵀ @ (x[rev_receiver] ⊙ g[rev_src_sorted])``.
+
+The gathers and products around K1 are torch ops: the TPU computes them
+in the kernel's input pipeline (``input_fusion=True``), so the ``(L, d)``
+message tensor never lands in its memory; here it does. The small
+products run in full f32 (the JAX package's ``precision="highest"``), and
+so does everything else: the JAX package's bf16 messages on a TPU
+(``_tpu_compute_dtype``) are not ported. ``val`` is read from the EdgeSet
+at each call in the unmerged frame; the merged frame's ``coeff`` and
+``rev_coeff`` are the layout's snapshot of it (see
+:mod:`rgcn_tpu_torch.graph.coalesce`). On CPU tensors K1 is its plain
+version (:func:`~rgcn_tpu_torch.ops.aggregate.aggregate_presorted`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rgcn_tpu_torch.ops.aggregate import _zero_row, aggregate_presorted, gather_by_dst
+from rgcn_tpu_torch.ops.basis import full_f32_matmul
+
+__all__ = [
+    "diag_slot_messages",
+    "diag_weight_grad",
+    "merged_dvec",
+    "rel_spmm_diag_ad",
+]
+
+
+def diag_slot_messages(x: torch.Tensor, dw: torch.Tensor, edges) -> torch.Tensor:
+    """``(L, d)`` messages ``x[src_s] ⊙ dw[rel_s] · val_s`` in the slot
+    order of ``edges.layout``; pad slots read ``(0, 0, 0.0)``."""
+    perm = edges.layout.perm.long()
+    src_s = _zero_row(edges.src)[perm].long()
+    rel_s = _zero_row(edges.rel)[perm].long()
+    val_s = _zero_row(edges.val)[perm]
+    return x[src_s] * dw[rel_s] * val_s[:, None]
+
+
+def _diag_sorted_agg(x, dw, edges):
+    return aggregate_presorted(diag_slot_messages(x, dw, edges), edges.layout,
+                               edges.num_nodes)
+
+
+def diag_weight_grad(x: torch.Tensor, g: torch.Tensor, edges) -> torch.Tensor:
+    """``d dw (R, d)``: ``Σ_{e ∈ r} val_e · x[src_e] ⊙ g[dst_e]``, the pad
+    edges reading a zero row of ``g`` (their ``rel`` is their tile's, in
+    range)."""
+    t = x[edges.src.long()] * gather_by_dst(g, edges.dst) * edges.val[:, None]
+    return t.new_zeros((edges.num_rels, x.shape[1])).index_add_(0, edges.rel.long(), t)
+
+
+class _DiagUnmerged(torch.autograd.Function):
+    """K1 over slot-order messages; dx the same over ``edges.reverse``,
+    ``d dw`` by :func:`diag_weight_grad`. The EdgeSet rides on ``ctx``."""
+
+    @staticmethod
+    def forward(ctx, x, dw, edges):
+        ctx.edges = edges
+        ctx.save_for_backward(x, dw)
+        return _diag_sorted_agg(x, dw, edges)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, dw = ctx.saved_tensors
+        edges = ctx.edges
+        g = g.contiguous()
+        dx = ddw = None
+        if ctx.needs_input_grad[0]:
+            dx = _diag_sorted_agg(g, dw, edges.reverse)
+        if ctx.needs_input_grad[1]:
+            ddw = diag_weight_grad(x, g, edges)
+        return dx, ddw, None
+
+
+def merged_dvec(coeff: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
+    """Per-slot weight vectors ``coeff @ dw`` (``(L, R') @ (R', d)``) in
+    full f32."""
+    with full_f32_matmul():
+        return coeff @ dw
+
+
+class _DiagMerged(torch.autograd.Function):
+    """K1 over the merged pair frame; backward K1 over its reverse frame
+    and one small product for ``d dw``. The layout rides on ``ctx``."""
+
+    @staticmethod
+    def forward(ctx, x, dw, merged):
+        ctx.merged = merged
+        ctx.save_for_backward(x, dw)
+        rows = x[merged.src_sorted.long()]
+        return aggregate_presorted(rows * merged_dvec(merged.coeff, dw), merged.layout,
+                                   merged.num_nodes)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, dw = ctx.saved_tensors
+        m = ctx.merged
+        gg = g.contiguous()[m.rev_src_sorted.long()]  # (L', d), reused for d dw
+        dx = ddw = None
+        if ctx.needs_input_grad[0]:
+            dx = aggregate_presorted(gg * merged_dvec(m.rev_coeff, dw), m.rev_layout,
+                                     m.num_nodes)
+        if ctx.needs_input_grad[1]:
+            with full_f32_matmul():
+                ddw = m.rev_coeff.t() @ (x[m.rev_receiver.long()] * gg)
+        return dx, ddw, None
+
+
+def rel_spmm_diag_ad(edges, x: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
+    """Differentiable diagonal SpMM of ``x (N, d)`` f32 with the general
+    relations' weight vectors ``dw (R', d)``: the merged frame when
+    ``edges.merged`` exists, else the unmerged one, which needs
+    ``edges.layout`` and ``edges.reverse`` (``build_edge_set(...,
+    with_dst_layout=True)``)."""
+    if edges.merged is not None:
+        return _DiagMerged.apply(x, dw, edges.merged)
+    if edges.layout is None or edges.reverse is None:
+        raise ValueError(
+            "rel_spmm_diag_ad needs an EdgeSet built with with_dst_layout=True "
+            "(layout + reverse present)"
+        )
+    return _DiagUnmerged.apply(x, dw, edges)

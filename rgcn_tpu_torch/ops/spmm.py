@@ -34,6 +34,7 @@ __all__ = [
     "rel_spmm",
     "rel_spmm_basis_pairs",
     "rel_spmm_block",
+    "rel_spmm_diag",
     "rel_spmm_featureless",
     "rel_spmm_featureless_basis",
 ]
@@ -82,6 +83,15 @@ def rel_spmm_block(edges, x: torch.Tensor, blocks: torch.Tensor, *,
     msgs = msgs.reshape(n_tiles * tile, nb * ob) * edges.val[:, None]
     if aggregate is not None:
         return aggregate(msgs, edges)
+    return aggregate_messages(msgs, edges.dst, edges.num_nodes)
+
+
+def rel_spmm_diag(edges, x: torch.Tensor, diag_weights: torch.Tensor) -> torch.Tensor:
+    """Diagonal-weight SpMM (the e-RGCN first layer): the message of edge
+    ``(src, rel)`` is ``x[src] ⊙ dw[rel] · val``, an elementwise product.
+    ``diag_weights (R, d)`` covers the general relations (the self-loop
+    term is the caller's)."""
+    msgs = x[edges.src.long()] * diag_weights[edges.rel.long()] * edges.val[:, None]
     return aggregate_messages(msgs, edges.dst, edges.num_nodes)
 
 

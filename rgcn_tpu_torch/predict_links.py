@@ -4,8 +4,9 @@
     python -m rgcn_tpu_torch.predict_links --config configs/rgcn/lp-WN18.yaml \\
         --synthetic [--epochs 3] [--run-dir DIR] [--tile-size 128] [--cpu]
 
-Trains the config's R-GCN link predictor (lp-WN18: basis 2, width 200;
-lp-FB-toy: 100 blocks, width 500) with the JAX trainer's production step
+Trains the config's link predictor (R-GCN lp-WN18: basis 2, width 200;
+lp-FB-toy: 100 blocks, width 500; c-RGCN ``configs/c-rgcn/lp-WN18.yaml``:
+width 128 compressed to 16, ``lp-FB-toy.yaml``: 64 to 10) with the JAX trainer's production step
 (the training subgraph and negatives built on the host, the structured
 DistMult scorer), prints each epoch's loss, the periodic and final
 filtered MRR and Hits@1/3/10, and with ``--run-dir`` writes the records to

@@ -9,9 +9,10 @@ Without ``--lp``: builds the NC server of ``--nc-config`` (default
 ``configs/rgcn/nc-AIFB.yaml``) with seeded parameters on its synthetic
 graph: AIFB-scale for nc-AIFB, the AM-scale graph (``am_like``: 300,000
 nodes, 266 relations) for nc-AM, the 500-node graph ``serve_nodes`` picks
-for nc-MUTAG and nc-BGS. It reports, as one JSON line, the main path (as
-the server routes it: for nc-AIFB K1 + K2) and the same model over the
-EdgeSet without its fused layout (layer 2 through K3 + K1).
+for nc-MUTAG and nc-BGS; the e-RGCN configs (``configs/e-rgcn/``) on the
+same graphs. It reports, as one JSON line, the main path (as the server
+routes it: for nc-AIFB K1 + K2) and the same model over the EdgeSet
+without its fused layout (layer 2 through K3 + K1).
 
 With ``--lp``: builds the LP server of ``--config`` (default
 ``configs/rgcn/lp-WN18.yaml``) as ``serve_links`` does (its synthetic graph,
@@ -19,7 +20,8 @@ seeded parameters) and reports the encode and one batch of 1024 top-10
 tail queries. lp-WN18 (width 200, basis 2): the encode over the merged
 frame (K4) and the same model over the EdgeSet whose merged layout carries
 the source-dedup'd frame (K5). lp-FB-toy (width 500, 100 blocks): the
-encode through the expanded block weights (K3 then K1).
+encode through the expanded block weights (K3 then K1). A c-RGCN config
+(``configs/c-rgcn/``): the encode through its dense R-GCN (K2).
 
 With ``--train``: builds the NC trainer of ``--nc-config`` (seed 0, its
 synthetic graph, on the card) and reports one warm training step
@@ -253,10 +255,11 @@ def profile_lp(dev, config: str) -> dict:
     es = srv.edges
     train = np.asarray(data.train)
     queries = train[np.random.default_rng(2).integers(0, len(train), 1024), :2]
-    if es.merged is None:  # the block encoder: expanded weights, K3 then K1
+    if es.merged is None:  # block (K3 then K1) or c-RGCN (K2) encoder
+        block = cfg.encoder.decomposition is not None
         return {
             "config": os.path.basename(config),
-            "encode_k3_k1": profile_calls(srv.refresh),
+            "encode_k3_k1" if block else "encode_k2": profile_calls(srv.refresh),
             "topk_tails_1024": profile_calls(lambda: srv.topk_tails(queries, k=10)),
             "row_blocks": {"k1_layout": _layout_blocks(es.layout)},
         }

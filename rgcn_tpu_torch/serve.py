@@ -74,8 +74,9 @@ def load_nc_server(
     CUDA, which must then be present; ``"cpu"`` runs the plain versions.
     The EdgeSet is built as the JAX server builds it (tile 128, destination
     layout, fused layout and reversed edges, and the merged pair layout
-    when ``merge_applicable`` says a basis model with at most 8 bases reads
-    it) and moved to the device once.
+    when ``merge_applicable`` says a layer reads it: the e-RGCN diagonal
+    layer, or a basis layer with at most 8 bases) and moved to the device
+    once.
     """
     from rgcn_tpu_torch.config import load_experiment
     from rgcn_tpu_torch.graph.coalesce import merge_applicable
@@ -89,10 +90,13 @@ def load_nc_server(
     if state_dict is not None:
         model.load_state_dict(state_dict)
     model = model.to(dev).eval()
-    decomp = cfg.rgcn.decomposition
-    merge = decomp is not None and merge_applicable(
-        2 * data.num_relations, decomposition=decomp.type,
-        num_bases=decomp.num_bases)
+    rg = cfg.rgcn
+    decomp = rg.decomposition
+    merge = merge_applicable(
+        2 * data.num_relations,
+        decomposition=decomp.type if decomp else None,
+        num_bases=decomp.num_bases if decomp else 0,
+        diag=rg.model == "e-rgcn")
     edges = build_edge_set(
         data.triples, data.num_nodes, data.num_relations,
         tile_size=tile_size, with_dst_layout=True, with_merged_layout=merge,

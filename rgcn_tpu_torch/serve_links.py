@@ -5,8 +5,9 @@
 
 Encodes the graph once at load (a basis encoder such as lp-WN18 through
 K4, or K5 over a source-dedup'd frame; a block encoder such as lp-FB-toy
-through its expanded block weights, K3 then K1), then answers queries with
-DistMult algebra.
+through its expanded block weights, K3 then K1; a c-RGCN encoder from
+``configs/c-rgcn/`` through K2 at its compressed width), then answers
+queries with DistMult algebra.
 ``--queries`` is a TSV of ``s p o`` rows (point scores) or ``s p ?`` /
 ``? p o`` rows (top-k tails / heads); entity and relation columns take
 names from the dataset vocabulary or integer ids. Without ``--queries``

@@ -4,8 +4,9 @@
         --synthetic [--nodes node1 42] [--cpu]
 
 Serves the four ``configs/rgcn/nc-*.yaml``: nc-AIFB (no decomposition) and
-nc-MUTAG, nc-BGS, nc-AM (basis decomposition with 30, 40, 40 bases). Runs
-one full forward of the R-GCN at load, then answers class queries as
+nc-MUTAG, nc-BGS, nc-AM (basis decomposition with 30, 40, 40 bases), and
+the four e-RGCN ``configs/e-rgcn/nc-*.yaml`` (embeddings 32, the diagonal
+layer then a dense one). Runs one full forward of the model at load, then answers class queries as
 table lookups. The synthetic graph is the one the JAX CLIs pick for the
 dataset: AIFB-scale for AIFB, a 500-node graph for the others (the
 AM-scale graph is ``rgcn_tpu_torch.data.synthetic.am_like``, which

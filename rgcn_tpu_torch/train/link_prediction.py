@@ -35,8 +35,13 @@ package's names.
 
 On the card the step runs on the kernels: a basis encoder (lp-WN18) K4
 forward and K4 over the reversed edges for dx; a block encoder (lp-FB-toy)
-K3 then K1 both ways; the decoder's backward two K4 sums for the corrupted
-entities and K1 for the subjects' and objects' rows. Not ported:
+K3 then K1 both ways; a c-RGCN encoder (``configs/c-rgcn/``) its dense
+R-GCN at the compressed width, K3 then K1 both ways, between two dense
+bottleneck products; the decoder's backward two K4 sums for the corrupted
+entities and K1 for the subjects' and objects' rows. The encoder's
+``node_embedding_l2_penalty`` (set by ``configs/c-rgcn/lp-FB-toy.yaml``)
+is ignored, as the JAX LP trainer ignores it: only its NC trainer reads
+that key. Not ported:
 checkpoints, the JAX package's executable cache, its in-jit step (the
 traced graph builder and ``jax.random`` negatives) and its non-structured
 scorers (a config whose decoder has biases, or an L2 other than

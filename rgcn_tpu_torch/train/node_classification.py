@@ -2,27 +2,34 @@
 ``rgcn_tpu/train/node_classification.py``).
 
 The epoch is the JAX trainer's: full-batch cross-entropy over the train
-nodes (mean) plus ``layer1_l2_penalty · layer1_l2()``, one optimizer step,
+nodes (mean) plus ``layer1_l2_penalty · layer1_l2()`` (R-GCN) or
+``node_embedding_l2_penalty · embedding_l2()`` (e-RGCN), one optimizer step,
 the loss read back, then one forward under ``torch.no_grad()`` whose
 argmax gives the train and test accuracy; after the last epoch one more
 prediction gives the final test accuracy. The records go to a
 :class:`~rgcn_tpu_torch.utils.logging.ScalarLogger` under the JAX
 package's names and suffixes. The EdgeSet is built as the JAX trainer
 builds it (destination, fused and reversed layouts; the merged layout where
-``merge_applicable`` says so; for basis configs with more than 8 bases the
-unique-(src, rel) pair index with its composed and by-source layouts;
-``auto_nc_row_block``) and moved to the device once.
+``merge_applicable`` says so, e-RGCN's diagonal layer included; for basis
+configs with more than 8 bases the unique-(src, rel) pair index with its
+composed and by-source layouts; ``auto_nc_row_block``) and moved to the
+device once.
 
-On the card two families train through the kernels. The dense R-GCN
+On the card three families train through the kernels. The dense R-GCN
 (nc-AIFB): layer 1's K1 with the gather ``g[dst]`` as its backward, layer
 2's K2 (or K3 then K1) with dx over ``edges.reverse`` on the same kernels
 (:func:`~rgcn_tpu_torch.ops.rel_spmm.rel_spmm_ad`). Basis decomposition
 with more than 8 bases (nc-MUTAG, nc-BGS, nc-AM): both layers on the pair
 path, K1 as the forward sum and as both backward sums (the pair messages'
 gradient over the slots grouped by pair, the basis table's over the pairs
-grouped by source; :mod:`rgcn_tpu_torch.ops.spmm`). Configs whose layers
-have no backward here yet (at most 8 bases, block decomposition, e-RGCN)
-raise ``NotImplementedError`` naming what is missing.
+grouped by source; :mod:`rgcn_tpu_torch.ops.spmm`). e-RGCN (diagonal
+first layer, dense second): the diagonal layer's K1 forward and K1 dx
+(over the merged pair frame below 128 general relations, as on nc-AIFB;
+else over the destination layout in slot order, as at AM scale), its
+weight gradient a small product or an ``index_add_``, and layer 2 as in
+the dense R-GCN. Configs whose layers have no backward here yet (at most 8
+bases, block decomposition) raise ``NotImplementedError`` naming what is
+missing.
 Checkpoints and the JAX package's executable cache are not ported.
 """
 
@@ -53,13 +60,7 @@ __all__ = [
 def _check_trainable(cfg) -> None:
     """Raise ``NotImplementedError`` for a config whose layers have no
     backward in the port yet, naming what is missing."""
-    rg = cfg.rgcn
-    if rg.model != "rgcn":
-        raise NotImplementedError(
-            f"training {rg.model!r} is not ported yet (ROADMAP queue 1, "
-            "item 5: e-RGCN NC)"
-        )
-    decomp = rg.decomposition
+    decomp = cfg.rgcn.decomposition
     if decomp is None:
         return
     if decomp.type == "basis" and decomp.num_bases > 8:
@@ -94,7 +95,7 @@ class NodeClassificationTrainer:
 
         _check_trainable(cfg)
         rg = cfg.rgcn
-        if rg.node_embedding_l2_penalty > 0.0:
+        if rg.node_embedding_l2_penalty > 0.0 and rg.model != "e-rgcn":
             raise ValueError(
                 f"cannot apply L2-regularisation on node embeddings for "
                 f"{rg.model} model"
@@ -105,10 +106,12 @@ class NodeClassificationTrainer:
             2 * data.num_relations,
             decomposition=decomp.type if decomp else None,
             num_bases=decomp.num_bases if decomp else 0,
+            diag=rg.model == "e-rgcn",
         )
         # the JAX trainer's pair_ok: many-basis layers contract once per
         # unique (src, rel) pair
-        pair_ok = decomp is not None and decomp.type == "basis" and decomp.num_bases > 8
+        pair_ok = (rg.model == "rgcn" and decomp is not None
+                   and decomp.type == "basis" and decomp.num_bases > 8)
         self.edges = build_edge_set(
             data.triples, data.num_nodes, data.num_relations,
             tile_size=tile_size, with_dst_layout=True,
@@ -129,6 +132,7 @@ class NodeClassificationTrainer:
         self.optimizer = make_optimizer(self.model.parameters(), opt.algorithm,
                                         opt.learn_rate, opt.weight_decay)
         self.l1_pen = rg.layer1_l2_penalty
+        self.emb_pen = rg.node_embedding_l2_penalty
         self.epochs = cfg.training.epochs
 
     def loss(self) -> torch.Tensor:
@@ -137,6 +141,8 @@ class NodeClassificationTrainer:
         loss = F.cross_entropy(logits[self.train_idx], self.train_lbl)
         if self.l1_pen > 0.0:
             loss = loss + self.l1_pen * self.model.layer1_l2()
+        if self.emb_pen > 0.0:
+            loss = loss + self.emb_pen * self.model.embedding_l2()
         return loss
 
     def step(self) -> float:

@@ -3,8 +3,10 @@
 Layouts stay identical: ``(R', din, dout)`` weights with the self-loop
 relation last, ``(nb, din, dout)`` bases and ``(R', nb)`` comps, ``(r, B,
 din/B, dout/B)`` blocks and the LP block layer's ``(din, dout)``
-self_weight, ``(dout,)`` biases, ``(N, d)`` node embeddings, ``(R, d)``
-DistMult relations.
+self_weight, ``(R', din)`` diagonal weights, ``(din, dout)`` kernels of the
+c-RGCN bottleneck layers (no transpose: the port's ``TorchLinear`` keeps
+the flax layout), ``(dout,)`` biases, ``(N, d)`` node embeddings, ``(R,
+d)`` DistMult relations.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ __all__ = ["from_jax_params"]
 # leaves the port's modules hold: top-level arrays, and those of a submodule
 _TOP_LEAVES = ("node_embeddings", "node_embeddings_bias")
 _MODULE_LEAVES = ("weights", "bias", "bases", "comps", "blocks", "self_weight",
-                  "relations", "sbias", "obias", "pbias")
+                  "kernel", "relations", "sbias", "obias", "pbias")
 
 
 def _tensor(value) -> torch.Tensor:

@@ -25,6 +25,7 @@ MODULES = [
     "rgcn_tpu_torch.device",
     "rgcn_tpu_torch.ops.aggregate",
     "rgcn_tpu_torch.ops.basis",
+    "rgcn_tpu_torch.ops.diag",
     "rgcn_tpu_torch.ops.distmult",
     "rgcn_tpu_torch.ops.distmult_train",
     "rgcn_tpu_torch.ops.fused",

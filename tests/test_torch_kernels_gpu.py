@@ -48,6 +48,12 @@ a training subgraph (K4 forward, K4 dx over the reversed subgraph, whose
 pad sources are one past the last row), the LP block layer (K3 then K1
 both ways, the blocks' gradient through the expansion, no K2) and the
 structured DistMult scorer (two K4 sums and K1 twice in its backward).
+The paper's variants: the diagonal layer's Function (``rel_spmm_diag_ad``,
+merged and unmerged frames, d 32 and 7) against the CPU and the plain
+``rel_spmm_diag`` with exactly two K1 launches, the diagonal layer
+refusing an EdgeSet without its layout, three epochs of e-RGCN on a
+merged and an unmerged graph with exact launches, and the c-RGCN encoder's
+gradients over a training subgraph (K3 then K1 both ways, per layer).
 Tolerance: max abs diff <= 1e-5 * max(1, max|ref|) (f32 sums reordered by
 atomics).
 """
@@ -722,11 +728,12 @@ def test_kernels_without_backward_refuse_grad(cuda):
                     "k2_fused": 1}
 
 
-def _train_on_card_and_cpu(cuda, config, edit=lambda es: es, epochs=3):
-    """``epochs`` of ``configs/rgcn/<config>`` on the 500-node synthetic
-    graph from one initialisation, on the card and on the CPU (the EdgeSet
-    passed through ``edit``): losses within rtol 1e-4, accuracies equal.
-    Returns the card run's launches."""
+def _train_on_card_and_cpu(cuda, config, edit=lambda es: es, epochs=3,
+                           variant="rgcn", data=None):
+    """``epochs`` of ``configs/<variant>/<config>`` on ``data`` (default
+    the 500-node synthetic graph) from one initialisation, on the card and
+    on the CPU (the EdgeSet passed through ``edit``): losses within rtol
+    1e-4, accuracies equal. Returns the card run's launches."""
     import os
 
     from rgcn_tpu_torch.config import load_experiment
@@ -745,10 +752,10 @@ def _train_on_card_and_cpu(cuda, config, edit=lambda es: es, epochs=3):
 
     cfg = load_experiment(os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "configs", "rgcn", config))
+        "configs", variant, config))
     cfg = dataclasses.replace(cfg, training=dataclasses.replace(cfg.training,
                                                                 epochs=epochs))
-    data = synthetic_node_classification(seed=0)
+    data = synthetic_node_classification(seed=0) if data is None else data
     init = build_nc_model(cfg, data, seed=0).state_dict()
     runs = {}
     for dev in ("cpu", cuda):
@@ -971,3 +978,103 @@ def test_structured_scorer_backward(cuda, ns, d):
         _close(a, b)
     assert out[1][4]["k4_weighted_aggregate"] == 2 and out[1][4]["k1_aggregate"] == 2
     assert sum(out[1][4].values()) == 4
+
+
+# -- the paper's variants: the diagonal layer (e-RGCN) and c-RGCN ---------------
+
+
+def _diag_edges(merged, seed):
+    """A graph with parallel edges (the same (s, o) pair under several
+    relations): 6 relations merge, 70 (140 general) do not."""
+    rng = np.random.default_rng(seed)
+    r = 6 if merged else 70
+    t = make_random_triples(rng, 900, r, 5000)
+    extra = t[rng.random(len(t)) < 0.5].copy()
+    extra[:, 1] = (extra[:, 1] + 1) % r
+    t = np.unique(np.concatenate([t, extra]), axis=0)
+    es = build_edge_set(t, 900, r, with_dst_layout=True, with_merged_layout=merged)
+    assert (es.merged is not None) == merged
+    return es, rng
+
+
+@pytest.mark.parametrize("merged", [True, False], ids=["merged", "unmerged"])
+@pytest.mark.parametrize("d", [32, 7])
+def test_diag_function_backward(cuda, merged, d):
+    """rel_spmm_diag_ad on the card against the CPU (the same Function over
+    K1's plain version) and the plain rel_spmm_diag: forward, dx, d dw;
+    exactly K1 twice (the forward and dx), nothing else."""
+    from rgcn_tpu_torch.ops.diag import rel_spmm_diag_ad
+
+    es, rng = _diag_edges(merged, seed=41 + d)
+    cpu_es, card_es = es.to("cpu"), es.to(cuda)
+    ins = [_t(rng, "cpu", 900, d), _t(rng, "cpu", es.num_rels, d, scale=0.3)]
+    g = _t(rng, "cpu", 900, d)
+    (ref, ref_g, _), (got, got_g, launched) = _grads_on_card_and_cpu(
+        lambda dev, *xs: rel_spmm_diag_ad(cpu_es if dev == "cpu" else card_es, *xs),
+        ins, cuda, g)
+    (plain, plain_g, _), _ = _grads_on_card_and_cpu(
+        lambda dev, *xs: sp.rel_spmm_diag(cpu_es, *xs), ins, "cpu", g)
+    _close(got, ref)
+    _close(got, plain)
+    for a, b, c in zip(got_g, ref_g, plain_g):
+        _close(a, b)
+        _close(a, c)
+    assert launched == {"k1_aggregate": 2, "k2_fused": 0, "k3_messages": 0,
+                        "k4_weighted_aggregate": 0, "k5_weighted_aggregate_dedup": 0}
+
+
+def test_diag_layer_needs_its_layout_on_the_card(cuda):
+    """No quiet fallback: the diagonal layer over an EdgeSet without a
+    destination layout raises on the card (the plain path is the CPU's)."""
+    from rgcn_tpu_torch.nn.layers import RGCNConv
+
+    rng = np.random.default_rng(5)
+    t = make_random_triples(rng, 50, 3, 200)
+    es = build_edge_set(t, 50, 3).to(cuda)
+    conv = RGCNConv(50, 7, 8, in_features=8, diag=True).to(cuda)
+    with pytest.raises(ValueError, match="no destination layout"):
+        conv(es, _t(rng, cuda, 50, 8))
+
+
+@pytest.mark.parametrize("rels", [8, 70], ids=["merged", "unmerged"])
+def test_ergcn_training_on_the_card(cuda, rels):
+    """Three epochs of configs/e-rgcn/nc-AIFB.yaml on a 500-node graph on
+    the card and on the CPU: losses within rtol 1e-4, accuracies equal;
+    exactly K1 3E + 1 (the diagonal forward and dx, eval) and K2 3E + 1
+    (layer 2 forward, dx, eval; W (2R, 32, 4) within fused_fits)."""
+    from rgcn_tpu_torch.data.synthetic import synthetic_node_classification
+
+    data = synthetic_node_classification(num_rels=rels, seed=0)
+    used = _train_on_card_and_cpu(cuda, "nc-AIFB.yaml", variant="e-rgcn", data=data)
+    assert used == {"k1_aggregate": 10, "k2_fused": 10}
+
+
+@pytest.mark.parametrize("layers", [1, 2])
+def test_crgcn_encode_backward(cuda, layers):
+    """The c-RGCN encoder over a training subgraph on the card against the
+    CPU: z and every parameter's gradient; its R-GCN at the compressed
+    width runs K3 then K1 forward and for dx, per layer."""
+    from rgcn_tpu_torch.models.link_prediction import CompressionRelationPredictor
+
+    _, cpu_es, card_es, rng = _lp_subgraph(200, 4, 600, 34, cuda)
+    model = CompressionRelationPredictor(200, 4, emb_dim=64, hidden1_size=10,
+                                         num_layers=layers, bias_init="zeros",
+                                         weight_init="schlichtkrull-normal")
+    g = _t(rng, "cpu", 200, 64)
+    res = []
+    for d, es in (("cpu", cpu_es), (cuda, card_es)):
+        m = copy.deepcopy(model).to(d)
+        before = dict(kernels.LAUNCHES)
+        z = m.encode(es)
+        z.backward(g.to(d))
+        torch.cuda.synchronize()
+        res.append((z.detach().cpu(), {k: p.grad.cpu() for k, p in m.named_parameters()
+                                       if p.grad is not None},
+                    {k: kernels.LAUNCHES[k] - before[k] for k in before}))
+    _close(res[1][0], res[0][0])
+    assert set(res[1][1]) == set(res[0][1])
+    for k, v in res[0][1].items():
+        _close(res[1][1][k], v)
+    assert res[1][2] == {"k1_aggregate": 2 * layers, "k2_fused": 0,
+                         "k3_messages": 2 * layers, "k4_weighted_aggregate": 0,
+                         "k5_weighted_aggregate_dedup": 0}

@@ -130,9 +130,22 @@ def test_build_lp_model_reads_config():
     shapes = {".".join(str(k.key) for k in path[1:]): tuple(v.shape)
               for path, v in flat}
     assert shapes == {k: tuple(v.shape) for k, v in m.state_dict().items()}
-    c = load_experiment(os.path.join(ROOT, "configs", "c-rgcn", "lp-WN18.yaml"))
-    with pytest.raises(NotImplementedError, match="c-rgcn"):
-        build_lp_model(c, 300, 18)
+    # c-RGCN: the whole state dict against the flax tree's shapes, the
+    # bottleneck kernels in the flax (in, out) layout
+    for name in ("lp-WN18", "lp-FB-toy"):
+        path = os.path.join(ROOT, "configs", "c-rgcn", f"{name}.yaml")
+        c = build_lp_model(load_experiment(path), 300, 18)
+        jc = j_build_lp(j_load(path), 300, 18)
+        flat = jax.tree_util.tree_flatten_with_path(jax.eval_shape(
+            lambda: jc.init(jax.random.key(0), j_build(np.zeros((1, 3), np.int64),
+                                                       300, 18, prefer_native=False),
+                            jnp.zeros((1, 3), jnp.int32))))[0]
+        shapes = {".".join(str(k.key) for k in path[1:]): tuple(v.shape)
+                  for path, v in flat}
+        assert shapes == {k: tuple(v.shape) for k, v in c.state_dict().items()}
+        emb, hid = c.node_embeddings.shape[1], c.rgc1.weights.shape[1]
+        assert c.encoding_layer.kernel.shape == (emb, hid)
+        assert c.decoding_layer.kernel.shape == (hid, emb)
 
 
 def _server_pair(max_batch):

@@ -158,8 +158,9 @@ def test_basis_conv_unported_branches_raise():
         == (2, 10, 4)
     assert RGCNConv(10, 5, 4, in_features=3, decomposition="basis",
                     num_bases=9).comps.shape == (5, 9)
-    with pytest.raises(NotImplementedError, match="diagonal"):
-        RGCNConv(10, 5, 4, in_features=4, diag=True)
+    # diagonal weights (e-RGCN) are ported: (R', din), no bias
+    diag = RGCNConv(10, 5, 4, in_features=4, diag=True)
+    assert diag.weights.shape == (5, 4) and diag.bias is None
     with pytest.raises(ValueError, match="num_blocks > 0"):  # block is ported
         RGCNConv(10, 5, 4, in_features=4, decomposition="block")
     with pytest.raises(ValueError, match="num_bases > 0"):

@@ -162,13 +162,22 @@ def test_unported_branches_raise():
     from rgcn_tpu_torch.config import load_experiment
     from rgcn_tpu_torch.models.node_classification import build_nc_model
 
+    from rgcn_tpu_torch.models.node_classification import EmbeddingNodeClassifier
+
+    # e-RGCN is ported: the config builds the embedding classifier
     cfg = load_experiment(os.path.join(ROOT, "configs", "e-rgcn", "nc-AIFB.yaml"))
-    with pytest.raises(NotImplementedError, match="e-rgcn"):
-        build_nc_model(cfg, aifb_like())
+    m = build_nc_model(cfg, aifb_like())
+    assert isinstance(m, EmbeddingNodeClassifier)
+    assert m.rgcn_no_hidden.weights.shape == (91, 32)
     from rgcn_tpu_torch.weights import from_jax_params as f
 
-    with pytest.raises(NotImplementedError, match="kernel"):
-        f({"params": {"encoding_layer": {"kernel": np.zeros((2, 3))}}})
+    # the c-RGCN bottleneck's kernel carries as it is, (in, out)
+    k = np.arange(6, dtype=np.float32).reshape(2, 3)
+    got = f({"params": {"encoding_layer": {"kernel": k}}})
+    assert np.array_equal(got["encoding_layer.kernel"].numpy(), k)
+    # the JAX LP model's feature_blocks storage is not ported
+    with pytest.raises(NotImplementedError, match="node_embeddings_block0"):
+        f({"params": {"node_embeddings_block0": np.zeros((2, 3))}})
     # block layers are ported: their leaves carry
     assert set(f({"params": {"rgc1": {"blocks": np.zeros((2, 3, 4, 4)),
                                       "self_weight": np.zeros((12, 12))}}})) \

@@ -53,7 +53,7 @@ from tests.conftest import make_random_triples
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = {name: os.path.join(ROOT, "configs", *name.split("/"))
-       for name in ("rgcn/nc-AIFB.yaml", "e-rgcn/nc-AIFB.yaml")}
+       for name in ("rgcn/nc-AIFB.yaml",)}
 ATOL = 1e-5
 
 
@@ -311,20 +311,16 @@ def test_trainer_matches_jax_trainer(tmp_path, graph, epochs, penalty):
 
 
 @pytest.mark.parametrize("config,match", [
-    ("e-rgcn/nc-AIFB.yaml", "item 5"), ("basis-4", "pallas_basis.py:607"),
-    ("block", "blockwise self message"),
+    ("basis-4", "pallas_basis.py:607"), ("block", "blockwise self message"),
 ])
 def test_trainer_refuses_untrainable_configs(config, match):
     from rgcn_tpu_torch.config import DecompositionConfig
 
-    if config in ("basis-4", "block"):
-        base = load_experiment(CFG["rgcn/nc-AIFB.yaml"])
-        decomp = (DecompositionConfig("basis", num_bases=4) if config == "basis-4"
-                  else DecompositionConfig("block", num_blocks=2))
-        cfg = dataclasses.replace(base, rgcn=dataclasses.replace(
-            base.rgcn, decomposition=decomp))
-    else:
-        cfg = load_experiment(CFG[config])
+    base = load_experiment(CFG["rgcn/nc-AIFB.yaml"])
+    decomp = (DecompositionConfig("basis", num_bases=4) if config == "basis-4"
+              else DecompositionConfig("block", num_blocks=2))
+    cfg = dataclasses.replace(base, rgcn=dataclasses.replace(
+        base.rgcn, decomposition=decomp))
     data = synthetic_node_classification(num_nodes=40, num_rels=3, num_edges=120)
     with pytest.raises(NotImplementedError, match=match):
         train_node_classifier(cfg, data, device="cpu")
