@@ -179,7 +179,34 @@ Phases, in order; any failure exits non-zero and prints no result:
    path) held and timed as in phase 3, and at each shape both routes of
    the encode timed in turns (a "crgcn_encode_routes" line each). Phases
    14-18 print their seconds;
-19. summary: one JSON line of each path's launch counts (serving, and
+19. from dataset files on disk, in a temporary directory: aifb_like()
+   written as AIFB's files (aifb/aifb_stripped.nt.gz with URIs,
+   trainingSet.tsv and testSet.tsv whose labels are the integers 7, 42,
+   105 and 1000) and loaded with load_node_classification(final_run=True),
+   which must give back the same graph and class codes; nc-AIFB trained 6
+   epochs on the card with checkpoints every 2, and a run broken after
+   epoch 4 and resumed from step 4 to 6 (counts zeroed before the resumed
+   leg: exactly K1 2E + 1 and K2 3E + 1 for its E = 2 epochs), both held
+   against each other and against the CPU under phase 5's gates; a server
+   built from the checkpoint (exactly K1 1, K2 1), its logits within
+   1e-4 * max(1, max|ref|) of the trained model's and its classes its
+   argmax wherever the top two logits are apart. wn18_like() written as
+   WN18's files (its test split halved into valid.txt and test.txt; the
+   loaded graph holds the entities its triples reach) and loaded with
+   load_link_prediction; lp-WN18 trained 4 epochs straight (checkpoints
+   every 2) and 2 epochs (max_epochs) then resumed to 4 (the resumed leg
+   exactly K4 4E + 1 and K1 2E for its E = 2), held against each other and
+   against the CPU under phase 13's gates (losses rtol 1e-4, MRR 1e-3,
+   99% of ranks equal); a server from the checkpoint (exactly K4 1), its z
+   within 1e-4 * max(1, max|z|) of the trained model's encode and its
+   top-10 tails of 256 test queries those of the model wherever the 10th
+   and 11th scores are more than 1e-4 apart (at least half of them). One
+   line of host-clock seconds: each write, load, save, restore and
+   server build, with the card's name and power limit. When a final-logits
+   gate of phases 5 and 19 fails, the run first logs the card's logits
+   against the CPU forward of the card's own parameters and each
+   parameter's distance from the CPU run's;
+20. summary: one JSON line of each path's launch counts (serving, and
    training), the training steps' timing (nc-AIFB, nc-AM, lp-WN18,
    lp-FB-toy, the c-RGCN and e-RGCN configs), one of the extra nc modes
    (K1 at dout 4, K3 at nc-AIFB, K2 and K3 at the dx shape,
@@ -191,7 +218,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    around the diagonal layer's K1, and the "kernels"
    line, whose "launches" for each kernel is its count on the path named
    beside it and "train_launches" its count on each training path;
-20. last line: {"ok": true, "device": {...}}.
+21. last line: {"ok": true, "device": {...}}.
 
 Needs CUDA (exits 1 without it) and the repository around it.
 """
@@ -674,9 +701,11 @@ def top_kernels(kernels_us: dict, n: int) -> dict:
     return dict(sorted(cut.items(), key=lambda kv: -kv[1])[:n])
 
 
-def check_train_against_cpu(label, got, ref, logits, ref_logits):
+def check_train_against_cpu(label, got, ref, logits, ref_logits, diagnose=None):
     """Records equal in name and step, losses within rtol 1e-4, accuracies
-    equal; final logits within 1e-4 * max(1, max|ref|)."""
+    equal; final logits within 1e-4 * max(1, max|ref|). ``diagnose``: a
+    callable whose line is logged before a failure of the logits gate
+    (which of the trajectory and the kernels moved)."""
     if [r[:2] for r in got] != [r[:2] for r in ref]:
         fail(f"training [{label}]: records {[r[:2] for r in got]} != CPU's")
     worst = 0.0
@@ -692,8 +721,24 @@ def check_train_against_cpu(label, got, ref, logits, ref_logits):
     log(f"  [{label}] losses vs CPU: max rel diff {worst:.3e}; accuracies equal; "
         f"final logits max abs diff {diff:.3e} (tol {tol:.3e})")
     if not diff <= tol:
+        if diagnose is not None:
+            log(f"  [{label}] {diagnose()}")
         fail(f"training [{label}]: final logits differ from the CPU beyond {tol}")
     return worst, diff
+
+
+def diagnose_params(cfg, data, model, logits, ref_state) -> str:
+    """For a failed final-logits gate: the card's logits against the CPU's
+    plain forward of the card's own final parameters (the kernels), and
+    the largest parameter difference from the CPU run (the trajectory)."""
+    from rgcn_tpu_torch.train.node_classification import NodeClassificationTrainer
+
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    own = NodeClassificationTrainer(cfg, data, init_params=state, device="cpu").logits()
+    moved = {k: (v - ref_state[k]).abs().max().item() for k, v in state.items()}
+    return (f"card logits vs the CPU forward of the card's own parameters: max abs "
+            f"diff {(logits.cpu() - own).abs().max().item():.3e}; parameters vs "
+            f"the CPU run's: {moved}")
 
 
 def train_against_cpu(name, cfg, data, dev, runs):
@@ -739,6 +784,7 @@ def train_against_cpu(name, cfg, data, dev, runs):
     ref = records_logger()
     cpu.fit(ref)
     ref_logits = cpu.logits()
+    ref_state = cpu.model.state_dict()
     log(f"  CPU plain training {time.perf_counter() - t0:.1f} s; losses "
         f"{[round(r[2], 6) for r in ref.records if r[0] == 'training.loss']}; "
         f"accuracies (train, test) {[r[2] for r in ref.records if r[0] != 'training.loss']}")
@@ -766,8 +812,9 @@ def train_against_cpu(name, cfg, data, dev, runs):
         if tuple(logits.shape) != (data.num_nodes, data.num_classes) \
                 or not torch.isfinite(logits).all():
             fail(f"training [{label}]: logits {tuple(logits.shape)} not finite (N, C)")
-        checks[key] = check_train_against_cpu(label, got.records, ref.records,
-                                              logits, ref_logits)
+        checks[key] = check_train_against_cpu(
+            label, got.records, ref.records, logits, ref_logits,
+            diagnose=lambda: diagnose_params(cfg, data, t.model, logits, ref_state))
         paths[key] = counts
         if first is None:
             first, peak_gb = t, peak
@@ -2394,6 +2441,302 @@ def phase_variants(dev, am_data):
     return serve, train, serve_timing, train_timing, modes, around
 
 
+# -- from dataset files on disk: train with checkpoints, resume, serve --
+
+FILES_NC_EPOCHS = 6  # nc-AIFB: checkpoints every 2; the broken run stops after 4
+FILES_NC_BREAK = 4
+FILES_LP_EPOCHS = 4  # lp-WN18: the broken run stops after 2 (max_epochs)
+FILES_LP_BREAK = 2
+# integer labels of different digit lengths, in class order: read as
+# numbers they code the classes 0-3 as aifb_like does; read as strings
+# ("1000" < "105" < "42" < "7") they would not
+FILES_LABELS = (7, 42, 105, 1000)
+
+
+def write_aifb_files(root, data) -> None:
+    """``data`` (aifb_like) as AIFB's files: ``aifb/aifb_stripped.nt.gz``
+    with URIs, ``trainingSet.tsv`` and ``testSet.tsv`` (person,
+    label_affiliation) with the labels of FILES_LABELS."""
+    import gzip
+
+    d = os.path.join(root, "aifb")
+    os.makedirs(d)
+    uri = "http://aifb.example.org/"
+    with gzip.open(os.path.join(d, "aifb_stripped.nt.gz"), "wt") as f:
+        f.writelines(f"<{uri}{data.i2n[s]}> <{uri}{data.i2r[p]}> <{uri}{data.i2n[o]}> .\n"
+                     for s, p, o in data.triples)
+    for name, split in (("trainingSet.tsv", data.train), ("testSet.tsv", data.test)):
+        with open(os.path.join(d, name), "w") as f:
+            f.write("person\tlabel_affiliation\n")
+            f.writelines(f"{uri}{n}\t{FILES_LABELS[c]}\n" for n, c in split.items())
+
+
+def write_wn18_files(root, data) -> None:
+    """``data`` (wn18_like) as WN18's files: ``wn18/train.txt`` the train
+    split, ``valid.txt`` and ``test.txt`` the two halves of its test split;
+    entities as WN18's 8-digit synset ids, relations ``_rel{p}``."""
+    d = os.path.join(root, "wn18")
+    os.makedirs(d)
+    half = len(data.test) // 2
+    for name, rows in (("train.txt", data.train), ("valid.txt", data.test[:half]),
+                       ("test.txt", data.test[half:])):
+        with open(os.path.join(d, name), "w") as f:
+            f.writelines(f"{s:08d}\t_rel{p:02d}\t{o:08d}\n" for s, p, o in rows)
+
+
+def timed_s(fn):
+    """(result, host-clock seconds) of ``fn()``, ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def checkpoint_times(trainer, ck, dev) -> dict:
+    """Host seconds of one more save of ``trainer``'s state into ``ck`` and
+    of its restore onto ``dev``, and the step file's size."""
+    from rgcn_tpu_torch.utils.checkpoint import restore_checkpoint, save_training_state
+
+    path, save_s = timed_s(lambda: save_training_state(ck, trainer.model,
+                                                       trainer.optimizer, 999))
+    (state, _), restore_s = timed_s(lambda: restore_checkpoint(ck, map_location=dev))
+    if state is None or not all(v.device.type == dev.type
+                                for v in state["params"].values()):
+        fail(f"restore of {ck}: the parameters did not land on {dev}")
+    return {"save_s": save_s, "restore_s": restore_s,
+            "step_mb": os.path.getsize(path) / 1e6}
+
+
+def files_nc(dev, root, timing) -> dict:
+    """nc-AIFB from files: six epochs on the card with checkpoints every 2,
+    a run broken after epoch 4 and resumed to 6, both against each other
+    and the CPU under phase 5's gates; the resumed leg's exact launches; a
+    server built from the checkpoint. Returns that leg's launches."""
+    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch.config import load_experiment
+    from rgcn_tpu_torch.data.loaders import load_node_classification
+    from rgcn_tpu_torch.data.synthetic import aifb_like
+    from rgcn_tpu_torch.models.node_classification import build_nc_model
+    from rgcn_tpu_torch.serve import load_nc_server
+    from rgcn_tpu_torch.train.node_classification import NodeClassificationTrainer
+    from rgcn_tpu_torch.utils.checkpoint import latest_step
+
+    source = aifb_like()
+    _, timing["nc_write_s"] = timed_s(lambda: write_aifb_files(root, source))
+    data, timing["nc_load_s"] = timed_s(
+        lambda: load_node_classification("AIFB", final_run=True, data_root=root))
+    again, timing["nc_load_cached_s"] = timed_s(
+        lambda: load_node_classification("AIFB", final_run=True, data_root=root))
+    # the loaded graph is the source renamed: same sizes, and each labelled
+    # node's class code is its class in the source (numbers sort as numbers)
+    n_src = {n: f"http://aifb.example.org/{n}" for n in source.i2n}
+    coded = {n_src[n]: c for n, c in {**source.train, **source.test}.items()}
+    if (data.num_nodes, data.num_relations, len(data.triples)) != \
+            (source.num_nodes, source.num_relations, len(source.triples)) \
+            or {**data.train, **data.test} != coded or again.train != data.train:
+        fail("nc-AIFB files: the loaded dataset is not the one written")
+    log(f"nc-AIFB from files: N {data.num_nodes}, R {data.num_relations}, "
+        f"{len(data.triples)} triples, train {len(data.train)}, test {len(data.test)}, "
+        f"classes coded from labels {FILES_LABELS}; load {timing['nc_load_s']:.2f} s, "
+        f"from the cache {timing['nc_load_cached_s']:.3f} s")
+
+    base = load_experiment(CONFIG)
+
+    def config(epochs):
+        return dataclasses.replace(base, training=dataclasses.replace(
+            base.training, epochs=epochs))
+
+    cfg = config(FILES_NC_EPOCHS)
+    init = build_nc_model(cfg, data, seed=0).state_dict()
+
+    def trainer(device, epochs=FILES_NC_EPOCHS, ck=None):
+        return NodeClassificationTrainer(config(epochs), data, init_params=init,
+                                         device=device, checkpoint_dir=ck,
+                                         checkpoint_every=2)
+
+    cpu, ref = trainer("cpu"), records_logger()
+    cpu.fit(ref)
+    ref_logits = cpu.logits()
+    ref_state = cpu.model.state_dict()
+    del cpu
+
+    def diagnose(t, logits):
+        return lambda: diagnose_params(cfg, data, t.model, logits, ref_state)
+
+    ck_a, ck_b = os.path.join(root, "ck_nc_straight"), os.path.join(root, "ck_nc_broken")
+    straight, rec_a = trainer(dev, ck=ck_a), records_logger()
+    straight.fit(rec_a)
+    logits_a = straight.logits()
+    check_train_against_cpu("files nc-AIFB straight", rec_a.records, ref.records,
+                            logits_a, ref_logits, diagnose(straight, logits_a))
+    first, rec_b1 = trainer(dev, epochs=FILES_NC_BREAK, ck=ck_b), records_logger()
+    first.fit(rec_b1)
+    if sorted(os.listdir(ck_b)) != ["step_00000002", "step_00000004"]:
+        fail(f"nc-AIFB broken run: checkpoints {sorted(os.listdir(ck_b))}")
+    resumed, rec_b2 = trainer(dev, ck=ck_b), records_logger()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    resumed.fit(rec_b2)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    legs = FILES_NC_EPOCHS - FILES_NC_BREAK
+    log(f"training [files nc-AIFB resumed at {FILES_NC_BREAK}]: epochs "
+        f"{FILES_NC_BREAK + 1}-{FILES_NC_EPOCHS} + final prediction, launches {counts}")
+    if counts != launches(**train_main_path(legs)):
+        fail(f"files nc-AIFB resumed: launches {counts}, expected "
+             f"{launches(**train_main_path(legs))}")
+    joined = rec_b1.records[:-1] + rec_b2.records  # less the broken run's final record
+    logits_b = resumed.logits()
+    check_train_against_cpu("files nc-AIFB resumed vs CPU", joined, ref.records,
+                            logits_b, ref_logits, diagnose(resumed, logits_b))
+    check_train_against_cpu("files nc-AIFB resumed vs straight card", joined,
+                            rec_a.records, logits_b, logits_a.cpu())
+    if {latest_step(ck_a), latest_step(ck_b)} != {FILES_NC_EPOCHS}:
+        fail("nc-AIFB: the last checkpoint is not the last epoch's")
+
+    kernels.reset_launches()
+    srv, timing["nc_server_from_checkpoint_s"] = timed_s(
+        lambda: load_nc_server(CONFIG, data, checkpoint_dir=ck_b, device=dev))
+    if srv is None or dict(kernels.LAUNCHES) != launches(**MAIN_PATH):
+        fail(f"files nc-AIFB server: {srv} with launches {dict(kernels.LAUNCHES)}")
+    want = logits_b.cpu().numpy()
+    diff = float(np.abs(srv.logits - want).max())
+    top2 = np.sort(want, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 1e-4 * max(1.0, float(np.abs(want).max()))
+    classes = srv.classify(np.arange(data.num_nodes))
+    agree = bool((classes == want.argmax(1))[clear].all())
+    log(f"  [files nc-AIFB server] from {ck_b}: logits vs the trained model's max abs "
+        f"diff {diff:.3e}; classes equal its argmax on all {int(clear.sum())} of "
+        f"{data.num_nodes} nodes whose top two logits are apart: {agree}")
+    if not (diff <= 1e-4 * max(1.0, float(np.abs(want).max())) and agree):
+        fail("files nc-AIFB: the server from the checkpoint disagrees with the model")
+    timing["nc_checkpoint"] = checkpoint_times(resumed, ck_b, dev)
+    return counts
+
+
+def files_lp(dev, root, timing) -> dict:
+    """lp-WN18 from files: four epochs straight on the card (checkpoints
+    every 2), and two (max_epochs) then a resume to four, both against each
+    other and the CPU under phase 13's gates; the resumed leg's exact
+    launches; a server from the checkpoint whose top-10 tails equal the
+    trained model's. Returns that leg's launches."""
+    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch.config import load_experiment
+    from rgcn_tpu_torch.data.loaders import load_link_prediction
+    from rgcn_tpu_torch.data.synthetic import wn18_like
+    from rgcn_tpu_torch.serve import load_lp_server
+    from rgcn_tpu_torch.train.link_prediction import LinkPredictionTrainer
+
+    source = wn18_like()
+    _, timing["lp_write_s"] = timed_s(lambda: write_wn18_files(root, source))
+    data, timing["lp_load_s"] = timed_s(
+        lambda: load_link_prediction("WN18", final_run=True, data_root=root))
+    half = len(source.test) // 2
+    if (len(data.train), len(data.test), data.num_relations) != \
+            (len(source.train), len(source.test) - half, source.num_relations) \
+            or [int(x) for x in np.asarray(data.i2n)[data.train[:, 0]][:100]] \
+            != source.train[:100, 0].tolist():
+        fail("lp-WN18 files: the loaded dataset is not the one written")
+    log(f"lp-WN18 from files: N {data.num_nodes} (the entities its triples reach), "
+        f"R {data.num_relations}, train {len(data.train)}, valid {half}, test "
+        f"{len(data.test)}; load {timing['lp_load_s']:.2f} s")
+
+    base = load_experiment(LP_CONFIG)
+    cfg = dataclasses.replace(base, training=dataclasses.replace(
+        base.training, epochs=FILES_LP_EPOCHS))
+    quiet = records_logger()
+
+    def trainer(device, **kw):
+        return LinkPredictionTrainer(cfg, data, device=device, logger=quiet, **kw)
+
+    def losses(rec):
+        return [r for r in rec.records if r[0] == "training.loss"]
+
+    def check(label, got_losses, mrr, ranks, ref_losses, ref_mrr, ref_ranks):
+        if [r[:2] for r in got_losses] != [r[:2] for r in ref_losses]:
+            fail(f"[{label}]: loss records {got_losses} != {ref_losses}")
+        worst = max(abs(a[2] - b[2]) / abs(b[2]) for a, b in zip(got_losses, ref_losses))
+        same = float(np.mean(ranks == ref_ranks))
+        log(f"  [{label}] losses max rel diff {worst:.3e}; MRR {mrr:.6f} vs "
+            f"{ref_mrr:.6f}; {same:.4%} of {len(ranks)} ranks equal")
+        if not (worst <= 1e-4 and abs(mrr - ref_mrr) <= 1e-3 and same >= 0.99
+                and np.isfinite(mrr)):
+            fail(f"[{label}]: losses (rtol 1e-4), MRR (1e-3) or ranks (99%) differ")
+        return {"loss_max_rel_diff": worst, "mrr": mrr, "ranks_equal": same}
+
+    ref = records_logger()
+    ref_mrr, _, ref_ranks = trainer("cpu").fit(ref)
+    ck_a, ck_b = os.path.join(root, "ck_lp_straight"), os.path.join(root, "ck_lp_broken")
+    rec_a = records_logger()
+    mrr_a, _, ranks_a = trainer(dev, checkpoint_dir=ck_a, checkpoint_every=2).fit(rec_a)
+    checks = {"straight_vs_cpu": check("files lp-WN18 straight vs CPU", losses(rec_a),
+                                       mrr_a, ranks_a, losses(ref), ref_mrr, ref_ranks)}
+    rec_b1 = records_logger()
+    trainer(dev, checkpoint_dir=ck_b, max_epochs=FILES_LP_BREAK).fit(rec_b1)
+    if sorted(os.listdir(ck_b)) != [f"step_{FILES_LP_BREAK:08d}"]:
+        fail(f"lp-WN18 broken run: checkpoints {sorted(os.listdir(ck_b))}")
+    resumed, rec_b2 = trainer(dev, checkpoint_dir=ck_b), records_logger()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    mrr_b, _, ranks_b = resumed.fit(rec_b2)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    legs = FILES_LP_EPOCHS - FILES_LP_BREAK
+    expect = launches(k4_weighted_aggregate=4 * legs + 1, k1_aggregate=2 * legs)
+    log(f"training [files lp-WN18 resumed at {FILES_LP_BREAK}]: epochs "
+        f"{FILES_LP_BREAK + 1}-{FILES_LP_EPOCHS} + final evaluation, launches {counts}")
+    if counts != expect:
+        fail(f"files lp-WN18 resumed: launches {counts}, expected {expect}")
+    if sorted(os.listdir(ck_b))[-1] != f"step_{FILES_LP_EPOCHS:08d}":
+        fail(f"lp-WN18 resumed run: checkpoints {sorted(os.listdir(ck_b))}")
+    joined = losses(rec_b1) + losses(rec_b2)
+    checks["resumed_vs_cpu"] = check("files lp-WN18 resumed vs CPU", joined, mrr_b,
+                                     ranks_b, losses(ref), ref_mrr, ref_ranks)
+    checks["resumed_vs_straight"] = check("files lp-WN18 resumed vs straight card",
+                                          joined, mrr_b, ranks_b, losses(rec_a), mrr_a,
+                                          ranks_a)
+    timing["lp_checks"] = checks
+
+    kernels.reset_launches()
+    srv, timing["lp_server_from_checkpoint_s"] = timed_s(
+        lambda: load_lp_server(LP_CONFIG, data, checkpoint_dir=ck_b, device=dev))
+    if srv is None or dict(kernels.LAUNCHES) != launches(**LP_MAIN):
+        fail(f"files lp-WN18 server: {srv} with launches {dict(kernels.LAUNCHES)}")
+    q_np = np.asarray(data.test[:256])
+    queries = torch.as_tensor(q_np, device=dev)
+    with torch.no_grad():
+        z = resumed.model.encode(resumed.eval_edges)
+        want_s, want_e = torch.topk(resumed.model.score_tails(queries, z), 11, dim=1)
+    dz = (srv.z - z).abs().max().item()
+    _, got_e = srv.topk_tails(q_np[:, :2], k=10)
+    rows = topk_agree("files lp-WN18 server top-10 tails", got_e,
+                      want_s.cpu().numpy(), want_e.cpu().numpy(), 10)
+    log(f"  [files lp-WN18 server] from {ck_b}: z vs the trained model's encode max abs "
+        f"diff {dz:.3e}; top-10 tails equal on {rows} of {len(q_np)} queries (rows "
+        f"with a 10th/11th gap > 1e-4)")
+    if not dz <= 1e-4 * max(1.0, z.abs().max().item()) or 2 * rows < len(q_np):
+        fail("files lp-WN18: the server from the checkpoint disagrees with the model")
+    timing["lp_checkpoint"] = checkpoint_times(resumed, ck_b, dev)
+    return counts
+
+
+def phase_files(dev):
+    """nc-AIFB and lp-WN18 from dataset files this run writes, trained with
+    checkpoints, resumed and served from the checkpoint, in a temporary
+    directory. Returns (launches of each resumed leg, the timing line)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    timing = {"card": card_line()}
+    with tempfile.TemporaryDirectory(prefix="rgcn_files_") as root:
+        paths = {"files_nc_aifb_resumed": files_nc(dev, root, timing),
+                 "files_lp_wn18_resumed": files_lp(dev, root, timing)}
+    log(json.dumps({"files_timing_s": timing}))
+    log(f"phase files: {time.perf_counter() - t0:.1f} s")
+    return paths, timing
+
+
 def main():
     t_start = time.perf_counter()
     name = phase_environment()
@@ -2486,6 +2829,8 @@ def main():
     train_paths.update(v_train)
     train_timing.update(v_train_timing)
     nc_modes.extend(v_modes)
+    files_paths, files_timing = phase_files(dev)
+    train_paths.update(files_paths)
 
     # each kernel's count on the path that serves through it
     key = {"K1": ("k1_aggregate", "main"), "K2": ("k2_fused", "main"),
@@ -2510,6 +2855,7 @@ def main():
     print(json.dumps({"serve_timing_ms": timing}), flush=True)
     print(json.dumps({"train_launches": train_paths}), flush=True)
     print(json.dumps({"train_timing_ms": train_timing}), flush=True)
+    print(json.dumps({"files_timing_s": files_timing}), flush=True)
     print(json.dumps({"nc_modes": nc_modes}), flush=True)
     print(json.dumps({"k4_modes": extra}), flush=True)
     print(json.dumps({"lp_train_modes": lp_train_modes}), flush=True)

@@ -1,4 +1,12 @@
-from rgcn_tpu_torch.data.loaders import LinkPredictionData, NodeClassificationData
+from rgcn_tpu_torch.data.dispatch import load_lp_data, load_nc_data
+from rgcn_tpu_torch.data.loaders import (
+    DATA_ROOT,
+    LinkPredictionData,
+    NodeClassificationData,
+    load_link_prediction,
+    load_node_classification,
+)
+from rgcn_tpu_torch.data.nt import iter_nt_file, parse_nt_line, read_nt_file
 from rgcn_tpu_torch.data.synthetic import (
     aifb_like,
     am_like,
@@ -12,11 +20,19 @@ from rgcn_tpu_torch.data.synthetic import (
 )
 
 __all__ = [
+    "DATA_ROOT",
     "LinkPredictionData",
     "NodeClassificationData",
     "aifb_like",
     "am_like",
     "fb_toy_like",
+    "iter_nt_file",
+    "load_link_prediction",
+    "load_lp_data",
+    "load_nc_data",
+    "load_node_classification",
+    "parse_nt_line",
+    "read_nt_file",
     "synthetic_kg",
     "synthetic_link_prediction",
     "synthetic_lp_data",

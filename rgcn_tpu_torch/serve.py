@@ -6,20 +6,23 @@
   stays on the device; queries are DistMult algebra (a ``(B, d) @ (d, N)``
   product and ``top-k``), only the ``(B, k)`` answers cross to the host.
 
-Checkpoint restore is not ported yet. Until it is, :func:`load_nc_server`
-and :func:`load_lp_server` take a ``state_dict``: the port's own seeded
-initialisation when none is given, or parameters carried from the JAX
-package with :func:`rgcn_tpu_torch.weights.from_jax_params`.
+:func:`load_nc_server` and :func:`load_lp_server` serve the parameters of
+a training checkpoint (``checkpoint_dir``, :mod:`rgcn_tpu_torch.utils.checkpoint`),
+or a ``state_dict`` (e.g. carried from the JAX package with
+:func:`rgcn_tpu_torch.weights.from_jax_params`), or with neither the port's
+own seeded initialisation.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from rgcn_tpu_torch.device import resolve_device
+from rgcn_tpu_torch.utils.checkpoint import latest_step, restore_checkpoint
 
 __all__ = [
     "LinkPredictionServer",
@@ -58,19 +61,33 @@ class NodeClassificationServer:
         self.logits = self._forward()
 
 
+def _checkpoint_params(checkpoint_dir: str, state_dict) -> Optional[dict]:
+    """The ``params`` of the latest checkpoint under ``checkpoint_dir`` (on
+    the host), or None when it holds none."""
+    if state_dict is not None:
+        raise ValueError("pass either state_dict or checkpoint_dir, not both")
+    state, _ = restore_checkpoint(checkpoint_dir, partial_keys=("params",),
+                                  map_location="cpu")
+    return None if state is None else state["params"]
+
+
 def load_nc_server(
     cfg,
     data,
     state_dict: Optional[Dict[str, torch.Tensor]] = None,
     *,
+    checkpoint_dir: Optional[str] = None,
     tile_size: int = 128,
     device=None,
-) -> NodeClassificationServer:
+) -> Optional[NodeClassificationServer]:
     """Build a node-classification endpoint.
 
     ``cfg``: a :class:`~rgcn_tpu_torch.config.NodeClassificationExperiment`
     or a path to its YAML file. ``state_dict``: parameters to serve; None
-    serves the port's initialisation from seed 0. ``device``: None means
+    serves the port's initialisation from seed 0. ``checkpoint_dir``
+    instead serves the parameters of its latest training checkpoint, or
+    of ``repeat_1``'s when it holds none itself (a run of several
+    repeats), and returns None when neither holds one. ``device``: None means
     CUDA, which must then be present; ``"cpu"`` runs the plain versions.
     The EdgeSet is built as the JAX server builds it (tile 128, destination
     layout, fused layout and reversed edges, and the merged pair layout
@@ -86,6 +103,13 @@ def load_nc_server(
     dev = resolve_device(device)
     if not hasattr(cfg, "rgcn"):
         cfg = load_experiment(cfg)
+    if checkpoint_dir is not None:
+        repeat_1 = os.path.join(checkpoint_dir, "repeat_1")
+        if latest_step(checkpoint_dir) is None and latest_step(repeat_1) is not None:
+            checkpoint_dir = repeat_1
+        state_dict = _checkpoint_params(checkpoint_dir, state_dict)
+        if state_dict is None:
+            return None
     model = build_nc_model(cfg, data)
     if state_dict is not None:
         model.load_state_dict(state_dict)
@@ -227,8 +251,9 @@ def load_lp_server(
     data,
     state_dict: Optional[Dict[str, torch.Tensor]] = None,
     *,
+    checkpoint_dir: Optional[str] = None,
     device=None,
-) -> LinkPredictionServer:
+) -> Optional[LinkPredictionServer]:
     """Build a link-prediction endpoint.
 
     ``cfg``: a :class:`~rgcn_tpu_torch.config.LinkPredictionExperiment` or a
@@ -236,6 +261,8 @@ def load_lp_server(
     :class:`~rgcn_tpu_torch.data.loaders.LinkPredictionData` to serve (its
     train triples are the graph and the filter). ``state_dict``: parameters
     to serve; None serves the port's initialisation from seed 0.
+    ``checkpoint_dir`` instead serves the parameters of its latest
+    training checkpoint, and returns None when it holds none.
     ``device``: None means CUDA, which must then be present; ``"cpu"`` runs
     the plain versions. A block encoder first pads ``data`` with null
     nodes until N is divisible by ``node_embedding // num_blocks``
@@ -252,6 +279,10 @@ def load_lp_server(
     dev = resolve_device(device)
     if not hasattr(cfg, "encoder"):
         cfg = load_experiment(cfg)
+    if checkpoint_dir is not None:
+        state_dict = _checkpoint_params(checkpoint_dir, state_dict)
+        if state_dict is None:
+            return None
     decomp = cfg.encoder.decomposition
     if decomp is not None and decomp.type == "block":
         data.pad_nodes(cfg.encoder.node_embedding // decomp.num_blocks)

@@ -1,7 +1,9 @@
-"""Link-prediction serving endpoint on the GPU.
+"""Link-prediction serving endpoint on the GPU (counterpart of
+``cli/serve_links.py``).
 
     python -m rgcn_tpu_torch.serve_links --config configs/rgcn/lp-WN18.yaml \\
-        --synthetic [--queries f.tsv] [--topk 10] [--filtered] [--cpu]
+        [--data-root DIR | --synthetic] [--checkpoint-dir DIR] [--queries f.tsv] \\
+        [--topk 10] [--filtered] [--cpu]
 
 Encodes the graph once at load (a basis encoder such as lp-WN18 through
 K4, or K5 over a source-dedup'd frame; a block encoder such as lp-FB-toy
@@ -14,13 +16,16 @@ names from the dataset vocabulary or integer ids. Without ``--queries``
 it ranks tails for the first 8 test triples. ``--filtered`` masks the
 known training triples out of the rankings.
 
-Checkpoint restore is not ported yet: the served parameters are the port's
-seeded initialisation (seed 0), those of an untrained model. Parameters
-carried from the JAX package go through
-``rgcn_tpu_torch.weights.from_jax_params`` and
-``rgcn_tpu_torch.serve.load_lp_server(state_dict=...)``. Only synthetic
-graphs are served for now (``--synthetic``). Without ``--cpu`` the run
-needs CUDA and fails without it.
+The dataset is read from ``--data-root`` (default ``$RGCN_TPU_DATA``, else
+the repository's ``data/``), or with ``--synthetic`` the stand-in the JAX
+CLIs pick (``wn18_like()`` for WN18, ``fb_toy_like()`` for FB-toy).
+``--checkpoint-dir`` serves the parameters of the latest checkpoint that
+``predict_links --checkpoint-dir`` wrote there and fails when it holds
+none. Without it the served parameters are the port's seeded
+initialisation (seed 0), those of an untrained model; parameters carried
+from the JAX package go through ``rgcn_tpu_torch.weights.from_jax_params``
+and ``rgcn_tpu_torch.serve.load_lp_server(state_dict=...)``. Without
+``--cpu`` the run needs CUDA and fails without it.
 """
 
 from __future__ import annotations
@@ -69,9 +74,13 @@ def main(argv=None):
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
     )
     ap.add_argument("--config", required=True)
+    ap.add_argument("--data-root", default=None,
+                    help="dataset directory (default $RGCN_TPU_DATA or data/)")
     ap.add_argument("--synthetic", action="store_true",
-                    help="serve a scale-matched synthetic graph (required "
-                         "until the dataset loaders are ported)")
+                    help="serve a scale-matched synthetic graph")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="serve this training checkpoint (default: the seeded "
+                         "initialisation)")
     ap.add_argument("--queries", default=None, help="TSV query file")
     ap.add_argument("--topk", type=int, default=10)
     ap.add_argument("--filtered", action="store_true",
@@ -83,7 +92,7 @@ def main(argv=None):
     import numpy as np
 
     from rgcn_tpu_torch.config import LinkPredictionExperiment, load_experiment
-    from rgcn_tpu_torch.data.synthetic import synthetic_lp_data
+    from rgcn_tpu_torch.data.dispatch import load_lp_data
     from rgcn_tpu_torch.serve import load_lp_server
 
     if not os.path.isfile(args.config):
@@ -91,14 +100,17 @@ def main(argv=None):
     cfg = load_experiment(args.config)
     if not isinstance(cfg, LinkPredictionExperiment):
         ap.error(f"{args.config} is not a link-prediction config")
-    if not args.synthetic:
-        ap.error("real datasets are not ported yet: pass --synthetic")
 
-    data = synthetic_lp_data(cfg.dataset.name)
-    print(f"[synthetic] {cfg.dataset.name}-like graph: N={data.num_nodes} "
-          f"R={data.num_relations} E={len(data.train)}")
+    try:
+        data = load_lp_data(cfg, args.synthetic, data_root=args.data_root)
+    except FileNotFoundError as e:
+        ap.error(f"dataset file not found ({e.filename}): fetch the datasets "
+                 "(data/get_data.sh), pass --data-root, or --synthetic")
     t0 = time.perf_counter()
-    srv = load_lp_server(cfg, data, device="cpu" if args.cpu else None)
+    srv = load_lp_server(cfg, data, checkpoint_dir=args.checkpoint_dir,
+                         device="cpu" if args.cpu else None)
+    if srv is None:
+        ap.error(f"no checkpoint found under {args.checkpoint_dir}")
     print(f"[serve] encoded {srv.num_nodes} nodes in "
           f"{time.perf_counter() - t0:.1f}s; top-k={args.topk}")
 

@@ -41,11 +41,19 @@ bottleneck products; the decoder's backward two K4 sums for the corrupted
 entities and K1 for the subjects' and objects' rows. The encoder's
 ``node_embedding_l2_penalty`` (set by ``configs/c-rgcn/lp-FB-toy.yaml``)
 is ignored, as the JAX LP trainer ignores it: only its NC trainer reads
-that key. Not ported:
-checkpoints, the JAX package's executable cache, its in-jit step (the
-traced graph builder and ``jax.random`` negatives) and its non-structured
-scorers (a config whose decoder has biases, or an L2 other than
-Schlichtkrull's, raises).
+that key.
+
+With ``checkpoint_dir`` the trainer saves ``{"params", "opt_state"}``
+every ``checkpoint_every`` epochs (default: ``check_every``) and once more
+after the last epoch unless that step was just saved or a resumed run
+already sits past it; a run that finds a checkpoint there resumes at the
+epoch after it, and since every host draw depends on ``(seed, epoch)``
+alone, it repeats the epochs an unbroken run would have taken.
+``max_epochs`` stops a run early (the last epoch it takes is then the
+one the final evaluation and save follow). Not ported: the JAX package's
+executable cache, its in-jit step (the traced graph builder and
+``jax.random`` negatives) and its non-structured scorers (a config whose
+decoder has biases, or an L2 other than Schlichtkrull's, raises).
 """
 
 from __future__ import annotations
@@ -67,6 +75,10 @@ from rgcn_tpu_torch.train.evaluate import (
     ranks_from_scores,
 )
 from rgcn_tpu_torch.train.optim import make_optimizer
+from rgcn_tpu_torch.utils.checkpoint import (
+    restore_training_state,
+    save_training_state,
+)
 from rgcn_tpu_torch.utils.logging import ScalarLogger
 
 __all__ = [
@@ -154,11 +166,15 @@ class LinkPredictionTrainer:
     port's own from ``seed``. ``device``: None means CUDA, which must then
     be present; ``"cpu"`` runs the plain versions. A block encoder first
     pads ``data`` with null nodes (in place) until N is divisible by
-    ``node_embedding // num_blocks``."""
+    ``node_embedding // num_blocks``. ``checkpoint_dir``,
+    ``checkpoint_every`` and ``max_epochs``: see the module docstring."""
 
     def __init__(self, cfg, data, seed: int = 0, tile_size: int = 128,
                  init_state: Optional[Dict[str, torch.Tensor]] = None,
-                 device=None, logger: Optional[ScalarLogger] = None):
+                 device=None, logger: Optional[ScalarLogger] = None,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: Optional[int] = None,
+                 max_epochs: Optional[int] = None):
         from rgcn_tpu_torch.graph.coalesce import merge_applicable
         from rgcn_tpu_torch.graph.structure import build_edge_set
         from rgcn_tpu_torch.train.samplers import select_sampler
@@ -209,7 +225,9 @@ class LinkPredictionTrainer:
         self.sampler = select_sampler(cfg.training.sampling_method)
         self.l2 = dec.l2_penalty
         self.want_pen = dec.l2_penalty > 0.0 and dec.l2_penalty_type == "schlichtkrull-l2"
-        self.epochs = cfg.training.epochs
+        self.epochs = max_epochs if max_epochs is not None else cfg.training.epochs
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = checkpoint_every or cfg.evaluation.check_every
 
         merge_eval = decomp is not None and merge_applicable(
             2 * self.num_rels, decomposition=decomp.type, num_bases=decomp.num_bases)
@@ -295,12 +313,20 @@ class LinkPredictionTrainer:
                                        verbose=verbose, logger=logger)
 
     def fit(self, logger: Optional[ScalarLogger] = None):
-        """Train for the config's epochs; returns the final ``(mrr, hits,
-        ranks)``."""
+        """Train for the config's epochs (or ``max_epochs``), from the epoch
+        after the latest checkpoint when ``checkpoint_dir`` holds one;
+        returns the final ``(mrr, hits, ranks)``."""
         logger = logger or ScalarLogger()
         epochs = self.epochs
         ev = self.cfg.evaluation
         tag = "filtered" if ev.filtered else "raw"
+        start = 1
+        if self.checkpoint_dir:
+            ck_step = restore_training_state(self.checkpoint_dir, self.model,
+                                             self.optimizer, self.device)
+            if ck_step is not None:
+                start = ck_step + 1
+                logger.info(f"resumed from checkpoint at epoch {ck_step}")
         pool = ThreadPoolExecutor(max_workers=1)
         pending: dict = {}
 
@@ -313,11 +339,14 @@ class LinkPredictionTrainer:
             return out
 
         try:
-            for epoch in range(1, epochs + 1):
+            for epoch in range(start, epochs + 1):
                 self.set_epoch(epoch, host_epoch(epoch))
                 t1 = time.time()
                 loss = self.step()
                 t2 = time.time()
+                if self.checkpoint_dir and epoch % self.checkpoint_every == 0:
+                    save_training_state(self.checkpoint_dir, self.model,
+                                        self.optimizer, epoch)
                 if epoch % ev.check_every == 0 and epoch != epochs:
                     logger.info("Starting evaluation...")
                     mrr, hits, _ = self.evaluate(ev.verbose, logger)
@@ -335,6 +364,12 @@ class LinkPredictionTrainer:
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
 
+        # the final state is what a server loads: save it unless a resumed
+        # run already sits past the last epoch or the cadence just saved it
+        if self.checkpoint_dir and epochs >= start and epochs % self.checkpoint_every:
+            save_training_state(self.checkpoint_dir, self.model, self.optimizer,
+                                epochs)
+
         logger.info("Starting final evaluation...")
         mrr, hits, ranks = self.evaluate(ev.verbose, logger)
         logger.log_scalar("test.mrr", mrr, step=epochs)
@@ -350,11 +385,15 @@ def train_link_predictor(cfg, data, seed: int = 0,
                          logger: Optional[ScalarLogger] = None,
                          tile_size: int = 128,
                          init_state: Optional[Dict[str, torch.Tensor]] = None,
-                         device=None):
+                         device=None, checkpoint_dir: Optional[str] = None,
+                         checkpoint_every: Optional[int] = None,
+                         max_epochs: Optional[int] = None):
     """Train and evaluate; returns ``(mrr, hits, ranks, model)``. See
-    :class:`LinkPredictionTrainer` for ``init_state`` and ``device``."""
+    :class:`LinkPredictionTrainer` for the keyword arguments."""
     trainer = LinkPredictionTrainer(cfg, data, seed=seed, tile_size=tile_size,
                                     init_state=init_state, device=device,
-                                    logger=logger)
+                                    logger=logger, checkpoint_dir=checkpoint_dir,
+                                    checkpoint_every=checkpoint_every,
+                                    max_epochs=max_epochs)
     mrr, hits, ranks = trainer.fit(logger)
     return mrr, hits, ranks, trainer.model

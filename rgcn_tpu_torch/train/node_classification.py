@@ -30,11 +30,18 @@ weight gradient a small product or an ``index_add_``, and layer 2 as in
 the dense R-GCN. Configs whose layers have no backward here yet (at most 8
 bases, block decomposition) raise ``NotImplementedError`` naming what is
 missing.
-Checkpoints and the JAX package's executable cache are not ported.
+
+With ``checkpoint_dir`` the trainer saves ``{"params", "opt_state"}``
+(:mod:`rgcn_tpu_torch.utils.checkpoint`) every ``checkpoint_every`` epochs
+(default 10) and once more after the last epoch unless that step was just
+saved or a resumed run already sits past it; a run that finds a checkpoint
+there resumes at the epoch after it. The JAX package's executable cache is
+not ported: PyTorch compiles nothing per step.
 """
 
 from __future__ import annotations
 
+import os
 import statistics
 import time
 from typing import Dict, Optional, Tuple
@@ -47,6 +54,10 @@ from rgcn_tpu_torch.device import resolve_device
 from rgcn_tpu_torch.models.node_classification import build_nc_model
 from rgcn_tpu_torch.train.evaluate import accuracy
 from rgcn_tpu_torch.train.optim import make_optimizer
+from rgcn_tpu_torch.utils.checkpoint import (
+    restore_training_state,
+    save_training_state,
+)
 from rgcn_tpu_torch.utils.logging import ScalarLogger
 
 __all__ = [
@@ -85,11 +96,14 @@ class NodeClassificationTrainer:
     ``init_params``: a port state dict to start from (e.g. carried from the
     JAX package by ``weights.from_jax_params``); None draws the port's own
     initialisation from ``seed``. ``device``: None means CUDA, which must
-    then be present; ``"cpu"`` runs the plain versions."""
+    then be present; ``"cpu"`` runs the plain versions.
+    ``checkpoint_dir`` and ``checkpoint_every``: where and how often
+    :meth:`fit` saves, and where it resumes from."""
 
     def __init__(self, cfg, data, seed: int = 0, tile_size: int = 128,
                  init_params: Optional[Dict[str, torch.Tensor]] = None,
-                 device=None):
+                 device=None, checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: Optional[int] = None):
         from rgcn_tpu_torch.graph.coalesce import merge_applicable
         from rgcn_tpu_torch.graph.structure import auto_nc_row_block, build_edge_set
 
@@ -134,6 +148,9 @@ class NodeClassificationTrainer:
         self.l1_pen = rg.layer1_l2_penalty
         self.emb_pen = rg.node_embedding_l2_penalty
         self.epochs = cfg.training.epochs
+        self.device = dev
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = checkpoint_every or 10
 
     def loss(self) -> torch.Tensor:
         """The training loss, with the graph for its backward."""
@@ -162,10 +179,18 @@ class NodeClassificationTrainer:
         return self.logits().argmax(-1).cpu().numpy()
 
     def fit(self, logger: Optional[ScalarLogger] = None, log_suffix: str = "") -> float:
-        """Train for the config's epochs; returns the final test accuracy
-        (percent)."""
+        """Train for the config's epochs (from the epoch after the latest
+        checkpoint, when ``checkpoint_dir`` holds one); returns the final
+        test accuracy (percent)."""
         logger = logger or ScalarLogger()
-        for epoch in range(1, self.epochs + 1):
+        start = 1
+        if self.checkpoint_dir:
+            ck_step = restore_training_state(self.checkpoint_dir, self.model,
+                                             self.optimizer, self.device)
+            if ck_step is not None:
+                start = ck_step + 1
+                logger.info(f"resumed from checkpoint at epoch {ck_step}")
+        for epoch in range(start, self.epochs + 1):
             t1 = time.time()
             loss = self.step()
             t2 = time.time()
@@ -183,6 +208,16 @@ class NodeClassificationTrainer:
                 f"Eval: {(t3 - t2):.3f}s Train Accuracy: {train_acc:.2f} "
                 f"Test Accuracy: {test_acc:.2f}"
             )
+            if self.checkpoint_dir and epoch % self.checkpoint_every == 0:
+                save_training_state(self.checkpoint_dir, self.model,
+                                    self.optimizer, epoch)
+
+        # no final save when a resumed run already sits past the last epoch
+        # (its parameters would be mislabelled) or the cadence just saved it
+        if self.checkpoint_dir and self.epochs >= start \
+                and self.epochs % self.checkpoint_every:
+            save_training_state(self.checkpoint_dir, self.model, self.optimizer,
+                                self.epochs)
 
         pred = self.predict()
         test_acc = accuracy(pred[self.test_idx_np], self.test_lbl_np)
@@ -200,25 +235,34 @@ def train_node_classifier(
     log_suffix: str = "",
     init_params: Optional[Dict[str, torch.Tensor]] = None,
     device=None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: Optional[int] = None,
 ) -> float:
     """Train one model; returns the final test accuracy (percent). See
-    :class:`NodeClassificationTrainer` for ``init_params`` and ``device``."""
-    trainer = NodeClassificationTrainer(cfg, data, seed=seed, tile_size=tile_size,
-                                        init_params=init_params, device=device)
+    :class:`NodeClassificationTrainer` for the keyword arguments."""
+    trainer = NodeClassificationTrainer(
+        cfg, data, seed=seed, tile_size=tile_size, init_params=init_params,
+        device=device, checkpoint_dir=checkpoint_dir,
+        checkpoint_every=checkpoint_every)
     return trainer.fit(logger, log_suffix)
 
 
 def run_repeats(cfg, data, logger: Optional[ScalarLogger] = None,
-                tile_size: int = 128, device=None) -> Tuple[float, float]:
+                tile_size: int = 128, device=None,
+                checkpoint_dir: Optional[str] = None,
+                checkpoint_every: Optional[int] = None) -> Tuple[float, float]:
     """Repeat training (repeat ``i`` seeded with ``i``) and report mean ±
-    standard error (``classify_nodes.py:159-178``)."""
+    standard error (``classify_nodes.py:159-178``). With several repeats,
+    repeat ``i`` checkpoints under ``checkpoint_dir/repeat_{i}``."""
     logger = logger or ScalarLogger()
-    accs = [
-        train_node_classifier(cfg, data, seed=i, logger=logger,
-                              tile_size=tile_size, log_suffix=f"_{i}",
-                              device=device)
-        for i in range(1, cfg.repeats + 1)
-    ]
+    accs = []
+    for i in range(1, cfg.repeats + 1):
+        ck = (os.path.join(checkpoint_dir, f"repeat_{i}")
+              if checkpoint_dir and cfg.repeats > 1 else checkpoint_dir)
+        accs.append(train_node_classifier(
+            cfg, data, seed=i, logger=logger, tile_size=tile_size,
+            log_suffix=f"_{i}", device=device, checkpoint_dir=ck,
+            checkpoint_every=checkpoint_every))
     avg = sum(accs) / len(accs)
     std = statistics.stdev(accs) if len(accs) > 1 else 0.0
     ste = std / (len(accs) ** 0.5)

@@ -18,6 +18,9 @@ MODULES = [
     "rgcn_tpu_torch",
     "rgcn_tpu_torch.config",
     "rgcn_tpu_torch.data",
+    "rgcn_tpu_torch.data.dispatch",
+    "rgcn_tpu_torch.data.loaders",
+    "rgcn_tpu_torch.data.nt",
     "rgcn_tpu_torch.graph",
     "rgcn_tpu_torch.graph.coalesce",
     "rgcn_tpu_torch.graph.dynamic",
@@ -54,6 +57,8 @@ MODULES = [
     "rgcn_tpu_torch.train.samplers",
     "rgcn_tpu_torch.utils",
     "rgcn_tpu_torch.utils.logging",
+    "rgcn_tpu_torch.utils.checkpoint",
+    "rgcn_tpu_torch.trace_train_gate",
     "rgcn_tpu_torch.classify_nodes",
     "rgcn_tpu_torch.predict_links",
 ]
@@ -72,6 +77,8 @@ def test_imports_with_jax_blocked():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
+        "sys.modules['orbax'] = None\n"
+        "sys.modules['pandas'] = None\n"
         f"import {', '.join(MODULES)}\n"
         "bad = sorted(m for m in sys.modules if m == 'rgcn_tpu' "
         "or m.startswith('rgcn_tpu.') or m.startswith('jax.'))\n"
@@ -96,7 +103,8 @@ def test_no_jax_or_rgcn_tpu_imports(path):
         elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
             names.append(node.module)
     bad = [n for n in names
-           if n.split(".")[0] in ("rgcn_tpu", "jax", "jaxlib", "flax", "optax")]
+           if n.split(".")[0] in ("rgcn_tpu", "jax", "jaxlib", "flax", "optax",
+                                  "orbax", "pandas")]
     assert not bad, f"{path} imports {bad}"
 
 
@@ -295,6 +303,6 @@ def test_serve_nodes_cli_cpu(capsys):
     assert out[0].startswith("[synthetic] AIFB-like graph: N=8285 R=45")
     assert out[1].startswith("node1: class ") and out[2].startswith("node42: class ")
     with pytest.raises(SystemExit):
-        serve_nodes.main(["--config", cfg, "--cpu"])  # --synthetic required
+        serve_nodes.main(["--config", cfg, "--cpu"])  # no dataset files in data/
     probs = np.array([float(line.split("p=")[1].rstrip(")")) for line in out[1:]])
     assert ((probs > 0) & (probs <= 1)).all()
