@@ -8,7 +8,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. environment: torch/CUDA versions, the card's name and power limit;
    TF32 off for matmuls and cuDNN (f32 comparisons stay f32);
 2. build: nvcc builds every kernel of kernels/csrc/ in parallel and
-   reports each source's entry points, registers and spill stores;
+   reports each source's entry points, registers and spill stores; beside
+   it g++ builds the port's two host libraries from native/csrc/ (the
+   builders, and the N-Triples parser with zlib);
 3. kernels, nc-AIFB: K1 (layer 1, dout 16), K2 and K3 (its small route)
    at the nc-AIFB shapes, and K1 at the K3 branch's layer-2 width (dout
    4, its own torch.index_add yardstick), each held against its plain PyTorch
@@ -206,7 +208,26 @@ Phases, in order; any failure exits non-zero and prints no result:
    gate of phases 5 and 19 fails, the run first logs the card's logits
    against the CPU forward of the card's own parameters and each
    parameter's distance from the CPU run's;
-20. summary: one JSON line of each path's launch counts (serving, and
+20. the native host builders on the card's host, with the card's name
+   and power limit and the host CPU's model and core count: a 20M-edge
+   native lexsort in a second thread must leave this thread at least 0.3
+   of its loop rate (ctypes released the GIL); for lp-WN18 (batch 30,000),
+   c-RGCN lp-WN18 (full batch) and lp-FB-toy, profile_epoch's measurement:
+   each sample_epoch stage's host ms with the native and the numpy
+   builders (median of 5 epochs after a warm one; every epoch's two
+   batches equal bit for bit, the first equal to sample_epoch's own) and
+   20-epoch fits on the card both ways (epoch wall time, the step's host
+   time, the device's busy share; losses within rtol 1e-4 of each other);
+   each config trained 2 epochs on the CPU by the trainer and with the
+   numpy builders, losses, MRR and every rank bit-identical; lp-WN18
+   trained 2 epochs on the card by the trainer with the native calls and
+   the launches zeroed just before it: exactly 1 edge set, 4 + 5E
+   layouts and 1 + 2E lexsorts, and phase 13's launches; am_like()'s
+   build_edge_set with layouts and am_like() written as AM's .nt.gz graph
+   and parsed, each both ways, outputs equal (the parse also to the
+   source's triples), host seconds; one "host_build_ms" line (keys ending
+   in _s are seconds);
+21. summary: one JSON line of each path's launch counts (serving, and
    training), the training steps' timing (nc-AIFB, nc-AM, lp-WN18,
    lp-FB-toy, the c-RGCN and e-RGCN configs), one of the extra nc modes
    (K1 at dout 4, K3 at nc-AIFB, K2 and K3 at the dx shape,
@@ -217,8 +238,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    of the extra K4 modes, one of the LP training modes, one of the rows
    around the diagonal layer's K1, and the "kernels"
    line, whose "launches" for each kernel is its count on the path named
-   beside it and "train_launches" its count on each training path;
-21. last line: {"ok": true, "device": {...}}.
+   beside it and "train_launches" its count on each training path, and
+   just before that line the host_build_ms line of phase 20;
+22. last line: {"ok": true, "device": {...}}.
 
 Needs CUDA (exits 1 without it) and the repository around it.
 """
@@ -363,11 +385,24 @@ def phase_environment():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rgcn_tpu_torch import native
     from rgcn_tpu_torch.kernels.build import build_all
 
     t0 = time.perf_counter()
-    built = build_all()
-    log(f"build: {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host = pool.submit(native.build_all)  # g++, beside nvcc
+        built = build_all()
+        try:
+            host_built = host.result()
+        except RuntimeError as e:
+            fail(str(e))
+    log(f"build: {len(built)} kernels and {len(host_built)} host libraries in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for lname, info in host_built.items():
+        log(f"  {lname}: {'cached' if info['cached'] else 'built'} "
+            f"{os.path.basename(info['path'])} ({info['seconds']:.1f} s)")
     for kname, info in built.items():
         # ptxas -v: one "Used N registers" and one spill line per entry point
         regs = [int(w[w.index("Used") + 1]) for w in
@@ -2737,25 +2772,249 @@ def phase_files(dev):
     return paths, timing
 
 
-def main():
-    t_start = time.perf_counter()
-    name = phase_environment()
-    sys.path.insert(0, ROOT)
-    try:
-        import rgcn_tpu_torch  # noqa: F401
-    except ImportError as e:
-        fail(f"rgcn_tpu_torch is not importable next to this script: {e}")
-    for cfg in (CONFIG, LP_CONFIG, FB_CONFIG, MUTAG_CONFIG, BGS_CONFIG, AM_CONFIG,
-                C_WN18_CONFIG, C_FB_CONFIG, E_AIFB_CONFIG, E_AM_CONFIG):
-        if not os.path.isfile(cfg):
-            fail(f"config not found: {cfg}")
+# -- the native host builders: the LP epoch's host build, stage by stage --
 
-    from rgcn_tpu_torch.data.synthetic import aifb_like, am_like, fb_toy_like, wn18_like
-    from rgcn_tpu_torch.graph.coalesce import build_merged_layout
+HOST_REPS = 5  # epochs timed per stage, each way, after a warm one
+HOST_FIT_EPOCHS = 20  # each card fit, each way
+HOST_TRAIN_EPOCHS = 2  # the CPU trainings held bit-identical; the counted run
+
+
+def native_train_calls(epochs: int) -> dict:
+    """Native calls of the lp-WN18 training path: the evaluation graph (the
+    edge set; its reverse sort; the forward, reverse and the merged frame's
+    two layouts), then per epoch the subgraph's two sorts and two layouts
+    and the three structured layouts."""
+    return {"build_edge_set": 1, "build_dst_layout": 4 + 5 * epochs,
+            "lexsort_rel_dst": 1 + 2 * epochs, "parse_nt": 0}
+
+
+def gil_share() -> float:
+    """A 20M-edge native lexsort in a second thread against this thread's
+    loop: the share of its solo rate the loop kept during the sort (near 1
+    if ctypes released the GIL, near 0 if not)."""
+    import threading
+
+    from rgcn_tpu_torch.graph.native import lexsort_rel_dst
+
+    rng = np.random.default_rng(0)
+    rel = rng.integers(0, 64, 20_000_000).astype(np.int32)
+    dst = rng.integers(0, 1_000_000, 20_000_000).astype(np.int32)
+    lexsort_rel_dst(rel[:100], dst[:100], 64, 1_000_000)  # load the library
+
+    def loop(stop):
+        n, t0 = 0, time.perf_counter()
+        while not stop.is_set():
+            n += 1
+        return n, time.perf_counter() - t0
+
+    stop = threading.Event()
+    threading.Timer(0.3, stop.set).start()
+    n, dt = loop(stop)
+    rate = n / dt
+    stop, started = threading.Event(), threading.Event()
+
+    def sort():
+        started.set()
+        lexsort_rel_dst(rel, dst, 64, 1_000_000)
+        stop.set()
+
+    th = threading.Thread(target=sort)
+    th.start()
+    started.wait()
+    n, dt = loop(stop)
+    th.join()
+    share = n / (rate * dt)
+    log(f"host builders: this thread kept {share:.3f} of its loop rate during a "
+        f"{dt * 1e3:.0f} ms native lexsort in another thread (the GIL released)")
+    return share
+
+
+def host_epochs_card(dev, timing) -> None:
+    """profile_epoch's stage split (both ways, every epoch's batches equal
+    bit for bit) and its two card fits of each LP config, the fits' losses
+    within phase 13's rtol of each other."""
+    from rgcn_tpu_torch import profile_epoch
+
+    for key in profile_epoch.CONFIGS:
+        t0 = time.perf_counter()
+        try:
+            r = profile_epoch.profile_config(key, dev, HOST_REPS, HOST_FIT_EPOCHS)
+        except RuntimeError as e:
+            fail(f"host build [{key}]: {e}")
+        nat, npy = r["fit"]["native"], r["fit"]["numpy"]
+        worst = max(abs(a - b) / abs(b) for a, b in zip(nat["losses"], npy["losses"]))
+        st = r["stages_ms"]
+        log(f"host build [{key}] {r['sizes']}: stages native {st['native']['total']:.2f} "
+            f"ms, numpy {st['numpy']['total']:.2f} ms (bit-equal batches); fit epoch "
+            f"wall native {nat['epoch_wall_ms']:.2f}, numpy {npy['epoch_wall_ms']:.2f} "
+            f"ms, step host {nat['step_host_ms']:.2f} / {npy['step_host_ms']:.2f} ms, "
+            f"busy {nat['device_busy_share']} / {npy['device_busy_share']}; losses max "
+            f"rel diff {worst:.3e} ({time.perf_counter() - t0:.1f} s)")
+        if not worst <= 1e-4 or not all(np.isfinite(nat["losses"] + npy["losses"])):
+            fail(f"host build [{key}]: the card's fits differ (losses rtol 1e-4)")
+        for f in (nat, npy):
+            f.pop("ranks")
+        nat["losses_equal_numpy_fit"] = nat["losses"] == npy["losses"]
+        timing[key] = r
+
+
+def host_trainings_cpu(timing) -> None:
+    """Each LP config trained HOST_TRAIN_EPOCHS epochs on the CPU by the
+    trainer (native builders) and with the numpy builders: losses, MRR and
+    every rank bit-identical."""
+    from rgcn_tpu_torch import profile_epoch
+    from rgcn_tpu_torch.config import load_experiment
+    from rgcn_tpu_torch.data.synthetic import synthetic_lp_data
+    from rgcn_tpu_torch.train.link_prediction import LinkPredictionTrainer
+
+    for key, path in profile_epoch.CONFIGS.items():
+        t0 = time.perf_counter()
+        base = load_experiment(path)
+        cfg = dataclasses.replace(base, training=dataclasses.replace(
+            base.training, epochs=HOST_TRAIN_EPOCHS))
+        data = synthetic_lp_data(cfg.dataset.name)
+        ways = []
+        for trainer in (
+                lambda: LinkPredictionTrainer(cfg, data, device="cpu"),
+                lambda: profile_epoch.StagedTrainer(cfg, data, device="cpu",
+                                                    prefer_native=False)):
+            rec = records_logger()
+            mrr, _, ranks = trainer().fit(rec)
+            ways.append(([r[2] for r in rec.records if r[0] == "training.loss"], mrr,
+                         np.asarray(ranks)))
+        (l_a, m_a, r_a), (l_b, m_b, r_b) = ways
+        same = l_a == l_b and m_a == m_b and np.array_equal(r_a, r_b)
+        log(f"host build [{key}] CPU training {HOST_TRAIN_EPOCHS} epochs, native vs "
+            f"numpy builders: losses {l_a} vs {l_b}, MRR {m_a} vs {m_b}, {len(r_a)} "
+            f"ranks bit-identical: {same} ({time.perf_counter() - t0:.1f} s)")
+        if not same:
+            fail(f"host build [{key}]: CPU training differs between the builders")
+        timing[key]["cpu_training_bit_identical"] = same
+
+
+def host_counts_card(dev, timing) -> None:
+    """lp-WN18 trained HOST_TRAIN_EPOCHS epochs on the card by the trainer,
+    the native calls and the kernel launches zeroed just before it: exactly
+    native_train_calls and phase 13's launches."""
+    from rgcn_tpu_torch import kernels, native
+    from rgcn_tpu_torch.config import load_experiment
+    from rgcn_tpu_torch.data.synthetic import wn18_like
+    from rgcn_tpu_torch.train.link_prediction import LinkPredictionTrainer
+
+    base = load_experiment(LP_CONFIG)
+    cfg = dataclasses.replace(base, training=dataclasses.replace(
+        base.training, epochs=HOST_TRAIN_EPOCHS))
+    data = wn18_like()
+    torch.cuda.synchronize()
+    native.reset_calls()
+    kernels.reset_launches()
+    LinkPredictionTrainer(cfg, data, device=dev, logger=records_logger()).fit(
+        records_logger())
+    torch.cuda.synchronize()
+    calls, counts = dict(native.CALLS), dict(kernels.LAUNCHES)
+    e = HOST_TRAIN_EPOCHS
+    want = launches(k4_weighted_aggregate=4 * e + 1, k1_aggregate=2 * e)
+    log(f"host build [lp-WN18 training path, {e} epochs]: native calls {calls}, "
+        f"launches {counts}")
+    if calls != native_train_calls(e):
+        fail(f"lp-WN18 training path: native calls {calls}, expected "
+             f"{native_train_calls(e)}")
+    if counts != want:
+        fail(f"lp-WN18 training path: launches {counts}, expected {want}")
+    timing["lp_wn18_train_native_calls"] = calls
+
+
+def write_am_nt(path, data) -> None:
+    """``data`` (am_like) as a gzipped N-Triples graph with URIs."""
+    import gzip
+
+    uri = "http://am.example.org/"
+    with gzip.open(path, "wt", compresslevel=6) as f:
+        f.writelines(f"<{uri}{data.i2n[s]}> <{uri}{data.i2r[p]}> <{uri}{data.i2n[o]}> .\n"
+                     for s, p, o in data.triples)
+
+
+def host_am(am_data, timing) -> None:
+    """am_like()'s static edge set (with layouts) and its graph file's
+    parse, each both ways: equal outputs, host seconds."""
+    import tempfile
+
+    from rgcn_tpu_torch.data.loaders import _parse_graph
     from rgcn_tpu_torch.graph.structure import build_edge_set
+    from rgcn_tpu_torch.profile_epoch import batch_differences
 
-    dev = torch.device("cuda")
-    phase_build()
+    d = am_data
+    built, secs = {}, {"native": [], "numpy": []}
+    for _ in range(3):
+        for way in ("native", "numpy"):
+            t0 = time.perf_counter()
+            built[way] = build_edge_set(d.triples, d.num_nodes, d.num_relations,
+                                        tile_size=128, with_dst_layout=True,
+                                        prefer_native=way == "native")
+            secs[way].append(time.perf_counter() - t0)
+    diff = batch_differences(built["native"], built["numpy"])
+    log(f"host build [am_like build_edge_set, with_dst_layout]: native "
+        f"{[round(x, 4) for x in secs['native']]} s, numpy "
+        f"{[round(x, 4) for x in secs['numpy']]} s; differing fields {diff}")
+    if diff:
+        fail(f"am_like edge set: native and numpy differ in {diff}")
+    timing["am_edge_set_s"] = secs
+    del built
+
+    with tempfile.TemporaryDirectory(prefix="rgcn_am_nt_") as root:
+        path = os.path.join(root, "am_stripped.nt.gz")
+        _, timing["am_nt_write_s"] = timed_s(lambda: write_am_nt(path, d))
+        parsed, secs = {}, {"native": [], "python": []}
+        for way in ("native", "native", "python"):
+            t0 = time.perf_counter()
+            parsed[way] = _parse_graph(path, prefer_native=way == "native")
+            secs[way].append(time.perf_counter() - t0)
+        size_mb = os.path.getsize(path) / 1e6
+    spo, nodes, rels = parsed["native"]
+    back = np.array([int(x.rsplit("node", 1)[1]) for x in nodes])[spo[:, [0, 2]]]
+    rel_back = np.array([int(x.rsplit("rel", 1)[1]) for x in rels])[spo[:, 1]]
+    diff = batch_differences(parsed["native"], parsed["python"])
+    source_ok = np.array_equal(back, np.asarray(d.triples)[:, [0, 2]]) and \
+        np.array_equal(rel_back, np.asarray(d.triples)[:, 1])
+    log(f"host build [am_like as AM's .nt.gz, {size_mb:.1f} MB, "
+        f"{len(spo)} triples, {len(nodes)} nodes, {len(rels)} relations]: parse native "
+        f"{[round(x, 3) for x in secs['native']]} s, Python scanner "
+        f"{[round(x, 3) for x in secs['python']]} s; differing {diff}; the source's "
+        f"triples: {source_ok}")
+    if diff or not source_ok:
+        fail("am_like graph file: the parsers disagree or lose the source's triples")
+    timing["am_nt_parse_s"] = {**secs, "file_mb": size_mb, "triples": int(len(spo))}
+
+
+def phase_host_build(dev, am_data):
+    """The native host builders on the card's host: the GIL released in a
+    native call; the LP epoch's host build stage by stage both ways on each
+    LP config (profile_epoch) and each config's card fits both ways; the
+    same configs trained on the CPU with either builders, bit-identical;
+    the lp-WN18 training path's exact native calls and launches; am_like's
+    edge set and graph file both ways. Returns the host_build_ms line."""
+    from rgcn_tpu_torch import profile_epoch
+
+    t0 = time.perf_counter()
+    timing = {"card": card_line(), "host_cpu": profile_epoch.host_cpu()}
+    log(f"host build: {timing['card']}; host CPU {timing['host_cpu']}")
+    timing["gil_released_share"] = gil_share()
+    if not timing["gil_released_share"] > 0.3:
+        fail("a native builder holds the GIL for its call")
+    host_epochs_card(dev, timing)
+    host_trainings_cpu(timing)
+    host_counts_card(dev, timing)
+    host_am(am_data, timing)
+    log(f"phase host build: {time.perf_counter() - t0:.1f} s")
+    return timing
+
+
+def phases_nc_aifb(dev):
+    """Phases 3-5 on aifb_like(): the kernels, the hub graph, serving and
+    training. Returns (kernel rows, the nc mode rows, serving launches,
+    training launches, the training timing)."""
+    from rgcn_tpu_torch.data.synthetic import aifb_like
+    from rgcn_tpu_torch.graph.structure import build_edge_set
 
     data = aifb_like()
     edges = build_edge_set(
@@ -2771,6 +3030,29 @@ def main():
     paths = phase_serving(dev, data)
     train_paths, train_modes, train_timing = phase_train(dev, data, edges)
     nc_modes.extend(train_modes)
+    return rows, nc_modes, paths, train_paths, train_timing
+
+
+def main():
+    t_start = time.perf_counter()
+    name = phase_environment()
+    sys.path.insert(0, ROOT)
+    try:
+        import rgcn_tpu_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"rgcn_tpu_torch is not importable next to this script: {e}")
+    for cfg in (CONFIG, LP_CONFIG, FB_CONFIG, MUTAG_CONFIG, BGS_CONFIG, AM_CONFIG,
+                C_WN18_CONFIG, C_FB_CONFIG, E_AIFB_CONFIG, E_AM_CONFIG):
+        if not os.path.isfile(cfg):
+            fail(f"config not found: {cfg}")
+
+    from rgcn_tpu_torch.data.synthetic import am_like, fb_toy_like, wn18_like
+    from rgcn_tpu_torch.graph.coalesce import build_merged_layout
+    from rgcn_tpu_torch.graph.structure import build_edge_set
+
+    dev = torch.device("cuda")
+    phase_build()
+    rows, nc_modes, paths, train_paths, train_timing = phases_nc_aifb(dev)
 
     lp = wn18_like()
     lp_np = build_edge_set(lp.train, lp.num_nodes, lp.num_relations,
@@ -2831,6 +3113,7 @@ def main():
     nc_modes.extend(v_modes)
     files_paths, files_timing = phase_files(dev)
     train_paths.update(files_paths)
+    host_build = phase_host_build(dev, am_data)
 
     # each kernel's count on the path that serves through it
     key = {"K1": ("k1_aggregate", "main"), "K2": ("k2_fused", "main"),
@@ -2861,6 +3144,7 @@ def main():
     print(json.dumps({"lp_train_modes": lp_train_modes}), flush=True)
     print(json.dumps({"diag_around": diag_around}), flush=True)
     print(json.dumps({"pending_kernels": []}), flush=True)
+    print(json.dumps({"host_build_ms": host_build}), flush=True)
     log(f"command time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,11 +25,13 @@ differences in how they get there:
 * the cache is ``cache_rgcn_tpu_torch_{test,validation}[_prune].pkl``:
   the JAX package's ``cache_rgcn_tpu_…`` pickles unpickle into
   ``rgcn_tpu`` and are never opened here;
-* the graph is parsed by the Python scanner (:mod:`rgcn_tpu_torch.data.nt`)
-  only. The JAX package first tries its C++ parser
-  (``rgcn_tpu/data/native_nt.py``, ``native/librgcn_native.so``), whose
-  output is the same (``tests/test_native.py``); binding it goes with the
-  port's other native builders.
+* the graph is parsed by the port's C++ parser
+  (:mod:`rgcn_tpu_torch.data.native_nt`, built from
+  ``rgcn_tpu_torch/native/csrc/nt_parser.cc``), as the JAX package parses
+  it with its own copy; its output is the Python scanner's
+  (:mod:`rgcn_tpu_torch.data.nt`, ``tests/test_torch_native.py``), which
+  :func:`_parse_graph` runs with ``prefer_native=False``. Unlike the JAX
+  loader, a parser that does not build raises instead of falling back.
 """
 
 from __future__ import annotations
@@ -203,8 +205,14 @@ def _two_hop_prune(spo: np.ndarray, anchor_ids: Set[int], depth: int = 2) -> np.
     return spo[sorted(kept)]
 
 
-def _parse_graph(path: str) -> Tuple[np.ndarray, List[str], List[str]]:
-    """An ``.nt(.gz)`` graph as interned id triples and sorted vocabularies."""
+def _parse_graph(path: str, prefer_native: bool = True
+                 ) -> Tuple[np.ndarray, List[str], List[str]]:
+    """An ``.nt(.gz)`` graph as interned id triples and sorted vocabularies:
+    the C++ parser, or with ``prefer_native=False`` the Python scanner."""
+    if prefer_native:
+        from rgcn_tpu_torch.data.native_nt import parse_nt_native
+
+        return parse_nt_native(path)
     triples = list(iter_nt_file(path))
     nodes: Set[str] = set()
     rels: Set[str] = set()

@@ -2,8 +2,11 @@
 half of ``rgcn_tpu/graph/dynamic.py``).
 
 Link-prediction training samples a fresh positive subgraph every epoch.
-:func:`build_edge_set_dynamic_host` turns it into an :class:`EdgeSet` with
-numpy, bit-equal to the JAX package's builder of the same name:
+:func:`build_edge_set_dynamic_host` turns it into an :class:`EdgeSet` on
+the host, bit-equal to the JAX package's builder of the same name, its
+(relation, receiver) sorts and destination layouts in the port's C++
+counting sorts (:mod:`rgcn_tpu_torch.graph.native`) as the JAX package
+runs them, or in numpy with ``prefer_native=False``:
 
 * inverse edges are generated here (relation ``p + R``), and an original
   edge and its inverse share one dropout fate;
@@ -14,9 +17,10 @@ numpy, bit-equal to the JAX package's builder of the same name:
   (:func:`padded_size`), and the destination layouts are padded to their
   static totals, so every epoch's arrays have the same shapes.
 
-:func:`attach_host_layouts` adds the forward destination layout and the
-reversed edges (src/dst swapped, values kept, forward pads included with
-``val == 0``) with their own layout: the basis layer's dx runs K4 over that
+:func:`attach_host_layouts` adds the forward destination layout
+(:func:`static_layout`) and the reversed edges (:func:`reverse_edges`:
+src/dst swapped, values kept, forward pads included with ``val == 0``)
+with their own layout: the basis layer's dx runs K4 over that
 reverse frame, the block layer's dx K3 then K1. Forward pads become reverse
 edges into node 0 whose source is ``num_nodes``, one past the last row:
 readers of the reverse frame clamp that index (JAX's gathers clamp it; its
@@ -40,6 +44,8 @@ __all__ = [
     "padded_size",
     "auto_layout_row_block",
     "build_edge_set_dynamic_host",
+    "static_layout",
+    "reverse_edges",
     "attach_host_layouts",
 ]
 
@@ -62,9 +68,16 @@ def auto_layout_row_block(num_nodes: int, num_edges: int, chunk: int = 256) -> i
     return rb
 
 
-def _lexsort_rel_dst(rel: np.ndarray, dst: np.ndarray) -> np.ndarray:
-    """Edge order by ``(rel, dst)``, stable (the JAX package's native
-    counting sort gives the same order)."""
+def _lexsort_rel_dst(rel: np.ndarray, dst: np.ndarray, num_general: int,
+                     num_nodes: int, prefer_native: bool = True) -> np.ndarray:
+    """Edge order by ``(rel, dst)``, stable: the port's C++ counting sort
+    over ``(num_general, num_nodes + 1)`` bins (``dst`` may hold the pad
+    value ``num_nodes``), or with ``prefer_native=False`` ``np.lexsort``,
+    which gives the same order."""
+    if prefer_native:
+        from rgcn_tpu_torch.graph.native import lexsort_rel_dst
+
+        return lexsort_rel_dst(rel, dst, num_general, num_nodes + 1)
     return np.lexsort((dst, rel))
 
 
@@ -105,12 +118,15 @@ def build_edge_set_dynamic_host(
     with_dst_layout: bool = False,
     row_block: int = 128,
     layout_chunk: int = 256,
+    prefer_native: bool = True,
 ) -> EdgeSet:
     """EdgeSet of a sampled ``(B, 3)`` positive batch (relations in ``[0,
     R)``). ``keep_mask`` (per positive) overrides the dropout draw;
     otherwise ``dropout_rng`` draws keep with probability ``1 -
     dropout_rate``. ``with_dst_layout`` attaches the layouts and the
-    reversed edges (:func:`attach_host_layouts`)."""
+    reversed edges (:func:`attach_host_layouts`). The sorts and layouts
+    run in the port's C++ builders; ``prefer_native=False`` runs them in
+    numpy, with the same output."""
     positives = np.asarray(positives)
     bsz = positives.shape[0]
     num_general = 2 * num_rels
@@ -132,7 +148,7 @@ def build_edge_set_dynamic_host(
         keep = np.ones(bsz, dtype=np.float32)
     mask = np.concatenate([keep, keep])
 
-    order = _lexsort_rel_dst(rel, dst)
+    order = _lexsort_rel_dst(rel, dst, num_general, num_nodes, prefer_native)
     src, dst, rel, mask = src[order], dst[order], rel[order], mask[order]
 
     # 1 / (kept in-degree per (rel, dst)); dropped edges get 0
@@ -153,40 +169,48 @@ def build_edge_set_dynamic_host(
     )
     if not with_dst_layout:
         return es
-    return attach_host_layouts(es, row_block=row_block, layout_chunk=layout_chunk)
+    return attach_host_layouts(es, row_block=row_block, layout_chunk=layout_chunk,
+                               prefer_native=prefer_native)
 
 
-def _static_layout(dst: np.ndarray, num_nodes: int, row_block: int, chunk: int):
+def static_layout(dst: np.ndarray, num_nodes: int, row_block: int, chunk: int,
+                  prefer_native: bool = True):
     """Destination layout padded to ``nrb·chunk + ceil(E/chunk)·chunk``."""
     from rgcn_tpu_torch.ops.aggregate import build_dst_layout
 
     nrb = -(-num_nodes // row_block)
     total = nrb * chunk + -(-dst.shape[0] // chunk) * chunk
     return build_dst_layout(dst, num_nodes, row_block=row_block, chunk=chunk,
-                            pad_to=total)
+                            pad_to=total, prefer_native=prefer_native)
 
 
-def attach_host_layouts(es: EdgeSet, row_block: int = 128,
-                        layout_chunk: int = 256) -> EdgeSet:
-    """The EdgeSet with its destination layout and its reversed edges (with
-    their own layout), all at static sizes."""
+def reverse_edges(es: EdgeSet, prefer_native: bool = True) -> EdgeSet:
+    """The reversed edges of a host-built subgraph, without layouts: src
+    and dst swapped, the values kept, re-tiled by (relation, receiver) at
+    the static size; the forward pads ride along with ``val == 0``."""
     num_nodes, num_general, tile = es.num_nodes, es.num_rels, es.tile_size
     src_p, dst_p = np.asarray(es.src), np.asarray(es.dst)
     rel_p, val_p = np.asarray(es.rel), np.asarray(es.val)
-
-    # swap src/dst, keep the values, re-tile by (relation, receiver); the
-    # pads ride along with val == 0
-    r_order = _lexsort_rel_dst(rel_p, src_p)
+    r_order = _lexsort_rel_dst(rel_p, src_p, num_general, num_nodes, prefer_native)
     e_rev = padded_size(src_p.shape[0], num_general, tile)
     rsrc, rdst, rval, rrel, r_tile_rel = _tile_pad(
         dst_p[r_order], src_p[r_order], rel_p[r_order], val_p[r_order],
         num_nodes, num_general, tile, e_rev)
-    rev = EdgeSet(
+    return EdgeSet(
         src=rsrc, dst=rdst, rel=rrel, val=rval, tile_rel=r_tile_rel,
         num_nodes=int(num_nodes), num_rels=num_general, tile_size=int(tile),
-        num_edges=es.num_edges,
-        layout=_static_layout(rdst, num_nodes, row_block, layout_chunk),
-    )
+        num_edges=es.num_edges)
+
+
+def attach_host_layouts(es: EdgeSet, row_block: int = 128,
+                        layout_chunk: int = 256,
+                        prefer_native: bool = True) -> EdgeSet:
+    """The EdgeSet with its destination layout and its reversed edges (with
+    their own layout), all at static sizes."""
+    rev = reverse_edges(es, prefer_native)
+    rev = dataclasses.replace(rev, layout=static_layout(
+        rev.dst, es.num_nodes, row_block, layout_chunk, prefer_native))
     return dataclasses.replace(
-        es, layout=_static_layout(dst_p, num_nodes, row_block, layout_chunk),
+        es, layout=static_layout(np.asarray(es.dst), es.num_nodes, row_block,
+                                 layout_chunk, prefer_native),
         reverse=rev)

@@ -1,4 +1,4 @@
-"""Relation-sorted, tile-padded edge structure (numpy builders).
+"""Relation-sorted, tile-padded edge structure (host builders).
 
 Counterpart of ``rgcn_tpu/graph/structure.py``: edges are sorted by
 ``(relation, receiver)`` and each relation's segment is padded to a
@@ -7,7 +7,9 @@ multiple of ``tile_size`` so every tile has one relation (``tile_rel``).
 ``dst == num_nodes``. Self-loops are not edges: layers add them densely.
 
 The builders produce numpy arrays bit-equal to the JAX package's NumPy
-builders. :meth:`EdgeSet.to` moves the whole structure (destination
+builders; :func:`build_edge_set` and the destination layouts run in the
+port's C++ builders unless called with ``prefer_native=False``, with the
+same output. :meth:`EdgeSet.to` moves the whole structure (destination
 layout, fused layout, merged pair layout, reversed edges, the
 unique-(src, rel) pair index with its composed layouts) to a device once.
 
@@ -276,6 +278,8 @@ def build_edge_set(
     with_merged_layout: bool = False,
     with_pair_index: bool = False,
     with_pair_agg: bool = False,
+    tile_multiple: int = 1,
+    prefer_native: bool = True,
 ) -> EdgeSet:
     """Preprocess raw ``(s, p, o)`` triples into a static :class:`EdgeSet`.
 
@@ -290,7 +294,12 @@ def build_edge_set(
     order ``"rel"``), and with ``with_pair_agg=True`` (needs
     ``with_dst_layout``) also its composed aggregation layout and its
     pairs-by-source layout, as the JAX NC trainer builds them for more
-    than 8 bases.
+    than 8 bases. ``tile_multiple`` rounds the tile count up to a multiple
+    with pad tiles (of the last relation).
+
+    The sort, normalisation and tiling, and the destination layouts, run
+    in the port's C++ builders (:mod:`rgcn_tpu_torch.graph.native`,
+    bit-identical); ``prefer_native=False`` runs them in numpy.
     """
     from rgcn_tpu_torch.graph.coalesce import MERGED_MAX_RELS, build_merged_layout
     from rgcn_tpu_torch.ops.fused import build_fused_layout
@@ -299,31 +308,40 @@ def build_edge_set(
     if triples.ndim != 2 or triples.shape[1] != 3:
         raise ValueError(f"triples must be (E, 3), got {triples.shape}")
 
-    triples = np.concatenate([triples, inverse_triples(triples, num_rels)], axis=0)
-    num_general = 2 * num_rels
+    if prefer_native:
+        from rgcn_tpu_torch.graph.native import build_edge_set_native
 
-    dst = triples[:, 0]  # receiver = subject
-    rel = triples[:, 1]
-    src = triples[:, 2]  # source = object
+        es = build_edge_set_native(
+            triples, num_nodes, num_rels, tile_size=tile_size,
+            tile_multiple=tile_multiple, with_dst_layout=with_dst_layout,
+            layout_row_block=layout_row_block)
+    else:
+        triples = np.concatenate([triples, inverse_triples(triples, num_rels)],
+                                 axis=0)
+        num_general = 2 * num_rels
 
-    order = np.lexsort((dst, rel))
-    src, dst, rel = src[order], dst[order], rel[order]
+        dst = triples[:, 0]  # receiver = subject
+        rel = triples[:, 1]
+        src = triples[:, 2]  # source = object
 
-    val = edge_normalization(rel, dst, num_nodes)
+        order = np.lexsort((dst, rel))
+        src, dst, rel = src[order], dst[order], rel[order]
 
-    es = _assemble_edge_set(
-        src, dst, rel, val, num_nodes, num_general, tile_size,
-        with_dst_layout, layout_row_block,
-    )
-    if with_dst_layout:
-        # transposed copy: swap src/dst, KEEP the forward normalization
-        r_order = np.lexsort((src, rel))
-        rev = _assemble_edge_set(
-            dst[r_order], src[r_order], rel[r_order], val[r_order],
-            num_nodes, num_general, tile_size, True, layout_row_block,
-        )
-        rev = dataclasses.replace(rev, fused=build_fused_layout(rev))
-        es = dataclasses.replace(es, reverse=rev, fused=build_fused_layout(es))
+        val = edge_normalization(rel, dst, num_nodes)
+
+        layout_kw = dict(tile_multiple=tile_multiple, prefer_native=False)
+        es = _assemble_edge_set(
+            src, dst, rel, val, num_nodes, num_general, tile_size,
+            with_dst_layout, layout_row_block, **layout_kw)
+        if with_dst_layout:
+            # transposed copy: swap src/dst, KEEP the forward normalization
+            r_order = np.lexsort((src, rel))
+            rev = _assemble_edge_set(
+                dst[r_order], src[r_order], rel[r_order], val[r_order],
+                num_nodes, num_general, tile_size, True, layout_row_block,
+                **layout_kw)
+            rev = dataclasses.replace(rev, fused=build_fused_layout(rev))
+            es = dataclasses.replace(es, reverse=rev, fused=build_fused_layout(es))
     if with_pair_index:
         es = dataclasses.replace(es, pairs=build_src_rel_pairs(es))
         if with_pair_agg:
@@ -349,6 +367,9 @@ def _assemble_edge_set(
     tile_size: int,
     with_dst_layout: bool = False,
     layout_row_block: Optional[int] = None,
+    *,
+    tile_multiple: int = 1,
+    prefer_native: bool = True,
 ) -> EdgeSet:
     """Tile-pad pre-sorted (by relation) edge arrays into an EdgeSet."""
     counts = np.bincount(rel, minlength=num_general)
@@ -359,6 +380,9 @@ def _assemble_edge_set(
     e_pad = int(padded.sum())
     if e_pad == 0:
         e_pad = tile_size  # an empty graph still gets one masked tile
+    if tile_multiple > 1:
+        step = tile_size * tile_multiple
+        e_pad = -(-e_pad // step) * step
     pos = offsets[rel] + (np.arange(rel.shape[0]) - starts[rel])
 
     def scatter(values, fill, dtype):
@@ -382,7 +406,7 @@ def _assemble_edge_set(
         from rgcn_tpu_torch.ops.aggregate import build_dst_layout
 
         kw = {} if layout_row_block is None else {"row_block": layout_row_block}
-        layout = build_dst_layout(dst_p, num_nodes, **kw)
+        layout = build_dst_layout(dst_p, num_nodes, prefer_native=prefer_native, **kw)
 
     return EdgeSet(
         src=src_p,

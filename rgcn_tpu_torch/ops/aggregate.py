@@ -83,6 +83,7 @@ def build_dst_layout(
     row_block: int = 128,
     chunk: int = 256,
     pad_to: Optional[int] = None,
+    prefer_native: bool = True,
 ) -> DstLayout:
     """Host-side layout construction for a static graph.
 
@@ -90,7 +91,15 @@ def build_dst_layout(
     ``pad_to`` pads the layout to a fixed slot count: the appended chunks
     hold pads only and repeat the last row block (the host-built training
     subgraphs take the JAX package's shape-stable totals).
+
+    Runs the port's C++ counting sort
+    (:func:`rgcn_tpu_torch.graph.native.build_dst_layout_native`,
+    bit-identical); ``prefer_native=False`` runs numpy's stable argsort.
     """
+    if prefer_native:
+        from rgcn_tpu_torch.graph.native import build_dst_layout_native
+
+        return build_dst_layout_native(dst, num_nodes, row_block, chunk, pad_to)
     dst = np.asarray(dst)
     e = dst.shape[0]
     num_row_blocks = -(-num_nodes // row_block)

@@ -37,28 +37,43 @@ import torch
 from rgcn_tpu_torch.ops.aggregate import aggregate_sorted, build_dst_layout
 from rgcn_tpu_torch.ops.basis import weighted_aggregate
 
-__all__ = ["build_structured_layouts", "structured_scores"]
+__all__ = ["build_structured_layouts", "padded_layout", "scoring_rows",
+           "structured_scores"]
+
+
+def padded_layout(ids: np.ndarray, num_nodes: int, row_block: int, chunk: int,
+                  prefer_native: bool = True):
+    """Destination layout of ``ids`` padded to its static total
+    ``nrb·chunk + ceil(len/chunk)·chunk``."""
+    total = -(-num_nodes // row_block) * chunk + -(-len(ids) // chunk) * chunk
+    return build_dst_layout(ids, num_nodes, row_block=row_block, chunk=chunk,
+                            pad_to=total, prefer_native=prefer_native)
 
 
 def build_structured_layouts(positives: np.ndarray, corrupt_ent: np.ndarray,
                              corrupt_head: np.ndarray, num_nodes: int,
-                             row_block: int = 128, chunk: int = 256):
-    """Host layouts of the structured backward, each padded to its static
-    total ``nrb·chunk + ceil(len/chunk)·chunk``: the corrupted entities
-    (Ns), the positives' subjects and objects (P); then ``(ce_sorted,
-    qk_idx)``, each corrupted slot's entity and its query row in ``[q ;
-    k]`` (``parent + P`` for a head corruption), in ``c_lay``'s slot order
-    (pads read 0). The JAX builder's form with ``sorted_corrupt=True``."""
+                             row_block: int = 128, chunk: int = 256,
+                             prefer_native: bool = True):
+    """Host layouts of the structured backward, each a
+    :func:`padded_layout`: the corrupted entities (Ns), the positives'
+    subjects and objects (P); then :func:`scoring_rows`. The JAX builder's
+    form with ``sorted_corrupt=True``. The layouts run in the port's C++
+    counting sort; ``prefer_native=False`` runs numpy's argsort."""
     positives = np.asarray(positives)
+    c_lay, s_lay, o_lay = (
+        padded_layout(ids, num_nodes, row_block, chunk, prefer_native)
+        for ids in (corrupt_ent, positives[:, 0], positives[:, 2]))
+    return c_lay, s_lay, o_lay, scoring_rows(c_lay, corrupt_ent, corrupt_head,
+                                             len(positives))
+
+
+def scoring_rows(c_lay, corrupt_ent: np.ndarray, corrupt_head: np.ndarray,
+                 p_count: int):
+    """``(ce_sorted, qk_idx)``: each corrupted slot's entity and its query
+    row in ``[q ; k]`` (``parent + P`` for a head corruption), in
+    ``c_lay``'s slot order (pads read 0)."""
     corrupt_ent = np.asarray(corrupt_ent)
-
-    def lay(ids):
-        total = -(-num_nodes // row_block) * chunk + -(-len(ids) // chunk) * chunk
-        return build_dst_layout(ids, num_nodes, row_block=row_block, chunk=chunk,
-                                pad_to=total)
-
-    c_lay, s_lay, o_lay = lay(corrupt_ent), lay(positives[:, 0]), lay(positives[:, 2])
-    p_count, ns_total = len(positives), corrupt_ent.shape[0]
+    ns_total = corrupt_ent.shape[0]
     perm = c_lay.perm.astype(np.int64)
     valid = perm < ns_total
     safe = np.where(valid, perm, 0)
@@ -66,7 +81,7 @@ def build_structured_layouts(positives: np.ndarray, corrupt_ent: np.ndarray,
     qk_idx = safe // (ns_total // p_count) \
         + p_count * np.asarray(corrupt_head).astype(np.int64)[safe]
     qk_idx = np.where(valid, qk_idx, 0)
-    return c_lay, s_lay, o_lay, (ce_sorted.astype(np.int32), qk_idx.astype(np.int32))
+    return ce_sorted.astype(np.int32), qk_idx.astype(np.int32)
 
 
 def _forward(positives, ch, corrupt_ent, nodes, relations, pw):

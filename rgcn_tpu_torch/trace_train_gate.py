@@ -33,6 +33,15 @@ nc-AIFB shapes and reports the largest difference between any two of
 their outputs and from the f64 plain version (a lost update shows as a
 jump, reordered atomics as f32 rounding). One JSON line per run and one
 summary line; ``--out`` keeps them all. Needs CUDA.
+
+    python -m rgcn_tpu_torch.trace_train_gate --smoke-runs 10 [--out ...]
+
+runs ``chip_smoke.py``'s phases 1-5 (environment, build, the nc-AIFB
+kernels, the hub graph, serving, and training: the context the gate met
+when it failed) ``--smoke-runs`` times, each in a fresh process, and
+records each phase-5 path's final-logits distance from the CPU's and its
+gate; a gate that fails ends that process as it ends ``chip_smoke.py``,
+with its distance recorded.
 """
 
 from __future__ import annotations
@@ -158,13 +167,85 @@ def main(argv=None):
     ap.add_argument("--epochs", type=int, default=5)
     ap.add_argument("--race-repeats", type=int, default=200)
     ap.add_argument("--out", default=None, help="write every record here (JSON)")
+    ap.add_argument("--smoke-runs", type=int, default=0,
+                    help="instead: chip_smoke.py's phases 1-5 this many times, "
+                         "each in a fresh process")
+    ap.add_argument("--smoke-child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         sys.exit("trace_train_gate needs CUDA")
+    if args.smoke_child:
+        print(json.dumps(smoke_phases()), flush=True)
+        return
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    trace(torch.device("cuda"), args)
+    if args.smoke_runs:
+        trace_smoke(args.smoke_runs, args.out)
+    else:
+        trace(torch.device("cuda"), args)
+
+
+def smoke_phases() -> dict:
+    """``chip_smoke.py``'s phases 1-5 in this process; each phase-5
+    training path's final-logits distance from the CPU's and its gate."""
+    sys.path.insert(0, _ROOT)
+    import chip_smoke
+
+    gates = []
+    check = chip_smoke.check_train_against_cpu
+
+    def recorded(label, got, ref, logits, ref_logits, diagnose=None):
+        gates.append({"path": label,
+                      "logits_diff": (logits.cpu() - ref_logits).abs().max().item(),
+                      "tol": 1e-4 * max(1.0, ref_logits.abs().max().item())})
+        return check(label, got, ref, logits, ref_logits, diagnose)
+
+    chip_smoke.check_train_against_cpu = recorded
+    exit_code = 0
+    try:
+        chip_smoke.phase_environment()
+        chip_smoke.phase_build()
+        chip_smoke.phases_nc_aifb(torch.device("cuda"))
+    except SystemExit as e:  # chip_smoke.fail: a failed check ends the phases
+        exit_code = e.code
+    return {"smoke_phases_1_5": {"exit_code": exit_code, "gates": gates}}
+
+
+def trace_smoke(runs: int, out=None) -> dict:
+    """:func:`smoke_phases` ``runs`` times, each in a fresh process."""
+    import subprocess
+
+    records = []
+    for i in range(runs):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "rgcn_tpu_torch.trace_train_gate", "--smoke-child"],
+            cwd=_ROOT, capture_output=True, text=True, timeout=900)
+        lines = proc.stdout.strip().splitlines()
+        try:
+            rec = json.loads(lines[-1])["smoke_phases_1_5"]
+        except (IndexError, ValueError, KeyError):
+            rec = {"exit_code": proc.returncode, "gates": [],
+                   "stderr_tail": proc.stderr[-2000:]}
+        rec.update(run=i, seconds=time.perf_counter() - t0)
+        records.append(rec)
+        print(json.dumps(rec), flush=True)
+    diffs = [g["logits_diff"] for r in records for g in r["gates"]]
+    summary = {
+        "device": torch.cuda.get_device_name(0), "smoke_runs": runs,
+        "processes_failed": sum(r["exit_code"] != 0 for r in records),
+        "gates_over_tol": sum(g["logits_diff"] > g["tol"] for r in records
+                              for g in r["gates"]),
+        "logits_diff_max": max(diffs) if diffs else None,
+        "logits_diff_median": float(np.median(diffs)) if diffs else None,
+    }
+    print(json.dumps({"summary": summary}), flush=True)
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump({"summary": summary, "runs": records}, f, indent=1)
+    return summary
 
 
 def trace(dev, args) -> dict:

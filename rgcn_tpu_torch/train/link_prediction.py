@@ -23,7 +23,10 @@ Each epoch is one step on a freshly sampled positive subgraph:
 
 The loss is the mean sigmoid cross-entropy over ``[positives ;
 negatives]`` plus ``l2_penalty`` times the Schlichtkrull penalty; one
-optimizer step (``train/optim.py``) follows. A background thread builds the
+optimizer step (``train/optim.py``) follows. The subgraph's sorts and
+every destination layout run in the port's C++ builders
+(:mod:`rgcn_tpu_torch.graph.native`; ``sample_epoch(prefer_native=False)``
+runs numpy, with the same batch). A background thread builds the
 next two epochs' host data while the card runs the step; each epoch's draws
 depend only on ``(seed, epoch)``, so the schedule is the same as without
 it. Every ``check_every`` epochs (not the last) and after the last,
@@ -88,6 +91,10 @@ __all__ = [
 ]
 
 PREFETCH_DEPTH = 2
+# the stages of LinkPredictionTrainer.sample_epoch, in order
+EPOCH_STAGES = ("sampler", "forward_sort", "dst_layout", "reverse_sort",
+                "reverse_layout", "corrupt_batch", "corrupt_layout", "subject_layout",
+                "object_layout", "scoring_rows", "keep_masks")
 
 
 def evaluate_link_predictor(model, eval_edges, test: np.ndarray, filters,
@@ -239,33 +246,63 @@ class LinkPredictionTrainer:
         self.batch: Optional[EpochBatch] = None
 
     # -- the epoch's host data ----------------------------------------------
-    def sample_epoch(self, epoch: int) -> EpochBatch:
+    def sample_epoch(self, epoch: int, prefer_native: bool = True,
+                     times: Optional[Dict[str, float]] = None) -> EpochBatch:
         """Epoch ``epoch``'s positives, subgraph, negatives, scoring layouts
-        and self-loop masks, drawn on the host from ``(seed, epoch)``."""
+        and self-loop masks, drawn on the host from ``(seed, epoch)``. The
+        sorts and layouts run in the port's C++ builders, or in numpy with
+        ``prefer_native=False`` (the same batch); ``times``, when given,
+        receives each stage's host seconds (:data:`EPOCH_STAGES`)."""
         from rgcn_tpu_torch.graph.dynamic import (
             auto_layout_row_block,
             build_edge_set_dynamic_host,
+            reverse_edges,
+            static_layout,
         )
-        from rgcn_tpu_torch.ops.distmult_train import build_structured_layouts
+        from rgcn_tpu_torch.ops.distmult_train import padded_layout, scoring_rows
         from rgcn_tpu_torch.train.negative import corrupt_batch_host
 
-        seed, n = self.seed, self.num_nodes
+        times = {} if times is None else times
+        clock = [time.perf_counter()]
+
+        def lap(stage):
+            now = time.perf_counter()
+            times[stage] = now - clock[0]
+            clock[0] = now
+
+        seed, n, pn = self.seed, self.num_nodes, prefer_native
         if self.batch_size >= len(self.train_np):
             positives = self.train_np
         else:
             positives = self.sampler(self.train_np, self.batch_size,
                                      np.random.default_rng((seed, epoch)))
+        lap("sampler")
+        # the subgraph (build_edge_set_dynamic_host with its layouts), stage by stage
         edges = build_edge_set_dynamic_host(
             positives, n, self.num_rels, tile_size=self.tile_size,
             dropout_rate=self.general_dropout,
-            dropout_rng=np.random.default_rng((seed, epoch, 7)),
-            with_dst_layout=True,
-            row_block=auto_layout_row_block(n, 2 * len(positives)), layout_chunk=256)
+            dropout_rng=np.random.default_rng((seed, epoch, 7)), prefer_native=pn)
+        lap("forward_sort")
+        rb = auto_layout_row_block(n, 2 * len(positives))
+        layout = static_layout(edges.dst, n, rb, 256, pn)
+        lap("dst_layout")
+        rev = reverse_edges(edges, pn)
+        lap("reverse_sort")
+        rev = dataclasses.replace(rev, layout=static_layout(rev.dst, n, rb, 256, pn))
+        lap("reverse_layout")
+        edges = dataclasses.replace(edges, layout=layout, reverse=rev)
         ch, ce = corrupt_batch_host(
             np.random.default_rng((seed, epoch, 11)), positives, n,
             self.num_neg, self.head_prob, structure_only=True)
-        layouts = build_structured_layouts(positives, ce, ch, n, row_block=512,
-                                           chunk=256)
+        lap("corrupt_batch")
+        # build_structured_layouts (row block 512, chunk 256), stage by stage
+        lays = []
+        for stage, ids in (("corrupt_layout", ce), ("subject_layout", positives[:, 0]),
+                           ("object_layout", positives[:, 2])):
+            lays.append(padded_layout(ids, n, 512, 256, pn))
+            lap(stage)
+        rows = scoring_rows(lays[0], ce, ch, len(positives))
+        lap("scoring_rows")
         labels = np.concatenate([np.ones(len(positives), np.float32),
                                  np.zeros(len(ce), np.float32)])
         masks = None
@@ -274,7 +311,8 @@ class LinkPredictionTrainer:
             rng = np.random.default_rng((seed, epoch, 13))
             masks = [rng.random((n, conv.out_features), dtype=np.float32) < 1.0 - rate
                      for conv in self._convs()]
-        return EpochBatch(positives, edges, ch, ce, labels, layouts, masks)
+        lap("keep_masks")
+        return EpochBatch(positives, edges, ch, ce, labels, (*lays, rows), masks)
 
     def _convs(self):
         m = self.model

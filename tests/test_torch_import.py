@@ -20,10 +20,12 @@ MODULES = [
     "rgcn_tpu_torch.data",
     "rgcn_tpu_torch.data.dispatch",
     "rgcn_tpu_torch.data.loaders",
+    "rgcn_tpu_torch.data.native_nt",
     "rgcn_tpu_torch.data.nt",
     "rgcn_tpu_torch.graph",
     "rgcn_tpu_torch.graph.coalesce",
     "rgcn_tpu_torch.graph.dynamic",
+    "rgcn_tpu_torch.graph.native",
     "rgcn_tpu_torch.graph.structure",
     "rgcn_tpu_torch.device",
     "rgcn_tpu_torch.ops.aggregate",
@@ -35,6 +37,7 @@ MODULES = [
     "rgcn_tpu_torch.ops.rel_spmm",
     "rgcn_tpu_torch.ops.spmm",
     "rgcn_tpu_torch.kernels",
+    "rgcn_tpu_torch.native",
     "rgcn_tpu_torch.nn",
     "rgcn_tpu_torch.nn.layers",
     "rgcn_tpu_torch.models",
@@ -45,6 +48,7 @@ MODULES = [
     "rgcn_tpu_torch.serve_links",
     "rgcn_tpu_torch.weights",
     "rgcn_tpu_torch.profile_serve",
+    "rgcn_tpu_torch.profile_epoch",
     "rgcn_tpu_torch.compare_k2",
     "rgcn_tpu_torch.compare_k3",
     "rgcn_tpu_torch.compare_k4_k5",
@@ -242,6 +246,35 @@ def test_compare_k2_needs_cuda(monkeypatch):
         compare_k2.main([])
 
 
+def test_profile_epoch_needs_cuda(monkeypatch):
+    """The host-build measurement names a card: without CUDA (and without
+    --cpu) it raises before building a trainer."""
+    from rgcn_tpu_torch import profile_epoch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(profile_epoch, "profile_config",
+                        lambda *a, **k: pytest.fail("profiled"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        profile_epoch.main([])
+
+
+def test_import_builds_and_loads_no_host_library():
+    """Importing the port compiles nothing and loads no native library: the
+    host builders are built at first use."""
+    code = (
+        f"import {', '.join(MODULES)}\n"
+        "import rgcn_tpu_torch.native as n\n"
+        "assert not n._LIBS, n._LIBS\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'host_builders' not in maps and 'librgcn_native' not in maps\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_compare_k3_needs_cuda(monkeypatch):
     """The K3 design comparison runs on the card only: without CUDA it
     raises before building anything."""
@@ -306,3 +339,30 @@ def test_serve_nodes_cli_cpu(capsys):
         serve_nodes.main(["--config", cfg, "--cpu"])  # no dataset files in data/
     probs = np.array([float(line.split("p=")[1].rstrip(")")) for line in out[1:]])
     assert ((probs > 0) & (probs <= 1)).all()
+
+
+def test_trace_smoke_phases_records_each_gate(monkeypatch):
+    """The phases-1-5 trace records every phase-5 path's final-logits
+    distance and gate, also when a gate fails and ends the phases."""
+    import chip_smoke
+
+    from rgcn_tpu_torch import trace_train_gate
+
+    ref = torch.tensor([[1.0, -2.0], [0.5, 3.0]])
+
+    def phases(dev):
+        for label, moved in (("main: fused layouts", 1e-6), ("K3 + K1 branch", 1.0)):
+            chip_smoke.check_train_against_cpu(
+                label, [("training.loss", 1, 0.5)], [("training.loss", 1, 0.5)],
+                ref + moved, ref)
+
+    monkeypatch.setattr(chip_smoke, "phase_environment", lambda: "cpu")
+    monkeypatch.setattr(chip_smoke, "phase_build", lambda: None)
+    monkeypatch.setattr(chip_smoke, "phases_nc_aifb", phases)
+    monkeypatch.setattr(chip_smoke, "check_train_against_cpu",
+                        chip_smoke.check_train_against_cpu)
+    out = trace_train_gate.smoke_phases()["smoke_phases_1_5"]
+    assert out["exit_code"] == 1
+    assert [g["path"] for g in out["gates"]] == ["main: fused layouts", "K3 + K1 branch"]
+    assert out["gates"][0]["logits_diff"] <= out["gates"][0]["tol"] == pytest.approx(3e-4)
+    assert out["gates"][1]["logits_diff"] == pytest.approx(1.0)
