@@ -227,7 +227,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    and parsed, each both ways, outputs equal (the parse also to the
    source's triples), host seconds; one "host_build_ms" line (keys ending
    in _s are seconds);
-21. summary: one JSON line of each path's launch counts (serving, and
+21. the single-device branches no shipped config reaches, each trained on
+   the card and on the CPU's plain versions from the same initialisation,
+   counts zeroed just before each path: nc-AIFB R-GCN with 4 bases on
+   aifb_like() for 5 epochs (layer 1 the featureless basis Function,
+   layer 2 the merged frame's: exactly K4 6E + 2), nc-AM R-GCN with 4
+   bases on am_like() at AM scale for 2 (532 general relations: layer 2
+   over the destination layout; exactly K4 6E + 2), e-RGCN nc-AIFB with 4
+   bases (K1 3E + 1, K4 3E + 1) and with 2 blocks (rgc1's expanded blocks
+   on K2 both ways: K1 3E + 1, K2 3E + 1) for 5 each, under phase 12's
+   gates; lp-WN18 (wn18_like(), width 200, batch 30,000) for 2 epochs with
+   a biased decoder (the assembled batch scored by plain gathers and
+   autograd: K4 2E + 1), a plain L2 (the assembled batch's scorer, K1 for
+   the subjects' and objects' rows: K4 2E + 1, K1 2E) and the structural
+   self-loop mask (one (N, 1) mask, structured scorer: K4 4E + 1, K1 2E),
+   under phase 13's gates, the assembled branch's sample_epoch stages
+   timed; each step profiled as in phase 5; then one forward and backward
+   of the merged-frame basis Function over phase 6's dedup frame (exactly
+   K5 1 and K4 1) held against the same Function over the plain merged
+   frame within 1e-5 * max(1, max|ref|), both timed, and K4 under grad
+   outside the Functions must raise; one "branches" line;
+22. summary: one JSON line of each path's launch counts (serving, and
    training), the training steps' timing (nc-AIFB, nc-AM, lp-WN18,
    lp-FB-toy, the c-RGCN and e-RGCN configs), one of the extra nc modes
    (K1 at dout 4, K3 at nc-AIFB, K2 and K3 at the dx shape,
@@ -239,8 +259,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    around the diagonal layer's K1, and the "kernels"
    line, whose "launches" for each kernel is its count on the path named
    beside it and "train_launches" its count on each training path, and
-   just before that line the host_build_ms line of phase 20;
-22. last line: {"ok": true, "device": {...}}.
+   just before that line the host_build_ms line of phase 20 and the
+   branches line of phase 21 (the branches' training paths are in each
+   row's "train_launches");
+23. last line: {"ok": true, "device": {...}}.
 
 Needs CUDA (exits 1 without it) and the repository around it.
 """
@@ -1722,7 +1744,8 @@ def rank_bands(trainer):
     return np.concatenate(lo), np.concatenate(hi)
 
 
-def lp_train_against_cpu(key, path, data, dev, epochs, expect=None, rank_band=False):
+def lp_train_against_cpu(key, path, data, dev, epochs, expect=None, rank_band=False,
+                         edit=None):
     """Train an LP config on the card and on the CPU's plain versions from
     the seed-0 initialisation and the same epoch schedule: every gradient
     after one backward within 1e-5 * max|ref| of its own parameter (the
@@ -1734,13 +1757,16 @@ def lp_train_against_cpu(key, path, data, dev, epochs, expect=None, rank_band=Fa
     share of equal ranks reported beside that of a second CPU run from the
     initialisation moved by 1e-7 relative); exactly ``expect``
     (default train_lp_path's launches), counts zeroed just before the
-    card's run.
+    card's run. ``edit``: a function of the loaded config, applied before
+    the epochs are set (phase 21's branches).
     Returns (launches, checks, the card's trainer, its peak device GB)."""
     from rgcn_tpu_torch import kernels
     from rgcn_tpu_torch.config import load_experiment
     from rgcn_tpu_torch.train.link_prediction import LinkPredictionTrainer
 
     base = load_experiment(path)
+    if edit is not None:
+        base = edit(base)
     cfg = dataclasses.replace(base, training=dataclasses.replace(
         base.training, epochs=epochs))
     quiet = records_logger()
@@ -1756,12 +1782,16 @@ def lp_train_against_cpu(key, path, data, dev, epochs, expect=None, rank_band=Fa
         loss.backward()
         losses.append(loss.item())
     b = card.batch
+    scoring = (f"c_lay L {b.layouts[0].perm.shape[0]}, s_lay L "
+               f"{b.layouts[1].perm.shape[0]}" if b.layouts is not None else
+               f"assembled batch {tuple(b.batch.shape)}, s_lay L "
+               f"{b.batch_layouts[0].perm.shape[0]}, o_lay L "
+               f"{b.batch_layouts[1].perm.shape[0]}")
     log(f"training {key} ({epochs} epochs, seed-0 init): N {data.num_nodes}, P "
         f"{b.positives.shape[0]}, Ns {b.corrupt_ent.shape[0]}, E_pad "
         f"{b.edges.src.shape[0]} (layout L {b.edges.layout.perm.shape[0]}, row block "
         f"{b.edges.layout.row_block}), reverse E_pad {b.edges.reverse.src.shape[0]} "
-        f"(L {b.edges.reverse.layout.perm.shape[0]}), c_lay L "
-        f"{b.layouts[0].perm.shape[0]}, s_lay L {b.layouts[1].perm.shape[0]} "
+        f"(L {b.edges.reverse.layout.perm.shape[0]}), {scoring} "
         f"(set-up {time.perf_counter() - t0:.1f} s)")
     log(f"  first loss card {losses[1]:.7f}, CPU {losses[0]:.7f}")
     ref_grads = dict(cpu.model.named_parameters())
@@ -3009,6 +3039,219 @@ def phase_host_build(dev, am_data):
     return timing
 
 
+# -- phase 21: the single-device branches no shipped config reaches --
+
+BRANCH_NC_EPOCHS = 5  # nc-AIFB R-GCN and e-RGCN with 4 bases, e-RGCN with blocks
+BRANCH_AM_EPOCHS = 2  # nc-AM R-GCN with 4 bases at AM scale
+BRANCH_LP_EPOCHS = 2  # lp-WN18: biased decoder, plain L2, structural self-loop mask
+BRANCH_HOST_EPOCHS = 5  # sample_epoch's stages timed on the assembled branch
+
+
+def train_few_bases(epochs: int) -> dict:
+    """Launches of training an R-GCN with at most 8 bases for ``epochs``:
+    per epoch the train forward (K4 layer 1 over the per-basis tables with
+    sum_bases, K4 layer 2 over the merged frame or the destination layout),
+    the backward (K4 over the merged reverse frame or edges.reverse for
+    layer 2's dx, K4 over edges.reverse with the shared g for layer 1's
+    basis tables) and the eval forward (K4 twice); then the final
+    prediction's two."""
+    return dict(k4_weighted_aggregate=6 * epochs + 2)
+
+
+def train_ergcn_bases(epochs: int) -> dict:
+    """e-RGCN with at most 8 bases: the diagonal layer's K1 and rgc1's K4
+    over the merged frame, each once in the train forward, once in the
+    backward (dx over the merged reverse frame) and once in the eval
+    forward; one more of each for the final prediction."""
+    return dict(k1_aggregate=3 * epochs + 1, k4_weighted_aggregate=3 * epochs + 1)
+
+
+def train_lp_assembled(epochs: int, plain_l2: bool) -> dict:
+    """lp-WN18 on the assembled batch: per step K4 forward and K4 dx over
+    the reversed subgraph, and for a bias-free decoder (plain L2) K1 for
+    the subjects' and the objects' rows (a biased decoder scores through
+    plain gathers and autograd: no kernel); one K4 encode to evaluate."""
+    out = dict(k4_weighted_aggregate=2 * epochs + 1)
+    if plain_l2:
+        out["k1_aggregate"] = 2 * epochs
+    return out
+
+
+def nc_branch_cfg(path, decomposition, epochs):
+    from rgcn_tpu_torch.config import load_experiment
+
+    base = load_experiment(path)
+    return dataclasses.replace(
+        base, rgcn=dataclasses.replace(base.rgcn, decomposition=decomposition),
+        training=dataclasses.replace(base.training, epochs=epochs))
+
+
+def lp_biased(cfg):
+    return dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder,
+                                                                bias_init="zeros"))
+
+
+def lp_plain_l2(cfg):
+    return dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder,
+                                                                l2_penalty_type="l2"))
+
+
+def lp_structural(cfg):
+    enc = cfg.encoder
+    return dataclasses.replace(cfg, encoder=dataclasses.replace(
+        enc, edge_dropout=dataclasses.replace(enc.edge_dropout, self_loop=0.2,
+                                              self_loop_type="structural")))
+
+
+def branch_summary(counts, timing, **diffs) -> dict:
+    """The branches line's entry of one path."""
+    return {"launches": counts, "step_host_median_ms": timing["step_host_median"],
+            "device_step_ms": timing["device_step"],
+            "device_busy_share": timing["device_busy_share"],
+            "peak_memory_gb_training_run": timing["peak_memory_gb_training_run"],
+            **diffs}
+
+
+def host_stage_ms(trainer, epochs: int) -> dict:
+    """sample_epoch's stages on the card's host, native builders: the median
+    ms of each over ``epochs`` epochs after a warm one."""
+    from rgcn_tpu_torch.train.link_prediction import EPOCH_STAGES
+
+    trainer.sample_epoch(2)
+    laps = {st: [] for st in EPOCH_STAGES}
+    for epoch in range(3, 3 + epochs):
+        times: dict = {}
+        trainer.sample_epoch(epoch, times=times)
+        for st, v in times.items():
+            laps[st].append(v * 1e3)
+    return {st: float(np.median(v)) for st, v in laps.items()}
+
+
+def branch_k5_grad(dev, lp_edges, dedup):
+    """One forward and backward of the merged-frame basis Function over the
+    lp-WN18 dedup frame (exactly K5 1 forward, K4 1 dx), held against the
+    same Function over the plain merged frame on the card (K4 both ways),
+    1e-5 * max(1, max|ref|); each timed (CUDA events, 20 calls). A grad
+    through K4 outside the Functions must still raise. Returns (launches,
+    the row)."""
+    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch.ops.basis import rel_spmm_basis, weighted_aggregate
+
+    n, r, d = lp_edges.num_nodes, lp_edges.num_rels, 200
+    gen = torch.Generator().manual_seed(21)
+    x, g = (torch.randn((n, d), generator=gen).to(dev) for _ in range(2))
+    bases = (torch.randn((2, d, d), generator=gen) / d ** 0.5).to(dev)
+    comps = torch.randn((r, 2), generator=gen).to(dev)
+    frame = dataclasses.replace(lp_edges, merged=dedup)
+
+    def run(edges):
+        leaves = [t.clone().requires_grad_() for t in (x, bases, comps)]
+        out = rel_spmm_basis(edges, *leaves)
+        out.backward(g)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    got = run(frame)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    log(f"K5 under grad: launches {counts}")
+    if counts != launches(k5_weighted_aggregate_dedup=1, k4_weighted_aggregate=1):
+        fail(f"K5 under grad: launches {counts}, expected one K5 and one K4")
+    ref = run(lp_edges)
+    errs = {name: check_close(f"[K5 under grad] {name} vs the plain merged frame", a, b)
+            for name, a, b in zip(("out", "dx", "dbases", "dcomps"), got, ref)}
+    m = lp_edges.merged
+    src, w = m.src_sorted, torch.ones((2, m.coeff.shape[0]), device=dev)
+    try:
+        weighted_aggregate(x.clone().requires_grad_(), src, w, m.layout, n)
+    except RuntimeError as e:
+        log(f"  K4 outside the Functions under grad raises: {e}")
+    else:
+        fail("K4 under grad outside the autograd Functions did not raise")
+    row = {"card": card_line(), "max_abs_err": errs,
+           "dedup_fwd_bwd_ms": cuda_ms(lambda: run(frame), iters=20),
+           "merged_fwd_bwd_ms": cuda_ms(lambda: run(lp_edges), iters=20)}
+    log(f"  K5 under grad: {json.dumps(row)}")
+    return counts, row
+
+
+def phase_branches(dev, am, wn18, lp_edges, dedup):
+    """Phase 21: train the branches no shipped config reaches on the card,
+    each against the CPU from the same initialisation, counts zeroed just
+    before each path; each step profiled. Returns (launches per path, the
+    timing per path, the branches line)."""
+    from rgcn_tpu_torch.config import DecompositionConfig
+    from rgcn_tpu_torch.data.synthetic import aifb_like
+
+    basis4 = DecompositionConfig("basis", num_bases=4)
+    blocks2 = DecompositionConfig("block", num_blocks=2)
+    aifb = aifb_like()
+    paths, timing, summary = {}, {}, {}
+    for key, path, data, decomp, epochs, expect, merged in (
+            ("branch_nc_aifb_basis4", CONFIG, aifb, basis4, BRANCH_NC_EPOCHS,
+             train_few_bases(BRANCH_NC_EPOCHS), True),
+            ("branch_nc_am_basis4", AM_CONFIG, am, basis4, BRANCH_AM_EPOCHS,
+             train_few_bases(BRANCH_AM_EPOCHS), False),
+            ("branch_ergcn_nc_aifb_basis4", E_AIFB_CONFIG, aifb, basis4,
+             BRANCH_NC_EPOCHS, train_ergcn_bases(BRANCH_NC_EPOCHS), True),
+            ("branch_ergcn_nc_aifb_blocks2", E_AIFB_CONFIG, aifb, blocks2,
+             BRANCH_NC_EPOCHS, train_ergcn_merged(BRANCH_NC_EPOCHS), True)):
+        t0 = time.perf_counter()
+        cfg = nc_branch_cfg(path, decomp, epochs)
+        got, check, card, peak = train_against_cpu(
+            key, cfg, data, dev, ((key, key, lambda es: es, expect),))
+        if (card.edges.merged is not None) != merged:
+            fail(f"training [{key}]: merged frame present {card.edges.merged is not None}")
+        paths.update(got)
+        timing[key] = train_step_timing(
+            card, peak_memory_gb_training_run=peak,
+            loss_max_rel_diff=check[key][0], logits_max_abs_diff=check[key][1])
+        summary[key] = branch_summary(got[key], timing[key],
+                                      loss_max_rel_diff=check[key][0],
+                                      logits_max_abs_diff=check[key][1])
+        log(json.dumps({f"{key}_step": timing[key]}))
+        log(f"phase 21 [{key}]: {time.perf_counter() - t0:.1f} s")
+        del card
+    for key, edit, expect in (
+            ("branch_lp_wn18_biased", lp_biased,
+             train_lp_assembled(BRANCH_LP_EPOCHS, plain_l2=False)),
+            ("branch_lp_wn18_plain_l2", lp_plain_l2,
+             train_lp_assembled(BRANCH_LP_EPOCHS, plain_l2=True)),
+            ("branch_lp_wn18_structural", lp_structural,
+             train_lp_path("basis", BRANCH_LP_EPOCHS))):
+        t0 = time.perf_counter()
+        counts, checks, trainer, peak = lp_train_against_cpu(
+            key, LP_CONFIG, wn18, dev, BRANCH_LP_EPOCHS, expect=launches(**expect),
+            edit=edit)
+        b = trainer.batch
+        assembled = key != "branch_lp_wn18_structural"
+        if (b.batch is not None) != assembled:
+            fail(f"training [{key}]: assembled batch present {b.batch is not None}")
+        if not assembled and (b.self_masks is None or b.self_masks[0].shape[1] != 1
+                              or b.self_masks[0].dtype != torch.float32):
+            fail(f"training [{key}]: no structural (N, 1) f32 self-loop mask")
+        paths[key] = counts
+        extra = {}
+        if assembled:
+            extra["host_stage_ms"] = host_stage_ms(trainer, BRANCH_HOST_EPOCHS)
+            log(f"  [{key}] sample_epoch stages (host ms, median of "
+                f"{BRANCH_HOST_EPOCHS}): {json.dumps(extra['host_stage_ms'])}")
+        timing[key] = train_step_timing(trainer, peak_memory_gb_training_run=peak,
+                                        **checks, **extra)
+        summary[key] = branch_summary(
+            counts, timing[key], loss_max_rel_diff=checks["loss_max_rel_diff"],
+            mrr=checks["mrr"], cpu_mrr=checks["cpu_mrr"],
+            ranks_equal=checks["ranks_equal"])
+        log(json.dumps({f"{key}_step": timing[key]}))
+        log(f"phase 21 [{key}]: {time.perf_counter() - t0:.1f} s")
+        del trainer
+    counts, row = branch_k5_grad(dev, lp_edges, dedup)
+    paths["branch_k5_grad"] = counts
+    summary["branch_k5_grad"] = {"launches": counts, **row}
+    return paths, timing, summary
+
+
 def phases_nc_aifb(dev):
     """Phases 3-5 on aifb_like(): the kernels, the hub graph, serving and
     training. Returns (kernel rows, the nc mode rows, serving launches,
@@ -3114,6 +3357,12 @@ def main():
     files_paths, files_timing = phase_files(dev)
     train_paths.update(files_paths)
     host_build = phase_host_build(dev, am_data)
+    t0 = time.perf_counter()
+    branch_paths, branch_timing, branches = phase_branches(dev, am_data, lp, lp_edges,
+                                                           dedup)
+    log(f"phase 21 (single-device branches): {time.perf_counter() - t0:.1f} s")
+    train_paths.update(branch_paths)
+    train_timing.update(branch_timing)
 
     # each kernel's count on the path that serves through it
     key = {"K1": ("k1_aggregate", "main"), "K2": ("k2_fused", "main"),
@@ -3145,6 +3394,7 @@ def main():
     print(json.dumps({"diag_around": diag_around}), flush=True)
     print(json.dumps({"pending_kernels": []}), flush=True)
     print(json.dumps({"host_build_ms": host_build}), flush=True)
+    print(json.dumps({"branches": branches}), flush=True)
     log(f"command time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

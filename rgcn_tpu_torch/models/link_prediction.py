@@ -10,10 +10,13 @@ runs the R-GCN at the compressed width ``hidden1_size`` between two
 embeddings back: ``z = E + decode(rgc(encode(relu(E + b))))``.
 ``encode`` is separate from the scoring so a server encodes the graph once
 and sweeps all candidates densely. Training scores structured batches
-(:meth:`LinkPredictor.structured_scores`) with each layer's self-loop
-dropout under a keep mask the trainer draws (``self_masks``). The JAX
-model's ``feature_blocks`` option (embeddings stored as <=128-column blocks
-for a TPU gather fast path) is not ported.
+(:meth:`LinkPredictor.structured_scores`), or assembled ones
+(:meth:`LinkPredictor.forward` with the batch's layouts) where the decoder
+has biases or an L2 other than Schlichtkrull's, with each layer's
+self-loop dropout under a mask the trainer draws (``self_masks``). The JAX
+model's ``feature_blocks`` option stores the embeddings as <=128-column
+blocks for a TPU gather fast path: ``weights.from_jax_params`` joins them
+into ``node_embeddings``, and the port keeps one table.
 """
 
 from __future__ import annotations
@@ -98,8 +101,9 @@ class LinkPredictor(nn.Module):
     def encode(self, edges, self_masks: Optional[Sequence[torch.Tensor]] = None
                ) -> torch.Tensor:
         """Node embeddings after message passing: ``(N, emb_dim)``.
-        ``self_masks``: one bool ``(N, dout)`` keep mask per layer for the
-        self-loop dropout, or None (the deterministic forward)."""
+        ``self_masks``: one mask per layer for the self-loop dropout (a
+        bool ``(N, dout)`` Schlichtkrull keep mask, or the float ``(N, 1)``
+        structural mask), or None (the deterministic forward)."""
         masks = self_masks or (None,) * self.num_layers
         x = torch.relu(self.node_embeddings + self.node_embeddings_bias)
         x = self.rgc1(edges, x, masks[0])
@@ -116,10 +120,23 @@ class LinkPredictor(nn.Module):
             return self.scoring_function.s_penalty(triples, z)
         return self.scoring_function.l2_penalty()
 
-    def forward(self, edges, triples: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(scores (B,), penalty)`` of ``(B, 3)`` triples."""
-        z = self.encode(edges)
-        return self.scoring_function(triples, z), self.compute_penalty(triples, z)
+    def forward(self, edges, triples: torch.Tensor, self_masks=None,
+                batch_layouts=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(scores (B,), penalty)`` of ``(B, 3)`` triples (JAX
+        ``LinkPredictor.__call__``). With ``batch_layouts`` (the batch's
+        :func:`~rgcn_tpu_torch.ops.distmult_train.build_batch_layouts`), a
+        bias-free decoder and the Schlichtkrull L2, the score and penalty
+        are fused; otherwise the scores (scatter-free where the decoder is
+        bias-free and layouts are given) and :meth:`compute_penalty`."""
+        z = self.encode(edges, self_masks)
+        dec = self.scoring_function
+        if (batch_layouts is not None and self.decoder_l2 > 0.0
+                and self.decoder_l2_type == "schlichtkrull-l2" and dec.sbias is None):
+            bsz = triples.shape[0]
+            pw = torch.full((bsz,), 1.0 / bsz, device=z.device)
+            return dec.score_with_s_penalty(triples, z, pw, batch_layouts)
+        return (dec(triples, z, batch_layouts=batch_layouts),
+                self.compute_penalty(triples, z))
 
     def structured_scores(self, edges, positives, corrupt_head, corrupt_ent, pw,
                           layouts, self_masks=None) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -47,14 +47,22 @@ kernels. The self-loop relation (index ``R' - 1``) is applied densely,
 layer's flax ``Dropout`` over the ``(N, dout)`` self message) takes its
 keep mask as an argument, ``self_mask``: the LP trainer draws it on the
 host, so the card and the CPU train on the same masks; without one (the
-deterministic forward serving runs) it is the identity. In training,
-the featureful basis layer with at most 8 bases over an unmerged layout
-(the LP training subgraph) differentiates through
-:func:`~rgcn_tpu_torch.ops.basis.rel_spmm_basis` (K4 forward, K4 over the
-reversed edges for dx) and the expanded block
+deterministic forward serving runs) it is the identity. The structural
+self-loop dropout (any other ``self_loop_type``) is a float ``(N, 1)``
+mask of zeros and ones, drawn once a step for every layer and multiplied
+into the self message without a rescale. In training,
+the featureful basis layer with at most 8 bases differentiates through
+:func:`~rgcn_tpu_torch.ops.basis.rel_spmm_basis` (over an unmerged layout,
+the LP training subgraph: K4 forward, K4 over the reversed edges for dx;
+over the merged frame, NC layer 2 and e-RGCN's ``rgc1``: K4 or K5
+forward, K4 over the merged reverse frame for dx), the featureless one
+(NC layer 1) through
+:func:`~rgcn_tpu_torch.ops.basis.rel_spmm_featureless_basis_fwd` (K4
+forward, K4 over the reversed edges for the basis tables' gradient), and
+the expanded block
 weights go through ``rel_spmm_ad`` (K3 then K1 both ways at lp-FB-toy's
-width; the expansion's index scatter carries the gradient back to the
-blocks). Diagonal weights (the e-RGCN first layer, ``diag=True``) are
+width, K2 both ways for e-RGCN's ``rgc1`` at nc-AIFB; the expansion's
+index scatter carries the gradient back to the blocks). Diagonal weights (the e-RGCN first layer, ``diag=True``) are
 ``weights (R', din)`` with no bias: on the card
 :func:`~rgcn_tpu_torch.ops.diag.rel_spmm_diag_ad` (K1 over the merged pair
 frame, or over the destination layout in slot order, both ways), on a CPU
@@ -219,8 +227,9 @@ class RGCNConv(nn.Module):
                 self_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``self_mask``: a bool ``(N, dout)`` keep mask of the self
         message's dropout (kept entries scaled by ``1 / (1 - rate)``, the
-        others 0, as flax ``Dropout`` computes); None, or a rate of 0,
-        leaves it whole."""
+        others 0, as flax ``Dropout`` computes; a rate of 0 leaves it
+        whole), or a float ``(N, 1)`` structural mask multiplied into the
+        self message; None leaves it whole."""
         if (x is None) != (self.in_features is None):
             raise ValueError("features must be given iff in_features is set")
         if self.diag:
@@ -234,8 +243,15 @@ class RGCNConv(nn.Module):
         return out if self.bias is None else out + self.bias
 
     def _self(self, self_msg: torch.Tensor, mask) -> torch.Tensor:
-        """The self message after dropout under the keep mask ``mask``."""
-        if mask is None or self.self_loop_dropout == 0.0:
+        """The self message under ``mask``: a bool keep mask is the
+        Schlichtkrull dropout (kept entries rescaled, a rate of 0 leaves
+        the message whole); a float ``(N, 1)`` mask is the structural
+        dropout, multiplied in as drawn (JAX ``_masked_self``)."""
+        if mask is None:
+            return self_msg
+        if mask.dtype != torch.bool:
+            return self_msg * mask
+        if self.self_loop_dropout == 0.0:
             return self_msg
         return torch.where(mask, self_msg / (1.0 - self.self_loop_dropout),
                            self_msg.new_zeros(()))
@@ -336,8 +352,13 @@ class DistMult(nn.Module):
     ``bias_init``, per-node ``sbias``/``obias`` and per-relation ``pbias``.
 
     Training scores structured batches
-    (:meth:`structured_scores_with_penalty`, bias-free only); the JAX
-    scorer's other scatter-free variants are not ported.
+    (:meth:`structured_scores_with_penalty`, bias-free only) or assembled
+    ones: bias-free with the batch's layouts, through
+    :func:`~rgcn_tpu_torch.ops.distmult_train.distmult_score_agg` (and
+    :meth:`score_with_s_penalty`, its fused Schlichtkrull penalty), K1
+    for ``d nodes``; with biases, through the plain ``distmult_score``
+    and autograd, the JAX package's own route there. The JAX scorer's
+    narrow ``bwd_dtype`` option is not ported.
     """
 
     def __init__(
@@ -368,17 +389,34 @@ class DistMult(nn.Module):
     def _biases(self):
         return dict(sbias=self.sbias, pbias=self.pbias, obias=self.obias)
 
-    def forward(self, triples: torch.Tensor, nodes: torch.Tensor) -> torch.Tensor:
-        """Scores ``(B,)`` of ``(B, 3)`` triples against ``nodes (N, d)``."""
+    def forward(self, triples: torch.Tensor, nodes: torch.Tensor,
+                batch_layouts=None) -> torch.Tensor:
+        """Scores ``(B,)`` of ``(B, 3)`` triples against ``nodes (N, d)``.
+        ``batch_layouts``: the batch's ``(s_layout, o_layout)``
+        (:func:`~rgcn_tpu_torch.ops.distmult_train.build_batch_layouts`);
+        with them a bias-free scorer takes the scatter-free backward."""
+        if batch_layouts is not None and self.sbias is None:
+            return distmult_train.distmult_score_agg(triples, nodes, self.relations,
+                                                     batch_layouts)
         return distmult_ops.distmult_score(triples, nodes, self.relations,
                                            **self._biases())
 
+    def score_with_s_penalty(self, triples, nodes, pw, batch_layouts):
+        """Fused ``(scores, Schlichtkrull penalty)`` with the scatter-free
+        backward (``pw``: per-row penalty weights). Bias-free scoring
+        only."""
+        if self.sbias is not None:
+            raise ValueError("the fused score and penalty is bias-free only")
+        return distmult_train.distmult_score_spenalty_agg(
+            triples, nodes, self.relations, pw, batch_layouts)
+
     def s_penalty(self, triples: torch.Tensor, nodes: torch.Tensor) -> torch.Tensor:
-        """Schlichtkrull L2: mean squares of the batch's embeddings."""
-        s, p, o = triples[..., 0], triples[..., 1], triples[..., 2]
-        per_row = (torch.mean(nodes[s] ** 2, dim=-1)
-                   + torch.mean(self.relations[p] ** 2, dim=-1)
-                   + torch.mean(nodes[o] ** 2, dim=-1))
+        """Schlichtkrull L2: mean squares of the batch's embeddings (rows
+        gathered as in ``distmult_score``)."""
+        s, p, o = triples[:, 0], triples[:, 1], triples[:, 2]
+        per_row = (torch.mean(nodes.index_select(0, s) ** 2, dim=-1)
+                   + torch.mean(self.relations.index_select(0, p) ** 2, dim=-1)
+                   + torch.mean(nodes.index_select(0, o) ** 2, dim=-1))
         return torch.mean(per_row)
 
     def l2_penalty(self) -> torch.Tensor:

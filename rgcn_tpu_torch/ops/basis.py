@@ -33,14 +33,31 @@ forward is K4 then the closing product, saving ``Agg``; the backward is
     dx       = K4 over edges.reverse with the per-basis tables G, sum_bases
     dcomps   = Σ_{reverse slots} val · <x[rdst], G_b[rsrc]>, summed by rel
 
+Over a merged layout it is differentiable too (``_basis_merged_core``,
+``pallas_basis.py:468-551``): the forward is K4 over ``merged.layout``
+(or K5 over ``merged.fwd_dedup``) then the closing product; the backward
+reads the frozen coefficients and the merged reverse frame:
+
+    dbases_b = Agg_bᵀ g,   G_b = g @ B_bᵀ
+    dx       = K4 over merged.rev_layout with the per-basis tables G
+               gathered by rev_src_sorted, weights rev_coeff @ comps, sum_bases
+    dcomps   = rev_coeffᵀ t,  t[l, b] = <x[rev_receiver[l]], G_b[rev_src_sorted[l]]>
+
+The featureless layer (:func:`rel_spmm_featureless_basis_fwd`, the
+counterpart of ``_fl_basis_ad_core``, ``pallas_basis.py:584-639``)
+differentiates with respect to its per-basis tables and its comps:
+
+    dbases_b = K4 over edges.reverse with the shared table g, weights
+               val · comps[rel, b], one output per basis
+    dcomps   = Σ_e val_e · <B_b[src_e], g[dst_e]>, summed by rel
+
 The per-slot weight products (``coeff @ comps``), the closing product and
 the backward's products are ordinary products outside the kernels; they
 run in full f32 (TF32 off), as the JAX package runs them at
-``precision="highest"``. The merged frame's VJP (``_basis_merged_bwd``)
-and the featureless layer's are not ported: on the card, grad through
-:func:`rel_spmm_basis` over a merged layout, or through
-:func:`rel_spmm_featureless_basis_fwd`, raises (K4 and K5 refuse grad);
-on the CPU the plain versions are differentiable by torch.
+``precision="highest"``. K4 and K5 themselves refuse grad on the card:
+the autograd Functions here call them with grad off, inside their
+``forward`` and ``backward``; on the CPU the same Functions run the plain
+versions.
 
 Snapshot of ``val``: over a merged layout the weights come from
 ``merged.coeff`` (or ``fwd_dedup.coeff_k``), which froze the EdgeSet's
@@ -186,17 +203,33 @@ def weighted_aggregate_dedup(x, src, w_k, dd, num_nodes: int) -> torch.Tensor:
     )
 
 
+def _slot_order(t: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """``t[perm]`` of a per-edge vector, the pad slots (``perm == E_pad``)
+    reading 0."""
+    return torch.cat([t, t.new_zeros(1)])[perm]
+
+
+def _slot_dots(tables: torch.Tensor, index: torch.Tensor,
+               rows: torch.Tensor) -> torch.Tensor:
+    """``t[l, b] = <tables[b, index[l]], rows[l]>`` as ``(L, nb)``, one
+    basis at a time (the ``(nb, L, d)`` gathered rows never exist at
+    once; a batched dot of each slot's ``(nb, d)`` rows runs as a slow
+    gemv)."""
+    return torch.stack([(tables[b].index_select(0, index) * rows).sum(-1)
+                        for b in range(tables.shape[0])], 1)
+
+
 def sorted_inputs(edges, comps: torch.Tensor):
     """Per-slot ``(source, basis weights (nb, L))`` of the EdgeSet's
     destination layout, from the live ``edges.val``; pads read 0. A
     source past the last node (a reversed pad edge, weight 0) is clamped
-    to it, as JAX's gather clamps it."""
+    to it, as JAX's gather clamps it. The weights ``val · comps[rel]``
+    are formed in slot order, basis-major, from per-slot ``val`` and
+    ``rel`` (the same products as JAX's per-edge ones)."""
     perm = edges.layout.perm.long()
-    src_z = torch.cat([edges.src, edges.src.new_zeros(1)])
-    wvec = edges.val[:, None] * comps[edges.rel.long()]  # (E_pad, nb)
-    wvec_z = torch.cat([wvec, wvec.new_zeros((1, comps.shape[1]))])
-    return (src_z[perm].clamp_max(edges.num_nodes - 1),
-            wvec_z[perm].T.contiguous())
+    rel = _slot_order(edges.rel, perm).long()
+    wvec = comps.T.index_select(1, rel) * _slot_order(edges.val, perm)
+    return _slot_order(edges.src, perm).clamp_max(edges.num_nodes - 1), wvec
 
 
 def merged_wvec(coeff: torch.Tensor, comps: torch.Tensor) -> torch.Tensor:
@@ -216,18 +249,68 @@ def closing_product(agg: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
         return agg.permute(1, 0, 2).reshape(n, nb * din) @ bases.reshape(nb * din, -1)
 
 
-def rel_spmm_featureless_basis_fwd(edges, bases: torch.Tensor,
-                                   comps: torch.Tensor) -> torch.Tensor:
-    """Featureless basis SpMM, forward (counterpart of
-    ``pallas_basis.py::_fl_basis_fwd_impl``): with identity features
-    ``out[s] = Σ_b Σ_{e → s} (val_e · comps[rel_e, b]) · bases[b, src_e]``,
-    so K4 over the EdgeSet's destination layout gathers from the per-basis
-    tables ``bases (nb, N, dout)`` and sums over bases in the kernel.
-    ``comps (R, nb)`` covers the general relations. Returns ``(N, dout)``.
-    No backward yet: K4 refuses grad on the card."""
+def _featureless_fwd(edges, bases, comps):
     src_sorted, wvec = sorted_inputs(edges, comps)
     return weighted_aggregate(bases, src_sorted, wvec, edges.layout,
                               edges.num_nodes, sum_bases=True)[0]
+
+
+class _FeaturelessBasisAD(torch.autograd.Function):
+    """The featureless basis SpMM with the VJP of ``_fl_basis_ad_core``;
+    the EdgeSet rides on ``ctx``."""
+
+    @staticmethod
+    def forward(ctx, bases, comps, edges):
+        ctx.edges = edges
+        ctx.save_for_backward(bases, comps)
+        return _featureless_fwd(edges, bases, comps)
+
+    @staticmethod
+    def backward(ctx, g):
+        bases, comps = ctx.saved_tensors
+        edges, rev = ctx.edges, ctx.edges.reverse
+        g = g.contiguous()
+        n = edges.num_nodes
+        # d bases[b][n] = Σ_{e: src_e = n} val_e comps[rel_e, b] · g[dst_e]:
+        # the reversed frame (receiver = source), one output per basis;
+        # K4 returns a node-major view, the parameter gradient is (nb, N, dout)
+        rsrc, rwvec = sorted_inputs(rev, comps)
+        dbases = weighted_aggregate(g, rsrc, rwvec, rev.layout, n).contiguous()
+        # d comps over the padded edge arrays, one basis at a time: pads
+        # (dst == N, val 0) read the appended zero row of g
+        gd = torch.cat([g, g.new_zeros((1, g.shape[1]))])[edges.dst.long()]
+        t = _slot_dots(bases, edges.src.long(), gd) * edges.val[:, None]
+        dcomps = torch.zeros_like(comps).index_add_(0, edges.rel.long(), t)
+        return dbases, dcomps, None
+
+
+def _needs_backward(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _check_reverse(edges, what: str) -> None:
+    if edges.reverse is None or edges.reverse.layout is None:
+        raise ValueError(
+            f"the backward of {what} needs the EdgeSet's reversed edges with "
+            "their destination layout (with_dst_layout=True)"
+        )
+
+
+def rel_spmm_featureless_basis_fwd(edges, bases: torch.Tensor,
+                                   comps: torch.Tensor) -> torch.Tensor:
+    """Featureless basis SpMM (counterpart of
+    ``pallas_basis.py::rel_spmm_featureless_basis_ad``): with identity
+    features ``out[s] = Σ_b Σ_{e → s} (val_e · comps[rel_e, b]) ·
+    bases[b, src_e]``, so K4 over the EdgeSet's destination layout gathers
+    from the per-basis tables ``bases (nb, N, dout)`` and sums over bases
+    in the kernel. ``comps (R, nb)`` covers the general relations. Returns
+    ``(N, dout)``. With grad enabled and ``bases`` or ``comps`` requiring
+    grad it runs as an autograd Function whose backward launches K4 over
+    ``edges.reverse``."""
+    if _needs_backward(bases, comps):
+        _check_reverse(edges, "rel_spmm_featureless_basis_fwd")
+        return _FeaturelessBasisAD.apply(bases, comps, edges)
+    return _featureless_fwd(edges, bases, comps)
 
 
 class _BasisAD(torch.autograd.Function):
@@ -260,14 +343,58 @@ class _BasisAD(torch.autograd.Function):
         # dcomps in the reverse frame: the reverse slots' sources are the
         # forward receivers, their receivers the forward sources
         perm = rev.layout.perm.long()
-        z = rev.src.new_zeros(1)
-        rdst = torch.cat([rev.dst, z])[perm].clamp_max(n - 1)
-        rrel = torch.cat([rev.rel, z])[perm].long()
-        rval = torch.cat([rev.val, rev.val.new_zeros(1)])[perm]
-        gg = G[:, rsrc.long()]  # (nb, L', din)
+        rdst = _slot_order(rev.dst, perm).clamp_max(n - 1).long()
+        t = _slot_dots(G, rsrc.long(), x.index_select(0, rdst))
+        t = t * _slot_order(rev.val, perm)[:, None]
+        dcomps = torch.zeros_like(comps).index_add_(
+            0, _slot_order(rev.rel, perm).long(), t)
+        return dx.contiguous(), dbases, dcomps, None
+
+
+def _merged_agg(x, comps, merged):
+    """``Agg`` over the merged frame: K5 over ``fwd_dedup`` when it is set,
+    else K4 over ``merged.layout``."""
+    dd = merged.fwd_dedup
+    if dd is not None:
         with full_f32_matmul():
-            t = torch.einsum("bli,li->lb", gg, x[rdst.long()]) * rval[:, None]
-        dcomps = torch.zeros_like(comps).index_add_(0, rrel, t)
+            w_k = torch.einsum("klr,rb->kbl", dd.coeff_k, comps).contiguous()
+        return weighted_aggregate_dedup(x, dd.src_sorted, w_k, dd, merged.num_nodes)
+    return weighted_aggregate(x, merged.src_sorted, merged_wvec(merged.coeff, comps),
+                              merged.layout, merged.num_nodes)
+
+
+class _BasisMergedAD(torch.autograd.Function):
+    """K4's (or K5's) ``Agg`` over the merged frame and the closing
+    product, with the VJP of ``_basis_merged_core``; the layout rides on
+    ``ctx``. Its weights come from the frozen coefficients, never from
+    ``edges.val``."""
+
+    @staticmethod
+    def forward(ctx, x, bases, comps, merged):
+        agg = _merged_agg(x, comps, merged)
+        ctx.merged = merged
+        ctx.save_for_backward(x, bases, comps, agg)
+        return closing_product(agg, bases)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, bases, comps, agg = ctx.saved_tensors
+        m = ctx.merged
+        g = g.contiguous()
+        nb, din, dout = bases.shape
+        n = m.num_nodes
+        with full_f32_matmul():
+            dbases = (agg.permute(1, 0, 2).reshape(n, nb * din).T @ g
+                      ).reshape(nb, din, dout)
+            G = torch.matmul(g, bases.transpose(1, 2))  # (nb, N, din)
+        # dx over the merged reverse frame: its sources are the forward
+        # receivers; pads read slot weight 0 and are dropped by K4
+        dx = weighted_aggregate(G, m.rev_src_sorted, merged_wvec(m.rev_coeff, comps),
+                                m.rev_layout, n, sum_bases=True)[0]
+        t = _slot_dots(G, m.rev_src_sorted.long(),
+                       x.index_select(0, m.rev_receiver.long()))
+        with full_f32_matmul():
+            dcomps = m.rev_coeff.T @ t
         return dx.contiguous(), dbases, dcomps, None
 
 
@@ -276,37 +403,26 @@ def rel_spmm_basis(edges, x: torch.Tensor, bases: torch.Tensor,
     """Aggregation-first basis SpMM: ``bases (nb, din, dout)``, ``comps
     (R', nb)`` over the general relations only (the self-loop term is the
     caller's). Takes the EdgeSet's merged layout when it has one (K5 over
-    ``merged.fwd_dedup`` when that is set, else K4; no backward: K4 and K5
-    refuse grad on the card), else K4 over its destination layout. Over the
-    destination layout, with grad enabled and an input requiring grad, it
-    runs as an autograd Function whose backward launches K4 over
-    ``edges.reverse`` (as the training subgraphs of
+    ``merged.fwd_dedup`` when that is set, else K4), else K4 over its
+    destination layout. With grad enabled and an input requiring grad it
+    runs as an autograd Function: over the merged layout its backward
+    launches K4 over the merged reverse frame; over the destination
+    layout, K4 over ``edges.reverse`` (as the training subgraphs of
     :func:`~rgcn_tpu_torch.graph.dynamic.build_edge_set_dynamic_host` carry
     it). Returns ``(N, dout)``."""
     merged = edges.merged
+    grad = _needs_backward(x, bases, comps)
     if merged is not None:
-        dd = merged.fwd_dedup
-        if dd is not None:
-            with full_f32_matmul():
-                w_k = torch.einsum("klr,rb->kbl", dd.coeff_k, comps).contiguous()
-            agg = weighted_aggregate_dedup(x, dd.src_sorted, w_k, dd,
-                                           merged.num_nodes)
-        else:
-            agg = weighted_aggregate(x, merged.src_sorted,
-                                     merged_wvec(merged.coeff, comps),
-                                     merged.layout, merged.num_nodes)
+        if grad:
+            return _BasisMergedAD.apply(x, bases, comps, merged)
+        agg = _merged_agg(x, comps, merged)
     elif edges.layout is None:
         raise ValueError(
             "rel_spmm_basis needs an EdgeSet with a merged or destination "
             "layout (build_edge_set(..., with_dst_layout=True))"
         )
-    elif torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, bases, comps)):
-        if edges.reverse is None or edges.reverse.layout is None:
-            raise ValueError(
-                "the backward of rel_spmm_basis needs the EdgeSet's reversed "
-                "edges with their destination layout (with_dst_layout=True)"
-            )
+    elif grad:
+        _check_reverse(edges, "rel_spmm_basis")
         return _BasisAD.apply(x, bases, comps, edges)
     else:
         src_sorted, wvec = sorted_inputs(edges, comps)

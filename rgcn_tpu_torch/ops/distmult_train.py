@@ -1,5 +1,5 @@
-"""Structured DistMult training scorer with its scatter-free backward
-(counterpart of the structured half of ``rgcn_tpu/ops/pallas_distmult.py``).
+"""DistMult training scorers with their scatter-free backward
+(counterpart of ``rgcn_tpu/ops/pallas_distmult.py``).
 
 The training batch is ``[positives ; negatives]``, with negative ``j`` of
 positive ``i = j // ns`` corrupted on one side by the entity ``ce_j`` (the
@@ -24,9 +24,18 @@ through destination sums over layouts built on the host
   package's one-hot product over a small vocabulary).
 
 Bias-free scoring with the Schlichtkrull penalty (or none) only, as
-``LinkPredictionExperiment.structured_decoder_ok`` admits. The JAX
-package's other training scorers (``distmult_score_agg_ad`` and its
-penalty variant) and the narrow ``bwd_dtype`` option are not ported.
+``LinkPredictionExperiment.structured_decoder_ok`` admits.
+
+An assembled batch ``(B, 3)`` (the trainer's branch for a decoder with
+another L2) scores through :func:`distmult_score_agg` (and
+:func:`distmult_score_spenalty_agg`, the score fused with the
+Schlichtkrull penalty), the counterparts of ``distmult_score_agg_ad`` and
+``distmult_score_spenalty_agg_ad``: the forward gathers ``z[s]``,
+``r[p]``, ``z[o]`` once and saves them; the backward sums each triple's
+subject and object rows into ``d nodes`` by K1 through the perm of
+:func:`build_batch_layouts`' two layouts (JAX's ``_rows_to_nodes``), and
+``d relations`` with ``index_add_`` (JAX's one-hot product: the same
+sum). The narrow ``bwd_dtype`` option is not ported.
 """
 
 from __future__ import annotations
@@ -37,8 +46,9 @@ import torch
 from rgcn_tpu_torch.ops.aggregate import aggregate_sorted, build_dst_layout
 from rgcn_tpu_torch.ops.basis import weighted_aggregate
 
-__all__ = ["build_structured_layouts", "padded_layout", "scoring_rows",
-           "structured_scores"]
+__all__ = ["build_batch_layouts", "build_structured_layouts",
+           "distmult_score_agg", "distmult_score_spenalty_agg", "padded_layout",
+           "scoring_rows", "structured_scores"]
 
 
 def padded_layout(ids: np.ndarray, num_nodes: int, row_block: int, chunk: int,
@@ -48,6 +58,15 @@ def padded_layout(ids: np.ndarray, num_nodes: int, row_block: int, chunk: int,
     total = -(-num_nodes // row_block) * chunk + -(-len(ids) // chunk) * chunk
     return build_dst_layout(ids, num_nodes, row_block=row_block, chunk=chunk,
                             pad_to=total, prefer_native=prefer_native)
+
+
+def build_batch_layouts(batch: np.ndarray, num_nodes: int, row_block: int = 128,
+                        chunk: int = 256, prefer_native: bool = True):
+    """``(s_layout, o_layout)``: the :func:`padded_layout` of an assembled
+    batch's subject and object columns (JAX ``build_batch_layouts``)."""
+    batch = np.asarray(batch)
+    return tuple(padded_layout(batch[:, col], num_nodes, row_block, chunk,
+                               prefer_native) for col in (0, 2))
 
 
 def build_structured_layouts(positives: np.ndarray, corrupt_ent: np.ndarray,
@@ -82,6 +101,10 @@ def scoring_rows(c_lay, corrupt_ent: np.ndarray, corrupt_head: np.ndarray,
         + p_count * np.asarray(corrupt_head).astype(np.int64)[safe]
     qk_idx = np.where(valid, qk_idx, 0)
     return ce_sorted.astype(np.int32), qk_idx.astype(np.int32)
+
+
+def _wants_grad(nodes, relations) -> bool:
+    return torch.is_grad_enabled() and (nodes.requires_grad or relations.requires_grad)
 
 
 def _forward(positives, ch, corrupt_ent, nodes, relations, pw):
@@ -174,9 +197,72 @@ def structured_scores(positives: torch.Tensor, corrupt_head: torch.Tensor,
     z_o²)``. With grad enabled and ``nodes`` or ``relations`` requiring
     grad the backward runs on K4 and K1."""
     positives, corrupt_ent = positives.long(), corrupt_ent.long()
-    if torch.is_grad_enabled() and (nodes.requires_grad or relations.requires_grad):
+    if _wants_grad(nodes, relations):
         return _Structured.apply(nodes, relations, positives, corrupt_head,
                                  corrupt_ent, pw, layouts)
     scores, penalty, _ = _forward(positives, corrupt_head, corrupt_ent, nodes,
                                   relations, pw)
     return scores, penalty
+
+
+def _batch_forward(triples, nodes, relations, pw):
+    zs, rp, zo = nodes[triples[:, 0]], relations[triples[:, 1]], nodes[triples[:, 2]]
+    scores = torch.sum(zs * rp * zo, dim=-1)
+    if pw is None:
+        return scores, None, (zs, rp, zo)
+    per_row = (torch.mean(zs ** 2, dim=-1) + torch.mean(rp ** 2, dim=-1)
+               + torch.mean(zo ** 2, dim=-1))
+    return scores, torch.sum(per_row * pw), (zs, rp, zo)
+
+
+class _ScoreAgg(torch.autograd.Function):
+    """Scores of an assembled batch, with the Schlichtkrull penalty when
+    ``pw`` is given; gradients for ``nodes`` and ``relations`` only. The
+    layouts ride on ``ctx``."""
+
+    @staticmethod
+    def forward(ctx, nodes, relations, triples, pw, layouts):
+        scores, penalty, res = _batch_forward(triples, nodes, relations, pw)
+        ctx.layouts = layouts
+        ctx.num_nodes, ctx.num_rels = nodes.shape[0], relations.shape[0]
+        ctx.with_penalty = pw is not None
+        ctx.save_for_backward(triples, *res, *(() if pw is None else (pw,)))
+        return scores if pw is None else (scores, penalty)
+
+    @staticmethod
+    def backward(ctx, gs, gp=None):
+        triples, zs, rp, zo, *pw = ctx.saved_tensors
+        s_lay, o_lay = ctx.layouts
+        gb = gs[:, None]
+        s_rows, o_rows, rel_rows = gb * rp * zo, gb * rp * zs, gb * zs * zo
+        if ctx.with_penalty:
+            pen = (gp * pw[0] * (2.0 / zs.shape[-1]))[:, None]
+            s_rows, o_rows = s_rows + pen * zs, o_rows + pen * zo
+            rel_rows = rel_rows + pen * rp
+        drel = rel_rows.new_zeros((ctx.num_rels, rel_rows.shape[-1])).index_add_(
+            0, triples[:, 1], rel_rows)
+        dz = aggregate_sorted(s_rows, s_lay, ctx.num_nodes)
+        dz = dz + aggregate_sorted(o_rows, o_lay, ctx.num_nodes)
+        return dz, drel, None, None, None
+
+
+def distmult_score_agg(triples: torch.Tensor, nodes: torch.Tensor,
+                       relations: torch.Tensor, layouts) -> torch.Tensor:
+    """Bias-free DistMult scores ``(B,)`` of ``triples (B, 3)``; ``layouts``
+    the :func:`build_batch_layouts` pair (on the device). With grad enabled
+    and ``nodes`` or ``relations`` requiring grad the backward sums ``d
+    nodes`` by K1 through the layouts' perm."""
+    triples = triples.long()
+    if _wants_grad(nodes, relations):
+        return _ScoreAgg.apply(nodes, relations, triples, None, layouts)
+    return _batch_forward(triples, nodes, relations, None)[0]
+
+
+def distmult_score_spenalty_agg(triples: torch.Tensor, nodes: torch.Tensor,
+                                relations: torch.Tensor, pw: torch.Tensor, layouts):
+    """``(scores (B,), Σ_rows pw · (mean z_s² + mean r_p² + mean z_o²))``,
+    the penalty's cotangent riding the score's K1 sums."""
+    triples = triples.long()
+    if _wants_grad(nodes, relations):
+        return _ScoreAgg.apply(nodes, relations, triples, pw, layouts)
+    return _batch_forward(triples, nodes, relations, pw)[:2]

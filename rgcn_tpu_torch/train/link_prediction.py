@@ -1,7 +1,7 @@
 """Link-prediction training (counterpart of
 ``rgcn_tpu/train/link_prediction.py``, its production step: the training
 subgraph and the negatives built on the host, the structured DistMult
-scorer).
+scorer where the decoder admits it).
 
 Each epoch is one step on a freshly sampled positive subgraph:
 
@@ -12,18 +12,28 @@ Each epoch is one step on a freshly sampled positive subgraph:
   its layouts at the row block :func:`auto_layout_row_block` picks (chunk
   256) and its reversed edges;
 * negatives: :func:`~rgcn_tpu_torch.train.negative.corrupt_batch_host`
-  from ``default_rng((seed, epoch, 11))``, scored structurally over
+  from ``default_rng((seed, epoch, 11))``. With a bias-free decoder and a
+  Schlichtkrull (or no) L2 (``cfg.structured_decoder_ok``) they are scored
+  structurally over
   :func:`~rgcn_tpu_torch.ops.distmult_train.build_structured_layouts`
-  (row block 512, chunk 256);
+  (row block 512, chunk 256); otherwise (decoder biases, a plain L2) the
+  same draws are assembled into the ``(P(1 + ns), 3)`` batch, scored by
+  :meth:`LinkPredictor.forward` over
+  :func:`~rgcn_tpu_torch.ops.distmult_train.build_batch_layouts` (row
+  block 128, chunk 256), as the JAX trainer's hosted step does;
 * self-loop dropout (``schlichtkrull-dropout``): one bool ``(N, dout)``
   keep mask per layer, ``rng.random((N, dout), dtype=float32) < 1 - rate``
-  in layer order from ``default_rng((seed, epoch, 13))``. The JAX trainer
-  draws these with ``jax.random``, which numpy cannot reproduce; every
-  other draw above is the JAX trainer's own.
+  in layer order from ``default_rng((seed, epoch, 13))``; of any other
+  type (structural): one float ``(N, 1)`` mask, ``rng.random((N, 1),
+  dtype=float32) < 1 - rate`` from the same generator, shared by every
+  layer and multiplied into its self message without a rescale. The JAX
+  trainer draws both with ``jax.random``, which numpy cannot reproduce;
+  every other draw above is the JAX trainer's own.
 
 The loss is the mean sigmoid cross-entropy over ``[positives ;
-negatives]`` plus ``l2_penalty`` times the Schlichtkrull penalty; one
-optimizer step (``train/optim.py``) follows. The subgraph's sorts and
+negatives]`` plus ``l2_penalty`` times the decoder's penalty
+(Schlichtkrull's batch mean of squares, or the relation matrix's sum of
+squares); one optimizer step (``train/optim.py``) follows. The subgraph's sorts and
 every destination layout run in the port's C++ builders
 (:mod:`rgcn_tpu_torch.graph.native`; ``sample_epoch(prefer_native=False)``
 runs numpy, with the same batch). A background thread builds the
@@ -40,8 +50,11 @@ On the card the step runs on the kernels: a basis encoder (lp-WN18) K4
 forward and K4 over the reversed edges for dx; a block encoder (lp-FB-toy)
 K3 then K1 both ways; a c-RGCN encoder (``configs/c-rgcn/``) its dense
 R-GCN at the compressed width, K3 then K1 both ways, between two dense
-bottleneck products; the decoder's backward two K4 sums for the corrupted
-entities and K1 for the subjects' and objects' rows. The encoder's
+bottleneck products; the structured decoder's backward two K4 sums for
+the corrupted entities and K1 for the subjects' and objects' rows, the
+assembled batch's K1 for its subjects' and its objects' rows (a biased
+decoder scores through plain gathers and autograd, the JAX package's own
+route there). The encoder's
 ``node_embedding_l2_penalty`` (set by ``configs/c-rgcn/lp-FB-toy.yaml``)
 is ignored, as the JAX LP trainer ignores it: only its NC trainer reads
 that key.
@@ -54,9 +67,8 @@ epoch after it, and since every host draw depends on ``(seed, epoch)``
 alone, it repeats the epochs an unbroken run would have taken.
 ``max_epochs`` stops a run early (the last epoch it takes is then the
 one the final evaluation and save follow). Not ported: the JAX package's
-executable cache, its in-jit step (the traced graph builder and
-``jax.random`` negatives) and its non-structured scorers (a config whose
-decoder has biases, or an L2 other than Schlichtkrull's, raises).
+executable cache and its in-jit step (the traced graph builder and
+``jax.random`` negatives).
 """
 
 from __future__ import annotations
@@ -94,7 +106,7 @@ PREFETCH_DEPTH = 2
 # the stages of LinkPredictionTrainer.sample_epoch, in order
 EPOCH_STAGES = ("sampler", "forward_sort", "dst_layout", "reverse_sort",
                 "reverse_layout", "corrupt_batch", "corrupt_layout", "subject_layout",
-                "object_layout", "scoring_rows", "keep_masks")
+                "object_layout", "scoring_rows", "batch_layouts", "keep_masks")
 
 
 def evaluate_link_predictor(model, eval_edges, test: np.ndarray, filters,
@@ -138,29 +150,37 @@ def evaluate_link_predictor(model, eval_edges, test: np.ndarray, filters,
 @dataclasses.dataclass
 class EpochBatch:
     """One epoch's step inputs: numpy from :meth:`LinkPredictionTrainer.sample_epoch`,
-    tensors after :meth:`to`."""
+    tensors after :meth:`to`. A structured epoch carries ``layouts``; an
+    assembled one ``batch`` and ``batch_layouts`` instead."""
 
     positives: object  # (P, 3)
     edges: object  # EdgeSet of the subgraph, with layouts and reverse
     corrupt_head: object  # (Ns,) bool
     corrupt_ent: object  # (Ns,)
     labels: object  # (P + Ns,) f32
-    layouts: tuple  # (c_lay, s_lay, o_lay, (ce_sorted, qk_idx))
-    self_masks: Optional[list]  # per layer (N, dout) bool, or None
+    layouts: Optional[tuple]  # (c_lay, s_lay, o_lay, (ce_sorted, qk_idx))
+    self_masks: Optional[list]  # per layer (N, dout) bool or (N, 1) f32, or None
+    batch: object = None  # (P + Ns, 3): [positives ; negatives]
+    batch_layouts: Optional[tuple] = None  # (s_lay, o_lay) of ``batch``
 
     def to(self, device) -> "EpochBatch":
         def t(a):
             return torch.as_tensor(a).to(device)
 
-        c_lay, s_lay, o_lay, (ce_sorted, qk_idx) = self.layouts
+        layouts = None
+        if self.layouts is not None:
+            c_lay, s_lay, o_lay, (ce_sorted, qk_idx) = self.layouts
+            layouts = (c_lay.to(device), s_lay.to(device), o_lay.to(device),
+                       (t(ce_sorted), t(qk_idx)))
         return EpochBatch(
             positives=t(self.positives).long(), edges=self.edges.to(device),
             corrupt_head=t(self.corrupt_head), corrupt_ent=t(self.corrupt_ent).long(),
-            labels=t(self.labels),
-            layouts=(c_lay.to(device), s_lay.to(device), o_lay.to(device),
-                     (t(ce_sorted), t(qk_idx))),
+            labels=t(self.labels), layouts=layouts,
             self_masks=None if self.self_masks is None
             else [t(m) for m in self.self_masks],
+            batch=None if self.batch is None else t(self.batch).long(),
+            batch_layouts=None if self.batch_layouts is None
+            else tuple(lay.to(device) for lay in self.batch_layouts),
         )
 
 
@@ -189,16 +209,6 @@ class LinkPredictionTrainer:
         logger = logger or ScalarLogger()
         enc, dec = cfg.encoder, cfg.decoder
         ed = enc.edge_dropout
-        if ed is not None and ed.self_loop_type != "schlichtkrull-dropout" \
-                and ed.self_loop > 0.0:
-            raise NotImplementedError(
-                f"self-loop dropout of type {ed.self_loop_type!r} is not "
-                "ported (the LP configs use schlichtkrull-dropout)")
-        if not cfg.structured_decoder_ok(True):
-            raise NotImplementedError(
-                "the port trains LP through the structured DistMult scorer "
-                "only: a bias-free decoder with a schlichtkrull-l2 (or no) "
-                "penalty")
         dev = resolve_device(device)
         decomp = enc.decomposition
         if decomp is not None and decomp.type == "block":
@@ -224,6 +234,11 @@ class LinkPredictionTrainer:
                                         opt.learn_rate, opt.weight_decay)
 
         self.general_dropout = ed.general if ed else 0.0
+        # structural self-loop dropout: one (N, 1) mask for every layer
+        self.structural_rate = (ed.self_loop if ed is not None and ed.self_loop > 0.0
+                                and ed.self_loop_type != "schlichtkrull-dropout"
+                                else 0.0)
+        self.structured = cfg.structured_decoder_ok(True)
         self.batch_size = min(cfg.training.graph_batch_size or len(self.train_np),
                               len(self.train_np))
         ns_cfg = cfg.training.negative_sampling
@@ -252,14 +267,19 @@ class LinkPredictionTrainer:
         and self-loop masks, drawn on the host from ``(seed, epoch)``. The
         sorts and layouts run in the port's C++ builders, or in numpy with
         ``prefer_native=False`` (the same batch); ``times``, when given,
-        receives each stage's host seconds (:data:`EPOCH_STAGES`)."""
+        receives each stage's host seconds (:data:`EPOCH_STAGES`; a stage
+        the scoring branch skips reads 0)."""
         from rgcn_tpu_torch.graph.dynamic import (
             auto_layout_row_block,
             build_edge_set_dynamic_host,
             reverse_edges,
             static_layout,
         )
-        from rgcn_tpu_torch.ops.distmult_train import padded_layout, scoring_rows
+        from rgcn_tpu_torch.ops.distmult_train import (
+            build_batch_layouts,
+            padded_layout,
+            scoring_rows,
+        )
         from rgcn_tpu_torch.train.negative import corrupt_batch_host
 
         times = {} if times is None else times
@@ -291,28 +311,47 @@ class LinkPredictionTrainer:
         rev = dataclasses.replace(rev, layout=static_layout(rev.dst, n, rb, 256, pn))
         lap("reverse_layout")
         edges = dataclasses.replace(edges, layout=layout, reverse=rev)
-        ch, ce = corrupt_batch_host(
-            np.random.default_rng((seed, epoch, 11)), positives, n,
-            self.num_neg, self.head_prob, structure_only=True)
-        lap("corrupt_batch")
-        # build_structured_layouts (row block 512, chunk 256), stage by stage
-        lays = []
-        for stage, ids in (("corrupt_layout", ce), ("subject_layout", positives[:, 0]),
-                           ("object_layout", positives[:, 2])):
-            lays.append(padded_layout(ids, n, 512, 256, pn))
-            lap(stage)
-        rows = scoring_rows(lays[0], ce, ch, len(positives))
-        lap("scoring_rows")
+        rng = np.random.default_rng((seed, epoch, 11))
+        if self.structured:
+            ch, ce = corrupt_batch_host(rng, positives, n, self.num_neg, self.head_prob,
+                                        structure_only=True)
+            lap("corrupt_batch")
+            # build_structured_layouts (row block 512, chunk 256), stage by stage
+            lays = []
+            for stage, ids in (("corrupt_layout", ce),
+                               ("subject_layout", positives[:, 0]),
+                               ("object_layout", positives[:, 2])):
+                lays.append(padded_layout(ids, n, 512, 256, pn))
+                lap(stage)
+            layouts = (*lays, scoring_rows(lays[0], ce, ch, len(positives)))
+            lap("scoring_rows")
+            times["batch_layouts"] = 0.0
+            batch = batch_layouts = None
+        else:
+            batch, _, ch, ce = corrupt_batch_host(rng, positives, n, self.num_neg,
+                                                  self.head_prob, return_structure=True)
+            lap("corrupt_batch")
+            times.update(dict.fromkeys(("corrupt_layout", "subject_layout",
+                                        "object_layout", "scoring_rows"), 0.0))
+            batch_layouts = build_batch_layouts(batch, n, prefer_native=pn)
+            lap("batch_layouts")
+            layouts = None
         labels = np.concatenate([np.ones(len(positives), np.float32),
                                  np.zeros(len(ce), np.float32)])
         masks = None
         rate = self.model.rgc1.self_loop_dropout
-        if rate > 0.0:
+        if rate > 0.0 or self.structural_rate > 0.0:
             rng = np.random.default_rng((seed, epoch, 13))
-            masks = [rng.random((n, conv.out_features), dtype=np.float32) < 1.0 - rate
-                     for conv in self._convs()]
+            if rate > 0.0:
+                masks = [rng.random((n, conv.out_features), dtype=np.float32) < 1.0 - rate
+                         for conv in self._convs()]
+            else:
+                keep = (rng.random((n, 1), dtype=np.float32)
+                        < 1.0 - self.structural_rate).astype(np.float32)
+                masks = [keep] * len(self._convs())
         lap("keep_masks")
-        return EpochBatch(positives, edges, ch, ce, labels, (*lays, rows), masks)
+        return EpochBatch(positives, edges, ch, ce, labels, layouts, masks,
+                          batch, batch_layouts)
 
     def _convs(self):
         m = self.model
@@ -328,6 +367,11 @@ class LinkPredictionTrainer:
         """The current epoch's training loss, with the graph for its
         backward."""
         b = self.batch
+        if b.batch is not None:
+            scores, penalty = self.model(b.edges, b.batch, b.self_masks,
+                                         batch_layouts=b.batch_layouts)
+            return (F.binary_cross_entropy_with_logits(scores, b.labels)
+                    + self.l2 * penalty)
         total = b.labels.shape[0]
         pw = torch.full((total,), 1.0 / total if self.want_pen else 0.0,
                         device=self.device)

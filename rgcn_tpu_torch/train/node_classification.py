@@ -15,7 +15,7 @@ configs with more than 8 bases the unique-(src, rel) pair index with its
 composed and by-source layouts; ``auto_nc_row_block``) and moved to the
 device once.
 
-On the card three families train through the kernels. The dense R-GCN
+On the card every family trains through the kernels. The dense R-GCN
 (nc-AIFB): layer 1's K1 with the gather ``g[dst]`` as its backward, layer
 2's K2 (or K3 then K1) with dx over ``edges.reverse`` on the same kernels
 (:func:`~rgcn_tpu_torch.ops.rel_spmm.rel_spmm_ad`). Basis decomposition
@@ -27,9 +27,15 @@ first layer, dense second): the diagonal layer's K1 forward and K1 dx
 (over the merged pair frame below 128 general relations, as on nc-AIFB;
 else over the destination layout in slot order, as at AM scale), its
 weight gradient a small product or an ``index_add_``, and layer 2 as in
-the dense R-GCN. Configs whose layers have no backward here yet (at most 8
-bases, block decomposition) raise ``NotImplementedError`` naming what is
-missing.
+the dense R-GCN. Basis decomposition with at most 8 bases: layer 1's
+featureless K4 forward with K4 over ``edges.reverse`` for the basis
+tables' gradient, layer 2's K4 over the merged pair frame (at most 128
+general relations, nc-AIFB) with K4 over its reverse frame for dx, or
+over the destination layout with K4 over ``edges.reverse`` (nc-AM's 532
+relations); e-RGCN's ``rgc1`` takes the same basis routes, and with block
+decomposition its expanded blocks through K2 (or K3 then K1) both ways.
+The R-GCN's featureless layer 1 has no block form: such a config raises
+the layer's ``NotImplementedError``, as the JAX package does.
 
 With ``checkpoint_dir`` the trainer saves ``{"params", "opt_state"}``
 (:mod:`rgcn_tpu_torch.utils.checkpoint`) every ``checkpoint_every`` epochs
@@ -68,27 +74,6 @@ __all__ = [
 ]
 
 
-def _check_trainable(cfg) -> None:
-    """Raise ``NotImplementedError`` for a config whose layers have no
-    backward in the port yet, naming what is missing."""
-    decomp = cfg.rgcn.decomposition
-    if decomp is None:
-        return
-    if decomp.type == "basis" and decomp.num_bases > 8:
-        return  # the unique-(src, rel) pair path
-    if decomp.type == "basis":
-        raise NotImplementedError(
-            "training NC with at most 8 bases is not ported yet: its layer 1 "
-            "needs the featureless basis VJP (rgcn_tpu/ops/pallas_basis.py:607) "
-            "and its layer 2 the merged frame's (:516) (ROADMAP queue 2, K4)"
-        )
-    raise NotImplementedError(
-        f"training NC with {decomp.type} decomposition is not ported yet: the "
-        "NC block layer (blocks over every relation, the last one's blockwise "
-        "self message) has no backward in the port (ROADMAP queue 2, K3)"
-    )
-
-
 class NodeClassificationTrainer:
     """One model, its optimizer and its EdgeSet on the device: the state
     :func:`train_node_classifier` carries from epoch to epoch.
@@ -107,7 +92,6 @@ class NodeClassificationTrainer:
         from rgcn_tpu_torch.graph.coalesce import merge_applicable
         from rgcn_tpu_torch.graph.structure import auto_nc_row_block, build_edge_set
 
-        _check_trainable(cfg)
         rg = cfg.rgcn
         if rg.node_embedding_l2_penalty > 0.0 and rg.model != "e-rgcn":
             raise ValueError(
@@ -115,6 +99,7 @@ class NodeClassificationTrainer:
                 f"{rg.model} model"
             )
         dev = resolve_device(device)
+        model = build_nc_model(cfg, data, seed=seed)
         decomp = rg.decomposition
         merge_ok = merge_applicable(
             2 * data.num_relations,
@@ -138,7 +123,6 @@ class NodeClassificationTrainer:
         self.train_idx = torch.as_tensor(self.train_idx_np, device=dev)
         self.train_lbl = torch.as_tensor(self.train_lbl_np, device=dev)
 
-        model = build_nc_model(cfg, data, seed=seed)
         if init_params is not None:
             model.load_state_dict(init_params)
         self.model = model.to(dev)

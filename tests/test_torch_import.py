@@ -52,6 +52,7 @@ MODULES = [
     "rgcn_tpu_torch.compare_k2",
     "rgcn_tpu_torch.compare_k3",
     "rgcn_tpu_torch.compare_k4_k5",
+    "rgcn_tpu_torch.compare_gathers",
     "rgcn_tpu_torch.train",
     "rgcn_tpu_torch.train.optim",
     "rgcn_tpu_torch.train.evaluate",
@@ -244,6 +245,17 @@ def test_compare_k2_needs_cuda(monkeypatch):
     monkeypatch.setattr(compare_k2, "build_tile", lambda: pytest.fail("built"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         compare_k2.main([])
+
+
+def test_compare_gathers_needs_cuda(monkeypatch):
+    """The gather comparison runs on the card only: without CUDA it raises
+    before building any graph."""
+    from rgcn_tpu_torch import compare_gathers
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(compare_gathers, "am_ops", lambda *a: pytest.fail("ran"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compare_gathers.main([])
 
 
 def test_profile_epoch_needs_cuda(monkeypatch):

@@ -393,6 +393,9 @@ def test_trainer_matches_jax_trainer(tmp_path, name, n):
 
 
 def test_trainer_refuses_unstructured_decoders():
+    """Once refused: a biased decoder now trains on the assembled batch, the
+    epoch carrying the batch and its two layouts instead of the structured
+    ones, from the same negative draws."""
     from rgcn_tpu_torch.train.link_prediction import LinkPredictionTrainer
 
     cfg = _small_cfg(load_experiment, "lp-WN18")
@@ -401,8 +404,19 @@ def test_trainer_refuses_unstructured_decoders():
                                                                   bias_init="zeros"))
     assert cfg.structured_decoder_ok(True) and not biased.structured_decoder_ok(True)
     assert not cfg.structured_decoder_ok(False)
-    with pytest.raises(NotImplementedError, match="structured"):
-        LinkPredictionTrainer(biased, d, device="cpu")
+    got = LinkPredictionTrainer(biased, d, device="cpu").sample_epoch(2)
+    want = LinkPredictionTrainer(cfg, d, device="cpu").sample_epoch(2)
+    assert got.layouts is None and want.batch is None and want.batch_layouts is None
+    np.testing.assert_array_equal(got.corrupt_ent, want.corrupt_ent)
+    np.testing.assert_array_equal(got.corrupt_head, want.corrupt_head)
+    p = len(got.positives)
+    np.testing.assert_array_equal(got.batch[:p], got.positives)
+    assert got.batch.shape == (p + len(got.corrupt_ent), 3)
+    for lay, col in zip(got.batch_layouts, (0, 2)):
+        _same_layout(lay, jdm.build_batch_layouts(got.batch, d.num_nodes)[col // 2])
+    trainer = LinkPredictionTrainer(biased, d, device="cpu")
+    trainer.set_epoch(2, got)
+    assert np.isfinite(trainer.step())
 
 
 def test_predict_links_cli_cpu(tmp_path, capsys):

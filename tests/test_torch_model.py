@@ -175,9 +175,13 @@ def test_unported_branches_raise():
     k = np.arange(6, dtype=np.float32).reshape(2, 3)
     got = f({"params": {"encoding_layer": {"kernel": k}}})
     assert np.array_equal(got["encoding_layer.kernel"].numpy(), k)
-    # the JAX LP model's feature_blocks storage is not ported
-    with pytest.raises(NotImplementedError, match="node_embeddings_block0"):
-        f({"params": {"node_embeddings_block0": np.zeros((2, 3))}})
+    # the JAX LP model's feature_blocks storage joins into one table
+    blocks = {f"node_embeddings_block{i}": np.full((2, w), i, np.float32)
+              for i, w in ((1, 2), (0, 3))}
+    got = f({"params": blocks})
+    assert list(got) == ["node_embeddings"]
+    np.testing.assert_array_equal(got["node_embeddings"].numpy(),
+                                  [[0, 0, 0, 1, 1]] * 2)
     # block layers are ported: their leaves carry
     assert set(f({"params": {"rgc1": {"blocks": np.zeros((2, 3, 4, 4)),
                                       "self_weight": np.zeros((12, 12))}}})) \
