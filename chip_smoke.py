@@ -247,7 +247,30 @@ Phases, in order; any failure exits non-zero and prints no result:
    K5 1 and K4 1) held against the same Function over the plain merged
    frame within 1e-5 * max(1, max|ref|), both timed, and K4 under grad
    outside the Functions must raise; one "branches" line;
-22. summary: one JSON line of each path's launch counts (serving, and
+22. edge-sharded training (rgcn_tpu_torch.dist), each case on ranks the
+   script starts (spawn) and against the port's single-device trainer on
+   the card from the same seed (seed 0, its epochs): nc-AIFB R-GCN
+   (aifb_like(), hidden 16) 5 epochs on 2 ranks sharing the card over
+   gloo (each shard's layer 1 on K1, layer 2 K3 + K1 both ways), nc-AM at
+   AM scale (am_like(), 40 bases) 2 epochs on the pair path (K1), lp-WN18
+   (wn18_like(), width 200, batch 30,000, 300,000 negatives) 3 epochs on
+   the structured step (K4, K1) with the final candidate-sharded
+   evaluation, all three on one 2-rank job; lp-FB-toy (fb_toy_like(),
+   width 500, 100 blocks) 2 epochs on a 2x2 mesh of 4 gloo ranks (K3, K1,
+   K4); nc-AIFB again on one NCCL rank, and on 2 NCCL ranks of one card
+   each where the machine has two (else a line says it did not run).
+   Gates: every rank's losses, final logits or ranks and parameter bits
+   equal rank 0's; losses within rtol 1e-4 of the single-device run,
+   final logits within 1e-4 * max(1, max|ref|), MRR within 1e-3 and at
+   least 99% of the ranks equal; each rank's launches exactly the
+   single-device trainer's on its shard (sharded_expect), counts zeroed
+   just before each case's fit; and initialize_distributed must refuse
+   NCCL for more ranks than cards. Lines per rank: set-up and fit
+   seconds, every step's synchronised host ms, one all-reduce of an (N,
+   width) tensor; one "sharded" JSON line and the phase's seconds. These
+   are correctness runs: ranks that share a card reduce through host
+   copies, and their times are no scaling figure;
+23. summary: one JSON line of each path's launch counts (serving, and
    training), the training steps' timing (nc-AIFB, nc-AM, lp-WN18,
    lp-FB-toy, the c-RGCN and e-RGCN configs), one of the extra nc modes
    (K1 at dout 4, K3 at nc-AIFB, K2 and K3 at the dx shape,
@@ -261,8 +284,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    beside it and "train_launches" its count on each training path, and
    just before that line the host_build_ms line of phase 20 and the
    branches line of phase 21 (the branches' training paths are in each
-   row's "train_launches");
-23. last line: {"ok": true, "device": {...}}.
+   row's "train_launches") and the sharded line of phase 22 (each row's
+   "sharded_launches": its count on every rank of each sharded case);
+24. last line: {"ok": true, "device": {...}}.
 
 Needs CUDA (exits 1 without it) and the repository around it.
 """
@@ -3252,6 +3276,287 @@ def phase_branches(dev, am, wn18, lp_edges, dedup):
     return paths, timing, summary
 
 
+# -- phase 22: edge-sharded training, ranks on the card ------------------------
+
+SHARDED_NC_EPOCHS = 5  # nc-AIFB R-GCN
+SHARDED_AM_EPOCHS = 2  # nc-AM at AM scale, pair path
+SHARDED_LP_EPOCHS = 3  # lp-WN18, structured step, final sharded evaluation
+SHARDED_FB_EPOCHS = 2  # lp-FB-toy on the 2x2 mesh (block layer)
+
+
+def epochs_cfg(path, epochs):
+    from rgcn_tpu_torch.config import load_experiment
+
+    base = load_experiment(path)
+    return dataclasses.replace(base, training=dataclasses.replace(base.training,
+                                                                  epochs=epochs))
+
+
+def param_digests(model) -> dict:
+    """sha256 of every parameter's bytes: equal digests, equal bits."""
+    import hashlib
+
+    return {k: hashlib.sha256(v.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+            for k, v in model.state_dict().items()}
+
+
+def step_timer(trainer) -> list:
+    """Wrap ``trainer.step`` so each call's synchronised host ms is kept in
+    the returned list."""
+    times, step = [], trainer.step
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return loss
+
+    trainer.step = timed
+    return times
+
+
+def collective_ms(mesh, rows: int, width: int, reps: int = 10) -> float:
+    """One all-reduce of a (rows, width) f32 tensor over the edge group, ms
+    (host clock, synchronised, mean of ``reps`` after one warm-up)."""
+    from rgcn_tpu_torch.ops.collectives import reduce_sum
+
+    x = torch.ones((rows, width), device=mesh.device)
+    reduce_sum(x, mesh.group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        reduce_sum(x, mesh.group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def sharded_case(mesh, spec) -> dict:
+    """One case on this rank: the sharded trainer (the drivers' trainer
+    classes) over ``spec``'s config and data, its launches counted from 0
+    just before ``fit``."""
+    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch.dist.driver import (
+        ShardedLinkPredictionTrainer,
+        ShardedNodeClassificationTrainer,
+    )
+
+    t0 = time.perf_counter()
+    cfg = epochs_cfg(spec["config"], spec["epochs"])
+    if spec["kind"] == "nc":
+        trainer = ShardedNodeClassificationTrainer(cfg, spec["data"], mesh, seed=0)
+        width = cfg.rgcn.hidden_size
+    else:
+        trainer = ShardedLinkPredictionTrainer(cfg, spec["data"], mesh, seed=0)
+        width = trainer.model.scoring_function.relations.shape[1]
+    setup_s = time.perf_counter() - t0
+    times = step_timer(trainer)
+    rec = records_logger()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    result = trainer.fit(rec)
+    torch.cuda.synchronize()
+    out = {"launches": dict(kernels.LAUNCHES), "fit_s": time.perf_counter() - t0,
+           "setup_s": setup_s, "step_ms": times,
+           "losses": [v for m, _, v in rec.records if m == "training.loss"],
+           "digest": param_digests(trainer.model),
+           "collective_ms": collective_ms(mesh, spec["data"].num_nodes, width)}
+    if spec["kind"] == "nc":
+        out.update(acc=result, logits=trainer.logits())
+    else:
+        out.update(mrr=result[0], ranks=result[2])
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_rank(dev, cases):
+    """One rank of phase 22: each (key, spec) case in turn, on a mesh of
+    ``spec["shape"]`` (replicas, edge shards)."""
+    from rgcn_tpu_torch.dist.multihost import make_mesh_2d
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for key, spec in cases:
+        out[key] = sharded_case(make_mesh_2d(*spec["shape"], device=dev), spec)
+    return out
+
+
+def one_device_reference(spec, dev) -> dict:
+    """The port's own single-device trainer on the card, seed 0, the same
+    epochs: the reference of a sharded case."""
+    from rgcn_tpu_torch.train.link_prediction import LinkPredictionTrainer
+    from rgcn_tpu_torch.train.node_classification import NodeClassificationTrainer
+
+    t0 = time.perf_counter()
+    cfg = epochs_cfg(spec["config"], spec["epochs"])
+    rec = records_logger()
+    if spec["kind"] == "nc":
+        trainer = NodeClassificationTrainer(cfg, spec["data"], seed=0, device=dev)
+        times = step_timer(trainer)
+        out = {"acc": trainer.fit(rec), "logits": trainer.logits().cpu().numpy()}
+    else:
+        trainer = LinkPredictionTrainer(cfg, spec["data"], seed=0, device=dev, logger=rec)
+        times = step_timer(trainer)
+        mrr, _, ranks = trainer.fit(rec)
+        out = {"mrr": mrr, "ranks": ranks}
+    out.update(losses=[v for m, _, v in rec.records if m == "training.loss"],
+               step_ms=times, seconds=time.perf_counter() - t0)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_expect(spec, rank: int) -> dict:
+    """Each kernel's launches on ``rank`` for ``spec``: what the
+    single-device trainer launches on the same per-shard structures. NC
+    (no fused layout per shard): nc-AIFB K1 5E + 2, K3 3E + 1
+    (train_k3_branch), the pair path K1 8E + 2 (train_pair_path), on every
+    rank. LP: a step's K4 forward, K4 dx, two K4 and two K1 of the
+    decoder (basis), or K3 then K1 both ways and the same decoder (block);
+    the final evaluation's one encode runs on rank 0 only (it broadcasts
+    z), so rank 0 has train_lp_path's counts and the others one encode
+    fewer."""
+    e = spec["epochs"]
+    if spec["kind"] == "nc":
+        return launches(**(train_pair_path(e) if spec["pairs"] else train_k3_branch(e)))
+    counts = train_lp_path(spec["decomposition"], e)
+    if rank != 0:
+        for name in (("k4_weighted_aggregate",) if spec["decomposition"] == "basis"
+                     else ("k3_messages", "k1_aggregate")):
+            counts[name] -= 1
+    return launches(**counts)
+
+
+def check_sharded(key, spec, ranks, ref, backend) -> dict:
+    """Phase 22's gates for one case; returns its summary row."""
+    from rgcn_tpu_torch.dist.multihost import same_on_every_rank
+
+    n = len(ranks)
+    cross = same_on_every_rank([{k: v for k, v in r.items()
+                                 if k in ("losses", "logits", "ranks", "mrr", "acc")}
+                                for r in ranks])
+    digests_equal = all(r["digest"] == ranks[0]["digest"] for r in ranks)
+    if cross != 0.0 or not digests_equal:
+        fail(f"sharded [{key}]: ranks differ from rank 0 (max diff {cross}, parameter "
+             f"bits equal: {digests_equal})")
+    got, want = np.asarray(ranks[0]["losses"]), np.asarray(ref["losses"])
+    if got.shape != want.shape:
+        fail(f"sharded [{key}]: {got.shape[0]} losses, one device {want.shape[0]}")
+    loss_rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    if not loss_rel <= 1e-4:
+        fail(f"sharded [{key}]: losses {got.tolist()} vs one device {want.tolist()} "
+             f"(max rel diff {loss_rel} > 1e-4)")
+    row = {"ranks": n, "backend": backend, "mesh": "x".join(map(str, spec["shape"])),
+           "epochs": spec["epochs"], "loss_max_rel_diff": loss_rel,
+           "cross_rank_max_diff": cross, "parameter_bits_equal": digests_equal,
+           "losses": got.tolist(), "one_device_losses": want.tolist()}
+    if spec["kind"] == "nc":
+        lg, lr = np.asarray(ranks[0]["logits"]), ref["logits"]
+        err = float(np.abs(lg - lr).max())
+        tol = 1e-4 * max(1.0, float(np.abs(lr).max()))
+        if not (np.isfinite(lg).all() and err <= tol):
+            fail(f"sharded [{key}]: final logits max abs diff {err} > {tol}")
+        row.update(logits_max_abs_diff=err, logits_tol=tol, acc=ranks[0]["acc"],
+                   one_device_acc=ref["acc"])
+    else:
+        mrr, same = ranks[0]["mrr"], float(np.mean(ranks[0]["ranks"] == ref["ranks"]))
+        if not (np.isfinite(mrr) and abs(mrr - ref["mrr"]) <= 1e-3 and same >= 0.99):
+            fail(f"sharded [{key}]: MRR {mrr} vs one device {ref['mrr']} (tol 1e-3) or "
+                 f"ranks equal {same} < 0.99")
+        row.update(mrr=mrr, one_device_mrr=ref["mrr"], ranks_equal=same)
+    expect = [sharded_expect(spec, r) for r in range(n)]
+    counts = [r["launches"] for r in ranks]
+    if counts != expect:
+        fail(f"sharded [{key}]: per-rank launches {counts}, expected {expect} (the "
+             "single-device trainer's on the same per-shard structures)")
+    for r, res in enumerate(ranks):
+        log(f"  [{key}] rank {r}: set-up {res['setup_s']:.1f} s, fit {res['fit_s']:.1f} s, "
+            f"step ms {[round(t, 2) for t in res['step_ms']]}, one all-reduce of "
+            f"({spec['data'].num_nodes}, w) {res['collective_ms']:.2f} ms, launches "
+            f"{ {k: v for k, v in res['launches'].items() if v} }")
+    log(f"  [{key}] {n} ranks ({backend}): losses max rel diff {loss_rel:.3e} vs one "
+        f"device (step ms {[round(t, 2) for t in ref['step_ms']]}), cross-rank max diff "
+        f"{cross}, parameters bit-equal on every rank")
+    row.update(launches=counts, step_ms=[r["step_ms"] for r in ranks],
+               one_device_step_ms=ref["step_ms"],
+               collective_ms=[r["collective_ms"] for r in ranks],
+               setup_s=[r["setup_s"] for r in ranks], fit_s=[r["fit_s"] for r in ranks])
+    return row
+
+
+def phase_sharded(dev, aifb, am, wn18, fb):
+    """Phase 22: the edge-sharded trainers on ranks that share the card
+    (gloo through host copies), and nc-AIFB on one NCCL rank (and on two
+    cards over NCCL where there are two), each case against the port's
+    single-device trainer on the card from the same seed; NCCL asked for
+    ranks that share a card must raise. Returns (the "sharded" summary,
+    each case's per-rank launches)."""
+    from rgcn_tpu_torch.dist.multihost import initialize_distributed, spawn
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    try:
+        initialize_distributed(0, cards + 1, local_rank=0, local_world_size=cards + 1,
+                               backend="nccl", init_method="file:///nonexistent")
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        fail("NCCL for ranks that share a card did not raise")
+    log(f"phase 22: NCCL for {cards + 1} ranks on {cards} card(s) refused: {refusal}")
+
+    nc = dict(kind="nc", config=CONFIG, data=aifb, epochs=SHARDED_NC_EPOCHS, pairs=False)
+    specs = {
+        "nc_aifb": dict(nc, shape=(1, 2)),
+        "nc_am": dict(kind="nc", config=AM_CONFIG, data=am, epochs=SHARDED_AM_EPOCHS,
+                      pairs=True, shape=(1, 2)),
+        "lp_wn18": dict(kind="lp", config=LP_CONFIG, data=wn18, epochs=SHARDED_LP_EPOCHS,
+                        decomposition="basis", shape=(1, 2)),
+        "lp_fb_toy_2x2": dict(kind="lp", config=FB_CONFIG, data=fb,
+                              epochs=SHARDED_FB_EPOCHS, decomposition="block",
+                              shape=(2, 2)),
+        "nc_aifb_nccl_1": dict(nc, shape=(1, 1)),
+    }
+    refs = {}
+    for key in ("nc_aifb", "nc_am", "lp_wn18", "lp_fb_toy_2x2"):
+        refs[key] = one_device_reference(specs[key], dev)
+        log(f"  [{key}] one device: {refs[key]['seconds']:.1f} s, losses "
+            f"{[round(v, 6) for v in refs[key]['losses']]}")
+    refs["nc_aifb_nccl_1"] = refs["nc_aifb"]
+    jobs = [("gloo", 2, ["nc_aifb", "nc_am", "lp_wn18"]), ("gloo", 4, ["lp_fb_toy_2x2"]),
+            ("nccl", 1, ["nc_aifb_nccl_1"])]
+    if cards >= 2:
+        specs["nc_aifb_nccl_2"] = dict(nc, shape=(1, 2))
+        refs["nc_aifb_nccl_2"] = refs["nc_aifb"]
+        jobs.append(("nccl", 2, ["nc_aifb_nccl_2"]))
+    else:
+        log("  nc-AIFB on 2 ranks over NCCL, one card each: not run (1 card)")
+    rows, counts = {}, {}
+    torch.cuda.empty_cache()
+    for backend, n, keys in jobs:
+        t0 = time.perf_counter()
+        try:
+            ranks = spawn(sharded_rank, n, ([(k, specs[k]) for k in keys],),
+                          backend=backend, timeout_s=600)
+        except RuntimeError as e:
+            fail(f"sharded {keys} on {n} {backend} rank(s): {e}")
+        log(f"  {n} {backend} rank(s), cases {keys}: {time.perf_counter() - t0:.1f} s "
+            "with the ranks' start")
+        for key in keys:
+            per_rank = [r[key] for r in ranks]
+            rows[key] = check_sharded(key, specs[key], per_rank, refs[key], backend)
+            counts[key] = [r["launches"] for r in per_rank]
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 22 (sharded): {seconds:.1f} s ({card_line()})")
+    summary = {"card": card_line(), "seconds": seconds, "cases": rows,
+               "nccl_shared_card_refused": refusal,
+               "nccl_two_cards": "ran" if cards >= 2 else "not run: 1 card"}
+    return summary, counts
+
+
 def phases_nc_aifb(dev):
     """Phases 3-5 on aifb_like(): the kernels, the hub graph, serving and
     training. Returns (kernel rows, the nc mode rows, serving launches,
@@ -3363,6 +3668,9 @@ def main():
     log(f"phase 21 (single-device branches): {time.perf_counter() - t0:.1f} s")
     train_paths.update(branch_paths)
     train_timing.update(branch_timing)
+    from rgcn_tpu_torch.data.synthetic import aifb_like
+
+    sharded, sharded_counts = phase_sharded(dev, aifb_like(), am_data, lp, fb)
 
     # each kernel's count on the path that serves through it
     key = {"K1": ("k1_aggregate", "main"), "K2": ("k2_fused", "main"),
@@ -3377,6 +3685,8 @@ def main():
             "replaces": r["replaces"], "status": "ported",
             "path": path, "launches": paths[path][kname],
             "train_launches": {tp: c[kname] for tp, c in train_paths.items()},
+            "sharded_launches": {case: [c[kname] for c in per_rank]
+                                 for case, per_rank in sharded_counts.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -3395,6 +3705,7 @@ def main():
     print(json.dumps({"pending_kernels": []}), flush=True)
     print(json.dumps({"host_build_ms": host_build}), flush=True)
     print(json.dumps({"branches": branches}), flush=True)
+    print(json.dumps({"sharded": sharded}), flush=True)
     log(f"command time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,9 @@ train/, utils/      make_optimizer, metrics, samplers, negatives, the NC and LP
                     trainers; ScalarLogger
 classify_nodes.py   python -m rgcn_tpu_torch.classify_nodes (trains the NC configs)
 predict_links.py    python -m rgcn_tpu_torch.predict_links (trains lp-WN18, lp-FB-toy)
+ops/collectives.py  all_reduce / fanout as autograd Functions over torch.distributed
+dist/               edge-sharded training: meshes of ranks, per-shard host inputs,
+                    the sharded steps, evaluation, checkpoints and drivers
 ```
 
 Entry points run on the card unless the caller passes ``device="cpu"``;

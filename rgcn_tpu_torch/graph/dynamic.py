@@ -50,12 +50,17 @@ __all__ = [
 ]
 
 
-def padded_size(num_edges: int, num_general_rels: int, tile_size: int) -> int:
-    """Static upper bound on the tile-padded edge count. (The JAX
-    function's ``tile_multiple``, for edge-sharded graphs, waits for the
-    multi-GPU port.)"""
+def padded_size(num_edges: int, num_general_rels: int, tile_size: int,
+                tile_multiple: int = 1) -> int:
+    """Static upper bound on the tile-padded edge count, its tile count
+    rounded up to a multiple of ``tile_multiple`` (the shard count of an
+    edge-sharded subgraph)."""
     bound = num_edges + num_general_rels * (tile_size - 1)
-    return ((bound + tile_size - 1) // tile_size) * tile_size
+    out = ((bound + tile_size - 1) // tile_size) * tile_size
+    if tile_multiple > 1:
+        step = tile_size * tile_multiple
+        out = ((out + step - 1) // step) * step
+    return out
 
 
 def auto_layout_row_block(num_nodes: int, num_edges: int, chunk: int = 256) -> int:
@@ -115,6 +120,7 @@ def build_edge_set_dynamic_host(
     dropout_rate: float = 0.0,
     dropout_rng: Optional[np.random.Generator] = None,
     keep_mask: Optional[np.ndarray] = None,
+    tile_multiple: int = 1,
     with_dst_layout: bool = False,
     row_block: int = 128,
     layout_chunk: int = 256,
@@ -123,7 +129,9 @@ def build_edge_set_dynamic_host(
     """EdgeSet of a sampled ``(B, 3)`` positive batch (relations in ``[0,
     R)``). ``keep_mask`` (per positive) overrides the dropout draw;
     otherwise ``dropout_rng`` draws keep with probability ``1 -
-    dropout_rate``. ``with_dst_layout`` attaches the layouts and the
+    dropout_rate``. ``tile_multiple`` pads the tile count to a multiple
+    of the shard count (:mod:`rgcn_tpu_torch.dist.host` splits it into
+    equal tile ranges). ``with_dst_layout`` attaches the layouts and the
     reversed edges (:func:`attach_host_layouts`). The sorts and layouts
     run in the port's C++ builders; ``prefer_native=False`` runs them in
     numpy, with the same output."""
@@ -131,7 +139,7 @@ def build_edge_set_dynamic_host(
     bsz = positives.shape[0]
     num_general = 2 * num_rels
     e_raw = 2 * bsz
-    e_pad = padded_size(e_raw, num_general, tile_size)
+    e_pad = padded_size(e_raw, num_general, tile_size, tile_multiple)
 
     s = positives[:, 0].astype(np.int32)
     p = positives[:, 1].astype(np.int32)

@@ -194,13 +194,13 @@ def build_src_rel_pairs(es: EdgeSet, pad_multiple: int = 1024,
     )
 
 
-def build_pair_agg(es: EdgeSet) -> PairAggLayout:
+def build_pair_agg(es: EdgeSet, grad_pad_to: Optional[int] = None) -> PairAggLayout:
     """Compose an EdgeSet's pair fan-out with its destination layout
     (numpy; needs ``es.pairs`` and ``es.layout``). The layout's pad slots
     point at ``E_pad``, which composes to the pair sentinel ``U_pad`` and
-    the destination sentinel ``num_nodes``. The JAX builder's
-    ``grad_pad_to`` (uniform shapes across the shards of an
-    edge-partitioned graph) is left out until the multi-device port.
+    the destination sentinel ``num_nodes``. ``grad_pad_to`` pads the
+    backward layout to a fixed slot count (one shape on every shard of an
+    edge-sharded graph, :func:`rgcn_tpu_torch.dist.mesh.prepare_sharded_pairs_host`).
     """
     if es.pairs is None or es.layout is None:
         raise ValueError("build_pair_agg needs pairs and a dst layout")
@@ -219,7 +219,7 @@ def build_pair_agg(es: EdgeSet) -> PairAggLayout:
     chunk = es.layout.chunk
     grad_layout = build_dst_layout(
         slot_pair, u_pad, row_block=auto_nc_row_block(u_pad, chunk=chunk),
-        chunk=chunk)
+        chunk=chunk, pad_to=grad_pad_to)
     perm_z = np.concatenate([perm, [e_pad]]).astype(np.int64)
     grad_edge = perm_z[np.asarray(grad_layout.perm)].astype(np.int32)
     grad_dst = dst_z[grad_edge].astype(np.int32)  # E_pad -> num_nodes
@@ -235,12 +235,11 @@ def build_pair_agg(es: EdgeSet) -> PairAggLayout:
     )
 
 
-def build_pair_src_layout(es: EdgeSet):
+def build_pair_src_layout(es: EdgeSet, pad_to: Optional[int] = None):
     """Pairs grouped by source: a DstLayout over ``pair_src`` with
     ``num_nodes`` segments (numpy), for the wide gather's backward. Pad
-    pairs (``pair_src == 0``) are included; their cotangents are zero. The
-    JAX builder's ``pad_to`` (shard-uniform shapes) is left out until the
-    multi-device port."""
+    pairs (``pair_src == 0``) are included; their cotangents are zero.
+    ``pad_to`` pads it to a fixed slot count (shard-uniform shapes)."""
     if es.pairs is None or es.layout is None:
         raise ValueError("build_pair_src_layout needs pairs and a layout")
     from rgcn_tpu_torch.ops.aggregate import build_dst_layout
@@ -248,7 +247,8 @@ def build_pair_src_layout(es: EdgeSet):
     chunk = es.layout.chunk
     return build_dst_layout(
         np.asarray(es.pairs.pair_src), es.num_nodes,
-        row_block=auto_nc_row_block(es.num_nodes, chunk=chunk), chunk=chunk)
+        row_block=auto_nc_row_block(es.num_nodes, chunk=chunk), chunk=chunk,
+        pad_to=pad_to)
 
 
 def reweight_edge_set(es: EdgeSet, val) -> EdgeSet:

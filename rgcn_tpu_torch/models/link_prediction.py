@@ -36,7 +36,10 @@ class LinkPredictor(nn.Module):
     """Encoder-decoder link predictor (R-GCN -> DistMult).
 
     Parameters are drawn from ``torch.Generator().manual_seed(seed)`` in
-    the order node embeddings, layers, decoder.
+    the order node embeddings, layers, decoder. ``group``: the edge group
+    of an edge-sharded EdgeSet (JAX ``axis_name``); ``decoder_group``: the
+    ranks the scoring batch is split over (JAX ``decoder_axis_name``,
+    default ``group``; on a 2-D mesh every rank). None on one device.
     """
 
     def __init__(
@@ -60,6 +63,8 @@ class LinkPredictor(nn.Module):
         decoder_include_gain: bool = False,
         decoder_bias_init: Optional[str] = None,
         seed: int = 0,
+        group=None,
+        decoder_group=None,
     ):
         super().__init__()
         if not 0 < num_layers < 3:
@@ -82,7 +87,7 @@ class LinkPredictor(nn.Module):
                 separate_self_weight=(decomposition == "block"),
                 weight_init=weight_init, weight_gain=include_gain,
                 bias_init=bias_init, self_loop_dropout=self_loop_dropout,
-                generator=gen,
+                generator=gen, group=group,
             )
 
         self._encoder_layers(conv, gen, emb_dim, hidden1_size or emb_dim,
@@ -91,6 +96,7 @@ class LinkPredictor(nn.Module):
             num_nodes, num_relations, emb_dim,
             weight_init=decoder_weight_init, weight_gain=decoder_include_gain,
             bias_init=decoder_bias_init, generator=gen,
+            group=group if decoder_group is None else decoder_group,
         )
 
     def _encoder_layers(self, conv, gen, emb_dim, nhid1, hidden2_size):
@@ -111,32 +117,49 @@ class LinkPredictor(nn.Module):
             x = self.rgc2(edges, torch.relu(x), masks[1])
         return x
 
-    def compute_penalty(self, triples: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    def compute_penalty(self, triples: torch.Tensor, z: torch.Tensor,
+                        penalty_weights: Optional[torch.Tensor] = None,
+                        penalty_total=None) -> torch.Tensor:
         """Decoder L2 penalty: Schlichtkrull's batch mean of squares, or the
-        relation matrix's sum of squares; zero when ``decoder_l2`` is 0."""
+        relation matrix's sum of squares; zero when ``decoder_l2`` is 0.
+        ``penalty_weights``/``penalty_total`` weigh the batch rows by ``w
+        / total`` (padded or sharded batches: pad rows drop out, the
+        shards' values add up to the whole batch's); the plain L2 is then
+        scaled by ``sum(w) / total``."""
         if self.decoder_l2 == 0.0:
             return z.new_zeros(())
         if self.decoder_l2_type == "schlichtkrull-l2":
-            return self.scoring_function.s_penalty(triples, z)
-        return self.scoring_function.l2_penalty()
+            return self.scoring_function.s_penalty(triples, z, penalty_weights,
+                                                   penalty_total)
+        l2 = self.scoring_function.l2_penalty()
+        if penalty_weights is not None:
+            total = penalty_weights.sum() if penalty_total is None else penalty_total
+            l2 = l2 * (penalty_weights.sum() / total)
+        return l2
 
     def forward(self, edges, triples: torch.Tensor, self_masks=None,
-                batch_layouts=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                batch_layouts=None, penalty_weights=None,
+                penalty_total=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(scores (B,), penalty)`` of ``(B, 3)`` triples (JAX
         ``LinkPredictor.__call__``). With ``batch_layouts`` (the batch's
         :func:`~rgcn_tpu_torch.ops.distmult_train.build_batch_layouts`), a
         bias-free decoder and the Schlichtkrull L2, the score and penalty
         are fused; otherwise the scores (scatter-free where the decoder is
-        bias-free and layouts are given) and :meth:`compute_penalty`."""
+        bias-free and layouts are given) and :meth:`compute_penalty`
+        (``penalty_weights``, ``penalty_total``: see there)."""
         z = self.encode(edges, self_masks)
         dec = self.scoring_function
         if (batch_layouts is not None and self.decoder_l2 > 0.0
                 and self.decoder_l2_type == "schlichtkrull-l2" and dec.sbias is None):
-            bsz = triples.shape[0]
-            pw = torch.full((bsz,), 1.0 / bsz, device=z.device)
+            if penalty_weights is None:
+                bsz = triples.shape[0]
+                pw = torch.full((bsz,), 1.0 / bsz, device=z.device)
+            else:
+                pw = penalty_weights / (penalty_weights.sum() if penalty_total is None
+                                        else penalty_total)
             return dec.score_with_s_penalty(triples, z, pw, batch_layouts)
         return (dec(triples, z, batch_layouts=batch_layouts),
-                self.compute_penalty(triples, z))
+                self.compute_penalty(triples, z, penalty_weights, penalty_total))
 
     def structured_scores(self, edges, positives, corrupt_head, corrupt_ent, pw,
                           layouts, self_masks=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -147,11 +170,13 @@ class LinkPredictor(nn.Module):
         return self.scoring_function.structured_scores_with_penalty(
             positives, corrupt_head, corrupt_ent, z, pw, layouts)
 
-    def score_heads(self, batch: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-        return self.scoring_function.score_heads(batch, z)
+    def score_heads(self, batch: torch.Tensor, z: torch.Tensor,
+                    candidate_slice=None) -> torch.Tensor:
+        return self.scoring_function.score_heads(batch, z, candidate_slice)
 
-    def score_tails(self, batch: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-        return self.scoring_function.score_tails(batch, z)
+    def score_tails(self, batch: torch.Tensor, z: torch.Tensor,
+                    candidate_slice=None) -> torch.Tensor:
+        return self.scoring_function.score_tails(batch, z, candidate_slice)
 
 
 class CompressionRelationPredictor(LinkPredictor):
@@ -187,11 +212,12 @@ class CompressionRelationPredictor(LinkPredictor):
         return e + self.decoding_layer(x)
 
 
-def build_lp_model(cfg, num_nodes: int, num_rels: int, seed: int = 0) -> LinkPredictor:
+def build_lp_model(cfg, num_nodes: int, num_rels: int, seed: int = 0,
+                   group=None, decoder_group=None) -> LinkPredictor:
     """The model a LinkPredictionExperiment config describes (``rgcn`` and
     ``c-rgcn`` encoders), with the self-loop dropout rate of a
     ``schlichtkrull-dropout`` config (general edge dropout is the
-    trainer's)."""
+    trainer's); ``group``/``decoder_group`` as :class:`LinkPredictor`'s."""
     enc, dec = cfg.encoder, cfg.decoder
     models = {"rgcn": LinkPredictor, "c-rgcn": CompressionRelationPredictor}
     if enc.model not in models:
@@ -219,4 +245,6 @@ def build_lp_model(cfg, num_nodes: int, num_rels: int, seed: int = 0) -> LinkPre
         decoder_include_gain=dec.include_gain,
         decoder_bias_init=dec.bias_init,
         seed=seed,
+        group=group,
+        decoder_group=decoder_group,
     )

@@ -22,6 +22,8 @@ class NodeClassifier(nn.Module):
     both take ``decomposition`` with ``num_bases`` or ``num_blocks``.
     Parameters are drawn from ``torch.Generator().manual_seed(seed)``, layer
     by layer in the JAX order (bases then comps under basis decomposition).
+    ``group``: the edge group of an edge-sharded EdgeSet (JAX
+    ``axis_name``), None on one device.
     """
 
     def __init__(
@@ -35,6 +37,7 @@ class NodeClassifier(nn.Module):
         num_bases: int = 0,
         num_blocks: int = 0,
         seed: int = 0,
+        group=None,
     ):
         super().__init__()
         if not 0 < num_layers < 3:
@@ -45,7 +48,7 @@ class NodeClassifier(nn.Module):
         nhid = num_classes if num_layers == 1 else hidden_size
         gen = torch.Generator().manual_seed(seed)
         decomp = dict(decomposition=decomposition, num_bases=num_bases,
-                      num_blocks=num_blocks, generator=gen)
+                      num_blocks=num_blocks, generator=gen, group=group)
         self.rgc1 = RGCNConv(num_nodes, r_aug, nhid, in_features=None, **decomp)
         if num_layers == 2:
             self.rgc2 = RGCNConv(num_nodes, r_aug, num_classes, in_features=nhid,
@@ -75,7 +78,7 @@ class EmbeddingNodeClassifier(nn.Module):
     logits (glorot-uniform with the relu gain, zero bias) that takes
     ``decomposition``. Parameters are drawn from
     ``torch.Generator().manual_seed(seed)`` in the order embeddings,
-    ``rgcn_no_hidden``, ``rgc1``.
+    ``rgcn_no_hidden``, ``rgc1``. ``group``: as :class:`NodeClassifier`'s.
     """
 
     def __init__(
@@ -88,6 +91,7 @@ class EmbeddingNodeClassifier(nn.Module):
         num_bases: int = 0,
         num_blocks: int = 0,
         seed: int = 0,
+        group=None,
     ):
         super().__init__()
         r_aug = 2 * num_relations + 1
@@ -95,10 +99,10 @@ class EmbeddingNodeClassifier(nn.Module):
         self.node_embeddings = nn.Parameter(
             rinit.kaiming_normal_fan_in((num_nodes, emb_dim), gen))
         self.rgcn_no_hidden = RGCNConv(num_nodes, r_aug, emb_dim, in_features=emb_dim,
-                                       diag=True, generator=gen)
+                                       diag=True, generator=gen, group=group)
         self.rgc1 = RGCNConv(num_nodes, r_aug, num_classes, in_features=emb_dim,
                              decomposition=decomposition, num_bases=num_bases,
-                             num_blocks=num_blocks, generator=gen)
+                             num_blocks=num_blocks, generator=gen, group=group)
 
     def forward(self, edges) -> torch.Tensor:
         x = torch.relu(self.rgcn_no_hidden(edges, self.node_embeddings))
@@ -109,10 +113,10 @@ class EmbeddingNodeClassifier(nn.Module):
         return torch.sum(self.node_embeddings ** 2)
 
 
-def build_nc_model(cfg, data, seed: int = 0) -> nn.Module:
+def build_nc_model(cfg, data, seed: int = 0, group=None) -> nn.Module:
     """The model a NodeClassificationExperiment config describes: a
     :class:`NodeClassifier` (``rgcn``) or an
-    :class:`EmbeddingNodeClassifier` (``e-rgcn``)."""
+    :class:`EmbeddingNodeClassifier` (``e-rgcn``); ``group`` as theirs."""
     rg = cfg.rgcn
     decomp = rg.decomposition
     common = dict(
@@ -123,6 +127,7 @@ def build_nc_model(cfg, data, seed: int = 0) -> nn.Module:
         num_bases=decomp.num_bases if decomp else 0,
         num_blocks=decomp.num_blocks if decomp else 0,
         seed=seed,
+        group=group,
     )
     if rg.model == "rgcn":
         return NodeClassifier(hidden_size=rg.hidden_size, num_layers=rg.num_layers,

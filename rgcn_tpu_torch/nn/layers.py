@@ -69,6 +69,19 @@ frame, or over the destination layout in slot order, both ways), on a CPU
 tensor the plain :func:`~rgcn_tpu_torch.ops.spmm.rel_spmm_diag`; the self
 message is ``x ⊙ weights[-1]``.
 
+Edge-sharded training (:mod:`rgcn_tpu_torch.dist`): with ``group`` set
+(a ``torch.distributed`` process group; None means one device) a layer's
+EdgeSet is this rank's shard, every edge-partial aggregate is summed over
+the group (:func:`~rgcn_tpu_torch.ops.collectives.all_reduce`) and every
+replicated input of the per-shard computation (x, weights, bases,
+``comps[:-1]``, blocks; the decoder's nodes and relations) passes through
+:func:`~rgcn_tpu_torch.ops.collectives.fanout`, at the sites the JAX
+layer marks. The block layer fans its blocks before expanding them (the
+JAX layer fans the expanded matrices): the expansion's backward only
+gathers, so the reduced gradient is the same bits, over an all-reduce B
+times smaller (B blocks). The self message, the bias and the loss are
+replicated math and take no collective.
+
 :class:`TorchLinear` is the c-RGCN bottleneck: ``x @ kernel + bias`` with
 the flax layout ``kernel (din, dout)``.
 """
@@ -87,6 +100,7 @@ from rgcn_tpu_torch.ops import distmult as distmult_ops
 from rgcn_tpu_torch.ops import distmult_train
 from rgcn_tpu_torch.ops import spmm as spmm_ops
 from rgcn_tpu_torch.ops.aggregate import aggregate_sorted
+from rgcn_tpu_torch.ops.collectives import maybe_all_reduce, maybe_fanout
 from rgcn_tpu_torch.ops.basis import (
     full_f32_matmul,
     rel_spmm_basis,
@@ -133,6 +147,8 @@ class RGCNConv(nn.Module):
     from ``generator`` with the named initializers (NC layers:
     glorot-uniform with the relu gain, zero bias). ``self_loop_dropout`` is
     the rate of the self message's dropout where a keep mask is given.
+    ``group``: the edge group of a sharded EdgeSet (see the module
+    docstring), None on one device.
     """
 
     # Expanding block-diagonal weights costs r·din·dout elements; cap it.
@@ -154,8 +170,10 @@ class RGCNConv(nn.Module):
         bias_init: Optional[str] = "zeros",
         self_loop_dropout: float = 0.0,
         generator: Optional[torch.Generator] = None,
+        group=None,
     ):
         super().__init__()
+        self.group = group
         if diag and in_features is None:
             raise ValueError("diagonal weights require explicit features")
         if decomposition not in (None, "basis", "block"):
@@ -242,6 +260,14 @@ class RGCNConv(nn.Module):
             out = self._dense(edges, x, self.weights, self_mask)
         return out if self.bias is None else out + self.bias
 
+    def _reduce(self, agg: torch.Tensor) -> torch.Tensor:
+        """Edge-partial aggregate -> the sum over the edge group."""
+        return maybe_all_reduce(agg, self.group)
+
+    def _fan(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated value entering per-shard edge computation."""
+        return maybe_fanout(x, self.group)
+
     def _self(self, self_msg: torch.Tensor, mask) -> torch.Tensor:
         """The self message under ``mask``: a bool keep mask is the
         Schlichtkrull dropout (kept entries rescaled, a rate of 0 leaves
@@ -259,80 +285,86 @@ class RGCNConv(nn.Module):
     def _diag(self, edges, x, mask):
         """Diagonal weights: the plain path on a CPU tensor, else K1 (or
         raise, without a layout)."""
-        dw = self.weights
+        dw, fan = self.weights, self._fan
         if x.device.type == "cpu" or edges.layout is None:
             check_plain_path(x.device)
-            agg = spmm_ops.rel_spmm_diag(edges, x, dw[:-1])
+            agg = spmm_ops.rel_spmm_diag(edges, fan(x), fan(dw[:-1]))
         else:
-            agg = rel_spmm_diag_ad(edges, x, dw[:-1])
-        return agg + self._self(x * dw[-1], mask)
+            agg = rel_spmm_diag_ad(edges, fan(x), fan(dw[:-1]))
+        return self._reduce(agg) + self._self(x * dw[-1], mask)
 
     def _dense(self, edges, x, w, mask):
         """Dense ``w (R', din, dout)``: the general relations through the
         kernels (or the plain path without a layout), the self-loop
         densely."""
+        fan = self._fan
         if edges.layout is None:
             check_plain_path(w.device)
         if x is None:
             agg = spmm_ops.rel_spmm_featureless(
-                edges, w[:-1],
+                edges, fan(w[:-1]),
                 aggregate=_aggregate_k1 if edges.layout is not None else None,
             )
-            return agg + self._self(w[-1], mask)  # X = I: node v receives W_self[v]
+            # X = I: node v receives W_self[v]
+            return self._reduce(agg) + self._self(w[-1], mask)
         if edges.layout is not None:
-            agg = rel_spmm_ad(edges, x, w[:-1])
+            agg = rel_spmm_ad(edges, fan(x), fan(w[:-1]))
         else:
-            agg = spmm_ops.rel_spmm(edges, x, w[:-1])
+            agg = spmm_ops.rel_spmm(edges, fan(x), fan(w[:-1]))
         with full_f32_matmul():
-            return agg + self._self(x @ w[-1], mask)
+            return self._reduce(agg) + self._self(x @ w[-1], mask)
 
     def _basis(self, edges, x, mask):
         bases, comps = self.bases, self.comps
+        fb, fc = self._fan(bases), self._fan(comps[:-1])
         many = comps.shape[1] > MAX_BASES
         if x is None:
             if edges.layout is None:
                 check_plain_path(bases.device)
-                agg = spmm_ops.rel_spmm_featureless_basis(edges, bases, comps[:-1])
+                agg = spmm_ops.rel_spmm_featureless_basis(edges, fb, fc)
             elif many:
                 agg = spmm_ops.rel_spmm_featureless_basis(
-                    edges, bases, comps[:-1], aggregate=_aggregate_k1)
+                    edges, fb, fc, aggregate=_aggregate_k1)
             else:
-                agg = rel_spmm_featureless_basis_fwd(edges, bases, comps[:-1])
+                agg = rel_spmm_featureless_basis_fwd(edges, fb, fc)
             with full_f32_matmul():
                 self_msg = torch.einsum("b,bno->no", comps[-1], bases)
-                return agg + self._self(self_msg, mask)
+                return self._reduce(agg) + self._self(self_msg, mask)
         if many and edges.pairs is not None:
             # H = stack_b(x @ bases_b), contracted once per (src, rel) pair
             agg = spmm_ops.rel_spmm_basis_pairs(
-                edges, x, bases, comps[:-1],
+                edges, self._fan(x), fb, fc,
                 aggregate=_aggregate_k1 if edges.layout is not None else None)
             with full_f32_matmul():
                 self_msg = x @ torch.einsum("b,bio->io", comps[-1], bases)
-                return agg + self._self(self_msg, mask)
+                return self._reduce(agg) + self._self(self_msg, mask)
         if many or (edges.merged is None and edges.layout is None):
             # expand to dense per-relation weights: K4/K5 keep one sum per
             # basis in registers and take at most MAX_BASES
             with full_f32_matmul():
                 w = torch.einsum("rb,bio->rio", comps, bases)
             return self._dense(edges, x, w, mask)
-        agg = rel_spmm_basis(edges, x, bases, comps[:-1])
+        agg = rel_spmm_basis(edges, self._fan(x), fb, fc)
         with full_f32_matmul():
             self_msg = x @ torch.einsum("b,bio->io", comps[-1], bases)
-            return agg + self._self(self_msg, mask)
+            return self._reduce(agg) + self._self(self_msg, mask)
 
     def _block_messages(self, edges, x, blocks):
         """General-relation messages of ``blocks (r, B, ib, ob)``,
-        aggregated: the expanded matrices through ``rel_spmm_ad`` while
-        ``r·din·dout`` is within :attr:`_BLOCK_EXPAND_MAX_ELEMS`, else
-        blockwise messages summed by K1."""
+        aggregated (over the edge group): the expanded matrices through
+        ``rel_spmm_ad`` while ``r·din·dout`` is within
+        :attr:`_BLOCK_EXPAND_MAX_ELEMS`, else blockwise messages summed by
+        K1."""
         r, nb, ib, ob = blocks.shape
+        x, blocks = self._fan(x), self._fan(blocks)
         if edges.layout is None:
             check_plain_path(blocks.device)
-            return spmm_ops.rel_spmm_block(edges, x, blocks)
+            return self._reduce(spmm_ops.rel_spmm_block(edges, x, blocks))
         if r * (nb * ib) * (nb * ob) <= self._BLOCK_EXPAND_MAX_ELEMS:
-            return rel_spmm_ad(edges, x, expand_blocks(blocks))
+            return self._reduce(rel_spmm_ad(edges, x, expand_blocks(blocks)))
         with full_f32_matmul():
-            return spmm_ops.rel_spmm_block(edges, x, blocks, aggregate=_aggregate_k1)
+            return self._reduce(spmm_ops.rel_spmm_block(edges, x, blocks,
+                                                        aggregate=_aggregate_k1))
 
     def _block(self, edges, x, mask):
         blocks = self.blocks
@@ -358,7 +390,9 @@ class DistMult(nn.Module):
     :meth:`score_with_s_penalty`, its fused Schlichtkrull penalty), K1
     for ``d nodes``; with biases, through the plain ``distmult_score``
     and autograd, the JAX package's own route there. The JAX scorer's
-    narrow ``bwd_dtype`` option is not ported.
+    narrow ``bwd_dtype`` option is not ported. ``group``: the ranks a
+    sharded scoring batch is split over (its replicated inputs are
+    fanned out in the training scorers and penalties), None on one device.
     """
 
     def __init__(
@@ -370,8 +404,10 @@ class DistMult(nn.Module):
         weight_gain: bool = False,
         bias_init: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
+        group=None,
     ):
         super().__init__()
+        self.group = group
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         gain = rinit.relu_gain() if weight_gain else 1.0
@@ -386,8 +422,11 @@ class DistMult(nn.Module):
             self.obias = nn.Parameter(b_init((num_nodes,), generator))
             self.pbias = nn.Parameter(b_init((num_relations,), generator))
 
-    def _biases(self):
-        return dict(sbias=self.sbias, pbias=self.pbias, obias=self.obias)
+    def _fan(self, x):
+        return x if x is None else maybe_fanout(x, self.group)
+
+    def _biases(self, fan=lambda b: b):
+        return dict(sbias=fan(self.sbias), pbias=fan(self.pbias), obias=fan(self.obias))
 
     def forward(self, triples: torch.Tensor, nodes: torch.Tensor,
                 batch_layouts=None) -> torch.Tensor:
@@ -395,11 +434,12 @@ class DistMult(nn.Module):
         ``batch_layouts``: the batch's ``(s_layout, o_layout)``
         (:func:`~rgcn_tpu_torch.ops.distmult_train.build_batch_layouts`);
         with them a bias-free scorer takes the scatter-free backward."""
+        fan = self._fan
         if batch_layouts is not None and self.sbias is None:
-            return distmult_train.distmult_score_agg(triples, nodes, self.relations,
-                                                     batch_layouts)
-        return distmult_ops.distmult_score(triples, nodes, self.relations,
-                                           **self._biases())
+            return distmult_train.distmult_score_agg(triples, fan(nodes),
+                                                     fan(self.relations), batch_layouts)
+        return distmult_ops.distmult_score(triples, fan(nodes), fan(self.relations),
+                                           **self._biases(fan))
 
     def score_with_s_penalty(self, triples, nodes, pw, batch_layouts):
         """Fused ``(scores, Schlichtkrull penalty)`` with the scatter-free
@@ -408,20 +448,30 @@ class DistMult(nn.Module):
         if self.sbias is not None:
             raise ValueError("the fused score and penalty is bias-free only")
         return distmult_train.distmult_score_spenalty_agg(
-            triples, nodes, self.relations, pw, batch_layouts)
+            triples, self._fan(nodes), self._fan(self.relations), pw, batch_layouts)
 
-    def s_penalty(self, triples: torch.Tensor, nodes: torch.Tensor) -> torch.Tensor:
+    def s_penalty(self, triples: torch.Tensor, nodes: torch.Tensor,
+                  weights: Optional[torch.Tensor] = None,
+                  total=None) -> torch.Tensor:
         """Schlichtkrull L2: mean squares of the batch's embeddings (rows
-        gathered as in ``distmult_score``)."""
+        gathered as in ``distmult_score``). ``weights``/``total`` weigh
+        the rows by ``weights / total`` (``total`` default
+        ``sum(weights)``): zero-weight pad rows drop out, and the shards'
+        partial sums add up to the whole batch's value."""
+        nodes, relations = self._fan(nodes), self._fan(self.relations)
         s, p, o = triples[:, 0], triples[:, 1], triples[:, 2]
         per_row = (torch.mean(nodes.index_select(0, s) ** 2, dim=-1)
-                   + torch.mean(self.relations.index_select(0, p) ** 2, dim=-1)
+                   + torch.mean(relations.index_select(0, p) ** 2, dim=-1)
                    + torch.mean(nodes.index_select(0, o) ** 2, dim=-1))
-        return torch.mean(per_row)
+        if weights is None:
+            return torch.mean(per_row)
+        return torch.sum(per_row * weights) / (weights.sum() if total is None else total)
 
     def l2_penalty(self) -> torch.Tensor:
-        """Sum of squares of the relation matrix."""
-        return torch.sum(self.relations ** 2)
+        """Sum of squares of the relation matrix (fanned out under a
+        group: a sharded step scales each rank's share, so the relation
+        gradient sums the shares)."""
+        return torch.sum(self._fan(self.relations) ** 2)
 
     def structured_scores_with_penalty(self, positives, corrupt_head, corrupt_ent,
                                        nodes, pw, layouts):
@@ -432,14 +482,19 @@ class DistMult(nn.Module):
         if self.sbias is not None:
             raise ValueError("structured scoring is bias-free only")
         return distmult_train.structured_scores(
-            positives, corrupt_head, corrupt_ent, nodes, self.relations, pw, layouts)
+            positives, corrupt_head, corrupt_ent, self._fan(nodes),
+            self._fan(self.relations), pw, layouts)
 
-    def score_heads(self, batch: torch.Tensor, nodes: torch.Tensor) -> torch.Tensor:
+    def score_heads(self, batch: torch.Tensor, nodes: torch.Tensor,
+                    candidate_slice=None) -> torch.Tensor:
         return distmult_ops.score_head_candidates(batch, nodes, self.relations,
+                                                  candidate_slice=candidate_slice,
                                                   **self._biases())
 
-    def score_tails(self, batch: torch.Tensor, nodes: torch.Tensor) -> torch.Tensor:
+    def score_tails(self, batch: torch.Tensor, nodes: torch.Tensor,
+                    candidate_slice=None) -> torch.Tensor:
         return distmult_ops.score_tail_candidates(batch, nodes, self.relations,
+                                                  candidate_slice=candidate_slice,
                                                   **self._biases())
 
 

@@ -4,9 +4,10 @@ Counterpart of ``rgcn_tpu/ops/distmult.py``: ``score(s, p, o) = Σ_d
 z[s]_d · r[p]_d · z[o]_d`` plus optional per-node subject/object and
 per-relation biases. The candidate sweeps score all ``N`` entities of a
 batch with one ``(B, d) @ (d, N)`` product. These are plain tensor ops, as
-the JAX package computes them outside any Pallas kernel. The
-``candidate_slice`` argument of the JAX sweeps (the sharded evaluation's
-building block) comes with the multi-GPU slice.
+the JAX package computes them outside any Pallas kernel. A sweep's
+``candidate_slice=(lo, width)`` scores only candidates ``[lo, lo +
+width)`` (the queries still index the whole table): the building block of
+the candidate-sharded evaluation (:mod:`rgcn_tpu_torch.dist.evaluate`).
 """
 
 from __future__ import annotations
@@ -40,6 +41,14 @@ def distmult_score(
     return scores
 
 
+def _candidates(nodes, bias, candidate_slice):
+    """The candidate rows (and their bias) a sweep scores."""
+    if candidate_slice is None:
+        return nodes, bias
+    lo, width = candidate_slice
+    return nodes[lo:lo + width], None if bias is None else bias[lo:lo + width]
+
+
 def score_head_candidates(
     batch: torch.Tensor,
     nodes: torch.Tensor,
@@ -48,13 +57,15 @@ def score_head_candidates(
     sbias: Optional[torch.Tensor] = None,
     pbias: Optional[torch.Tensor] = None,
     obias: Optional[torch.Tensor] = None,
+    candidate_slice=None,
 ) -> torch.Tensor:
     """``(B, N)`` scores of every entity as the head of ``(B, 3)`` triples
-    (column 0 is ignored)."""
+    (column 0 is ignored); ``(B, width)`` under ``candidate_slice``."""
     p, o = batch[:, 1], batch[:, 2]
-    scores = (relations[p] * nodes[o]) @ nodes.T
+    cand, cb = _candidates(nodes, sbias, candidate_slice)
+    scores = (relations[p] * nodes[o]) @ cand.T
     if sbias is not None:
-        scores = scores + sbias[None, :] + (pbias[p] + obias[o])[:, None]
+        scores = scores + cb[None, :] + (pbias[p] + obias[o])[:, None]
     return scores
 
 
@@ -66,11 +77,13 @@ def score_tail_candidates(
     sbias: Optional[torch.Tensor] = None,
     pbias: Optional[torch.Tensor] = None,
     obias: Optional[torch.Tensor] = None,
+    candidate_slice=None,
 ) -> torch.Tensor:
     """``(B, N)`` scores of every entity as the tail of ``(B, 3)`` triples
-    (column 2 is ignored)."""
+    (column 2 is ignored); ``(B, width)`` under ``candidate_slice``."""
     s, p = batch[:, 0], batch[:, 1]
-    scores = (nodes[s] * relations[p]) @ nodes.T
+    cand, cb = _candidates(nodes, obias, candidate_slice)
+    scores = (nodes[s] * relations[p]) @ cand.T
     if sbias is not None:
-        scores = scores + obias[None, :] + (sbias[s] + pbias[p])[:, None]
+        scores = scores + cb[None, :] + (sbias[s] + pbias[p])[:, None]
     return scores

@@ -3,7 +3,8 @@
 
     python -m rgcn_tpu_torch.predict_links --config configs/rgcn/lp-WN18.yaml \\
         [--data-root DIR | --synthetic] [--epochs 3] [--run-dir DIR] \\
-        [--checkpoint-dir DIR] [--checkpoint-every N] [--tile-size 128] [--cpu]
+        [--checkpoint-dir DIR] [--checkpoint-every N] [--tile-size 128] [--cpu] \
+        [--mesh RxE [--virtual-devices N] [--dist-backend gloo] | --distributed [--mesh RxE]]
 
 Trains the config's link predictor (R-GCN lp-WN18: basis 2, width 200;
 lp-FB-toy: 100 blocks, width 500; c-RGCN ``configs/c-rgcn/lp-WN18.yaml``:
@@ -19,8 +20,17 @@ FB-toy). ``--checkpoint-dir`` saves the parameters and optimizer state
 every ``--checkpoint-every`` epochs (default: the config's
 ``check_every``) and after the last, and a run that finds a checkpoint
 there resumes after it; ``serve_links --checkpoint-dir`` serves it.
-Without ``--cpu`` the run needs CUDA and fails without it. Not ported
-yet: ``--mesh``, ``--distributed`` and ``--virtual-devices`` (multi-GPU),
+Without ``--cpu`` the run needs CUDA and fails without it.
+
+Edge-sharded training (:mod:`rgcn_tpu_torch.dist`, seed 0, as the JAX
+CLI's): ``--mesh RxE`` trains over R replicas of E edge shards (``1x4``:
+a 1-D mesh of 4; ``auto``: one replica per host), the scoring batch over
+all R·E ranks, evaluation candidate-sharded. Without ``--distributed``
+the R·E ranks start on this host, one card each over NCCL (more ranks
+than cards need ``--dist-backend gloo``), or with ``--cpu
+--virtual-devices N`` as N gloo ranks on the CPU (``--mesh`` then
+defaults to ``1xN``); ``--distributed`` makes this process one rank of a
+torchrun job. Rank 0 prints and writes the records. Not ported:
 ``--profile-dir`` (profiling), and ``--exe-cache-dir`` and
 ``--exe-search``, which exist for XLA's compiled programs.
 """
@@ -30,6 +40,34 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+
+
+def _mesh_shape(spec):
+    """``RxE`` -> (R, E); ``auto`` or None -> (None, None)."""
+    if spec in (None, "auto"):
+        return None, None
+    reps, edges = (int(v) for v in spec.lower().split("x"))
+    return reps, edges
+
+
+def _train_sharded(dev, cfg, data, args):
+    """One rank of ``--mesh``: the sharded trainer over a (replica x edge)
+    mesh."""
+    from rgcn_tpu_torch.dist.driver import train_link_predictor_sharded
+    from rgcn_tpu_torch.dist.multihost import make_mesh_2d
+    from rgcn_tpu_torch.utils.logging import ScalarLogger
+
+    mesh = make_mesh_2d(*_mesh_shape(args.mesh), device=dev)
+    logger = ScalarLogger(run_dir=args.run_dir if mesh.rank == 0 else None,
+                          name="link_pred", verbose=mesh.rank == 0)
+    logger.info(f"[mesh] {mesh.shape} over {mesh.world_size} ranks on {dev}")
+    try:
+        mrr, hits, _, _ = train_link_predictor_sharded(
+            cfg, data, mesh, logger=logger, tile_size=args.tile_size,
+            checkpoint_dir=args.checkpoint_dir, checkpoint_every=args.checkpoint_every)
+        return mrr, hits
+    finally:
+        logger.close()
 
 
 def main(argv=None):
@@ -50,7 +88,32 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true",
                     help="run the plain PyTorch versions on the CPU")
     ap.add_argument("--tile-size", type=int, default=128)
+    ap.add_argument("--mesh", default=None, metavar="RxE",
+                    help="train edge-sharded over a (replica x edge) mesh, e.g. "
+                         "1x4 or 2x2; 'auto' = one replica per host")
+    ap.add_argument("--distributed", action="store_true",
+                    help="be one rank of a torchrun job (RANK, WORLD_SIZE, "
+                         "LOCAL_RANK, MASTER_ADDR, MASTER_PORT)")
+    ap.add_argument("--virtual-devices", type=int, default=None, metavar="N",
+                    help="with --cpu: start N gloo ranks on the CPU")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                    help="collective backend (default: nccl on CUDA, gloo on the CPU)")
     args = ap.parse_args(argv)
+    try:
+        reps, edge = _mesh_shape(args.mesh)
+    except ValueError:
+        ap.error(f"--mesh must look like 2x4, got {args.mesh!r}")
+    if args.virtual_devices is not None:
+        if not args.cpu:
+            ap.error("--virtual-devices needs --cpu")
+        if args.distributed:
+            ap.error("--distributed and --virtual-devices exclude each other")
+        if args.mesh is None:
+            args.mesh = f"1x{args.virtual_devices}"
+        elif reps is None or reps * edge != args.virtual_devices:
+            ap.error("--mesh RxE must have R*E == --virtual-devices")
+    elif args.mesh is not None and not args.distributed and reps is None:
+        ap.error("--mesh auto needs --distributed")
 
     from rgcn_tpu_torch.config import LinkPredictionExperiment, load_experiment
     from rgcn_tpu_torch.data.dispatch import load_lp_data
@@ -76,6 +139,23 @@ def main(argv=None):
     if not args.synthetic:
         print(f"[data] {cfg.dataset.name}: N={data.num_nodes} R={data.num_relations} "
               f"train={len(data.train)} test={len(data.test)}")
+    if args.distributed or args.mesh:
+        from rgcn_tpu_torch.dist.multihost import initialize_distributed, spawn
+
+        dev_arg = "cpu" if args.cpu else None
+        if args.distributed:
+            dev = initialize_distributed(device=dev_arg, backend=args.dist_backend)
+            import torch.distributed as dist
+
+            try:
+                _train_sharded(dev, cfg, data, args)
+            finally:
+                dist.destroy_process_group()
+        else:
+            reps, edge = _mesh_shape(args.mesh)
+            spawn(_train_sharded, reps * edge, (cfg, data, args), device=dev_arg,
+                  backend=args.dist_backend, timeout_s=24 * 3600)
+        return
     logger = ScalarLogger(run_dir=args.run_dir, name="link_pred")
     try:
         train_link_predictor(cfg, data, logger=logger, tile_size=args.tile_size,

@@ -162,10 +162,11 @@ class EpochBatch:
     self_masks: Optional[list]  # per layer (N, dout) bool or (N, 1) f32, or None
     batch: object = None  # (P + Ns, 3): [positives ; negatives]
     batch_layouts: Optional[tuple] = None  # (s_lay, o_lay) of ``batch``
+    weights: object = None  # per scoring row, 1 real / 0 pad (a sharded batch)
 
     def to(self, device) -> "EpochBatch":
         def t(a):
-            return torch.as_tensor(a).to(device)
+            return None if a is None else torch.as_tensor(a).to(device)
 
         layouts = None
         if self.layouts is not None:
@@ -174,8 +175,9 @@ class EpochBatch:
                        (t(ce_sorted), t(qk_idx)))
         return EpochBatch(
             positives=t(self.positives).long(), edges=self.edges.to(device),
-            corrupt_head=t(self.corrupt_head), corrupt_ent=t(self.corrupt_ent).long(),
-            labels=t(self.labels), layouts=layouts,
+            corrupt_head=t(self.corrupt_head),
+            corrupt_ent=None if self.corrupt_ent is None else t(self.corrupt_ent).long(),
+            labels=t(self.labels), layouts=layouts, weights=t(self.weights),
             self_masks=None if self.self_masks is None
             else [t(m) for m in self.self_masks],
             batch=None if self.batch is None else t(self.batch).long(),
@@ -194,7 +196,14 @@ class LinkPredictionTrainer:
     be present; ``"cpu"`` runs the plain versions. A block encoder first
     pads ``data`` with null nodes (in place) until N is divisible by
     ``node_embedding // num_blocks``. ``checkpoint_dir``,
-    ``checkpoint_every`` and ``max_epochs``: see the module docstring."""
+    ``checkpoint_every`` and ``max_epochs``: see the module docstring. The
+    edge-sharded trainer
+    (:class:`rgcn_tpu_torch.dist.driver.ShardedLinkPredictionTrainer`)
+    overrides the groups, :meth:`sample_epoch`, :meth:`loss`,
+    :meth:`evaluate`, :meth:`save` and :meth:`restore`."""
+
+    group = None  # the encoder's edge group (None: one device)
+    decoder_group = None  # the ranks the scoring batch is split over
 
     def __init__(self, cfg, data, seed: int = 0, tile_size: int = 128,
                  init_state: Optional[Dict[str, torch.Tensor]] = None,
@@ -225,7 +234,8 @@ class LinkPredictionTrainer:
         self.train_np = np.asarray(data.train, dtype=np.int64)
         self.test_np = np.asarray(data.test, dtype=np.int64)
 
-        model = build_lp_model(cfg, self.num_nodes, self.num_rels, seed=seed)
+        model = build_lp_model(cfg, self.num_nodes, self.num_rels, seed=seed,
+                               group=self.group, decoder_group=self.decoder_group)
         if init_state is not None:
             model.load_state_dict(init_state)
         self.model = model.to(dev)
@@ -291,11 +301,7 @@ class LinkPredictionTrainer:
             clock[0] = now
 
         seed, n, pn = self.seed, self.num_nodes, prefer_native
-        if self.batch_size >= len(self.train_np):
-            positives = self.train_np
-        else:
-            positives = self.sampler(self.train_np, self.batch_size,
-                                     np.random.default_rng((seed, epoch)))
+        positives = self.positives(epoch)
         lap("sampler")
         # the subgraph (build_edge_set_dynamic_host with its layouts), stage by stage
         edges = build_edge_set_dynamic_host(
@@ -338,20 +344,32 @@ class LinkPredictionTrainer:
             layouts = None
         labels = np.concatenate([np.ones(len(positives), np.float32),
                                  np.zeros(len(ce), np.float32)])
-        masks = None
-        rate = self.model.rgc1.self_loop_dropout
-        if rate > 0.0 or self.structural_rate > 0.0:
-            rng = np.random.default_rng((seed, epoch, 13))
-            if rate > 0.0:
-                masks = [rng.random((n, conv.out_features), dtype=np.float32) < 1.0 - rate
-                         for conv in self._convs()]
-            else:
-                keep = (rng.random((n, 1), dtype=np.float32)
-                        < 1.0 - self.structural_rate).astype(np.float32)
-                masks = [keep] * len(self._convs())
+        masks = self.self_masks(epoch)
         lap("keep_masks")
         return EpochBatch(positives, edges, ch, ce, labels, layouts, masks,
                           batch, batch_layouts)
+
+    def positives(self, epoch: int) -> np.ndarray:
+        """Epoch ``epoch``'s positive triples (the whole train set when the
+        batch covers it)."""
+        if self.batch_size >= len(self.train_np):
+            return self.train_np
+        return self.sampler(self.train_np, self.batch_size,
+                            np.random.default_rng((self.seed, epoch)))
+
+    def self_masks(self, epoch: int) -> Optional[list]:
+        """Epoch ``epoch``'s self-loop dropout masks (see the module
+        docstring), or None without self-loop dropout."""
+        n, rate = self.num_nodes, self.model.rgc1.self_loop_dropout
+        if rate == 0.0 and self.structural_rate == 0.0:
+            return None
+        rng = np.random.default_rng((self.seed, epoch, 13))
+        if rate > 0.0:
+            return [rng.random((n, conv.out_features), dtype=np.float32) < 1.0 - rate
+                    for conv in self._convs()]
+        keep = (rng.random((n, 1), dtype=np.float32)
+                < 1.0 - self.structural_rate).astype(np.float32)
+        return [keep] * len(self._convs())
 
     def _convs(self):
         m = self.model
@@ -388,6 +406,14 @@ class LinkPredictionTrainer:
         self.optimizer.step()
         return loss.item()
 
+    def save(self, step: int) -> None:
+        save_training_state(self.checkpoint_dir, self.model, self.optimizer, step)
+
+    def restore(self) -> Optional[int]:
+        """Load the latest checkpoint, if any; returns its step or None."""
+        return restore_training_state(self.checkpoint_dir, self.model,
+                                      self.optimizer, self.device)
+
     def evaluate(self, verbose: bool = False, logger=None):
         ev = self.cfg.evaluation
         return evaluate_link_predictor(self.model, self.eval_edges, self.test_np,
@@ -404,8 +430,7 @@ class LinkPredictionTrainer:
         tag = "filtered" if ev.filtered else "raw"
         start = 1
         if self.checkpoint_dir:
-            ck_step = restore_training_state(self.checkpoint_dir, self.model,
-                                             self.optimizer, self.device)
+            ck_step = self.restore()
             if ck_step is not None:
                 start = ck_step + 1
                 logger.info(f"resumed from checkpoint at epoch {ck_step}")
@@ -427,8 +452,7 @@ class LinkPredictionTrainer:
                 loss = self.step()
                 t2 = time.time()
                 if self.checkpoint_dir and epoch % self.checkpoint_every == 0:
-                    save_training_state(self.checkpoint_dir, self.model,
-                                        self.optimizer, epoch)
+                    self.save(epoch)
                 if epoch % ev.check_every == 0 and epoch != epochs:
                     logger.info("Starting evaluation...")
                     mrr, hits, _ = self.evaluate(ev.verbose, logger)
@@ -449,8 +473,7 @@ class LinkPredictionTrainer:
         # the final state is what a server loads: save it unless a resumed
         # run already sits past the last epoch or the cadence just saved it
         if self.checkpoint_dir and epochs >= start and epochs % self.checkpoint_every:
-            save_training_state(self.checkpoint_dir, self.model, self.optimizer,
-                                epochs)
+            self.save(epochs)
 
         logger.info("Starting final evaluation...")
         mrr, hits, ranks = self.evaluate(ev.verbose, logger)

@@ -69,9 +69,22 @@ from rgcn_tpu_torch.utils.logging import ScalarLogger
 __all__ = [
     "NodeClassificationTrainer",
     "build_nc_model",
+    "nc_loss",
     "run_repeats",
     "train_node_classifier",
 ]
+
+
+def nc_loss(model, edges, train_idx, train_lbl, layer1_l2: float = 0.0,
+            embedding_l2: float = 0.0) -> torch.Tensor:
+    """Mean cross-entropy over the train nodes plus ``layer1_l2 ·
+    layer1_l2()`` and ``embedding_l2 · embedding_l2()`` where nonzero."""
+    loss = F.cross_entropy(model(edges)[train_idx], train_lbl)
+    if layer1_l2 > 0.0:
+        loss = loss + layer1_l2 * model.layer1_l2()
+    if embedding_l2 > 0.0:
+        loss = loss + embedding_l2 * model.embedding_l2()
+    return loss
 
 
 class NodeClassificationTrainer:
@@ -83,15 +96,17 @@ class NodeClassificationTrainer:
     initialisation from ``seed``. ``device``: None means CUDA, which must
     then be present; ``"cpu"`` runs the plain versions.
     ``checkpoint_dir`` and ``checkpoint_every``: where and how often
-    :meth:`fit` saves, and where it resumes from."""
+    :meth:`fit` saves, and where it resumes from. The edge-sharded trainer
+    (:class:`rgcn_tpu_torch.dist.driver.ShardedNodeClassificationTrainer`)
+    overrides :attr:`group`, :meth:`edge_set`, :meth:`save` and
+    :meth:`restore`."""
+
+    group = None  # the edge group the model reduces over (None: one device)
 
     def __init__(self, cfg, data, seed: int = 0, tile_size: int = 128,
                  init_params: Optional[Dict[str, torch.Tensor]] = None,
                  device=None, checkpoint_dir: Optional[str] = None,
                  checkpoint_every: Optional[int] = None):
-        from rgcn_tpu_torch.graph.coalesce import merge_applicable
-        from rgcn_tpu_torch.graph.structure import auto_nc_row_block, build_edge_set
-
         rg = cfg.rgcn
         if rg.node_embedding_l2_penalty > 0.0 and rg.model != "e-rgcn":
             raise ValueError(
@@ -99,25 +114,8 @@ class NodeClassificationTrainer:
                 f"{rg.model} model"
             )
         dev = resolve_device(device)
-        model = build_nc_model(cfg, data, seed=seed)
-        decomp = rg.decomposition
-        merge_ok = merge_applicable(
-            2 * data.num_relations,
-            decomposition=decomp.type if decomp else None,
-            num_bases=decomp.num_bases if decomp else 0,
-            diag=rg.model == "e-rgcn",
-        )
-        # the JAX trainer's pair_ok: many-basis layers contract once per
-        # unique (src, rel) pair
-        pair_ok = (rg.model == "rgcn" and decomp is not None
-                   and decomp.type == "basis" and decomp.num_bases > 8)
-        self.edges = build_edge_set(
-            data.triples, data.num_nodes, data.num_relations,
-            tile_size=tile_size, with_dst_layout=True,
-            with_merged_layout=merge_ok,
-            with_pair_index=pair_ok, with_pair_agg=pair_ok,
-            layout_row_block=auto_nc_row_block(data.num_nodes),
-        ).to(dev)
+        model = build_nc_model(cfg, data, seed=seed, group=self.group)
+        self.edges = self.edge_set(cfg, data, tile_size).to(dev)
         self.train_idx_np, self.train_lbl_np = data.index_labels(data.train)
         self.test_idx_np, self.test_lbl_np = data.index_labels(data.test)
         self.train_idx = torch.as_tensor(self.train_idx_np, device=dev)
@@ -136,15 +134,47 @@ class NodeClassificationTrainer:
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every or 10
 
+    @staticmethod
+    def pair_ok(cfg) -> bool:
+        """The JAX trainer's pair_ok: many-basis layers contract once per
+        unique (src, rel) pair."""
+        decomp = cfg.rgcn.decomposition
+        return (cfg.rgcn.model == "rgcn" and decomp is not None
+                and decomp.type == "basis" and decomp.num_bases > 8)
+
+    def edge_set(self, cfg, data, tile_size: int):
+        """The host EdgeSet the model trains on."""
+        from rgcn_tpu_torch.graph.coalesce import merge_applicable
+        from rgcn_tpu_torch.graph.structure import auto_nc_row_block, build_edge_set
+
+        decomp = cfg.rgcn.decomposition
+        merge_ok = merge_applicable(
+            2 * data.num_relations,
+            decomposition=decomp.type if decomp else None,
+            num_bases=decomp.num_bases if decomp else 0,
+            diag=cfg.rgcn.model == "e-rgcn",
+        )
+        pair_ok = self.pair_ok(cfg)
+        return build_edge_set(
+            data.triples, data.num_nodes, data.num_relations,
+            tile_size=tile_size, with_dst_layout=True,
+            with_merged_layout=merge_ok,
+            with_pair_index=pair_ok, with_pair_agg=pair_ok,
+            layout_row_block=auto_nc_row_block(data.num_nodes),
+        )
+
+    def save(self, step: int) -> None:
+        save_training_state(self.checkpoint_dir, self.model, self.optimizer, step)
+
+    def restore(self) -> Optional[int]:
+        """Load the latest checkpoint, if any; returns its step or None."""
+        return restore_training_state(self.checkpoint_dir, self.model,
+                                      self.optimizer, self.device)
+
     def loss(self) -> torch.Tensor:
         """The training loss, with the graph for its backward."""
-        logits = self.model(self.edges)
-        loss = F.cross_entropy(logits[self.train_idx], self.train_lbl)
-        if self.l1_pen > 0.0:
-            loss = loss + self.l1_pen * self.model.layer1_l2()
-        if self.emb_pen > 0.0:
-            loss = loss + self.emb_pen * self.model.embedding_l2()
-        return loss
+        return nc_loss(self.model, self.edges, self.train_idx, self.train_lbl,
+                       self.l1_pen, self.emb_pen)
 
     def step(self) -> float:
         """One update: forward, backward, optimizer step; returns the loss."""
@@ -169,8 +199,7 @@ class NodeClassificationTrainer:
         logger = logger or ScalarLogger()
         start = 1
         if self.checkpoint_dir:
-            ck_step = restore_training_state(self.checkpoint_dir, self.model,
-                                             self.optimizer, self.device)
+            ck_step = self.restore()
             if ck_step is not None:
                 start = ck_step + 1
                 logger.info(f"resumed from checkpoint at epoch {ck_step}")
@@ -193,15 +222,13 @@ class NodeClassificationTrainer:
                 f"Test Accuracy: {test_acc:.2f}"
             )
             if self.checkpoint_dir and epoch % self.checkpoint_every == 0:
-                save_training_state(self.checkpoint_dir, self.model,
-                                    self.optimizer, epoch)
+                self.save(epoch)
 
         # no final save when a resumed run already sits past the last epoch
         # (its parameters would be mislabelled) or the cadence just saved it
         if self.checkpoint_dir and self.epochs >= start \
                 and self.epochs % self.checkpoint_every:
-            save_training_state(self.checkpoint_dir, self.model, self.optimizer,
-                                self.epochs)
+            self.save(self.epochs)
 
         pred = self.predict()
         test_acc = accuracy(pred[self.test_idx_np], self.test_lbl_np)

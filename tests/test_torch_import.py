@@ -30,6 +30,7 @@ MODULES = [
     "rgcn_tpu_torch.device",
     "rgcn_tpu_torch.ops.aggregate",
     "rgcn_tpu_torch.ops.basis",
+    "rgcn_tpu_torch.ops.collectives",
     "rgcn_tpu_torch.ops.diag",
     "rgcn_tpu_torch.ops.distmult",
     "rgcn_tpu_torch.ops.distmult_train",
@@ -66,6 +67,15 @@ MODULES = [
     "rgcn_tpu_torch.trace_train_gate",
     "rgcn_tpu_torch.classify_nodes",
     "rgcn_tpu_torch.predict_links",
+    "rgcn_tpu_torch.dist",
+    "rgcn_tpu_torch.dist.checkpoint",
+    "rgcn_tpu_torch.dist.collectives",
+    "rgcn_tpu_torch.dist.driver",
+    "rgcn_tpu_torch.dist.evaluate",
+    "rgcn_tpu_torch.dist.host",
+    "rgcn_tpu_torch.dist.mesh",
+    "rgcn_tpu_torch.dist.multihost",
+    "rgcn_tpu_torch.dist.train",
 ]
 
 
