@@ -270,7 +270,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    width) tensor; one "sharded" JSON line and the phase's seconds. These
    are correctness runs: ranks that share a card reduce through host
    copies, and their times are no scaling figure;
-23. summary: one JSON line of each path's launch counts (serving, and
+23. tooling (rgcn_tpu_torch/utils/profiling.py, utils/canary.py), counts
+   zeroed just before each path: nc-AIFB trained 2 epochs through
+   classify_nodes.main and lp-WN18 1 epoch through predict_links.main
+   (both --synthetic) with --profile-dir; the one *.pt.trace.json each
+   writes must hold CUDA kernel events, and its events of K1
+   (k1_aggregate_kernel), K2 (k2_fused_kernel), K3 (k3_tiled_kernel,
+   k3_small_kernel) and K4 + K5 (weighted_runs.cuh's runs_kernel<...>)
+   must equal the launch counters over the same run (the kernels launch
+   through ctypes from the nvcc-built libraries), K1 and K2 (nc-AIFB), K1
+   and K4 (lp-WN18) at least once; measure_canary called twice on one
+   fresh floor file (the WN18-scale merged basis op over its dedup frame,
+   f32): exactly K5 once a step and nothing else, the second call reading
+   the first's floor (ratio >= 1), and one step's K5 held against its
+   plain version within 1e-5 * max(1, max|ref|); StepTimer (CUDA events)
+   over 50 chained canary steps within 2x of cuda_ms of the same step (a
+   unit and synchronisation check, no speed gate), its edges/s over the
+   merged frame's real pairs; one "tooling" line and the phase's seconds;
+24. summary: one JSON line of each path's launch counts (serving, and
    training), the training steps' timing (nc-AIFB, nc-AM, lp-WN18,
    lp-FB-toy, the c-RGCN and e-RGCN configs), one of the extra nc modes
    (K1 at dout 4, K3 at nc-AIFB, K2 and K3 at the dx shape,
@@ -285,8 +302,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    just before that line the host_build_ms line of phase 20 and the
    branches line of phase 21 (the branches' training paths are in each
    row's "train_launches") and the sharded line of phase 22 (each row's
-   "sharded_launches": its count on every rank of each sharded case);
-24. last line: {"ok": true, "device": {...}}.
+   "sharded_launches": its count on every rank of each sharded case)
+   and the tooling line of phase 23 (each row's "tooling_launches": its
+   count on each traced run and over the two canary calls);
+25. last line: {"ok": true, "device": {...}}.
 
 Needs CUDA (exits 1 without it) and the repository around it.
 """
@@ -3557,6 +3576,149 @@ def phase_sharded(dev, aifb, am, wn18, fb):
     return summary, counts
 
 
+TOOLING_NC_EPOCHS = 2  # nc-AIFB under --profile-dir
+TOOLING_LP_EPOCHS = 1  # lp-WN18 under --profile-dir: the trace holds every op
+TOOLING_TIMER_STEPS = 50  # the canary step under StepTimer
+# each launch counter's kernel events in a trace, by the demangled names
+# CUPTI records: K4 and K5 both run weighted_runs.cuh's templated
+# runs_kernel<VEC, NB, PER_BASIS> (beside one zero_shared_rows each)
+TRACE_NAMES = {
+    "k1_aggregate": ("k1_aggregate_kernel",),
+    "k2_fused": ("k2_fused_kernel",),
+    "k3_messages": ("k3_tiled_kernel", "k3_small_kernel"),
+    "k4_weighted_aggregate+k5_weighted_aggregate_dedup": ("runs_kernel<",),
+}
+
+
+def trace_kernel_events(logdir) -> dict:
+    """The kernel events of the one ``*.pt.trace.json`` under ``logdir``,
+    counted per TRACE_NAMES key, with the count of all kernel events and
+    the file's MB. Fails unless there is exactly one trace and it holds a
+    CUDA kernel event."""
+    import glob
+
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    if len(files) != 1:
+        fail(f"{logdir}: {len(files)} traces, expected 1")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    if not names:
+        fail(f"{files[0]}: the trace holds no CUDA kernel event")
+    counts = {key: sum(any(s in n for s in subs) for n in names)
+              for key, subs in TRACE_NAMES.items()}
+    return {"events": counts, "all_kernel_events": len(names),
+            "trace_mb": os.path.getsize(files[0]) / 2**20}
+
+
+def traced_cli(label, main_fn, argv, logdir, need, dev) -> dict:
+    """Run a training CLI with ``--profile-dir``, launch counts zeroed just
+    before it; each kernel's events in the trace must equal its counter's
+    delta, and the kernels in ``need`` must have launched."""
+    from rgcn_tpu_torch import kernels
+
+    argv = argv + ["--profile-dir", logdir] + (["--cpu"] if dev.type == "cpu" else [])
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    main_fn(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    found = trace_kernel_events(logdir)
+    launched = {key: sum(counts[k] for k in key.split("+")) for key in TRACE_NAMES}
+    log(f"tooling [{label}]: {seconds:.1f} s traced; launches {counts}; trace kernel "
+        f"events {found['events']} of {found['all_kernel_events']} "
+        f"({found['trace_mb']:.1f} MB)")
+    if found["events"] != launched:
+        fail(f"tooling [{label}]: trace kernel events {found['events']} != launch "
+             f"counters {launched}")
+    missing = [k for k in need if counts[k] < 1]
+    if missing:
+        fail(f"tooling [{label}]: {missing} never launched")
+    return dict(found, launches=counts, seconds=seconds)
+
+
+def phase_tooling(dev):
+    """Phase 23: the tooling modules on the card. nc-AIFB and lp-WN18
+    trained through their CLIs with --profile-dir (the trace's kernel
+    events against the launch counters), the canary measured twice (its
+    floor set, then read) with its kernel against the plain version, and
+    StepTimer's CUDA events against cuda_ms on the canary step. Returns
+    (the "tooling" summary, each path's launches)."""
+    import tempfile
+
+    from rgcn_tpu_torch import classify_nodes, kernels, predict_links
+    from rgcn_tpu_torch.ops import basis
+    from rgcn_tpu_torch.utils import canary
+    from rgcn_tpu_torch.utils.profiling import StepTimer
+
+    t_phase = time.perf_counter()
+    paths, rows = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rows["nc_aifb_traced"] = traced_cli(
+            "nc-AIFB", classify_nodes.main,
+            ["--config", CONFIG, "--synthetic", "--epochs", str(TOOLING_NC_EPOCHS)],
+            os.path.join(tmp, "nc"), ("k1_aggregate", "k2_fused"), dev)
+        rows["lp_wn18_traced"] = traced_cli(
+            "lp-WN18", predict_links.main,
+            ["--config", LP_CONFIG, "--synthetic", "--epochs", str(TOOLING_LP_EPOCHS)],
+            os.path.join(tmp, "lp"), ("k1_aggregate", "k4_weighted_aggregate"), dev)
+        for key in ("nc_aifb_traced", "lp_wn18_traced"):
+            paths[key] = rows[key].pop("launches")
+
+        runs, canary_counts = [], launches()
+        for i in range(2):
+            kernels.reset_launches()
+            runs.append(canary.measure_canary(cache_dir=os.path.join(tmp, "canary"),
+                                              tag=f"phase 23, call {i + 1}", device=dev))
+            torch.cuda.synchronize()
+            counts = dict(kernels.LAUNCHES)
+            if counts != launches(k5_weighted_aggregate_dedup=runs[-1]["steps"]):
+                fail(f"canary call {i + 1}: launches {counts}, expected K5 "
+                     f"{runs[-1]['steps']} and nothing else")
+            canary_counts = {k: canary_counts[k] + counts[k] for k in counts}
+    paths["canary"] = canary_counts
+    first, second = runs
+    if second["key"] != first["key"] or second["ratio"] < 1.0 \
+            or second["floor_ms"] != min(first["ms"], second["ms"]):
+        fail(f"canary: the second call did not read the first's floor: {first} {second}")
+
+    # one step's K5 against its plain version on the same inputs
+    edges, x, pack = canary.build_workload(device=dev)
+    m, dd = edges.merged, edges.merged.fwd_dedup
+    with basis.full_f32_matmul():
+        w_k = torch.einsum("klr,rb->kbl", dd.coeff_k, pack[2]).contiguous()
+    err = check_close("canary K5", basis.weighted_aggregate_dedup(
+        x, dd.src_sorted, w_k, dd, m.num_nodes), basis.weighted_aggregate_dedup_plain(
+        x, dd.src_sorted, w_k, dd, m.num_nodes))
+
+    # StepTimer on CUDA events against cuda_ms, the canary step (no speed gate)
+    timer = StepTimer(edges_per_step=m.num_pairs, device=dev)
+    y = x
+    for _ in range(TOOLING_TIMER_STEPS):
+        with timer:
+            y = canary.canary_step(edges, y, pack)
+    timer_ms = timer.mean_s() * 1e3
+    step_ms = cuda_ms(lambda: canary.canary_step(edges, x, pack))
+    log(f"StepTimer: {timer.summary()}; cuda_ms {step_ms:.4f} ms a step")
+    if not 0.5 <= timer_ms / step_ms <= 2.0:
+        fail(f"StepTimer's mean {timer_ms} ms is not within 2x of cuda_ms {step_ms}")
+
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 23 (tooling): {seconds:.1f} s ({card_line()})")
+    summary = {
+        "card": card_line(), "seconds": seconds, **rows,
+        "canary": {"ms": second["ms"], "floor_ms": second["floor_ms"],
+                   "ratio": second["ratio"], "healthy": second["healthy"],
+                   "first_ms": first["ms"], "steps_a_call": second["steps"],
+                   "k5_max_abs_err": err, "key": json.loads(second["key"])},
+        "step_timer": {"mean_ms": timer_ms, "cuda_ms": step_ms,
+                       "edges_per_step": m.num_pairs, "edges_per_s": timer.edges_per_s(),
+                       "steps": timer.steps},
+    }
+    return summary, paths
+
+
 def phases_nc_aifb(dev):
     """Phases 3-5 on aifb_like(): the kernels, the hub graph, serving and
     training. Returns (kernel rows, the nc mode rows, serving launches,
@@ -3671,6 +3833,7 @@ def main():
     from rgcn_tpu_torch.data.synthetic import aifb_like
 
     sharded, sharded_counts = phase_sharded(dev, aifb_like(), am_data, lp, fb)
+    tooling, tooling_counts = phase_tooling(dev)
 
     # each kernel's count on the path that serves through it
     key = {"K1": ("k1_aggregate", "main"), "K2": ("k2_fused", "main"),
@@ -3687,6 +3850,7 @@ def main():
             "train_launches": {tp: c[kname] for tp, c in train_paths.items()},
             "sharded_launches": {case: [c[kname] for c in per_rank]
                                  for case, per_rank in sharded_counts.items()},
+            "tooling_launches": {tp: c[kname] for tp, c in tooling_counts.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -3706,6 +3870,7 @@ def main():
     print(json.dumps({"host_build_ms": host_build}), flush=True)
     print(json.dumps({"branches": branches}), flush=True)
     print(json.dumps({"sharded": sharded}), flush=True)
+    print(json.dumps({"tooling": tooling}), flush=True)
     log(f"command time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 
     python -m rgcn_tpu_torch.classify_nodes --config configs/rgcn/nc-AIFB.yaml \\
         [--data-root DIR | --synthetic] [--epochs 3] [--repeats 1] [--run-dir DIR] \\
-        [--checkpoint-dir DIR] [--checkpoint-every 10] [--tile-size 128] [--cpu] \
+        [--checkpoint-dir DIR] [--checkpoint-every 10] [--tile-size 128] [--cpu] \\
+        [--profile-dir DIR] \\
         [--mesh N [--virtual-devices N] [--dist-backend gloo] | --distributed --mesh N]
 
 Trains the config's model ``repeats`` times (repeat ``i`` from seed ``i``)
@@ -32,8 +33,11 @@ with ``--cpu --virtual-devices N`` N gloo ranks on the CPU;
 (``torchrun --nproc-per-node N -m rgcn_tpu_torch.classify_nodes
 --distributed --mesh N ...``). Every rank trains the same model on its
 share of the edges; rank 0 prints and writes the records. Not ported:
-``--backend`` (the JAX per-shard kernel backend), ``--exe-*`` and
-``--profile-dir``.
+``--backend`` (the JAX per-shard kernel backend) and ``--exe-*``.
+
+``--profile-dir DIR`` writes a ``torch.profiler`` trace of the training
+(``*.pt.trace.json``, TensorBoard-readable; :func:`rgcn_tpu_torch.utils.profiling.trace`)
+into DIR; in a sharded run each rank writes its own into ``DIR/rank<r>/``.
 """
 
 from __future__ import annotations
@@ -48,15 +52,19 @@ def _train_sharded(dev, cfg, data, args):
     from rgcn_tpu_torch.dist.driver import train_node_classifier_sharded
     from rgcn_tpu_torch.dist.mesh import make_mesh
     from rgcn_tpu_torch.utils.logging import ScalarLogger
+    from rgcn_tpu_torch.utils.profiling import trace
 
     mesh = make_mesh(args.mesh, device=dev)
     logger = ScalarLogger(run_dir=args.run_dir if mesh.rank == 0 else None,
                           name="node_class", verbose=mesh.rank == 0)
     logger.info(f"[mesh] {mesh.shape} over {mesh.world_size} ranks on {dev}")
     try:
-        return train_node_classifier_sharded(
-            cfg, data, mesh, logger=logger, tile_size=args.tile_size,
-            checkpoint_dir=args.checkpoint_dir, checkpoint_every=args.checkpoint_every)
+        rank_dir = args.profile_dir and os.path.join(args.profile_dir, f"rank{mesh.rank}")
+        with trace(rank_dir, enabled=rank_dir is not None):
+            return train_node_classifier_sharded(
+                cfg, data, mesh, logger=logger, tile_size=args.tile_size,
+                checkpoint_dir=args.checkpoint_dir,
+                checkpoint_every=args.checkpoint_every)
     finally:
         logger.close()
 
@@ -81,6 +89,9 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true",
                     help="run the plain PyTorch versions on the CPU")
     ap.add_argument("--tile-size", type=int, default=128)
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace here (rank<r>/ for each "
+                         "rank of a sharded run)")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
                     help="train edge-sharded over N ranks (1-D edge mesh)")
     ap.add_argument("--distributed", action="store_true",
@@ -105,6 +116,7 @@ def main(argv=None):
     from rgcn_tpu_torch.device import resolve_device
     from rgcn_tpu_torch.train.node_classification import run_repeats
     from rgcn_tpu_torch.utils.logging import ScalarLogger
+    from rgcn_tpu_torch.utils.profiling import trace
 
     if not os.path.isfile(args.config):
         ap.error(f"config file not found: {args.config}")
@@ -144,9 +156,10 @@ def main(argv=None):
         return
     logger = ScalarLogger(run_dir=args.run_dir, name="node_class")
     try:
-        run_repeats(cfg, data, logger=logger, tile_size=args.tile_size,
-                    device=device, checkpoint_dir=args.checkpoint_dir,
-                    checkpoint_every=args.checkpoint_every)
+        with trace(args.profile_dir, enabled=args.profile_dir is not None):
+            run_repeats(cfg, data, logger=logger, tile_size=args.tile_size,
+                        device=device, checkpoint_dir=args.checkpoint_dir,
+                        checkpoint_every=args.checkpoint_every)
     finally:
         logger.close()
 

@@ -3,7 +3,8 @@
 
     python -m rgcn_tpu_torch.predict_links --config configs/rgcn/lp-WN18.yaml \\
         [--data-root DIR | --synthetic] [--epochs 3] [--run-dir DIR] \\
-        [--checkpoint-dir DIR] [--checkpoint-every N] [--tile-size 128] [--cpu] \
+        [--checkpoint-dir DIR] [--checkpoint-every N] [--tile-size 128] [--cpu] \\
+        [--profile-dir DIR] \\
         [--mesh RxE [--virtual-devices N] [--dist-backend gloo] | --distributed [--mesh RxE]]
 
 Trains the config's link predictor (R-GCN lp-WN18: basis 2, width 200;
@@ -31,8 +32,13 @@ than cards need ``--dist-backend gloo``), or with ``--cpu
 --virtual-devices N`` as N gloo ranks on the CPU (``--mesh`` then
 defaults to ``1xN``); ``--distributed`` makes this process one rank of a
 torchrun job. Rank 0 prints and writes the records. Not ported:
-``--profile-dir`` (profiling), and ``--exe-cache-dir`` and
-``--exe-search``, which exist for XLA's compiled programs.
+``--exe-cache-dir`` and ``--exe-search``, which exist for XLA's compiled
+programs.
+
+``--profile-dir DIR`` writes a ``torch.profiler`` trace of the training
+(``*.pt.trace.json``, TensorBoard-readable; :func:`rgcn_tpu_torch.utils.profiling.trace`)
+into DIR; in a sharded run each rank writes its own into ``DIR/rank<r>/``.
+Profile an epoch or two: the trace holds every op of the run.
 """
 
 from __future__ import annotations
@@ -56,15 +62,19 @@ def _train_sharded(dev, cfg, data, args):
     from rgcn_tpu_torch.dist.driver import train_link_predictor_sharded
     from rgcn_tpu_torch.dist.multihost import make_mesh_2d
     from rgcn_tpu_torch.utils.logging import ScalarLogger
+    from rgcn_tpu_torch.utils.profiling import trace
 
     mesh = make_mesh_2d(*_mesh_shape(args.mesh), device=dev)
     logger = ScalarLogger(run_dir=args.run_dir if mesh.rank == 0 else None,
                           name="link_pred", verbose=mesh.rank == 0)
     logger.info(f"[mesh] {mesh.shape} over {mesh.world_size} ranks on {dev}")
     try:
-        mrr, hits, _, _ = train_link_predictor_sharded(
-            cfg, data, mesh, logger=logger, tile_size=args.tile_size,
-            checkpoint_dir=args.checkpoint_dir, checkpoint_every=args.checkpoint_every)
+        rank_dir = args.profile_dir and os.path.join(args.profile_dir, f"rank{mesh.rank}")
+        with trace(rank_dir, enabled=rank_dir is not None):
+            mrr, hits, _, _ = train_link_predictor_sharded(
+                cfg, data, mesh, logger=logger, tile_size=args.tile_size,
+                checkpoint_dir=args.checkpoint_dir,
+                checkpoint_every=args.checkpoint_every)
         return mrr, hits
     finally:
         logger.close()
@@ -88,6 +98,9 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true",
                     help="run the plain PyTorch versions on the CPU")
     ap.add_argument("--tile-size", type=int, default=128)
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace here (rank<r>/ for each "
+                         "rank of a sharded run)")
     ap.add_argument("--mesh", default=None, metavar="RxE",
                     help="train edge-sharded over a (replica x edge) mesh, e.g. "
                          "1x4 or 2x2; 'auto' = one replica per host")
@@ -120,6 +133,7 @@ def main(argv=None):
     from rgcn_tpu_torch.device import resolve_device
     from rgcn_tpu_torch.train.link_prediction import train_link_predictor
     from rgcn_tpu_torch.utils.logging import ScalarLogger
+    from rgcn_tpu_torch.utils.profiling import trace
 
     if not os.path.isfile(args.config):
         ap.error(f"config file not found: {args.config}")
@@ -158,9 +172,10 @@ def main(argv=None):
         return
     logger = ScalarLogger(run_dir=args.run_dir, name="link_pred")
     try:
-        train_link_predictor(cfg, data, logger=logger, tile_size=args.tile_size,
-                             device=device, checkpoint_dir=args.checkpoint_dir,
-                             checkpoint_every=args.checkpoint_every)
+        with trace(args.profile_dir, enabled=args.profile_dir is not None):
+            train_link_predictor(cfg, data, logger=logger, tile_size=args.tile_size,
+                                 device=device, checkpoint_dir=args.checkpoint_dir,
+                                 checkpoint_every=args.checkpoint_every)
     finally:
         logger.close()
 

@@ -89,8 +89,8 @@ def load_nc_server(
     of ``repeat_1``'s when it holds none itself (a run of several
     repeats), and returns None when neither holds one. ``device``: None means
     CUDA, which must then be present; ``"cpu"`` runs the plain versions.
-    The EdgeSet is built as the JAX server builds it (tile 128, destination
-    layout, fused layout and reversed edges, and the merged pair layout
+    The EdgeSet is built as the JAX server builds it (tiles of
+    ``tile_size`` edges, destination layout, fused layout and reversed edges, and the merged pair layout
     when ``merge_applicable`` says a layer reads it: the e-RGCN diagonal
     layer, or a basis layer with at most 8 bases) and moved to the device
     once.
@@ -252,6 +252,8 @@ def load_lp_server(
     state_dict: Optional[Dict[str, torch.Tensor]] = None,
     *,
     checkpoint_dir: Optional[str] = None,
+    tile_size: int = 128,
+    max_batch: int = 1024,
     device=None,
 ) -> Optional[LinkPredictionServer]:
     """Build a link-prediction endpoint.
@@ -267,9 +269,10 @@ def load_lp_server(
     the plain versions. A block encoder first pads ``data`` with null
     nodes until N is divisible by ``node_embedding // num_blocks``
     (:meth:`LinkPredictionData.pad_nodes`, in place, as the JAX server
-    does). The EdgeSet is built as the JAX server builds it: tile 128,
-    destination layout, and the merged pair layout when a basis encoder
-    consumes it (``merge_applicable``).
+    does). The EdgeSet is built as the JAX server builds it: tiles of
+    ``tile_size`` edges, destination layout, and the merged pair layout
+    when a basis encoder consumes it (``merge_applicable``). Queries are
+    answered in chunks of at most ``max_batch``.
     """
     from rgcn_tpu_torch.config import load_experiment
     from rgcn_tpu_torch.graph.coalesce import merge_applicable
@@ -295,7 +298,8 @@ def load_lp_server(
         2 * num_rels, decomposition=decomp.type, num_bases=decomp.num_bases)
     train = np.asarray(data.train, dtype=np.int64)
     edges = build_edge_set(
-        train, num_nodes, num_rels, tile_size=128,
+        train, num_nodes, num_rels, tile_size=tile_size,
         with_dst_layout=True, with_merged_layout=merge,
     ).to(dev)
-    return LinkPredictionServer(model, edges, known_triples=train)
+    return LinkPredictionServer(model, edges, max_batch=max_batch,
+                                known_triples=train)

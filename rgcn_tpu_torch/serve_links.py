@@ -3,7 +3,7 @@
 
     python -m rgcn_tpu_torch.serve_links --config configs/rgcn/lp-WN18.yaml \\
         [--data-root DIR | --synthetic] [--checkpoint-dir DIR] [--queries f.tsv] \\
-        [--topk 10] [--filtered] [--cpu]
+        [--topk 10] [--filtered] [--tile-size 128] [--max-batch 1024] [--cpu]
 
 Encodes the graph once at load (a basis encoder such as lp-WN18 through
 K4, or K5 over a source-dedup'd frame; a block encoder such as lp-FB-toy
@@ -14,7 +14,9 @@ queries with DistMult algebra.
 ``? p o`` rows (top-k tails / heads); entity and relation columns take
 names from the dataset vocabulary or integer ids. Without ``--queries``
 it ranks tails for the first 8 test triples. ``--filtered`` masks the
-known training triples out of the rankings.
+known training triples out of the rankings. ``--tile-size`` sets the
+served EdgeSet's tile (edges per relation-uniform tile), ``--max-batch``
+the most queries answered in one device call.
 
 The dataset is read from ``--data-root`` (default ``$RGCN_TPU_DATA``, else
 the repository's ``data/``), or with ``--synthetic`` the stand-in the JAX
@@ -85,6 +87,9 @@ def main(argv=None):
     ap.add_argument("--topk", type=int, default=10)
     ap.add_argument("--filtered", action="store_true",
                     help="mask known-true training edges out of top-k rankings")
+    ap.add_argument("--tile-size", type=int, default=128)
+    ap.add_argument("--max-batch", type=int, default=1024,
+                    help="most queries scored in one device call")
     ap.add_argument("--cpu", action="store_true",
                     help="run the plain PyTorch versions on the CPU")
     args = ap.parse_args(argv)
@@ -108,6 +113,7 @@ def main(argv=None):
                  "(data/get_data.sh), pass --data-root, or --synthetic")
     t0 = time.perf_counter()
     srv = load_lp_server(cfg, data, checkpoint_dir=args.checkpoint_dir,
+                         tile_size=args.tile_size, max_batch=args.max_batch,
                          device="cpu" if args.cpu else None)
     if srv is None:
         ap.error(f"no checkpoint found under {args.checkpoint_dir}")

@@ -2,7 +2,8 @@
 ``cli/serve_nodes.py``).
 
     python -m rgcn_tpu_torch.serve_nodes --config configs/rgcn/nc-AIFB.yaml \\
-        [--data-root DIR | --synthetic] [--checkpoint-dir DIR] [--nodes node1 42] [--cpu]
+        [--data-root DIR | --synthetic] [--checkpoint-dir DIR] [--nodes node1 42] \\
+        [--tile-size 128] [--cpu]
 
 Serves the four ``configs/rgcn/nc-*.yaml``: nc-AIFB (no decomposition) and
 nc-MUTAG, nc-BGS, nc-AM (basis decomposition with 30, 40, 40 bases), and
@@ -20,7 +21,8 @@ repeats) and fails when it holds none. Without it the served parameters
 are the port's seeded initialisation (seed 0), those of an untrained
 model; parameters carried from the JAX package go through
 ``rgcn_tpu_torch.weights.from_jax_params`` and
-``rgcn_tpu_torch.serve.load_nc_server(state_dict=...)``. Without
+``rgcn_tpu_torch.serve.load_nc_server(state_dict=...)``. ``--tile-size``
+sets the served EdgeSet's tile (edges per relation-uniform tile). Without
 ``--cpu`` the run needs CUDA and fails without it.
 """
 
@@ -44,6 +46,7 @@ def main(argv=None):
                          "initialisation)")
     ap.add_argument("--nodes", nargs="*", default=None,
                     help="node names or integer ids to classify")
+    ap.add_argument("--tile-size", type=int, default=128)
     ap.add_argument("--cpu", action="store_true",
                     help="run the plain PyTorch versions on the CPU")
     args = ap.parse_args(argv)
@@ -64,6 +67,7 @@ def main(argv=None):
         ap.error(f"dataset file not found ({e.filename}): fetch the datasets "
                  "(data/get_data.sh), pass --data-root, or --synthetic")
     srv = load_nc_server(cfg, data, checkpoint_dir=args.checkpoint_dir,
+                         tile_size=args.tile_size,
                          device="cpu" if args.cpu else None)
     if srv is None:
         ap.error(f"no checkpoint found under {args.checkpoint_dir}")

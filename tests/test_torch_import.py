@@ -24,6 +24,7 @@ MODULES = [
     "rgcn_tpu_torch.data.nt",
     "rgcn_tpu_torch.graph",
     "rgcn_tpu_torch.graph.coalesce",
+    "rgcn_tpu_torch.graph.compat",
     "rgcn_tpu_torch.graph.dynamic",
     "rgcn_tpu_torch.graph.native",
     "rgcn_tpu_torch.graph.structure",
@@ -64,6 +65,8 @@ MODULES = [
     "rgcn_tpu_torch.utils",
     "rgcn_tpu_torch.utils.logging",
     "rgcn_tpu_torch.utils.checkpoint",
+    "rgcn_tpu_torch.utils.canary",
+    "rgcn_tpu_torch.utils.profiling",
     "rgcn_tpu_torch.trace_train_gate",
     "rgcn_tpu_torch.classify_nodes",
     "rgcn_tpu_torch.predict_links",
