@@ -287,7 +287,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    over 50 chained canary steps within 2x of cuda_ms of the same step (a
    unit and synchronisation check, no speed gate), its edges/s over the
    merged frame's real pairs; one "tooling" line and the phase's seconds;
-24. summary: one JSON line of each path's launch counts (serving, and
+24. installed package: "setup.py build_py" lays the port out, as "pip
+   install ." installs it, into a fresh temporary directory; a child
+   process run from there, with neither the checkout nor JAX importable
+   (it loads this script by path), builds the five kernels (nvcc, in
+   parallel) and both host libraries (g++) from scratch into the copy's
+   own build/, serves nc-AIFB (aifb_like(), exactly K1 1, K2 1) and
+   lp-WN18 (wn18_like(), 2 bases, width 200, exactly K4 1) with counts
+   zeroed just before each, and holds K1-K3 on the nc-AIFB server's edges
+   and K4, K5 on the lp-WN18 server's (phase 3's and 6's shapes and
+   tolerance) against their plain versions; no library of the checkout's
+   build/ may be mapped. Gates: each library's name (its source hash)
+   equals the checkout's; the synthetic graphs equal the checkout's; the
+   answers equal phases 4 and 6's within their tolerances (logits, z and
+   point scores 1e-4, classes equal, top-10 sets equal where the
+   checkout's 10th and 11th scores are apart). One "installed" line:
+   each kernel's build seconds from scratch, its max abs error and its
+   launches in both serves, and the phase's seconds;
+25. summary: one JSON line of each path's launch counts (serving, and
    training), the training steps' timing (nc-AIFB, nc-AM, lp-WN18,
    lp-FB-toy, the c-RGCN and e-RGCN configs), one of the extra nc modes
    (K1 at dout 4, K3 at nc-AIFB, K2 and K3 at the dx shape,
@@ -304,8 +321,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    row's "train_launches") and the sharded line of phase 22 (each row's
    "sharded_launches": its count on every rank of each sharded case)
    and the tooling line of phase 23 (each row's "tooling_launches": its
-   count on each traced run and over the two canary calls);
-25. last line: {"ok": true, "device": {...}}.
+   count on each traced run and over the two canary calls) and the
+   installed line of phase 24 (each row's "installed_launches": its
+   count in each of the copy's serves);
+26. last line: {"ok": true, "device": {...}}.
 
 Needs CUDA (exits 1 without it) and the repository around it.
 """
@@ -685,6 +704,12 @@ NC_FEW_BASES = dict(k4_weighted_aggregate=2)
 AM_PATH = dict(k1_aggregate=2, k3_messages=1)
 
 
+def data_digest(triples) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(triples, dtype=np.int64)).hexdigest()
+
+
 def serve_path(label, build, requests, expect):
     """Zero the launch counts, build a server (its one forward) and answer
     the requests, read the counts; they must equal ``expect``."""
@@ -749,7 +774,8 @@ def phase_serving(dev, data):
         fwd_ms.append((time.perf_counter() - t0) * 1e3)
     log(f"  serve forward (host clock, logits to host): median "
         f"{sorted(fwd_ms)[10]:.3f} ms over 20")
-    return {"main": main, "k3_k1_branch": branch}
+    served = {"logits": srv.logits, "answers": answers, "data": data_digest(data.triples)}
+    return {"main": main, "k3_k1_branch": branch}, served
 
 
 TRAIN_EPOCHS = 5
@@ -1380,6 +1406,8 @@ def phase_lp_serving(dev, data, dedup):
     for label, s, ans in (("merged", srv, main_ans), ("dedup", dsrv, dedup_ans)):
         check_lp_against_cpu(label, s, ans, cpu, data, k=k)
     log(f"  scores: {[round(float(v), 6) for v in main_ans[0]]}")
+    served = {"z": srv.z.cpu(), "answers": lp_requests(srv, data, k=k + 1),
+              "data": data_digest(data.train)}
 
     big = np.asarray(train[np.random.default_rng(2).integers(0, len(train), 1024), :2])
     timing = {
@@ -1388,7 +1416,7 @@ def phase_lp_serving(dev, data, dedup):
         "topk_tails_1024_ms": host_ms(lambda: srv.topk_tails(big, k=k), iters=10),
     }
     log(f"  lp timing (host clock, medians): {json.dumps(timing)}")
-    return {"lp_main": main, "lp_dedup_branch": branch}, timing
+    return {"lp_main": main, "lp_dedup_branch": branch}, timing, served
 
 
 def nc_requests(data):
@@ -3719,10 +3747,259 @@ def phase_tooling(dev):
     return summary, paths
 
 
+# -- phase 24: an installed copy of the port, built from scratch -------------
+
+INSTALLED_TIMEOUT_S = 600
+# the child: loads this script by path (not as a module of the checkout) and
+# runs installed_child from the copy, which is its cwd and sys.path[0]
+INSTALLED_BOOT = (
+    "import importlib.util, sys\n"
+    "spec = importlib.util.spec_from_file_location('chip_smoke_installed', sys.argv[1])\n"
+    "smoke = importlib.util.module_from_spec(spec)\n"
+    "spec.loader.exec_module(smoke)\n"
+    "smoke.installed_child(sys.argv[2], sys.argv[3])\n"
+)
+
+
+def installed_child(out_path, device):
+    """Phase 24's child, run with the installed copy as its cwd: neither the
+    checkout nor JAX importable. Builds the five kernels and both host
+    libraries from scratch into the copy's build/, serves nc-AIFB and
+    lp-WN18 (launch counts zeroed just before each), holds K1-K3 on the
+    nc-AIFB server's edges and K4, K5 on the lp-WN18 server's against
+    their plain versions, and pickles the answers to ``out_path``."""
+    import pickle
+    from concurrent.futures import ThreadPoolExecutor
+
+    site = os.path.abspath(os.getcwd())
+    on_path = [p for p in sys.path if os.path.abspath(p or os.curdir) == ROOT]
+    if on_path:
+        fail(f"installed: the checkout {ROOT} is on sys.path")
+    sys.modules["jax"] = None
+    import rgcn_tpu_torch
+    from rgcn_tpu_torch import kernels, native
+    from rgcn_tpu_torch.data.synthetic import aifb_like, wn18_like
+    from rgcn_tpu_torch.graph.coalesce import build_merged_layout
+    from rgcn_tpu_torch.kernels import build
+    from rgcn_tpu_torch.ops import aggregate as agg
+    from rgcn_tpu_torch.ops import basis as bs
+    from rgcn_tpu_torch.ops import fused as fz
+    from rgcn_tpu_torch.ops import rel_spmm as rs
+    from rgcn_tpu_torch.serve import load_lp_server, load_nc_server
+
+    if not os.path.abspath(rgcn_tpu_torch.__file__).startswith(site + os.sep):
+        fail(f"installed: rgcn_tpu_torch imported from {rgcn_tpu_torch.__file__}")
+    if os.path.exists(build.BUILD_DIR) or os.path.exists(native.BUILD_DIR):
+        fail(f"installed: {build.BUILD_DIR} exists before the build")
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host = pool.submit(native.build_all)  # g++, beside nvcc
+        built = build.build_all()
+        host_built = host.result()
+    build_s = time.perf_counter() - t0
+    cached = [n for n, v in {**built, **host_built}.items() if v["cached"]]
+    if cached:
+        fail(f"installed: {cached} found built, not built from scratch")
+    log(f"installed: {len(built)} kernels and {len(host_built)} host libraries "
+        f"built from scratch in {build_s:.1f} s")
+
+    rng = np.random.default_rng(0)
+
+    def rand(*shape, scale=1.0):
+        a = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(a).to(dev)
+
+    def serve(label, load, ask, expect):
+        kernels.reset_launches()
+        t = time.perf_counter()
+        srv = load()
+        answers = ask(srv)
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        log(f"installed serving [{label}]: build + forward + requests "
+            f"{time.perf_counter() - t:.2f} s, launches {counts}")
+        if counts != launches(**expect):
+            fail(f"installed serving [{label}]: launches {counts}, expected "
+                 f"{launches(**expect)}")
+        return srv, answers, counts
+
+    errs = {}
+    aifb = aifb_like()
+    requests = nc_requests(aifb)
+    nc, nc_answers, nc_counts = serve(
+        "nc-AIFB", lambda: load_nc_server(CONFIG, aifb, device=dev),
+        lambda srv: [srv.classify(q) for q in requests], MAIN_PATH)
+    # K1-K3 at phase 3's nc-AIFB shapes, on the server's edges
+    edges, n = nc.edges, aifb.num_nodes
+    hidden, classes = 16, aifb.num_classes
+    msgs = rand(edges.src.shape[0], hidden) * edges.val[:, None]
+    errs["K1"] = check_close("installed K1 aggregate_sorted",
+                             agg.aggregate_sorted(msgs, edges.layout, n),
+                             agg.aggregate_sorted_plain(msgs, edges.layout, n))
+    x = torch.relu(rand(n, hidden))
+    w = rand(edges.num_rels, hidden, classes, scale=0.3)
+    errs["K2"] = check_close("installed K2 rel_spmm_fused",
+                             fz.rel_spmm_fused(edges.fused, n, x, w),
+                             fz.rel_spmm_fused_plain(edges.fused, n, x, w))
+    errs["K3"] = check_close("installed K3 rel_spmm_messages",
+                             rs.rel_spmm_messages(edges, x, w),
+                             rs.rel_spmm_messages_plain(edges, x, w))
+
+    wn18 = wn18_like()
+    lp, lp_answers, lp_counts = serve(
+        "lp-WN18", lambda: load_lp_server(LP_CONFIG, wn18, device=dev),
+        lambda srv: lp_requests(srv, wn18), LP_MAIN)
+    # K4 and K5 at phase 6's lp-WN18 shapes: the server's merged frame, its
+    # dedup frame built as main() builds it
+    es, m = lp.edges, lp.edges.merged
+    n = m.num_nodes
+    dedup = build_merged_layout(es.dst.cpu().numpy(), es.src.cpu().numpy(),
+                                es.rel.cpu().numpy(), es.val.cpu().numpy(), n,
+                                es.num_rels, dedup_k=2).to(dev)
+    x = torch.relu(rand(n, 200))
+    comps = rand(m.num_rels, 2, scale=0.3)
+    wv = bs.merged_wvec(m.coeff, comps)
+    errs["K4"] = check_close(
+        "installed K4 merged", bs.weighted_aggregate(x, m.src_sorted, wv, m.layout, n),
+        bs.weighted_aggregate_plain(x, m.src_sorted, wv, m.layout, n))
+    dd = dedup.fwd_dedup
+    w_k = torch.einsum("klr,rb->kbl", dd.coeff_k, comps).contiguous()
+    errs["K5"] = check_close(
+        "installed K5 dedup", bs.weighted_aggregate_dedup(x, dd.src_sorted, w_k, dd, n),
+        bs.weighted_aggregate_dedup_plain(x, dd.src_sorted, w_k, dd, n))
+    torch.cuda.synchronize()
+
+    # every kernel ran from the copy's own libraries, none from the checkout's
+    maps = open("/proc/self/maps").read() if dev.type == "cuda" else ""
+    if os.path.join(ROOT, "build") in maps:
+        fail("installed: a library of the checkout's build/ is mapped")
+    unmapped = [n for n, v in built.items() if dev.type == "cuda" and v["path"] not in maps]
+    if unmapped:
+        fail(f"installed: {unmapped} not loaded from {build.BUILD_DIR}")
+    jax_loaded = sorted(k for k, v in sys.modules.items()
+                        if (k in ("jax", "rgcn_tpu") or k.startswith(("jax.", "rgcn_tpu.")))
+                        and v is not None)
+    if jax_loaded:
+        fail(f"installed: {jax_loaded} imported")
+    with open(out_path, "wb") as f:
+        pickle.dump({
+            "build_s": build_s,
+            "kernels": {n: {"path": v["path"], "build_s": v["seconds"]}
+                        for n, v in built.items()},
+            "native": {n: {"path": v["path"], "build_s": v["seconds"]}
+                       for n, v in host_built.items()},
+            "max_abs_err": errs,
+            "launches": {"nc_aifb": nc_counts, "lp_wn18": lp_counts},
+            "nc_aifb": {"logits": nc.logits, "answers": nc_answers,
+                        "data": data_digest(aifb.triples)},
+            "lp_wn18": {"z": lp.z.cpu(), "answers": lp_answers,
+                        "data": data_digest(wn18.train)},
+        }, f)
+
+
+def check_installed_answers(got, checkout, k=10):
+    """The installed copy's served answers against the checkout's
+    (``checkout``: phases 4 and 6's) under those phases' tolerances: nc-AIFB logits within 1e-4 and
+    classes equal; lp-WN18 z and point scores within 1e-4 and the top-k
+    sets equal wherever the checkout's k-th and (k+1)-th scores are more
+    than 1e-4 apart. Returns the differences."""
+    ref, cur = checkout["nc_aifb"], got["nc_aifb"]
+    lref, lcur = checkout["lp_wn18"], got["lp_wn18"]
+    if cur["data"] != ref["data"] or lcur["data"] != lref["data"]:
+        fail("installed: the synthetic graphs differ from the checkout's")
+    nc_diff = float(np.abs(cur["logits"] - ref["logits"]).max())
+    for a, b in zip(cur["answers"], ref["answers"]):
+        if not np.array_equal(a, b):
+            fail(f"installed nc-AIFB: classes {a} != the checkout's {b}")
+    dz = float((lcur["z"] - lref["z"]).abs().max())
+    ds = float(np.abs(lcur["answers"][0] - lref["answers"][0]).max())
+    log(f"  installed vs checkout: nc-AIFB logits {nc_diff:.3e}, lp-WN18 z {dz:.3e}, "
+        f"point scores {ds:.3e} (tol 1e-4 each)")
+    if not (nc_diff <= 1e-4 and dz <= 1e-4 and ds <= 1e-4):
+        fail("installed: served answers differ from the checkout's beyond 1e-4")
+    checked = [topk_agree(f"installed lp-WN18 {what}", a[1], b[0], b[1], k)
+               for what, a, b in zip(("tails", "heads", "filtered tails"),
+                                     lcur["answers"][1:], lref["answers"][1:])]
+    log(f"  installed lp-WN18: top-{k} sets equal the checkout's on {checked} of "
+        "32 rows each")
+    return {"nc_logits": nc_diff, "lp_z": dz, "lp_scores": ds, "topk_rows": checked}
+
+
+def phase_installed(dev, checkout):
+    """Phase 24: ``setup.py build_py`` lays the port out as ``pip install .``
+    installs it, into a fresh temporary directory; a child process run
+    from there (installed_child) builds and holds every kernel and serves
+    nc-AIFB and lp-WN18. The libraries must hash as the checkout's and the
+    answers match ``checkout``, what phases 4 and 6 served (``{"nc_aifb":
+    ..., "lp_wn18": ...}``). Returns (the "installed" summary, each serve's
+    launches)."""
+    import pickle
+    import tempfile
+
+    from rgcn_tpu_torch import native
+    from rgcn_tpu_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        site = os.path.join(os.path.realpath(tmp), "site")
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "setup.py", "build_py", "-d", site],
+                             cwd=ROOT, capture_output=True, text=True, timeout=120)
+        build_py_s = time.perf_counter() - t0
+        if out.returncode != 0:
+            fail(f"installed: setup.py build_py failed:\n{out.stdout}{out.stderr}")
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        result = os.path.join(tmp, "installed.pkl")
+        try:
+            child = subprocess.run(
+                [sys.executable, "-c", INSTALLED_BOOT, os.path.abspath(__file__),
+                 result, dev.type],
+                cwd=site, env=env, capture_output=True, text=True,
+                timeout=INSTALLED_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"installed: the child ran past {INSTALLED_TIMEOUT_S} s")
+        for line in child.stdout.splitlines():
+            log(f"  | {line}")
+        if child.returncode != 0:
+            fail(f"installed: the child exited {child.returncode}:\n{child.stderr}")
+        with open(result, "rb") as f:
+            got = pickle.load(f)
+    for kind, libs, path_of in (("kernel", got["kernels"], build.library_path),
+                                ("host library", got["native"], native.library_path)):
+        for name, lib in libs.items():
+            if not lib["path"].startswith(site + os.sep):
+                fail(f"installed: {kind} {name} built outside the copy: {lib['path']}")
+            if os.path.basename(lib["path"]) != os.path.basename(path_of(name)):
+                fail(f"installed: {kind} {name} is {os.path.basename(lib['path'])}, "
+                     f"the checkout's {os.path.basename(path_of(name))}")
+    diffs = check_installed_answers(got, checkout)
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 24 (installed package): {seconds:.1f} s ({card_line()})")
+    short = {"K1": "k1_aggregate", "K2": "k2_fused", "K3": "k3_messages",
+             "K4": "k4_weighted_aggregate", "K5": "k5_weighted_aggregate_dedup"}
+    summary = {
+        "card": card_line(), "seconds": seconds, "build_py_s": build_py_s,
+        "build_s": got["build_s"],
+        "kernels": {k: {"build_s": got["kernels"][name]["build_s"],
+                        "max_abs_err": got["max_abs_err"][k],
+                        "library": os.path.basename(got["kernels"][name]["path"]),
+                        "launches": {p: c[name] for p, c in got["launches"].items()}}
+                    for k, name in short.items()},
+        "native": {n: {"build_s": v["build_s"], "library": os.path.basename(v["path"])}
+                   for n, v in got["native"].items()},
+        "vs_checkout": diffs,
+    }
+    return summary, got["launches"]
+
+
 def phases_nc_aifb(dev):
     """Phases 3-5 on aifb_like(): the kernels, the hub graph, serving and
     training. Returns (kernel rows, the nc mode rows, serving launches,
-    training launches, the training timing)."""
+    training launches, the training timing, the served answers)."""
     from rgcn_tpu_torch.data.synthetic import aifb_like
     from rgcn_tpu_torch.graph.structure import build_edge_set
 
@@ -3737,10 +4014,10 @@ def phases_nc_aifb(dev):
         f"{edges.fused.src.shape[0]} ({edges.fused.num_row_blocks} blocks)")
     rows, nc_modes = phase_kernels(dev, data, edges)
     phase_skew(dev)
-    paths = phase_serving(dev, data)
+    paths, served = phase_serving(dev, data)
     train_paths, train_modes, train_timing = phase_train(dev, data, edges)
     nc_modes.extend(train_modes)
-    return rows, nc_modes, paths, train_paths, train_timing
+    return rows, nc_modes, paths, train_paths, train_timing, served
 
 
 def main():
@@ -3762,7 +4039,7 @@ def main():
 
     dev = torch.device("cuda")
     phase_build()
-    rows, nc_modes, paths, train_paths, train_timing = phases_nc_aifb(dev)
+    rows, nc_modes, paths, train_paths, train_timing, nc_served = phases_nc_aifb(dev)
 
     lp = wn18_like()
     lp_np = build_edge_set(lp.train, lp.num_nodes, lp.num_relations,
@@ -3778,7 +4055,7 @@ def main():
         f"{m.layout.num_row_blocks} blocks); dedup L "
         f"{dedup.fwd_dedup.src_sorted.shape[0]} ({dedup.fwd_dedup.num_chunks} chunks)")
     lp_rows, extra = phase_lp_kernels(dev, lp_edges, dedup)
-    lp_paths, timing = phase_lp_serving(dev, lp, dedup)
+    lp_paths, timing, lp_served = phase_lp_serving(dev, lp, dedup)
     paths.update(lp_paths)
 
     fb = fb_toy_like()
@@ -3834,6 +4111,8 @@ def main():
 
     sharded, sharded_counts = phase_sharded(dev, aifb_like(), am_data, lp, fb)
     tooling, tooling_counts = phase_tooling(dev)
+    installed, installed_counts = phase_installed(
+        dev, {"nc_aifb": nc_served, "lp_wn18": lp_served})
 
     # each kernel's count on the path that serves through it
     key = {"K1": ("k1_aggregate", "main"), "K2": ("k2_fused", "main"),
@@ -3851,6 +4130,7 @@ def main():
             "sharded_launches": {case: [c[kname] for c in per_rank]
                                  for case, per_rank in sharded_counts.items()},
             "tooling_launches": {tp: c[kname] for tp, c in tooling_counts.items()},
+            "installed_launches": {ip: c[kname] for ip, c in installed_counts.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -3871,6 +4151,7 @@ def main():
     print(json.dumps({"branches": branches}), flush=True)
     print(json.dumps({"sharded": sharded}), flush=True)
     print(json.dumps({"tooling": tooling}), flush=True)
+    print(json.dumps({"installed": installed}), flush=True)
     log(f"command time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,8 @@ behavioural contract:
 * :func:`block_diag`: ``(..., B, i, o)`` block tensors expanded into dense
   block-diagonal matrices;
 * :func:`drop_edges`: physical edge dropout, self-loops addressed by
-  position.
+  position in the ordering that
+  :func:`rgcn_tpu_torch.graph.augment.augment_triples` produces.
 
 Each takes CPU tensors or numpy arrays (host structures, as
 :mod:`rgcn_tpu_torch.graph.structure` takes them) and returns CPU tensors.
@@ -89,7 +90,8 @@ def drop_edges(
     rng: np.random.Generator,
 ) -> torch.Tensor:
     """Physically remove edges (reference semantics; the self-loops are the
-    last ``num_nodes`` rows: originals, inverses, then self-loops).
+    last ``num_nodes`` rows: originals, inverses, then self-loops, as
+    :func:`rgcn_tpu_torch.graph.augment.augment_triples` orders them).
 
     Keeps ``floor(keep_rate * count)`` rows of each group, chosen by
     ``rng.choice`` without replacement: general rows first, then

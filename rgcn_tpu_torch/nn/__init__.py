@@ -1,3 +1,3 @@
-from rgcn_tpu_torch.nn.layers import DistMult, RGCNConv
+from rgcn_tpu_torch.nn.layers import DistMult, RGCNConv, TorchLinear
 
-__all__ = ["DistMult", "RGCNConv"]
+__all__ = ["DistMult", "RGCNConv", "TorchLinear"]

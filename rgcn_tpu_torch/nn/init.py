@@ -22,6 +22,7 @@ __all__ = [
     "schlichtkrull_uniform",
     "standard_normal",
     "standard_uniform",
+    "uniform_symmetric",
     "kaiming_normal_fan_in",
     "torch_linear_weight",
     "torch_linear_bias",
@@ -102,6 +103,12 @@ def standard_normal(shape: Sequence[int], generator: torch.Generator) -> torch.T
 def standard_uniform(shape: Sequence[int], generator: torch.Generator) -> torch.Tensor:
     """U(0, 1) (torch's ``uniform_`` defaults; no gain)."""
     return torch.rand(tuple(shape), generator=generator)
+
+
+def uniform_symmetric(bound: float) -> Initializer:
+    """U(-bound, bound) in f32. No config name reaches it: as in the JAX
+    package, :func:`select_weight_init` does not dispatch to it."""
+    return lambda shape, g: torch.empty(tuple(shape)).uniform_(-bound, bound, generator=g)
 
 
 def kaiming_normal_fan_in(shape: Sequence[int], generator: torch.Generator) -> torch.Tensor:

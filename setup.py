@@ -14,8 +14,15 @@ setup(
     packages=find_packages(
         include=["rgcn_tpu", "rgcn_tpu.*", "rgcn_tpu_torch", "rgcn_tpu_torch.*"]
     ),
-    # the PyTorch/CUDA port builds its kernels from these sources at first use
-    package_data={"rgcn_tpu_torch": ["kernels/csrc/*.cu"]},
+    # the PyTorch/CUDA port builds its CUDA kernels (with their headers and
+    # the rejected designs the comparison scripts build) and its C++ host
+    # builders from these sources at first use
+    package_data={"rgcn_tpu_torch": [
+        "kernels/csrc/*.cu",
+        "kernels/csrc/*.cuh",
+        "kernels/csrc/variants/*",
+        "native/csrc/*.cc",
+    ]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -1,15 +1,16 @@
 """The port's L1 compat primitives (``rgcn_tpu_torch/graph/compat.py``)
 against the golden cases of ``tests/test_compat.py`` and, on seeded random
-graphs, against ``rgcn_tpu.graph.compat``: stacking and block-diagonals
-bit-equal, ``drop_edges`` bit-equal under the same generator, ``sum_sparse``
-within one f32 ulp."""
+graphs augmented by the port's own ``augment_triples``, against
+``rgcn_tpu.graph.compat``: stacking and block-diagonals bit-equal,
+``drop_edges`` bit-equal under the same generator, ``sum_sparse`` within
+one f32 ulp."""
 
 import numpy as np
 import pytest
 import torch
 
 from rgcn_tpu.graph import compat as jcompat
-from rgcn_tpu.graph.augment import augment_triples
+from rgcn_tpu_torch.graph.augment import augment_triples
 from rgcn_tpu_torch.graph.compat import (
     block_diag,
     drop_edges,

@@ -23,6 +23,7 @@ MODULES = [
     "rgcn_tpu_torch.data.native_nt",
     "rgcn_tpu_torch.data.nt",
     "rgcn_tpu_torch.graph",
+    "rgcn_tpu_torch.graph.augment",
     "rgcn_tpu_torch.graph.coalesce",
     "rgcn_tpu_torch.graph.compat",
     "rgcn_tpu_torch.graph.dynamic",
@@ -41,6 +42,7 @@ MODULES = [
     "rgcn_tpu_torch.kernels",
     "rgcn_tpu_torch.native",
     "rgcn_tpu_torch.nn",
+    "rgcn_tpu_torch.nn.init",
     "rgcn_tpu_torch.nn.layers",
     "rgcn_tpu_torch.models",
     "rgcn_tpu_torch.models.node_classification",
@@ -98,6 +100,13 @@ def test_imports_with_jax_blocked():
         "sys.modules['orbax'] = None\n"
         "sys.modules['pandas'] = None\n"
         f"import {', '.join(MODULES)}\n"
+        "from rgcn_tpu_torch.graph import augment_triples, padded_size, "
+        "self_loop_triples\n"
+        "from rgcn_tpu_torch.graph.augment import split_spo\n"
+        "from rgcn_tpu_torch.nn import TorchLinear\n"
+        "from rgcn_tpu_torch.nn.init import uniform_symmetric\n"
+        "from rgcn_tpu_torch.train import make_optimizer, select_sampler, "
+        "RankingFilters\n"
         "bad = sorted(m for m in sys.modules if m == 'rgcn_tpu' "
         "or m.startswith('rgcn_tpu.') or m.startswith('jax.'))\n"
         "assert not bad, bad\n"
