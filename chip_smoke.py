@@ -216,7 +216,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    each sample_epoch stage's host ms with the native and the numpy
    builders (median of 5 epochs after a warm one; every epoch's two
    batches equal bit for bit, the first equal to sample_epoch's own) and
-   20-epoch fits on the card both ways (epoch wall time, the step's host
+   8-epoch fits on the card both ways (epoch wall time, the step's host
    time, the device's busy share; losses within rtol 1e-4 of each other);
    each config trained 2 epochs on the CPU by the trainer and with the
    numpy builders, losses, MRR and every rank bit-identical; lp-WN18
@@ -230,12 +230,12 @@ Phases, in order; any failure exits non-zero and prints no result:
 21. the single-device branches no shipped config reaches, each trained on
    the card and on the CPU's plain versions from the same initialisation,
    counts zeroed just before each path: nc-AIFB R-GCN with 4 bases on
-   aifb_like() for 5 epochs (layer 1 the featureless basis Function,
+   aifb_like() for 3 epochs (layer 1 the featureless basis Function,
    layer 2 the merged frame's: exactly K4 6E + 2), nc-AM R-GCN with 4
    bases on am_like() at AM scale for 2 (532 general relations: layer 2
    over the destination layout; exactly K4 6E + 2), e-RGCN nc-AIFB with 4
    bases (K1 3E + 1, K4 3E + 1) and with 2 blocks (rgc1's expanded blocks
-   on K2 both ways: K1 3E + 1, K2 3E + 1) for 5 each, under phase 12's
+   on K2 both ways: K1 3E + 1, K2 3E + 1) for 3 each, under phase 12's
    gates; lp-WN18 (wn18_like(), width 200, batch 30,000) for 2 epochs with
    a biased decoder (the assembled batch scored by plain gathers and
    autograd: K4 2E + 1), a plain L2 (the assembled batch's scorer, K1 for
@@ -250,10 +250,10 @@ Phases, in order; any failure exits non-zero and prints no result:
 22. edge-sharded training (rgcn_tpu_torch.dist), each case on ranks the
    script starts (spawn) and against the port's single-device trainer on
    the card from the same seed (seed 0, its epochs): nc-AIFB R-GCN
-   (aifb_like(), hidden 16) 5 epochs on 2 ranks sharing the card over
+   (aifb_like(), hidden 16) 3 epochs on 2 ranks sharing the card over
    gloo (each shard's layer 1 on K1, layer 2 K3 + K1 both ways), nc-AM at
    AM scale (am_like(), 40 bases) 2 epochs on the pair path (K1), lp-WN18
-   (wn18_like(), width 200, batch 30,000, 300,000 negatives) 3 epochs on
+   (wn18_like(), width 200, batch 30,000, 300,000 negatives) 2 epochs on
    the structured step (K4, K1) with the final candidate-sharded
    evaluation, all three on one 2-rank job; lp-FB-toy (fb_toy_like(),
    width 500, 100 blocks) 2 epochs on a 2x2 mesh of 4 gloo ranks (K3, K1,
@@ -288,11 +288,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    unit and synchronisation check, no speed gate), its edges/s over the
    merged frame's real pairs; one "tooling" line and the phase's seconds;
 24. installed package: "setup.py build_py" lays the port out, as "pip
-   install ." installs it, into a fresh temporary directory; a child
-   process run from there, with neither the checkout nor JAX importable
-   (it loads this script by path), builds the five kernels (nvcc, in
-   parallel) and both host libraries (g++) from scratch into the copy's
-   own build/, serves nc-AIFB (aifb_like(), exactly K1 1, K2 1) and
+   install ." installs it, into a fresh temporary directory, made
+   read-only; a child process run from there, with neither the checkout
+   nor JAX importable (it loads this script by path), builds the five
+   kernels (nvcc, in parallel) and both host libraries (g++) from scratch
+   into the per-user cache ($XDG_CACHE_HOME/rgcn_tpu_torch, a fresh
+   directory; the copy must be left as it was), serves nc-AIFB (aifb_like(), exactly K1 1, K2 1) and
    lp-WN18 (wn18_like(), 2 bases, width 200, exactly K4 1) with counts
    zeroed just before each, and holds K1-K3 on the nc-AIFB server's edges
    and K4, K5 on the lp-WN18 server's (phase 3's and 6's shapes and
@@ -304,7 +305,40 @@ Phases, in order; any failure exits non-zero and prints no result:
    checkout's 10th and 11th scores are apart). One "installed" line:
    each kernel's build seconds from scratch, its max abs error and its
    launches in both serves, and the phase's seconds;
-25. summary: one JSON line of each path's launch counts (serving, and
+25. device-built LP epochs (host_graph_build=False: the host samples the
+   positives, the card draws the keep mask, negatives and self-loop masks
+   from per-epoch torch generators and builds the subgraph, its layouts
+   and reverse; the structured decoder layout-free), counts zeroed just
+   before each path: lp-WN18 (wn18_like(), width 200, 2 bases, batch
+   30,000) for 20 epochs, c-RGCN lp-WN18 (full batch) for 2 and
+   lp-FB-toy (width 500, 100 blocks) for 3, each against the CPU's plain
+   run of the card's own draws (replayed on the card, copied back): the
+   first epoch's EdgeSet with its layouts and reverse bit-equal to the
+   CPU builder's for those draws, built under
+   torch.cuda.set_sync_debug_mode("error") (a host sync fails); at every
+   epoch of the card's fit, from the card's parameters of that moment,
+   the loss within rtol 1e-4 and every gradient within 1e-5 * max|ref|
+   of the CPU's; the final filtered MRR within 1e-3 of the CPU's
+   evaluation of the card's final parameters (99% of the ranks equal but
+   for c-RGCN); a second card run's per-epoch losses against the first
+   reported (the card's own spread); exactly K4 2E +
+   1 (lp-WN18), K3 2E, K1 2E, K2 1 (c-RGCN), K3 2E + 1, K1 2E + 1
+   (lp-FB-toy) and no native host-builder call; then lp-WN18 with a
+   biased decoder for 2 (the assembled batch, no layouts: K4 2E + 1) under
+   the same gates; K2 over the fused layouts
+   the card builds for lp-WN18's first epoch (forward and reverse, x (N,
+   16), W (36, 16, 16)) against its plain version, timed as in phase 3;
+   make_sharded_lp_step for lp-WN18 on 2 gloo ranks sharing the card for
+   2 SGD steps: the ranks bit-equal, exactly K4 2E a rank, within rtol
+   1e-5 (loss) and 1e-5 * max(1, max|ref|) (gradients, parameters) of
+   the single-device device-built trainer on the card from the same
+   generators; then
+   profile_epoch's fits of lp-WN18 and c-RGCN lp-WN18, 8 epochs each way
+   in turns (host, device, device, host): epoch wall, step and set_epoch
+   host ms, busy share, peak memory, the build's device ms (CUDA
+   events) and one device-built step profiled as in phase 5; one
+   "device_epochs" line and one "host_vs_device_epoch_ms" line;
+26. summary: one JSON line of each path's launch counts (serving, and
    training), the training steps' timing (nc-AIFB, nc-AM, lp-WN18,
    lp-FB-toy, the c-RGCN and e-RGCN configs), one of the extra nc modes
    (K1 at dout 4, K3 at nc-AIFB, K2 and K3 at the dx shape,
@@ -323,8 +357,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    and the tooling line of phase 23 (each row's "tooling_launches": its
    count on each traced run and over the two canary calls) and the
    installed line of phase 24 (each row's "installed_launches": its
-   count in each of the copy's serves);
-26. last line: {"ok": true, "device": {...}}.
+   count in each of the copy's serves) and the two lines of phase 25
+   (each row's "device_launches": its count on each device-built path);
+27. last line: {"ok": true, "device": {...}}.
 
 Needs CUDA (exits 1 without it) and the repository around it.
 """
@@ -2876,7 +2911,7 @@ def phase_files(dev):
 # -- the native host builders: the LP epoch's host build, stage by stage --
 
 HOST_REPS = 5  # epochs timed per stage, each way, after a warm one
-HOST_FIT_EPOCHS = 20  # each card fit, each way
+HOST_FIT_EPOCHS = 8  # each card fit, each way
 HOST_TRAIN_EPOCHS = 2  # the CPU trainings held bit-identical; the counted run
 
 
@@ -2939,7 +2974,8 @@ def host_epochs_card(dev, timing) -> None:
     for key in profile_epoch.CONFIGS:
         t0 = time.perf_counter()
         try:
-            r = profile_epoch.profile_config(key, dev, HOST_REPS, HOST_FIT_EPOCHS)
+            r = profile_epoch.profile_config(key, dev, HOST_REPS, HOST_FIT_EPOCHS,
+                                             ways=("native", "numpy"))
         except RuntimeError as e:
             fail(f"host build [{key}]: {e}")
         nat, npy = r["fit"]["native"], r["fit"]["numpy"]
@@ -3112,7 +3148,7 @@ def phase_host_build(dev, am_data):
 
 # -- phase 21: the single-device branches no shipped config reaches --
 
-BRANCH_NC_EPOCHS = 5  # nc-AIFB R-GCN and e-RGCN with 4 bases, e-RGCN with blocks
+BRANCH_NC_EPOCHS = 3  # nc-AIFB R-GCN and e-RGCN with 4 bases, e-RGCN with blocks
 BRANCH_AM_EPOCHS = 2  # nc-AM R-GCN with 4 bases at AM scale
 BRANCH_LP_EPOCHS = 2  # lp-WN18: biased decoder, plain L2, structural self-loop mask
 BRANCH_HOST_EPOCHS = 5  # sample_epoch's stages timed on the assembled branch
@@ -3325,9 +3361,9 @@ def phase_branches(dev, am, wn18, lp_edges, dedup):
 
 # -- phase 22: edge-sharded training, ranks on the card ------------------------
 
-SHARDED_NC_EPOCHS = 5  # nc-AIFB R-GCN
+SHARDED_NC_EPOCHS = 3  # nc-AIFB R-GCN
 SHARDED_AM_EPOCHS = 2  # nc-AM at AM scale, pair path
-SHARDED_LP_EPOCHS = 3  # lp-WN18, structured step, final sharded evaluation
+SHARDED_LP_EPOCHS = 2  # lp-WN18, structured step, final sharded evaluation
 SHARDED_FB_EPOCHS = 2  # lp-FB-toy on the 2x2 mesh (block layer)
 
 
@@ -3750,6 +3786,24 @@ def phase_tooling(dev):
 # -- phase 24: an installed copy of the port, built from scratch -------------
 
 INSTALLED_TIMEOUT_S = 600
+
+
+def chmod_tree(root, writable: bool) -> None:
+    """Every file and directory under ``root`` read-only, or back."""
+    for d, _, files in os.walk(root):
+        for f in files:
+            os.chmod(os.path.join(d, f), 0o644 if writable else 0o444)
+        os.chmod(d, 0o755 if writable else 0o555)
+
+
+def tree_stamp(root) -> dict:
+    """Every path under ``root`` with its size and mtime."""
+    out = {}
+    for d, dirs, files in os.walk(root):
+        for f in dirs + files:
+            st = os.lstat(os.path.join(d, f))
+            out[os.path.relpath(os.path.join(d, f), root)] = (st.st_size, st.st_mtime_ns)
+    return out
 # the child: loads this script by path (not as a module of the checkout) and
 # runs installed_child from the copy, which is its cwd and sys.path[0]
 INSTALLED_BOOT = (
@@ -3789,7 +3843,11 @@ def installed_child(out_path, device):
 
     if not os.path.abspath(rgcn_tpu_torch.__file__).startswith(site + os.sep):
         fail(f"installed: rgcn_tpu_torch imported from {rgcn_tpu_torch.__file__}")
-    if os.path.exists(build.BUILD_DIR) or os.path.exists(native.BUILD_DIR):
+    cache = os.path.join(os.environ["XDG_CACHE_HOME"], "rgcn_tpu_torch")
+    if not build.BUILD_DIR == native.BUILD_DIR == cache:
+        fail(f"installed: the read-only copy builds into {build.BUILD_DIR} and "
+             f"{native.BUILD_DIR}, not the user cache {cache}")
+    if os.path.exists(build.BUILD_DIR):
         fail(f"installed: {build.BUILD_DIR} exists before the build")
     dev = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3952,8 +4010,14 @@ def phase_installed(dev, checkout):
         build_py_s = time.perf_counter() - t0
         if out.returncode != 0:
             fail(f"installed: setup.py build_py failed:\n{out.stdout}{out.stderr}")
+        # a read-only install: the builds go to the user cache, the copy
+        # stays as it was (no bytecode either)
+        cache = os.path.join(os.path.realpath(tmp), "cache")
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env.update(XDG_CACHE_HOME=cache, PYTHONDONTWRITEBYTECODE="1")
         result = os.path.join(tmp, "installed.pkl")
+        chmod_tree(site, writable=False)
+        before = tree_stamp(site)
         try:
             child = subprocess.run(
                 [sys.executable, "-c", INSTALLED_BOOT, os.path.abspath(__file__),
@@ -3962,6 +4026,12 @@ def phase_installed(dev, checkout):
                 timeout=INSTALLED_TIMEOUT_S)
         except subprocess.TimeoutExpired:
             fail(f"installed: the child ran past {INSTALLED_TIMEOUT_S} s")
+        finally:
+            after = tree_stamp(site)
+            chmod_tree(site, writable=True)
+        if after != before:
+            fail(f"installed: the read-only copy changed: "
+                 f"{sorted(set(after) ^ set(before))[:10]}")
         for line in child.stdout.splitlines():
             log(f"  | {line}")
         if child.returncode != 0:
@@ -3971,8 +4041,9 @@ def phase_installed(dev, checkout):
     for kind, libs, path_of in (("kernel", got["kernels"], build.library_path),
                                 ("host library", got["native"], native.library_path)):
         for name, lib in libs.items():
-            if not lib["path"].startswith(site + os.sep):
-                fail(f"installed: {kind} {name} built outside the copy: {lib['path']}")
+            if not lib["path"].startswith(os.path.join(cache, "rgcn_tpu_torch") + os.sep):
+                fail(f"installed: {kind} {name} built outside the user cache: "
+                     f"{lib['path']}")
             if os.path.basename(lib["path"]) != os.path.basename(path_of(name)):
                 fail(f"installed: {kind} {name} is {os.path.basename(lib['path'])}, "
                      f"the checkout's {os.path.basename(path_of(name))}")
@@ -3994,6 +4065,442 @@ def phase_installed(dev, checkout):
         "vs_checkout": diffs,
     }
     return summary, got["launches"]
+
+
+DEVICE_WN18_EPOCHS = 20  # lp-WN18 built on the card
+DEVICE_CRGCN_EPOCHS = 2  # c-RGCN lp-WN18, full batch
+DEVICE_FB_EPOCHS = 3  # lp-FB-toy
+DEVICE_BIASED_EPOCHS = 2  # lp-WN18 with a biased decoder: the assembled batch
+DEVICE_FIT_EPOCHS = 8  # each fit of the host-vs-device comparison
+DEVICE_SHARDED_EPOCHS = 2  # make_sharded_lp_step on 2 ranks sharing the card
+
+
+def device_lp_path(kind: str, epochs: int) -> dict:
+    """Launches of ``epochs`` device-built LP epochs and the final
+    evaluation. A step: the encoder's forward and its dx over the reversed
+    subgraph (basis: K4 each; block and the c-RGCN's dense R-GCN: K3 then
+    K1 each); the layout-free decoder launches nothing. The evaluation
+    encodes the whole graph once (basis: K4 over the merged frame; block:
+    K3 then K1; c-RGCN: K2)."""
+    if kind == "basis":
+        return dict(k4_weighted_aggregate=2 * epochs + 1)
+    if kind == "block":
+        return dict(k3_messages=2 * epochs + 1, k1_aggregate=2 * epochs + 1)
+    return dict(k3_messages=2 * epochs, k1_aggregate=2 * epochs, k2_fused=1)
+
+
+def replay_trainer(cfg, data, card, logger):
+    """A CPU trainer of the device-built path whose epochs are built from
+    the card trainer's draws of them (the same generators, replayed on the
+    card, copied back): the CPU plain run of the card's own draws."""
+    from rgcn_tpu_torch.train.link_prediction import LinkPredictionTrainer
+
+    class Replay(LinkPredictionTrainer):
+        def set_epoch(self, epoch, host=None):
+            pos = torch.as_tensor(self.positives(epoch)).to(card.device)
+            self.batch = self.build_epoch(card.draw_epoch(epoch, pos).to("cpu"))
+
+    return Replay(cfg, data, device="cpu", logger=logger, host_graph_build=False)
+
+
+def device_build_synced(card, epoch):
+    """Epoch ``epoch``'s draws and build on the card under
+    ``torch.cuda.set_sync_debug_mode("error")`` (the positives moved
+    there first): a wait for the card raises. Returns (draws, batch)."""
+    pos = torch.as_tensor(card.positives(epoch)).to(card.device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        draws = card.draw_epoch(epoch, pos)
+        batch = card.build_epoch(draws)
+    except RuntimeError as e:
+        fail(f"device-built epoch: the build waited for the card: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return draws, batch
+
+
+def device_epochs_against_cpu(key, path, data, dev, epochs, edit=None):
+    """Train ``path``'s config for ``epochs`` device-built epochs on the
+    card through ``fit`` and hold every epoch against the CPU's plain
+    versions on the card's own draws (replayed on the card, copied back):
+    the epoch-1 EdgeSet (layouts and reverse included) bit-equal to the
+    CPU builder's, built with no host sync; at every epoch, from the
+    card's parameters of that moment, the loss within rtol 1e-4 and every
+    gradient within 1e-5 * max|ref|; the final evaluation's MRR within
+    1e-3 of the CPU's evaluation of the card's final parameters (and,
+    but for c-RGCN's dense scores, 99% of the ranks equal); exactly
+    device_lp_path's launches and no native host-builder call over the
+    card's fit (counts zeroed just before it). The CPU is held to the
+    card's trajectory, not run on its own: two card runs of the same
+    epochs part after ~12 epochs (the kernels' atomics, amplified by the
+    training), reported beside the gates. ``edit``: a function of the
+    config (phase 21's branches). Returns (launches, checks, peak GB)."""
+    from rgcn_tpu_torch import kernels, native
+    from rgcn_tpu_torch.profile_epoch import batch_differences
+    from rgcn_tpu_torch.train.link_prediction import LinkPredictionTrainer
+
+    cfg = epochs_cfg(path, epochs)
+    if edit is not None:
+        cfg = edit(cfg)
+    quiet = records_logger()
+    t0 = time.perf_counter()
+    card = LinkPredictionTrainer(cfg, data, device=dev, logger=quiet,
+                                 host_graph_build=False)
+    cpu = replay_trainer(cfg, data, card, quiet)
+    draws, batch = device_build_synced(card, 1)
+    ref = cpu.build_epoch(draws.to("cpu"))
+    diff = batch_differences(batch.edges, ref.edges, "edges")
+    if diff:
+        fail(f"device-built [{key}]: the card's EdgeSet differs from the CPU "
+             f"builder's in {diff}")
+    e = batch.edges
+    log(f"device-built [{key}] ({epochs} epochs, seed-0 init): N {data.num_nodes}, P "
+        f"{batch.positives.shape[0]}, Ns {batch.corrupt_ent.shape[0]}, E_pad "
+        f"{e.src.shape[0]} (layout L {e.layout.perm.shape[0]}, row block "
+        f"{e.layout.row_block}, chunk {e.layout.chunk}), reverse E_pad "
+        f"{e.reverse.src.shape[0]}; EdgeSet bit-equal to the CPU builder's, no sync "
+        f"(set-up {time.perf_counter() - t0:.1f} s)")
+    del draws, batch, ref
+
+    # every epoch of the card's fit, held against the CPU from the card's
+    # parameters of that moment and the card's draws
+    rel_diffs, grad_worst, cpu_s = [], 0.0, [0.0]
+    card_set_epoch, card_step = card.set_epoch, card.step
+
+    def set_epoch(epoch, host=None):
+        card_set_epoch(epoch, host)
+        cpu.model.load_state_dict({k: v.detach().cpu()
+                                   for k, v in card.model.state_dict().items()})
+        t = time.perf_counter()
+        cpu.set_epoch(epoch)
+        cpu.model.zero_grad(set_to_none=True)
+        loss = cpu.loss()
+        loss.backward()
+        cpu_s[0] += time.perf_counter() - t
+        set_epoch.ref = (epoch, loss.item())
+
+    def step():
+        nonlocal grad_worst
+        loss = card_step()
+        epoch, want = set_epoch.ref
+        rel_diffs.append(abs(loss - want) / abs(want))
+        if not abs(loss - want) <= 1e-4 * abs(want):
+            fail(f"device-built [{key}]: epoch {epoch} loss {loss} != CPU {want} (rtol 1e-4)")
+        ref_grads = dict(cpu.model.named_parameters())
+        for pname, p in card.model.named_parameters():
+            ref_g = ref_grads[pname].grad
+            err = float((p.grad.cpu() - ref_g).abs().max())
+            tol = 1e-5 * float(ref_g.abs().max())
+            grad_worst = max(grad_worst, err / tol if tol else 0.0)
+            if not err <= tol:
+                fail(f"device-built [{key}]: epoch {epoch} grad {pname} off by {err} > "
+                     f"{tol}")
+        return loss
+
+    card.set_epoch, card.step = set_epoch, step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    native.reset_calls()
+    t0 = time.perf_counter()
+    got = records_logger()
+    mrr, hits, ranks = card.fit(got)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts, calls = dict(kernels.LAUNCHES), dict(native.CALLS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    kind = ("c-rgcn" if cfg.encoder.model == "c-rgcn"
+            else cfg.encoder.decomposition.type)
+    expect = launches(**device_lp_path(kind, epochs))
+    log(f"device-built [{key}]: {epochs} epochs + final evaluation {fit_s:.2f} s (the "
+        f"CPU's epochs {cpu_s[0]:.1f} s of it), launches {counts}, native calls {calls}, "
+        f"peak memory {peak:.3f} GB")
+    if counts != expect:
+        fail(f"device-built [{key}]: launches {counts}, expected {expect}")
+    if any(calls.values()):
+        fail(f"device-built [{key}]: native host builders called {calls}")
+    if len(rel_diffs) != epochs:
+        fail(f"device-built [{key}]: {len(rel_diffs)} epochs held, expected {epochs}")
+    cpu.model.load_state_dict({k: v.detach().cpu()
+                               for k, v in card.model.state_dict().items()})
+    ref_mrr, ref_hits, ref_ranks = cpu.evaluate()
+    same = float(np.mean(ranks == ref_ranks))
+    log(f"  [{key} device-built] per-epoch loss rel diff vs CPU: "
+        f"{[float(f'{x:.2e}') for x in rel_diffs]}; gradients at most "
+        f"{grad_worst:.3f} of their tolerance")
+    log(f"  [{key} device-built] final evaluation: MRR {mrr:.6f} (CPU {ref_mrr:.6f} from "
+        f"the card's parameters), Hits@1/3/10 {hits} (CPU {ref_hits}); {same:.4%} of "
+        f"{len(ranks)} ranks equal")
+    if not (abs(mrr - ref_mrr) <= 1e-3 and np.isfinite(mrr)):
+        fail(f"device-built [{key}]: MRR {mrr} vs CPU {ref_mrr} (tol 1e-3)")
+    if kind != "c-rgcn" and same < 0.99:
+        fail(f"device-built [{key}]: ranks equal {same} < 0.99")
+    del cpu
+    # the card's own spread: a second card trainer from the same
+    # initialisation over the same draws
+    twin = LinkPredictionTrainer(cfg, data, device=dev, logger=quiet,
+                                 host_graph_build=False)
+    twin_log = records_logger()
+    twin.fit(twin_log)
+    card_rel = [abs(v - w) / abs(w) for (m, _, v), (_, _, w)
+                in zip(twin_log.records, got.records) if m == "training.loss"]
+    log(f"  [{key} device-built] a second card run vs the first, per-epoch loss rel "
+        f"diff: {[float(f'{x:.2e}') for x in card_rel]}")
+    del twin
+    checks = dict(loss_rel_diff=rel_diffs, grad_err_over_tol=grad_worst,
+                  card_rerun_rel_diff=card_rel, mrr=mrr, cpu_mrr=ref_mrr,
+                  ranks_equal=same, fit_s=fit_s, cpu_s=cpu_s[0],
+                  losses=[r[2] for r in got.records if r[0] == "training.loss"])
+    return counts, checks, peak
+
+
+def device_build_ms(key, path, data, dev) -> dict:
+    """Device ms of one epoch's draws and build on the card (CUDA events,
+    mean of 20 after 3 warm), and one warm device-built step profiled as
+    in phase 5 (the layout-free decoder's backward among its kernels)."""
+    from rgcn_tpu_torch.train.link_prediction import LinkPredictionTrainer
+
+    card = LinkPredictionTrainer(epochs_cfg(path, 1), data, device=dev,
+                                 logger=records_logger(), host_graph_build=False)
+    pos = torch.as_tensor(card.positives(1)).to(dev)
+    ms = cuda_ms(lambda: card.build_epoch(card.draw_epoch(1, pos)), iters=20, warmup=3)
+    draw_ms = cuda_ms(lambda: card.draw_epoch(1, pos), iters=20, warmup=3)
+    card.set_epoch(1)
+    step = train_step_timing(card)
+    del card
+    torch.cuda.empty_cache()
+    return {"build_ms": ms, "draw_ms": draw_ms, "step": step}
+
+
+def host_vs_device(dev, configs) -> dict:
+    """profile_epoch's fit both ways (the host build with the native
+    builders, and built on the card), in turns host, device, device, host,
+    from one initialisation: epoch wall ms, step host ms, set_epoch ms,
+    busy share, peak memory; losses of the two runs of a way equal."""
+    from rgcn_tpu_torch.config import load_experiment
+    from rgcn_tpu_torch.models.link_prediction import build_lp_model
+    from rgcn_tpu_torch.profile_epoch import fit_epochs
+
+    out = {}
+    for key, (path, data) in configs.items():
+        cfg = load_experiment(path)
+        init = {k: v.detach().clone() for k, v in build_lp_model(
+            cfg, data.num_nodes, data.num_relations).state_dict().items()}
+        runs = {"host": [], "device": []}
+        for way in ("host", "device", "device", "host"):
+            r = fit_epochs(cfg, data, dev, True, DEVICE_FIT_EPOCHS, init,
+                           host_graph_build=way == "host")
+            r.pop("ranks")
+            runs[way].append(r)
+            torch.cuda.empty_cache()
+        for way, (a, b) in runs.items():
+            if a["losses"] != b["losses"]:
+                worst = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], b["losses"]))
+                log(f"  [{key} {way}] two fits' losses differ by {worst:.3e} relative")
+        out[key] = {way: {f: [r[f] for r in rs] for f in (
+            "epoch_wall_ms", "step_host_ms", "set_epoch_ms", "device_busy_share",
+            "peak_memory_gb")} for way, rs in runs.items()}
+        out[key].update(device_build_ms(key, path, data, dev))
+        log(f"host vs device [{key}] ({card_line()}): {json.dumps(out[key])}")
+    return out
+
+
+def device_fused_k2(dev, data) -> dict:
+    """K2 over the fused layout the card builds for lp-WN18's first epoch
+    (with_fused_layout, chunk 128, quantum 16) and its reverse's, at the
+    c-RGCN encode's width (x (N, 16), W (2R, 16, 16)), held against the
+    plain version and timed as in phase 3; the fused builds' device ms."""
+    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch.graph.dynamic import build_edge_set_dynamic
+    from rgcn_tpu_torch.ops import fused as fz
+    from rgcn_tpu_torch.profile_epoch import batch_differences
+    from rgcn_tpu_torch.train.link_prediction import LinkPredictionTrainer
+
+    card = LinkPredictionTrainer(epochs_cfg(LP_CONFIG, 1), data, device=dev,
+                                 logger=records_logger(), host_graph_build=False)
+    pos = torch.as_tensor(card.positives(1)).to(dev)
+    draws = card.draw_epoch(1, pos)
+    n, rb = data.num_nodes, card.device_row_block
+
+    def build():
+        return build_edge_set_dynamic(pos, n, data.num_relations, 128,
+                                      keep_mask=draws.keep, with_dst_layout=True,
+                                      with_fused_layout=True, row_block=rb)
+
+    es = build()
+    build_ms = cuda_ms(build, iters=10, warmup=2)
+    cpu_es = build_edge_set_dynamic(pos.cpu(), n, data.num_relations, 128,
+                                    keep_mask=draws.keep.cpu(), with_dst_layout=True,
+                                    with_fused_layout=True, row_block=rb)
+    diff = batch_differences(es.fused, cpu_es.fused, "fused") + batch_differences(
+        es.reverse.fused, cpu_es.reverse.fused, "reverse.fused")
+    if diff:
+        fail(f"device-built fused layout differs from the CPU builder's in {diff}")
+    rng = np.random.default_rng(25)
+    x = torch.from_numpy(rng.standard_normal((n, 16)).astype(np.float32)).to(dev)
+    w = torch.from_numpy((0.3 * rng.standard_normal((es.num_rels, 16, 16))
+                          ).astype(np.float32)).to(dev)
+    rows = []
+    for label, lay in (("forward", es.fused), ("reverse", es.reverse.fused)):
+        kernels.reset_launches()
+        got = fz.rel_spmm_fused(lay, n, x, w)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["k2_fused"] != 1:
+            fail(f"device-built fused [{label}]: K2 launches {kernels.LAUNCHES}")
+        err = check_close(f"K2 over the device-built fused layout ({label})", got,
+                          fz.rel_spmm_fused_plain(lay, n, x, w))
+        ms, call_ms = timed(lambda: fz.rel_spmm_fused(lay, n, x, w))
+        plain_ms = device_ms(lambda: fz.rel_spmm_fused_plain(lay, n, x, w))
+        real = int((lay.val > 0).sum())
+        bnd, by = bound_ms(real * 16 * 4 + nbytes(lay.src, lay.val, lay.local_dst,
+                                                  lay.quantum_rel, lay.chunk_block, w)
+                           + n * 16 * 4, 2 * real * 16 * 16)
+        rows.append({"name": "K2", "mode": f"device-built fused layout, {label}",
+                     "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+                     "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                     "slots": int(lay.src.shape[0]), "real_slots": real,
+                     "row_block": lay.row_block, "chunk": lay.chunk,
+                     "quantum": lay.quantum})
+    del card
+    return {"fused_build_ms": build_ms, "k2": rows}
+
+
+def device_sharded_rank(dev, cfg, num_nodes, num_rels, init, positives):
+    """One rank of phase 25's sharded case: make_sharded_lp_step over a
+    1x2 mesh, one step an epoch from the epoch's generators, launches
+    counted from 0 before the first."""
+    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch.dist.multihost import make_mesh_2d
+    from rgcn_tpu_torch.dist.train import make_sharded_lp_step
+    from rgcn_tpu_torch.models.link_prediction import build_lp_model
+    from rgcn_tpu_torch.train.link_prediction import epoch_generator
+    from rgcn_tpu_torch.train.optim import make_optimizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh_2d(1, 2, device=dev)
+    model = build_lp_model(cfg, num_nodes, num_rels, group=mesh.group,
+                           decoder_group=mesh.decoder_group).to(dev)
+    model.load_state_dict(init)
+    ed = cfg.encoder.edge_dropout
+    step = make_sharded_lp_step(
+        model, make_optimizer(model.parameters(), "sgd", 0.01),
+        mesh, num_nodes, num_rels, 128, cfg.training.negative_sampling.sampling_rate,
+        cfg.training.negative_sampling.head_prob, general_dropout=ed.general,
+        decoder_l2_weight=cfg.decoder.l2_penalty)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out, times = {}, []
+    for epoch, pos in positives.items():
+        gens = [epoch_generator(0, epoch, s, dev) for s in (7, 11, 13)]
+        t0 = time.perf_counter()
+        loss = step(torch.as_tensor(pos).to(dev), gens)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        out[f"epoch{epoch}"] = {
+            "loss": loss.cpu(),
+            **{k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+            **{f"grad.{k}": p.grad.detach().cpu().clone()
+               for k, p in model.named_parameters()}}
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["step_ms"] = times
+    return out
+
+
+def device_sharded(dev, data) -> dict:
+    """make_sharded_lp_step for lp-WN18 at full width on 2 gloo ranks
+    sharing the card, DEVICE_SHARDED_EPOCHS steps: the ranks bit-equal,
+    each rank exactly K4 2E (its shard's forward and dx), and within 1e-5
+    of the single-device device-built trainer on the card from the same
+    generators: loss rtol 1e-5, every gradient and every parameter after
+    the step 1e-5 * max(1, max|ref|) (the relations' gradient sums 330,000
+    cancelling terms, in another order on each side). Both step with SGD
+    (lr 0.01), as tests/test_torch_dist_lp.py does: the config's Adam
+    turns the f32 reassociation of gradient entries near 0 into
+    parameter differences up to its learning rate."""
+    from rgcn_tpu_torch.dist.multihost import same_on_every_rank, spawn
+    from rgcn_tpu_torch.train.link_prediction import LinkPredictionTrainer
+    from rgcn_tpu_torch.train.optim import make_optimizer
+
+    t0 = time.perf_counter()
+    cfg = epochs_cfg(LP_CONFIG, DEVICE_SHARDED_EPOCHS)
+    one = LinkPredictionTrainer(cfg, data, device=dev, logger=records_logger(),
+                                host_graph_build=False)
+    one.optimizer = make_optimizer(one.model.parameters(), "sgd", 0.01)
+    init = {k: v.detach().cpu().clone() for k, v in one.model.state_dict().items()}
+    positives = {e: one.positives(e) for e in range(1, DEVICE_SHARDED_EPOCHS + 1)}
+    try:
+        ranks = spawn(device_sharded_rank, 2,
+                      (cfg, data.num_nodes, data.num_relations, init, positives),
+                      backend="gloo", timeout_s=600)
+    except RuntimeError as e:
+        fail(f"device-built sharded on 2 gloo ranks: {e}")
+    cross = same_on_every_rank([{k: v for k, v in r.items() if k.startswith("epoch")}
+                                for r in ranks])
+    if cross != 0.0:
+        fail(f"device-built sharded: ranks differ by {cross}")
+    expect = launches(k4_weighted_aggregate=2 * DEVICE_SHARDED_EPOCHS)
+    for k, r in enumerate(ranks):
+        if r["launches"] != expect:
+            fail(f"device-built sharded: rank {k} launches {r['launches']}, "
+                 f"expected {expect}")
+    worst_loss, worst_param, worst_grad = 0.0, 0.0, 0.0
+    for epoch in positives:
+        one.set_epoch(epoch, positives[epoch])
+        loss = one.step()
+        got = ranks[0][f"epoch{epoch}"]
+        rel = abs(float(got["loss"]) - loss) / abs(loss)
+        worst_loss = max(worst_loss, rel)
+        if not rel <= 1e-5:
+            fail(f"device-built sharded: epoch {epoch} loss {float(got['loss'])} vs one "
+                 f"device {loss} (rtol 1e-5)")
+        refs = {k: v.detach().cpu() for k, v in one.model.state_dict().items()}
+        refs.update({f"grad.{k}": p.grad.detach().cpu()
+                     for k, p in one.model.named_parameters()})
+        for k, ref in refs.items():
+            err = float((torch.as_tensor(got[k]) - ref).abs().max())
+            tol = 1e-5 * max(1.0, float(ref.abs().max()))
+            if k.startswith("grad."):
+                worst_grad = max(worst_grad, err / tol)
+            else:
+                worst_param = max(worst_param, err / tol)
+            if not err <= tol:
+                fail(f"device-built sharded: epoch {epoch} {k} off by {err} > {tol}")
+    out = {"ranks": 2, "epochs": DEVICE_SHARDED_EPOCHS, "cross_rank_max_diff": cross,
+           "loss_max_rel_diff": worst_loss, "param_err_over_tol": worst_param,
+           "grad_err_over_tol": worst_grad,
+           "launches": [r["launches"] for r in ranks],
+           "step_ms": [r["step_ms"] for r in ranks],
+           "seconds": time.perf_counter() - t0}
+    log(f"device-built sharded lp-WN18 (2 gloo ranks on one card): {json.dumps(out)}")
+    return out
+
+
+def phase_device_epochs(dev, wn18, fb):
+    """Phase 25: LP epochs built on the card (host_graph_build=False).
+    Returns (the "device_epochs" summary, each path's launches, the
+    host_vs_device_epoch_ms line)."""
+    t_phase = time.perf_counter()
+    paths, checks, peaks = {}, {}, {}
+    for key, path, data, epochs, edit in (
+            ("lp_wn18_device", LP_CONFIG, wn18, DEVICE_WN18_EPOCHS, None),
+            ("crgcn_lp_wn18_device", C_WN18_CONFIG, wn18, DEVICE_CRGCN_EPOCHS, None),
+            ("lp_fb_toy_device", FB_CONFIG, fb, DEVICE_FB_EPOCHS, None),
+            ("lp_wn18_biased_device", LP_CONFIG, wn18, DEVICE_BIASED_EPOCHS, lp_biased)):
+        paths[key], checks[key], peaks[key] = device_epochs_against_cpu(
+            key, path, data, dev, epochs, edit)
+        torch.cuda.empty_cache()
+    fused = device_fused_k2(dev, wn18)
+    sharded = device_sharded(dev, wn18)
+    timing = host_vs_device(dev, {"lp_wn18": (LP_CONFIG, wn18),
+                                  "crgcn_lp_wn18": (C_WN18_CONFIG, wn18)})
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 25 (device-built LP epochs): {seconds:.1f} s ({card_line()})")
+    summary = {"card": card_line(), "seconds": seconds, "checks": checks,
+               "peak_memory_gb": peaks, "fused": fused, "sharded": sharded}
+    return summary, paths, {"card": card_line(), **timing}
 
 
 def phases_nc_aifb(dev):
@@ -4113,6 +4620,7 @@ def main():
     tooling, tooling_counts = phase_tooling(dev)
     installed, installed_counts = phase_installed(
         dev, {"nc_aifb": nc_served, "lp_wn18": lp_served})
+    device_epochs, device_counts, host_vs_device_ms = phase_device_epochs(dev, lp, fb)
 
     # each kernel's count on the path that serves through it
     key = {"K1": ("k1_aggregate", "main"), "K2": ("k2_fused", "main"),
@@ -4131,6 +4639,7 @@ def main():
                                  for case, per_rank in sharded_counts.items()},
             "tooling_launches": {tp: c[kname] for tp, c in tooling_counts.items()},
             "installed_launches": {ip: c[kname] for ip, c in installed_counts.items()},
+            "device_launches": {dp: c[kname] for dp, c in device_counts.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -4152,6 +4661,8 @@ def main():
     print(json.dumps({"sharded": sharded}), flush=True)
     print(json.dumps({"tooling": tooling}), flush=True)
     print(json.dumps({"installed": installed}), flush=True)
+    print(json.dumps({"device_epochs": device_epochs}), flush=True)
+    print(json.dumps({"host_vs_device_epoch_ms": host_vs_device_ms}), flush=True)
     log(f"command time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,19 +13,24 @@ checkpoint.py  rank 0 writes, every rank restores
 driver.py      train_node_classifier_sharded, train_link_predictor_sharded
 ```
 
-The JAX ``make_sharded_lp_step`` (in-jit subgraph, ``jax.random``
-negatives) is not ported.
+``train.py``'s :func:`make_sharded_lp_step` builds each epoch on the
+ranks' devices (the JAX in-jit step); the drivers build on the host.
 """
 
 from rgcn_tpu_torch.dist.mesh import EDGE_AXIS, make_mesh, shard_edge_set
 from rgcn_tpu_torch.dist.multihost import initialize_distributed, make_mesh_2d, spawn
-from rgcn_tpu_torch.dist.train import make_sharded_nc_step, pad_to_multiple
+from rgcn_tpu_torch.dist.train import (
+    make_sharded_lp_step,
+    make_sharded_nc_step,
+    pad_to_multiple,
+)
 
 __all__ = [
     "EDGE_AXIS",
     "initialize_distributed",
     "make_mesh",
     "make_mesh_2d",
+    "make_sharded_lp_step",
     "make_sharded_nc_step",
     "pad_to_multiple",
     "shard_edge_set",

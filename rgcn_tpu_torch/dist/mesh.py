@@ -11,10 +11,11 @@ recovers the full sums. Node features and parameters are replicated. The
 edge values are the whole graph's normalisation, computed before the
 split: a shard never renormalises its own edges.
 
-Every per-shard structure is built on the host, as the port builds all
-its structures: :func:`prepare_sharded_layouts` attaches a shard's
-destination layout and reversed edges (bit-equal to the JAX package's
-in-jit builders run on that shard), :func:`prepare_sharded_pairs_host` a
+:func:`prepare_sharded_layouts` attaches a shard's destination layout
+and reversed edges (bit-equal to the JAX package's in-jit builders run on
+that shard): on the host for a host shard, on its device for a shard of
+a device-built EdgeSet (:func:`shard_edge_set` slices either).
+:func:`prepare_sharded_pairs_host` attaches a
 shard's unique-(src, rel) pair index and composed layouts at bounds that
 are the same on every shard, so every rank runs the same collectives on
 tensors of one shape, an all-pad shard included.
@@ -106,9 +107,9 @@ def _check_tiles(edges: EdgeSet, n_shards: int) -> None:
 
 
 def shard_edge_set(edges: EdgeSet, n_shards: int, shard: int) -> EdgeSet:
-    """Tiles ``[shard·T/n, (shard+1)·T/n)`` of a host EdgeSet, with the
-    whole graph's metadata (``num_edges`` stays the global count) and no
-    layouts."""
+    """Tiles ``[shard·T/n, (shard+1)·T/n)`` of an EdgeSet (numpy or
+    tensors: views of its arrays), with the whole graph's metadata
+    (``num_edges`` stays the global count) and no layouts."""
     _check_tiles(edges, n_shards)
     rows = edges.src.shape[0] // n_shards
     tiles = edges.num_tiles // n_shards
@@ -126,8 +127,20 @@ def prepare_sharded_layouts(edges: EdgeSet, row_block: int = 256) -> EdgeSet:
     package's in-jit builders (``build_dst_layout_dynamic``,
     ``_reverse_edge_set_dynamic``) compute on that shard, bit for bit.
     The featureful layers then run K3 + K1 per shard both ways (no fused
-    layout), the featureless ones K1."""
-    from rgcn_tpu_torch.graph.dynamic import attach_host_layouts
+    layout), the featureless ones K1. A shard of tensors gets them built
+    on its device (:func:`~rgcn_tpu_torch.graph.dynamic.build_dst_layout_dynamic`,
+    the same bits)."""
+    from rgcn_tpu_torch.graph.dynamic import (
+        _reverse_edge_set_dynamic,
+        attach_host_layouts,
+        build_dst_layout_dynamic,
+    )
+
+    if isinstance(edges.src, torch.Tensor):
+        return dataclasses.replace(
+            edges, layout=build_dst_layout_dynamic(edges.dst, edges.num_nodes,
+                                                   row_block, edges.tile_size),
+            reverse=_reverse_edge_set_dynamic(edges, row_block, edges.tile_size))
 
     return attach_host_layouts(edges, row_block=row_block,
                                layout_chunk=edges.tile_size)

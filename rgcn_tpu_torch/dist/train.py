@@ -18,14 +18,17 @@ optimizer state and its own shard of the graph's edges. A step:
   gradient all-reduce follows; the optimizer then steps alike on every
   rank, which keeps one model.
 
-Not ported: the JAX ``make_sharded_lp_step``, which builds the subgraph
-in-jit and draws ``jax.random`` negatives (the port builds every subgraph
-on the host, as its single-device trainer does).
+:func:`make_sharded_lp_step` is the JAX ``make_sharded_lp_step``: every
+rank draws the epoch's keep mask, negatives and self-loop masks from the
+same generators on its device and builds the whole subgraph there, so the
+ranks hold the same bits; each keeps its tile shard with that shard's
+layouts built on the device and its slice of the assembled scoring
+batch, padded to the world size with weight-0 rows.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +37,7 @@ from rgcn_tpu_torch.ops.collectives import all_reduce, reduce_sum
 from rgcn_tpu_torch.train.node_classification import nc_loss
 
 __all__ = [
+    "make_sharded_lp_step",
     "make_sharded_lp_step_hosted",
     "make_sharded_lp_step_hosted_structured",
     "make_sharded_nc_step",
@@ -147,3 +151,68 @@ def make_sharded_lp_step_hosted_structured(model, optimizer, decoder_group,
 
     return step
 
+
+
+def make_sharded_lp_step(model, optimizer, mesh, num_nodes: int, num_rels: int,
+                         tile_size: int, num_negatives: int, head_prob: float,
+                         general_dropout: float = 0.0,
+                         structural_self_keep: Optional[float] = None,
+                         decoder_l2_weight: float = 0.0,
+                         row_block: int = 256) -> Callable:
+    """LP step with the epoch built on the device (JAX
+    ``make_sharded_lp_step``, ``rgcn_tpu/dist/train.py:114-248``):
+    ``step(positives, generators) -> loss``, ``positives (P, 3)`` on the
+    rank's device, ``generators`` the keep-mask, negative and self-loop
+    ``torch.Generator`` s on it, each seeded alike on every rank (e.g.
+    :func:`~rgcn_tpu_torch.train.link_prediction.epoch_generator` with
+    streams 7, 11, 13). The step draws the assembled batch
+    (:func:`~rgcn_tpu_torch.train.negative.corrupt_batch`), pads it to a
+    multiple of the world size with ``(0, 0, 0)`` rows of weight 0 and
+    keeps this rank's slice; builds the subgraph
+    (:func:`~rgcn_tpu_torch.graph.dynamic.build_edge_set_dynamic`, tile
+    count a multiple of the world size, ``general_dropout`` drawn from
+    the first generator) and keeps this rank's edge shard with its layouts
+    (row block ``row_block``, chunk ``tile_size``); draws the self-loop
+    masks (:func:`~rgcn_tpu_torch.train.link_prediction.draw_self_masks`,
+    structural with keep probability ``structural_self_keep``); and
+    steps on the all-reduced loss over the real rows. ``model`` is built
+    with ``group=mesh.group, decoder_group=mesh.decoder_group``."""
+    from rgcn_tpu_torch.dist.mesh import prepare_sharded_layouts, shard_edge_set
+    from rgcn_tpu_torch.graph.dynamic import build_edge_set_dynamic
+    from rgcn_tpu_torch.train.link_prediction import draw_self_masks
+    from rgcn_tpu_torch.train.negative import corrupt_batch
+
+    n_shards = mesh.size
+    convs = [model.rgc1] + ([model.rgc2] if model.num_layers == 2 else [])
+    structural = 0.0 if structural_self_keep is None else 1.0 - structural_self_keep
+
+    def step(positives, generators):
+        g_keep, g_neg, g_self = generators
+        pos = positives.long()
+        dev = pos.device
+        batch, labels = corrupt_batch(g_neg, pos, num_nodes, num_negatives, head_prob)
+        real = batch.shape[0]
+        extra = pad_to_multiple(real, n_shards) - real
+        b_k = (real + extra) // n_shards
+        rows = slice(mesh.rank * b_k, (mesh.rank + 1) * b_k)
+        batch = torch.cat([batch, batch.new_zeros((extra, 3))])[rows]
+        labels = torch.cat([labels, labels.new_zeros(extra)])[rows]
+        weights = torch.cat([torch.ones(real, device=dev),
+                             torch.zeros(extra, device=dev)])[rows]
+        edges = build_edge_set_dynamic(
+            pos, num_nodes, num_rels, tile_size=tile_size,
+            dropout_rate=general_dropout, generator=g_keep, tile_multiple=n_shards)
+        edges = prepare_sharded_layouts(
+            shard_edge_set(edges, mesh.edge_size, mesh.edge_rank), row_block)
+        self_masks = draw_self_masks(convs, g_self, structural)
+        total = torch.tensor(float(real), device=dev)
+
+        def loss_fn():
+            scores, penalty = model(edges, batch, self_masks, penalty_weights=weights,
+                                    penalty_total=total)
+            return sharded_lp_loss(scores, penalty, labels, weights, total,
+                                   decoder_l2_weight, mesh.decoder_group)
+
+        return _update(optimizer, loss_fn)
+
+    return step

@@ -9,7 +9,11 @@ from rgcn_tpu_torch.graph.structure import (
     build_edge_set,
     edge_normalization,
 )
-from rgcn_tpu_torch.graph.dynamic import padded_size
+from rgcn_tpu_torch.graph.dynamic import (
+    build_edge_set_dynamic,
+    padded_size,
+    self_loop_keep_mask,
+)
 
 __all__ = [
     "augment_triples",
@@ -19,5 +23,7 @@ __all__ = [
     "auto_nc_row_block",
     "build_edge_set",
     "edge_normalization",
+    "build_edge_set_dynamic",
     "padded_size",
+    "self_loop_keep_mask",
 ]

@@ -2,7 +2,8 @@
 
 Each source under ``csrc/`` has a plain C interface and compiles on its own
 (one nvcc process per source, all started together) into
-``build/rgcn_tpu_torch/<name>-<hash>.so`` at the root of the checkout, where
+``<BUILD_DIR>/<name>-<hash>.so`` (:func:`build_dir`: ``build/rgcn_tpu_torch/``
+at the root of the checkout), where
 ``<hash>`` is taken over the source and the local headers it includes, so
 an edited source is rebuilt and an unchanged one is reused. Nothing is
 built at import: the first launch of a kernel builds it, or call
@@ -20,11 +21,39 @@ import subprocess
 import time
 from typing import Dict, Iterable, Optional
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "build_variant", "library_path"]
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "build_dir", "build_variant",
+           "library_path"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "kernels", "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "rgcn_tpu_torch")
+
+
+def _writable(path: str) -> bool:
+    """May this process create files in the directory ``path``? access()
+    must grant it and the directory must carry a write bit (root's
+    access() ignores the bits: a tree installed without them is read-only
+    by intent)."""
+    return os.access(path, os.W_OK | os.X_OK) and bool(os.stat(path).st_mode & 0o222)
+
+
+def build_dir(package_dir: str = _PKG) -> str:
+    """Where the port builds its kernels and host libraries:
+    ``build/rgcn_tpu_torch`` beside the package (the root of a checkout, or
+    the directory of an installed copy) while that can be written; else
+    the per-user cache ``$XDG_CACHE_HOME/rgcn_tpu_torch``, by default
+    ``~/.cache/rgcn_tpu_torch``."""
+    local = os.path.join(os.path.dirname(package_dir), "build", "rgcn_tpu_torch")
+    probe = local
+    while not os.path.isdir(probe) and os.path.dirname(probe) != probe:
+        probe = os.path.dirname(probe)
+    if _writable(probe):
+        return local
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return os.path.join(cache, "rgcn_tpu_torch")
+
+
+BUILD_DIR = build_dir()
 
 # kernel name -> source file under csrc/
 SOURCES = {
@@ -126,7 +155,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 
 def build_variant(source: str) -> tuple:
     """nvcc ``csrc/<source>`` (a design kept for comparison, under
-    ``variants/``) afresh into ``build/rgcn_tpu_torch/``; returns
+    ``variants/``) afresh into :data:`BUILD_DIR`; returns
     ``(library path, nvcc's ptxas report)``. Always rebuilt: a variant may
     include a kernel's source or header."""
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -3,8 +3,10 @@ with ctypes, with call counters.
 
 The sources under ``csrc/`` are the port's own copies of the JAX package's
 ``native/*.cc``. They build into two shared libraries under
-``build/rgcn_tpu_torch/`` at the root of the checkout, with the flags of
-the JAX package's ``native/Makefile``:
+``build/rgcn_tpu_torch/`` at the root of the checkout (or wherever
+:func:`rgcn_tpu_torch.kernels.build.build_dir` puts the kernels: the
+per-user cache where the package's directory is read-only), with the
+flags of the JAX package's ``native/Makefile``:
 
 * ``host_builders``: ``graph_builder.cc`` (the static edge set, OpenMP)
   and ``layout_builder.cc`` (the destination layout's counting sort and
@@ -41,9 +43,11 @@ from typing import Dict, Iterable, Optional
 __all__ = ["CALLS", "LIBRARIES", "BUILD_DIR", "reset_calls", "count",
            "library_path", "build_all", "load"]
 
+from rgcn_tpu_torch.kernels.build import build_dir
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "native", "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "rgcn_tpu_torch")
+BUILD_DIR = build_dir(_PKG)
 
 CXX = "g++"
 CXX_FLAGS = ["-O3", "-march=native", "-fopenmp", "-fPIC", "-std=c++17",

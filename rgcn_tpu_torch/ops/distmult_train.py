@@ -24,7 +24,9 @@ through destination sums over layouts built on the host
   package's one-hot product over a small vocabulary).
 
 Bias-free scoring with the Schlichtkrull penalty (or none) only, as
-``LinkPredictionExperiment.structured_decoder_ok`` admits.
+``LinkPredictionExperiment.structured_decoder_ok`` admits. Without
+layouts (``layouts=None``, the trainer's device-built epochs, which build
+no scoring layouts) the same forward runs under plain autograd.
 
 An assembled batch ``(B, 3)`` (the trainer's branch for a decoder with
 another L2) scores through :func:`distmult_score_agg` (and
@@ -195,8 +197,14 @@ def structured_scores(positives: torch.Tensor, corrupt_head: torch.Tensor,
     // ns``), ``pw (P + Ns,)`` per-row penalty weights, ``layouts`` the
     4-tuple of :func:`build_structured_layouts` (on the device). The penalty is ``Σ_rows pw · (mean z_s² + mean r_p² + mean
     z_o²)``. With grad enabled and ``nodes`` or ``relations`` requiring
-    grad the backward runs on K4 and K1."""
+    grad the backward runs on K4 and K1. ``layouts=None`` is the
+    layout-free mode of the device-built epochs: the same forward, so the
+    same scores bit for bit, and plain autograd for the backward (the
+    row gathers' index-put sums, equal to the layout path up to f32
+    reassociation), as JAX's ``layouts=None``."""
     positives, corrupt_ent = positives.long(), corrupt_ent.long()
+    if layouts is None:
+        return _forward(positives, corrupt_head, corrupt_ent, nodes, relations, pw)[:2]
     if _wants_grad(nodes, relations):
         return _Structured.apply(nodes, relations, positives, corrupt_head,
                                  corrupt_ent, pw, layouts)

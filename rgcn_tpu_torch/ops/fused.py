@@ -29,6 +29,7 @@ from rgcn_tpu_torch.ops.aggregate import blocked_sum
 __all__ = [
     "FusedLayout",
     "build_fused_layout",
+    "build_fused_layout_dynamic",
     "check_operands",
     "rel_spmm_fused",
     "rel_spmm_fused_plain",
@@ -191,3 +192,86 @@ def rel_spmm_fused(
         layout.quantum_rel, layout.chunk_block, num_nodes,
         layout.row_block, layout.num_row_blocks, layout.quantum,
     )
+
+
+def build_fused_layout_dynamic(edges, row_block: int = 512, chunk: int = 512,
+                               quantum: int = 16) -> FusedLayout:
+    """The fused layout of a device EdgeSet, built on its device at static
+    sizes (counterpart of ``pallas_fused.py::build_fused_layout_dynamic``,
+    bit for bit): one stable sort of the int32 key ``(row block, rel)``
+    with the edges of ``val == 0`` last, run-length runs, each run padded
+    to whole quanta and each row block's runs to whole chunks (at least
+    one), at most ``min(E_pad, nrb·R)`` runs and ``E_pad + runs·(Q - 1) +
+    nrb·CH`` slots rounded to chunks. Quanta outside every run carry
+    relation -1; the trailing chunks hold pads of the last row block."""
+    if chunk % quantum:
+        raise ValueError("chunk must be a multiple of quantum")
+    src, dst, rel, val = edges.src, edges.dst, edges.rel, edges.val
+    dev = src.device
+    n, num_general = edges.num_nodes, edges.num_rels
+    e_pad = src.shape[0]
+    nrb = -(-n // row_block)
+    b_runs = min(e_pad, nrb * num_general)
+    total = e_pad + b_runs * (quantum - 1) + nrb * chunk
+    total = -(-total // chunk) * chunk
+    n_chunks, n_quanta = total // chunk, total // quantum
+    i64 = torch.int64
+
+    real = val > 0
+    rb_of = torch.div(dst.to(i64), row_block, rounding_mode="floor").clamp_max(nrb - 1)
+    big = nrb * (num_general + 1) + num_general
+    key = torch.where(real, rb_of * (num_general + 1) + rel, big).to(torch.int32)
+    key_s, order = torch.sort(key, stable=True)
+    src_s, dst_s, val_s = src[order], dst[order].to(i64), val[order]
+    real_s, rb_s, rel_s = real[order], rb_of[order], rel[order].to(i64)
+
+    pos_idx = torch.arange(e_pad, device=dev)
+    is_new = torch.ones(e_pad, dtype=i64, device=dev)
+    is_new[1:] = (key_s[1:] != key_s[:-1]).to(i64)
+    run_id = (torch.cumsum(is_new, 0) - 1).clamp_max(b_runs - 1)
+
+    def seg(values, ids, size, reduce, identity):
+        out = torch.full((size,), identity, dtype=i64, device=dev)
+        return out.scatter_reduce_(0, ids, values, reduce=reduce)
+
+    i32_min, i32_max = -(2**31), 2**31 - 1
+    run_len = seg(real_s.to(i64), run_id, b_runs, "sum", 0)
+    run_rel = seg(torch.where(real_s, rel_s, -1), run_id, b_runs, "amax",
+                  i32_min).clamp(0, num_general - 1)
+    run_rb = seg(torch.where(real_s, rb_s, -1), run_id, b_runs, "amax",
+                 i32_min).clamp(0, nrb - 1)
+    run_pad = (run_len + quantum - 1) // quantum * quantum
+
+    blk_tot = seg(run_pad, run_rb, nrb, "sum", 0)
+    blk_pad = ((blk_tot + chunk - 1) // chunk).clamp_min(1) * chunk
+    cum_blk = torch.cumsum(blk_pad, 0)
+    blk_off = cum_blk - blk_pad
+    cum_run = torch.cumsum(run_pad, 0) - run_pad  # exclusive, in run order
+    blk_first = seg(torch.where(run_len > 0, cum_run, i32_max), run_rb, nrb, "amin",
+                    i32_max)
+    blk_first = torch.where(blk_tot > 0, blk_first, 0)
+    run_off = blk_off[run_rb] + (cum_run - blk_first[run_rb])
+    # runs without edges must not break run_off's order for the searchsorted
+    run_off = torch.where(run_len > 0, run_off, total + 1)
+
+    run_start = seg(torch.where(real_s, pos_idx, e_pad), run_id, b_runs, "amin", i32_max)
+    pos = torch.where(real_s, run_off[run_id] + (pos_idx - run_start[run_id]), total)
+
+    from rgcn_tpu_torch.graph.dynamic import _scatter_drop
+
+    src_f = _scatter_drop(total, 0, pos, src_s, torch.int32)
+    val_f = _scatter_drop(total, 0.0, pos, val_s, torch.float32)
+    local = _scatter_drop(total, row_block, pos, dst_s - rb_s * row_block, torch.int32)
+
+    q_starts = torch.arange(n_quanta, device=dev, dtype=i64) * quantum
+    q_run = (torch.searchsorted(run_off, q_starts, right=True) - 1).clamp(0, b_runs - 1)
+    q_in_run = (run_len[q_run] > 0) & (q_starts < run_off[q_run] + run_pad[q_run])
+    qrel = torch.where(q_in_run, run_rel[q_run], -1).to(torch.int32)
+    chunk_starts = torch.arange(n_chunks, device=dev, dtype=i64) * chunk
+    chunk_block = torch.searchsorted(cum_blk, chunk_starts, right=True).clamp_max(
+        nrb - 1).to(torch.int32)
+    return FusedLayout(
+        src=src_f, val=val_f, local_dst=local.reshape(n_chunks, chunk),
+        quantum_rel=qrel, chunk_block=chunk_block, num_rels=int(num_general),
+        num_row_blocks=int(nrb), row_block=int(row_block), chunk=int(chunk),
+        quantum=int(quantum))

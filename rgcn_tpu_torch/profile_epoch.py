@@ -20,11 +20,14 @@ synthetic graph) it builds the trainer on the card and reports:
   and ``to_device``, ``EpochBatch.to`` ended by a synchronize. Every
   epoch's native batch must equal its numpy batch bit for bit;
 * ``fit``: ``--fit-epochs`` epochs of the trainer's ``fit`` (its
-  one-worker prefetch) with each host build, through :class:`StagedTrainer`:
-  the epoch wall time (between consecutive loss records) and the step's
-  host time, medians over the epochs after the second; the device's busy
-  share over those epochs (summed kernel time from ``torch.profiler``,
-  CUDA activity only, over the window's host-clock time); the losses.
+  one-worker prefetch) with each host build, and built on the device
+  (``host_graph_build=False``: ``device``), through :class:`StagedTrainer`:
+  the epoch wall time (between consecutive loss records), the step's
+  host time and ``set_epoch``'s (on the device path the positives' copy
+  and the build's enqueue), medians over the epochs after the second;
+  the device's busy share over those epochs (summed kernel time from
+  ``torch.profiler``, CUDA activity only, over the window's host-clock
+  time); the peak device memory; the losses.
 
 The card's name and power limit and the host CPU's model and core count
 head the JSON line. With ``--cpu`` the trainer runs on the CPU's plain
@@ -60,8 +63,9 @@ CONFIGS = {
 
 
 def batch_differences(a, b, path: str = "batch") -> list:
-    """The fields (dotted paths) where two host batches, EdgeSets or
-    layouts differ: arrays in dtype, shape or any bit, the rest by ``==``."""
+    """The fields (dotted paths) where two batches, EdgeSets or layouts
+    differ: arrays or tensors (on any device) in dtype, shape or any bit,
+    the rest by ``==``."""
     if dataclasses.is_dataclass(a):
         if type(a) is not type(b):
             return [path]
@@ -73,6 +77,10 @@ def batch_differences(a, b, path: str = "batch") -> list:
             return [path]
         return [d for i, (x, y) in enumerate(zip(a, b))
                 for d in batch_differences(x, y, f"{path}[{i}]")]
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        if not (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)):
+            return [path]
+        a, b = a.cpu().numpy(), b.cpu().numpy()
     if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
         a, b = np.asarray(a), np.asarray(b)
         same = a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
@@ -124,7 +132,7 @@ class StagedTrainer(LinkPredictionTrainer):
     seconds and each ``set_epoch``'s."""
 
     def __init__(self, *args, prefer_native: bool = True, **kwargs):
-        super().__init__(*args, **kwargs)
+        super().__init__(*args, **kwargs)  # host_graph_build=False: device-built
         self.prefer_native = prefer_native
         self.stage_log: list = []
         self.step_s: list = []
@@ -195,25 +203,32 @@ class _EpochClock:
 
 
 def fit_epochs(cfg, data, dev, prefer_native: bool, epochs: int,
-               init_state=None) -> dict:
+               init_state=None, host_graph_build: bool = True) -> dict:
     """``epochs`` epochs of :class:`StagedTrainer` ``fit`` on ``dev``:
     epoch wall ms, step host ms and ``set_epoch`` ms (medians over the
-    epochs after the second), the busy share over those epochs on a card,
-    the median stage ms as the prefetch thread met them, the losses, the
-    final MRR and ranks."""
+    epochs after the second), the busy share over those epochs and the
+    peak memory (GB) on a card, the median stage ms as the prefetch thread
+    met them (none on the device-built path), the losses, the final MRR
+    and ranks."""
     cfg = dataclasses.replace(cfg, training=dataclasses.replace(
         cfg.training, epochs=epochs))
     warm = min(2, epochs - 1)
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     trainer = StagedTrainer(cfg, data, device=dev, init_state=init_state,
-                            prefer_native=prefer_native)
-    clock = _EpochClock(epochs, warm, torch.device(dev).type == "cuda")
+                            prefer_native=prefer_native,
+                            host_graph_build=host_graph_build)
+    clock = _EpochClock(epochs, warm, cuda)
     mrr, _, ranks = trainer.fit(clock.logger)
     walls = [(clock.stamps[e] - clock.stamps[e - 1]) * 1e3
              for e in range(warm + 1, epochs + 1)]
     steady = slice(warm, None)
     stages = {s: float(np.median([t[s] for t in trainer.stage_log[steady]]) * 1e3)
-              for s in EPOCH_STAGES}
+              for s in EPOCH_STAGES} if trainer.stage_log else {}
     return {
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
         "epochs": epochs,
         "epoch_wall_ms": float(np.median(walls)),
         "epoch_wall_ms_all": walls,
@@ -251,8 +266,13 @@ def card() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def profile_config(key: str, dev, reps: int, fit: int) -> dict:
-    """Stage split and the fit both ways for one config of :data:`CONFIGS`."""
+FIT_WAYS = ("native", "numpy", "device")
+
+
+def profile_config(key: str, dev, reps: int, fit: int, ways=FIT_WAYS) -> dict:
+    """Stage split and the fit each of ``ways`` (the host build with the
+    native or the numpy builders, or built on the device) for one config
+    of :data:`CONFIGS`."""
     from rgcn_tpu_torch.config import load_experiment
     from rgcn_tpu_torch.data.synthetic import synthetic_lp_data
 
@@ -275,8 +295,9 @@ def profile_config(key: str, dev, reps: int, fit: int) -> dict:
     init = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
     del trainer, batch
     if fit:
-        report["fit"] = {way: fit_epochs(cfg, data, dev, way == "native", fit, init)
-                         for way in ("native", "numpy")}
+        report["fit"] = {way: fit_epochs(cfg, data, dev, way != "numpy", fit, init,
+                                         host_graph_build=way != "device")
+                         for way in ways}
     return report
 
 

@@ -13,6 +13,7 @@ from rgcn_tpu_torch.train.samplers import (
     select_sampler,
     uniform_sampling,
 )
+from rgcn_tpu_torch.train.negative import corrupt_batch, negative_sampling
 from rgcn_tpu_torch.train.evaluate import (
     RankingFilters,
     accuracy,
@@ -26,6 +27,8 @@ __all__ = [
     "uniform_sampling",
     "edge_neighborhood",
     "select_sampler",
+    "negative_sampling",
+    "corrupt_batch",
     "RankingFilters",
     "build_filters",
     "ranks_from_scores",

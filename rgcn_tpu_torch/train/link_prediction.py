@@ -67,8 +67,29 @@ epoch after it, and since every host draw depends on ``(seed, epoch)``
 alone, it repeats the epochs an unbroken run would have taken.
 ``max_epochs`` stops a run early (the last epoch it takes is then the
 one the final evaluation and save follow). Not ported: the JAX package's
-executable cache and its in-jit step (the traced graph builder and
-``jax.random`` negatives).
+executable cache.
+
+With ``host_graph_build=False`` the epochs are built on the device, as
+the JAX trainer's in-jit step builds them (its default off a local TPU).
+The prefetch thread samples only the positives (as above); the step's
+device then draws, from one ``torch.Generator`` for each stream, seeded
+by :func:`epoch_generator` from ``(seed, epoch, stream)`` (the host path's
+stream numbers: 7 the edge dropout's keep mask, 11 the negatives, 13 the
+self-loop masks, drawn as above but with torch's generator), and builds
+the subgraph with its layouts and reverse
+(:func:`~rgcn_tpu_torch.graph.dynamic.build_edge_set_dynamic`, row block
+``auto_layout_row_block(N, 2B, chunk=tile_size)``, chunk ``tile_size``,
+destination order) and the negatives
+(:func:`~rgcn_tpu_torch.train.negative.draw_corruptions`). A structured
+decoder scores in the layout-free mode
+(:func:`~rgcn_tpu_torch.ops.distmult_train.structured_scores` with
+``layouts=None``: plain autograd for the decoder's backward); an
+assembled batch has no layouts either. :meth:`LinkPredictionTrainer.draw_epoch`
+and :meth:`LinkPredictionTrainer.build_epoch` are the two halves, so the
+card's draws can be replayed on the CPU. The draws depend only on
+``(seed, epoch)``, so a resumed run repeats an unbroken one; they are
+not the host path's draws (numpy's generator), and no host builder runs.
+``host_graph_build=None`` (the default) is the host path.
 """
 
 from __future__ import annotations
@@ -83,7 +104,19 @@ import torch
 import torch.nn.functional as F
 
 from rgcn_tpu_torch.device import resolve_device
+from rgcn_tpu_torch.graph.dynamic import (
+    auto_layout_row_block,
+    build_edge_set_dynamic,
+    draw_keep_mask,
+    self_loop_keep_mask,
+)
 from rgcn_tpu_torch.models.link_prediction import build_lp_model
+from rgcn_tpu_torch.train.negative import (
+    assemble_batch,
+    assemble_negatives,
+    batch_labels,
+    draw_corruptions,
+)
 from rgcn_tpu_torch.train.evaluate import (
     build_filters,
     ranking_metrics,
@@ -97,10 +130,16 @@ from rgcn_tpu_torch.utils.checkpoint import (
 from rgcn_tpu_torch.utils.logging import ScalarLogger
 
 __all__ = [
+    "EpochDraws",
     "LinkPredictionTrainer",
+    "draw_self_masks",
+    "epoch_generator",
     "evaluate_link_predictor",
     "train_link_predictor",
 ]
+
+# the (seed, epoch, stream) streams of an epoch's draws
+KEEP_STREAM, NEGATIVE_STREAM, SELF_STREAM = 7, 11, 13
 
 PREFETCH_DEPTH = 2
 # the stages of LinkPredictionTrainer.sample_epoch, in order
@@ -145,6 +184,53 @@ def evaluate_link_predictor(model, eval_edges, test: np.ndarray, filters,
     ranks = np.concatenate(ranks)
     mrr, hits = ranking_metrics(ranks)
     return mrr, hits, ranks
+
+
+def epoch_generator(seed: int, epoch: int, stream: int, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded from ``(seed, epoch,
+    stream)`` through ``np.random.SeedSequence``: an epoch's draws depend on
+    nothing else, so a resumed run draws what an unbroken one did."""
+    state = np.random.SeedSequence((seed, epoch, stream)).generate_state(2, np.uint32)
+    return torch.Generator(device=device).manual_seed(
+        (int(state[0]) << 32) | int(state[1]))
+
+
+def draw_self_masks(convs, generator: torch.Generator, structural_rate: float):
+    """The self-loop dropout masks of ``convs`` on the generator's device:
+    for a ``schlichtkrull-dropout`` rate one bool ``(N, dout)`` keep mask
+    a layer, ``uniform < 1 - rate``, in layer order; for a structural
+    rate one f32 ``(N, 1)`` mask shared by every layer; None without
+    self-loop dropout."""
+    rate, n = convs[0].self_loop_dropout, convs[0].num_nodes
+    if rate == 0.0 and structural_rate == 0.0:
+        return None
+    if rate > 0.0:
+        return [torch.rand((n, c.out_features), generator=generator,
+                           device=generator.device) < 1.0 - rate for c in convs]
+    return [self_loop_keep_mask(generator, n, 1.0 - structural_rate)] * len(convs)
+
+
+@dataclasses.dataclass
+class EpochDraws:
+    """An epoch's random draws on a device (the device-built path): the
+    positives ``(P, 3)`` int64, the edge dropout's keep mask ``(P,)`` f32
+    (None: no dropout), the corruptions ``(Ns,)`` and their head coins,
+    and the self-loop masks (see :func:`draw_self_masks`)."""
+
+    positives: torch.Tensor
+    keep: Optional[torch.Tensor]
+    corrupt_ent: torch.Tensor
+    corrupt_head: torch.Tensor
+    self_masks: Optional[list]
+
+    def to(self, device) -> "EpochDraws":
+        def t(a):
+            return None if a is None else a.to(device)
+
+        return EpochDraws(t(self.positives), t(self.keep), t(self.corrupt_ent),
+                          t(self.corrupt_head),
+                          None if self.self_masks is None
+                          else [t(m) for m in self.self_masks])
 
 
 @dataclasses.dataclass
@@ -196,8 +282,10 @@ class LinkPredictionTrainer:
     be present; ``"cpu"`` runs the plain versions. A block encoder first
     pads ``data`` with null nodes (in place) until N is divisible by
     ``node_embedding // num_blocks``. ``checkpoint_dir``,
-    ``checkpoint_every`` and ``max_epochs``: see the module docstring. The
-    edge-sharded trainer
+    ``checkpoint_every`` and ``max_epochs``: see the module docstring.
+    ``host_graph_build=False`` builds each epoch on the device
+    (:meth:`draw_epoch`, :meth:`build_epoch`); None or True on the host
+    (:meth:`sample_epoch`). The edge-sharded trainer
     (:class:`rgcn_tpu_torch.dist.driver.ShardedLinkPredictionTrainer`)
     overrides the groups, :meth:`sample_epoch`, :meth:`loss`,
     :meth:`evaluate`, :meth:`save` and :meth:`restore`."""
@@ -210,7 +298,8 @@ class LinkPredictionTrainer:
                  device=None, logger: Optional[ScalarLogger] = None,
                  checkpoint_dir: Optional[str] = None,
                  checkpoint_every: Optional[int] = None,
-                 max_epochs: Optional[int] = None):
+                 max_epochs: Optional[int] = None,
+                 host_graph_build: Optional[bool] = None):
         from rgcn_tpu_torch.graph.coalesce import merge_applicable
         from rgcn_tpu_torch.graph.structure import build_edge_set
         from rgcn_tpu_torch.train.samplers import select_sampler
@@ -260,6 +349,10 @@ class LinkPredictionTrainer:
         self.epochs = max_epochs if max_epochs is not None else cfg.training.epochs
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every or cfg.evaluation.check_every
+        self.host_graph_build = host_graph_build is not False
+        # the device-built subgraph's layouts: chunk = tile, scaled row block
+        self.device_row_block = auto_layout_row_block(
+            self.num_nodes, 2 * self.batch_size, chunk=tile_size)
 
         merge_eval = decomp is not None and merge_applicable(
             2 * self.num_rels, decomposition=decomp.type, num_bases=decomp.num_bases)
@@ -280,7 +373,6 @@ class LinkPredictionTrainer:
         receives each stage's host seconds (:data:`EPOCH_STAGES`; a stage
         the scoring branch skips reads 0)."""
         from rgcn_tpu_torch.graph.dynamic import (
-            auto_layout_row_block,
             build_edge_set_dynamic_host,
             reverse_edges,
             static_layout,
@@ -357,6 +449,39 @@ class LinkPredictionTrainer:
         return self.sampler(self.train_np, self.batch_size,
                             np.random.default_rng((self.seed, epoch)))
 
+    def draw_epoch(self, epoch: int, positives: torch.Tensor) -> EpochDraws:
+        """Epoch ``epoch``'s draws on the positives' device (see the module
+        docstring): the keep mask from stream 7, the negatives from 11, the
+        self-loop masks from 13. Nothing is copied to the host."""
+        dev = positives.device
+        pos = positives.long()
+        keep = None
+        if self.general_dropout > 0.0:
+            keep = draw_keep_mask(epoch_generator(self.seed, epoch, KEEP_STREAM, dev),
+                                  pos.shape[0], self.general_dropout)
+        ce, ch = draw_corruptions(epoch_generator(self.seed, epoch, NEGATIVE_STREAM, dev),
+                                  pos, self.num_nodes, self.num_neg, self.head_prob)
+        masks = draw_self_masks(self._convs(),
+                                epoch_generator(self.seed, epoch, SELF_STREAM, dev),
+                                self.structural_rate)
+        return EpochDraws(pos, keep, ce, ch, masks)
+
+    def build_epoch(self, draws: EpochDraws) -> EpochBatch:
+        """The step inputs of ``draws``, built on their device: the
+        subgraph with its layouts and reverse, and the labels; the
+        structured scorer's corruptions, or the assembled batch. No
+        scoring layouts: the decoder's backward is plain autograd."""
+        pos = draws.positives
+        edges = build_edge_set_dynamic(
+            pos, self.num_nodes, self.num_rels, tile_size=self.tile_size,
+            keep_mask=draws.keep, with_dst_layout=True, row_block=self.device_row_block)
+        ch, ce = draws.corrupt_head, draws.corrupt_ent
+        if self.structured:
+            batch, labels = None, batch_labels(pos.shape[0], ce.shape[0], pos.device)
+        else:
+            batch, labels = assemble_batch(pos, assemble_negatives(pos, ce, ch))
+        return EpochBatch(pos, edges, ch, ce, labels, None, draws.self_masks, batch)
+
     def self_masks(self, epoch: int) -> Optional[list]:
         """Epoch ``epoch``'s self-loop dropout masks (see the module
         docstring), or None without self-loop dropout."""
@@ -375,10 +500,23 @@ class LinkPredictionTrainer:
         m = self.model
         return [m.rgc1] + ([m.rgc2] if m.num_layers == 2 else [])
 
-    def set_epoch(self, epoch: int, host: Optional[EpochBatch] = None) -> None:
-        """Move epoch ``epoch``'s data (``host``, or drawn now) to the
-        device for :meth:`loss` and :meth:`step`."""
-        self.batch = (host or self.sample_epoch(epoch)).to(self.device)
+    def host_stage(self, epoch: int):
+        """What the prefetch thread prepares for epoch ``epoch``: the whole
+        :meth:`sample_epoch`, or on the device-built path the positives."""
+        return self.sample_epoch(epoch) if self.host_graph_build else self.positives(epoch)
+
+    def set_epoch(self, epoch: int, host=None) -> None:
+        """Make epoch ``epoch``'s data (``host``, from :meth:`host_stage`,
+        or drawn now) the device's for :meth:`loss` and :meth:`step`: a
+        host batch moves there; on the device-built path the positives
+        move there and the epoch is drawn and built there."""
+        if host is None:
+            host = self.host_stage(epoch)
+        if self.host_graph_build:
+            self.batch = host.to(self.device)
+            return
+        pos = torch.as_tensor(host).to(self.device)
+        self.batch = self.build_epoch(self.draw_epoch(epoch, pos))
 
     # -- the step -------------------------------------------------------------
     def loss(self) -> torch.Tensor:
@@ -439,10 +577,10 @@ class LinkPredictionTrainer:
 
         def host_epoch(epoch):
             fut = pending.pop(epoch, None)
-            out = fut.result() if fut is not None else self.sample_epoch(epoch)
+            out = fut.result() if fut is not None else self.host_stage(epoch)
             for e in range(epoch + 1, min(epoch + 1 + PREFETCH_DEPTH, epochs + 1)):
                 if e not in pending:
-                    pending[e] = pool.submit(self.sample_epoch, e)
+                    pending[e] = pool.submit(self.host_stage, e)
             return out
 
         try:
@@ -492,13 +630,15 @@ def train_link_predictor(cfg, data, seed: int = 0,
                          init_state: Optional[Dict[str, torch.Tensor]] = None,
                          device=None, checkpoint_dir: Optional[str] = None,
                          checkpoint_every: Optional[int] = None,
-                         max_epochs: Optional[int] = None):
+                         max_epochs: Optional[int] = None,
+                         host_graph_build: Optional[bool] = None):
     """Train and evaluate; returns ``(mrr, hits, ranks, model)``. See
     :class:`LinkPredictionTrainer` for the keyword arguments."""
     trainer = LinkPredictionTrainer(cfg, data, seed=seed, tile_size=tile_size,
                                     init_state=init_state, device=device,
                                     logger=logger, checkpoint_dir=checkpoint_dir,
                                     checkpoint_every=checkpoint_every,
-                                    max_epochs=max_epochs)
+                                    max_epochs=max_epochs,
+                                    host_graph_build=host_graph_build)
     mrr, hits, ranks = trainer.fit(logger)
     return mrr, hits, ranks, trainer.model

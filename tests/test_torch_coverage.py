@@ -53,6 +53,8 @@ RENAMED = {
         "ops/distmult_train.py::structured_scores",
     "ops/pallas_fused.py::FusedLayout": "ops/fused.py::FusedLayout",
     "ops/pallas_fused.py::build_fused_layout": "ops/fused.py::build_fused_layout",
+    "ops/pallas_fused.py::build_fused_layout_dynamic":
+        "ops/fused.py::build_fused_layout_dynamic",
     "ops/pallas_fused.py::rel_spmm_fused": "ops/fused.py::rel_spmm_fused",
     "ops/pallas_spmm.py::rel_spmm_messages": "ops/rel_spmm.py::rel_spmm_messages",
     "ops/pallas_spmm.py::rel_spmm_pallas": "ops/rel_spmm.py::fwd_spmm",
@@ -64,20 +66,6 @@ RENAMED = {
 
 # JAX "<module>::<name>" or "<module>" -> why the port leaves it out
 NOT_PORTED = {
-    "graph/dynamic.py::build_edge_set_dynamic":
-        "the in-jit subgraph builder: the port builds every subgraph on the host",
-    "graph/dynamic.py::build_dst_layout_dynamic":
-        "the in-jit destination layout: the host builds it with the subgraph",
-    "graph/dynamic.py::self_loop_keep_mask":
-        "a jax.random mask: the port draws its keep masks with numpy",
-    "ops/pallas_fused.py::build_fused_layout_dynamic":
-        "the in-jit fused layout: the host builds it with the subgraph",
-    "train/negative.py::negative_sampling":
-        "jax.random negatives: the production step draws corrupt_batch_host",
-    "train/negative.py::negative_structure":
-        "jax.random negatives: the production step draws corrupt_batch_host",
-    "train/negative.py::corrupt_batch":
-        "jax.random negatives: the production step draws corrupt_batch_host",
     "train/evaluate.py::scan_ranks":
         "an XLA scan over the batches: the port ranks batch by batch",
     "train/evaluate.py::batched_eval_arrays":
@@ -88,8 +76,6 @@ NOT_PORTED = {
     "utils/compile_cache.py::enable":
         "XLA's compile cache: the kernel and host builds cache by source hash",
     "ops/gather.py": "a TPU gather probe",
-    "dist/train.py::make_sharded_lp_step":
-        "builds the subgraph in-jit and draws jax.random negatives",
     "ops/pallas_basis.py::rel_spmm_basis_blocks_ad":
         "a TPU gather experiment that measured slower; from_jax_params joins "
         "its blocks",

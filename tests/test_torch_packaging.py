@@ -149,3 +149,108 @@ def test_installed_copy_builds_alone(built, tmp_path):
         want = np.asarray(want)
         assert arrays[key].dtype == want.dtype, key
         np.testing.assert_array_equal(arrays[key], want, err_msg=key)
+
+
+# the child of a read-only copy: the build goes to the per-user cache
+READONLY_CHILD = r"""
+import json, os, sys
+sys.modules["jax"] = None
+import numpy as np
+from rgcn_tpu_torch import native
+from rgcn_tpu_torch.graph.structure import build_edge_set
+from rgcn_tpu_torch.kernels import build
+
+libs = native.build_all(["host_builders"])
+edges = build_edge_set(np.load(sys.argv[1]), 60, 3, tile_size=16, with_dst_layout=True)
+np.savez(sys.argv[2], src=edges.src, perm=edges.layout.perm)
+print(json.dumps({"native": native.BUILD_DIR, "kernels": build.BUILD_DIR,
+                  "lib": libs["host_builders"]["path"],
+                  "cached": libs["host_builders"]["cached"]}))
+"""
+
+
+def _tree(root):
+    """Every path under ``root`` with its size and mtime."""
+    out = {}
+    for d, dirs, files in os.walk(root):
+        for f in dirs + files:
+            p = os.path.join(d, f)
+            st = os.lstat(p)
+            out[os.path.relpath(p, root)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def _chmod_tree(root, writable: bool):
+    for d, dirs, files in os.walk(root):
+        for f in files:
+            p = os.path.join(d, f)
+            os.chmod(p, 0o644 if writable else 0o444)
+        os.chmod(d, 0o755 if writable else 0o555)
+
+
+def test_read_only_copy_builds_into_the_user_cache(tmp_path):
+    """A copy whose directory cannot be written builds its host library
+    with g++ into ``$XDG_CACHE_HOME/rgcn_tpu_torch`` and writes nothing
+    inside itself."""
+    site = tmp_path / "site"
+    out = subprocess.run([sys.executable, "setup.py", "build_py", "-d", str(site)],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    rng = np.random.default_rng(6)
+    triples = np.stack([rng.integers(0, 60, 200), rng.integers(0, 3, 200),
+                        rng.integers(0, 60, 200)], axis=1)
+    np.save(tmp_path / "triples.npy", triples)
+    cache = tmp_path / "cache"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(XDG_CACHE_HOME=str(cache), PYTHONDONTWRITEBYTECODE="1")
+    _chmod_tree(site, writable=False)
+    before = _tree(site)
+    try:
+        out = subprocess.run(
+            [sys.executable, "-c", READONLY_CHILD, str(tmp_path / "triples.npy"),
+             str(tmp_path / "edges.npz")],
+            cwd=site, env=env, capture_output=True, text=True, timeout=300)
+        after = _tree(site)
+    finally:
+        _chmod_tree(site, writable=True)
+    assert out.returncode == 0, out.stdout + out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    want_dir = str(cache / "rgcn_tpu_torch")
+    assert got["native"] == got["kernels"] == want_dir
+    assert not got["cached"] and got["lib"].startswith(want_dir + os.sep)
+    assert os.path.isfile(got["lib"])
+    assert after == before, sorted(set(after) ^ set(before))
+    from rgcn_tpu_torch.graph.structure import build_edge_set
+
+    ref = build_edge_set(triples, 60, 3, tile_size=16, with_dst_layout=True)
+    arrays = np.load(tmp_path / "edges.npz")
+    np.testing.assert_array_equal(arrays["src"], ref.src)
+    np.testing.assert_array_equal(arrays["perm"], ref.layout.perm)
+
+
+@pytest.mark.parametrize("case", ["checkout", "writable_copy", "read_only", "no_xdg"])
+def test_build_dir_rule(tmp_path, monkeypatch, case):
+    """``build/rgcn_tpu_torch`` beside the package while it can be
+    written (or created), else the per-user cache."""
+    from rgcn_tpu_torch.kernels.build import BUILD_DIR, build_dir
+
+    if case == "checkout":
+        assert BUILD_DIR == os.path.join(ROOT, "build", "rgcn_tpu_torch")
+        return
+    pkg = tmp_path / "site" / "rgcn_tpu_torch"
+    pkg.mkdir(parents=True)
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    if case == "writable_copy":
+        assert build_dir(str(pkg)) == str(tmp_path / "site" / "build" / "rgcn_tpu_torch")
+        return
+    os.chmod(tmp_path / "site", 0o555)
+    try:
+        if case == "no_xdg":
+            monkeypatch.delenv("XDG_CACHE_HOME")
+            want = tmp_path / "home" / ".cache" / "rgcn_tpu_torch"
+        else:
+            want = tmp_path / "xdg" / "rgcn_tpu_torch"
+        assert build_dir(str(pkg)) == str(want)
+    finally:
+        os.chmod(tmp_path / "site", 0o755)
