@@ -258,13 +258,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    evaluation, all three on one 2-rank job; lp-FB-toy (fb_toy_like(),
    width 500, 100 blocks) 2 epochs on a 2x2 mesh of 4 gloo ranks (K3, K1,
    K4); nc-AIFB again on one NCCL rank, and on 2 NCCL ranks of one card
-   each where the machine has two (else a line says it did not run).
+   each where the machine has two (else a line says it did not run); and
+   lp-WN18 once more on the 2-rank job on the card's default edge stage
+   (bf16; the other cases run pinned to f32).
    Gates: every rank's losses, final logits or ranks and parameter bits
    equal rank 0's; losses within rtol 1e-4 of the single-device run,
    final logits within 1e-4 * max(1, max|ref|), MRR within 1e-3 and at
    least 99% of the ranks equal; each rank's launches exactly the
    single-device trainer's on its shard (sharded_expect), counts zeroed
-   just before each case's fit; and initialize_distributed must refuse
+   just before each case's fit; the bf16 case held instead to the CPU's
+   one-device run with the edge stage pinned to bf16 (losses within 8e-3
+   * max(1, |ref|), MRR within 1e-3, ranks equal reported), its encoder
+   through K4's bf16 form; and initialize_distributed must refuse
    NCCL for more ranks than cards. Lines per rank: set-up and fit
    seconds, every step's synchronised host ms, one all-reduce of an (N,
    width) tensor; one "sharded" JSON line and the phase's seconds. These
@@ -274,30 +279,35 @@ Phases, in order; any failure exits non-zero and prints no result:
    zeroed just before each path: nc-AIFB trained 2 epochs through
    classify_nodes.main and lp-WN18 1 epoch through predict_links.main
    (both --synthetic) with --profile-dir; the one *.pt.trace.json each
-   writes must hold CUDA kernel events, and its events of K1
+   writes must hold CUDA kernel events, and its events of K1 in both forms
    (k1_aggregate_kernel), K2 (k2_fused_kernel), K3 (k3_tiled_kernel,
-   k3_small_kernel) and K4 + K5 (weighted_runs.cuh's runs_kernel<...>)
-   must equal the launch counters over the same run (the kernels launch
-   through ctypes from the nvcc-built libraries), K1 and K2 (nc-AIFB), K1
-   and K4 (lp-WN18) at least once; measure_canary called twice on one
-   fresh floor file (the WN18-scale merged basis op over its dedup frame,
-   f32): exactly K5 once a step and nothing else, the second call reading
-   the first's floor (ratio >= 1), and one step's K5 held against its
-   plain version within 1e-5 * max(1, max|ref|); StepTimer (CUDA events)
+   k3_small_kernel) and K4 + K5 in both forms (weighted_runs.cuh's
+   runs_kernel<...>) must equal the launch counters over the same run (the
+   kernels launch through ctypes from the nvcc-built libraries), K1 and
+   K2 (nc-AIFB), K1 and K4 (lp-WN18) at least once; measure_canary called
+   twice on one fresh floor file (the WN18-scale merged basis op over its
+   dedup frame with a bf16 compute dtype, as the JAX canary steps):
+   exactly K5's bf16 form once a step and nothing else, the second call
+   reading the first's floor (ratio >= 1), and one step's K5 held against
+   its plain version within 1e-5 * max(1, max|ref|) (f32) and its bf16
+   form within 2^-8 * |ref| more (bf16 table and output); StepTimer (CUDA events)
    over 50 chained canary steps within 2x of cuda_ms of the same step (a
    unit and synchronisation check, no speed gate), its edges/s over the
    merged frame's real pairs; one "tooling" line and the phase's seconds;
 24. installed package: "setup.py build_py" lays the port out, as "pip
    install ." installs it, into a fresh temporary directory, made
    read-only; a child process run from there, with neither the checkout
-   nor JAX importable (it loads this script by path), builds the five
-   kernels (nvcc, in parallel) and both host libraries (g++) from scratch
+   nor JAX importable (it loads this script by path), builds every kernel
+   (the five and the bf16 forms of K1, K4 and K5; nvcc, in parallel) and both host libraries (g++) from scratch
    into the per-user cache ($XDG_CACHE_HOME/rgcn_tpu_torch, a fresh
    directory; the copy must be left as it was), serves nc-AIFB (aifb_like(), exactly K1 1, K2 1) and
    lp-WN18 (wn18_like(), 2 bases, width 200, exactly K4 1) with counts
    zeroed just before each, and holds K1-K3 on the nc-AIFB server's edges
    and K4, K5 on the lp-WN18 server's (phase 3's and 6's shapes and
-   tolerance) against their plain versions; no library of the checkout's
+   tolerance), and the bf16 forms there (f32 outputs), against their plain
+   versions; the edge stage pinned to f32; then lp-WN18 served once more
+   on the card's default edge stage (exactly K4's bf16 form once; phase 26
+   holds its answers to the CPU's bf16 run); no library of the checkout's
    build/ may be mapped. Gates: each library's name (its source hash)
    equals the checkout's; the synthetic graphs equal the checkout's; the
    answers equal phases 4 and 6's within their tolerances (logits, z and
@@ -338,7 +348,45 @@ Phases, in order; any failure exits non-zero and prints no result:
    host ms, busy share, peak memory, the build's device ms (CUDA
    events) and one device-built step profiled as in phase 5; one
    "device_epochs" line and one "host_vs_device_epoch_ms" line;
-26. summary: one JSON line of each path's launch counts (serving, and
+26. edge precision: the card's default edge stage, bf16 tables and
+   messages with f32 sums at the five branches where the JAX layer narrows
+   it (phases 3-25 run with it pinned to f32, spawned ranks and the
+   installed copy's child too, so each of their gates holds what it held
+   before, but for phase 22's and 24's bf16 runs; the canary's step is
+   bf16 by design). Serving on the default
+   path: lp-WN18 (merged frame, and its dedup frame), nc-MUTAG on its
+   stand-in, nc-AM with 4 bases and e-RGCN nc-AM at AM scale (on the
+   am_like() triples phase 11 made), e-RGCN nc-AIFB; exact launches, the
+   bf16 forms' counters counting every bf16 operand and the f32 forms'
+   none; answers within 8e-3 * max(1, max|ref|) of the CPU's run of the
+   same model and EdgeSet with the edge stage pinned to bf16, and z and
+   logits within a quarter of the same server's f32 answers' distance
+   from it (+ 1e-5 * max(1, max|ref|)); the installed copy's bf16 lp-WN18
+   answers (phase 24) held to the same CPU run; the gap to the f32
+   answers and both serve times. The bf16 forms
+   against their plain versions (f32 sums) at lp-WN18's merged frame (bf16
+   and f32 outputs), its merged reverse frame with per-basis tables summed
+   over bases, its dedup frame, and e-RGCN nc-AM's diagonal messages: f32
+   outputs within 1e-5 * max(1, max|ref|), bf16 outputs within 2^-8 * |ref|
+   more; each timed beside its f32 form, with torch.sparse.mm in bf16 as
+   the yardstick where torch takes it. One training step (loss and
+   backward, exact launches) per branch from the same parameters against
+   the CPU's bf16 step, gradients within 8e-3 * max(1, max|ref|) (lp-WN18:
+   8e-3 * max|ref|) and within a quarter of the card's f32 gradients'
+   distance from them (as the answers): nc-AIFB with 4 bases, nc-MUTAG
+   (pairs), e-RGCN nc-AIFB and nc-AM, lp-WN18, and lp-WN18 with
+   decoder.bwd_dtype bfloat16 (its scores and penalty bit-equal to the f32
+   decoder's); the step times both ways; three lp-WN18 epochs with finite
+   losses; lp-WN18 trained 1 epoch through predict_links.main with
+   --profile-dir on the default path (the trace's events equal the
+   counters, exactly K4's bf16 form 2E + 1, its f32 form and K1 2E each,
+   the first loss within 8e-3 * max(1, |ref|) of the CPU's bf16 loss);
+   2 device-built lp-WN18 epochs under phase 25's gates with the CPU
+   pinned to bf16 and bf16 bounds (loss 8e-3 * max(1, |ref|), gradients
+   8e-3 * max(1, max|ref|), exactly K4's bf16 form 2E + 1, MRR within
+   1e-3, ranks equal reported); the canary once (exactly K5's bf16 form a
+   step);
+27. summary: one JSON line of each path's launch counts (serving, and
    training), the training steps' timing (nc-AIFB, nc-AM, lp-WN18,
    lp-FB-toy, the c-RGCN and e-RGCN configs), one of the extra nc modes
    (K1 at dout 4, K3 at nc-AIFB, K2 and K3 at the dx shape,
@@ -358,14 +406,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    count on each traced run and over the two canary calls) and the
    installed line of phase 24 (each row's "installed_launches": its
    count in each of the copy's serves) and the two lines of phase 25
-   (each row's "device_launches": its count on each device-built path);
-27. last line: {"ok": true, "device": {...}}.
+   (each row's "device_launches": its count on each device-built path),
+   and the edge_precision and bf16_modes lines of phase 26 (each row's
+   "precision_launches": its count on each of phase 26's paths; the bf16
+   forms' rows, "K1 bf16", "K4 bf16" and "K5 bf16", each with its count on
+   the default path that serves through it, its counts on phase 22's and
+   24's paths, and its time beside its f32 form's);
+28. last line: {"ok": true, "device": {...}}.
 
 Needs CUDA (exits 1 without it) and the repository around it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -425,16 +479,16 @@ def device_ms(fn, iters: int = TIMING_ITERS, warmup: int = 5, tries: int = 3) ->
     torch.profiler over ``iters`` calls (host launch cost excluded). A
     profile that holds no device event at all is taken again, up to
     ``tries`` times (the profiler now and then delivers none)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from rgcn_tpu_torch.utils.profiling import profile_session
 
     for _ in range(warmup):
         fn()
     for _ in range(tries):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile_session([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
-            torch.cuda.synchronize()
         us = sum(ev.time_range.elapsed_us() for ev in prof.events()
                  if ev.device_type == torch.autograd.DeviceType.CUDA)
         if us > 0:
@@ -3457,14 +3511,16 @@ def sharded_case(mesh, spec) -> dict:
 
 def sharded_rank(dev, cases):
     """One rank of phase 22: each (key, spec) case in turn, on a mesh of
-    ``spec["shape"]`` (replicas, edge shards)."""
+    ``spec["shape"]`` (replicas, edge shards): the edge stage pinned to f32,
+    as the f32 cases compare it, or (``spec["bf16"]``) the card's default."""
     from rgcn_tpu_torch.dist.multihost import make_mesh_2d
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {}
     for key, spec in cases:
-        out[key] = sharded_case(make_mesh_2d(*spec["shape"], device=dev), spec)
+        with contextlib.nullcontext() if spec.get("bf16") else edge_stage(None):
+            out[key] = sharded_case(make_mesh_2d(*spec["shape"], device=dev), spec)
     return out
 
 
@@ -3502,7 +3558,8 @@ def sharded_expect(spec, rank: int) -> dict:
     decoder (basis), or K3 then K1 both ways and the same decoder (block);
     the final evaluation's one encode runs on rank 0 only (it broadcasts
     z), so rank 0 has train_lp_path's counts and the others one encode
-    fewer."""
+    fewer. A bf16 case (basis): the encoder's K4 both ways and the encode
+    run K4's bf16 form, the decoder's K4 its f32 form."""
     e = spec["epochs"]
     if spec["kind"] == "nc":
         return launches(**(train_pair_path(e) if spec["pairs"] else train_k3_branch(e)))
@@ -3511,11 +3568,18 @@ def sharded_expect(spec, rank: int) -> dict:
         for name in (("k4_weighted_aggregate",) if spec["decomposition"] == "basis"
                      else ("k3_messages", "k1_aggregate")):
             counts[name] -= 1
+    if spec.get("bf16"):
+        counts["k4_weighted_aggregate"] = 2 * e
+        counts["k4_weighted_aggregate_bf16"] = 2 * e + (rank == 0)
     return launches(**counts)
 
 
 def check_sharded(key, spec, ranks, ref, backend) -> dict:
-    """Phase 22's gates for one case; returns its summary row."""
+    """Phase 22's gates for one case; returns its summary row. A bf16 case
+    (``spec["bf16"]``, on the card's default edge stage) is held to the
+    CPU's one-device run with the edge stage pinned to bf16: every loss
+    within 8e-3 * max(1, |ref|) and the MRR within 1e-3; the share of equal
+    ranks is reported, not gated."""
     from rgcn_tpu_torch.dist.multihost import same_on_every_rank
 
     n = len(ranks)
@@ -3530,7 +3594,12 @@ def check_sharded(key, spec, ranks, ref, backend) -> dict:
     if got.shape != want.shape:
         fail(f"sharded [{key}]: {got.shape[0]} losses, one device {want.shape[0]}")
     loss_rel = float(np.max(np.abs(got - want) / np.abs(want)))
-    if not loss_rel <= 1e-4:
+    bf16 = bool(spec.get("bf16"))
+    if bf16:
+        if not (np.abs(got - want) <= BF16_TOL * np.maximum(1.0, np.abs(want))).all():
+            fail(f"sharded [{key}]: losses {got.tolist()} vs the CPU's bf16 run "
+                 f"{want.tolist()} (tol {BF16_TOL} x max(1, |ref|))")
+    elif not loss_rel <= 1e-4:
         fail(f"sharded [{key}]: losses {got.tolist()} vs one device {want.tolist()} "
              f"(max rel diff {loss_rel} > 1e-4)")
     row = {"ranks": n, "backend": backend, "mesh": "x".join(map(str, spec["shape"])),
@@ -3547,7 +3616,8 @@ def check_sharded(key, spec, ranks, ref, backend) -> dict:
                    one_device_acc=ref["acc"])
     else:
         mrr, same = ranks[0]["mrr"], float(np.mean(ranks[0]["ranks"] == ref["ranks"]))
-        if not (np.isfinite(mrr) and abs(mrr - ref["mrr"]) <= 1e-3 and same >= 0.99):
+        if not (np.isfinite(mrr) and abs(mrr - ref["mrr"]) <= 1e-3
+                and (bf16 or same >= 0.99)):
             fail(f"sharded [{key}]: MRR {mrr} vs one device {ref['mrr']} (tol 1e-3) or "
                  f"ranks equal {same} < 0.99")
         row.update(mrr=mrr, one_device_mrr=ref["mrr"], ranks_equal=same)
@@ -3603,14 +3673,21 @@ def phase_sharded(dev, aifb, am, wn18, fb):
                               shape=(2, 2)),
         "nc_aifb_nccl_1": dict(nc, shape=(1, 1)),
     }
+    # lp-WN18 on the card's default edge stage (bf16), against the CPU's
+    # one-device run pinned to bf16
+    specs["lp_wn18_bf16"] = dict(specs["lp_wn18"], bf16=True)
     refs = {}
-    for key in ("nc_aifb", "nc_am", "lp_wn18", "lp_fb_toy_2x2"):
-        refs[key] = one_device_reference(specs[key], dev)
+    for key in ("nc_aifb", "nc_am", "lp_wn18", "lp_fb_toy_2x2", "lp_wn18_bf16"):
+        if key == "lp_wn18_bf16":
+            with edge_stage(torch.bfloat16):
+                refs[key] = one_device_reference(specs[key], torch.device("cpu"))
+        else:
+            refs[key] = one_device_reference(specs[key], dev)
         log(f"  [{key}] one device: {refs[key]['seconds']:.1f} s, losses "
             f"{[round(v, 6) for v in refs[key]['losses']]}")
     refs["nc_aifb_nccl_1"] = refs["nc_aifb"]
-    jobs = [("gloo", 2, ["nc_aifb", "nc_am", "lp_wn18"]), ("gloo", 4, ["lp_fb_toy_2x2"]),
-            ("nccl", 1, ["nc_aifb_nccl_1"])]
+    jobs = [("gloo", 2, ["nc_aifb", "nc_am", "lp_wn18", "lp_wn18_bf16"]),
+            ("gloo", 4, ["lp_fb_toy_2x2"]), ("nccl", 1, ["nc_aifb_nccl_1"])]
     if cards >= 2:
         specs["nc_aifb_nccl_2"] = dict(nc, shape=(1, 2))
         refs["nc_aifb_nccl_2"] = refs["nc_aifb"]
@@ -3644,21 +3721,26 @@ TOOLING_NC_EPOCHS = 2  # nc-AIFB under --profile-dir
 TOOLING_LP_EPOCHS = 1  # lp-WN18 under --profile-dir: the trace holds every op
 TOOLING_TIMER_STEPS = 50  # the canary step under StepTimer
 # each launch counter's kernel events in a trace, by the demangled names
-# CUPTI records: K4 and K5 both run weighted_runs.cuh's templated
-# runs_kernel<VEC, NB, PER_BASIS> (beside one zero_shared_rows each)
+# CUPTI records: K1's f32 and bf16 forms both run k1_aggregate_kernel<TM,
+# VEC, LPS>; K4 and K5 and their bf16 forms all run weighted_runs.cuh's
+# templated runs_kernel<TX, TO, VEC, NB, PER_BASIS> (beside one
+# zero_shared_rows each, and narrow_shared_rows for a bf16 output)
 TRACE_NAMES = {
-    "k1_aggregate": ("k1_aggregate_kernel",),
+    "k1_aggregate+k1_aggregate_bf16": ("k1_aggregate_kernel",),
     "k2_fused": ("k2_fused_kernel",),
     "k3_messages": ("k3_tiled_kernel", "k3_small_kernel"),
-    "k4_weighted_aggregate+k5_weighted_aggregate_dedup": ("runs_kernel<",),
+    "k4_weighted_aggregate+k5_weighted_aggregate_dedup+k4_weighted_aggregate_bf16"
+    "+k5_weighted_aggregate_dedup_bf16": ("runs_kernel<",),
 }
 
 
 def trace_kernel_events(logdir) -> dict:
     """The kernel events of the one ``*.pt.trace.json`` under ``logdir``,
-    counted per TRACE_NAMES key, with the count of all kernel events and
-    the file's MB. Fails unless there is exactly one trace and it holds a
-    CUDA kernel event."""
+    counted per TRACE_NAMES key, with the count of all kernel events, of
+    the host's launch calls whose kernel the trace lacks, and the file's
+    MB, and (under "_by_key") each key's events as (CUPTI correlation id,
+    start us, name) for a diagnosis. Fails unless there is
+    exactly one trace and it holds a CUDA kernel event."""
     import glob
 
     files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
@@ -3666,13 +3748,21 @@ def trace_kernel_events(logdir) -> dict:
         fail(f"{logdir}: {len(files)} traces, expected 1")
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
-    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    kernel = [e for e in events if e.get("cat") == "kernel"]
+    names = [e.get("name", "") for e in kernel]
     if not names:
         fail(f"{files[0]}: the trace holds no CUDA kernel event")
-    counts = {key: sum(any(s in n for s in subs) for n in names)
+    # host launch calls whose kernel has no record in the trace
+    recorded = {e.get("args", {}).get("correlation") for e in kernel}
+    orphans = sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                  and "Launch" in e.get("name", "")
+                  and e.get("args", {}).get("correlation") not in recorded)
+    by_key = {key: [(e.get("args", {}).get("correlation"), e.get("ts"), e["name"][:60])
+                    for e in kernel if any(s in e.get("name", "") for s in subs)]
               for key, subs in TRACE_NAMES.items()}
-    return {"events": counts, "all_kernel_events": len(names),
-            "trace_mb": os.path.getsize(files[0]) / 2**20}
+    return {"events": {key: len(v) for key, v in by_key.items()},
+            "all_kernel_events": len(names), "launches_without_kernel": orphans,
+            "trace_mb": os.path.getsize(files[0]) / 2**20, "_by_key": by_key}
 
 
 def traced_cli(label, main_fn, argv, logdir, need, dev) -> dict:
@@ -3689,11 +3779,17 @@ def traced_cli(label, main_fn, argv, logdir, need, dev) -> dict:
     seconds = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
     found = trace_kernel_events(logdir)
+    by_key = found.pop("_by_key")
     launched = {key: sum(counts[k] for k in key.split("+")) for key in TRACE_NAMES}
     log(f"tooling [{label}]: {seconds:.1f} s traced; launches {counts}; trace kernel "
         f"events {found['events']} of {found['all_kernel_events']} "
-        f"({found['trace_mb']:.1f} MB)")
+        f"({found['trace_mb']:.1f} MB; {found['launches_without_kernel']} launch calls "
+        "without a kernel record)")
     if found["events"] != launched:
+        for key, n in launched.items():  # the events of a short key, for a diagnosis
+            if found["events"][key] != n:
+                print(f"  [{label}] {key}: {n} launches, trace events (correlation, ts, "
+                      f"name): {by_key[key]}", file=sys.stderr, flush=True)
         fail(f"tooling [{label}]: trace kernel events {found['events']} != launch "
              f"counters {launched}")
     missing = [k for k in need if counts[k] < 1]
@@ -3737,9 +3833,9 @@ def phase_tooling(dev):
                                               tag=f"phase 23, call {i + 1}", device=dev))
             torch.cuda.synchronize()
             counts = dict(kernels.LAUNCHES)
-            if counts != launches(k5_weighted_aggregate_dedup=runs[-1]["steps"]):
-                fail(f"canary call {i + 1}: launches {counts}, expected K5 "
-                     f"{runs[-1]['steps']} and nothing else")
+            if counts != launches(k5_weighted_aggregate_dedup_bf16=runs[-1]["steps"]):
+                fail(f"canary call {i + 1}: launches {counts}, expected K5's bf16 "
+                     f"form {runs[-1]['steps']} and nothing else")
             canary_counts = {k: canary_counts[k] + counts[k] for k in counts}
     paths["canary"] = canary_counts
     first, second = runs
@@ -3755,6 +3851,17 @@ def phase_tooling(dev):
     err = check_close("canary K5", basis.weighted_aggregate_dedup(
         x, dd.src_sorted, w_k, dd, m.num_nodes), basis.weighted_aggregate_dedup_plain(
         x, dd.src_sorted, w_k, dd, m.num_nodes))
+    # the step's own kernel: K5's bf16 form, bf16 table and output, against
+    # its plain version's f32 sums (half a bf16 ulp more than the f32 bound)
+    xb = x.to(torch.bfloat16)
+    got = basis.weighted_aggregate_dedup(xb, dd.src_sorted, w_k, dd, m.num_nodes,
+                                         out_dtype=torch.bfloat16).float()
+    ref = basis.weighted_aggregate_dedup_plain(xb, dd.src_sorted, w_k, dd, m.num_nodes)
+    err_bf16 = (got - ref).abs().max().item()
+    if not bool(((got - ref).abs() <= 2.0 ** -8 * ref.abs()
+                 + 1e-5 * max(1.0, ref.abs().max().item())).all()):
+        fail(f"canary K5 bf16: max abs err {err_bf16} beyond half a bf16 ulp")
+    log(f"  canary K5 bf16 (bf16 out): max_abs_err {err_bf16:.3e} against the f32 sums")
 
     # StepTimer on CUDA events against cuda_ms, the canary step (no speed gate)
     timer = StepTimer(edges_per_step=m.num_pairs, device=dev)
@@ -3775,7 +3882,8 @@ def phase_tooling(dev):
         "canary": {"ms": second["ms"], "floor_ms": second["floor_ms"],
                    "ratio": second["ratio"], "healthy": second["healthy"],
                    "first_ms": first["ms"], "steps_a_call": second["steps"],
-                   "k5_max_abs_err": err, "key": json.loads(second["key"])},
+                   "k5_max_abs_err": err, "k5_bf16_max_abs_err": err_bf16,
+                   "key": json.loads(second["key"])},
         "step_timer": {"mean_ms": timer_ms, "cuda_ms": step_ms,
                        "edges_per_step": m.num_pairs, "edges_per_s": timer.edges_per_s(),
                        "steps": timer.steps},
@@ -3817,13 +3925,16 @@ INSTALLED_BOOT = (
 
 def installed_child(out_path, device):
     """Phase 24's child, run with the installed copy as its cwd: neither the
-    checkout nor JAX importable. Builds the five kernels and both host
-    libraries from scratch into the copy's build/, serves nc-AIFB and
-    lp-WN18 (launch counts zeroed just before each), holds K1-K3 on the
-    nc-AIFB server's edges and K4, K5 on the lp-WN18 server's against
-    their plain versions, and pickles the answers to ``out_path``."""
+    checkout nor JAX importable. Builds every kernel (the f32 forms and
+    the bf16 forms of K1, K4 and K5) and both host libraries from scratch
+    into the copy's build/, serves nc-AIFB and lp-WN18 (launch counts
+    zeroed just before each) with the edge stage pinned to f32, as the
+    checkout's phases 4 and 6 served them, holds K1-K3 on the nc-AIFB
+    server's edges and K4, K5 on the lp-WN18 server's, and the bf16 forms
+    there, against their plain versions, serves lp-WN18 once more on the
+    card's default edge stage (bf16; phase 26 holds its answers to the
+    CPU's bf16 run), and pickles the answers to ``out_path``."""
     import pickle
-    from concurrent.futures import ThreadPoolExecutor
 
     site = os.path.abspath(os.getcwd())
     on_path = [p for p in sys.path if os.path.abspath(p or os.curdir) == ROOT]
@@ -3831,15 +3942,8 @@ def installed_child(out_path, device):
         fail(f"installed: the checkout {ROOT} is on sys.path")
     sys.modules["jax"] = None
     import rgcn_tpu_torch
-    from rgcn_tpu_torch import kernels, native
-    from rgcn_tpu_torch.data.synthetic import aifb_like, wn18_like
-    from rgcn_tpu_torch.graph.coalesce import build_merged_layout
+    from rgcn_tpu_torch import native
     from rgcn_tpu_torch.kernels import build
-    from rgcn_tpu_torch.ops import aggregate as agg
-    from rgcn_tpu_torch.ops import basis as bs
-    from rgcn_tpu_torch.ops import fused as fz
-    from rgcn_tpu_torch.ops import rel_spmm as rs
-    from rgcn_tpu_torch.serve import load_lp_server, load_nc_server
 
     if not os.path.abspath(rgcn_tpu_torch.__file__).startswith(site + os.sep):
         fail(f"installed: rgcn_tpu_torch imported from {rgcn_tpu_torch.__file__}")
@@ -3852,6 +3956,49 @@ def installed_child(out_path, device):
     dev = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    with edge_stage(None):  # the checkout's phases 4 and 6 served in f32
+        got = installed_serve(dev, site)
+    got.update(installed_serve_bf16(dev))
+    with open(out_path, "wb") as f:
+        pickle.dump(got, f)
+
+
+def installed_serve_bf16(dev) -> dict:
+    """lp-WN18 served from the installed copy on the card's default edge
+    stage: exactly BF16_SERVE's launches (K4's bf16 form). Returns its
+    launches and answers."""
+    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch.data.synthetic import wn18_like
+    from rgcn_tpu_torch.serve import load_lp_server
+
+    wn18 = wn18_like()
+    kernels.reset_launches()
+    srv = load_lp_server(LP_CONFIG, wn18, device=dev)
+    answers = lp_requests(srv, wn18)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    log(f"installed serving [lp-WN18, bf16 edge stage]: launches {counts}")
+    if counts != launches(**BF16_SERVE["lp_wn18"]):
+        fail(f"installed serving [lp-WN18, bf16 edge stage]: launches {counts}, "
+             f"expected {launches(**BF16_SERVE['lp_wn18'])}")
+    return {"lp_wn18_bf16": {"z": srv.z.cpu(), "answers": answers,
+                             "data": data_digest(wn18.train), "launches": counts}}
+
+
+def installed_serve(dev, site) -> dict:
+    """installed_child's builds, serves and kernel checks; returns what the
+    child pickles."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rgcn_tpu_torch import kernels, native
+    from rgcn_tpu_torch.data.synthetic import aifb_like, wn18_like
+    from rgcn_tpu_torch.graph.coalesce import build_merged_layout
+    from rgcn_tpu_torch.kernels import build
+    from rgcn_tpu_torch.ops import aggregate as agg
+    from rgcn_tpu_torch.ops import basis as bs
+    from rgcn_tpu_torch.ops import fused as fz
+    from rgcn_tpu_torch.ops import rel_spmm as rs
+    from rgcn_tpu_torch.serve import load_lp_server, load_nc_server
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=1) as pool:
@@ -3906,6 +4053,10 @@ def installed_child(out_path, device):
     errs["K3"] = check_close("installed K3 rel_spmm_messages",
                              rs.rel_spmm_messages(edges, x, w),
                              rs.rel_spmm_messages_plain(edges, x, w))
+    m16 = msgs.to(torch.bfloat16)  # K1's bf16 form: f32 sums, so the f32 bound
+    errs["K1 bf16"] = check_close("installed K1 bf16 aggregate_sorted",
+                                  agg.aggregate_sorted(m16, edges.layout, n),
+                                  agg.aggregate_sorted_plain(m16, edges.layout, n))
 
     wn18 = wn18_like()
     lp, lp_answers, lp_counts = serve(
@@ -3929,6 +4080,13 @@ def installed_child(out_path, device):
     errs["K5"] = check_close(
         "installed K5 dedup", bs.weighted_aggregate_dedup(x, dd.src_sorted, w_k, dd, n),
         bs.weighted_aggregate_dedup_plain(x, dd.src_sorted, w_k, dd, n))
+    xb = x.to(torch.bfloat16)  # the bf16 forms with f32 outputs: the f32 bound
+    errs["K4 bf16"] = check_close(
+        "installed K4 bf16 merged", bs.weighted_aggregate(xb, m.src_sorted, wv, m.layout, n),
+        bs.weighted_aggregate_plain(xb, m.src_sorted, wv, m.layout, n))
+    errs["K5 bf16"] = check_close(
+        "installed K5 bf16 dedup", bs.weighted_aggregate_dedup(xb, dd.src_sorted, w_k, dd, n),
+        bs.weighted_aggregate_dedup_plain(xb, dd.src_sorted, w_k, dd, n))
     torch.cuda.synchronize()
 
     # every kernel ran from the copy's own libraries, none from the checkout's
@@ -3943,20 +4101,19 @@ def installed_child(out_path, device):
                         and v is not None)
     if jax_loaded:
         fail(f"installed: {jax_loaded} imported")
-    with open(out_path, "wb") as f:
-        pickle.dump({
-            "build_s": build_s,
-            "kernels": {n: {"path": v["path"], "build_s": v["seconds"]}
-                        for n, v in built.items()},
-            "native": {n: {"path": v["path"], "build_s": v["seconds"]}
-                       for n, v in host_built.items()},
-            "max_abs_err": errs,
-            "launches": {"nc_aifb": nc_counts, "lp_wn18": lp_counts},
-            "nc_aifb": {"logits": nc.logits, "answers": nc_answers,
-                        "data": data_digest(aifb.triples)},
-            "lp_wn18": {"z": lp.z.cpu(), "answers": lp_answers,
-                        "data": data_digest(wn18.train)},
-        }, f)
+    return {
+        "build_s": build_s,
+        "kernels": {n: {"path": v["path"], "build_s": v["seconds"]}
+                    for n, v in built.items()},
+        "native": {n: {"path": v["path"], "build_s": v["seconds"]}
+                   for n, v in host_built.items()},
+        "max_abs_err": errs,
+        "launches": {"nc_aifb": nc_counts, "lp_wn18": lp_counts},
+        "nc_aifb": {"logits": nc.logits, "answers": nc_answers,
+                    "data": data_digest(aifb.triples)},
+        "lp_wn18": {"z": lp.z.cpu(), "answers": lp_answers,
+                    "data": data_digest(wn18.train)},
+    }
 
 
 def check_installed_answers(got, checkout, k=10):
@@ -3994,7 +4151,7 @@ def phase_installed(dev, checkout):
     nc-AIFB and lp-WN18. The libraries must hash as the checkout's and the
     answers match ``checkout``, what phases 4 and 6 served (``{"nc_aifb":
     ..., "lp_wn18": ...}``). Returns (the "installed" summary, each serve's
-    launches)."""
+    launches, the bf16 lp-WN18 serve's answers for phase 26)."""
     import pickle
     import tempfile
 
@@ -4048,10 +4205,14 @@ def phase_installed(dev, checkout):
                 fail(f"installed: {kind} {name} is {os.path.basename(lib['path'])}, "
                      f"the checkout's {os.path.basename(path_of(name))}")
     diffs = check_installed_answers(got, checkout)
+    bf16 = got.pop("lp_wn18_bf16")
+    got["launches"]["lp_wn18_bf16"] = bf16.pop("launches")
     seconds = time.perf_counter() - t_phase
     log(f"phase 24 (installed package): {seconds:.1f} s ({card_line()})")
     short = {"K1": "k1_aggregate", "K2": "k2_fused", "K3": "k3_messages",
-             "K4": "k4_weighted_aggregate", "K5": "k5_weighted_aggregate_dedup"}
+             "K4": "k4_weighted_aggregate", "K5": "k5_weighted_aggregate_dedup",
+             "K1 bf16": "k1_aggregate_bf16", "K4 bf16": "k4_weighted_aggregate_bf16",
+             "K5 bf16": "k5_weighted_aggregate_dedup_bf16"}
     summary = {
         "card": card_line(), "seconds": seconds, "build_py_s": build_py_s,
         "build_s": got["build_s"],
@@ -4064,7 +4225,7 @@ def phase_installed(dev, checkout):
                    for n, v in got["native"].items()},
         "vs_checkout": diffs,
     }
-    return summary, got["launches"]
+    return summary, got["launches"], bf16
 
 
 DEVICE_WN18_EPOCHS = 20  # lp-WN18 built on the card
@@ -4121,7 +4282,7 @@ def device_build_synced(card, epoch):
     return draws, batch
 
 
-def device_epochs_against_cpu(key, path, data, dev, epochs, edit=None):
+def device_epochs_against_cpu(key, path, data, dev, epochs, edit=None, bf16=False):
     """Train ``path``'s config for ``epochs`` device-built epochs on the
     card through ``fit`` and hold every epoch against the CPU's plain
     versions on the card's own draws (replayed on the card, copied back):
@@ -4136,7 +4297,12 @@ def device_epochs_against_cpu(key, path, data, dev, epochs, edit=None):
     card's trajectory, not run on its own: two card runs of the same
     epochs part after ~12 epochs (the kernels' atomics, amplified by the
     training), reported beside the gates. ``edit``: a function of the
-    config (phase 21's branches). Returns (launches, checks, peak GB)."""
+    config (phase 21's branches). ``bf16`` (phase 26; a basis config): the
+    card on its default edge stage, the CPU pinned to bf16, each loss
+    within 8e-3 * max(1, |ref|) and each gradient within 8e-3 * max(1,
+    max|ref|), K4's bf16 form 2E + 1 times, the MRR within 1e-3, the share
+    of equal ranks reported and no second card run. Returns (launches,
+    checks, peak GB)."""
     from rgcn_tpu_torch import kernels, native
     from rgcn_tpu_torch.profile_epoch import batch_differences
     from rgcn_tpu_torch.train.link_prediction import LinkPredictionTrainer
@@ -4169,6 +4335,9 @@ def device_epochs_against_cpu(key, path, data, dev, epochs, edit=None):
     rel_diffs, grad_worst, cpu_s = [], 0.0, [0.0]
     card_set_epoch, card_step = card.set_epoch, card.step
 
+    def cpu_stage():
+        return edge_stage(torch.bfloat16) if bf16 else contextlib.nullcontext()
+
     def set_epoch(epoch, host=None):
         card_set_epoch(epoch, host)
         cpu.model.load_state_dict({k: v.detach().cpu()
@@ -4176,8 +4345,9 @@ def device_epochs_against_cpu(key, path, data, dev, epochs, edit=None):
         t = time.perf_counter()
         cpu.set_epoch(epoch)
         cpu.model.zero_grad(set_to_none=True)
-        loss = cpu.loss()
-        loss.backward()
+        with cpu_stage():
+            loss = cpu.loss()
+            loss.backward()
         cpu_s[0] += time.perf_counter() - t
         set_epoch.ref = (epoch, loss.item())
 
@@ -4186,13 +4356,16 @@ def device_epochs_against_cpu(key, path, data, dev, epochs, edit=None):
         loss = card_step()
         epoch, want = set_epoch.ref
         rel_diffs.append(abs(loss - want) / abs(want))
-        if not abs(loss - want) <= 1e-4 * abs(want):
-            fail(f"device-built [{key}]: epoch {epoch} loss {loss} != CPU {want} (rtol 1e-4)")
+        loss_tol = BF16_TOL * max(1.0, abs(want)) if bf16 else 1e-4 * abs(want)
+        if not abs(loss - want) <= loss_tol:
+            fail(f"device-built [{key}]: epoch {epoch} loss {loss} != CPU {want} (tol "
+                 f"{loss_tol})")
         ref_grads = dict(cpu.model.named_parameters())
         for pname, p in card.model.named_parameters():
             ref_g = ref_grads[pname].grad
             err = float((p.grad.cpu() - ref_g).abs().max())
-            tol = 1e-5 * float(ref_g.abs().max())
+            tol = BF16_TOL * max(1.0, float(ref_g.abs().max())) if bf16 \
+                else 1e-5 * float(ref_g.abs().max())
             grad_worst = max(grad_worst, err / tol if tol else 0.0)
             if not err <= tol:
                 fail(f"device-built [{key}]: epoch {epoch} grad {pname} off by {err} > "
@@ -4214,6 +4387,8 @@ def device_epochs_against_cpu(key, path, data, dev, epochs, edit=None):
     kind = ("c-rgcn" if cfg.encoder.model == "c-rgcn"
             else cfg.encoder.decomposition.type)
     expect = launches(**device_lp_path(kind, epochs))
+    if bf16:
+        expect = launches(k4_weighted_aggregate_bf16=2 * epochs + 1)
     log(f"device-built [{key}]: {epochs} epochs + final evaluation {fit_s:.2f} s (the "
         f"CPU's epochs {cpu_s[0]:.1f} s of it), launches {counts}, native calls {calls}, "
         f"peak memory {peak:.3f} GB")
@@ -4225,7 +4400,8 @@ def device_epochs_against_cpu(key, path, data, dev, epochs, edit=None):
         fail(f"device-built [{key}]: {len(rel_diffs)} epochs held, expected {epochs}")
     cpu.model.load_state_dict({k: v.detach().cpu()
                                for k, v in card.model.state_dict().items()})
-    ref_mrr, ref_hits, ref_ranks = cpu.evaluate()
+    with cpu_stage():
+        ref_mrr, ref_hits, ref_ranks = cpu.evaluate()
     same = float(np.mean(ranks == ref_ranks))
     log(f"  [{key} device-built] per-epoch loss rel diff vs CPU: "
         f"{[float(f'{x:.2e}') for x in rel_diffs]}; gradients at most "
@@ -4235,20 +4411,22 @@ def device_epochs_against_cpu(key, path, data, dev, epochs, edit=None):
         f"{len(ranks)} ranks equal")
     if not (abs(mrr - ref_mrr) <= 1e-3 and np.isfinite(mrr)):
         fail(f"device-built [{key}]: MRR {mrr} vs CPU {ref_mrr} (tol 1e-3)")
-    if kind != "c-rgcn" and same < 0.99:
+    if kind != "c-rgcn" and not bf16 and same < 0.99:
         fail(f"device-built [{key}]: ranks equal {same} < 0.99")
     del cpu
-    # the card's own spread: a second card trainer from the same
-    # initialisation over the same draws
-    twin = LinkPredictionTrainer(cfg, data, device=dev, logger=quiet,
-                                 host_graph_build=False)
-    twin_log = records_logger()
-    twin.fit(twin_log)
-    card_rel = [abs(v - w) / abs(w) for (m, _, v), (_, _, w)
-                in zip(twin_log.records, got.records) if m == "training.loss"]
-    log(f"  [{key} device-built] a second card run vs the first, per-epoch loss rel "
-        f"diff: {[float(f'{x:.2e}') for x in card_rel]}")
-    del twin
+    card_rel = None
+    if not bf16:
+        # the card's own spread: a second card trainer from the same
+        # initialisation over the same draws
+        twin = LinkPredictionTrainer(cfg, data, device=dev, logger=quiet,
+                                     host_graph_build=False)
+        twin_log = records_logger()
+        twin.fit(twin_log)
+        card_rel = [abs(v - w) / abs(w) for (m, _, v), (_, _, w)
+                    in zip(twin_log.records, got.records) if m == "training.loss"]
+        log(f"  [{key} device-built] a second card run vs the first, per-epoch loss rel "
+            f"diff: {[float(f'{x:.2e}') for x in card_rel]}")
+        del twin
     checks = dict(loss_rel_diff=rel_diffs, grad_err_over_tol=grad_worst,
                   card_rerun_rel_diff=card_rel, mrr=mrr, cpu_mrr=ref_mrr,
                   ranks_equal=same, fit_s=fit_s, cpu_s=cpu_s[0],
@@ -4371,6 +4549,14 @@ def device_sharded_rank(dev, cfg, num_nodes, num_rels, init, positives):
     """One rank of phase 25's sharded case: make_sharded_lp_step over a
     1x2 mesh, one step an epoch from the epoch's generators, launches
     counted from 0 before the first."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with edge_stage(None):  # a spawned rank: phase 25 compares f32 paths
+        return device_sharded_steps(dev, cfg, num_nodes, num_rels, init, positives)
+
+
+def device_sharded_steps(dev, cfg, num_nodes, num_rels, init, positives):
+    """device_sharded_rank's steps."""
     from rgcn_tpu_torch import kernels
     from rgcn_tpu_torch.dist.multihost import make_mesh_2d
     from rgcn_tpu_torch.dist.train import make_sharded_lp_step
@@ -4378,8 +4564,6 @@ def device_sharded_rank(dev, cfg, num_nodes, num_rels, init, positives):
     from rgcn_tpu_torch.train.link_prediction import epoch_generator
     from rgcn_tpu_torch.train.optim import make_optimizer
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     mesh = make_mesh_2d(1, 2, device=dev)
     model = build_lp_model(cfg, num_nodes, num_rels, group=mesh.group,
                            decoder_group=mesh.decoder_group).to(dev)
@@ -4503,6 +4687,588 @@ def phase_device_epochs(dev, wn18, fb):
     return summary, paths, {"card": card_line(), **timing}
 
 
+# -- phase 26: the edge stage in bf16, the card's default ---------------------
+
+PRECISION_LP_EPOCHS = 3  # lp-WN18 on the default (bf16) path: finite losses
+DEVICE_BF16_EPOCHS = 2  # device-built lp-WN18 epochs on the default path
+# the JAX package's bf16 bound (tests/test_basis.py:58): x max(1, max|ref|)
+BF16_TOL = 8e-3
+# serving on the default path (one forward or encode): where a branch
+# reaches K1, K4 or K5 with a bf16 operand, its bf16 form runs; nc-MUTAG's
+# per-tile contraction gathers a bf16 table but hands K1 f32 messages
+BF16_SERVE = {
+    "lp_wn18": dict(k4_weighted_aggregate_bf16=1),
+    "lp_wn18_dedup": dict(k5_weighted_aggregate_dedup_bf16=1),
+    "nc_mutag": dict(k1_aggregate=1, k2_fused=1),
+    "nc_am_basis4": dict(k4_weighted_aggregate_bf16=2),
+    "ergcn_nc_aifb": dict(k1_aggregate_bf16=1, k2_fused=1),
+    "ergcn_nc_am": dict(k1_aggregate_bf16=1, k1_aggregate=1, k3_messages=1),
+}
+# one training step (loss and backward) on the default path: the few-basis
+# layers' K4 both ways and the diagonal layer's K1 both ways in bf16; the
+# pair branches' f32 pair messages through K1 both ways, their bf16
+# tables' gradient by K1's bf16 form; the LP decoder's K4 in bf16 only
+# with decoder.bwd_dtype
+BF16_STEP = {
+    "nc_aifb_basis4": dict(k4_weighted_aggregate_bf16=4),
+    "nc_mutag": dict(k1_aggregate=4, k1_aggregate_bf16=2),
+    "ergcn_nc_aifb": dict(k1_aggregate_bf16=2, k2_fused=2),
+    "ergcn_nc_am": dict(k1_aggregate_bf16=2, k1_aggregate=2, k3_messages=2),
+    "lp_wn18": dict(k4_weighted_aggregate_bf16=2, k4_weighted_aggregate=2,
+                    k1_aggregate=2),
+    "lp_wn18_bwd_bf16": dict(k4_weighted_aggregate_bf16=4, k1_aggregate=2),
+}
+BF16_SOURCES = {
+    "K1 bf16": ("k1_aggregate_bf16.cu", "rgcn_tpu/ops/pallas_aggregate.py:203"),
+    "K4 bf16": ("k4_weighted_aggregate_bf16.cu", "rgcn_tpu/ops/pallas_basis.py:53"),
+    "K5 bf16": ("k5_weighted_aggregate_dedup_bf16.cu", "rgcn_tpu/ops/pallas_basis.py:188"),
+}
+
+
+@contextlib.contextmanager
+def edge_stage(dtype):
+    """The layers' edge-stage compute dtype pinned to ``dtype`` (None: f32)
+    for the block's length. Phases 3-25 run pinned to f32 (their spawned
+    ranks and phase 24's child pin their f32 cases themselves), so each
+    gate compares what it compared before the card's bf16 edge stage. The
+    bf16 default runs unpinned: phase 26, phase 22's lp_wn18_bf16 case and
+    the child's second lp-WN18 serve; their CPU references are pinned to
+    bf16."""
+    from unittest import mock
+
+    from rgcn_tpu_torch.nn import layers
+
+    with mock.patch.object(layers, "_edge_compute_dtype", lambda device: dtype):
+        yield
+
+
+def bf16_close(label, got, ref, floor=1.0, f32=None) -> float:
+    """A bf16-path answer against the CPU's bf16 run: max abs diff within
+    8e-3 * max(floor, max|ref|). With ``f32``, the same answer on the card
+    with the edge stage pinned to f32: also within a quarter of the f32
+    answer's distance from ``ref``, plus the f32 kernels' 1e-5 * max(1,
+    max|ref|) for what does not pass the edge stage. An op that rounded at
+    other places than the CPU's bf16 run lands about as far off as f32."""
+    got, ref = torch.as_tensor(got).float().cpu(), torch.as_tensor(ref).float().cpu()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        fail(f"{label}: {tuple(got.shape)} (finite {bool(torch.isfinite(got).all())}) "
+             f"against {tuple(ref.shape)}")
+    err = (got - ref).abs().max().item()
+    tol = BF16_TOL * max(floor, ref.abs().max().item())
+    near = ""
+    if f32 is not None:
+        gap = (torch.as_tensor(f32).float().cpu() - ref).abs().max().item()
+        near_tol = 0.25 * gap + 1e-5 * max(1.0, ref.abs().max().item())
+        near = f", f32 {gap:.3e} off (tol {near_tol:.3e})"
+        if not err <= near_tol:
+            fail(f"{label}: bf16 answers {err} from the CPU's bf16 run, not nearer than "
+                 f"a quarter of the f32 answers' {gap} (+ 1e-5 * max(1, max|ref|))")
+    log(f"  {label}: max abs diff {err:.3e} (tol {tol:.3e}){near}")
+    if not err <= tol:
+        fail(f"{label}: bf16 answers differ from the CPU's bf16 run by {err} > {tol}")
+    return err
+
+
+def bf16_kernel_row(name, label, call, ref32, f32_call, k_bytes, flops, library):
+    """A bf16 form against its plain version's f32 sums on the same inputs
+    (``ref32``): an f32 output within the f32 kernels' 1e-5 * max(1,
+    max|ref|) (the products are exact, only the order of the sums
+    differs), a bf16 output within half a bf16 ulp more (2^-8 * |ref|);
+    the form and its f32 form at the same shape (``f32_call``) timed in
+    turns, its plain version and the yardstick as in phase 3. ``library``:
+    (call, None) or (None, why there is none). One kernel_check row."""
+    got = call()
+    ref = ref32()
+    torch.cuda.synchronize()
+    err_t = (got.float() - ref).abs()
+    err = err_t.max().item()
+    tol = 1e-5 * max(1.0, ref.abs().max().item())
+    bf16_out = got.dtype == torch.bfloat16
+    ok = bool((err_t <= (2.0 ** -8) * ref.abs() + tol).all()) if bf16_out else err <= tol
+    log(f"  {label}: max_abs_err {err:.3e} against the f32 sums (tol "
+        f"{'2^-8 |ref| + ' if bf16_out else ''}{tol:.3e})")
+    if not ok or not torch.isfinite(got).all():
+        fail(f"{label}: the bf16 form differs from its plain version")
+    # the form and its f32 form in turns (form, f32, f32, form), each the
+    # mean of its two
+    first, f32_a, f32_b, last = timed(call), timed(f32_call), timed(f32_call), timed(call)
+    ms, call_ms = ((a + b) / 2 for a, b in zip(first, last))
+    f32_ms, f32_call_ms = ((a + b) / 2 for a, b in zip(f32_a, f32_b))
+    plain_ms, plain_call = timed(ref32)
+    lib, why = library
+    lib_ms = lib_call = None
+    if lib is not None:
+        lib_ms, lib_call = timed(lib)
+    bound, by = bound_ms(k_bytes, flops)
+    src, replaces = BF16_SOURCES[name]
+    row = dict(name=name, mode=label, route="cuda",
+               source=f"rgcn_tpu_torch/kernels/csrc/{src}", replaces=replaces,
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, f32_form_ms=f32_ms,
+               library_ms=lib_ms, library_note=why, bound_ms=bound, bound_by=by,
+               call_ms=call_ms, plain_call_ms=plain_call, f32_form_call_ms=f32_call_ms,
+               library_call_ms=lib_call)
+    log(json.dumps({"kernel_check": row}))
+    return row
+
+
+def bf16_sparse_mm(rows, cols, vals, shape, dense):
+    """torch.sparse.mm of a bf16 CSR with a bf16 dense operand, the
+    yardstick of K4's and K5's bf16 forms: (call, None), or (None, the
+    reason) where torch refuses it on the card."""
+    try:
+        a = lp_csr(rows, cols, vals.to(torch.bfloat16), shape)
+        torch.sparse.mm(a, dense)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        why = str(e).strip().splitlines()[0][:200]
+        log(f"  torch.sparse.mm in bf16 refused: {why}")
+        return None, f"torch.sparse.mm refuses a bf16 CSR on the card: {why}"
+    return (lambda: torch.sparse.mm(a, dense)), None
+
+
+def precision_kernels(dev, lp_edges, dedup, am_es):
+    """K4 (merged frame, f32 and bf16 outputs; per-basis tables summed over
+    bases over the merged reverse frame), K5 (dedup frame) and K1 (e-RGCN
+    nc-AM's diagonal messages in slot order) in bf16 at the lp-WN18 and
+    AM shapes against their plain versions, each timed beside its f32
+    form. Returns the rows."""
+    from rgcn_tpu_torch.ops import aggregate as agg
+    from rgcn_tpu_torch.ops import basis as bs
+    from rgcn_tpu_torch.ops import diag as dg
+
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(26)
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).to(dev)
+
+    m = lp_edges.merged
+    n, din, nb = m.num_nodes, 200, 2
+    comps = rand(m.num_rels, nb, scale=0.3)
+    x = torch.relu(rand(n, din))
+    xb = x.to(bf16)
+    rows = []
+    log("kernels in bf16 (lp-WN18 and nc-AM shapes):")
+
+    def k4_bytes(src, layout, tables, out):
+        keep = layout.local_dst.reshape(-1) < layout.row_block
+        real = int(keep.sum().item())
+        n_rows = int(torch.unique(src[keep]).numel())
+        return real, real * (4 + nb * 4) + nbytes(layout.local_dst, layout.chunk_block) \
+            + tables * n_rows * din * 2 + out.numel() * out.element_size()
+
+    lay = m.layout
+    w = bs.merged_wvec(m.coeff, comps)
+    keep = lay.local_dst.reshape(-1) < lay.row_block
+    node, src_k = slot_nodes(lay, lay.local_dst)[keep], m.src_sorted.long()[keep]
+    for out_dtype, tag in ((bf16, "bf16 out: the forward's Agg"),
+                           (torch.float32, "f32 out")):
+        def call(out_dtype=out_dtype):
+            return bs.weighted_aggregate(xb, m.src_sorted, w, lay, n, out_dtype=out_dtype)
+
+        out = call()
+        real, k_bytes = k4_bytes(m.src_sorted, lay, 1, out)
+        lib = bf16_sparse_mm(torch.cat([b * n + node for b in range(nb)]), src_k.repeat(nb),
+                             w[:, keep].reshape(-1), (nb * n, n), xb) \
+            if out_dtype == bf16 else (None, "the bf16 sparse.mm writes bf16: see the bf16-out row")
+        rows.append(bf16_kernel_row(
+            "K4 bf16", f"K4 bf16 merged ({tag})", call,
+            lambda: bs.weighted_aggregate_plain(xb, m.src_sorted, w, lay, n),
+            lambda: bs.weighted_aggregate(x, m.src_sorted, w, lay, n),
+            k_bytes, 2 * nb * real * din, lib))
+
+    # per-basis cotangent tables G summed over bases, the basis VJP's dx, over
+    # the merged reverse frame
+    G = rand(nb, n, din, scale=0.1).to(bf16)
+    rlay, rw = m.rev_layout, bs.merged_wvec(m.rev_coeff, comps)
+    out = bs.weighted_aggregate(G, m.rev_src_sorted, rw, rlay, n, sum_bases=True,
+                                out_dtype=bf16)
+    real, k_bytes = k4_bytes(m.rev_src_sorted, rlay, nb, out)
+    rkeep = rlay.local_dst.reshape(-1) < rlay.row_block
+    rnode, rsrc = slot_nodes(rlay, rlay.local_dst)[rkeep], m.rev_src_sorted.long()[rkeep]
+    rows.append(bf16_kernel_row(
+        "K4 bf16", "K4 bf16 per-basis sum_bases (bf16 out: the VJP's dx)",
+        lambda: bs.weighted_aggregate(G, m.rev_src_sorted, rw, rlay, n, sum_bases=True,
+                                      out_dtype=bf16),
+        lambda: bs.weighted_aggregate_plain(G, m.rev_src_sorted, rw, rlay, n,
+                                            sum_bases=True),
+        lambda: bs.weighted_aggregate(G.float(), m.rev_src_sorted, rw, rlay, n,
+                                      sum_bases=True),
+        k_bytes, 2 * nb * real * din,
+        bf16_sparse_mm(rnode.repeat(nb), torch.cat([b * n + rsrc for b in range(nb)]),
+                       rw[:, rkeep].reshape(-1), (n, nb * n), G.reshape(nb * n, din))))
+
+    # K5 over the source-dedup'd frame, bf16 out (the dedup forward's Agg)
+    dd = dedup.fwd_dedup
+    w_k = torch.einsum("klr,rb->kbl", dd.coeff_k, comps).contiguous()
+    lanes = dd.local_k.reshape(dd.num_k, -1) < dd.row_block
+    real_slots = lanes.any(0)
+    n_lanes = int(lanes.sum().item())
+    out = bs.weighted_aggregate_dedup(xb, dd.src_sorted, w_k, dd, n, out_dtype=bf16)
+    n_rows = int(torch.unique(dd.src_sorted[real_slots]).numel())
+    k5_bytes = int(real_slots.sum().item()) * 4 + n_lanes * nb * 4 \
+        + nbytes(dd.local_k, dd.chunk_block) + n_rows * din * 2 + out.numel() * 2
+    lr, lc, lv = [], [], []
+    for k in range(dd.num_k):
+        kp = lanes[k]
+        nd = slot_nodes(dd, dd.local_k[k])[kp]
+        for b in range(nb):
+            lr.append(b * n + nd)
+            lc.append(dd.src_sorted.long()[kp])
+            lv.append(w_k[k, b][kp])
+    rows.append(bf16_kernel_row(
+        "K5 bf16", "K5 bf16 dedup (bf16 out)",
+        lambda: bs.weighted_aggregate_dedup(xb, dd.src_sorted, w_k, dd, n, out_dtype=bf16),
+        lambda: bs.weighted_aggregate_dedup_plain(xb, dd.src_sorted, w_k, dd, n),
+        lambda: bs.weighted_aggregate_dedup(x, dd.src_sorted, w_k, dd, n),
+        k5_bytes, 2 * nb * n_lanes * din,
+        bf16_sparse_mm(torch.cat(lr), torch.cat(lc), torch.cat(lv), (nb * n, n), xb)))
+
+    # K1 over e-RGCN nc-AM's diagonal messages (slot order, d 32), f32 out
+    d = 32
+    xa, dw = rand(am_es.num_nodes, d), rand(am_es.num_rels, d, scale=0.5)
+    msgs = dg.diag_slot_messages(xa, dw, am_es, compute_dtype=bf16)
+    msgs32 = dg.diag_slot_messages(xa, dw, am_es)
+    alay = am_es.layout
+    akeep = alay.local_dst.reshape(-1) < alay.row_block
+    a_real = int(akeep.sum().item())
+    k1_bytes = a_real * d * 2 + nbytes(alay.local_dst, alay.chunk_block) \
+        + am_es.num_nodes * d * 4
+    rows.append(bf16_kernel_row(
+        "K1 bf16", "K1 bf16 e-RGCN nc-AM diagonal messages (f32 out)",
+        lambda: agg.aggregate_presorted(msgs, alay, am_es.num_nodes),
+        lambda: agg.aggregate_presorted_plain(msgs, alay, am_es.num_nodes),
+        lambda: agg.aggregate_presorted(msgs32, alay, am_es.num_nodes),
+        k1_bytes, a_real * d,
+        (None, "index_add_ writes the messages' dtype: no one call sums bf16 rows "
+               "into f32")))
+    return rows
+
+
+def cpu_server(srv, kind, **kw):
+    """The card server's model and EdgeSet on the CPU (no second graph
+    build), served with the edge stage pinned to bf16."""
+    import copy
+
+    from rgcn_tpu_torch.serve import LinkPredictionServer, NodeClassificationServer
+
+    model = copy.deepcopy(srv.model).cpu()
+    with edge_stage(torch.bfloat16):
+        if kind == "nc":
+            return NodeClassificationServer(model, srv.edges.to("cpu"))
+        return LinkPredictionServer(model, srv.edges.to("cpu"), **kw)
+
+
+def precision_serving(dev, lp, dedup, am_data, installed):
+    """Serving on the default path (bf16 edge stage): lp-WN18 (merged frame,
+    and its dedup frame), nc-MUTAG (stand-in), nc-AM with 4 bases and e-RGCN
+    nc-AM at AM scale on am_like()'s triples, e-RGCN nc-AIFB; exact
+    launches (BF16_SERVE); answers within 8e-3 * max(1, max|ref|) of the
+    CPU's bf16 run of the same model and EdgeSet, z and logits nearer it
+    than the same server's f32 answers (edge stage pinned to f32;
+    bf16_close); the gap to those and both serve times. ``installed``:
+    phase 24's lp-WN18 served from the installed copy on its default path,
+    held to the same CPU run. Returns (launches, timing, gaps, the e-RGCN
+    nc-AM EdgeSet)."""
+    from rgcn_tpu_torch.config import DecompositionConfig, load_experiment
+    from rgcn_tpu_torch.data.synthetic import aifb_like, synthetic_nc_data
+    from rgcn_tpu_torch.serve import LinkPredictionServer, load_lp_server, load_nc_server
+
+    paths, timing, gaps = {}, {}, {}
+    train = np.asarray(lp.train, dtype=np.int64)
+    width = load_experiment(LP_CONFIG).encoder.node_embedding
+
+    def both_ms(key, srv):
+        timing[f"{key}_bf16_ms"] = host_ms(srv.refresh, iters=10)
+        with edge_stage(None):
+            timing[f"{key}_f32_ms"] = host_ms(srv.refresh, iters=10)
+            out32 = srv.z.clone() if hasattr(srv, "z") else srv.logits.copy()
+        srv.refresh()
+        return out32
+
+    srv, answers, paths["lp_wn18"] = lp_path(
+        "lp_wn18 (bf16 edge stage)", lambda: load_lp_server(LP_CONFIG, lp, device=dev),
+        lp, BF16_SERVE["lp_wn18"], width)
+    dsrv, d_answers, paths["lp_wn18_dedup"] = lp_path(
+        "lp_wn18_dedup (bf16 edge stage)",
+        lambda: LinkPredictionServer(srv.model, dataclasses.replace(srv.edges, merged=dedup),
+                                     known_triples=train),
+        lp, BF16_SERVE["lp_wn18_dedup"], width)
+    for key, s, ans in (("lp_wn18", srv, answers), ("lp_wn18_dedup", dsrv, d_answers)):
+        cpu = cpu_server(s, "lp", known_triples=train)
+        with edge_stage(torch.bfloat16):
+            cpu_ans = lp_requests(cpu, lp)
+        z32 = both_ms(key, s)
+        bf16_close(f"[{key}] z vs CPU bf16", s.z, cpu.z, f32=z32)
+        bf16_close(f"[{key}] point scores vs CPU bf16", ans[0], cpu_ans[0])
+        if key == "lp_wn18":
+            if installed["data"] != data_digest(lp.train):
+                fail("installed lp-WN18 (bf16): the synthetic graph differs from the checkout's")
+            bf16_close("[installed lp_wn18] z vs CPU bf16", installed["z"], cpu.z, f32=z32)
+            bf16_close("[installed lp_wn18] point scores vs CPU bf16",
+                       installed["answers"][0], cpu_ans[0])
+        gaps[key] = (s.z - z32).abs().max().item()
+        log(f"  [{key}] gap to the f32 encode: max |z - z_f32| {gaps[key]:.3e}")
+    del srv, dsrv
+
+    base = load_experiment(AM_CONFIG)
+    am4 = dataclasses.replace(base, rgcn=dataclasses.replace(
+        base.rgcn, decomposition=DecompositionConfig("basis", num_bases=4)))
+    mutag = load_experiment(MUTAG_CONFIG)
+    am_es = None
+    for key, cfg, data in (
+            ("nc_mutag", mutag, synthetic_nc_data(mutag.dataset.name)),
+            ("ergcn_nc_aifb", load_experiment(E_AIFB_CONFIG), aifb_like()),
+            ("nc_am_basis4", am4, am_data),
+            ("ergcn_nc_am", load_experiment(E_AM_CONFIG), am_data)):
+        t0 = time.perf_counter()
+        requests = nc_requests(data)
+        srv, _, paths[key] = serve_path(f"{key} (bf16 edge stage)",
+                                        lambda: load_nc_server(cfg, data, device=dev),
+                                        requests, BF16_SERVE[key])
+        cpu = cpu_server(srv, "nc")
+        logits32 = both_ms(key, srv)
+        bf16_close(f"[{key}] logits vs CPU bf16", srv.logits, cpu.logits, f32=logits32)
+        gaps[key] = float(np.abs(srv.logits - logits32).max())
+        agree = float((srv.logits.argmax(-1) == logits32.argmax(-1)).mean())
+        log(f"  [{key}] gap to the f32 forward: max abs {gaps[key]:.3e}, argmax "
+            f"agreement {agree:.6f} ({time.perf_counter() - t0:.1f} s)")
+        if key == "ergcn_nc_am":
+            am_es = srv.edges
+        del srv, cpu
+    log(f"  serve ms on the card, bf16 and f32 edge stage (host clock, median of "
+        f"10): {json.dumps(timing)}")
+    return paths, timing, gaps, am_es
+
+
+def step_launches(key, trainer) -> float:
+    """One loss and backward on the card with the counts zeroed just
+    before; they must equal BF16_STEP[key]. Returns the loss."""
+    from rgcn_tpu_torch import kernels
+
+    trainer.optimizer.zero_grad(set_to_none=True)
+    kernels.reset_launches()
+    loss = trainer.loss()
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    log(f"training step [{key}] (bf16 edge stage): launches {counts}")
+    if counts != launches(**BF16_STEP[key]):
+        fail(f"training step [{key}]: launches {counts}, expected "
+             f"{launches(**BF16_STEP[key])}")
+    return loss.item()
+
+
+def step_against_cpu(key, card, cpu, floor=1.0) -> dict:
+    """``card`` (default path) and ``cpu`` (edge stage pinned to bf16) from
+    the same parameters on the same batch: one loss and backward each;
+    every gradient within 8e-3 * max(floor, max|ref|) and nearer the CPU's
+    than the card's gradient with the edge stage pinned to f32 is
+    (bf16_close). Then both step times on the card (loss and backward, host
+    clock, median of 10), with the default edge stage and pinned to f32."""
+    loss = step_launches(key, card)
+    grads = {n: p.grad.detach().clone() for n, p in card.model.named_parameters()}
+    with edge_stage(None):
+        card.optimizer.zero_grad(set_to_none=True)
+        card.loss().backward()
+    grads32 = {n: p.grad for n, p in card.model.named_parameters()}
+    with edge_stage(torch.bfloat16):
+        ref = cpu.loss()
+        ref.backward()
+    log(f"  [{key}] loss card {loss:.7f}, CPU bf16 {ref.item():.7f}")
+    if not abs(loss - ref.item()) <= BF16_TOL * max(1.0, abs(ref.item())):
+        fail(f"training step [{key}]: loss {loss} against the CPU's {ref.item()}")
+    ref_grads = dict(cpu.model.named_parameters())
+    worst = 0.0
+    for pname, g in grads.items():
+        worst = max(worst, bf16_close(f"[{key}] grad {pname}", g, ref_grads[pname].grad,
+                                      floor=floor, f32=grads32[pname]))
+
+    def step():
+        card.optimizer.zero_grad(set_to_none=True)
+        card.loss().backward()
+
+    out = {"loss": loss, "cpu_loss": ref.item(), "grad_max_abs_diff": worst,
+           "step_bf16_ms": host_ms(step, iters=10)}
+    with edge_stage(None):
+        out["step_f32_ms"] = host_ms(step, iters=10)
+    log(f"  [{key}] step (loss + backward) host ms: bf16 {out['step_bf16_ms']:.3f}, "
+        f"f32 {out['step_f32_ms']:.3f}")
+    return out
+
+
+def precision_training(dev, lp, am_es, am_data):
+    """One training step per compute-dtype branch on the card (default
+    path) against the CPU's bf16 step from the same parameters: nc-AIFB
+    with 4 bases (the featureless and featureful few-basis layers),
+    nc-MUTAG on its stand-in (the pair branches), e-RGCN nc-AIFB (merged
+    diagonal layer) and nc-AM at AM scale (unmerged, on the serving
+    EdgeSet), lp-WN18 (the training subgraph's basis layer) and lp-WN18
+    with decoder.bwd_dtype bfloat16 (its scores bit-equal to the f32
+    decoder's); then PRECISION_LP_EPOCHS lp-WN18 epochs on the default
+    path with finite losses. Returns the per-step rows."""
+    from rgcn_tpu_torch.config import DecompositionConfig, load_experiment
+    from rgcn_tpu_torch.data.synthetic import aifb_like, synthetic_nc_data
+    from rgcn_tpu_torch.models.node_classification import build_nc_model
+    from rgcn_tpu_torch.ops import distmult_train
+    from rgcn_tpu_torch.train.link_prediction import LinkPredictionTrainer
+    from rgcn_tpu_torch.train.node_classification import NodeClassificationTrainer
+
+    def on_edges(edges):
+        """The trainer over an EdgeSet built already (the serving one)."""
+        class OnServingEdges(NodeClassificationTrainer):
+            def edge_set(self, cfg, data, tile_size):
+                return edges
+        return OnServingEdges
+
+    out = {}
+    aifb = aifb_like()
+    mutag = load_experiment(MUTAG_CONFIG)
+    for key, cfg, data, edges in (
+            ("nc_aifb_basis4", nc_branch_cfg(CONFIG, DecompositionConfig("basis", num_bases=4), 1),
+             aifb, None),
+            ("nc_mutag", mutag, synthetic_nc_data(mutag.dataset.name), None),
+            ("ergcn_nc_aifb", load_experiment(E_AIFB_CONFIG), aifb, None),
+            ("ergcn_nc_am", load_experiment(E_AM_CONFIG), am_data, am_es)):
+        t0 = time.perf_counter()
+        init = build_nc_model(cfg, data, seed=0).state_dict()
+        cls = NodeClassificationTrainer if edges is None else on_edges(edges)
+        card = cls(cfg, data, init_params=init, device=dev)
+        cpu = cls(cfg, data, init_params=init, device="cpu")
+        out[key] = step_against_cpu(key, card, cpu)
+        log(f"  [{key}] {time.perf_counter() - t0:.1f} s")
+        del card, cpu
+
+    quiet = records_logger()
+    base = load_experiment(LP_CONFIG)
+    for key, bwd in (("lp_wn18", None), ("lp_wn18_bwd_bf16", "bfloat16")):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(base, decoder=dataclasses.replace(base.decoder,
+                                                                    bwd_dtype=bwd))
+        card = LinkPredictionTrainer(cfg, lp, device=dev, logger=quiet)
+        state = {k: v.detach().cpu() for k, v in card.model.state_dict().items()}
+        cpu = LinkPredictionTrainer(cfg, lp, init_state=state, device="cpu", logger=quiet)
+        for t in (card, cpu):
+            t.set_epoch(1)
+        out[key] = step_against_cpu(key, card, cpu, floor=0.0)
+        log(f"  [{key}] {time.perf_counter() - t0:.1f} s")
+        if key == "lp_wn18":
+            losses = []
+            for epoch in range(1, 1 + PRECISION_LP_EPOCHS):
+                card.set_epoch(epoch)
+                losses.append(card.step())
+            log(f"  lp_wn18 on the default path, {PRECISION_LP_EPOCHS} epochs: losses "
+                f"{losses}")
+            if not np.isfinite(losses).all():
+                fail(f"lp_wn18 (bf16 edge stage): losses {losses} not finite")
+            out[key]["epoch_losses"] = losses
+        else:
+            # the structured scorer's forward under grad, from one encode,
+            # with and without the narrow backward: bit-equal
+            b = card.batch
+            total = b.labels.shape[0]
+            pw = torch.full((total,), 1.0 / total, device=dev)
+            z = card.model.encode(b.edges, b.self_masks)
+            rel = card.model.scoring_function.relations
+            scores = [distmult_train.structured_scores(
+                b.positives, b.corrupt_head, b.corrupt_ent, z, rel, pw, b.layouts,
+                bwd_dtype=bwd) for bwd in (None, torch.bfloat16)]
+            same = all(torch.equal(u, v) for u, v in zip(*scores))
+            log(f"  [{key}] scores and penalty bit-equal to the f32 decoder's: {same}")
+            if not same:
+                fail("decoder.bwd_dtype changed the structured scorer's forward")
+            out[key]["scores_bit_equal_to_f32"] = same
+        del card, cpu
+    return out
+
+
+def precision_entry_points(dev, lp, cpu_loss):
+    """Entry points of phases 23 and 25 on the card's default edge stage:
+    lp-WN18 trained through its CLI for TOOLING_LP_EPOCHS with
+    --profile-dir (traced_cli: the trace's kernel events equal the
+    counters; K4's bf16 form 2E + 1 times, its f32 form and K1 2E each; the
+    first epoch's loss, read from --run-dir's metrics.jsonl, within 8e-3 *
+    max(1, |ref|) of ``cpu_loss``, the CPU's bf16 loss at epoch 1 from the
+    same initialisation), and DEVICE_BF16_EPOCHS device-built lp-WN18
+    epochs held to the CPU pinned to bf16 (device_epochs_against_cpu).
+    Returns (each path's launches, the summary)."""
+    import tempfile
+
+    from rgcn_tpu_torch import predict_links
+
+    e = TOOLING_LP_EPOCHS
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "run")
+        traced = traced_cli(
+            "lp-WN18 (bf16 edge stage)", predict_links.main,
+            ["--config", LP_CONFIG, "--synthetic", "--epochs", str(e), "--run-dir", run_dir],
+            os.path.join(tmp, "trace"), ("k4_weighted_aggregate_bf16",), dev)
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            losses = [r["value"] for r in map(json.loads, f) if r["metric"] == "training.loss"]
+    paths = {"cli_traced_lp_wn18": traced.pop("launches")}
+    expect = launches(k4_weighted_aggregate_bf16=2 * e + 1, k4_weighted_aggregate=2 * e,
+                      k1_aggregate=2 * e)
+    if paths["cli_traced_lp_wn18"] != expect:
+        fail(f"traced CLI lp-WN18 (bf16): launches {paths['cli_traced_lp_wn18']}, "
+             f"expected {expect}")
+    log(f"  traced CLI lp-WN18 (bf16): losses {losses}, the CPU's bf16 epoch 1 {cpu_loss}")
+    if len(losses) != e or not abs(losses[0] - cpu_loss) <= BF16_TOL * max(1.0, abs(cpu_loss)):
+        fail(f"traced CLI lp-WN18 (bf16): losses {losses} against the CPU's bf16 "
+             f"{cpu_loss} at epoch 1")
+    traced.update(losses=losses, cpu_loss=cpu_loss)
+    paths["device_lp_wn18"], device, peak = device_epochs_against_cpu(
+        "lp_wn18_device_bf16", LP_CONFIG, lp, dev, DEVICE_BF16_EPOCHS, bf16=True)
+    device["peak_memory_gb"] = peak
+    return paths, {"cli_traced_lp_wn18": traced, "device_lp_wn18": device}
+
+
+def precision_canary(dev) -> dict:
+    """The canary once (its bf16 step: exactly K5's bf16 form once a
+    step) on a fresh floor."""
+    import tempfile
+
+    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch.utils import canary
+
+    kernels.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        run = canary.measure_canary(cache_dir=tmp, tag="phase 26", device=dev)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    if counts != launches(k5_weighted_aggregate_dedup_bf16=run["steps"]):
+        fail(f"canary (bf16): launches {counts}, expected K5's bf16 form "
+             f"{run['steps']} and nothing else")
+    return {"ms": run["ms"], "steps": run["steps"], "key": json.loads(run["key"]),
+            "launches": counts}
+
+
+def phase_precision(dev, lp, lp_edges, dedup, am_data, installed):
+    """Phase 26: the edge stage on the card's default, bf16 (the JAX
+    package's compute dtype on a TPU). ``installed``: phase 24's bf16
+    lp-WN18 serve. Returns (the "edge_precision" summary, the bf16 kernel
+    rows, each path's launches)."""
+    t0 = time.perf_counter()
+    serve, serve_timing, gaps, am_es = precision_serving(dev, lp, dedup, am_data, installed)
+    rows = precision_kernels(dev, lp_edges, dedup, am_es)
+    train = precision_training(dev, lp, am_es, am_data)
+    del am_es
+    entry_paths, entry = precision_entry_points(dev, lp, train["lp_wn18"]["cpu_loss"])
+    can = precision_canary(dev)
+    seconds = time.perf_counter() - t0
+    log(f"phase 26 (edge precision): {seconds:.1f} s ({card_line()})")
+    paths = dict(serve)
+    paths.update({f"step_{k}": launches(**BF16_STEP[k]) for k in BF16_STEP})
+    paths.update(entry_paths)
+    paths["canary"] = can.pop("launches")
+    summary = {"card": card_line(), "seconds": seconds, "serve_ms": serve_timing,
+               "serve_gap_to_f32": gaps, "steps": train, "entry_points": entry,
+               "canary": can,
+               "kernels": [{k: r[k] for k in ("mode", "max_abs_err", "ms", "f32_form_ms",
+                                              "plain_ms", "library_ms", "bound_ms")}
+                           for r in rows]}
+    return summary, rows, paths
+
+
 def phases_nc_aifb(dev):
     """Phases 3-5 on aifb_like(): the kernels, the hub graph, serving and
     training. Returns (kernel rows, the nc mode rows, serving launches,
@@ -4546,6 +5312,11 @@ def main():
 
     dev = torch.device("cuda")
     phase_build()
+    # phases 3-25 with the layers' edge stage pinned to f32: each gate holds
+    # what it held before the card's bf16 default, which phase 26 runs (and
+    # phase 22's lp_wn18_bf16 case and phase 24's child, unpinned)
+    f32_phases = contextlib.ExitStack()
+    f32_phases.enter_context(edge_stage(None))
     rows, nc_modes, paths, train_paths, train_timing, nc_served = phases_nc_aifb(dev)
 
     lp = wn18_like()
@@ -4618,9 +5389,12 @@ def main():
 
     sharded, sharded_counts = phase_sharded(dev, aifb_like(), am_data, lp, fb)
     tooling, tooling_counts = phase_tooling(dev)
-    installed, installed_counts = phase_installed(
+    installed, installed_counts, installed_bf16 = phase_installed(
         dev, {"nc_aifb": nc_served, "lp_wn18": lp_served})
     device_epochs, device_counts, host_vs_device_ms = phase_device_epochs(dev, lp, fb)
+    f32_phases.close()
+    precision, bf16_rows, precision_counts = phase_precision(dev, lp, lp_edges, dedup,
+                                                             am_data, installed_bf16)
 
     # each kernel's count on the path that serves through it
     key = {"K1": ("k1_aggregate", "main"), "K2": ("k2_fused", "main"),
@@ -4640,9 +5414,32 @@ def main():
             "tooling_launches": {tp: c[kname] for tp, c in tooling_counts.items()},
             "installed_launches": {ip: c[kname] for ip, c in installed_counts.items()},
             "device_launches": {dp: c[kname] for dp, c in device_counts.items()},
+            "precision_launches": {pp: c[kname] for pp, c in precision_counts.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "call_ms": r["call_ms"], "plain_call_ms": r["plain_call_ms"],
+            "library_call_ms": r["library_call_ms"],
+        })
+    # the bf16 forms (phase 26): each form's first mode, on the default path
+    # that serves through it
+    bf16_key = {"K1 bf16": ("k1_aggregate_bf16", "ergcn_nc_aifb"),
+                "K4 bf16": ("k4_weighted_aggregate_bf16", "lp_wn18"),
+                "K5 bf16": ("k5_weighted_aggregate_dedup_bf16", "lp_wn18_dedup")}
+    for form, (kname, path) in bf16_key.items():
+        r = next(r for r in bf16_rows if r["name"] == form)
+        out.append({
+            "name": form, "route": r["route"], "source": r["source"],
+            "replaces": r["replaces"], "status": "ported", "mode": r["mode"],
+            "path": path, "launches": precision_counts[path][kname],
+            "precision_launches": {pp: c[kname] for pp, c in precision_counts.items()},
+            "sharded_launches": {case: [c[kname] for c in per_rank]
+                                 for case, per_rank in sharded_counts.items()},
+            "installed_launches": {ip: c[kname] for ip, c in installed_counts.items()},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "f32_form_ms": r["f32_form_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "library_note": r["library_note"],
             "call_ms": r["call_ms"], "plain_call_ms": r["plain_call_ms"],
             "library_call_ms": r["library_call_ms"],
         })
@@ -4663,6 +5460,8 @@ def main():
     print(json.dumps({"installed": installed}), flush=True)
     print(json.dumps({"device_epochs": device_epochs}), flush=True)
     print(json.dumps({"host_vs_device_epoch_ms": host_vs_device_ms}), flush=True)
+    print(json.dumps({"edge_precision": precision}), flush=True)
+    print(json.dumps({"bf16_modes": bf16_rows}), flush=True)
     log(f"command time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

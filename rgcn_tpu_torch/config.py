@@ -11,6 +11,7 @@ plain scalars (bool, null, int, float, string) or quoted strings.
 from __future__ import annotations
 
 import dataclasses
+import os
 import re
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
@@ -290,6 +291,18 @@ def _build(cls, raw: Optional[Dict[str, Any]]):
             v = _build(EdgeDropoutConfig, v) if v is not None else None
         kwargs[f.name] = v
     return cls(**kwargs)
+
+
+def tool_config(ap, flag: str, path: str) -> str:
+    """``path``, a tool's config file, when it exists; else the tool's
+    argument parser ``ap`` exits naming ``flag`` and the missing path. The
+    tools default to files under a checkout's ``configs/``, which an
+    installed copy of the package does not hold."""
+    if not os.path.isfile(path):
+        ap.error(f"{flag}: config file {path} not found (the default lies in a "
+                 f"checkout's configs/, which an installed copy lacks); pass "
+                 f"{flag} with a config file")
+    return path
 
 
 def load_experiment(path_or_dict):

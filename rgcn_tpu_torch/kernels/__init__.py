@@ -10,6 +10,15 @@ error, and adds one to its kernel's count in :data:`LAUNCHES`. The count
 moves nowhere else, so a run that resets the counts and reads them after
 shows which kernels it went through. The libraries are built from
 ``csrc/`` at first use (:mod:`rgcn_tpu_torch.kernels.build`).
+
+K1, K4 and K5 take f32 or bf16 tables and messages (the edge stage's
+compute dtype, :func:`rgcn_tpu_torch.nn.layers._edge_compute_dtype`): a
+bf16 one launches the kernel's bf16 form, an entry point and library of
+its own with its own count (``k1_aggregate_bf16``,
+``k4_weighted_aggregate_bf16``, ``k5_weighted_aggregate_dedup_bf16``),
+which sums in f32; K4 and K5 then write f32 or, with ``out_dtype=
+torch.bfloat16``, bf16. Any other dtype raises: nothing is converted to
+reach a kernel.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ __all__ = [
     "LAUNCHES",
     "reset_launches",
     "refuse_grad",
+    "table_form",
     "launch_k1_aggregate",
     "launch_k2_fused",
     "launch_k3_messages",
@@ -42,11 +52,21 @@ _ARGTYPES = {
     "k2_fused": [_P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _I, _I, _I, _P],
     "k3_messages": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "k4_weighted_aggregate": [_P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "k5_weighted_aggregate_dedup": [_P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _I, _I, _P],
+    # K4 and K5: (..., out, scratch, ..., out_bf16, stream), one list for
+    # the f32 and the bf16 form
+    "k4_weighted_aggregate": [_P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "k5_weighted_aggregate_dedup": [_P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
+# a bf16 form takes its f32 form's arguments
+_ARGTYPES.update({name + "_bf16": _ARGTYPES[name] for name in (
+    "k1_aggregate", "k4_weighted_aggregate", "k5_weighted_aggregate_dedup")})
+# the table and message dtypes of K1, K4 and K5, and the output dtypes a
+# table dtype allows
+_TABLE_DTYPES = (torch.float32, torch.bfloat16)
+_OUT_DTYPES = {torch.float32: (torch.float32,),
+               torch.bfloat16: (torch.float32, torch.bfloat16)}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 # K4/K5 keep one sum per basis in registers: their launchers instantiate
@@ -98,6 +118,17 @@ def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
         )
 
 
+def table_form(t: torch.Tensor, what: str, out_dtype=torch.float32) -> str:
+    """The entry-point suffix of a K1/K4/K5 table or message dtype ("" for
+    f32, "_bf16" for bf16); raises for any other dtype or an output dtype
+    the table's form does not write."""
+    if t.dtype not in _TABLE_DTYPES:
+        raise TypeError(f"{what}: dtype {t.dtype}, kernel takes float32 or bfloat16")
+    if out_dtype not in _OUT_DTYPES[t.dtype]:
+        raise TypeError(f"{what}: a {t.dtype} table gives no {out_dtype} output")
+    return "" if t.dtype == torch.float32 else "_bf16"
+
+
 def _check_blocks(num_nodes: int, row_block: int, num_row_blocks: int) -> None:
     # the output's rows must span exactly the blocks the layout addresses
     if -(-num_nodes // row_block) != num_row_blocks:
@@ -125,8 +156,10 @@ def launch_k1_aggregate(
 ) -> torch.Tensor:
     """K1: ``out[n] = Σ_{slots l → n} msgs[index[l]]`` (``index`` None reads
     slot ``l`` of destination-sorted ``msgs``) over a destination layout's
-    ``(n_chunks, CH)`` ``local_dst`` and ``chunk_block``. Returns
-    ``(num_nodes, dout)``; rows past ``num_nodes`` are dropped."""
+    ``(n_chunks, CH)`` ``local_dst`` and ``chunk_block``. ``msgs`` f32 or
+    bf16 (the bf16 form, ``k1_aggregate_bf16``); the sums and the output are
+    f32. Returns ``(num_nodes, dout)``; rows past ``num_nodes`` are
+    dropped."""
     dev = msgs.device
     _check(local_dst, "local_dst", torch.int32, None)
     if local_dst.dim() != 2:
@@ -134,7 +167,8 @@ def launch_k1_aggregate(
             f"local_dst: expected (n_chunks, CH), got {tuple(local_dst.shape)}")
     n_chunks, chunk = local_dst.shape
     num_slots = n_chunks * chunk
-    _check(msgs, "msgs", torch.float32, local_dst.device)
+    form = table_form(msgs, "msgs")
+    _check(msgs, "msgs", msgs.dtype, local_dst.device)
     if msgs.dim() != 2:
         raise ValueError(f"msgs: expected (rows, dout), got {tuple(msgs.shape)}")
     _check(chunk_block, "chunk_block", torch.int32, dev, (n_chunks,))
@@ -151,7 +185,7 @@ def launch_k1_aggregate(
     if num_nodes == 0 or dout == 0:
         return out
     _launch(
-        "k1_aggregate", dev, msgs.data_ptr(),
+        "k1_aggregate" + form, dev, msgs.data_ptr(),
         None if index is None else index.data_ptr(),
         local_dst.data_ptr(), chunk_block.data_ptr(), out.data_ptr(),
         n_chunks, chunk, row_block, dout, num_nodes,
@@ -250,6 +284,17 @@ def launch_k3_messages(
     return out
 
 
+def _weighted_out(num_nodes: int, nb_out: int, din: int, out_dtype, dev):
+    """K4/K5's output ``(num_nodes, nb_out, din)`` and, for a bf16 output,
+    the f32 scratch of the rows the kernel finishes with atomics (None for
+    f32: the kernel adds into the output itself)."""
+    out = torch.empty((num_nodes, nb_out, din), dtype=out_dtype, device=dev)
+    scratch = None
+    if out_dtype == torch.bfloat16:
+        scratch = torch.empty((num_nodes, nb_out, din), dtype=torch.float32, device=dev)
+    return out, scratch
+
+
 def launch_k4_weighted_aggregate(
     x: torch.Tensor,
     src: torch.Tensor,
@@ -261,6 +306,7 @@ def launch_k4_weighted_aggregate(
     num_row_blocks: int,
     *,
     sum_bases: bool = False,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """K4: ``out[b, n] = Σ_{slots l → n} w[b, l] · row(b, l)``, where
     ``row(b, l)`` is ``x[src[l]]`` for a shared ``(rows, din)`` table or
@@ -268,12 +314,16 @@ def launch_k4_weighted_aggregate(
     gathers the rows itself. ``sum_bases`` sums over ``b``. The layout's
     slots must be sorted by destination within each row block, as every
     DstLayout builder makes them: a chunk stores the rows it owns outright.
-    Returns ``(nb or 1, num_nodes, din)``, a view of node-major
-    ``(num_nodes, nb or 1, din)`` storage."""
+    ``x`` f32, or bf16 (the bf16 form, ``k4_weighted_aggregate_bf16``: each
+    weight rounded to bf16, f32 sums, ``out_dtype`` f32 or bf16 narrowed
+    once per element); ``w`` f32. Returns ``(nb or 1, num_nodes, din)`` of
+    ``out_dtype``, a view of node-major ``(num_nodes, nb or 1, din)``
+    storage."""
     dev = x.device
     n_chunks, chunk = local_dst.shape
     num_slots = n_chunks * chunk
-    _check(x, "x", torch.float32, None)
+    form = table_form(x, "x", out_dtype)
+    _check(x, "x", x.dtype, None)
     if x.dim() not in (2, 3):
         raise ValueError(
             f"x: expected (rows, din) or (nb, rows, din), got {tuple(x.shape)}")
@@ -290,16 +340,14 @@ def launch_k4_weighted_aggregate(
     _check(chunk_block, "chunk_block", torch.int32, dev, (n_chunks,))
     _check_blocks(num_nodes, row_block, num_row_blocks)
     din, rows = x.shape[-1], x.shape[-2]
-    out = torch.empty((num_nodes, 1 if sum_bases else nb, din),
-                      dtype=torch.float32, device=dev)
+    out, scratch = _weighted_out(num_nodes, 1 if sum_bases else nb, din, out_dtype, dev)
     if num_nodes == 0 or din == 0 or n_chunks == 0:
         return out.zero_().permute(1, 0, 2)
-    _launch(
-        "k4_weighted_aggregate", dev, x.data_ptr(), src.data_ptr(),
-        w.data_ptr(), local_dst.data_ptr(), chunk_block.data_ptr(),
-        out.data_ptr(), n_chunks, chunk, row_block, nb, din, rows, num_nodes,
-        int(per_basis), int(sum_bases),
-    )
+    _launch("k4_weighted_aggregate" + form, dev, x.data_ptr(), src.data_ptr(),
+            w.data_ptr(), local_dst.data_ptr(), chunk_block.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            n_chunks, chunk, row_block, nb, din, rows, num_nodes,
+            int(per_basis), int(sum_bases), int(out_dtype == torch.bfloat16))
     return out.permute(1, 0, 2)
 
 
@@ -312,11 +360,15 @@ def launch_k5_weighted_aggregate_dedup(
     num_nodes: int,
     row_block: int,
     num_row_blocks: int,
+    *,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """K5: ``out[b, n] = Σ_{slots l, lanes k → n} w_k[k, b, l] · x[src[l]]``
     over a source-dedup'd frame (the lanes merged per destination on chip).
-    Returns ``(nb, num_nodes, din)``, a view of node-major ``(num_nodes, nb,
-    din)`` storage."""
+    ``x`` f32, or bf16 (the bf16 form, ``k5_weighted_aggregate_dedup_bf16``,
+    as K4's, with ``out_dtype`` f32 or bf16). Returns ``(nb, num_nodes,
+    din)`` of ``out_dtype``, a view of node-major ``(num_nodes, nb, din)``
+    storage."""
     dev = x.device
     _check(local_k, "local_k", torch.int32, None)
     if local_k.dim() != 3:
@@ -324,7 +376,8 @@ def launch_k5_weighted_aggregate_dedup(
             f"local_k: expected (K, n_chunks, CH), got {tuple(local_k.shape)}")
     kk, n_chunks, chunk = local_k.shape
     num_slots = n_chunks * chunk
-    _check(x, "x", torch.float32, local_k.device)
+    form = table_form(x, "x", out_dtype)
+    _check(x, "x", x.dtype, local_k.device)
     if x.dim() != 2:
         raise ValueError(f"x: expected (rows, din), got {tuple(x.shape)}")
     _check(w_k, "w_k", torch.float32, dev)
@@ -338,12 +391,12 @@ def launch_k5_weighted_aggregate_dedup(
     _check(chunk_block, "chunk_block", torch.int32, dev, (n_chunks,))
     _check_blocks(num_nodes, row_block, num_row_blocks)
     din = x.shape[1]
-    out = torch.empty((num_nodes, nb, din), dtype=torch.float32, device=dev)
+    out, scratch = _weighted_out(num_nodes, nb, din, out_dtype, dev)
     if num_nodes == 0 or din == 0 or n_chunks == 0:
         return out.zero_().permute(1, 0, 2)
-    _launch(
-        "k5_weighted_aggregate_dedup", dev, x.data_ptr(), src.data_ptr(),
-        w_k.data_ptr(), local_k.data_ptr(), chunk_block.data_ptr(),
-        out.data_ptr(), n_chunks, chunk, row_block, kk, nb, din, num_nodes,
-    )
+    _launch("k5_weighted_aggregate_dedup" + form, dev, x.data_ptr(), src.data_ptr(),
+            w_k.data_ptr(), local_k.data_ptr(), chunk_block.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            n_chunks, chunk, row_block, kk, nb, din, num_nodes,
+            int(out_dtype == torch.bfloat16))
     return out.permute(1, 0, 2)

@@ -33,13 +33,16 @@
 
 #include "weighted_runs.cuh"
 
+// The parameters are the bf16 form's (k4_weighted_aggregate_bf16.cu), so one
+// argument list binds both: scratch is unused here and out_bf16 must be 0.
 extern "C" int k4_weighted_aggregate(const float* x, const int* src,
                                      const float* w, const int* local_dst,
                                      const int* chunk_block, float* out,
-                                     int n_chunks, int chunk, int row_block,
-                                     int nb, int din, int table_rows,
+                                     float* /*scratch*/, int n_chunks, int chunk,
+                                     int row_block, int nb, int din, int table_rows,
                                      int num_nodes, int per_basis_rows,
-                                     int sum_bases, void* stream) {
+                                     int sum_bases, int out_bf16, void* stream) {
+  if (out_bf16) return static_cast<int>(cudaErrorInvalidValue);
   wruns::Args a{};
   a.x = x;
   a.src = src;
@@ -47,6 +50,7 @@ extern "C" int k4_weighted_aggregate(const float* x, const int* src,
   a.local = local_dst;
   a.chunk_block = chunk_block;
   a.out = out;
+  a.acc = out;
   a.num_slots = static_cast<long long>(n_chunks) * chunk;
   a.table_plane = static_cast<long long>(table_rows) * din;
   a.n_chunks = n_chunks;
@@ -58,6 +62,6 @@ extern "C" int k4_weighted_aggregate(const float* x, const int* src,
   a.sum_bases = sum_bases;
   a.dst_sorted = 1;  // every DstLayout builder sorts a block's slots by destination
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(per_basis_rows ? wruns::run<true>(a, nb, st)
-                                         : wruns::run<false>(a, nb, st));
+  return static_cast<int>(per_basis_rows ? wruns::run<float, float, true>(a, nb, st)
+                                         : wruns::run<float, float, false>(a, nb, st));
 }

@@ -29,14 +29,18 @@
 
 #include "weighted_runs.cuh"
 
+// The parameters are the bf16 form's (k5_weighted_aggregate_dedup_bf16.cu),
+// so one argument list binds both: scratch is unused here and out_bf16 must
+// be 0.
 extern "C" int k5_weighted_aggregate_dedup(const float* x, const int* src,
                                            const float* w_k,
                                            const int* local_k,
                                            const int* chunk_block, float* out,
-                                           int n_chunks, int chunk,
-                                           int row_block, int kk, int nb,
-                                           int din, int num_nodes,
-                                           void* stream) {
+                                           float* /*scratch*/, int n_chunks,
+                                           int chunk, int row_block, int kk,
+                                           int nb, int din, int num_nodes,
+                                           int out_bf16, void* stream) {
+  if (out_bf16) return static_cast<int>(cudaErrorInvalidValue);
   wruns::Args a{};
   a.x = x;
   a.src = src;
@@ -44,6 +48,7 @@ extern "C" int k5_weighted_aggregate_dedup(const float* x, const int* src,
   a.local = local_k;
   a.chunk_block = chunk_block;
   a.out = out;
+  a.acc = out;
   a.num_slots = static_cast<long long>(n_chunks) * chunk;
   a.n_chunks = n_chunks;
   a.chunk = chunk;
@@ -53,5 +58,5 @@ extern "C" int k5_weighted_aggregate_dedup(const float* x, const int* src,
   a.num_nodes = num_nodes;
   a.dst_sorted = 0;  // a block's slots are sorted by source
   return static_cast<int>(
-      wruns::run<false>(a, nb, static_cast<cudaStream_t>(stream)));
+      wruns::run<float, float, false>(a, nb, static_cast<cudaStream_t>(stream)));
 }

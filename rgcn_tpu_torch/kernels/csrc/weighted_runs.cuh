@@ -57,9 +57,22 @@
 // Sums are taken in another order than a sequential sum (the counting
 // sort and the atomics order lanes freely): results equal it up to f32
 // reassociation.
+//
+// Types (the edge stage's compute dtype, rgcn_tpu/nn/layers.py:45-55). The
+// table TX is f32 or bf16 and the output TO f32 or, with a bf16 table,
+// bf16; the sums are f32 in every form. With a bf16 table each lane's
+// weight is rounded to bf16 first (the Pallas kernel's w.astype(xg.dtype),
+// pallas_basis.py:138), each product of two bf16 values is exact in f32,
+// and the rows load as 16-byte vectors of 8 values where din % 8 == 0 (one
+// value a thread otherwise). A bf16 output is narrowed once per element from
+// its whole f32 sum, as the Pallas kernel narrows its f32 scratch on a row
+// block's closing chunk: an owned row from the registers that summed it;
+// the rows finished with atomics are summed in an f32 scratch (the rows
+// zero_shared_rows zeroes) and narrowed after by narrow_shared_rows.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -74,12 +87,14 @@ constexpr size_t kMaxSmem = 232448;        // dynamic shared memory a block may 
 constexpr int kZeroParts = 16;             // CTAs that zero one row block
 
 struct Args {
-  const float* x;          // (rows, din), or (NB, rows, din) per-basis tables
+  const void* x;           // (rows, din), or (NB, rows, din) per-basis tables, of TX
   const int* src;          // (L,)
   const float* w;          // (KK, NB, L)
   const int* local;        // (KK, L)
   const int* chunk_block;  // (n_chunks,)
-  float* out;              // (num_nodes, NB_OUT, din)
+  void* out;               // (num_nodes, NB_OUT, din) of TO
+  float* acc;              // f32 rows the atomics add to: out itself when TO is
+                           // f32, else an f32 scratch of out's shape
   long long num_slots;     // L = n_chunks * CH
   long long table_plane;   // rows * din: the stride of per-basis tables
   int n_chunks, chunk, row_block, kk, din, num_nodes;
@@ -87,13 +102,88 @@ struct Args {
   int dst_sorted;          // each row block's slots sorted by destination (K4)
 };
 
-template <int VEC>
-__device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+// VEC consecutive values of a table row as loaded (16 bytes, or one value);
+// get(e) widens value e to f32, exactly (bf16 through cuda_bf16.h).
+template <typename TX, int VEC>
+struct RowVec;
+template <>
+struct RowVec<float, 4> {
+  float4 v;
+  __device__ __forceinline__ float get(int e) const { return (&v.x)[e]; }
+};
+template <>
+struct RowVec<float, 1> {
+  float v;
+  __device__ __forceinline__ float get(int) const { return v; }
+};
+template <>
+struct RowVec<__nv_bfloat16, 8> {
+  uint4 v;
+  __device__ __forceinline__ float get(int e) const {
+    return __bfloat162float(__ushort_as_bfloat16(
+        static_cast<unsigned short>((&v.x)[e / 2] >> (16 * (e % 2)))));
+  }
+};
+template <>
+struct RowVec<__nv_bfloat16, 1> {
+  unsigned short v;
+  __device__ __forceinline__ float get(int) const { return __bfloat162float(__ushort_as_bfloat16(v)); }
+};
+
+template <typename TX, int VEC>
+__device__ __forceinline__ RowVec<TX, VEC> load_vec(const TX* __restrict__ p) {
+  RowVec<TX, VEC> r;
+  if constexpr (sizeof(TX) * VEC == 16) {
+    r.v = __ldg(reinterpret_cast<const decltype(r.v)*>(p));
+  } else if constexpr (sizeof(TX) == 4) {
+    r.v = __ldg(reinterpret_cast<const float*>(p));
   } else {
-    v[0] = __ldg(p);
+    r.v = __ldg(reinterpret_cast<const unsigned short*>(p));
+  }
+  return r;
+}
+
+// A lane's weight as the kernel uses it: rounded to the table's type first.
+template <typename TX>
+__device__ __forceinline__ float table_weight(float w) {
+  if constexpr (sizeof(TX) == 4) return w;
+  else return __bfloat162float(__float2bfloat16_rn(w));
+}
+
+// VEC f32 sums to VEC consecutive elements of type TO (narrowed once).
+template <typename TO, int VEC>
+__device__ __forceinline__ void store_vec(TO* q, const float (&s)[VEC]) {
+  if constexpr (sizeof(TO) == 4) {
+    if constexpr (VEC == 1) {
+      *reinterpret_cast<float*>(q) = s[0];
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; e += 4)
+        *reinterpret_cast<float4*>(reinterpret_cast<float*>(q) + e) =
+            make_float4(s[e], s[e + 1], s[e + 2], s[e + 3]);
+    }
+  } else {
+    if constexpr (VEC == 1) {
+      *q = __float2bfloat16_rn(s[0]);
+    } else {
+      unsigned w[VEC / 2];
+#pragma unroll
+      for (int e = 0; e < VEC; e += 2)
+        w[e / 2] = static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(s[e]))) |
+                   (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(s[e + 1]))) << 16);
+      *reinterpret_cast<uint4*>(q) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void add_vec(float* q, const float (&s)[VEC]) {
+  if constexpr (VEC == 1) {
+    atomicAdd(q, s[0]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; e += 4)
+      atomicAdd(reinterpret_cast<float4*>(q + e), make_float4(s[e], s[e + 1], s[e + 2], s[e + 3]));
   }
 }
 
@@ -143,42 +233,51 @@ __host__ __device__ constexpr int head_ints(int row_block) {
 
 // Shared-memory bytes of one CTA: the head, then a lane's {source row,
 // local destination} and its nb weights, then the groups' partial sums (nb
-// vectors of 4 floats a thread at most).
-inline size_t smem_bytes(int row_block, int kk, int chunk, int nb) {
+// vectors of vec floats a thread at most).
+inline size_t smem_bytes(int row_block, int kk, int chunk, int nb, int vec) {
   return sizeof(int) * static_cast<size_t>(head_ints(row_block)) +
          (sizeof(int2) + sizeof(float) * nb) * static_cast<size_t>(kk) * chunk +
-         sizeof(float) * 4 * kThreads * nb;
+         sizeof(float) * vec * kThreads * nb;
 }
 
-// Before the main kernel: zero the output rows that the main kernel adds
-// to with atomics. CTA (c, y) works for chunk c. A destination-sorted frame
-// (dst_sorted) needs only the rows its chunks split: the last row of chunk
-// c when chunk c + 1 of the same block starts with it. Any other frame
-// needs every row of a block with several chunks: part y of the block of
-// its first chunk c.
+// The rows [r0, r1) that the main kernel adds to with atomics on behalf of
+// CTA (c, y), for chunk c. A destination-sorted frame (dst_sorted) has only
+// the rows its chunks split: the last row of chunk c when chunk c + 1 of
+// the same block starts with it. Any other frame has every row of a block
+// with several chunks: part y of the block of its first chunk c.
+__device__ __forceinline__ bool shared_rows(const int* __restrict__ chunk_block,
+                                            const int* __restrict__ local, int n_chunks,
+                                            int chunk, int row_block, int num_nodes,
+                                            int dst_sorted, long long& r0, long long& r1) {
+  const int c = blockIdx.x;
+  const int blk = chunk_block[c];
+  if (c + 1 >= n_chunks || chunk_block[c + 1] != blk) return false;
+  const long long base = static_cast<long long>(blk) * row_block;
+  if (dst_sorted) {
+    const long long t = static_cast<long long>(c + 1) * chunk;
+    const int r = local[t];
+    if (blockIdx.y > 0 || local[t - 1] != r) return false;
+    r0 = base + r;
+    r1 = r0 + 1;
+  } else {
+    if (c > 0 && chunk_block[c - 1] == blk) return false;
+    r0 = base;
+    r1 = base + row_block;
+  }
+  r1 = min(r1, static_cast<long long>(num_nodes));
+  return r1 > r0;
+}
+
+// Before the main kernel: zero the f32 rows it adds to with atomics.
 __global__ void zero_shared_rows(const int* __restrict__ chunk_block,
                                  const int* __restrict__ local,
                                  float* __restrict__ out, int n_chunks, int chunk,
                                  int row_block, int row_len, int num_nodes,
                                  int dst_sorted) {
-  const int c = blockIdx.x;
-  const int blk = chunk_block[c];
-  if (c + 1 >= n_chunks || chunk_block[c + 1] != blk) return;
-  const long long base = static_cast<long long>(blk) * row_block;
   long long r0, r1;
-  if (dst_sorted) {
-    const long long t = static_cast<long long>(c + 1) * chunk;
-    const int r = local[t];
-    if (blockIdx.y > 0 || local[t - 1] != r) return;
-    r0 = base + r;
-    r1 = r0 + 1;
-  } else {
-    if (c > 0 && chunk_block[c - 1] == blk) return;
-    r0 = base;
-    r1 = base + row_block;
-  }
-  r1 = min(r1, static_cast<long long>(num_nodes));
-  if (r1 <= r0) return;
+  if (!shared_rows(chunk_block, local, n_chunks, chunk, row_block, num_nodes, dst_sorted,
+                   r0, r1))
+    return;
   float* p = out + r0 * row_len;
   const long long n = (r1 - r0) * row_len;
   // scalars up to a 16-byte boundary, then vectors, then the scalar tail
@@ -196,22 +295,36 @@ __global__ void zero_shared_rows(const int* __restrict__ chunk_block,
     p4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// One run's sums to its row: stored where this CTA owns the row, else added.
-template <int VEC, int NB>
-__device__ __forceinline__ void write_run(float* __restrict__ row, const float (&acc)[NB][VEC],
-                                          int nb_out, int din, bool store) {
+// After the main kernel, for a bf16 output: narrow the rows the atomics
+// finished in the f32 scratch, each element once.
+__global__ void narrow_shared_rows(const int* __restrict__ chunk_block,
+                                   const int* __restrict__ local,
+                                   const float* __restrict__ acc,
+                                   __nv_bfloat16* __restrict__ out, int n_chunks,
+                                   int chunk, int row_block, int row_len, int num_nodes,
+                                   int dst_sorted) {
+  long long r0, r1;
+  if (!shared_rows(chunk_block, local, n_chunks, chunk, row_block, num_nodes, dst_sorted,
+                   r0, r1))
+    return;
+  const long long lo = r0 * row_len, n = (r1 - r0) * row_len;
+  const long long part = (n + gridDim.y - 1) / gridDim.y;
+  const long long end = min(n, (blockIdx.y + 1) * part);
+  for (long long i = blockIdx.y * part + threadIdx.x; i < end; i += blockDim.x)
+    out[lo + i] = __float2bfloat16_rn(acc[lo + i]);
+}
+
+// One run's sums to its row: stored (narrowed to TO) where this CTA owns
+// the row, else added to the f32 row ``acc_row`` with atomics.
+template <typename TO, int VEC, int NB>
+__device__ __forceinline__ void write_run(TO* __restrict__ row, float* __restrict__ acc_row,
+                                          const float (&acc)[NB][VEC], int nb_out, int din,
+                                          bool store) {
 #pragma unroll
   for (int o = 0; o < NB; ++o) {
     if (o >= nb_out) break;
-    float* q = row + o * din;
-    if constexpr (VEC == 4) {
-      const float4 t = make_float4(acc[o][0], acc[o][1], acc[o][2], acc[o][3]);
-      if (store) *reinterpret_cast<float4*>(q) = t;
-      else atomicAdd(reinterpret_cast<float4*>(q), t);
-    } else {
-      if (store) *q = acc[o][0];
-      else atomicAdd(q, acc[o][0]);
-    }
+    if (store) store_vec<TO, VEC>(row + o * din, acc[o]);
+    else add_vec<VEC>(acc_row + o * din, acc[o]);
   }
 }
 
@@ -220,15 +333,28 @@ __device__ __forceinline__ void write_run(float* __restrict__ row, const float (
 // to 2 bases the kernel is held to 64 registers, 4 CTAs (32 warps) an SM:
 // at lp-WN18 the warps in flight, more than the rows a warp loads at once,
 // set the kernel's pace.
-template <int NB, bool PER_BASIS>
+// A thread of a bf16 table's 16-byte vectors (8 values) keeps twice the f32
+// form's sums, so it loads half as many lanes at once: with 4, the bf16
+// forms spilled to local memory under these register bounds.
+template <int NB, bool PER_BASIS, int VEC>
 __host__ __device__ constexpr int batch() {
-  return PER_BASIS ? (NB >= 4 ? 1 : 4 / NB) : (NB <= 4 ? 4 : 2);
+  constexpr int b = PER_BASIS ? (NB >= 4 ? 1 : 4 / NB) : (NB <= 4 ? 4 : 2);
+  return VEC > 4 ? (b > 1 ? b / 2 : 1) : b;
 }
 
-template <int VEC, int NB, bool PER_BASIS>
-__global__ void __launch_bounds__(kThreads, NB <= 2 ? 4 : 2) runs_kernel(const Args a) {
+// Occupancy: 4 CTAs an SM (64 registers) up to 2 bases, else 2 (128); with
+// a bf16 table's 8-value vectors and more than 4 bases the sums alone take
+// NB * 8 registers (and per-basis tables NB row vectors), so those forms
+// ask for 1 CTA an SM (255 registers) rather than spill.
+template <int NB, int VEC>
+__host__ __device__ constexpr int min_ctas() {
+  return NB <= 2 ? 4 : (NB <= 4 || VEC <= 4 ? 2 : 1);
+}
+
+template <typename TX, typename TO, int VEC, int NB, bool PER_BASIS>
+__global__ void __launch_bounds__(kThreads, min_ctas<NB, VEC>()) runs_kernel(const Args a) {
   constexpr int NX = PER_BASIS ? NB : 1;  // row loads per lane
-  constexpr int B = batch<NB, PER_BASIS>();
+  constexpr int B = batch<NB, PER_BASIS, VEC>();
   extern __shared__ int smem[];
   const int RB = a.row_block, CH = a.chunk;
   int* off = smem;                   // RB + 1
@@ -289,7 +415,7 @@ __global__ void __launch_bounds__(kThreads, NB <= 2 ? 4 : 2) runs_kernel(const A
         lanes[at] = make_int2(a.src[slot0 + t], ld);
         const float* wl = a.w + k * NB * a.num_slots + slot0 + t;
 #pragma unroll
-        for (int b = 0; b < NB; ++b) lane_w[at * NB + b] = wl[b * a.num_slots];
+        for (int b = 0; b < NB; ++b) lane_w[at * NB + b] = table_weight<TX>(wl[b * a.num_slots]);
       }
     }
   }
@@ -315,13 +441,19 @@ __global__ void __launch_bounds__(kThreads, NB <= 2 ? 4 : 2) runs_kernel(const A
   for (int pass = 0; pass < n_pass; ++pass) {  // uniform: every thread meets the barriers
     const int v = pass * T + gt;
     const bool active = g < groups && lo < hi && v < nv;
-    const float* xc = a.x + v * VEC;
-    float* oc = a.out + v * VEC;
+    const TX* xc = static_cast<const TX*>(a.x) + v * VEC;
     float acc[NB][VEC];
 #pragma unroll
     for (int o = 0; o < NB; ++o)
 #pragma unroll
       for (int e = 0; e < VEC; ++e) acc[o][e] = 0.f;
+    // the run's sums to row r of the output (or of a.acc); the row's address
+    // is formed here from the kernel's parameters, not held in registers
+    auto run_to_row = [&](int r) {
+      const long long at = (base + r) * row_len + v * VEC;
+      write_run<TO, VEC, NB>(static_cast<TO*>(a.out) + at, a.acc + at, acc, nb_out, a.din,
+                             r >= own_lo && r < own_hi && r != split_lo && r != split_hi);
+    };
     int cur = -1;
     bool head = true;  // the current run is the span's first
     bool finish = false;
@@ -337,14 +469,13 @@ __global__ void __launch_bounds__(kThreads, NB <= 2 ? 4 : 2) runs_kernel(const A
       } else if (last_run && cur == next_ld) {
         finish = true;
       } else if (base + cur < a.num_nodes) {
-        write_run<VEC, NB>(oc + (base + cur) * row_len, acc, nb_out, a.din,
-                           cur >= own_lo && cur < own_hi && cur != split_lo && cur != split_hi);
+        run_to_row(cur);
       }
     };
     if (active) {
       for (int i0 = lo; i0 < hi; i0 += B) {
         int ld[B];
-        float xv[B][NX][VEC];
+        RowVec<TX, VEC> xv[B][NX];
 #pragma unroll
         for (int j = 0; j < B; ++j) {
           ld[j] = -1;
@@ -353,7 +484,7 @@ __global__ void __launch_bounds__(kThreads, NB <= 2 ? 4 : 2) runs_kernel(const A
             const long long row = static_cast<long long>(e.x) * a.din;
             ld[j] = e.y;
 #pragma unroll
-            for (int q = 0; q < NX; ++q) load_vec<VEC>(xc + q * a.table_plane + row, xv[j][q]);
+            for (int q = 0; q < NX; ++q) xv[j][q] = load_vec<TX, VEC>(xc + q * a.table_plane + row);
           }
         }
 #pragma unroll
@@ -376,19 +507,19 @@ __global__ void __launch_bounds__(kThreads, NB <= 2 ? 4 : 2) runs_kernel(const A
 #pragma unroll
               for (int b = 0; b < NB; ++b)
 #pragma unroll
-                for (int e = 0; e < VEC; ++e) acc[0][e] += wv[b] * xv[j][b][e];
+                for (int e = 0; e < VEC; ++e) acc[0][e] += wv[b] * xv[j][b].get(e);
             } else {
               float ws = 0.f;
 #pragma unroll
               for (int b = 0; b < NB; ++b) ws += wv[b];
 #pragma unroll
-              for (int e = 0; e < VEC; ++e) acc[0][e] += ws * xv[j][0][e];
+              for (int e = 0; e < VEC; ++e) acc[0][e] += ws * xv[j][0].get(e);
             }
           } else {
 #pragma unroll
             for (int b = 0; b < NB; ++b)
 #pragma unroll
-              for (int e = 0; e < VEC; ++e) acc[b][e] += wv[b] * xv[j][PER_BASIS ? b : 0][e];
+              for (int e = 0; e < VEC; ++e) acc[b][e] += wv[b] * xv[j][PER_BASIS ? b : 0].get(e);
           }
         }
       }
@@ -406,66 +537,71 @@ __global__ void __launch_bounds__(kThreads, NB <= 2 ? 4 : 2) runs_kernel(const A
         const int hi2 = min((g2 + 1) * span, n_lanes);
         if (hi2 >= n_lanes || lanes[hi2].y != cur) break;  // the run ends in span g2
       }
-      if (base + cur < a.num_nodes)
-        write_run<VEC, NB>(oc + (base + cur) * row_len, acc, nb_out, a.din,
-                           cur >= own_lo && cur < own_hi && cur != split_lo && cur != split_hi);
+      if (base + cur < a.num_nodes) run_to_row(cur);
     }
     __syncthreads();  // the partials are reused by the next pass
   }
 
   // the owned rows that no lane reaches: zeros, a warp a row (a row of the
-  // node-major output is nb_out * din consecutive floats)
+  // node-major output is nb_out * din consecutive values)
   const int own_end = static_cast<int>(min(static_cast<long long>(own_hi), a.num_nodes - base));
   const int n_vec = static_cast<int>(row_len / VEC);
+  const float zeros[VEC] = {};
   for (int r = own_lo + warp; r < own_end; r += kWarps) {
     if (off[r + 1] != off[r]) continue;  // warp-uniform
-    float* q = a.out + (base + r) * row_len;
-    for (int i = lane; i < n_vec; i += 32) {
-      if constexpr (VEC == 4) reinterpret_cast<float4*>(q)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      else q[i] = 0.f;
-    }
+    TO* q = static_cast<TO*>(a.out) + (base + r) * row_len;
+    for (int i = lane; i < n_vec; i += 32) store_vec<TO, VEC>(q + i * VEC, zeros);
   }
 }
 
-template <int VEC, int NB, bool PER_BASIS>
+template <typename TX, typename TO, int VEC, int NB, bool PER_BASIS>
 cudaError_t launch_runs(const Args& a, size_t smem, cudaStream_t st) {
   if (smem > kStaticSmem) {
     const cudaError_t e = cudaFuncSetAttribute(
-        runs_kernel<VEC, NB, PER_BASIS>,
+        runs_kernel<TX, TO, VEC, NB, PER_BASIS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  runs_kernel<VEC, NB, PER_BASIS><<<a.n_chunks, kThreads, smem, st>>>(a);
+  runs_kernel<TX, TO, VEC, NB, PER_BASIS><<<a.n_chunks, kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-// Zero the rows the main kernel adds to, then run it (with per-basis tables
-// when PER_BASIS).
-template <bool PER_BASIS>
+// Zero the f32 rows the main kernel adds to, run it (with per-basis tables
+// when PER_BASIS), and for a bf16 output narrow those rows after. A table
+// of TX, an output of TO: (f32, f32), (bf16, f32) or (bf16, bf16).
+template <typename TX, typename TO, bool PER_BASIS>
 cudaError_t run(const Args& a, int nb, cudaStream_t st) {
   if (a.n_chunks < 1 || a.chunk < 1 || a.row_block < 1 || a.din < 1 || a.kk < 1 ||
-      nb < 1 || nb > 8 || (a.dst_sorted && a.kk != 1))
+      nb < 1 || nb > 8 || (a.dst_sorted && a.kk != 1) || a.acc == nullptr)
     return cudaErrorInvalidValue;
   const int nb_out = a.sum_bases ? 1 : nb;
-  const bool vec4 = a.din % 4 == 0 && reinterpret_cast<std::uintptr_t>(a.x) % 16 == 0 &&
-                    reinterpret_cast<std::uintptr_t>(a.out) % 16 == 0;
-  const size_t smem = smem_bytes(a.row_block, a.kk, a.chunk, nb);
+  constexpr int kVec = 16 / sizeof(TX);  // values of a 16-byte row vector
+  const bool wide = a.din % kVec == 0 && reinterpret_cast<std::uintptr_t>(a.x) % 16 == 0 &&
+                    reinterpret_cast<std::uintptr_t>(a.out) % 16 == 0 &&
+                    reinterpret_cast<std::uintptr_t>(a.acc) % 16 == 0;
+  const size_t smem = smem_bytes(a.row_block, a.kk, a.chunk, nb, wide ? kVec : 1);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  zero_shared_rows<<<dim3(a.n_chunks, a.dst_sorted ? 1 : kZeroParts), kThreads, 0, st>>>(
-      a.chunk_block, a.local, a.out, a.n_chunks, a.chunk, a.row_block, nb_out * a.din,
+  const dim3 rows_grid(a.n_chunks, a.dst_sorted ? 1 : kZeroParts);
+  zero_shared_rows<<<rows_grid, kThreads, 0, st>>>(
+      a.chunk_block, a.local, a.acc, a.n_chunks, a.chunk, a.row_block, nb_out * a.din,
       a.num_nodes, a.dst_sorted);
-  const cudaError_t err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   switch (nb) {
 #define WR_CASE(N)                                                          \
   case N:                                                                   \
-    return vec4 ? launch_runs<4, N, PER_BASIS>(a, smem, st)                 \
-                : launch_runs<1, N, PER_BASIS>(a, smem, st);
+    err = wide ? launch_runs<TX, TO, kVec, N, PER_BASIS>(a, smem, st)       \
+               : launch_runs<TX, TO, 1, N, PER_BASIS>(a, smem, st);         \
+    break;
     WR_CASE(1) WR_CASE(2) WR_CASE(3) WR_CASE(4)
     WR_CASE(5) WR_CASE(6) WR_CASE(7) WR_CASE(8)
 #undef WR_CASE
   }
-  return cudaErrorInvalidValue;
+  if (err != cudaSuccess || sizeof(TO) == 4) return err;
+  narrow_shared_rows<<<rows_grid, kThreads, 0, st>>>(
+      a.chunk_block, a.local, a.acc, static_cast<__nv_bfloat16*>(a.out), a.n_chunks, a.chunk,
+      a.row_block, nb_out * a.din, a.num_nodes, a.dst_sorted);
+  return cudaGetLastError();
 }
 
 }  // namespace wruns

@@ -40,6 +40,8 @@ class LinkPredictor(nn.Module):
     of an edge-sharded EdgeSet (JAX ``axis_name``); ``decoder_group``: the
     ranks the scoring batch is split over (JAX ``decoder_axis_name``,
     default ``group``; on a 2-D mesh every rank). None on one device.
+    ``decoder_bwd_dtype``: the structured decoder's narrow backward (JAX
+    ``decoder_bwd_dtype``, see :class:`~rgcn_tpu_torch.nn.layers.DistMult`).
     """
 
     def __init__(
@@ -62,6 +64,7 @@ class LinkPredictor(nn.Module):
         decoder_weight_init: str = "standard-normal",
         decoder_include_gain: bool = False,
         decoder_bias_init: Optional[str] = None,
+        decoder_bwd_dtype=None,
         seed: int = 0,
         group=None,
         decoder_group=None,
@@ -97,6 +100,7 @@ class LinkPredictor(nn.Module):
             weight_init=decoder_weight_init, weight_gain=decoder_include_gain,
             bias_init=decoder_bias_init, generator=gen,
             group=group if decoder_group is None else decoder_group,
+            bwd_dtype=decoder_bwd_dtype,
         )
 
     def _encoder_layers(self, conv, gen, emb_dim, nhid1, hidden2_size):
@@ -244,6 +248,7 @@ def build_lp_model(cfg, num_nodes: int, num_rels: int, seed: int = 0,
         decoder_weight_init=dec.weight_init,
         decoder_include_gain=dec.include_gain,
         decoder_bias_init=dec.bias_init,
+        decoder_bwd_dtype=dec.bwd_dtype,
         seed=seed,
         group=group,
         decoder_group=decoder_group,

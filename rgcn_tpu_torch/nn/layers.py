@@ -69,6 +69,16 @@ frame, or over the destination layout in slot order, both ways), on a CPU
 tensor the plain :func:`~rgcn_tpu_torch.ops.spmm.rel_spmm_diag`; the self
 message is ``x ⊙ weights[-1]``.
 
+The edge stage's compute dtype (:func:`_edge_compute_dtype`, the
+counterpart of the JAX layer's ``_tpu_compute_dtype``): where the edge
+stage runs on a CUDA device, the five branches where the JAX layer narrows
+it run their gather tables and messages in bf16 with f32 sums, as the JAX
+package runs them on a TPU: the diagonal layer, the featureless basis
+layer (at most 8 bases, and more), the featureful basis layer with at
+most 8 bases, and the unique-(src, rel) pair branch. On the CPU they stay
+f32. The dense and block paths, c-RGCN's bottleneck and every self
+message are f32 on both, as on a TPU.
+
 Edge-sharded training (:mod:`rgcn_tpu_torch.dist`): with ``group`` set
 (a ``torch.distributed`` process group; None means one device) a layer's
 EdgeSet is this rank's shard, every edge-partial aggregate is summed over
@@ -110,6 +120,17 @@ from rgcn_tpu_torch.ops.diag import rel_spmm_diag_ad
 from rgcn_tpu_torch.ops.rel_spmm import rel_spmm_ad
 
 __all__ = ["RGCNConv", "DistMult", "TorchLinear", "check_plain_path", "expand_blocks"]
+
+
+def _edge_compute_dtype(device) -> Optional[torch.dtype]:
+    """The edge stage's compute dtype on ``device``: bf16 where it runs on
+    a CUDA device, None (f32) elsewhere. The counterpart of the JAX
+    layer's ``_tpu_compute_dtype`` (``rgcn_tpu/nn/layers.py:45-55``), with
+    the card in place of a TPU: the gather-bound branches run their tables
+    and messages in bf16 with f32 accumulation, halving their dominant
+    bytes, and the CPU stays f32 for exactness. This is the one place that
+    chooses it; the layer asks it at the JAX layer's five branches."""
+    return torch.bfloat16 if torch.device(device).type == "cuda" else None
 
 
 def _aggregate_k1(msgs, edges):
@@ -283,14 +304,15 @@ class RGCNConv(nn.Module):
                            self_msg.new_zeros(()))
 
     def _diag(self, edges, x, mask):
-        """Diagonal weights: the plain path on a CPU tensor, else K1 (or
-        raise, without a layout)."""
+        """Diagonal weights: the plain path on a CPU tensor in f32, else K1
+        with the edge stage's compute dtype (or raise, without a layout)."""
         dw, fan = self.weights, self._fan
-        if x.device.type == "cpu" or edges.layout is None:
+        cd = _edge_compute_dtype(x.device)
+        if (x.device.type == "cpu" and cd is None) or edges.layout is None:
             check_plain_path(x.device)
             agg = spmm_ops.rel_spmm_diag(edges, fan(x), fan(dw[:-1]))
         else:
-            agg = rel_spmm_diag_ad(edges, fan(x), fan(dw[:-1]))
+            agg = rel_spmm_diag_ad(edges, fan(x), fan(dw[:-1]), compute_dtype=cd)
         return self._reduce(agg) + self._self(x * dw[-1], mask)
 
     def _dense(self, edges, x, w, mask):
@@ -318,15 +340,17 @@ class RGCNConv(nn.Module):
         bases, comps = self.bases, self.comps
         fb, fc = self._fan(bases), self._fan(comps[:-1])
         many = comps.shape[1] > MAX_BASES
+        cd = _edge_compute_dtype(bases.device)
         if x is None:
             if edges.layout is None:
                 check_plain_path(bases.device)
-                agg = spmm_ops.rel_spmm_featureless_basis(edges, fb, fc)
+                agg = spmm_ops.rel_spmm_featureless_basis(edges, fb, fc,
+                                                          compute_dtype=cd)
             elif many:
                 agg = spmm_ops.rel_spmm_featureless_basis(
-                    edges, fb, fc, aggregate=_aggregate_k1)
+                    edges, fb, fc, aggregate=_aggregate_k1, compute_dtype=cd)
             else:
-                agg = rel_spmm_featureless_basis_fwd(edges, fb, fc)
+                agg = rel_spmm_featureless_basis_fwd(edges, fb, fc, compute_dtype=cd)
             with full_f32_matmul():
                 self_msg = torch.einsum("b,bno->no", comps[-1], bases)
                 return self._reduce(agg) + self._self(self_msg, mask)
@@ -334,7 +358,8 @@ class RGCNConv(nn.Module):
             # H = stack_b(x @ bases_b), contracted once per (src, rel) pair
             agg = spmm_ops.rel_spmm_basis_pairs(
                 edges, self._fan(x), fb, fc,
-                aggregate=_aggregate_k1 if edges.layout is not None else None)
+                aggregate=_aggregate_k1 if edges.layout is not None else None,
+                compute_dtype=cd)
             with full_f32_matmul():
                 self_msg = x @ torch.einsum("b,bio->io", comps[-1], bases)
                 return self._reduce(agg) + self._self(self_msg, mask)
@@ -344,7 +369,7 @@ class RGCNConv(nn.Module):
             with full_f32_matmul():
                 w = torch.einsum("rb,bio->rio", comps, bases)
             return self._dense(edges, x, w, mask)
-        agg = rel_spmm_basis(edges, self._fan(x), fb, fc)
+        agg = rel_spmm_basis(edges, self._fan(x), fb, fc, compute_dtype=cd)
         with full_f32_matmul():
             self_msg = x @ torch.einsum("b,bio->io", comps[-1], bases)
             return self._reduce(agg) + self._self(self_msg, mask)
@@ -389,8 +414,11 @@ class DistMult(nn.Module):
     :func:`~rgcn_tpu_torch.ops.distmult_train.distmult_score_agg` (and
     :meth:`score_with_s_penalty`, its fused Schlichtkrull penalty), K1
     for ``d nodes``; with biases, through the plain ``distmult_score``
-    and autograd, the JAX package's own route there. The JAX scorer's
-    narrow ``bwd_dtype`` option is not ported. ``group``: the ranks a
+    and autograd, the JAX package's own route there. ``bwd_dtype`` (the
+    config's ``decoder.bwd_dtype``: ``"bfloat16"``, a torch dtype, or None)
+    narrows the structured scorer's backward, as the JAX scorer's does:
+    its gather table and its corrupted-row residual are stored in it, the
+    sums stay f32 and the forward is unchanged. ``group``: the ranks a
     sharded scoring batch is split over (its replicated inputs are
     fanned out in the training scorers and penalties), None on one device.
     """
@@ -405,9 +433,11 @@ class DistMult(nn.Module):
         bias_init: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
         group=None,
+        bwd_dtype=None,
     ):
         super().__init__()
         self.group = group
+        self.bwd_dtype = distmult_train.narrow_dtype(bwd_dtype)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         gain = rinit.relu_gain() if weight_gain else 1.0
@@ -483,7 +513,7 @@ class DistMult(nn.Module):
             raise ValueError("structured scoring is bias-free only")
         return distmult_train.structured_scores(
             positives, corrupt_head, corrupt_ent, self._fan(nodes),
-            self._fan(self.relations), pw, layouts)
+            self._fan(self.relations), pw, layouts, bwd_dtype=self.bwd_dtype)
 
     def score_heads(self, batch: torch.Tensor, nodes: torch.Tensor,
                     candidate_slice=None) -> torch.Tensor:

@@ -12,7 +12,10 @@ tensor they take the plain PyTorch version beside them. The kernel spreads
 each chunk over warps of lane groups that sum runs of one destination in
 registers and finish them with f32 atomics into a zeroed output, so a hub
 row block is spread over as many CTAs as it has chunks; a warp whose span
-holds only pads returns after loading its ``local_dst`` once.
+holds only pads returns after loading its ``local_dst`` once. Messages are
+f32 or bf16 (the edge stage's compute dtype): bf16 messages launch K1's
+bf16 form (``kernels/csrc/k1_aggregate_bf16.cu``), and both routes sum in
+f32 into an f32 output, as the Pallas kernel's default ``out_dtype``.
 
 :func:`aggregate_sorted` has a backward (counterpart of ``_agg_ad``,
 ``pallas_aggregate.py:316-346``): the sum is linear, so the messages'
@@ -150,10 +153,23 @@ def build_dst_layout(
     )
 
 
+# message dtypes K1 and its plain version take; the plain version also sums
+# f64 rows, in f64 (an exact reference for the kernel's f32 sums)
+_MSG_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_msgs(msgs: torch.Tensor) -> None:
+    if msgs.dtype not in _MSG_DTYPES:
+        raise TypeError(f"messages of dtype {msgs.dtype}: K1 takes float32 or bfloat16")
+
+
 def blocked_sum(msgs_sorted, local_dst, chunk_block, num_row_blocks,
                  row_block, num_nodes):
     """Plain sum of destination-sorted rows into their row blocks, in f32
-    (in f64 for f64 rows: an exact reference for a kernel's f32 sums)."""
+    (bf16 rows widened exactly, as K1's bf16 form reads them), or in f64
+    for f64 rows (an exact reference for a kernel's f32 sums)."""
+    if msgs_sorted.dtype != torch.float64:
+        _check_msgs(msgs_sorted)
     chunk = local_dst.shape[1]
     local = local_dst.reshape(-1).long()
     rows = chunk_block.long().repeat_interleave(chunk) * row_block + local
@@ -189,14 +205,15 @@ def aggregate_sorted_plain(
 def aggregate_presorted(
     msgs_sorted: torch.Tensor, layout: DstLayout, num_nodes: int
 ) -> torch.Tensor:
-    """Aggregate already destination-sorted messages ``(L, dout)`` f32
-    into ``(num_nodes, dout)`` f32. No backward: on the card, grad mode
-    with ``msgs_sorted`` requiring grad raises."""
+    """Aggregate already destination-sorted messages ``(L, dout)`` f32 or
+    bf16 into ``(num_nodes, dout)`` f32, summed in f32. No backward: on the
+    card, grad mode with ``msgs_sorted`` requiring grad raises."""
     if msgs_sorted.shape[0] != layout.num_chunks * layout.chunk:
         raise ValueError(
             f"{msgs_sorted.shape[0]} sorted messages for a layout of "
             f"{layout.num_chunks * layout.chunk} slots"
         )
+    _check_msgs(msgs_sorted)
     if msgs_sorted.device.type == "cpu":
         return aggregate_presorted_plain(msgs_sorted, layout, num_nodes)
     kernels.refuse_grad("aggregate_presorted (K1)", msgs_sorted)
@@ -214,6 +231,7 @@ def gather_by_dst(g: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
 
 
 def _aggregate_sorted(messages, layout, num_nodes):
+    _check_msgs(messages)
     if messages.device.type == "cpu":
         return aggregate_sorted_plain(messages, layout, num_nodes)
     return kernels.launch_k1_aggregate(
@@ -240,8 +258,8 @@ def aggregate_sorted(
     messages: torch.Tensor, layout: DstLayout, num_nodes: int,
     dst: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Aggregate edge-order messages ``(E, dout)`` f32 into
-    ``(num_nodes, dout)``. The kernel reads each slot's row through
+    """Aggregate edge-order messages ``(E, dout)`` f32 or bf16 into
+    ``(num_nodes, dout)`` f32. The kernel reads each slot's row through
     ``layout.perm``; the destination-sorted copy never exists.
 
     Differentiable in ``messages``: with grad enabled and ``messages``

@@ -24,9 +24,15 @@ permutation. Two frames, each one ``torch.autograd.Function``:
 The gathers and products around K1 are torch ops: the TPU computes them
 in the kernel's input pipeline (``input_fusion=True``), so the ``(L, d)``
 message tensor never lands in its memory; here it does. The small
-products run in full f32 (the JAX package's ``precision="highest"``), and
-so does everything else: the JAX package's bf16 messages on a TPU
-(``_tpu_compute_dtype``) are not ported. ``val`` is read from the EdgeSet
+products (``coeff @ dw``) run in full f32 (the JAX package's
+``precision="highest"``). ``compute_dtype`` (bf16 on the card, chosen by
+:func:`rgcn_tpu_torch.nn.layers._edge_compute_dtype`; None keeps f32)
+builds the messages in bf16 at JAX's cast points (``pallas_diag.py:58-100``,
+``:115-170``): ``x``, ``dw`` (or the merged frame's ``dvec``) and ``val``
+are cast before the gathers, every product rounds to bf16, and K1's bf16
+form sums the half-width ``(L, d)`` messages in f32 into an f32 output;
+``d dw`` sums the bf16 products ``x ⊙ (g · val)`` (merged: ``x ⊙ g``) in
+f32. ``val`` is read from the EdgeSet
 at each call in the unmerged frame; the merged frame's ``coeff`` and
 ``rev_coeff`` are the layout's snapshot of it (see
 :mod:`rgcn_tpu_torch.graph.coalesce`). On CPU tensors K1 is its plain
@@ -38,7 +44,7 @@ from __future__ import annotations
 import torch
 
 from rgcn_tpu_torch.ops.aggregate import _zero_row, aggregate_presorted, gather_by_dst
-from rgcn_tpu_torch.ops.basis import full_f32_matmul
+from rgcn_tpu_torch.ops.basis import _narrow, full_f32_matmul
 
 __all__ = [
     "diag_slot_messages",
@@ -48,27 +54,39 @@ __all__ = [
 ]
 
 
-def diag_slot_messages(x: torch.Tensor, dw: torch.Tensor, edges) -> torch.Tensor:
+def diag_slot_messages(x: torch.Tensor, dw: torch.Tensor, edges,
+                       compute_dtype=None) -> torch.Tensor:
     """``(L, d)`` messages ``x[src_s] ⊙ dw[rel_s] · val_s`` in the slot
-    order of ``edges.layout``; pad slots read ``(0, 0, 0.0)``."""
+    order of ``edges.layout``; pad slots read ``(0, 0, 0.0)``. With a
+    compute dtype the three operands are cast before the gathers and each
+    product rounds to it."""
     perm = edges.layout.perm.long()
     src_s = _zero_row(edges.src)[perm].long()
     rel_s = _zero_row(edges.rel)[perm].long()
-    val_s = _zero_row(edges.val)[perm]
+    val_s = _narrow(_zero_row(edges.val)[perm], compute_dtype)
+    x, dw = _narrow(x, compute_dtype), _narrow(dw, compute_dtype)
     return x[src_s] * dw[rel_s] * val_s[:, None]
 
 
-def _diag_sorted_agg(x, dw, edges):
-    return aggregate_presorted(diag_slot_messages(x, dw, edges), edges.layout,
-                               edges.num_nodes)
+def _diag_sorted_agg(x, dw, edges, compute_dtype=None):
+    return aggregate_presorted(diag_slot_messages(x, dw, edges, compute_dtype),
+                               edges.layout, edges.num_nodes)
 
 
-def diag_weight_grad(x: torch.Tensor, g: torch.Tensor, edges) -> torch.Tensor:
-    """``d dw (R, d)``: ``Σ_{e ∈ r} val_e · x[src_e] ⊙ g[dst_e]``, the pad
-    edges reading a zero row of ``g`` (their ``rel`` is their tile's, in
-    range)."""
-    t = x[edges.src.long()] * gather_by_dst(g, edges.dst) * edges.val[:, None]
-    return t.new_zeros((edges.num_rels, x.shape[1])).index_add_(0, edges.rel.long(), t)
+def diag_weight_grad(x: torch.Tensor, g: torch.Tensor, edges,
+                     compute_dtype=None) -> torch.Tensor:
+    """``d dw (R, d)`` f32: ``Σ_{e ∈ r} val_e · x[src_e] ⊙ g[dst_e]``, the
+    pad edges reading a zero row of ``g`` (their ``rel`` is their tile's,
+    in range). With a compute dtype the products ``x ⊙ (g · val)`` are
+    taken in it, as JAX's ``_diag_ad_bwd`` takes them, and summed in
+    f32."""
+    src, rel = edges.src.long(), edges.rel.long()
+    if compute_dtype is None:
+        t = x[src] * gather_by_dst(g, edges.dst) * edges.val[:, None]
+    else:
+        gv = gather_by_dst(g.to(compute_dtype), edges.dst) * edges.val.to(compute_dtype)[:, None]
+        t = (x.to(compute_dtype)[src] * gv).float()
+    return t.new_zeros((edges.num_rels, x.shape[1])).index_add_(0, rel, t)
 
 
 class _DiagUnmerged(torch.autograd.Function):
@@ -76,22 +94,22 @@ class _DiagUnmerged(torch.autograd.Function):
     ``d dw`` by :func:`diag_weight_grad`. The EdgeSet rides on ``ctx``."""
 
     @staticmethod
-    def forward(ctx, x, dw, edges):
-        ctx.edges = edges
+    def forward(ctx, x, dw, edges, compute_dtype):
+        ctx.edges, ctx.compute_dtype = edges, compute_dtype
         ctx.save_for_backward(x, dw)
-        return _diag_sorted_agg(x, dw, edges)
+        return _diag_sorted_agg(x, dw, edges, compute_dtype)
 
     @staticmethod
     def backward(ctx, g):
         x, dw = ctx.saved_tensors
-        edges = ctx.edges
+        edges, cd = ctx.edges, ctx.compute_dtype
         g = g.contiguous()
         dx = ddw = None
         if ctx.needs_input_grad[0]:
-            dx = _diag_sorted_agg(g, dw, edges.reverse)
+            dx = _diag_sorted_agg(g, dw, edges.reverse, cd)
         if ctx.needs_input_grad[1]:
-            ddw = diag_weight_grad(x, g, edges)
-        return dx, ddw, None
+            ddw = diag_weight_grad(x, g, edges, cd)
+        return dx, ddw, None, None
 
 
 def merged_dvec(coeff: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
@@ -106,39 +124,43 @@ class _DiagMerged(torch.autograd.Function):
     and one small product for ``d dw``. The layout rides on ``ctx``."""
 
     @staticmethod
-    def forward(ctx, x, dw, merged):
-        ctx.merged = merged
+    def forward(ctx, x, dw, merged, compute_dtype):
+        ctx.merged, ctx.compute_dtype = merged, compute_dtype
         ctx.save_for_backward(x, dw)
-        rows = x[merged.src_sorted.long()]
-        return aggregate_presorted(rows * merged_dvec(merged.coeff, dw), merged.layout,
-                                   merged.num_nodes)
+        rows = _narrow(x, compute_dtype)[merged.src_sorted.long()]
+        dvec = _narrow(merged_dvec(merged.coeff, dw), compute_dtype)
+        return aggregate_presorted(rows * dvec, merged.layout, merged.num_nodes)
 
     @staticmethod
     def backward(ctx, g):
         x, dw = ctx.saved_tensors
-        m = ctx.merged
-        gg = g.contiguous()[m.rev_src_sorted.long()]  # (L', d), reused for d dw
+        m, cd = ctx.merged, ctx.compute_dtype
+        # (L', d) cotangent rows, in the compute dtype, reused for d dw
+        gg = _narrow(g.contiguous(), cd)[m.rev_src_sorted.long()]
         dx = ddw = None
         if ctx.needs_input_grad[0]:
-            dx = aggregate_presorted(gg * merged_dvec(m.rev_coeff, dw), m.rev_layout,
-                                     m.num_nodes)
+            dvec = _narrow(merged_dvec(m.rev_coeff, dw), cd)
+            dx = aggregate_presorted(gg * dvec, m.rev_layout, m.num_nodes)
         if ctx.needs_input_grad[1]:
+            t = (_narrow(x, cd)[m.rev_receiver.long()] * gg).float()
             with full_f32_matmul():
-                ddw = m.rev_coeff.t() @ (x[m.rev_receiver.long()] * gg)
-        return dx, ddw, None
+                ddw = m.rev_coeff.t() @ t
+        return dx, ddw, None, None
 
 
-def rel_spmm_diag_ad(edges, x: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
+def rel_spmm_diag_ad(edges, x: torch.Tensor, dw: torch.Tensor,
+                     compute_dtype=None) -> torch.Tensor:
     """Differentiable diagonal SpMM of ``x (N, d)`` f32 with the general
     relations' weight vectors ``dw (R', d)``: the merged frame when
     ``edges.merged`` exists, else the unmerged one, which needs
     ``edges.layout`` and ``edges.reverse`` (``build_edge_set(...,
-    with_dst_layout=True)``)."""
+    with_dst_layout=True)``). ``compute_dtype`` (bf16 or None): the
+    messages' dtype (see the module docstring); the result is f32."""
     if edges.merged is not None:
-        return _DiagMerged.apply(x, dw, edges.merged)
+        return _DiagMerged.apply(x, dw, edges.merged, compute_dtype)
     if edges.layout is None or edges.reverse is None:
         raise ValueError(
             "rel_spmm_diag_ad needs an EdgeSet built with with_dst_layout=True "
             "(layout + reverse present)"
         )
-    return _DiagUnmerged.apply(x, dw, edges)
+    return _DiagUnmerged.apply(x, dw, edges, compute_dtype)

@@ -37,10 +37,21 @@ Schlichtkrull penalty), the counterparts of ``distmult_score_agg_ad`` and
 subject and object rows into ``d nodes`` by K1 through the perm of
 :func:`build_batch_layouts`' two layouts (JAX's ``_rows_to_nodes``), and
 ``d relations`` with ``index_add_`` (JAX's one-hot product: the same
-sum). The narrow ``bwd_dtype`` option is not ported.
+sum).
+
+The structured scorer's narrow backward (``bwd_dtype``, the config's
+``decoder.bwd_dtype``; ``pallas_distmult.py:336-413``): the ``(P, ns, d)``
+corrupted-row residual is saved in it, and the corrupted entities' two K4
+sums gather from one ``[q ; k ; nodes]`` table cast to it (K4's bf16 form
+rounds each weight to bf16 and sums in f32 into an f32 output). The
+forward, its scores and its penalty are the f32 path's bit for bit; the
+gradients are sums over the narrowed rows. Without layouts a set
+``bwd_dtype`` warns and is ignored, as JAX's ``layouts=None`` does.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -49,8 +60,19 @@ from rgcn_tpu_torch.ops.aggregate import aggregate_sorted, build_dst_layout
 from rgcn_tpu_torch.ops.basis import weighted_aggregate
 
 __all__ = ["build_batch_layouts", "build_structured_layouts",
-           "distmult_score_agg", "distmult_score_spenalty_agg", "padded_layout",
-           "scoring_rows", "structured_scores"]
+           "distmult_score_agg", "distmult_score_spenalty_agg", "narrow_dtype",
+           "padded_layout", "scoring_rows", "structured_scores"]
+
+
+def narrow_dtype(dtype) -> "torch.dtype | None":
+    """A config's dtype name (``"bfloat16"``), a torch dtype, or None, as
+    a torch dtype or None."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    found = getattr(torch, str(dtype), None)
+    if not isinstance(found, torch.dtype) or not found.is_floating_point:
+        raise ValueError(f"bwd_dtype: {dtype!r} is not a floating-point dtype")
+    return found
 
 
 def padded_layout(ids: np.ndarray, num_nodes: int, row_block: int, chunk: int,
@@ -137,11 +159,14 @@ class _Structured(torch.autograd.Function):
     and ``relations`` only. The layouts ride on ``ctx``."""
 
     @staticmethod
-    def forward(ctx, nodes, relations, positives, ch, corrupt_ent, pw, layouts):
+    def forward(ctx, nodes, relations, positives, ch, corrupt_ent, pw, layouts,
+                bwd_dtype):
         scores, penalty, res = _forward(positives, ch, corrupt_ent, nodes,
                                         relations, pw)
-        ctx.layouts = layouts
+        ctx.layouts, ctx.bwd_dtype = layouts, bwd_dtype
         ctx.num_rels = relations.shape[0]
+        if bwd_dtype is not None:  # the corrupted rows, the widest residual
+            res = res[:6] + (res[6].to(bwd_dtype),) + res[7:]
         ctx.save_for_backward(nodes, positives, *res)
         return scores, penalty
 
@@ -160,9 +185,13 @@ class _Structured(torch.autograd.Function):
         zero = gs.new_zeros(1)
         ge = torch.cat([gs_neg.reshape(-1), zero])[perm]
         pwz = torch.cat([pw_neg.reshape(-1), zero])[perm]
-        dz = weighted_aggregate(torch.cat([q, k]), qk_idx, ge[None], c_lay,
-                                num_nodes)[0]
-        dz = dz + weighted_aggregate(nodes, ce_sorted, (pc * pwz)[None], c_lay,
+        if ctx.bwd_dtype is None:
+            qk_table, ce_table, ce_rows = torch.cat([q, k]), nodes, ce_sorted
+        else:  # one narrow [q ; k ; nodes] table, as JAX gathers both terms
+            qk_table = ce_table = torch.cat([q, k, nodes]).to(ctx.bwd_dtype)
+            ce_rows = ce_sorted + 2 * p_count
+        dz = weighted_aggregate(qk_table, qk_idx, ge[None], c_lay, num_nodes)[0]
+        dz = dz + weighted_aggregate(ce_table, ce_rows, (pc * pwz)[None], c_lay,
                                      num_nodes)[0]
 
         # 2) positives' subjects: the positive, the tail-corrupted negatives
@@ -185,12 +214,13 @@ class _Structured(torch.autograd.Function):
                     + (pc * pw_all)[:, None] * rp)
         drel = rel_rows.new_zeros((ctx.num_rels, d)).index_add_(
             0, positives[:, 1], rel_rows)
-        return dz, drel, None, None, None, None, None
+        return dz, drel, None, None, None, None, None, None
 
 
 def structured_scores(positives: torch.Tensor, corrupt_head: torch.Tensor,
                       corrupt_ent: torch.Tensor, nodes: torch.Tensor,
-                      relations: torch.Tensor, pw: torch.Tensor, layouts):
+                      relations: torch.Tensor, pw: torch.Tensor, layouts,
+                      bwd_dtype=None):
     """``(scores [positives ; negatives] (P + Ns,), Schlichtkrull penalty)``
     of a structured batch: ``positives (P, 3)``, ``corrupt_head (Ns,)``
     bool, ``corrupt_ent (Ns,)`` (Ns = P·ns, negative ``j`` of positive ``j
@@ -201,13 +231,21 @@ def structured_scores(positives: torch.Tensor, corrupt_head: torch.Tensor,
     layout-free mode of the device-built epochs: the same forward, so the
     same scores bit for bit, and plain autograd for the backward (the
     row gathers' index-put sums, equal to the layout path up to f32
-    reassociation), as JAX's ``layouts=None``."""
+    reassociation), as JAX's ``layouts=None``. ``bwd_dtype`` (e.g.
+    ``torch.bfloat16``) narrows the layout path's backward (see the module
+    docstring); without layouts a set value warns and is ignored."""
     positives, corrupt_ent = positives.long(), corrupt_ent.long()
+    bwd_dtype = narrow_dtype(bwd_dtype)
     if layouts is None:
+        if bwd_dtype is not None:
+            warnings.warn(
+                "structured_scores: bwd_dtype only applies with host-built "
+                "layouts; the layout-free (layouts=None) backward is plain f32 "
+                "autograd -- ignoring bwd_dtype", stacklevel=2)
         return _forward(positives, corrupt_head, corrupt_ent, nodes, relations, pw)[:2]
     if _wants_grad(nodes, relations):
         return _Structured.apply(nodes, relations, positives, corrupt_head,
-                                 corrupt_ent, pw, layouts)
+                                 corrupt_ent, pw, layouts, bwd_dtype)
     scores, penalty, _ = _forward(positives, corrupt_head, corrupt_ent, nodes,
                                   relations, pw)
     return scores, penalty

@@ -15,6 +15,20 @@ messages to K1 through the composed layout
 (:func:`~rgcn_tpu_torch.ops.aggregate.aggregate_pairs`); the wide gather's
 backward is K1 too (:func:`gather_rows_agg`), so the training step has no
 scatter.
+
+``compute_dtype`` (bf16 on the card, chosen by
+:func:`rgcn_tpu_torch.nn.layers._edge_compute_dtype`; None keeps f32) is
+the dtype of the basis-row gather table, cast where JAX casts it
+(``ops/spmm.py:190-290``, ``:460-493``): the featureless ``bases`` and the
+featureful ``H`` before the gather, the coefficients with them. The
+per-tile and grouped contractions take exact products of the bf16 values
+and sum them in f32; the ungrouped pair contraction rounds each term
+``rows · coef`` to bf16 before its f32 sum, where JAX's GEMM form
+(``_expand_collapse``, ``ops/spmm.py:434-439``) rounds it. The messages
+that reach K1 are f32, as in JAX. The coefficients are rounded to the
+compute dtype and widened back before their gather (the same values), so
+their gradient sums in f32 and rounds once to bf16, where JAX's bf16
+gather scatter-adds in bf16.
 """
 
 from __future__ import annotations
@@ -24,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from rgcn_tpu_torch.device import check_plain_path
 from rgcn_tpu_torch.ops.aggregate import aggregate_pairs, aggregate_sorted
-from rgcn_tpu_torch.ops.basis import full_f32_matmul
+from rgcn_tpu_torch.ops.basis import _narrow, full_f32_matmul
 
 __all__ = [
     "aggregate_messages",
@@ -111,8 +125,14 @@ def rel_spmm_featureless(edges, weights: torch.Tensor, *, aggregate=None) -> tor
     return aggregate_messages(msgs, edges.dst, edges.num_nodes)
 
 
+def _rounded(t: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """``t`` rounded to the compute dtype and widened back to f32 (None:
+    as it is)."""
+    return t if compute_dtype is None else t.to(compute_dtype).float()
+
+
 def rel_spmm_featureless_basis(edges, bases: torch.Tensor, comps: torch.Tensor, *,
-                               aggregate=None) -> torch.Tensor:
+                               aggregate=None, compute_dtype=None) -> torch.Tensor:
     """Featureless SpMM under basis decomposition, without expanding
     ``comps @ bases`` to ``(R, N, dout)``: the message of edge ``(src,
     rel)`` is ``Σ_b comps[rel, b] · bases[b, src]``, a contraction of the
@@ -129,15 +149,17 @@ def rel_spmm_featureless_basis(edges, bases: torch.Tensor, comps: torch.Tensor, 
     :data:`_ELEM_BUDGET`, tiles go in groups whose size divides the tile
     count (the JAX package's search), so the gathered rows of one group
     exist at a time. ``aggregate(msgs, edges)`` overrides the destination
-    sum (e.g. K1 over the EdgeSet's layout).
+    sum (e.g. K1 over the EdgeSet's layout). ``compute_dtype``: the gather
+    table's dtype (see the module docstring).
     """
     tile, n_tiles = edges.tile_size, edges.num_tiles
     nb, n_rows, dout = bases.shape
-    table = bases.permute(1, 2, 0).contiguous().view(n_rows, dout * nb)
+    table = _narrow(bases, compute_dtype).permute(1, 2, 0).contiguous().view(
+        n_rows, dout * nb)
     if edges.pairs is not None:
-        m = pair_contract(table, comps, edges.pairs, nb, dout)
+        m = pair_contract(table, comps, edges.pairs, nb, dout, compute_dtype)
         return pair_fan_aggregate(m, edges, aggregate)
-    coef = comps[edges.tile_rel.long()][:, :, None]  # (n_tiles, nb, 1)
+    coef = _rounded(comps, compute_dtype)[edges.tile_rel.long()][:, :, None]  # (n_tiles, nb, 1)
     group = n_tiles
     if n_tiles * tile * nb * dout > _ELEM_BUDGET:
         group = max(1, _ELEM_BUDGET // (tile * nb * dout))
@@ -148,7 +170,7 @@ def rel_spmm_featureless_basis(edges, bases: torch.Tensor, comps: torch.Tensor, 
     with full_f32_matmul():
         for t0 in range(0, n_tiles, group):
             lo, hi = t0 * tile, (t0 + group) * tile
-            rows = table.index_select(0, src[lo:hi]).view(group, tile * dout, nb)
+            rows = table.index_select(0, src[lo:hi]).float().view(group, tile * dout, nb)
             torch.bmm(rows, coef[t0:t0 + group], out=msgs[lo:hi].view(group, tile * dout, 1))
     msgs = msgs * edges.val[:, None]
     if aggregate is not None:
@@ -166,8 +188,10 @@ class _GatherRowsAgg(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        # K1 sums in f32; the gradient carries the table's dtype, as JAX's
+        # _gather_rows_agg_rev narrows it
         d_table = aggregate_sorted(g.contiguous(), ctx.layout, ctx.num_rows)
-        return d_table, None, None
+        return d_table.to(g.dtype), None, None
 
 
 def gather_rows_agg(table: torch.Tensor, idx: torch.Tensor, layout) -> torch.Tensor:
@@ -188,11 +212,19 @@ def _contract(rows: torch.Tensor, coef: torch.Tensor, dout: int, nb: int) -> tor
 
 
 def _contract_group(table, src, coef, dout, nb):
-    return _contract(table.index_select(0, src), coef, dout, nb)
+    return _contract(table.index_select(0, src).float(), coef, dout, nb)
+
+
+def _contract_rounded(rows: torch.Tensor, coef: torch.Tensor, dout: int,
+                      nb: int) -> torch.Tensor:
+    """:func:`_contract` with each term ``rows · coef`` rounded to the
+    rows' (compute) dtype before the f32 sum: JAX's GEMM form
+    ``dot(rows * c_wide, collapse, preferred_element_type=f32)``."""
+    return (rows.view(-1, dout, nb) * coef[:, None, :]).float().sum(-1)
 
 
 def pair_contract(table: torch.Tensor, comps: torch.Tensor, pairs, nb: int,
-                  dout: int) -> torch.Tensor:
+                  dout: int, compute_dtype=None) -> torch.Tensor:
     """Per-pair contraction ``m[u] = Σ_b comps[pair_rel_u, b] ·
     table[pair_src_u][:, b]`` (counterpart of ``_pair_contract``,
     ``ops/spmm.py:410-456``) of a ``(N, dout·nb)`` table laid out ``(N,
@@ -209,16 +241,25 @@ def pair_contract(table: torch.Tensor, comps: torch.Tensor, pairs, nb: int,
     ``U_pad`` (the JAX package's search), each under
     ``torch.utils.checkpoint``, so one group's rows exist at a time and
     the backward gathers them again (the JAX ``jax.checkpoint``).
+
+    ``compute_dtype`` set: ``table`` is in it already, ``coef`` is rounded
+    to it, the ungrouped contraction rounds each term to it before the f32
+    sum (:func:`_contract_rounded`) and the grouped one sums exact f32
+    products, as JAX's two forms do.
     """
     src = pairs.pair_src.long()
     u_pad = src.shape[0]
-    coef = comps.index_select(0, pairs.pair_rel.long())  # (U_pad, nb)
+    # rounded before the gather, widened back: the gather's backward sums in
+    # f32 and the gradient rounds once to the compute dtype
+    coef = _rounded(comps, compute_dtype).index_select(0, pairs.pair_rel.long())  # (U_pad, nb)
     with full_f32_matmul():
         if u_pad * nb * dout <= _PAIR_ELEM_BUDGET:
             if pairs.src_layout is not None:
                 rows = gather_rows_agg(table, pairs.pair_src, pairs.src_layout)
             else:
                 rows = table.index_select(0, src)
+            if compute_dtype is not None:
+                return _contract_rounded(rows, coef.to(compute_dtype), dout, nb)
             return _contract(rows, coef, dout, nb)
         group = max(1, _PAIR_ELEM_BUDGET // (nb * dout))
         while u_pad % group:
@@ -253,18 +294,22 @@ def pair_fan_aggregate(m: torch.Tensor, edges, aggregate=None) -> torch.Tensor:
 
 
 def rel_spmm_basis_pairs(edges, x: torch.Tensor, bases: torch.Tensor,
-                         comps: torch.Tensor, *, aggregate=None) -> torch.Tensor:
+                         comps: torch.Tensor, *, aggregate=None,
+                         compute_dtype=None) -> torch.Tensor:
     """Featureful basis SpMM through the unique-(src, rel) pair index
     (counterpart of ``rel_spmm_basis_pairs``, ``ops/spmm.py:459-493``):
     ``H[n] = stack_b(x[n] @ bases_b)``, one ``(N, din) @ (din, dout·nb)``
     product laid out ``(N, dout, nb)``, contracted once per pair
     (:func:`pair_contract`) and fanned out (:func:`pair_fan_aggregate`).
     ``bases (nb, din, dout)``, ``comps (R, nb)`` over the general
-    relations; the weights are never expanded to ``(R, din, dout)``."""
+    relations; the weights are never expanded to ``(R, din, dout)``.
+    ``compute_dtype``: ``H``'s dtype from its product on (see the module
+    docstring)."""
     if edges.pairs is None:
         raise ValueError("rel_spmm_basis_pairs requires edges.pairs")
     nb, din, dout = bases.shape
     with full_f32_matmul():
         h = x @ bases.permute(1, 2, 0).reshape(din, dout * nb)
-    m = pair_contract(h, comps, edges.pairs, nb, dout)
+    m = pair_contract(_narrow(h, compute_dtype), comps, edges.pairs, nb, dout,
+                      compute_dtype)
     return pair_fan_aggregate(m, edges, aggregate)

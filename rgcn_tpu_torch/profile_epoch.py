@@ -269,14 +269,15 @@ def card() -> str:
 FIT_WAYS = ("native", "numpy", "device")
 
 
-def profile_config(key: str, dev, reps: int, fit: int, ways=FIT_WAYS) -> dict:
+def profile_config(key: str, dev, reps: int, fit: int, ways=FIT_WAYS,
+                   path: Optional[str] = None) -> dict:
     """Stage split and the fit each of ``ways`` (the host build with the
     native or the numpy builders, or built on the device) for one config
-    of :data:`CONFIGS`."""
+    of :data:`CONFIGS` (read from ``path`` when given)."""
     from rgcn_tpu_torch.config import load_experiment
     from rgcn_tpu_torch.data.synthetic import synthetic_lp_data
 
-    cfg = load_experiment(CONFIGS[key])
+    cfg = load_experiment(path or CONFIGS[key])
     data = synthetic_lp_data(cfg.dataset.name)
     t0 = time.perf_counter()
     trainer = LinkPredictionTrainer(cfg, data, device=dev)
@@ -304,7 +305,8 @@ def profile_config(key: str, dev, reps: int, fit: int, ways=FIT_WAYS) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--configs", default=",".join(CONFIGS),
-                    help=f"comma-separated, of {', '.join(CONFIGS)}")
+                    help=f"comma-separated, of {', '.join(CONFIGS)}; KEY=PATH reads "
+                         "that config from PATH")
     ap.add_argument("--reps", type=int, default=5, help="epochs timed per stage")
     ap.add_argument("--fit-epochs", type=int, default=20,
                     help="epochs of each fit (0: none)")
@@ -312,7 +314,15 @@ def main(argv=None):
                     help="run on the CPU (a rehearsal: no device metric)")
     ap.add_argument("--out", default=None, help="also write the report here (JSON)")
     args = ap.parse_args(argv)
+    from rgcn_tpu_torch.config import tool_config
     from rgcn_tpu_torch.device import resolve_device
+
+    paths = {}
+    for entry in args.configs.split(","):
+        key, _, path = entry.partition("=")
+        if key not in CONFIGS:
+            ap.error(f"--configs: {key!r} is none of {', '.join(CONFIGS)}")
+        paths[key] = tool_config(ap, f"--configs {key}=PATH", path or CONFIGS[key])
 
     dev = resolve_device("cpu" if args.cpu else None)
     if dev.type == "cuda":
@@ -324,8 +334,9 @@ def main(argv=None):
         "host_cpu": host_cpu(),
         "configs": {},
     }
-    for key in args.configs.split(","):
-        report["configs"][key] = r = profile_config(key, dev, args.reps, args.fit_epochs)
+    for key, path in paths.items():
+        report["configs"][key] = r = profile_config(key, dev, args.reps, args.fit_epochs,
+                                                    path=path)
         for f in r.get("fit", {}).values():
             f.pop("ranks")
         print(json.dumps({key: r}), flush=True)

@@ -89,7 +89,9 @@ def profile_calls(fn, tries: int = 3, host_ops: int = 0) -> dict:
     ``tries`` times (the profiler now and then delivers none). With
     ``host_ops`` > 0 also the that many host ops with the most self CPU
     time per call (``host_ops_us``; profiler on)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from rgcn_tpu_torch.utils.profiling import profile_session
 
     def call():
         fn()
@@ -104,9 +106,7 @@ def profile_calls(fn, tries: int = 3, host_ops: int = 0) -> dict:
         host_ms.append((time.perf_counter() - t0) * 1e3)
 
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            # the window starts after the profiler's own start-up
-            torch.cuda.synchronize()
+        with profile_session([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(ITERS):
                 call()
@@ -293,6 +293,12 @@ def main(argv=None):
                     help="the NC config served (or, with --train, trained) "
                          "without --lp (default nc-AIFB)")
     args = ap.parse_args(argv)
+    from rgcn_tpu_torch.config import tool_config
+
+    if args.lp:
+        tool_config(ap, "--config", args.config)
+    else:
+        tool_config(ap, "--nc-config", args.nc_config)
     dev = resolve_device(None)
     if args.lp and args.train:
         report = profile_lp_train(dev, args.config)

@@ -162,6 +162,8 @@ def _race_check(dev, data, repeats: int) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--config", default=CONFIG,
+                    help="the nc-AIFB config trained (default: the checkout's)")
     ap.add_argument("--runs", type=int, default=20)
     ap.add_argument("--poison-runs", type=int, default=10)
     ap.add_argument("--epochs", type=int, default=5)
@@ -172,7 +174,10 @@ def main(argv=None):
                          "each in a fresh process")
     ap.add_argument("--smoke-child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    from rgcn_tpu_torch.config import tool_config
 
+    if not args.smoke_runs and not args.smoke_child:  # the smoke phases read chip_smoke's
+        tool_config(ap, "--config", args.config)
     if not torch.cuda.is_available():
         sys.exit("trace_train_gate needs CUDA")
     if args.smoke_child:
@@ -255,7 +260,7 @@ def trace(dev, args) -> dict:
     from rgcn_tpu_torch.models.node_classification import build_nc_model
     from rgcn_tpu_torch.train.node_classification import NodeClassificationTrainer
 
-    base = load_experiment(CONFIG)
+    base = load_experiment(args.config)
     cfg = dataclasses.replace(base, training=dataclasses.replace(
         base.training, epochs=args.epochs))
     lr = cfg.training.optimiser.learn_rate

@@ -23,9 +23,11 @@ step runs (K5's ``<name>-<hash>.so``, whose hash covers its sources), and
 the workload's shape. A changed kernel or another card then starts a new
 floor instead of reading as congestion.
 
-The step runs in f32 (the JAX step asks for bf16 tables, which the
-kernels refuse). Nothing falls back: on the card a kernel that does not
-build or launch raises. Only a failed floor write is reported on stderr
+The step is the JAX step's (``rgcn_tpu/utils/canary.py:105-118``): the
+merged basis op with a bf16 compute dtype, so K5's bf16 form over a bf16
+table with a bf16 ``Agg``, plus ``x @ w_self`` with ``w_self`` rounded to
+bf16 and the product in f32, as JAX promotes it. Nothing falls back: on
+the card a kernel that does not build or launch raises. Only a failed floor write is reported on stderr
 and passed over. ``device="cpu"`` runs the plain versions, for tests.
 
 Usage::
@@ -101,14 +103,20 @@ def build_workload(num_nodes: int = 40_943, num_rels: int = 18,
     return edges, torch.from_numpy(x).to(dev), pack
 
 
-def canary_op(edges, x: torch.Tensor, pack) -> torch.Tensor:
-    """``rel_spmm_basis`` over the merged frame (K5 over its dedup frame)
-    plus ``x @ w_self``, in full f32, without grad."""
+def canary_op(edges, x: torch.Tensor, pack,
+              compute_dtype: Optional[torch.dtype] = torch.bfloat16) -> torch.Tensor:
+    """``rel_spmm_basis`` over the merged frame with the compute dtype
+    (bf16, the step's: K5's bf16 form over its dedup frame) plus ``x @
+    w_self`` with ``w_self`` rounded to it, the products in full f32,
+    without grad. ``compute_dtype=None`` is the same op in f32."""
     from rgcn_tpu_torch.ops.basis import full_f32_matmul, rel_spmm_basis
 
     w_self, bases, comps = pack
+    if compute_dtype is not None:
+        w_self = w_self.to(compute_dtype).float()
     with torch.no_grad(), full_f32_matmul():
-        return rel_spmm_basis(edges, x, bases, comps) + x @ w_self
+        return rel_spmm_basis(edges, x, bases, comps, compute_dtype=compute_dtype) \
+            + x @ w_self
 
 
 def canary_step(edges, x: torch.Tensor, pack) -> torch.Tensor:
@@ -149,7 +157,8 @@ def _key(edges, x) -> str:
     the workload's shape."""
     from rgcn_tpu_torch.kernels.build import library_path
 
-    name = "k5_weighted_aggregate_dedup"  # the merged frame carries its dedup frame
+    # the merged frame carries its dedup frame; the bf16 table takes K5's bf16 form
+    name = "k5_weighted_aggregate_dedup_bf16"
     if x.device.type == "cuda":
         card = torch.cuda.get_device_name(x.device)
         kernel = os.path.basename(library_path(name))

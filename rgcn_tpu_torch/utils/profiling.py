@@ -6,6 +6,9 @@
   where a card is present, its kernels: the port's own kernels too, which
   launch through ctypes from nvcc-built libraries, since the profiler
   records every kernel launched on the card;
+* :func:`profile_session`: the profiler session under :func:`trace` and
+  the device-time measurements, primed so that the card's first records
+  in a session are kept;
 * :class:`StepTimer`: per-step times and the ``edges/s`` counter.
 
 A host clock around a step measures what the host enqueued, not what the
@@ -28,22 +31,65 @@ from rgcn_tpu_torch.device import resolve_device
 __all__ = ["trace", "StepTimer"]
 
 
+# one-element kernels the card runs between enabling CUPTI and opening the
+# capture window (see profile_session)
+PRIMER_LAUNCHES = 128
+
+
+def _prime() -> None:
+    primer = torch.zeros(1, device="cuda")
+    for _ in range(PRIMER_LAUNCHES):
+        primer.add_(1)
+
+
+@contextlib.contextmanager
+def profile_session(activities, **kwargs):
+    """A ``torch.profiler.profile(activities=activities, **kwargs)`` over the
+    block; yields it, and stops it (``on_trace_ready`` runs) when the block
+    ends. With CUDA activity the card is synchronized before the capture
+    window opens and before it closes, and between ``prepare_trace`` (CUPTI
+    on) and ``start_trace`` (the window open) it runs ``PRIMER_LAUNCHES``
+    one-element kernels. On an H100 80GB HBM3, ``chip_smoke.py``'s process
+    lost the first records of every session after its phase 22 (its
+    nc-AIFB training trace held 197-205 of 207 kernel events); primed
+    sessions kept them all. The primer's own records fall before the
+    window and are discarded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=activities, **kwargs)
+    cuda = ProfilerActivity.CUDA in activities
+    if cuda:
+        torch.cuda.synchronize()
+        prof.prepare_trace()
+        _prime()
+        torch.cuda.synchronize()
+        prof.start_trace()
+    else:
+        prof.start()
+    try:
+        yield prof
+    finally:
+        if cuda:  # the block's kernels have run before the window closes
+            torch.cuda.synchronize()
+        prof.stop()
+
+
 @contextlib.contextmanager
 def trace(logdir: str, enabled: bool = True):
     """Profile the block into ``logdir`` (one ``<host>_<pid>.<ms>.pt.trace.json``
     per block, ``torch.profiler.tensorboard_trace_handler``): CPU activity,
-    and CUDA activity when ``torch.cuda.is_available()``. With
-    ``enabled=False`` it does nothing and writes nothing."""
+    and CUDA activity when ``torch.cuda.is_available()``, through
+    :func:`profile_session`. With ``enabled=False`` it does nothing and
+    writes nothing."""
     if not enabled:
         yield
         return
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+    from torch.profiler import ProfilerActivity, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(logdir)):
+    with profile_session(activities, on_trace_ready=tensorboard_trace_handler(logdir)):
         yield
 
 

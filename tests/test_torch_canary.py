@@ -1,7 +1,8 @@
 """The port's canary (``rgcn_tpu_torch/utils/canary.py``) on the CPU: its
 workload bit-equal to ``rgcn_tpu.utils.canary._build_workload``'s at full
 size, one step at a cut size against the JAX op (Pallas K5 in interpret
-mode, f32), and the floor's ratchet."""
+mode, f32), the bf16 step at that size against the JAX step (bf16 table,
+within 8e-3·max(1, max|ref|) of its op), and the floor's ratchet."""
 
 import json
 import os
@@ -71,11 +72,33 @@ def test_step_matches_jax_op_at_cut_size():
     ref = np.asarray(rel_spmm_basis_merged_ad(m, jnp.asarray(jx), jnp.asarray(bases),
                                               jnp.asarray(comps), compute_dtype=None)
                      + jnp.asarray(jx) @ jnp.asarray(w_self))
-    got = canary.canary_op(edges, x, pack).numpy()
+    got = canary.canary_op(edges, x, pack, compute_dtype=None).numpy()
     tol = 1e-5 * max(1.0, float(np.abs(ref).max()))
     assert np.abs(got - ref).max() <= tol
     step = canary.canary_step(edges, x, pack).numpy()
     np.testing.assert_allclose(step, jx + ref * np.float32(1e-9), rtol=0, atol=1e-6)
+
+
+def test_bf16_step_matches_jax_step_at_cut_size():
+    """The canary's step, as the JAX step runs it: the merged op with a
+    bf16 compute dtype (K5 on a bf16 table, a bf16 Agg) plus ``x @
+    w_self`` with ``w_self`` rounded to bf16, held to the JAX step's op
+    within 8e-3·max(1, max|ref|); the f32 op must differ from it and lie at
+    least 4 times farther from the JAX op (max norm)."""
+    edges, x, pack = canary.build_workload(**CUT, device="cpu")
+    jx, (w_self, bases, comps, m) = _jax_workload(**CUT)
+    jx, w_self, bases, comps = map(jnp.asarray, (jx, w_self, bases, comps))
+    ref = np.asarray(rel_spmm_basis_merged_ad(m, jx, bases, comps,
+                                              compute_dtype=jnp.bfloat16)
+                     + jx @ w_self.astype(jnp.bfloat16))
+    got = canary.canary_op(edges, x, pack).numpy()
+    assert np.abs(got - ref).max() <= 8e-3 * max(1.0, float(np.abs(ref).max()))
+    f32 = canary.canary_op(edges, x, pack, compute_dtype=None).numpy()
+    assert np.abs(got - f32).max() > 1e-6 * float(np.abs(ref).max())
+    assert np.abs(got - ref).max() <= 0.25 * np.abs(f32 - ref).max()
+    step = canary.canary_step(edges, x, pack).numpy()
+    want = np.asarray(jcanary._make_step()(jx, (w_self, bases, comps, m)))
+    np.testing.assert_allclose(step, want, rtol=0, atol=1e-6)
 
 
 @pytest.fixture

@@ -55,7 +55,25 @@ refusing an EdgeSet without its layout, three epochs of e-RGCN on a
 merged and an unmerged graph with exact launches, and the c-RGCN encoder's
 gradients over a training subgraph (K3 then K1 both ways, per layer).
 Tolerance: max abs diff <= 1e-5 * max(1, max|ref|) (f32 sums reordered by
-atomics).
+atomics). Every test above runs the layers with the edge stage pinned to
+f32 (``_edge_compute_dtype`` patched to None by the ``cuda`` fixture), so
+each compares what it compared before the bf16 edge stage.
+
+The bf16 forms (the ``cuda_bf16`` fixture leaves the card's default, a
+bf16 edge stage): K1 on bf16 messages at widths 16, 32, 200, 12 (8-byte
+vectors of 4), 10 and 7 (scalar lanes), from an unaligned view, with and
+without the perm index, on a random and the hub graph; K4 (shared and
+per-basis tables, with and without ``sum_bases``, 1 to 8 bases, din 200,
+64, 40, 10 and 7) and K5 (2 and 3 lanes) on bf16 tables, with f32 and bf16
+outputs, on the hub graph's frames (rows two chunks share, rows no slot
+reaches) into memory that held NaN; each against its plain version with
+f32 sums (1e-5·max(1, max|ref|)), a bf16 output within 2^-8·|ref| more,
+exactly one launch of the bf16 entry point and none of the f32 one; the
+wrappers refusing f16 tables and a bf16 output of an f32 table; and the
+bf16 ops (the basis op over an unmerged, merged and dedup frame, the
+featureless basis op with 4 bases, the diagonal op in both frames, the
+pair op) on the card against the CPU's bf16 ops, forward and gradients,
+within 8e-3·max(1, max|ref|), with their exact bf16 launches.
 """
 
 import copy
@@ -67,6 +85,7 @@ import torch
 
 from rgcn_tpu_torch import kernels
 from rgcn_tpu_torch.data.synthetic import skew_triples
+from rgcn_tpu_torch.nn import layers as tlayers
 from rgcn_tpu_torch.graph.structure import (auto_nc_row_block, build_edge_set,
                                             reweight_edge_set)
 from rgcn_tpu_torch.graph.coalesce import build_merged_layout
@@ -81,11 +100,20 @@ pytestmark = pytest.mark.gpu
 
 
 @pytest.fixture
-def cuda():
+def cuda_bf16():
+    """The card, with the edge stage's compute dtype as the layers choose it
+    there (bf16)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+@pytest.fixture
+def cuda(cuda_bf16, monkeypatch):
+    """The card, with the layers' edge stage pinned to f32."""
+    monkeypatch.setattr(tlayers, "_edge_compute_dtype", lambda device: None)
+    return cuda_bf16
 
 
 def _close(got, ref):
@@ -93,6 +121,11 @@ def _close(got, ref):
     assert got.shape == ref.shape
     tol = 1e-5 * max(1.0, ref.abs().max().item())
     assert (got - ref).abs().max().item() <= tol
+
+
+def _nonzero(counts: dict) -> dict:
+    """The kernels a run launched, with their counts."""
+    return {k: v for k, v in counts.items() if v}
 
 
 def _edges(n, r, e, seed, dev, **kw):
@@ -696,20 +729,27 @@ def test_spmm_function_backward(cuda, fused, din, dout):
 def test_kernels_without_backward_refuse_grad(cuda):
     """K4 over the merged and featureless frames, K5, K2, K3 and K1
     presorted have no backward: on the card, grad mode with an input
-    requiring grad raises before any launch; under no_grad they run. (Over
-    an unmerged layout rel_spmm_basis is differentiable:
-    test_basis_function_backward.)"""
+    requiring grad raises before any launch; under no_grad they run. (The
+    basis ops that call K4 and K5, rel_spmm_basis over any frame and
+    rel_spmm_featureless_basis_fwd, are differentiable through their
+    autograd Functions: test_basis_function_backward.)"""
     m, es, rng = _merged(600, 4, 2500, 21, cuda, dedup_k=2)
     es = dataclasses.replace(es, merged=m)
     x = _t(rng, cuda, 600, 8)
     bases = _t(rng, cuda, 2, 8, 5).requires_grad_()
     comps = _t(rng, cuda, es.num_rels, 2).requires_grad_()
     w = _t(rng, cuda, es.num_rels, 8, 3).requires_grad_()
+    dd = m.fwd_dedup
+    src_sorted, wvec = bs.sorted_inputs(es, comps)
     before = dict(kernels.LAUNCHES)
     for call in (
-        lambda: bs.rel_spmm_basis(es, x, bases, comps),
-        lambda: bs.rel_spmm_featureless_basis_fwd(
-            es, _t(rng, cuda, 2, 600, 5), comps),
+        lambda: bs.weighted_aggregate(x, m.src_sorted, bs.merged_wvec(m.coeff, comps),
+                                      m.layout, 600),
+        lambda: bs.weighted_aggregate(_t(rng, cuda, 2, 600, 5), src_sorted, wvec,
+                                      es.layout, 600, sum_bases=True),
+        lambda: bs.weighted_aggregate_dedup(
+            x, dd.src_sorted, torch.einsum("klr,rb->kbl", dd.coeff_k, comps).contiguous(),
+            dd, 600),
         lambda: fz.rel_spmm_fused(es.fused, 600, x, w),
         lambda: rs.rel_spmm_messages(es, x, w),
         lambda: agg.aggregate_presorted(
@@ -942,8 +982,7 @@ def test_block_layer_backward(cuda):
                     {k: kernels.LAUNCHES[k] - before[k] for k in before}))
     for a, b in zip(res[1][:4], res[0][:4]):
         _close(a, b)
-    assert res[1][4] == {"k1_aggregate": 2, "k2_fused": 0, "k3_messages": 2,
-                         "k4_weighted_aggregate": 0, "k5_weighted_aggregate_dedup": 0}
+    assert _nonzero(res[1][4]) == {"k1_aggregate": 2, "k3_messages": 2}
 
 
 @pytest.mark.parametrize("ns,d", [(10, 200), (3, 13)])
@@ -1019,8 +1058,7 @@ def test_diag_function_backward(cuda, merged, d):
     for a, b, c in zip(got_g, ref_g, plain_g):
         _close(a, b)
         _close(a, c)
-    assert launched == {"k1_aggregate": 2, "k2_fused": 0, "k3_messages": 0,
-                        "k4_weighted_aggregate": 0, "k5_weighted_aggregate_dedup": 0}
+    assert _nonzero(launched) == {"k1_aggregate": 2}
 
 
 def test_diag_layer_needs_its_layout_on_the_card(cuda):
@@ -1075,6 +1113,211 @@ def test_crgcn_encode_backward(cuda, layers):
     assert set(res[1][1]) == set(res[0][1])
     for k, v in res[0][1].items():
         _close(res[1][1][k], v)
-    assert res[1][2] == {"k1_aggregate": 2 * layers, "k2_fused": 0,
-                         "k3_messages": 2 * layers, "k4_weighted_aggregate": 0,
-                         "k5_weighted_aggregate_dedup": 0}
+    assert _nonzero(res[1][2]) == {"k1_aggregate": 2 * layers, "k3_messages": 2 * layers}
+
+
+# -- the bf16 forms of K1, K4 and K5 (the edge stage's compute dtype) ----------
+
+BF16 = torch.bfloat16
+
+
+def _launched(before):
+    return {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v > before[k]}
+
+
+def _close_bf16_out(got, ref32):
+    """A bf16 output against the plain version's f32 sums: half a bf16 ulp
+    more than the f32 bound."""
+    torch.cuda.synchronize()
+    assert got.dtype == BF16 and got.shape == ref32.shape
+    tol = 2.0 ** -8 * ref32.abs() + 1e-5 * max(1.0, ref32.abs().max().item())
+    assert bool(((got.float() - ref32).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("graph", ["random", "hub"])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dout", [16, 32, 200, 12, 10, 7])
+def test_k1_bf16(cuda_bf16, dout, aligned, graph):
+    if graph == "hub":
+        n = 1536
+        es = build_edge_set(skew_triples(), n, 4, with_dst_layout=True).to(cuda_bf16)
+        rng = np.random.default_rng(dout)
+    else:
+        n = 900
+        es, rng = _edges(n, 5, 4000, dout, cuda_bf16)
+    rows, slots = es.src.shape[0], es.layout.perm.shape[0]
+    flat = _t(rng, cuda_bf16, rows * dout + 1).to(BF16)
+    msgs = (flat[:-1] if aligned else flat[1:]).view(rows, dout)
+    ms = _t(rng, cuda_bf16, slots, dout).to(BF16)
+    before = dict(kernels.LAUNCHES)
+    got = agg.aggregate_sorted(msgs, es.layout, n)
+    assert got.dtype == torch.float32
+    _close(got, agg.aggregate_sorted_plain(msgs, es.layout, n))
+    _close(agg.aggregate_presorted(ms, es.layout, n),
+           agg.aggregate_presorted_plain(ms, es.layout, n))
+    assert _launched(before) == {"k1_aggregate_bf16": 2}
+
+
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+@pytest.mark.parametrize("nb,din,per_basis,sum_bases", [
+    (2, 200, False, False), (1, 7, False, False), (3, 40, False, True),
+    (8, 64, False, False), (2, 200, True, True), (3, 40, True, False),
+    (8, 16, True, True), (2, 10, False, False),
+])
+def test_k4_bf16_hub_graph(cuda_bf16, nb, din, per_basis, sum_bases, out):
+    m, _ = _hub(cuda_bf16)
+    lay = m.layout
+    rng = np.random.default_rng(nb * 100 + din)
+    n_slots = lay.num_chunks * lay.chunk
+    x = _t(rng, cuda_bf16, *((nb, 1536, din) if per_basis else (1536, din))).to(BF16)
+    w = _t(rng, cuda_bf16, nb, n_slots) * (lay.local_dst.reshape(-1) < lay.row_block)
+    n_out = 1 if sum_bases else nb
+    out_dtype = BF16 if out == "bf16" else torch.float32
+    _nan_filled(1536, n_out, din)
+    before = dict(kernels.LAUNCHES)
+    got = bs.weighted_aggregate(x, m.src_sorted, w, lay, 1536, sum_bases=sum_bases,
+                                out_dtype=out_dtype)
+    assert _launched(before) == {"k4_weighted_aggregate_bf16": 1}
+    _node_major(got, (n_out, 1536, din))
+    ref = bs.weighted_aggregate_plain(x, m.src_sorted, w, lay, 1536, sum_bases=sum_bases)
+    if out == "bf16":
+        _close_bf16_out(got, ref)
+    else:
+        _close(got, ref)
+    untouched = _untouched(lay, lay.local_dst)
+    assert (got[:, untouched] == 0).all()
+
+
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+@pytest.mark.parametrize("kk,nb,din", [(2, 2, 200), (2, 1, 7), (3, 3, 200),
+                                       (2, 8, 16), (3, 2, 10)])
+def test_k5_bf16_hub_graph(cuda_bf16, kk, nb, din, out):
+    m, r_gen = _hub(cuda_bf16, dedup_k=kk)
+    dd = m.fwd_dedup
+    rng = np.random.default_rng(kk * 100 + nb * 10 + din)
+    comps = _t(rng, cuda_bf16, r_gen, nb)
+    w_k = torch.einsum("klr,rb->kbl", dd.coeff_k, comps).contiguous()
+    x = _t(rng, cuda_bf16, 1536, din).to(BF16)
+    out_dtype = BF16 if out == "bf16" else torch.float32
+    _nan_filled(1536, nb, din)
+    before = dict(kernels.LAUNCHES)
+    got = bs.weighted_aggregate_dedup(x, dd.src_sorted, w_k, dd, 1536, out_dtype=out_dtype)
+    assert _launched(before) == {"k5_weighted_aggregate_dedup_bf16": 1}
+    _node_major(got, (nb, 1536, din))
+    ref = bs.weighted_aggregate_dedup_plain(x, dd.src_sorted, w_k, dd, 1536)
+    if out == "bf16":
+        _close_bf16_out(got, ref)
+    else:
+        _close(got, ref)
+    untouched = _untouched(dd, dd.local_k)
+    assert (got[:, untouched] == 0).all()
+
+
+def test_bf16_wrappers_refuse_other_dtypes(cuda_bf16):
+    m, _, rng = _merged(300, 3, 1200, 10, cuda_bf16, dedup_k=2)
+    lay, dd = m.layout, m.fwd_dedup
+    x = _t(rng, cuda_bf16, 300, 8)
+    w = _t(rng, cuda_bf16, 2, lay.num_chunks * lay.chunk)
+    w_k = _t(rng, cuda_bf16, 2, 2, dd.num_chunks * dd.chunk)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        bs.weighted_aggregate(x.half(), m.src_sorted, w, lay, 300)
+    with pytest.raises(TypeError, match="gives no"):
+        bs.weighted_aggregate(x, m.src_sorted, w, lay, 300, out_dtype=BF16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        bs.weighted_aggregate_dedup(x.half(), dd.src_sorted, w_k, dd, 300)
+    with pytest.raises(TypeError, match="K1 takes float32 or bfloat16"):
+        agg.aggregate_presorted(x.half().repeat(lay.num_chunks * lay.chunk // 300 + 1, 1)[
+            :lay.num_chunks * lay.chunk], lay, 300)
+    assert kernels.LAUNCHES == before
+
+
+def _bf16_card_vs_cpu(fn, inputs, dev, g):
+    """fn(device, *inputs) with a bf16 compute dtype on the card against the
+    CPU (both bf16): output and gradients within 8e-3·max(1, max|ref|);
+    returns the card's launches."""
+    (ref, ref_grads, _), (got, grads, launched) = _grads_on_card_and_cpu(fn, inputs, dev, g)
+    for a, b in zip([got] + grads, [ref] + ref_grads):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        tol = 8e-3 * max(1.0, b.abs().max().item())
+        assert (a - b).abs().max().item() <= tol
+    return {k: v for k, v in launched.items() if v}
+
+
+@pytest.mark.parametrize("frame", ["unmerged", "merged", "dedup"])
+def test_basis_op_bf16_on_the_card(cuda_bf16, frame):
+    n, nb, din, dout = 1500, 2, 200, 64
+    if frame == "unmerged":
+        _, es_cpu, es_dev, rng = _lp_subgraph(n, 5, 6000, 21, cuda_bf16)
+    else:
+        m, es, rng = _merged(n, 5, 7000, 21, "cpu", dedup_k=2 if frame == "dedup" else 0)
+        es_cpu = dataclasses.replace(es, merged=m)
+        es_dev = es_cpu.to(cuda_bf16)
+    edges = {"cpu": es_cpu, "cuda": es_dev}
+    inputs = [_t(rng, "cpu", n, din), _t(rng, "cpu", nb, din, dout, scale=0.1),
+              _t(rng, "cpu", es_cpu.num_rels, nb)]
+
+    def fn(d, x, bases, comps):
+        return bs.rel_spmm_basis(edges[torch.device(d).type], x, bases, comps,
+                                 compute_dtype=BF16)
+
+    fwd = "k5_weighted_aggregate_dedup_bf16" if frame == "dedup" else \
+        "k4_weighted_aggregate_bf16"
+    launched = _bf16_card_vs_cpu(fn, inputs, cuda_bf16, _t(rng, "cpu", n, dout))
+    want = {fwd: 1, "k4_weighted_aggregate_bf16": 1} if frame == "dedup" else \
+        {"k4_weighted_aggregate_bf16": 2}
+    assert launched == want
+
+
+def test_featureless_basis_op_bf16_on_the_card(cuda_bf16):
+    n, nb, dout = 1200, 4, 16
+    _, es_cpu, es_dev, rng = _lp_subgraph(n, 5, 5000, 22, cuda_bf16)
+    edges = {"cpu": es_cpu, "cuda": es_dev}
+
+    def fn(d, bases, comps):
+        return bs.rel_spmm_featureless_basis_fwd(edges[torch.device(d).type], bases, comps,
+                                                 compute_dtype=BF16)
+
+    inputs = [_t(rng, "cpu", nb, n, dout), _t(rng, "cpu", es_cpu.num_rels, nb)]
+    launched = _bf16_card_vs_cpu(fn, inputs, cuda_bf16, _t(rng, "cpu", n, dout))
+    assert launched == {"k4_weighted_aggregate_bf16": 2}
+
+
+@pytest.mark.parametrize("merged", [False, True])
+def test_diag_op_bf16_on_the_card(cuda_bf16, merged):
+    from rgcn_tpu_torch.ops.diag import rel_spmm_diag_ad
+
+    rng = np.random.default_rng(23)
+    t = make_random_triples(rng, 1000, 5 if merged else 70, 6000)
+    es = build_edge_set(t, 1000, 5 if merged else 70, with_dst_layout=True,
+                        with_merged_layout=merged)
+    assert (es.merged is not None) == merged
+    edges = {"cpu": es.to("cpu"), "cuda": es.to(cuda_bf16)}
+
+    def fn(d, x, dw):
+        return rel_spmm_diag_ad(edges[torch.device(d).type], x, dw, compute_dtype=BF16)
+
+    inputs = [_t(rng, "cpu", 1000, 32), _t(rng, "cpu", es.num_rels, 32)]
+    launched = _bf16_card_vs_cpu(fn, inputs, cuda_bf16, _t(rng, "cpu", 1000, 32))
+    assert launched == {"k1_aggregate_bf16": 2}
+
+
+def test_pair_op_bf16_on_the_card(cuda_bf16):
+    es, rng = _pair_edges(cuda_bf16, 24)
+    edges = {"cpu": es.to("cpu"), "cuda": es.to(cuda_bf16)}
+    nb, din, dout = 40, 10, 11
+
+    def fn(d, x, bases, comps):
+        e = edges[torch.device(d).type]
+        return sp.rel_spmm_basis_pairs(
+            e, x, bases, comps, compute_dtype=BF16,
+            aggregate=lambda msgs, e: agg.aggregate_sorted(msgs, e.layout, e.num_nodes,
+                                                           dst=e.dst))
+
+    inputs = [_t(rng, "cpu", 1300, din), _t(rng, "cpu", nb, din, dout, scale=0.3),
+              _t(rng, "cpu", es.num_rels, nb)]
+    launched = _bf16_card_vs_cpu(fn, inputs, cuda_bf16, _t(rng, "cpu", 1300, dout))
+    # f32 pair messages through K1 both ways; the bf16 table's gradient by
+    # K1's bf16 form through the by-source layout
+    assert launched == {"k1_aggregate": 2, "k1_aggregate_bf16": 1}
+

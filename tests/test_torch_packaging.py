@@ -254,3 +254,33 @@ def test_build_dir_rule(tmp_path, monkeypatch, case):
         assert build_dir(str(pkg)) == str(want)
     finally:
         os.chmod(tmp_path / "site", 0o755)
+
+
+@pytest.mark.parametrize("tool,argv,flag", [
+    ("profile_serve", [], "--nc-config"),
+    ("profile_serve", ["--lp"], "--config"),
+    ("profile_epoch", [], "--configs lp_wn18=PATH"),
+    ("trace_train_gate", [], "--config"),
+])
+def test_tools_name_their_config_flag_in_an_installed_copy(built, tool, argv, flag):
+    """The measuring tools default to config files under a checkout's
+    configs/, which an installed copy does not hold: there they stop before
+    any work with a usage error naming the flag and the missing path, and a
+    config given by the flag gets past that check (to the card's check,
+    here)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    run = [sys.executable, "-c", "import sys; sys.modules['jax'] = None; "
+           f"from rgcn_tpu_torch import {tool}; {tool}.main(sys.argv[1:])"]
+    out = subprocess.run(run + argv, cwd=built, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 2, out.stdout + out.stderr
+    assert flag in out.stderr and "not found" in out.stderr, out.stderr
+    missing = re.search(r"config file (\S+) not found", out.stderr).group(1)
+    assert missing.startswith(str(built) + os.sep) and not os.path.exists(missing)
+    lp = "--lp" in argv or tool == "profile_epoch"
+    given = os.path.join(ROOT, "configs", "rgcn", "lp-WN18.yaml" if lp else "nc-AIFB.yaml")
+    given_argv = ["--configs", f"lp_wn18={given}"] if tool == "profile_epoch" else \
+        [flag, given]
+    out = subprocess.run(run + argv + given_argv, cwd=built, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 2 and "not found (the default" not in out.stderr, out.stderr

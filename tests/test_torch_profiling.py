@@ -15,6 +15,7 @@ import torch
 
 from rgcn_tpu.utils.profiling import StepTimer as JStepTimer
 from rgcn_tpu_torch import classify_nodes, predict_links
+from rgcn_tpu_torch.utils import profiling
 from rgcn_tpu_torch.utils.profiling import StepTimer, trace
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -66,6 +67,46 @@ def test_trace_writes_one_trace_with_the_ops(tmp_path):
     names = _op_names(files[0])
     assert "aten::mm" in names or "aten::matmul" in names
     assert any(n.startswith("aten::") for n in names)
+
+
+def test_profile_session_opens_the_window_after_the_primer(monkeypatch):
+    """With CUDA activity: CUPTI on (prepare_trace), the primer run and
+    synchronized, then the capture window opened (start_trace); the card
+    synchronized again before the session stops. Without it: a plain
+    start and stop."""
+    calls = []
+
+    class Recorder:
+        def __init__(self, activities, **kwargs):
+            calls.append(("init", kwargs.get("on_trace_ready")))
+
+        def prepare_trace(self):
+            calls.append("prepare_trace")
+
+        def start_trace(self):
+            calls.append("start_trace")
+
+        def start(self):
+            calls.append("start")
+
+        def stop(self):
+            calls.append("stop")
+
+    monkeypatch.setattr(torch.profiler, "profile", Recorder)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: calls.append("sync"))
+    monkeypatch.setattr(profiling, "_prime", lambda: calls.append("primer"))
+    cpu, cuda = torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA
+    with profiling.profile_session([cpu, cuda], on_trace_ready=print) as prof:
+        assert isinstance(prof, Recorder)
+        calls.append("block")
+    assert calls == [("init", print), "sync", "prepare_trace", "primer", "sync",
+                     "start_trace", "block", "sync", "stop"]
+    calls.clear()
+    with pytest.raises(ValueError):
+        with profiling.profile_session([cpu]):
+            calls.append("block")
+            raise ValueError
+    assert calls == [("init", None), "start", "block", "stop"]
 
 
 def test_trace_disabled_writes_nothing(tmp_path):
