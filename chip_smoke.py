@@ -298,14 +298,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    install ." installs it, into a fresh temporary directory, made
    read-only; a child process run from there, with neither the checkout
    nor JAX importable (it loads this script by path), builds every kernel
-   (the five and the bf16 forms of K1, K4 and K5; nvcc, in parallel) and both host libraries (g++) from scratch
+   (the five and the bf16 forms of K1-K5; nvcc, in parallel) and both host libraries (g++) from scratch
    into the per-user cache ($XDG_CACHE_HOME/rgcn_tpu_torch, a fresh
    directory; the copy must be left as it was), serves nc-AIFB (aifb_like(), exactly K1 1, K2 1) and
    lp-WN18 (wn18_like(), 2 bases, width 200, exactly K4 1) with counts
    zeroed just before each, and holds K1-K3 on the nc-AIFB server's edges
    and K4, K5 on the lp-WN18 server's (phase 3's and 6's shapes and
-   tolerance), and the bf16 forms there (f32 outputs), against their plain
-   versions; the edge stage pinned to f32; then lp-WN18 served once more
+   tolerance), and the bf16 forms there (f32 outputs; K2's bf16-rounded
+   messages with phase 27's bound), against their plain versions; the
+   edge stage pinned to f32; then lp-WN18 served once more
    on the card's default edge stage (exactly K4's bf16 form once; phase 26
    holds its answers to the CPU's bf16 run); no library of the checkout's
    build/ may be mapped. Gates: each library's name (its source hash)
@@ -386,7 +387,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    8e-3 * max(1, max|ref|), exactly K4's bf16 form 2E + 1, MRR within
    1e-3, ranks equal reported); the canary once (exactly K5's bf16 form a
    step);
-27. summary: one JSON line of each path's launch counts (serving, and
+27. kernel dtype options (the JAX kernels' own compute_dtype, accum_dtype
+   and out_dtype): K2's bf16 form at nc-AIFB's layer 2 (W (90, 16, 4),
+   rel_spmm_fused's default), K3's bf16 form at lp-FB-toy (x (280, 500),
+   W (224, 500, 500): bf16 operands on its one-pass bf16 mma.sync tiled
+   route, f32 and bf16 messages; f32 operands with bf16 messages) and K1
+   with a bf16 output over the nc-AIFB layout (f32 and bf16 messages),
+   each against its plain version's f32 sums of the same bf16 values
+   (f32 outputs within 1e-5 * max(1, max|ref|), bf16 outputs within 2^-8
+   * |ref| more, K2's bf16-rounded messages within 2^-8 * sum|msg| more),
+   timed beside its f32 form, with torch.bmm in bf16 over pre-gathered
+   tiles as K3's yardstick (K1 and K2: none, the row says why); then, the
+   counts zeroed before each, rel_spmm_fused with its default, rel_spmm_full
+   with compute_dtype bf16 at lp-FB-toy, rel_spmm_full with bf16 compute
+   and accum at nc-AIFB and rel_spmm_pallas with bf16 compute, each with
+   exactly the launches of DTYPE_PATHS and within 8e-3 * max(1, max|ref|)
+   of the port's CPU run (and a quarter of the f32 answer's distance from
+   it); one dtype_options line and one dtype_modes line;
+28. summary: one JSON line of each path's launch counts (serving, and
    training), the training steps' timing (nc-AIFB, nc-AM, lp-WN18,
    lp-FB-toy, the c-RGCN and e-RGCN configs), one of the extra nc modes
    (K1 at dout 4, K3 at nc-AIFB, K2 and K3 at the dx shape,
@@ -411,8 +429,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    "precision_launches": its count on each of phase 26's paths; the bf16
    forms' rows, "K1 bf16", "K4 bf16" and "K5 bf16", each with its count on
    the default path that serves through it, its counts on phase 22's and
-   24's paths, and its time beside its f32 form's);
-28. last line: {"ok": true, "device": {...}}.
+   24's paths, and its time beside its f32 form's), and the dtype_options
+   and dtype_modes lines of phase 27 (the rows "K2 bf16", "K3 bf16" and "K1
+   bf16-out", each with its count on the phase-27 path that launches it;
+   K1's bf16 output counts as its message form's launch);
+29. last line: {"ok": true, "device": {...}}.
 
 Needs CUDA (exits 1 without it) and the repository around it.
 """
@@ -442,10 +463,12 @@ C_FB_CONFIG = os.path.join(ROOT, "configs", "c-rgcn", "lp-FB-toy.yaml")
 E_AIFB_CONFIG = os.path.join(ROOT, "configs", "e-rgcn", "nc-AIFB.yaml")
 E_AM_CONFIG = os.path.join(ROOT, "configs", "e-rgcn", "nc-AM.yaml")
 
-# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s and
-# f32 CUDA-core FLOP/s. The kernels here are f32 on CUDA cores.
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, f32
+# CUDA-core FLOP/s (the kernels' f32 work, and the products of bf16 values
+# summed in f32 on CUDA cores) and bf16 tensor-core FLOP/s (K3's bf16 form)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_TC_FLOPS = 989e12
 
 TIMING_ITERS = 50
 
@@ -501,9 +524,9 @@ def timed(fn) -> tuple:
     return device_ms(fn), cuda_ms(fn)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -524,6 +547,25 @@ def check_close(name: str, got: torch.Tensor, ref: torch.Tensor,
     log(f"  {name}: max_abs_err {err:.3e} (tol {tol:.3e})")
     if not err <= tol:
         fail(f"{name}: max abs err {err} > {tol}")
+    return err
+
+
+def check_rounded(name: str, got: torch.Tensor, ref: torch.Tensor,
+                  abs_sum: torch.Tensor) -> float:
+    """An f32 sum of bf16-rounded messages (K2's bf16 form) against its
+    plain version: a message whose two f32 sums straddle a bf16 rounding
+    boundary may round to the neighbouring value, so 2^-8 * ``abs_sum``
+    (the plain sums of the messages' magnitudes) more than
+    :func:`check_close`'s bound. Returns the max abs error."""
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        fail(f"{name}: {tuple(got.shape)} (finite {bool(torch.isfinite(got).all())}) "
+             f"against {tuple(ref.shape)}")
+    err_t = (got - ref).abs()
+    tol = 1e-5 * max(1.0, ref.abs().max().item())
+    err = err_t.max().item() if got.numel() else 0.0
+    log(f"  {name}: max_abs_err {err:.3e} (tol 2^-8 sum|msg| + {tol:.3e})")
+    if not bool((err_t <= 2.0 ** -8 * abs_sum + tol).all()):
+        fail(f"{name}: differs from its plain version past 2^-8 sum|msg| + {tol}")
     return err
 
 
@@ -654,7 +696,7 @@ def phase_kernels(dev, data, edges):
     if not rs.fused_fits(w, fl.row_block):
         fail("K2: nc-AIFB weights do not fit the shared-memory budget")
     ref = fz.rel_spmm_fused_plain(fl, n, x, w)
-    got = fz.rel_spmm_fused(fl, n, x, w)
+    got = fz.rel_spmm_fused(fl, n, x, w, compute_dtype=None)
     torch.cuda.synchronize()
     err = check_close("K2 rel_spmm_fused", got, ref)
     # the function needs quantum_rel and chunk_block whole; local_dst, src
@@ -667,7 +709,7 @@ def phase_kernels(dev, data, edges):
     w_rels = int(torch.unique(fl.quantum_rel[fl.quantum_rel >= 0]).numel())
     k2_bytes = real * 12 + (x_rows + w_rels * classes) * hidden * 4 \
         + nbytes(fl.quantum_rel, fl.chunk_block) + n * classes * 4
-    ms, call = timed(lambda: fz.rel_spmm_fused(fl, n, x, w))
+    ms, call = timed(lambda: fz.rel_spmm_fused(fl, n, x, w, compute_dtype=None))
     plain_ms, plain_call = timed(lambda: fz.rel_spmm_fused_plain(fl, n, x, w))
     rows.append(dict(
         name="K2", route="cuda",
@@ -739,7 +781,7 @@ def phase_skew(dev):
                     agg.aggregate_sorted(m, lay, n),
                     agg.aggregate_sorted_plain(m, lay, n))
     x, w = torch.relu(rand(n, 16)), rand(8, 16, 4, scale=0.3)
-    check_close("K2 hub rel_spmm_fused", fz.rel_spmm_fused(fl, n, x, w),
+    check_close("K2 hub rel_spmm_fused", fz.rel_spmm_fused(fl, n, x, w, compute_dtype=None),
                 fz.rel_spmm_fused_plain(fl, n, x, w))
 
     # K4 (merged frame) and K5 (its dedup frame) at lp-WN18's width and bases
@@ -1090,14 +1132,14 @@ def phase_dx_kernels(dev, data, edges, paths):
         f"edges.reverse):")
     if not rs.fused_fits(w_t, fl.row_block):
         fail("K2 dx: Wᵀ does not fit the shared-memory budget")
-    err = check_close("K2 rel_spmm_fused dx", fz.rel_spmm_fused(fl, n, g, w_t),
+    err = check_close("K2 rel_spmm_fused dx", fz.rel_spmm_fused(fl, n, g, w_t, compute_dtype=None),
                       fz.rel_spmm_fused_plain(fl, n, g, w_t))
     keep = (fl.local_dst.reshape(-1) < fl.row_block) \
         & (fl.quantum_rel.repeat_interleave(fl.quantum) >= 0)
     real = int(keep.sum().item())
     x_rows = int(torch.unique(fl.src[keep]).numel())
     w_rels = int(torch.unique(fl.quantum_rel[fl.quantum_rel >= 0]).numel())
-    ms, call = timed(lambda: fz.rel_spmm_fused(fl, n, g, w_t))
+    ms, call = timed(lambda: fz.rel_spmm_fused(fl, n, g, w_t, compute_dtype=None))
     plain_ms, plain_call = timed(lambda: fz.rel_spmm_fused_plain(fl, n, g, w_t))
     modes = [dict(
         name="K2", mode=f"K2 dx (din {classes}, dout {hidden}, edges.reverse.fused)",
@@ -1661,13 +1703,13 @@ def phase_am_kernels(dev, edges, hidden, classes):
     # K2 over the fused layout
     ref = fz.rel_spmm_fused_plain(fl, n, x, w)
     err = check_close("K2 rel_spmm_fused (nc-AM layer 2)",
-                      fz.rel_spmm_fused(fl, n, x, w), ref)
+                      fz.rel_spmm_fused(fl, n, x, w, compute_dtype=None), ref)
     keep = (fl.local_dst.reshape(-1) < fl.row_block) \
         & (fl.quantum_rel.repeat_interleave(fl.quantum) >= 0)
     real = int(keep.sum().item())
     x_rows = int(torch.unique(fl.src[keep]).numel())
     w_rels = int(torch.unique(fl.quantum_rel[fl.quantum_rel >= 0]).numel())
-    ms, call = timed(lambda: fz.rel_spmm_fused(fl, n, x, w))
+    ms, call = timed(lambda: fz.rel_spmm_fused(fl, n, x, w, compute_dtype=None))
     plain_ms, plain_call = timed(lambda: fz.rel_spmm_fused_plain(fl, n, x, w))
     modes.append(dict(
         name="K2", mode=f"K2 nc-AM layer 2 (fused L {fl.src.shape[0]}, {real} real)",
@@ -1682,7 +1724,7 @@ def phase_am_kernels(dev, edges, hidden, classes):
 
     # layer 2's two routes, each against the plain two-stage version, in turns
     ref = agg.aggregate_sorted_plain(rs.rel_spmm_messages_plain(edges, x, w), lay, n)
-    routes = {"k2": lambda: fz.rel_spmm_fused(fl, n, x, w),
+    routes = {"k2": lambda: fz.rel_spmm_fused(fl, n, x, w, compute_dtype=None),
               "k3_k1": lambda: rs.rel_spmm_full(edges, lay, x, w)}
     for key, fn in routes.items():
         check_close(f"nc-AM layer 2 route {key} vs plain", fn(), ref)
@@ -2586,14 +2628,14 @@ def phase_crgcn_k2(dev, edges):
         if not rs.fused_fits(w, fl.row_block):
             fail(f"K2 {key}: W {tuple(w.shape)} does not fit fused_fits")
         err = check_close(f"K2 rel_spmm_fused ({key} encode, W {tuple(w.shape)})",
-                          fz.rel_spmm_fused(fl, n, x, w),
+                          fz.rel_spmm_fused(fl, n, x, w, compute_dtype=None),
                           fz.rel_spmm_fused_plain(fl, n, x, w))
         keep = (fl.local_dst.reshape(-1) < fl.row_block) \
             & (fl.quantum_rel.repeat_interleave(fl.quantum) >= 0)
         real = int(keep.sum().item())
         x_rows = int(torch.unique(fl.src[keep]).numel())
         w_rels = int(torch.unique(fl.quantum_rel[fl.quantum_rel >= 0]).numel())
-        ms, call = timed(lambda: fz.rel_spmm_fused(fl, n, x, w))
+        ms, call = timed(lambda: fz.rel_spmm_fused(fl, n, x, w, compute_dtype=None))
         plain_ms, plain_call = timed(lambda: fz.rel_spmm_fused_plain(fl, n, x, w))
         bound, by = bound_ms(real * 12 + (x_rows + w_rels * hidden) * hidden * 4
                              + nbytes(fl.quantum_rel, fl.chunk_block) + n * hidden * 4,
@@ -2610,7 +2652,7 @@ def phase_crgcn_k2(dev, edges):
         modes.append(row)
         lay = es.layout
         ref = agg.aggregate_sorted_plain(rs.rel_spmm_messages_plain(es, x, w), lay, n)
-        routes = {"k2": lambda: fz.rel_spmm_fused(fl, n, x, w),
+        routes = {"k2": lambda: fz.rel_spmm_fused(fl, n, x, w, compute_dtype=None),
                   "k3_k1": lambda: rs.rel_spmm_full(es, lay, x, w)}
         for rkey, fn in routes.items():
             check_close(f"{key} encode route {rkey} vs plain", fn(), ref)
@@ -4048,7 +4090,7 @@ def installed_serve(dev, site) -> dict:
     x = torch.relu(rand(n, hidden))
     w = rand(edges.num_rels, hidden, classes, scale=0.3)
     errs["K2"] = check_close("installed K2 rel_spmm_fused",
-                             fz.rel_spmm_fused(edges.fused, n, x, w),
+                             fz.rel_spmm_fused(edges.fused, n, x, w, compute_dtype=None),
                              fz.rel_spmm_fused_plain(edges.fused, n, x, w))
     errs["K3"] = check_close("installed K3 rel_spmm_messages",
                              rs.rel_spmm_messages(edges, x, w),
@@ -4057,6 +4099,17 @@ def installed_serve(dev, site) -> dict:
     errs["K1 bf16"] = check_close("installed K1 bf16 aggregate_sorted",
                                   agg.aggregate_sorted(m16, edges.layout, n),
                                   agg.aggregate_sorted_plain(m16, edges.layout, n))
+    # K2's bf16 form (rel_spmm_fused's default): bf16-rounded messages, so
+    # phase 27's bound; K3's on bf16 operands with f32 messages: f32 sums
+    errs["K2 bf16"] = check_rounded(
+        "installed K2 bf16 rel_spmm_fused", fz.rel_spmm_fused(edges.fused, n, x, w),
+        fz.rel_spmm_fused_plain(edges.fused, n, x, w, torch.bfloat16),
+        fz.rel_spmm_fused_plain(edges.fused, n, x.abs(), w.abs(), torch.bfloat16))
+    xb16, wb16 = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    errs["K3 bf16"] = check_close(
+        "installed K3 bf16 rel_spmm_messages",
+        rs.rel_spmm_messages(edges, xb16, wb16, out_dtype=torch.float32),
+        rs.rel_spmm_messages_plain(edges, xb16, wb16, torch.float32))
 
     wn18 = wn18_like()
     lp, lp_answers, lp_counts = serve(
@@ -4211,7 +4264,8 @@ def phase_installed(dev, checkout):
     log(f"phase 24 (installed package): {seconds:.1f} s ({card_line()})")
     short = {"K1": "k1_aggregate", "K2": "k2_fused", "K3": "k3_messages",
              "K4": "k4_weighted_aggregate", "K5": "k5_weighted_aggregate_dedup",
-             "K1 bf16": "k1_aggregate_bf16", "K4 bf16": "k4_weighted_aggregate_bf16",
+             "K1 bf16": "k1_aggregate_bf16", "K2 bf16": "k2_fused_bf16",
+             "K3 bf16": "k3_messages_bf16", "K4 bf16": "k4_weighted_aggregate_bf16",
              "K5 bf16": "k5_weighted_aggregate_dedup_bf16"}
     summary = {
         "card": card_line(), "seconds": seconds, "build_py_s": build_py_s,
@@ -4523,13 +4577,13 @@ def device_fused_k2(dev, data) -> dict:
     rows = []
     for label, lay in (("forward", es.fused), ("reverse", es.reverse.fused)):
         kernels.reset_launches()
-        got = fz.rel_spmm_fused(lay, n, x, w)
+        got = fz.rel_spmm_fused(lay, n, x, w, compute_dtype=None)
         torch.cuda.synchronize()
         if kernels.LAUNCHES["k2_fused"] != 1:
             fail(f"device-built fused [{label}]: K2 launches {kernels.LAUNCHES}")
         err = check_close(f"K2 over the device-built fused layout ({label})", got,
                           fz.rel_spmm_fused_plain(lay, n, x, w))
-        ms, call_ms = timed(lambda: fz.rel_spmm_fused(lay, n, x, w))
+        ms, call_ms = timed(lambda: fz.rel_spmm_fused(lay, n, x, w, compute_dtype=None))
         plain_ms = device_ms(lambda: fz.rel_spmm_fused_plain(lay, n, x, w))
         real = int((lay.val > 0).sum())
         bnd, by = bound_ms(real * 16 * 4 + nbytes(lay.src, lay.val, lay.local_dst,
@@ -4720,6 +4774,9 @@ BF16_STEP = {
 }
 BF16_SOURCES = {
     "K1 bf16": ("k1_aggregate_bf16.cu", "rgcn_tpu/ops/pallas_aggregate.py:203"),
+    "K1 bf16-out": ("k1_aggregate.cuh", "rgcn_tpu/ops/pallas_aggregate.py:203"),
+    "K2 bf16": ("k2_fused_bf16.cu", "rgcn_tpu/ops/pallas_fused.py:355"),
+    "K3 bf16": ("k3_messages_bf16.cu", "rgcn_tpu/ops/pallas_spmm.py:70"),
     "K4 bf16": ("k4_weighted_aggregate_bf16.cu", "rgcn_tpu/ops/pallas_basis.py:53"),
     "K5 bf16": ("k5_weighted_aggregate_dedup_bf16.cu", "rgcn_tpu/ops/pallas_basis.py:188"),
 }
@@ -4769,14 +4826,19 @@ def bf16_close(label, got, ref, floor=1.0, f32=None) -> float:
     return err
 
 
-def bf16_kernel_row(name, label, call, ref32, f32_call, k_bytes, flops, library):
+def bf16_kernel_row(name, label, call, ref32, f32_call, k_bytes, flops, library,
+                    rounded=None, peak_flops=PEAK_F32_FLOPS):
     """A bf16 form against its plain version's f32 sums on the same inputs
     (``ref32``): an f32 output within the f32 kernels' 1e-5 * max(1,
     max|ref|) (the products are exact, only the order of the sums
     differs), a bf16 output within half a bf16 ulp more (2^-8 * |ref|);
-    the form and its f32 form at the same shape (``f32_call``) timed in
-    turns, its plain version and the yardstick as in phase 3. ``library``:
-    (call, None) or (None, why there is none). One kernel_check row."""
+    ``rounded``: the plain sums of the magnitudes of bf16-rounded messages
+    (K2's), each of which may round to the neighbouring bf16 value where
+    the two f32 sums straddle a rounding boundary (2^-8 * rounded more).
+    The form and its f32 form at the same shape (``f32_call``) timed in
+    turns, its plain version and the yardstick as in phase 3; the bound's
+    operations at ``peak_flops``. ``library``: (call, None) or (None, why
+    there is none). One kernel_check row."""
     got = call()
     ref = ref32()
     torch.cuda.synchronize()
@@ -4784,9 +4846,15 @@ def bf16_kernel_row(name, label, call, ref32, f32_call, k_bytes, flops, library)
     err = err_t.max().item()
     tol = 1e-5 * max(1.0, ref.abs().max().item())
     bf16_out = got.dtype == torch.bfloat16
-    ok = bool((err_t <= (2.0 ** -8) * ref.abs() + tol).all()) if bf16_out else err <= tol
+    if bf16_out:
+        ok = bool((err_t <= (2.0 ** -8) * ref.abs() + tol).all())
+    elif rounded is not None:
+        ok = bool((err_t <= (2.0 ** -8) * rounded() + tol).all())
+    else:
+        ok = err <= tol
     log(f"  {label}: max_abs_err {err:.3e} against the f32 sums (tol "
-        f"{'2^-8 |ref| + ' if bf16_out else ''}{tol:.3e})")
+        f"{'2^-8 |ref| + ' if bf16_out else '2^-8 sum|msg| + ' if rounded else ''}"
+        f"{tol:.3e})")
     if not ok or not torch.isfinite(got).all():
         fail(f"{label}: the bf16 form differs from its plain version")
     # the form and its f32 form in turns (form, f32, f32, form), each the
@@ -4799,7 +4867,7 @@ def bf16_kernel_row(name, label, call, ref32, f32_call, k_bytes, flops, library)
     lib_ms = lib_call = None
     if lib is not None:
         lib_ms, lib_call = timed(lib)
-    bound, by = bound_ms(k_bytes, flops)
+    bound, by = bound_ms(k_bytes, flops, peak_flops)
     src, replaces = BF16_SOURCES[name]
     row = dict(name=name, mode=label, route="cuda",
                source=f"rgcn_tpu_torch/kernels/csrc/{src}", replaces=replaces,
@@ -5269,6 +5337,178 @@ def phase_precision(dev, lp, lp_edges, dedup, am_data, installed):
     return summary, rows, paths
 
 
+# phase 27's paths, counts zeroed before each: rel_spmm_fused with its
+# default (bf16) compute dtype at nc-AIFB layer 2; rel_spmm_full with bf16
+# compute at lp-FB-toy (bf16 messages into K1's bf16 form, f32 out); the
+# same at nc-AIFB with a bf16 accum_dtype (K1's bf16 output) and
+# rel_spmm_pallas with bf16 compute (f32 messages into K1's f32 form)
+DTYPE_PATHS = {
+    "fused_default": dict(k2_fused_bf16=1),
+    "full_bf16_fb_toy": dict(k3_messages_bf16=1, k1_aggregate_bf16=1),
+    "full_bf16_accum_bf16": dict(k3_messages_bf16=1, k1_aggregate_bf16=1),
+    "pallas_bf16": dict(k3_messages_bf16=1, k1_aggregate=1),
+}
+
+
+def dtype_path(label, call, cpu_call, f32_call=None):
+    """Zero the counts, run ``call`` on the card, read the counts (exactly
+    DTYPE_PATHS[label]); the answer against the port's CPU run within
+    8e-3 * max(1, max|ref|) (and, with ``f32_call``, nearer it than the
+    f32 answer on the card). Returns (counts, max abs diff)."""
+    from rgcn_tpu_torch import kernels
+
+    kernels.reset_launches()
+    got = call()
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    log(f"dtype path [{label}]: launches {counts}")
+    if counts != launches(**DTYPE_PATHS[label]):
+        fail(f"dtype path [{label}]: launches {counts}, expected "
+             f"{launches(**DTYPE_PATHS[label])}")
+    ref = cpu_call()
+    f32 = None if f32_call is None else f32_call()
+    return counts, bf16_close(f"{label} against the CPU", got, ref, f32=f32)
+
+
+def phase_dtype_options(dev, fb_edges):
+    """Phase 27: the JAX kernels' own dtype options on the card. K2's bf16
+    form at nc-AIFB's layer 2 (W (90, 16, 4)), K3's bf16 form at
+    lp-FB-toy (x (280, 500), W (224, 500, 500)) with f32 and bf16 messages
+    and over f32 operands with bf16 messages, K1 with a bf16 output over
+    the nc-AIFB layout (f32 and bf16 messages), each against its plain
+    version and timed beside its f32 form; then DTYPE_PATHS end to end
+    against the port's CPU run with exact launches. Returns (the summary,
+    the rows, each path's launches)."""
+    from rgcn_tpu_torch.data.synthetic import aifb_like
+    from rgcn_tpu_torch.graph.structure import build_edge_set
+    from rgcn_tpu_torch.ops import aggregate as agg
+    from rgcn_tpu_torch.ops import fused as fz
+    from rgcn_tpu_torch.ops import rel_spmm as rs
+
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(27)
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).to(dev)
+
+    data = aifb_like()
+    es = build_edge_set(data.triples, data.num_nodes, data.num_relations, tile_size=128,
+                        with_dst_layout=True).to(dev)
+    es_cpu = es.to("cpu")
+    n, hidden, classes = data.num_nodes, 16, data.num_classes
+    fl, lay = es.fused, es.layout
+    rows = []
+    log("phase 27 (kernel dtype options):")
+
+    # K2 bf16 at nc-AIFB layer 2
+    x = torch.relu(rand(n, hidden))
+    w = rand(es.num_rels, hidden, classes, scale=0.3)
+    xb, wb = x.to(bf16), w.to(bf16)
+    if not rs.fused_fits(w, fl.row_block, bf16):
+        fail("K2 bf16: nc-AIFB weights do not fit the shared-memory budget")
+    keep = (fl.local_dst.reshape(-1) < fl.row_block) \
+        & (fl.quantum_rel.repeat_interleave(fl.quantum) >= 0)
+    real = int(keep.sum().item())
+    x_rows = int(torch.unique(fl.src[keep]).numel())
+    w_rels = int(torch.unique(fl.quantum_rel[fl.quantum_rel >= 0]).numel())
+    k2_bytes = real * 12 + (x_rows + w_rels * classes) * hidden * 2 \
+        + nbytes(fl.quantum_rel, fl.chunk_block) + n * classes * 4
+    rows.append(bf16_kernel_row(
+        "K2 bf16", "K2 bf16 nc-AIFB layer 2 (W (90, 16, 4))",
+        lambda: fz.rel_spmm_fused(fl, n, xb, wb),
+        lambda: fz.rel_spmm_fused_plain(fl, n, x, w, bf16),
+        lambda: fz.rel_spmm_fused(fl, n, x, w, compute_dtype=None),
+        k2_bytes, real * (2 * hidden * classes + 2 * classes),
+        (None, "none: no one PyTorch call computes the fused relation-quantum "
+               "SpMM (a bmm per quantum, a rounding and a segment sum are three)"),
+        rounded=lambda: fz.rel_spmm_fused_plain(fl, n, x.abs(), w.abs(), bf16)))
+
+    # K3 bf16 at lp-FB-toy: bf16 operands, f32 and bf16 messages; f32
+    # operands with bf16 messages
+    fe = fb_edges
+    din = dout = 500
+    x3 = torch.relu(rand(fe.num_nodes, din))
+    w3 = rand(fe.num_rels, din, dout, scale=din ** -0.5)
+    x3b, w3b = x3.to(bf16), w3.to(bf16)
+    live = fe.val != 0
+    real3 = int(live.sum().item())
+    live_tiles = live.reshape(fe.num_tiles, -1).any(1)
+    n_rels = int(torch.unique(fe.tile_rel[live_tiles]).numel())
+    n_rows = int(torch.unique(fe.src[live]).numel())
+    xg = x3b[fe.src.long()].reshape(fe.num_tiles, fe.tile_size, din)
+    wg = w3b[fe.tile_rel.long()]
+    bmm = (lambda: torch.bmm(xg, wg)), None
+    for od, tag in ((torch.float32, "f32 messages"), (bf16, "bf16 messages")):
+        k3_bytes = (n_rels * din * dout + n_rows * din) * 2 \
+            + nbytes(fe.src, fe.val, fe.tile_rel) + fe.src.shape[0] * dout * (4 if od == torch.float32 else 2)
+        rows.append(bf16_kernel_row(
+            "K3 bf16", f"K3 bf16 lp-FB-toy (tiled route, {tag})",
+            lambda od=od: rs.rel_spmm_messages(fe, x3b, w3b, out_dtype=od),
+            lambda: rs.rel_spmm_messages_plain(fe, x3b, w3b, torch.float32),
+            lambda: rs.rel_spmm_messages(fe, x3, w3),
+            k3_bytes, real3 * (2 * din * dout + dout), bmm,
+            peak_flops=PEAK_BF16_TC_FLOPS))
+    del xg, wg
+    k3_bytes = (n_rels * din * dout + n_rows * din) * 4 \
+        + nbytes(fe.src, fe.val, fe.tile_rel) + fe.src.shape[0] * dout * 2
+    rows.append(bf16_kernel_row(
+        "K3 bf16", "K3 bf16 lp-FB-toy (f32 operands, bf16 messages: 3xTF32)",
+        lambda: rs.rel_spmm_messages(fe, x3, w3, out_dtype=bf16),
+        lambda: rs.rel_spmm_messages_plain(fe, x3, w3),
+        lambda: rs.rel_spmm_messages(fe, x3, w3),
+        k3_bytes, real3 * (2 * din * dout + dout),
+        (None, "none: torch.bmm writes its operands' dtype; f32 sums rounded once "
+               "to bf16 are no one call")))
+
+    # K1 with a bf16 output over the nc-AIFB layout
+    real_slots = int((lay.local_dst < lay.row_block).sum().item())
+    for md in (torch.float32, bf16):
+        msgs = (rand(es.src.shape[0], hidden) * es.val[:, None]).to(md)
+        k1_bytes = real_slots * (hidden * msgs.element_size() + 4 + 4) \
+            + nbytes(lay.chunk_block) + n * hidden * 2
+        rows.append(bf16_kernel_row(
+            "K1 bf16-out", f"K1 {'bf16' if md == bf16 else 'f32'} messages, bf16 out "
+                           f"(nc-AIFB, dout {hidden})",
+            lambda m=msgs: agg.aggregate_sorted(m, lay, n, out_dtype=bf16),
+            lambda m=msgs: agg.aggregate_sorted_plain(m, lay, n),
+            lambda m=msgs: agg.aggregate_sorted(m, lay, n),
+            k1_bytes, real_slots * hidden,
+            (None, "none: index_add_ adds in the output's dtype; no one call sums "
+                   "in f32 into a bf16 output")))
+
+    # the entry points end to end against the port's CPU run
+    fe_cpu = fe.to("cpu")
+    paths, gaps = {}, {}
+    paths["fused_default"], gaps["fused_default"] = dtype_path(
+        "fused_default", lambda: fz.rel_spmm_fused(fl, n, x, w),
+        lambda: fz.rel_spmm_fused(es_cpu.fused, n, x.cpu(), w.cpu()),
+        lambda: fz.rel_spmm_fused(fl, n, x, w, compute_dtype=None))
+    paths["full_bf16_fb_toy"], gaps["full_bf16_fb_toy"] = dtype_path(
+        "full_bf16_fb_toy",
+        lambda: rs.rel_spmm_full(fe, fe.layout, x3, w3, compute_dtype=bf16),
+        lambda: rs.rel_spmm_full(fe_cpu, fe_cpu.layout, x3.cpu(), w3.cpu(),
+                                 compute_dtype=bf16),
+        lambda: rs.rel_spmm_full(fe, fe.layout, x3, w3))
+    x2, w2 = torch.relu(rand(n, hidden)), rand(es.num_rels, hidden, 24, scale=0.3)
+    paths["full_bf16_accum_bf16"], gaps["full_bf16_accum_bf16"] = dtype_path(
+        "full_bf16_accum_bf16",
+        lambda: rs.rel_spmm_full(es, lay, x2, w2, compute_dtype=bf16, accum_dtype=bf16),
+        lambda: rs.rel_spmm_full(es_cpu, es_cpu.layout, x2.cpu(), w2.cpu(),
+                                 compute_dtype=bf16, accum_dtype=bf16))
+    paths["pallas_bf16"], gaps["pallas_bf16"] = dtype_path(
+        "pallas_bf16", lambda: rs.rel_spmm_pallas(es, x2, w2, compute_dtype=bf16),
+        lambda: rs.rel_spmm_pallas(es_cpu, x2.cpu(), w2.cpu(), compute_dtype=bf16),
+        lambda: rs.rel_spmm_pallas(es, x2, w2))
+    seconds = time.perf_counter() - t0
+    log(f"phase 27 (kernel dtype options): {seconds:.1f} s ({card_line()})")
+    summary = {"card": card_line(), "seconds": seconds, "cpu_gaps": gaps,
+               "kernels": [{k: r[k] for k in ("mode", "max_abs_err", "ms", "f32_form_ms",
+                                              "plain_ms", "library_ms", "bound_ms")}
+                           for r in rows]}
+    return summary, rows, paths
+
+
 def phases_nc_aifb(dev):
     """Phases 3-5 on aifb_like(): the kernels, the hub graph, serving and
     training. Returns (kernel rows, the nc mode rows, serving launches,
@@ -5395,6 +5635,7 @@ def main():
     f32_phases.close()
     precision, bf16_rows, precision_counts = phase_precision(dev, lp, lp_edges, dedup,
                                                              am_data, installed_bf16)
+    dtype_options, dtype_rows, dtype_counts = phase_dtype_options(dev, fb_edges)
 
     # each kernel's count on the path that serves through it
     key = {"K1": ("k1_aggregate", "main"), "K2": ("k2_fused", "main"),
@@ -5443,6 +5684,26 @@ def main():
             "call_ms": r["call_ms"], "plain_call_ms": r["plain_call_ms"],
             "library_call_ms": r["library_call_ms"],
         })
+    # the kernel dtype options (phase 27): each form's first mode, on the
+    # phase-27 path that launches it (K1's bf16 output counts as its message
+    # form, here k1_aggregate_bf16 on the path whose accum_dtype is bf16)
+    dtype_key = {"K2 bf16": ("k2_fused_bf16", "fused_default"),
+                 "K3 bf16": ("k3_messages_bf16", "full_bf16_fb_toy"),
+                 "K1 bf16-out": ("k1_aggregate_bf16", "full_bf16_accum_bf16")}
+    for form, (kname, path) in dtype_key.items():
+        r = next(r for r in dtype_rows if r["name"] == form)
+        out.append({
+            "name": form, "route": r["route"], "source": r["source"],
+            "replaces": r["replaces"], "status": "ported", "mode": r["mode"],
+            "path": path, "launches": dtype_counts[path][kname],
+            "dtype_launches": {pp: c[kname] for pp, c in dtype_counts.items()},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "f32_form_ms": r["f32_form_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "library_note": r["library_note"],
+            "call_ms": r["call_ms"], "plain_call_ms": r["plain_call_ms"],
+            "library_call_ms": r["library_call_ms"],
+        })
     print(json.dumps({"serve_launches": paths}), flush=True)
     print(json.dumps({"serve_timing_ms": timing}), flush=True)
     print(json.dumps({"train_launches": train_paths}), flush=True)
@@ -5462,6 +5723,8 @@ def main():
     print(json.dumps({"host_vs_device_epoch_ms": host_vs_device_ms}), flush=True)
     print(json.dumps({"edge_precision": precision}), flush=True)
     print(json.dumps({"bf16_modes": bf16_rows}), flush=True)
+    print(json.dumps({"dtype_options": dtype_options}), flush=True)
+    print(json.dumps({"dtype_modes": dtype_rows}), flush=True)
     log(f"command time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

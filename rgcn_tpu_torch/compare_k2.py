@@ -116,7 +116,7 @@ def main(argv=None):
     w = torch.from_numpy((rng.standard_normal((edges.num_rels, 16, data.num_classes))
                           * 0.3).astype(np.float32)).to(dev)
     designs = {
-        "k2_global_atomics": lambda: fz.rel_spmm_fused(fl, n, x, w),
+        "k2_global_atomics": lambda: fz.rel_spmm_fused(fl, n, x, w, compute_dtype=None),
         "k2_shared_tile": lambda: tile_call(fn, fl, n, x, w),
     }
     report = compare(designs, ("k2_global_atomics", "k2_shared_tile",

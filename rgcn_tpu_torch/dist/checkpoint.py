@@ -31,9 +31,10 @@ def save_checkpoint_replicated(ckpt_dir: str, model, optimizer, step: int,
     return path
 
 
-def restore_checkpoint_replicated(ckpt_dir: str, model, optimizer, mesh) -> Optional[int]:
-    """Every rank loads the latest checkpoint, if any, onto its device
-    (after a barrier, so no rank reads while another still writes);
-    returns its step or None."""
+def restore_checkpoint_replicated(ckpt_dir: str, model, optimizer, mesh,
+                                  step: Optional[int] = None) -> Optional[int]:
+    """Every rank loads checkpoint ``step`` (default: the latest), if any,
+    onto its device (after a barrier, so no rank reads while another still
+    writes); returns its step or None."""
     dist.barrier(group=mesh.decoder_group)
-    return restore_training_state(ckpt_dir, model, optimizer, mesh.device)
+    return restore_training_state(ckpt_dir, model, optimizer, mesh.device, step=step)

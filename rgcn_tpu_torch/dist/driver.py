@@ -68,8 +68,11 @@ class ShardedNodeClassificationTrainer(NodeClassificationTrainer):
     def __init__(self, cfg, data, mesh, seed: int = 0, tile_size: int = 128,
                  init_params: Optional[Dict[str, torch.Tensor]] = None,
                  checkpoint_dir: Optional[str] = None,
-                 checkpoint_every: Optional[int] = None):
-        self.mesh, self.group = mesh, mesh.group
+                 checkpoint_every: Optional[int] = None,
+                 row_block: Optional[int] = None):
+        # the shard's destination layouts' row block (None: auto_nc_row_block
+        # on the dense path, the pair builder's own choice on the pair path)
+        self.mesh, self.group, self.row_block = mesh, mesh.group, row_block
         super().__init__(cfg, data, seed=seed, tile_size=tile_size,
                          init_params=init_params, device=mesh.device,
                          checkpoint_dir=checkpoint_dir,
@@ -87,9 +90,11 @@ class ShardedNodeClassificationTrainer(NodeClassificationTrainer):
         es = build_edge_set(data.triples, data.num_nodes, data.num_relations,
                             tile_size=tile_size, tile_multiple=m.edge_size)
         if self.pair_ok(cfg):
-            return prepare_sharded_pairs_host(es, m.edge_size, m.edge_rank)
-        return prepare_sharded_layouts(shard_edge_set(es, m.edge_size, m.edge_rank),
-                                       row_block=auto_nc_row_block(data.num_nodes))
+            return prepare_sharded_pairs_host(es, m.edge_size, m.edge_rank,
+                                              row_block=self.row_block)
+        return prepare_sharded_layouts(
+            shard_edge_set(es, m.edge_size, m.edge_rank),
+            row_block=self.row_block or auto_nc_row_block(data.num_nodes))
 
     def save(self, step: int) -> None:
         save_checkpoint_replicated(self.checkpoint_dir, self.model, self.optimizer,
@@ -104,13 +109,18 @@ def train_node_classifier_sharded(cfg, data, mesh, seed: int = 0,
                                   logger: Optional[ScalarLogger] = None,
                                   tile_size: int = 128,
                                   checkpoint_dir: Optional[str] = None,
-                                  checkpoint_every: Optional[int] = None) -> float:
+                                  checkpoint_every: Optional[int] = None,
+                                  log_suffix: str = "",
+                                  row_block: Optional[int] = None) -> float:
     """Train over ``mesh``; returns the final test accuracy (percent), the
-    same on every rank."""
+    same on every rank. ``log_suffix`` is appended to the logged scalars'
+    names; ``row_block`` sets the shard layouts' row block (default
+    ``auto_nc_row_block(N)`` on the dense path)."""
     trainer = ShardedNodeClassificationTrainer(
         cfg, data, mesh, seed=seed, tile_size=tile_size,
-        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
-    return trainer.fit(_rank_logger(mesh, logger))
+        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+        row_block=row_block)
+    return trainer.fit(_rank_logger(mesh, logger), log_suffix=log_suffix)
 
 
 class ShardedLinkPredictionTrainer(LinkPredictionTrainer):

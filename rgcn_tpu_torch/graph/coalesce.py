@@ -132,10 +132,12 @@ class MergedPairLayout:
         return arrays_to(self, device)
 
 
-def _pair_frame(recv, source, pair_coeff, num_nodes, row_block, chunk):
+def _pair_frame(recv, source, pair_coeff, num_nodes, row_block, chunk, pad_to=None):
     """One frame's (DstLayout over pairs, per-slot source, per-slot coeff)
-    from per-pair receiver, source and coefficients."""
-    layout = build_dst_layout(recv, num_nodes, row_block=row_block, chunk=chunk)
+    from per-pair receiver, source and coefficients; ``pad_to`` as
+    :func:`~rgcn_tpu_torch.ops.aggregate.build_dst_layout`'s."""
+    layout = build_dst_layout(recv, num_nodes, row_block=row_block, chunk=chunk,
+                              pad_to=pad_to)
     src_z = np.concatenate([source, np.zeros((1,), np.int32)])
     coeff_z = np.concatenate(
         [pair_coeff, np.zeros((1, pair_coeff.shape[1]), np.float32)], axis=0
@@ -231,6 +233,9 @@ def build_merged_layout(
     *,
     row_block: int = 128,
     chunk: int = 256,
+    max_rels: int = MERGED_MAX_RELS,
+    pad_to: Optional[int] = None,
+    rev_pad_to: Optional[int] = None,
     dedup_k: int = 0,
 ) -> MergedPairLayout:
     """Coalesce augmented edges into a :class:`MergedPairLayout`.
@@ -238,13 +243,15 @@ def build_merged_layout(
     Inputs are the per-edge arrays of the augmented general-relation graph
     (an EdgeSet's fields, padded or not: entries with ``dst >= num_nodes``
     or ``val == 0`` are ignored). Raises when ``num_rels`` exceeds
-    :data:`MERGED_MAX_RELS`.
+    ``max_rels`` (default :data:`MERGED_MAX_RELS`). ``pad_to`` /
+    ``rev_pad_to`` pad the forward and reverse frames' slot counts (shape-
+    stable per-epoch layouts, as ``build_dst_layout``'s ``pad_to``).
     ``dedup_k > 1`` also builds the source-dedup'd forward frame.
     The coefficients are a snapshot of ``val`` (module docstring).
     """
-    if num_rels > MERGED_MAX_RELS:
+    if num_rels > max_rels:
         raise ValueError(
-            f"merged layout needs num_rels <= {MERGED_MAX_RELS} (got {num_rels}); "
+            f"merged layout needs num_rels <= {max_rels} (got {num_rels}); "
             "use the unmerged basis path"
         )
     dst = np.asarray(dst)
@@ -265,11 +272,11 @@ def build_merged_layout(
     np.add.at(coeff, (inv, r), v)
 
     layout, src_sorted, coeff_sorted = _pair_frame(
-        pair_d, pair_s, coeff, num_nodes, row_block, chunk
+        pair_d, pair_s, coeff, num_nodes, row_block, chunk, pad_to
     )
     # reverse frame: receiver = forward source, same pairs and coefficients
     rev_layout, rev_src_sorted, rev_coeff_sorted = _pair_frame(
-        pair_s, pair_d, coeff, num_nodes, row_block, chunk
+        pair_s, pair_d, coeff, num_nodes, row_block, chunk, rev_pad_to
     )
     recv_z = np.concatenate([pair_s, np.zeros((1,), np.int32)])
     rev_receiver = recv_z[rev_layout.perm].astype(np.int32)

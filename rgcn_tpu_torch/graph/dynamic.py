@@ -80,12 +80,13 @@ def padded_size(num_edges: int, num_general_rels: int, tile_size: int,
     return out
 
 
-def auto_layout_row_block(num_nodes: int, num_edges: int, chunk: int = 256) -> int:
+def auto_layout_row_block(num_nodes: int, num_edges: int, chunk: int = 256,
+                          max_row_block: int = 2048) -> int:
     """Row block of a (sub)graph's destination layout: every row block costs
     at least one chunk, so escalate from 128 while that floor exceeds 35% of
-    the edges, up to 2048."""
+    the edges, up to ``max_row_block``."""
     rb = 128
-    while rb < 2048 and (-(-num_nodes // rb)) * chunk > 0.35 * max(num_edges, 1):
+    while rb < max_row_block and (-(-num_nodes // rb)) * chunk > 0.35 * max(num_edges, 1):
         rb *= 2
     return rb
 

@@ -115,7 +115,8 @@ def build_dst_layout_native(dst: np.ndarray, num_nodes: int, row_block: int,
 def build_edge_set_native(triples: np.ndarray, num_nodes: int, num_rels: int,
                           tile_size: int = 128, tile_multiple: int = 1,
                           with_dst_layout: bool = False,
-                          layout_row_block: Optional[int] = None):
+                          layout_row_block: Optional[int] = None,
+                          layout_chunk: Optional[int] = None):
     """:func:`rgcn_tpu_torch.graph.structure.build_edge_set` (inverse
     edges added) through the native builder: the forward edge set, and
     with ``with_dst_layout`` its destination layout, the reversed edges
@@ -169,7 +170,8 @@ def build_edge_set_native(triples: np.ndarray, num_nodes: int, num_rels: int,
                  tile_size=int(tile_size), num_edges=int(2 * e))
     if not with_dst_layout:
         return es
-    kw = {} if layout_row_block is None else {"row_block": layout_row_block}
+    kw = {k: v for k, v in (("row_block", layout_row_block),
+                            ("chunk", layout_chunk)) if v is not None}
     layout = build_dst_layout(es.dst, num_nodes, **kw)
     # transposed copy: swap src/dst on the real edges (pads have val 0),
     # keep the forward normalisation, re-sort by (relation, new receiver)
@@ -179,7 +181,7 @@ def build_edge_set_native(triples: np.ndarray, num_nodes: int, num_rels: int,
     rev = _assemble_edge_set(
         r_src[r_order], r_dst[r_order], r_rel[r_order], r_val[r_order],
         num_nodes, num_general, tile_size, True, layout_row_block,
-        tile_multiple=tile_multiple)
+        tile_multiple=tile_multiple, layout_chunk=layout_chunk)
     rev = dataclasses.replace(rev, fused=build_fused_layout(rev))
     return dataclasses.replace(es, layout=layout, reverse=rev,
                                fused=build_fused_layout(es))

@@ -139,11 +139,20 @@ class SrcRelPairs:
     src_layout: Optional[object] = None
 
 
-def edge_normalization(rel: np.ndarray, dst: np.ndarray, num_nodes: int) -> np.ndarray:
-    """``1 / deg`` per ``(rel, dst)`` group."""
+def edge_normalization(rel: np.ndarray, dst: np.ndarray, num_nodes: int,
+                       mask: Optional[np.ndarray] = None) -> np.ndarray:
+    """``1 / deg`` per ``(rel, dst)`` group. With a ``mask``, masked-out
+    edges get 0 and do not count toward their group's degree (edge
+    dropout as a mask, normalised over the surviving edges)."""
     key = rel.astype(np.int64) * (num_nodes + 1) + dst.astype(np.int64)
-    _, inv, deg = np.unique(key, return_inverse=True, return_counts=True)
-    return (1.0 / deg[inv].astype(np.float32)).astype(np.float32)
+    if mask is None:
+        _, inv, deg = np.unique(key, return_inverse=True, return_counts=True)
+        return (1.0 / deg[inv].astype(np.float32)).astype(np.float32)
+    uniq, inv = np.unique(key, return_inverse=True)
+    deg = np.zeros(uniq.shape[0], dtype=np.float32)
+    np.add.at(deg, inv, mask.astype(np.float32))
+    deg_e = deg[inv]
+    return np.where(deg_e > 0, mask / np.maximum(deg_e, 1.0), 0.0).astype(np.float32)
 
 
 def auto_nc_row_block(num_nodes: int, chunk: int = 256) -> int:
@@ -280,11 +289,16 @@ def build_edge_set(
     with_pair_agg: bool = False,
     tile_multiple: int = 1,
     prefer_native: bool = True,
+    add_inverses: bool = True,
+    layout_chunk: Optional[int] = None,
 ) -> EdgeSet:
     """Preprocess raw ``(s, p, o)`` triples into a static :class:`EdgeSet`.
 
     ``triples`` holds the original graph (relations in ``[0, R)``); inverse
-    edges (relation ``p + R``) are generated here. ``with_dst_layout=True``
+    edges (relation ``p + R``) are generated here unless ``add_inverses``
+    is False (then the general relations are the ``R`` given, and the
+    numpy path runs, as in JAX). ``layout_row_block`` and ``layout_chunk``
+    set the destination layouts' geometry. ``with_dst_layout=True``
     attaches the destination layout (K1), the fused layout (K2) and the
     reversed edge set with its own layouts. ``with_merged_layout=True``
     attaches the coalesced-pair layout the basis ops prefer (K4), unless
@@ -308,17 +322,19 @@ def build_edge_set(
     if triples.ndim != 2 or triples.shape[1] != 3:
         raise ValueError(f"triples must be (E, 3), got {triples.shape}")
 
-    if prefer_native:
+    if prefer_native and add_inverses:
         from rgcn_tpu_torch.graph.native import build_edge_set_native
 
         es = build_edge_set_native(
             triples, num_nodes, num_rels, tile_size=tile_size,
             tile_multiple=tile_multiple, with_dst_layout=with_dst_layout,
-            layout_row_block=layout_row_block)
+            layout_row_block=layout_row_block, layout_chunk=layout_chunk)
     else:
-        triples = np.concatenate([triples, inverse_triples(triples, num_rels)],
-                                 axis=0)
-        num_general = 2 * num_rels
+        num_general = num_rels
+        if add_inverses:
+            triples = np.concatenate([triples, inverse_triples(triples, num_rels)],
+                                     axis=0)
+            num_general = 2 * num_rels
 
         dst = triples[:, 0]  # receiver = subject
         rel = triples[:, 1]
@@ -329,7 +345,8 @@ def build_edge_set(
 
         val = edge_normalization(rel, dst, num_nodes)
 
-        layout_kw = dict(tile_multiple=tile_multiple, prefer_native=False)
+        layout_kw = dict(tile_multiple=tile_multiple, prefer_native=False,
+                         layout_chunk=layout_chunk)
         es = _assemble_edge_set(
             src, dst, rel, val, num_nodes, num_general, tile_size,
             with_dst_layout, layout_row_block, **layout_kw)
@@ -370,6 +387,7 @@ def _assemble_edge_set(
     *,
     tile_multiple: int = 1,
     prefer_native: bool = True,
+    layout_chunk: Optional[int] = None,
 ) -> EdgeSet:
     """Tile-pad pre-sorted (by relation) edge arrays into an EdgeSet."""
     counts = np.bincount(rel, minlength=num_general)
@@ -405,7 +423,8 @@ def _assemble_edge_set(
     if with_dst_layout:
         from rgcn_tpu_torch.ops.aggregate import build_dst_layout
 
-        kw = {} if layout_row_block is None else {"row_block": layout_row_block}
+        kw = {k: v for k, v in (("row_block", layout_row_block),
+                                ("chunk", layout_chunk)) if v is not None}
         layout = build_dst_layout(dst_p, num_nodes, prefer_native=prefer_native, **kw)
 
     return EdgeSet(

@@ -12,13 +12,16 @@ shows which kernels it went through. The libraries are built from
 ``csrc/`` at first use (:mod:`rgcn_tpu_torch.kernels.build`).
 
 K1, K4 and K5 take f32 or bf16 tables and messages (the edge stage's
-compute dtype, :func:`rgcn_tpu_torch.nn.layers._edge_compute_dtype`): a
+compute dtype, :func:`rgcn_tpu_torch.nn.layers._edge_compute_dtype`), K2
+and K3 f32 or bf16 ``x`` and ``W`` (the JAX kernels' ``compute_dtype``): a
 bf16 one launches the kernel's bf16 form, an entry point and library of
-its own with its own count (``k1_aggregate_bf16``,
-``k4_weighted_aggregate_bf16``, ``k5_weighted_aggregate_dedup_bf16``),
-which sums in f32; K4 and K5 then write f32 or, with ``out_dtype=
-torch.bfloat16``, bf16. Any other dtype raises: nothing is converted to
-reach a kernel.
+its own with its own count (``k1_aggregate_bf16``, ``k2_fused_bf16``,
+``k3_messages_bf16``, ``k4_weighted_aggregate_bf16``,
+``k5_weighted_aggregate_dedup_bf16``), which sums in f32. K1 writes f32
+or, with ``out_dtype=torch.bfloat16``, bf16 from either message dtype; K4
+and K5 a bf16 output from bf16 tables; K3 messages of ``out_dtype`` (f32
+or bf16; the bf16 form also takes f32 operands with bf16 messages). Any
+other dtype raises: nothing is converted to reach a kernel.
 """
 
 from __future__ import annotations
@@ -48,10 +51,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argument types of each C launcher (pointers and the stream as c_void_p)
 _ARGTYPES = {
-    "k1_aggregate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # K1: (msgs, index, local_dst, chunk_block, out, scratch, ..., out_bf16,
+    # stream), one list for the f32 and the bf16 form
+    "k1_aggregate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "k2_fused": [_P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _I, _I, _I, _P],
     "k3_messages": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # K3's bf16 form: (..., din, dout, x_bf16, out_bf16, stream)
+    "k3_messages_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # K4 and K5: (..., out, scratch, ..., out_bf16, stream), one list for
     # the f32 and the bf16 form
     "k4_weighted_aggregate": [_P, _P, _P, _P, _P, _P, _P,
@@ -61,7 +68,7 @@ _ARGTYPES = {
 }
 # a bf16 form takes its f32 form's arguments
 _ARGTYPES.update({name + "_bf16": _ARGTYPES[name] for name in (
-    "k1_aggregate", "k4_weighted_aggregate", "k5_weighted_aggregate_dedup")})
+    "k1_aggregate", "k2_fused", "k4_weighted_aggregate", "k5_weighted_aggregate_dedup")})
 # the table and message dtypes of K1, K4 and K5, and the output dtypes a
 # table dtype allows
 _TABLE_DTYPES = (torch.float32, torch.bfloat16)
@@ -118,15 +125,27 @@ def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
         )
 
 
-def table_form(t: torch.Tensor, what: str, out_dtype=torch.float32) -> str:
-    """The entry-point suffix of a K1/K4/K5 table or message dtype ("" for
+def table_form(t: torch.Tensor, what: str, out_dtype=torch.float32,
+               out_dtypes=None) -> str:
+    """The entry-point suffix of a table, message or operand dtype ("" for
     f32, "_bf16" for bf16); raises for any other dtype or an output dtype
-    the table's form does not write."""
+    the form does not write (``out_dtypes``: the outputs it writes, by
+    default K4's and K5's for this table dtype)."""
     if t.dtype not in _TABLE_DTYPES:
         raise TypeError(f"{what}: dtype {t.dtype}, kernel takes float32 or bfloat16")
-    if out_dtype not in _OUT_DTYPES[t.dtype]:
+    if out_dtype not in (out_dtypes or _OUT_DTYPES[t.dtype]):
         raise TypeError(f"{what}: a {t.dtype} table gives no {out_dtype} output")
     return "" if t.dtype == torch.float32 else "_bf16"
+
+
+def _pair_form(x: torch.Tensor, weights: torch.Tensor) -> str:
+    """K2's and K3's operand form: ``x`` and ``W`` of one dtype, f32 ("")
+    or bf16 ("_bf16")."""
+    form = table_form(x, "x")
+    if weights.dtype != x.dtype:
+        raise TypeError(f"weights: dtype {weights.dtype}, x is {x.dtype}: "
+                        "the kernel takes operands of one dtype")
+    return form
 
 
 def _check_blocks(num_nodes: int, row_block: int, num_row_blocks: int) -> None:
@@ -153,13 +172,15 @@ def launch_k1_aggregate(
     num_nodes: int,
     row_block: int,
     num_row_blocks: int,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """K1: ``out[n] = Σ_{slots l → n} msgs[index[l]]`` (``index`` None reads
     slot ``l`` of destination-sorted ``msgs``) over a destination layout's
     ``(n_chunks, CH)`` ``local_dst`` and ``chunk_block``. ``msgs`` f32 or
-    bf16 (the bf16 form, ``k1_aggregate_bf16``); the sums and the output are
-    f32. Returns ``(num_nodes, dout)``; rows past ``num_nodes`` are
-    dropped."""
+    bf16 (the bf16 form, ``k1_aggregate_bf16``); the sums are f32 and the
+    output ``out_dtype``, f32 or bf16 (each element rounded once from its
+    f32 sum, through an f32 scratch). Returns ``(num_nodes, dout)``; rows
+    past ``num_nodes`` are dropped."""
     dev = msgs.device
     _check(local_dst, "local_dst", torch.int32, None)
     if local_dst.dim() != 2:
@@ -167,7 +188,7 @@ def launch_k1_aggregate(
             f"local_dst: expected (n_chunks, CH), got {tuple(local_dst.shape)}")
     n_chunks, chunk = local_dst.shape
     num_slots = n_chunks * chunk
-    form = table_form(msgs, "msgs")
+    form = table_form(msgs, "msgs", out_dtype, _TABLE_DTYPES)
     _check(msgs, "msgs", msgs.dtype, local_dst.device)
     if msgs.dim() != 2:
         raise ValueError(f"msgs: expected (rows, dout), got {tuple(msgs.shape)}")
@@ -181,14 +202,18 @@ def launch_k1_aggregate(
         raise ValueError(
             f"{num_nodes} nodes exceed {num_row_blocks} blocks of {row_block}")
     dout = msgs.shape[1]
-    out = torch.empty((num_nodes, dout), dtype=torch.float32, device=dev)
+    out = torch.empty((num_nodes, dout), dtype=out_dtype, device=dev)
     if num_nodes == 0 or dout == 0:
         return out
+    bf16_out = out_dtype == torch.bfloat16
+    scratch = torch.empty((num_nodes, dout), dtype=torch.float32, device=dev) \
+        if bf16_out else None
     _launch(
         "k1_aggregate" + form, dev, msgs.data_ptr(),
         None if index is None else index.data_ptr(),
         local_dst.data_ptr(), chunk_block.data_ptr(), out.data_ptr(),
-        n_chunks, chunk, row_block, dout, num_nodes,
+        None if scratch is None else scratch.data_ptr(),
+        n_chunks, chunk, row_block, dout, num_nodes, int(bf16_out),
     )
     return out
 
@@ -207,8 +232,10 @@ def launch_k2_fused(
     quantum: int,
 ) -> torch.Tensor:
     """K2: ``out[n] = Σ val·(x[src] @ W[rel_q])`` over a fused layout, one
-    quantum per CTA with its ``W[rel_q]`` staged in shared memory. Returns
-    ``(num_nodes, dout)``; rows past ``num_nodes`` are dropped."""
+    quantum per CTA with its ``W[rel_q]`` staged in shared memory. ``x`` and
+    ``weights`` f32, or both bf16 (the bf16 form, ``k2_fused_bf16``: f32
+    sums, each message rounded to bf16, f32 destination sums). Returns
+    ``(num_nodes, dout)`` f32; rows past ``num_nodes`` are dropped."""
     dev = x.device
     _check(local_dst, "local_dst", torch.int32, None)
     if local_dst.dim() != 2:
@@ -219,8 +246,9 @@ def launch_k2_fused(
     if quantum < 1 or chunk % quantum:
         raise ValueError(f"quantum {quantum} does not divide the chunk {chunk}")
     n_quanta = num_slots // quantum
-    _check(x, "x", torch.float32, local_dst.device)
-    _check(weights, "weights", torch.float32, dev)
+    form = _pair_form(x, weights)
+    _check(x, "x", x.dtype, local_dst.device)
+    _check(weights, "weights", x.dtype, dev)
     if x.dim() != 2 or weights.dim() != 3 or weights.shape[1] != x.shape[1]:
         raise ValueError(
             f"x {tuple(x.shape)} and weights {tuple(weights.shape)} do not "
@@ -238,7 +266,7 @@ def launch_k2_fused(
     if num_nodes == 0 or dout == 0 or din == 0:
         return out.zero_()
     _launch(
-        "k2_fused", dev, x.data_ptr(), weights.data_ptr(), src.data_ptr(),
+        "k2_fused" + form, dev, x.data_ptr(), weights.data_ptr(), src.data_ptr(),
         val.data_ptr(), local_dst.data_ptr(), quantum_rel.data_ptr(),
         chunk_block.data_ptr(), out.data_ptr(),
         n_quanta, din, dout, row_block, chunk, quantum, num_nodes,
@@ -253,17 +281,27 @@ def launch_k3_messages(
     val: torch.Tensor,
     tile_rel: torch.Tensor,
     tile_size: int,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """K3: per relation-uniform tile, ``msgs = (x[src] @ W[tile_rel]) · val``
     in edge order; rows whose ``val`` is 0 come out 0 uncomputed. The
     launcher takes a small route for ``dout <= 32`` (W[rel] within 48 KB)
-    and a tiled one otherwise. Returns ``(E_pad, dout)``, every element
-    stored by the kernel (no memset)."""
+    and a tiled one otherwise. ``x`` and ``weights`` f32 or both bf16;
+    messages of ``out_dtype`` (default the weights' dtype), f32 or bf16,
+    summed in f32 and rounded once; anything but f32 throughout launches
+    the bf16 form (``k3_messages_bf16``). Returns ``(E_pad, dout)``, every
+    element stored by the kernel (no memset)."""
     dev = x.device
     n_tiles = tile_rel.shape[0]
     e_pad = n_tiles * tile_size
-    _check(x, "x", torch.float32, None)
-    _check(weights, "weights", torch.float32, dev)
+    out_dtype = out_dtype or weights.dtype
+    form = _pair_form(x, weights)
+    if out_dtype not in _TABLE_DTYPES:
+        raise TypeError(f"out_dtype {out_dtype}: K3 writes float32 or bfloat16")
+    if out_dtype == torch.bfloat16:
+        form = "_bf16"
+    _check(x, "x", x.dtype, None)
+    _check(weights, "weights", x.dtype, dev)
     if x.dim() != 2 or weights.dim() != 3 or weights.shape[1] != x.shape[1]:
         raise ValueError(
             f"x {tuple(x.shape)} and weights {tuple(weights.shape)} do not "
@@ -273,13 +311,15 @@ def launch_k3_messages(
     _check(val, "val", torch.float32, dev, (e_pad,))
     _check(tile_rel, "tile_rel", torch.int32, dev, (n_tiles,))
     _, din, dout = weights.shape
-    out = torch.empty((e_pad, dout), dtype=torch.float32, device=dev)
+    out = torch.empty((e_pad, dout), dtype=out_dtype, device=dev)
     if e_pad == 0 or dout == 0:
         return out
+    flags = (int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16)) \
+        if form else ()
     _launch(
-        "k3_messages", dev, x.data_ptr(), weights.data_ptr(), src.data_ptr(),
+        "k3_messages" + form, dev, x.data_ptr(), weights.data_ptr(), src.data_ptr(),
         val.data_ptr(), tile_rel.data_ptr(), out.data_ptr(),
-        n_tiles, tile_size, din, dout,
+        n_tiles, tile_size, din, dout, *flags,
     )
     return out
 

@@ -62,9 +62,12 @@ SOURCES = {
     "k3_messages": "k3_messages.cu",
     "k4_weighted_aggregate": "k4_weighted_aggregate.cu",
     "k5_weighted_aggregate_dedup": "k5_weighted_aggregate_dedup.cu",
-    # the bf16 forms of K1, K4 and K5 (the edge stage's compute dtype): their
-    # own entry points, libraries and launch counts, built beside the f32 ones
+    # the bf16 forms (bf16 tables, operands or messages; the edge stage's
+    # compute dtype and the JAX kernels' own dtype options): their own entry
+    # points, libraries and launch counts, built beside the f32 ones
     "k1_aggregate_bf16": "k1_aggregate_bf16.cu",
+    "k2_fused_bf16": "k2_fused_bf16.cu",
+    "k3_messages_bf16": "k3_messages_bf16.cu",
     "k4_weighted_aggregate_bf16": "k4_weighted_aggregate_bf16.cu",
     "k5_weighted_aggregate_dedup_bf16": "k5_weighted_aggregate_dedup_bf16.cu",
 }

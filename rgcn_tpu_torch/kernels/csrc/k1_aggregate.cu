@@ -6,7 +6,12 @@
 // where slot l of chunk c targets node chunk_block[c] * RB + local_dst[l],
 // local_dst == RB marks a pad (dropped), and row(l) = index[l] when an
 // index (the layout's perm into edge-order messages) is given, else l.
-// Rows at or past num_nodes are dropped.
+// Rows at or past num_nodes are dropped. The output is f32, or bf16
+// (out_bf16: aggregate_presorted_pallas(out_dtype=bf16)), each element
+// rounded once from its whole f32 sum, where the Pallas kernel rounds each
+// chunk's f32 partial into its bf16 output block (pallas_aggregate.py:
+// 196-198); the sums then go to an f32 scratch the wrapper allocates, and
+// a second kernel narrows it.
 //
 // Bound on the H100: bytes, and in practice latency. The work is one add
 // per real slot and column; the card must read each real slot's message
@@ -43,9 +48,9 @@
 
 extern "C" int k1_aggregate(const float* msgs, const int* index,
                             const int* local_dst, const int* chunk_block,
-                            float* out, int n_chunks, int chunk,
-                            int row_block, int dout, int num_nodes,
+                            void* out, float* scratch, int n_chunks, int chunk,
+                            int row_block, int dout, int num_nodes, int out_bf16,
                             void* stream) {
-  return k1::run<float>(msgs, index, local_dst, chunk_block, out, n_chunks,
-                        chunk, row_block, dout, num_nodes, stream);
+  return k1::run<float>(msgs, index, local_dst, chunk_block, out, scratch, n_chunks,
+                        chunk, row_block, dout, num_nodes, out_bf16, stream);
 }

@@ -1,6 +1,8 @@
 // K1's kernel, templated on the message type: f32 (k1_aggregate.cu) or bf16
-// (k1_aggregate_bf16.cu). Sums are f32 and the output is f32 either way.
-// The design is described in k1_aggregate.cu.
+// (k1_aggregate_bf16.cu). Sums are f32. The output is f32, or bf16
+// (out_bf16, either message type): then the atomics add into an f32
+// scratch of the output's shape and narrow_output rounds each element once
+// from its whole f32 sum. The design is described in k1_aggregate.cu.
 
 #pragma once
 
@@ -170,20 +172,34 @@ cudaError_t launch_vec(int lps, const TM* msgs, const int* index,
   return cudaErrorInvalidValue;
 }
 
-// Zero the output on the stream, then sum: lanes of 4 values (16 bytes of
-// f32, 8 of bf16) when every row starts on such a boundary, scalar lanes
-// else. Both message types take the same lane map: a bf16 lane keeps the
-// f32 lane's 4 columns, so the warps' span of slots and the lanes on a row
-// are the f32 form's (8 bf16 values a lane halve the lanes a row gets and
-// double the slots a warp walks, which measured slower on the H100).
+// After the sum, for a bf16 output: each element rounded once from its f32
+// sum in the scratch.
+__global__ void narrow_output(const float* __restrict__ acc, __nv_bfloat16* __restrict__ out,
+                              long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
+       i += stride)
+    out[i] = __float2bfloat16_rn(acc[i]);
+}
+
+// Zero the f32 sums on the stream (the output, or the scratch of a bf16
+// output), then sum: lanes of 4 values (16 bytes of f32, 8 of bf16) when
+// every row starts on such a boundary, scalar lanes else. Both message
+// types take the same lane map: a bf16 lane keeps the f32 lane's 4
+// columns, so the warps' span of slots and the lanes on a row are the f32
+// form's (8 bf16 values a lane halve the lanes a row gets and double the
+// slots a warp walks, which measured slower on the H100). A bf16 output is
+// narrowed after.
 template <typename TM>
 int run(const TM* msgs, const int* index, const int* local_dst,
-        const int* chunk_block, float* out, int n_chunks, int chunk,
-        int row_block, int dout, int num_nodes, void* stream) {
+        const int* chunk_block, void* out, float* scratch, int n_chunks, int chunk,
+        int row_block, int dout, int num_nodes, int out_bf16, void* stream) {
   if (n_chunks < 1 || chunk < 1 || dout < 1) return cudaErrorInvalidValue;
+  if (out_bf16 && scratch == nullptr) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(
-      out, 0, sizeof(float) * static_cast<size_t>(num_nodes) * dout, st);
+  float* acc = out_bf16 ? scratch : static_cast<float*>(out);
+  const long long n_out = static_cast<long long>(num_nodes) * dout;
+  cudaError_t err = cudaMemsetAsync(acc, 0, sizeof(float) * static_cast<size_t>(n_out), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int kVec = 4;
   const bool wide = dout % kVec == 0 &&
@@ -191,11 +207,17 @@ int run(const TM* msgs, const int* index, const int* local_dst,
   const int units = wide ? dout / kVec : dout;  // vectors per row
   int lps = 1;
   while (lps < units && lps < 32) lps *= 2;
-  err = wide ? launch_vec<TM, kVec>(lps, msgs, index, local_dst, chunk_block, out,
+  err = wide ? launch_vec<TM, kVec>(lps, msgs, index, local_dst, chunk_block, acc,
                                     n_chunks, chunk, row_block, dout, num_nodes, st)
-             : launch_vec<TM, 1>(lps, msgs, index, local_dst, chunk_block, out,
+             : launch_vec<TM, 1>(lps, msgs, index, local_dst, chunk_block, acc,
                                  n_chunks, chunk, row_block, dout, num_nodes, st);
-  return static_cast<int>(err);
+  if (err != cudaSuccess || !out_bf16 || n_out == 0) return static_cast<int>(err);
+  constexpr int kNarrowThreads = 256;
+  const long long want = (n_out + kNarrowThreads - 1) / kNarrowThreads;
+  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+  narrow_output<<<blocks, kNarrowThreads, 0, st>>>(
+      acc, static_cast<__nv_bfloat16*>(out), n_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace k1

@@ -16,7 +16,9 @@ has biases or an L2 other than Schlichtkrull's, with each layer's
 self-loop dropout under a mask the trainer draws (``self_masks``). The JAX
 model's ``feature_blocks`` option stores the embeddings as <=128-column
 blocks for a TPU gather fast path: ``weights.from_jax_params`` joins them
-into ``node_embeddings``, and the port keeps one table.
+into ``node_embeddings``, and the port keeps one table, drawn block by
+block with each block's own shape (the initializer's fans) when
+``feature_blocks`` is set, as the JAX model draws them.
 """
 
 from __future__ import annotations
@@ -44,6 +46,11 @@ class LinkPredictor(nn.Module):
     ``decoder_bwd_dtype``, see :class:`~rgcn_tpu_torch.nn.layers.DistMult`).
     """
 
+    # feature_blocks draws the embeddings block by block (the JAX
+    # LinkPredictor's emb_blocks); the JAX c-RGCN draws one table whatever
+    # it says
+    _BLOCKED_EMBEDDINGS = True
+
     def __init__(
         self,
         num_nodes: int,
@@ -68,6 +75,7 @@ class LinkPredictor(nn.Module):
         seed: int = 0,
         group=None,
         decoder_group=None,
+        feature_blocks: bool = False,
     ):
         super().__init__()
         if not 0 < num_layers < 3:
@@ -77,8 +85,12 @@ class LinkPredictor(nn.Module):
         self.decoder_l2 = decoder_l2
         gen = torch.Generator().manual_seed(seed)
         gain = rinit.relu_gain() if include_gain else 1.0
+        emb_init = rinit.select_weight_init(weight_init, gain)
+        widths = [emb_dim]
+        if feature_blocks and self._BLOCKED_EMBEDDINGS:
+            widths = [min(128, emb_dim - lo) for lo in range(0, emb_dim, 128)]
         self.node_embeddings = nn.Parameter(
-            rinit.select_weight_init(weight_init, gain)((num_nodes, emb_dim), gen))
+            torch.cat([emb_init((num_nodes, w), gen) for w in widths], dim=1))
         self.node_embeddings_bias = nn.Parameter(torch.zeros((1, emb_dim)))
         r_aug = 2 * num_relations + 1
 
@@ -198,6 +210,8 @@ class CompressionRelationPredictor(LinkPredictor):
     layer(s), decoder.
     """
 
+    _BLOCKED_EMBEDDINGS = False
+
     def _encoder_layers(self, conv, gen, emb_dim, nhid1, hidden2_size):
         nhid2 = hidden2_size or nhid1
         self.encoding_layer = TorchLinear(emb_dim, nhid1, gen)
@@ -217,11 +231,13 @@ class CompressionRelationPredictor(LinkPredictor):
 
 
 def build_lp_model(cfg, num_nodes: int, num_rels: int, seed: int = 0,
-                   group=None, decoder_group=None) -> LinkPredictor:
+                   group=None, decoder_group=None,
+                   feature_blocks: bool = False) -> LinkPredictor:
     """The model a LinkPredictionExperiment config describes (``rgcn`` and
     ``c-rgcn`` encoders), with the self-loop dropout rate of a
     ``schlichtkrull-dropout`` config (general edge dropout is the
-    trainer's); ``group``/``decoder_group`` as :class:`LinkPredictor`'s."""
+    trainer's); ``group``/``decoder_group``/``feature_blocks`` as
+    :class:`LinkPredictor`'s (the JAX builder's ``**extra``)."""
     enc, dec = cfg.encoder, cfg.decoder
     models = {"rgcn": LinkPredictor, "c-rgcn": CompressionRelationPredictor}
     if enc.model not in models:
@@ -252,4 +268,5 @@ def build_lp_model(cfg, num_nodes: int, num_rels: int, seed: int = 0,
         seed=seed,
         group=group,
         decoder_group=decoder_group,
+        feature_blocks=feature_blocks,
     )

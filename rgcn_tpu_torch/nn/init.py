@@ -95,13 +95,19 @@ def schlichtkrull_uniform(
     return torch.empty(tuple(shape)).uniform_(-std, std, generator=generator)
 
 
-def standard_normal(shape: Sequence[int], generator: torch.Generator) -> torch.Tensor:
-    """N(0, 1) (torch's ``normal_`` defaults; no gain)."""
+def standard_normal(shape: Sequence[int], generator: torch.Generator,
+                    gain: float = 1.0) -> torch.Tensor:
+    """N(0, 1) (torch's ``normal_`` defaults). ``gain`` is ignored, as in
+    the JAX package: the reference passes none to ``normal_``."""
+    del gain
     return torch.randn(tuple(shape), generator=generator)
 
 
-def standard_uniform(shape: Sequence[int], generator: torch.Generator) -> torch.Tensor:
-    """U(0, 1) (torch's ``uniform_`` defaults; no gain)."""
+def standard_uniform(shape: Sequence[int], generator: torch.Generator,
+                     gain: float = 1.0) -> torch.Tensor:
+    """U(0, 1) (torch's ``uniform_`` defaults). ``gain`` is ignored, as in
+    the JAX package."""
+    del gain
     return torch.rand(tuple(shape), generator=generator)
 
 
@@ -135,17 +141,19 @@ def torch_linear_bias(fan_in: int) -> Initializer:
     return lambda shape, g: torch.empty(tuple(shape)).uniform_(-bound, bound, generator=g)
 
 
-def select_weight_init(name: str, gain: float = 1.0) -> Initializer:
-    """Weight initializer by config name (the JAX package's dispatch)."""
+def select_weight_init(name: str, gain: float = 1.0,
+                       fan_shape: Optional[Sequence[int]] = None) -> Initializer:
+    """Weight initializer by config name (the JAX package's dispatch);
+    ``fan_shape`` reaches the Schlichtkrull initializers' std, as in JAX."""
     name = (name or "").lower()
     if name in ("glorot-uniform", "xavier-uniform"):
         return lambda shape, g: glorot_uniform(shape, g, gain)
     if name in ("glorot-normal", "xavier-normal"):
         return lambda shape, g: glorot_normal(shape, g, gain)
     if name == "schlichtkrull-uniform":
-        return lambda shape, g: schlichtkrull_uniform(shape, g, gain)
+        return lambda shape, g: schlichtkrull_uniform(shape, g, gain, fan_shape)
     if name == "schlichtkrull-normal":
-        return lambda shape, g: schlichtkrull_normal(shape, g, gain)
+        return lambda shape, g: schlichtkrull_normal(shape, g, gain, fan_shape)
     if name in ("normal", "standard-normal"):
         return standard_normal
     if name == "uniform":

@@ -164,7 +164,9 @@ class RGCNConv(nn.Module):
     fan ``((R'-1)//2, din/B)`` whatever ``weight_init`` says. With
     ``diag=True`` (the e-RGCN first layer) ``weights`` is ``(R', din)``,
     the output is ``din`` wide and there is no bias. ``bias`` is
-    ``(dout,)``, or absent when ``bias_init`` is None. Parameters are drawn
+    ``(dout,)``, or absent when ``bias_init`` is None or ``use_bias`` is
+    False (the JAX layer's field; every JAX caller sets ``bias_init=None``
+    instead). Parameters are drawn
     from ``generator`` with the named initializers (NC layers:
     glorot-uniform with the relu gain, zero bias). ``self_loop_dropout`` is
     the rate of the self message's dropout where a keep mask is given.
@@ -192,6 +194,7 @@ class RGCNConv(nn.Module):
         self_loop_dropout: float = 0.0,
         generator: Optional[torch.Generator] = None,
         group=None,
+        use_bias: bool = True,
     ):
         super().__init__()
         self.group = group
@@ -256,7 +259,7 @@ class RGCNConv(nn.Module):
         else:
             self.weights = nn.Parameter(
                 w_init((num_relations, din, out_features), generator))
-        if bias_init is None:
+        if bias_init is None or not use_bias:
             self.register_parameter("bias", None)
         else:
             self.bias = nn.Parameter(

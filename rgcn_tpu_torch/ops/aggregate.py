@@ -15,7 +15,11 @@ row block is spread over as many CTAs as it has chunks; a warp whose span
 holds only pads returns after loading its ``local_dst`` once. Messages are
 f32 or bf16 (the edge stage's compute dtype): bf16 messages launch K1's
 bf16 form (``kernels/csrc/k1_aggregate_bf16.cu``), and both routes sum in
-f32 into an f32 output, as the Pallas kernel's default ``out_dtype``.
+f32 into an f32 output, as the Pallas kernel's default ``out_dtype``, or
+with ``out_dtype=torch.bfloat16`` into a bf16 one, each element rounded
+once from its whole f32 sum (the Pallas kernel rounds each chunk's f32
+partial into its bf16 output block, ``pallas_aggregate.py:196-198``: a
+difference by design, nearer the f32 sum).
 
 :func:`aggregate_sorted` has a backward (counterpart of ``_agg_ad``,
 ``pallas_aggregate.py:316-346``): the sum is linear, so the messages'
@@ -86,6 +90,7 @@ def build_dst_layout(
     row_block: int = 128,
     chunk: int = 256,
     pad_to: Optional[int] = None,
+    src: Optional[np.ndarray] = None,
     prefer_native: bool = True,
 ) -> DstLayout:
     """Host-side layout construction for a static graph.
@@ -93,13 +98,17 @@ def build_dst_layout(
     ``dst`` is the per-edge destination (any order; pads = num_nodes).
     ``pad_to`` pads the layout to a fixed slot count: the appended chunks
     hold pads only and repeat the last row block (the host-built training
-    subgraphs take the JAX package's shape-stable totals).
+    subgraphs take the JAX package's shape-stable totals). ``src``, the
+    per-edge source, orders the edges by source within each row block
+    instead of by destination (numpy; the JAX package's gather probe). K1
+    finishes destinations with atomics and takes either order; K4 needs
+    destination-sorted blocks, so no path builds this form for it.
 
     Runs the port's C++ counting sort
     (:func:`rgcn_tpu_torch.graph.native.build_dst_layout_native`,
     bit-identical); ``prefer_native=False`` runs numpy's stable argsort.
     """
-    if prefer_native:
+    if src is None and prefer_native:
         from rgcn_tpu_torch.graph.native import build_dst_layout_native
 
         return build_dst_layout_native(dst, num_nodes, row_block, chunk, pad_to)
@@ -107,10 +116,16 @@ def build_dst_layout(
     e = dst.shape[0]
     num_row_blocks = -(-num_nodes // row_block)
 
-    order = np.argsort(dst, kind="stable")
-    dst_sorted = dst[order]
-    real = dst_sorted < num_nodes
-    order, dst_sorted = order[real], dst_sorted[real]
+    if src is not None:
+        src = np.asarray(src)
+        keep = np.nonzero(dst < num_nodes)[0]
+        order = keep[np.lexsort((src[keep], dst[keep] // row_block))]
+        dst_sorted = dst[order]
+    else:
+        order = np.argsort(dst, kind="stable")
+        dst_sorted = dst[order]
+        real = dst_sorted < num_nodes
+        order, dst_sorted = order[real], dst_sorted[real]
 
     block_of = dst_sorted // row_block
     counts = np.bincount(block_of, minlength=num_row_blocks)
@@ -158,9 +173,11 @@ def build_dst_layout(
 _MSG_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check_msgs(msgs: torch.Tensor) -> None:
+def _check_msgs(msgs: torch.Tensor, out_dtype=torch.float32) -> None:
     if msgs.dtype not in _MSG_DTYPES:
         raise TypeError(f"messages of dtype {msgs.dtype}: K1 takes float32 or bfloat16")
+    if out_dtype not in _MSG_DTYPES:
+        raise TypeError(f"out_dtype {out_dtype}: K1 writes float32 or bfloat16")
 
 
 def blocked_sum(msgs_sorted, local_dst, chunk_block, num_row_blocks,
@@ -184,42 +201,50 @@ def blocked_sum(msgs_sorted, local_dst, chunk_block, num_row_blocks,
 
 
 def aggregate_presorted_plain(
-    msgs_sorted: torch.Tensor, layout: DstLayout, num_nodes: int
+    msgs_sorted: torch.Tensor, layout: DstLayout, num_nodes: int,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Plain version of K1 on destination-sorted messages ``(L, dout)``."""
-    return blocked_sum(
+    """Plain version of K1 on destination-sorted messages ``(L, dout)``:
+    the f32 sums (f64 for f64 rows), rounded once to a bf16
+    ``out_dtype``."""
+    out = blocked_sum(
         msgs_sorted, layout.local_dst, layout.chunk_block,
         layout.num_row_blocks, layout.row_block, num_nodes,
     )
+    return out.to(out_dtype) if out_dtype == torch.bfloat16 else out
 
 
 def aggregate_sorted_plain(
-    messages: torch.Tensor, layout: DstLayout, num_nodes: int
+    messages: torch.Tensor, layout: DstLayout, num_nodes: int,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Plain version of K1 on edge-order messages ``(E, dout)``: permute
     through ``perm`` (pads read an appended zero row), then sum."""
     msgs_z = torch.cat([messages, messages.new_zeros((1, messages.shape[-1]))])
-    return aggregate_presorted_plain(msgs_z[layout.perm.long()], layout, num_nodes)
+    return aggregate_presorted_plain(msgs_z[layout.perm.long()], layout, num_nodes,
+                                     out_dtype)
 
 
 def aggregate_presorted(
-    msgs_sorted: torch.Tensor, layout: DstLayout, num_nodes: int
+    msgs_sorted: torch.Tensor, layout: DstLayout, num_nodes: int,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Aggregate already destination-sorted messages ``(L, dout)`` f32 or
-    bf16 into ``(num_nodes, dout)`` f32, summed in f32. No backward: on the
-    card, grad mode with ``msgs_sorted`` requiring grad raises."""
+    bf16 into ``(num_nodes, dout)`` of ``out_dtype`` (f32, or bf16 rounded
+    once from the f32 sum), summed in f32. No backward: on the card, grad
+    mode with ``msgs_sorted`` requiring grad raises."""
     if msgs_sorted.shape[0] != layout.num_chunks * layout.chunk:
         raise ValueError(
             f"{msgs_sorted.shape[0]} sorted messages for a layout of "
             f"{layout.num_chunks * layout.chunk} slots"
         )
-    _check_msgs(msgs_sorted)
+    _check_msgs(msgs_sorted, out_dtype)
     if msgs_sorted.device.type == "cpu":
-        return aggregate_presorted_plain(msgs_sorted, layout, num_nodes)
+        return aggregate_presorted_plain(msgs_sorted, layout, num_nodes, out_dtype)
     kernels.refuse_grad("aggregate_presorted (K1)", msgs_sorted)
     return kernels.launch_k1_aggregate(
         msgs_sorted, None, layout.local_dst, layout.chunk_block,
-        num_nodes, layout.row_block, layout.num_row_blocks,
+        num_nodes, layout.row_block, layout.num_row_blocks, out_dtype,
     )
 
 
@@ -230,36 +255,38 @@ def gather_by_dst(g: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     return torch.cat([g, g.new_zeros((1, g.shape[1]))])[dst.long()]
 
 
-def _aggregate_sorted(messages, layout, num_nodes):
-    _check_msgs(messages)
+def _aggregate_sorted(messages, layout, num_nodes, out_dtype=torch.float32):
+    _check_msgs(messages, out_dtype)
     if messages.device.type == "cpu":
-        return aggregate_sorted_plain(messages, layout, num_nodes)
+        return aggregate_sorted_plain(messages, layout, num_nodes, out_dtype)
     return kernels.launch_k1_aggregate(
         messages, layout.perm, layout.local_dst, layout.chunk_block,
-        num_nodes, layout.row_block, layout.num_row_blocks,
+        num_nodes, layout.row_block, layout.num_row_blocks, out_dtype,
     )
 
 
 class _AggregateSorted(torch.autograd.Function):
-    """K1 forward; backward :func:`gather_by_dst`."""
+    """K1 forward; backward :func:`gather_by_dst`, in the messages' dtype."""
 
     @staticmethod
-    def forward(ctx, messages, dst, layout, num_nodes):
+    def forward(ctx, messages, dst, layout, num_nodes, out_dtype):
         ctx.save_for_backward(dst)
-        return _aggregate_sorted(messages, layout, num_nodes)
+        ctx.msg_dtype = messages.dtype
+        return _aggregate_sorted(messages, layout, num_nodes, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         (dst,) = ctx.saved_tensors
-        return gather_by_dst(g, dst), None, None, None
+        return gather_by_dst(g, dst).to(ctx.msg_dtype), None, None, None, None
 
 
 def aggregate_sorted(
     messages: torch.Tensor, layout: DstLayout, num_nodes: int,
-    dst: Optional[torch.Tensor] = None,
+    dst: Optional[torch.Tensor] = None, out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Aggregate edge-order messages ``(E, dout)`` f32 or bf16 into
-    ``(num_nodes, dout)`` f32. The kernel reads each slot's row through
+    ``(num_nodes, dout)`` of ``out_dtype`` (f32, or bf16 rounded once from
+    the f32 sum). The kernel reads each slot's row through
     ``layout.perm``; the destination-sorted copy never exists.
 
     Differentiable in ``messages``: with grad enabled and ``messages``
@@ -272,13 +299,13 @@ def aggregate_sorted(
             f"{layout.num_edges} edges"
         )
     if not (torch.is_grad_enabled() and messages.requires_grad):
-        return _aggregate_sorted(messages, layout, num_nodes)
+        return _aggregate_sorted(messages, layout, num_nodes, out_dtype)
     if dst is None or dst.shape[0] != layout.num_edges:
         raise ValueError(
             "aggregate_sorted's backward needs dst, the destination of each "
             f"of the layout's {layout.num_edges} edges"
         )
-    return _AggregateSorted.apply(messages, dst, layout, num_nodes)
+    return _AggregateSorted.apply(messages, dst, layout, num_nodes, out_dtype)
 
 
 def _zero_row(t: torch.Tensor) -> torch.Tensor:

@@ -52,6 +52,7 @@ gradients are sums over the narrowed rows. Without layouts a set
 from __future__ import annotations
 
 import warnings
+from typing import Optional
 
 import numpy as np
 import torch
@@ -94,18 +95,29 @@ def build_batch_layouts(batch: np.ndarray, num_nodes: int, row_block: int = 128,
 
 
 def build_structured_layouts(positives: np.ndarray, corrupt_ent: np.ndarray,
-                             corrupt_head: np.ndarray, num_nodes: int,
+                             corrupt_head: Optional[np.ndarray], num_nodes: int,
                              row_block: int = 128, chunk: int = 256,
-                             prefer_native: bool = True):
+                             prefer_native: bool = True, *,
+                             sorted_corrupt: bool = True,
+                             p_row_block: Optional[int] = None,
+                             p_chunk: Optional[int] = None):
     """Host layouts of the structured backward, each a
-    :func:`padded_layout`: the corrupted entities (Ns), the positives'
-    subjects and objects (P); then :func:`scoring_rows`. The JAX builder's
-    form with ``sorted_corrupt=True``. The layouts run in the port's C++
-    counting sort; ``prefer_native=False`` runs numpy's argsort."""
+    :func:`padded_layout`: the corrupted entities (Ns) at ``row_block`` /
+    ``chunk``, the positives' subjects and objects (P) at ``p_row_block``
+    / ``p_chunk`` (default the same); then, with ``sorted_corrupt`` (the
+    port's default and its scorer's input; the JAX builder's default is
+    False), :func:`scoring_rows`, which needs ``corrupt_head``. The
+    layouts run in the port's C++ counting sort; ``prefer_native=False``
+    runs numpy's argsort."""
     positives = np.asarray(positives)
-    c_lay, s_lay, o_lay = (
-        padded_layout(ids, num_nodes, row_block, chunk, prefer_native)
-        for ids in (corrupt_ent, positives[:, 0], positives[:, 2]))
+    p_rb, p_ch = p_row_block or row_block, p_chunk or chunk
+    c_lay = padded_layout(corrupt_ent, num_nodes, row_block, chunk, prefer_native)
+    s_lay, o_lay = (padded_layout(positives[:, col], num_nodes, p_rb, p_ch, prefer_native)
+                    for col in (0, 2))
+    if not sorted_corrupt:
+        return c_lay, s_lay, o_lay
+    if corrupt_head is None:
+        raise ValueError("sorted_corrupt=True requires corrupt_head")
     return c_lay, s_lay, o_lay, scoring_rows(c_lay, corrupt_ent, corrupt_head,
                                              len(positives))
 

@@ -8,11 +8,13 @@ outside every run carry relation ``-1``; their slots have ``val == 0`` and
 ``local_dst == RB``.
 
 On a CUDA tensor :func:`rel_spmm_fused` launches
-``kernels/csrc/k2_fused.cu``; on a CPU tensor it takes
-:func:`rel_spmm_fused_plain`. The kernel gives each quantum its own CTA
-(a gap quantum returns after reading its relation), stages that quantum's
-``W[rel]`` alone in shared memory, computes each slot's outputs in
-registers and finishes them with f32 atomics into a zeroed output.
+``kernels/csrc/k2_fused.cu``, or with ``compute_dtype=torch.bfloat16`` (its
+default, as the JAX function's) ``kernels/csrc/k2_fused_bf16.cu``; on a CPU
+tensor it takes :func:`rel_spmm_fused_plain`, which rounds at the same
+places. The kernel gives each quantum its own CTA (a gap quantum returns
+after reading its relation), stages that quantum's ``W[rel]`` alone in
+shared memory, computes each slot's outputs in registers and finishes them
+with f32 atomics into a zeroed output.
 """
 
 from __future__ import annotations
@@ -158,16 +160,37 @@ def check_operands(x, weights, num_nodes: int, num_rels: int) -> None:
         )
 
 
+# the compute dtypes K2 and K3 have forms for (None: f32 as given)
+_COMPUTE_DTYPES = (None, torch.float32, torch.bfloat16)
+
+
+def _compute_dtype(compute_dtype):
+    """``compute_dtype`` checked, f32 as None (nothing to cast)."""
+    if compute_dtype not in _COMPUTE_DTYPES:
+        raise TypeError(f"compute_dtype {compute_dtype}: the kernels compute in "
+                        "float32 or bfloat16")
+    return None if compute_dtype == torch.float32 else compute_dtype
+
+
 def rel_spmm_fused_plain(
-    layout: FusedLayout, num_nodes: int, x: torch.Tensor, weights: torch.Tensor
+    layout: FusedLayout, num_nodes: int, x: torch.Tensor, weights: torch.Tensor,
+    compute_dtype=None,
 ) -> torch.Tensor:
     """Plain version of K2: per-slot messages ``(x[src] @ W[rel_q]) · val``,
     one product per quantum (gap quanta clamp to relation 0 and carry val
-    0), summed per row."""
+    0), summed per row. With a ``compute_dtype``, ``x`` and ``W`` are
+    rounded to it and each message is rounded to it (the JAX kernel's
+    ``msgs_ref``); the products of the rounded values and every sum stay
+    f32."""
+    compute_dtype = _compute_dtype(compute_dtype)
+    if compute_dtype is not None:
+        x, weights = x.to(compute_dtype).float(), weights.to(compute_dtype).float()
     rel = layout.quantum_rel.long().clamp(min=0)
     xg = x[layout.src.long()].reshape(rel.shape[0], layout.quantum, x.shape[-1])
     msgs = torch.bmm(xg, weights[rel]).reshape(xg.shape[0] * layout.quantum, -1)
     msgs = msgs * layout.val[:, None]
+    if compute_dtype is not None:
+        msgs = msgs.to(compute_dtype)
     return blocked_sum(
         msgs, layout.local_dst, layout.chunk_block, layout.num_row_blocks,
         layout.row_block, num_nodes,
@@ -175,18 +198,27 @@ def rel_spmm_fused_plain(
 
 
 def rel_spmm_fused(
-    layout: FusedLayout, num_nodes: int, x: torch.Tensor, weights: torch.Tensor
+    layout: FusedLayout, num_nodes: int, x: torch.Tensor, weights: torch.Tensor,
+    *, compute_dtype=torch.bfloat16,
 ) -> torch.Tensor:
     """``out[n] = Σ val·(x[src] @ W[rel_q])`` for ``x (N, din)`` and
-    ``weights (R, din, dout)``, f32. The kernel stages one ``W[rel]`` per
-    CTA in shared memory; ``ops/rel_spmm.py`` decides when to take it. No
-    backward of its own (``ops/rel_spmm.py::rel_spmm_ad`` has one, over
-    this function): on the card, grad mode with ``x`` or ``weights``
-    requiring grad raises."""
+    ``weights (R, din, dout)``, an f32 output. ``compute_dtype`` (default
+    bf16, as ``pallas_fused.py:361``): ``x`` and ``W`` are cast to it, each
+    message ``(x[src] @ W) · val`` is summed in f32 and rounded to it, and
+    the destination sums are f32; None (or f32) computes in f32 throughout,
+    as the model's forward (``ops/rel_spmm.py::fwd_spmm``) does. The kernel
+    stages one ``W[rel]`` per CTA in shared memory; ``ops/rel_spmm.py``
+    decides when to take it. No backward of its own
+    (``ops/rel_spmm.py::rel_spmm_ad`` has one, over this function at f32):
+    on the card, grad mode with ``x`` or ``weights`` requiring grad
+    raises."""
     check_operands(x, weights, num_nodes, layout.num_rels)
+    compute_dtype = _compute_dtype(compute_dtype)
     if x.device.type == "cpu":
-        return rel_spmm_fused_plain(layout, num_nodes, x, weights)
+        return rel_spmm_fused_plain(layout, num_nodes, x, weights, compute_dtype)
     kernels.refuse_grad("rel_spmm_fused (K2)", x, weights)
+    if compute_dtype is not None:
+        x, weights = x.to(compute_dtype), weights.to(compute_dtype)
     return kernels.launch_k2_fused(
         x, weights, layout.src, layout.val, layout.local_dst,
         layout.quantum_rel, layout.chunk_block, num_nodes,

@@ -6,7 +6,11 @@ Counterpart of ``rgcn_tpu/ops/pallas_spmm.py``. :func:`fwd_spmm` computes
 
 through the fused kernel (K2) when the EdgeSet carries a fused layout and
 ``W`` fits the shared-memory budget, else through per-tile messages (K3)
-aggregated by K1. :func:`rel_spmm_ad` is the same function with a backward
+aggregated by K1, all in f32 as JAX's ``_fwd_spmm`` (``compute_dtype=None``).
+:func:`rel_spmm_pallas` and :func:`rel_spmm_full` are the JAX package's
+two-stage entry points with their ``compute_dtype`` / ``accum_dtype``
+(``pallas_spmm.py:151-208``), through K3's and K1's bf16 forms where a
+dtype is bf16. :func:`rel_spmm_ad` is the same function with a backward
 (counterpart of ``rel_spmm_pallas_ad``, ``pallas_spmm.py:247-289``), whose
 cotangents are the same class of computation as the forward:
 
@@ -26,13 +30,14 @@ import torch
 from rgcn_tpu_torch import kernels
 from rgcn_tpu_torch.ops.aggregate import aggregate_sorted, gather_by_dst
 from rgcn_tpu_torch.ops.basis import full_f32_matmul
-from rgcn_tpu_torch.ops.fused import check_operands, rel_spmm_fused
+from rgcn_tpu_torch.ops.fused import _compute_dtype, check_operands, rel_spmm_fused
 
 __all__ = [
     "FUSED_SMEM_BUDGET",
     "fused_fits",
     "rel_spmm_messages",
     "rel_spmm_messages_plain",
+    "rel_spmm_pallas",
     "rel_spmm_full",
     "fwd_spmm",
     "rel_spmm_weight_grad",
@@ -53,47 +58,94 @@ __all__ = [
 FUSED_SMEM_BUDGET = 232_448
 
 
-def fused_fits(weights: torch.Tensor, row_block: int) -> bool:
-    """Do ``W`` and a ``(row_block, dout)`` accumulator fit
-    :data:`FUSED_SMEM_BUDGET` in f32?"""
-    return (weights.numel() + row_block * weights.shape[-1]) * 4 <= FUSED_SMEM_BUDGET
+def fused_fits(weights: torch.Tensor, row_block: int, compute_dtype=None) -> bool:
+    """Do ``W`` in ``compute_dtype`` (None: its own dtype; 2 bytes a value
+    in bf16) and a ``(row_block, dout)`` f32 accumulator fit
+    :data:`FUSED_SMEM_BUDGET`? (JAX's "W must fit VMEM in compute_dtype",
+    ``pallas_fused.py:367``.)"""
+    itemsize = (compute_dtype or weights.dtype).itemsize
+    return weights.numel() * itemsize + row_block * weights.shape[-1] * 4 \
+        <= FUSED_SMEM_BUDGET
 
 
-def rel_spmm_messages_plain(edges, x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """Plain version of K3: ``(x[src] @ W[tile_rel]) · val`` per tile. A
-    source past the last row (a reversed pad edge of a training subgraph,
-    ``val == 0``) is clamped; K3 never reads the source of such a row."""
+def _cast(x: torch.Tensor, weights: torch.Tensor, compute_dtype):
+    """``x`` and ``W`` in the compute dtype (None: as given), where the JAX
+    functions cast them, before the kernel."""
+    compute_dtype = _compute_dtype(compute_dtype)
+    if compute_dtype is None:
+        return x, weights
+    return x.to(compute_dtype), weights.to(compute_dtype)
+
+
+def rel_spmm_messages_plain(edges, x: torch.Tensor, weights: torch.Tensor,
+                            out_dtype=None) -> torch.Tensor:
+    """Plain version of K3: ``(x[src] @ W[tile_rel]) · val`` per tile, the
+    products of the operands as given (bf16 widened exactly) summed in f32,
+    rounded once to ``out_dtype`` (default the weights' dtype). A source
+    past the last row (a reversed pad edge of a training subgraph, ``val ==
+    0``) is clamped; K3 never reads the source of such a row."""
+    out_dtype = out_dtype or weights.dtype
+    if x.dtype == torch.bfloat16:
+        x, weights = x.float(), weights.float()
     tile, n_tiles = edges.tile_size, edges.num_tiles
     src = edges.src.long().clamp_max(x.shape[0] - 1)
     xg = x[src].reshape(n_tiles, tile, x.shape[-1])
     msgs = torch.bmm(xg, weights[edges.tile_rel.long()])
-    return msgs.reshape(n_tiles * tile, -1) * edges.val[:, None]
+    msgs = msgs.reshape(n_tiles * tile, -1) * edges.val[:, None]
+    return msgs.to(out_dtype)
 
 
-def rel_spmm_messages(edges, x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """Per-edge messages ``(E_pad, dout)`` f32 in edge order, for
-    ``x (N, din)`` and general-relation ``weights (R, din, dout)``. No
-    backward: on the card, grad mode with ``x`` or ``weights`` requiring
-    grad raises."""
+def rel_spmm_messages(edges, x: torch.Tensor, weights: torch.Tensor, *,
+                      out_dtype=None) -> torch.Tensor:
+    """Per-edge messages ``(E_pad, dout)`` in edge order, for ``x (N,
+    din)`` and general-relation ``weights (R, din, dout)``, both f32 or
+    both bf16: f32 sums, rounded once to ``out_dtype`` (default the
+    weights' dtype, as in JAX), f32 or bf16. No backward: on the card, grad
+    mode with ``x`` or ``weights`` requiring grad raises."""
     check_operands(x, weights, edges.num_nodes, edges.num_rels)
     if x.device.type == "cpu":
-        return rel_spmm_messages_plain(edges, x, weights)
+        return rel_spmm_messages_plain(edges, x, weights, out_dtype)
     kernels.refuse_grad("rel_spmm_messages (K3)", x, weights)
     return kernels.launch_k3_messages(
-        x, weights, edges.src, edges.val, edges.tile_rel, edges.tile_size
+        x, weights, edges.src, edges.val, edges.tile_rel, edges.tile_size,
+        out_dtype=out_dtype,
     )
 
 
-def rel_spmm_full(edges, layout, x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """Two-stage SpMM: K3 messages, then K1 over the destination layout."""
-    msgs = rel_spmm_messages(edges, x, weights)
-    return aggregate_sorted(msgs, layout, edges.num_nodes, dst=edges.dst)
+def rel_spmm_pallas(edges, x: torch.Tensor, weights: torch.Tensor, *,
+                    compute_dtype=None, accum_dtype=torch.float32) -> torch.Tensor:
+    """Two-stage SpMM of the JAX package's ``rel_spmm_pallas``: ``x`` and
+    ``W`` cast to ``compute_dtype``, K3 messages in ``accum_dtype``, then
+    their destination sum into ``accum_dtype``. JAX sums the messages with
+    XLA's ``segment_sum`` (in ``accum_dtype``); the port sums them with K1
+    over ``edges.layout`` in f32 and rounds a bf16 ``accum_dtype`` once.
+    Needs an EdgeSet built with ``with_dst_layout=True``."""
+    if edges.layout is None:
+        raise ValueError("rel_spmm_pallas sums with K1: build the EdgeSet with "
+                         "with_dst_layout=True")
+    x, weights = _cast(x, weights, compute_dtype)
+    msgs = rel_spmm_messages(edges, x, weights, out_dtype=accum_dtype)
+    return aggregate_sorted(msgs, edges.layout, edges.num_nodes, dst=edges.dst,
+                            out_dtype=accum_dtype)
+
+
+def rel_spmm_full(edges, layout, x: torch.Tensor, weights: torch.Tensor, *,
+                  compute_dtype=None, accum_dtype=torch.float32) -> torch.Tensor:
+    """Two-stage SpMM: K3 messages, then K1 over the destination layout.
+    As ``rel_spmm_pallas_full``: ``x`` and ``W`` cast to ``compute_dtype``,
+    the messages in ``compute_dtype`` (else ``accum_dtype``), summed in f32
+    into ``accum_dtype``."""
+    x, weights = _cast(x, weights, compute_dtype)
+    msgs = rel_spmm_messages(edges, x, weights, out_dtype=compute_dtype or accum_dtype)
+    return aggregate_sorted(msgs, layout, edges.num_nodes, dst=edges.dst,
+                            out_dtype=accum_dtype)
 
 
 def fwd_spmm(edges, x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """K2 when ``edges.fused`` exists and ``W`` fits, else K3 then K1."""
+    """K2 when ``edges.fused`` exists and ``W`` fits, else K3 then K1; f32
+    throughout, as JAX's ``_fwd_spmm``."""
     if edges.fused is not None and fused_fits(weights, edges.fused.row_block):
-        return rel_spmm_fused(edges.fused, edges.num_nodes, x, weights)
+        return rel_spmm_fused(edges.fused, edges.num_nodes, x, weights, compute_dtype=None)
     return rel_spmm_full(edges, edges.layout, x, weights)
 
 

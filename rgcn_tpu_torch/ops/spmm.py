@@ -100,12 +100,16 @@ def rel_spmm_block(edges, x: torch.Tensor, blocks: torch.Tensor, *,
     return aggregate_messages(msgs, edges.dst, edges.num_nodes)
 
 
-def rel_spmm_diag(edges, x: torch.Tensor, diag_weights: torch.Tensor) -> torch.Tensor:
+def rel_spmm_diag(edges, x: torch.Tensor, diag_weights: torch.Tensor, *,
+                  aggregate=None) -> torch.Tensor:
     """Diagonal-weight SpMM (the e-RGCN first layer): the message of edge
     ``(src, rel)`` is ``x[src] ⊙ dw[rel] · val``, an elementwise product.
     ``diag_weights (R, d)`` covers the general relations (the self-loop
-    term is the caller's)."""
+    term is the caller's); ``aggregate(msgs, edges)`` overrides the
+    destination sum (e.g. K1 over the EdgeSet's layout)."""
     msgs = x[edges.src.long()] * diag_weights[edges.rel.long()] * edges.val[:, None]
+    if aggregate is not None:
+        return aggregate(msgs, edges)
     return aggregate_messages(msgs, edges.dst, edges.num_nodes)
 
 

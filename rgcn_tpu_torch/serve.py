@@ -255,6 +255,7 @@ def load_lp_server(
     tile_size: int = 128,
     max_batch: int = 1024,
     device=None,
+    feature_blocks: bool = False,
 ) -> Optional[LinkPredictionServer]:
     """Build a link-prediction endpoint.
 
@@ -290,7 +291,7 @@ def load_lp_server(
     if decomp is not None and decomp.type == "block":
         data.pad_nodes(cfg.encoder.node_embedding // decomp.num_blocks)
     num_nodes, num_rels = data.num_nodes, data.num_relations
-    model = build_lp_model(cfg, num_nodes, num_rels)
+    model = build_lp_model(cfg, num_nodes, num_rels, feature_blocks=feature_blocks)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     model = model.to(dev).eval()

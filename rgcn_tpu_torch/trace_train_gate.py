@@ -143,7 +143,7 @@ def _race_check(dev, data, repeats: int) -> dict:
     for name, call, plain in (
             ("K1", lambda: agg.aggregate_sorted(msgs, edges.layout, n),
              lambda: agg.aggregate_sorted_plain(msgs.double(), edges.layout, n)),
-            ("K2", lambda: fz.rel_spmm_fused(edges.fused, n, x, w),
+            ("K2", lambda: fz.rel_spmm_fused(edges.fused, n, x, w, compute_dtype=None),
              lambda: fz.rel_spmm_fused_plain(edges.fused, n, x.double(), w.double()))):
         ref = plain()
         first = call()

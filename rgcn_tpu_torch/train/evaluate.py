@@ -16,7 +16,7 @@ the batches eagerly.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterable, List, Sequence, Set, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -91,17 +91,21 @@ def build_filters(test: np.ndarray, all_triples: Set[Tuple[int, int, int]],
 
 
 def ranks_from_scores(scores: torch.Tensor, targets: torch.Tensor,
-                      filters: torch.Tensor) -> torch.Tensor:
+                      filters: torch.Tensor,
+                      valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Filtered optimistic ranks with the half-tie correction of ``(B,
     N)`` candidate scores: ``filters (B, L)`` index candidates to set to
-    ``-inf`` (``N`` pads and masks nothing), ``targets (B,)``."""
+    ``-inf`` (``N`` pads and masks nothing), ``targets (B,)``. ``valid
+    (B,)`` bool marks the real rows of a padded batch: the others rank 0,
+    as in the JAX package's scanned evaluation."""
     bsz, n = scores.shape
     scores = torch.cat([scores, scores.new_zeros((bsz, 1))], dim=1)
     scores = scores.scatter(1, filters.long(), float("-inf"))[:, :n]
     true = scores.gather(1, targets.long()[:, None])
     raw = (scores > true).sum(1)
     ties = (scores == true).sum(1)
-    return raw + torch.div(ties - 1, 2, rounding_mode="floor") + 1
+    ranks = raw + torch.div(ties - 1, 2, rounding_mode="floor") + 1
+    return ranks if valid is None else torch.where(valid, ranks, 0)
 
 
 def ranking_metrics(ranks: Sequence[int], hits_at_k: Iterable[int] = (1, 3, 10)

@@ -285,7 +285,9 @@ class LinkPredictionTrainer:
     ``checkpoint_every`` and ``max_epochs``: see the module docstring.
     ``host_graph_build=False`` builds each epoch on the device
     (:meth:`draw_epoch`, :meth:`build_epoch`); None or True on the host
-    (:meth:`sample_epoch`). The edge-sharded trainer
+    (:meth:`sample_epoch`). ``feature_blocks``: the model's embeddings
+    drawn block by block (:class:`~rgcn_tpu_torch.models.link_prediction.
+    LinkPredictor`). The edge-sharded trainer
     (:class:`rgcn_tpu_torch.dist.driver.ShardedLinkPredictionTrainer`)
     overrides the groups, :meth:`sample_epoch`, :meth:`loss`,
     :meth:`evaluate`, :meth:`save` and :meth:`restore`."""
@@ -299,7 +301,8 @@ class LinkPredictionTrainer:
                  checkpoint_dir: Optional[str] = None,
                  checkpoint_every: Optional[int] = None,
                  max_epochs: Optional[int] = None,
-                 host_graph_build: Optional[bool] = None):
+                 host_graph_build: Optional[bool] = None,
+                 feature_blocks: bool = False):
         from rgcn_tpu_torch.graph.coalesce import merge_applicable
         from rgcn_tpu_torch.graph.structure import build_edge_set
         from rgcn_tpu_torch.train.samplers import select_sampler
@@ -324,7 +327,8 @@ class LinkPredictionTrainer:
         self.test_np = np.asarray(data.test, dtype=np.int64)
 
         model = build_lp_model(cfg, self.num_nodes, self.num_rels, seed=seed,
-                               group=self.group, decoder_group=self.decoder_group)
+                               group=self.group, decoder_group=self.decoder_group,
+                               feature_blocks=feature_blocks)
         if init_state is not None:
             model.load_state_dict(init_state)
         self.model = model.to(dev)
@@ -631,7 +635,8 @@ def train_link_predictor(cfg, data, seed: int = 0,
                          device=None, checkpoint_dir: Optional[str] = None,
                          checkpoint_every: Optional[int] = None,
                          max_epochs: Optional[int] = None,
-                         host_graph_build: Optional[bool] = None):
+                         host_graph_build: Optional[bool] = None,
+                         feature_blocks: bool = False):
     """Train and evaluate; returns ``(mrr, hits, ranks, model)``. See
     :class:`LinkPredictionTrainer` for the keyword arguments."""
     trainer = LinkPredictionTrainer(cfg, data, seed=seed, tile_size=tile_size,
@@ -639,6 +644,7 @@ def train_link_predictor(cfg, data, seed: int = 0,
                                     logger=logger, checkpoint_dir=checkpoint_dir,
                                     checkpoint_every=checkpoint_every,
                                     max_epochs=max_epochs,
-                                    host_graph_build=host_graph_build)
+                                    host_graph_build=host_graph_build,
+                                    feature_blocks=feature_blocks)
     mrr, hits, ranks = trainer.fit(logger)
     return mrr, hits, ranks, trainer.model

@@ -112,11 +112,12 @@ def save_training_state(ckpt_dir: str, model: torch.nn.Module,
 
 def restore_training_state(ckpt_dir: str, model: torch.nn.Module,
                            optimizer: torch.optim.Optimizer,
-                           map_location) -> Optional[int]:
-    """Load the latest training checkpoint of ``ckpt_dir``, if any, into
-    ``model`` and ``optimizer`` (its tensors read onto ``map_location``,
-    the parameters' device); returns its step or None."""
-    state, step = restore_checkpoint(ckpt_dir, map_location=map_location)
+                           map_location, step: Optional[int] = None) -> Optional[int]:
+    """Load training checkpoint ``step`` (default: the latest) of
+    ``ckpt_dir``, if any, into ``model`` and ``optimizer`` (its tensors
+    read onto ``map_location``, the parameters' device); returns its step
+    or None."""
+    state, step = restore_checkpoint(ckpt_dir, step=step, map_location=map_location)
     if state is not None:
         model.load_state_dict(state["params"])
         optimizer.load_state_dict(state["opt_state"])

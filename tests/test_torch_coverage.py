@@ -14,8 +14,17 @@ Every name in the ``__all__`` of every ``rgcn_tpu/**/*.py`` must be one of:
 
 Both tables are checked the other way too: an entry whose JAX name is no
 longer public (``__all__`` or a top-level definition), whose target is
-gone, or that the port now has under the same name, fails. Nothing here
-imports JAX or the JAX package: the modules are read with ``ast``.
+gone, or that the port now has under the same name, fails.
+
+Arguments too: every parameter of a public JAX function (and every field
+of a flax module or dataclass) with a counterpart must be a parameter of
+that counterpart (its ``__init__`` for a module class, its ``forward``
+for an autograd Function), an entry of :data:`RENAMED_ARGS` (framework
+plumbing the port takes in another form) or of :data:`ARGS_NOT_PORTED`
+(with its reason). A key there is a bare argument name (wherever it
+appears) or ``<module>::<name>::<argument>``; a stale entry fails.
+Nothing here imports JAX or the JAX package: the modules are read with
+``ast``.
 """
 
 import ast
@@ -57,7 +66,7 @@ RENAMED = {
         "ops/fused.py::build_fused_layout_dynamic",
     "ops/pallas_fused.py::rel_spmm_fused": "ops/fused.py::rel_spmm_fused",
     "ops/pallas_spmm.py::rel_spmm_messages": "ops/rel_spmm.py::rel_spmm_messages",
-    "ops/pallas_spmm.py::rel_spmm_pallas": "ops/rel_spmm.py::fwd_spmm",
+    "ops/pallas_spmm.py::rel_spmm_pallas": "ops/rel_spmm.py::rel_spmm_pallas",
     "ops/pallas_spmm.py::rel_spmm_pallas_full": "ops/rel_spmm.py::rel_spmm_full",
     "ops/pallas_spmm.py::rel_spmm_pallas_ad": "ops/rel_spmm.py::rel_spmm_ad",
     "train/link_prediction.py::build_lp_model":
@@ -180,3 +189,188 @@ def test_not_ported_entries_are_live(key):
     assert name not in _public(PORT_PKG, module), (
         f"{key}: the port has it under the same name; drop the NOT_PORTED entry")
     assert key not in RENAMED, f"{key} is both renamed and not ported"
+
+
+# --- arguments -----------------------------------------------------------
+
+# JAX argument -> the port's form of it. Bare keys: framework plumbing,
+# wherever the argument appears (text). "<module>::<name>::<argument>"
+# keys: the port's parameters that take it (each must be one).
+RENAMED_ARGS = {
+    "axis_name": "the torch.distributed group: group=/decoder_group= on the "
+                 "modules, the mesh's groups on steps, drivers and builders",
+    "decoder_axis_name": "decoder_group=",
+    "edge_axis": "the mesh's edge group",
+    "axis": "the mesh's groups",
+    "key": "a torch.Generator (generator=)",
+    "dropout_key": "a torch.Generator (generator=)",
+    "params": "the module, which holds its parameters",
+    "tx": "a torch.optim optimizer (optimizer=)",
+    "mesh": "the mesh's rank, device and groups, passed as they are needed",
+    "devices": "device=",
+    "dist/multihost.py::initialize_distributed::coordinator_address": ("init_method",),
+    "dist/multihost.py::initialize_distributed::num_processes": ("world_size",),
+    "dist/multihost.py::initialize_distributed::process_id": ("rank",),
+    "dist/multihost.py::initialize_distributed::local_device_ids": ("local_rank", "device"),
+    "dist/multihost.py::make_mesh_2d::replica_axis": ("device",),
+    "dist/checkpoint.py::save_checkpoint_replicated::state": ("model", "optimizer"),
+    "dist/evaluate.py::make_sharded_rank_sweep::model": ("method",),
+    "dist/train.py::make_sharded_lp_step_hosted::num_nodes": ("decoder_group",),
+    "dist/train.py::make_sharded_lp_step_hosted::structural_self_keep": ("decoder_group",),
+    "dist/train.py::make_sharded_lp_step_hosted_structured::num_nodes": ("decoder_group",),
+    "dist/train.py::make_sharded_lp_step_hosted_structured::structural_self_keep":
+        ("decoder_group",),
+    "nn/layers.py::TorchLinear::features": ("out_features",),
+    "ops/pallas_aggregate.py::aggregate_messages_ad::edges": ("layout", "num_nodes", "dst"),
+    "ops/pallas_basis.py::weighted_aggregate_pallas::xg_sorted": ("x", "src"),
+    "ops/pallas_basis.py::weighted_aggregate_pallas::weights": ("w",),
+    "ops/pallas_basis.py::weighted_aggregate_pallas::compute_dtype": ("x",),
+    "ops/pallas_basis.py::rel_spmm_featureless_basis_ad::bases_rows": ("bases",),
+    "ops/pallas_diag.py::rel_spmm_diag_ad::diag_weights": ("dw",),
+    "train/link_prediction.py::build_lp_model::**extra":
+        ("group", "decoder_group", "feature_blocks"),
+}
+
+# JAX argument -> why the port has no counterpart; keys as RENAMED_ARGS'
+ARGS_NOT_PORTED = {
+    "interpret": "Pallas' interpreter: the port runs a kernel on the card, "
+                 "its plain version on the CPU",
+    "input_fusion": "XLA fusing a producer into a Pallas kernel's input pipeline",
+    "exe_cache_dir": "serialised XLA executables: PyTorch compiles nothing per step",
+    "exe_search": "serialised XLA executables: PyTorch compiles nothing per step",
+    "dist/evaluate.py::make_sharded_rank_sweep::tag":
+        "names the sweep's entry in the XLA executable cache (exe_cache_dir)",
+    "backend": "the JAX package's XLA routes: the port always takes its kernels",
+    "like": "orbax's restore template: the port restores into the module",
+    "partial": "orbax's partial restore: the port's restore_checkpoint takes "
+               "partial_keys",
+    "pallas_train_step": "the XLA training step (segment sums, no kernel): "
+                         "the port trains on its kernels only",
+    "param_dtype": "bf16 parameters through every op: the next slice",
+    "precision": "XLA's matmul precision: the next slice (the port's products "
+                 "are full f32)",
+}
+
+
+def _params(args: ast.arguments, skip_first: bool = False):
+    names = [a.arg for a in args.posonlyargs + args.args + args.kwonlyargs]
+    if skip_first:
+        names = names[1:]
+    if args.vararg:
+        names.append("*" + args.vararg.arg)
+    if args.kwarg:
+        names.append("**" + args.kwarg.arg)
+    return names
+
+
+def _signatures(path):
+    """``{name: parameters}`` of a module's top-level functions and classes:
+    a class's ``__init__`` parameters, else an autograd Function's
+    ``forward`` (after ``ctx``), else its annotated fields, those of its
+    bases in the module included; a name imported from another port
+    module maps to ``("import", file)``."""
+    tree = ast.parse(open(path).read(), filename=path)
+    classes = {n.name: n for n in tree.body if isinstance(n, ast.ClassDef)}
+
+    def class_params(node):
+        methods = {b.name: b for b in node.body if isinstance(b, ast.FunctionDef)}
+        if "__init__" in methods:
+            return _params(methods["__init__"].args, skip_first=True)
+        if "forward" in methods and any(
+                ast.unparse(b).endswith("Function") for b in node.bases):
+            return _params(methods["forward"].args, skip_first=True)
+        fields = [b.target.id for b in node.body
+                  if isinstance(b, ast.AnnAssign) and isinstance(b.target, ast.Name)]
+        for base in node.bases:
+            if isinstance(base, ast.Name) and base.id in classes:
+                fields = class_params(classes[base.id]) + fields
+        return fields
+
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out[node.name] = _params(node.args)
+        elif isinstance(node, ast.ClassDef):
+            out[node.name] = class_params(node)
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.module.startswith("rgcn_tpu_torch."):
+            for alias in node.names:
+                out.setdefault(alias.asname or alias.name, (
+                    "import", os.path.join(*node.module.split(".")[1:]) + ".py"))
+    return out
+
+
+def _port_params(file, name):
+    """The parameters of the port's ``file::name``, following imports."""
+    for _ in range(4):
+        path = os.path.join(PORT_PKG, file)
+        if not os.path.isfile(path):
+            return None
+        found = _signatures(path).get(name)
+        if not (isinstance(found, tuple) and found[0] == "import"):
+            return found
+        file = found[1]
+    return None
+
+
+def _arg_pairs():
+    """``(JAX "<module>::<name>", JAX parameters, port file, port name)`` for
+    every public JAX function or class with a counterpart."""
+    pairs = []
+    for module in JAX_MODULES:
+        all_names, _, _ = _read(os.path.join(JAX_PKG, module))
+        sigs = _signatures(os.path.join(JAX_PKG, module))
+        for name in all_names or ():
+            key = f"{module}::{name}"
+            if name not in sigs or isinstance(sigs[name], tuple) \
+                    or _not_ported(module, name):
+                continue
+            target = RENAMED.get(key, f"{module}::{name}")
+            pairs.append((key, sigs[name], *target.split("::")))
+    return pairs
+
+
+ARG_PAIRS = _arg_pairs()
+ARG_KEYS = {key: (params, pfile, pname) for key, params, pfile, pname in ARG_PAIRS}
+
+
+def _missing(key):
+    params, pfile, pname = ARG_KEYS[key]
+    port = _port_params(pfile, pname)
+    assert port is not None, f"{key}: no port counterpart {pfile}::{pname}"
+    return [a for a in params if a not in port and a != "self"], port
+
+
+def _covered(key, arg):
+    return any(k in table for table in (RENAMED_ARGS, ARGS_NOT_PORTED)
+               for k in (arg, f"{key}::{arg}"))
+
+
+@pytest.mark.parametrize("key", sorted(ARG_KEYS))
+def test_jax_arguments_have_a_counterpart(key):
+    missing, _ = _missing(key)
+    uncovered = [a for a in missing if not _covered(key, a)]
+    assert not uncovered, (
+        f"rgcn_tpu/{key}: arguments {uncovered} have no counterpart in "
+        f"rgcn_tpu_torch/{ARG_KEYS[key][1]}::{ARG_KEYS[key][2]}, no RENAMED_ARGS "
+        "and no ARGS_NOT_PORTED entry")
+
+
+@pytest.mark.parametrize("table,entry", [("RENAMED_ARGS", k) for k in sorted(RENAMED_ARGS)]
+                         + [("ARGS_NOT_PORTED", k) for k in sorted(ARGS_NOT_PORTED)])
+def test_argument_entries_are_live(table, entry):
+    value = (RENAMED_ARGS if table == "RENAMED_ARGS" else ARGS_NOT_PORTED)[entry]
+    assert value, f"{entry}: no counterpart or reason given"
+    if "::" not in entry:
+        users = [key for key in ARG_KEYS if entry in _missing(key)[0]]
+        assert users, f"{table}[{entry!r}]: no JAX function's argument needs it"
+        return
+    module, name, arg = entry.split("::")
+    key = f"{module}::{name}"
+    assert key in ARG_KEYS, f"{table}[{entry!r}]: {key} is not a ported JAX function"
+    missing, port = _missing(key)
+    assert arg in ARG_KEYS[key][0], f"{table}[{entry!r}]: no such JAX argument"
+    assert arg in missing, f"{table}[{entry!r}]: the port now takes {arg} as it is"
+    if table == "RENAMED_ARGS":
+        gone = [p for p in value if p not in port]
+        assert not gone, f"{table}[{entry!r}]: the port has no parameter {gone}"

@@ -223,7 +223,7 @@ def test_k2(cuda, din, dout):
     w = _t(rng, cuda, 12, din, dout, scale=din ** -0.5)
     assert rs.fused_fits(w, es.fused.row_block)
     n0 = kernels.LAUNCHES["k2_fused"]
-    _close(fz.rel_spmm_fused(es.fused, 1300, x, w),
+    _close(fz.rel_spmm_fused(es.fused, 1300, x, w, compute_dtype=None),
            fz.rel_spmm_fused_plain(es.fused, 1300, x, w))
     assert kernels.LAUNCHES["k2_fused"] == n0 + 1
 
@@ -239,10 +239,10 @@ def test_k2_skewed(cuda, din, dout):
     rng = np.random.default_rng(5)
     x = torch.relu(_t(rng, cuda, 1536, din))
     w = _t(rng, cuda, 8, din, dout, scale=din ** -0.5)
-    got = fz.rel_spmm_fused(fl, 1536, x, w)
+    got = fz.rel_spmm_fused(fl, 1536, x, w, compute_dtype=None)
     _close(got, fz.rel_spmm_fused_plain(fl, 1536, x, w))
     assert (got[512:1024] == 0).all()
-    got = fz.rel_spmm_fused(fl, 1500, x, w)
+    got = fz.rel_spmm_fused(fl, 1500, x, w, compute_dtype=None)
     assert got.shape == (1500, dout)
     _close(got, fz.rel_spmm_fused_plain(fl, 1536, x, w)[:1500])
 
@@ -415,7 +415,7 @@ def test_wrappers_check_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         rs.rel_spmm_messages(es, x.t().contiguous().t(), _t(rng, cuda, 6, 8, 4))
     with pytest.raises(ValueError, match="CUDA tensor"):
-        fz.rel_spmm_fused(es.fused.to("cpu"), 200, x, _t(rng, cuda, 6, 8, 4))
+        fz.rel_spmm_fused(es.fused.to("cpu"), 200, x, _t(rng, cuda, 6, 8, 4), compute_dtype=None)
 
 
 def _merged(n, r, e, seed, dev, dedup_k=0, reciprocal=True, **kw):
@@ -750,7 +750,7 @@ def test_kernels_without_backward_refuse_grad(cuda):
         lambda: bs.weighted_aggregate_dedup(
             x, dd.src_sorted, torch.einsum("klr,rb->kbl", dd.coeff_k, comps).contiguous(),
             dd, 600),
-        lambda: fz.rel_spmm_fused(es.fused, 600, x, w),
+        lambda: fz.rel_spmm_fused(es.fused, 600, x, w, compute_dtype=None),
         lambda: rs.rel_spmm_messages(es, x, w),
         lambda: agg.aggregate_presorted(
             _t(rng, cuda, es.layout.perm.shape[0], 3).requires_grad_(), es.layout, 600),
@@ -761,7 +761,7 @@ def test_kernels_without_backward_refuse_grad(cuda):
     with torch.no_grad():
         bs.rel_spmm_basis(es, x, bases, comps)  # the dedup frame: K5
         bs.rel_spmm_basis(dataclasses.replace(es, merged=None), x, bases, comps)
-        fz.rel_spmm_fused(es.fused, 600, x, w)
+        fz.rel_spmm_fused(es.fused, 600, x, w, compute_dtype=None)
     torch.cuda.synchronize()
     used = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v > before[k]}
     assert used == {"k5_weighted_aggregate_dedup": 1, "k4_weighted_aggregate": 1,
@@ -1321,3 +1321,181 @@ def test_pair_op_bf16_on_the_card(cuda_bf16):
     # K1's bf16 form through the by-source layout
     assert launched == {"k1_aggregate": 2, "k1_aggregate_bf16": 1}
 
+
+
+# -- the JAX kernels' own dtype options: K1's bf16 output, K2's and K3's bf16
+# forms ------------------------------------------------------------------------
+
+
+def _close_rounded_msgs(got, ref32, abs_sum):
+    """An f32 sum of bf16-rounded messages against the plain version's: a
+    message whose two f32 sums straddle a bf16 rounding boundary may round
+    to the neighbouring value, half a bf16 ulp of it (2^-8·|msg| bounds
+    it); ``abs_sum`` is the plain sum of the messages' magnitudes."""
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == ref32.shape
+    tol = 2.0 ** -8 * abs_sum + 1e-5 * max(1.0, ref32.abs().max().item())
+    assert bool(((got - ref32).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("graph", ["random", "hub"])
+@pytest.mark.parametrize("msg", ["f32", "bf16"])
+@pytest.mark.parametrize("dout", [16, 4, 200, 10])
+def test_k1_bf16_output(cuda, dout, msg, graph):
+    """K1 with out_dtype=bf16, from f32 (K1's f32 form) and bf16 messages
+    (its bf16 form), through the perm and presorted: the f32 sums rounded
+    once; every output element written (rows no slot reaches are 0)."""
+    if graph == "hub":
+        n = 1536
+        es = build_edge_set(skew_triples(), n, 4, with_dst_layout=True).to(cuda)
+        rng = np.random.default_rng(dout + 1)
+    else:
+        n = 900
+        es, rng = _edges(n, 5, 4000, dout + 1, cuda)
+    dt = BF16 if msg == "bf16" else torch.float32
+    msgs = _t(rng, cuda, es.src.shape[0], dout).to(dt)
+    ms = _t(rng, cuda, es.layout.perm.shape[0], dout).to(dt)
+    before = dict(kernels.LAUNCHES)
+    got = agg.aggregate_sorted(msgs, es.layout, n, out_dtype=BF16)
+    _close_bf16_out(got, agg.aggregate_sorted_plain(msgs, es.layout, n))
+    _close_bf16_out(agg.aggregate_presorted(ms, es.layout, n, out_dtype=BF16),
+                    agg.aggregate_presorted_plain(ms, es.layout, n))
+    assert _launched(before) == {"k1_aggregate" + ("_bf16" if msg == "bf16" else ""): 2}
+    if graph == "hub":
+        assert (got[512:1024] == 0).all()
+
+
+@pytest.mark.parametrize("din,dout", [(16, 4), (32, 40), (64, 8), (6, 5), (12, 12)])
+def test_k2_bf16(cuda, din, dout):
+    """rel_spmm_fused's default compute dtype on the card: K2's bf16 form
+    (16-byte x gathers where din % 8 == 0, 8-byte W loads where dout % 4
+    == 0) against the plain version rounding at the same places."""
+    es, rng = _edges(1300, 6, 6000, 3, cuda)
+    x = torch.relu(_t(rng, cuda, 1300, din))
+    w = _t(rng, cuda, 12, din, dout, scale=din ** -0.5)
+    assert rs.fused_fits(w, es.fused.row_block, BF16)
+    before = dict(kernels.LAUNCHES)
+    got = fz.rel_spmm_fused(es.fused, 1300, x, w)
+    assert _launched(before) == {"k2_fused_bf16": 1}
+    ref = fz.rel_spmm_fused_plain(es.fused, 1300, x, w, BF16)
+    _close_rounded_msgs(got, ref, fz.rel_spmm_fused_plain(es.fused, 1300, x.abs(), w.abs(),
+                                                          BF16))
+    assert (got - fz.rel_spmm_fused_plain(es.fused, 1300, x, w)).abs().max().item() > 0
+
+
+def test_k2_bf16_skewed(cuda):
+    """The hub graph (a destination over more than four fused chunks,
+    all-gap chunks) and a node count inside the last row block."""
+    es = build_edge_set(skew_triples(), 1536, 4, with_dst_layout=True).to(cuda)
+    rng = np.random.default_rng(6)
+    x = torch.relu(_t(rng, cuda, 1536, 16))
+    w = _t(rng, cuda, 8, 16, 4, scale=0.25)
+    got = fz.rel_spmm_fused(es.fused, 1536, x, w)
+    _close_rounded_msgs(got, fz.rel_spmm_fused_plain(es.fused, 1536, x, w, BF16),
+                        fz.rel_spmm_fused_plain(es.fused, 1536, x.abs(), w.abs(), BF16))
+    assert (got[512:1024] == 0).all()
+    assert fz.rel_spmm_fused(es.fused, 1500, x, w).shape == (1500, 4)
+
+
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+@pytest.mark.parametrize("din,dout", [
+    (500, 500),  # lp-FB-toy's widths: 8-byte copies, 4 column slices
+    (64, 136),   # 16-byte copies, a partial slice
+    (12, 40),    # 8-byte copies, one slab
+    (6, 40),     # plain 2-byte loads
+    (130, 260),  # several 64-deep slabs, a partial one
+    (16, 4),     # the small route, 16-byte x rows
+    (10, 11),    # the small route, scalar x rows
+    (0, 40),     # no input columns: every message is 0
+])
+def test_k3_bf16(cuda, din, dout, out):
+    """K3's bf16 form on bf16 operands (the tiled route's one-pass bf16
+    mma.sync, the small route) with f32 or bf16 messages, into memory that
+    held NaN, against the plain version's f32 sums of the same bf16
+    values; zero-val rows come out 0."""
+    es, rng = _edges(300, 5, 1800, 8, cuda)
+    x = torch.relu(_t(rng, cuda, 300, din)).to(BF16)
+    w = _t(rng, cuda, 10, din, dout, scale=max(din, 1) ** -0.5).to(BF16)
+    od = BF16 if out == "bf16" else torch.float32
+    junk = torch.full((es.src.shape[0], dout), float("nan"), device=cuda).to(od)
+    del junk
+    before = dict(kernels.LAUNCHES)
+    got = rs.rel_spmm_messages(es, x, w, out_dtype=od)
+    assert _launched(before) == {"k3_messages_bf16": 1}
+    ref = rs.rel_spmm_messages_plain(es, x, w, torch.float32)
+    if out == "bf16":
+        _close_bf16_out(got, ref)
+    else:
+        _close(got, ref)
+    assert (got[es.val == 0] == 0).all()
+    # the default output dtype is the weights': bf16
+    assert rs.rel_spmm_messages(es, x, w).dtype == BF16
+
+
+@pytest.mark.parametrize("din,dout", [(500, 500), (37, 70), (16, 4)])
+def test_k3_f32_operands_bf16_messages(cuda, din, dout):
+    """rel_spmm_messages(out_dtype=bf16) over f32 operands: the f32 form's
+    routes (3xTF32 tiled, f32 small) in the bf16 library, the f32 sums
+    rounded once."""
+    es, rng = _edges(300, 5, 1800, 9, cuda)
+    x = torch.relu(_t(rng, cuda, 300, din))
+    w = _t(rng, cuda, 10, din, dout, scale=din ** -0.5)
+    before = dict(kernels.LAUNCHES)
+    got = rs.rel_spmm_messages(es, x, w, out_dtype=BF16)
+    assert _launched(before) == {"k3_messages_bf16": 1}
+    _close_bf16_out(got, rs.rel_spmm_messages_plain(es, x, w))
+
+
+@pytest.mark.parametrize("entry", ["pallas", "full"])
+@pytest.mark.parametrize("compute,accum", [(BF16, torch.float32), (BF16, BF16),
+                                           (None, BF16)])
+def test_two_stage_dtypes_on_card(cuda, entry, compute, accum):
+    """rel_spmm_pallas / rel_spmm_full with their dtypes on the card
+    against the port's CPU run: exactly one K3 bf16 launch and one K1 (its
+    f32 or bf16 form by the messages' dtype), within 8e-3·max(1,
+    max|ref|)."""
+    es, rng = _edges(700, 5, 3000, 12, cuda)
+    x = _t(rng, cuda, 700, 24)
+    w = _t(rng, cuda, 10, 24, 32, scale=0.2)
+
+    def run(e, a, b):
+        if entry == "pallas":
+            return rs.rel_spmm_pallas(e, a, b, compute_dtype=compute, accum_dtype=accum)
+        return rs.rel_spmm_full(e, e.layout, a, b, compute_dtype=compute, accum_dtype=accum)
+
+    before = dict(kernels.LAUNCHES)
+    got = run(es, x, w)
+    msg_bf16 = (compute or accum) == BF16 if entry == "full" else accum == BF16
+    assert _launched(before) == {"k3_messages_bf16": 1,
+                                 "k1_aggregate" + ("_bf16" if msg_bf16 else ""): 1}
+    ref = run(es.to("cpu"), x.cpu(), w.cpu())
+    assert got.dtype == ref.dtype == accum
+    tol = 8e-3 * max(1.0, ref.float().abs().max().item())
+    assert (got.float().cpu() - ref.float()).abs().max().item() <= tol
+
+
+def test_dtype_options_refuse_on_card(cuda):
+    """No quiet conversion: mixed or other dtypes raise before any launch,
+    and the bf16 forms have no backward."""
+    es, rng = _edges(200, 3, 800, 6, cuda)
+    x, w = _t(rng, cuda, 200, 8), _t(rng, cuda, 6, 8, 4)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(TypeError, match="one dtype"):
+        kernels.launch_k2_fused(x.to(BF16), w, es.fused.src, es.fused.val,
+                                es.fused.local_dst, es.fused.quantum_rel,
+                                es.fused.chunk_block, 200, es.fused.row_block,
+                                es.fused.num_row_blocks, es.fused.quantum)
+    with pytest.raises(TypeError, match="compute_dtype"):
+        fz.rel_spmm_fused(es.fused, 200, x, w, compute_dtype=torch.float16)
+    with pytest.raises(TypeError, match="one dtype"):
+        rs.rel_spmm_messages(es, x.to(BF16), w)
+    with pytest.raises(TypeError, match="out_dtype"):
+        rs.rel_spmm_messages(es, x, w, out_dtype=torch.float16)
+    with pytest.raises(TypeError, match="out_dtype"):
+        agg.aggregate_sorted(_t(rng, cuda, es.src.shape[0], 4), es.layout, 200,
+                             out_dtype=torch.float16)
+    with pytest.raises(RuntimeError, match="no backward on the card"):
+        fz.rel_spmm_fused(es.fused, 200, x.requires_grad_(), w)
+    with pytest.raises(RuntimeError, match="no backward on the card"):
+        rs.rel_spmm_messages(es, x.to(BF16), w.to(BF16).requires_grad_())
+    assert kernels.LAUNCHES == before

@@ -152,7 +152,7 @@ def test_build_fused_layout_dynamic_bit_equal(n, r, b, tile, rb):
     ref = torch.zeros(n, 5).index_add_(
         0, got.dst.long().clamp_max(n - 1),
         torch.bmm(x[got.src.long()][:, None], w[got.rel.long()])[:, 0] * got.val[:, None])
-    _close_scaled(tfused.rel_spmm_fused(alone, n, x, w), ref)
+    _close_scaled(tfused.rel_spmm_fused(alone, n, x, w, compute_dtype=None), ref)
 
 
 def test_keep_masks_on_the_generators_device():

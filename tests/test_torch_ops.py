@@ -78,7 +78,7 @@ def test_k2_plain_matches_pallas(case):
         jes.fused, n, jnp.asarray(x), jnp.asarray(w), compute_dtype=None,
         interpret=True))
     got = tfused.rel_spmm_fused(tes.fused, n, torch.from_numpy(x),
-                                torch.from_numpy(w))
+                                torch.from_numpy(w), compute_dtype=None)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
@@ -135,7 +135,7 @@ def test_wrappers_reject_operands_off_the_graph():
     x, w = torch.zeros(60, 8), torch.zeros(8, 8, 4)
     for bad_x, bad_w in ((x[:59], w), (x, w[:7]), (x, torch.zeros(9, 8, 4))):
         with pytest.raises(ValueError, match="rows|relations"):
-            tfused.rel_spmm_fused(tes.fused, 60, bad_x, bad_w)
+            tfused.rel_spmm_fused(tes.fused, 60, bad_x, bad_w, compute_dtype=None)
         with pytest.raises(ValueError, match="rows|relations"):
             trs.rel_spmm_messages(tes, bad_x, bad_w)
 
