@@ -214,17 +214,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    of its loop rate (ctypes released the GIL); for lp-WN18 (batch 30,000),
    c-RGCN lp-WN18 (full batch) and lp-FB-toy, profile_epoch's measurement:
    each sample_epoch stage's host ms with the native and the numpy
-   builders (median of 5 epochs after a warm one; every epoch's two
+   builders (median of 3 epochs after a warm one; every epoch's two
    batches equal bit for bit, the first equal to sample_epoch's own) and
-   8-epoch fits on the card both ways (epoch wall time, the step's host
+   4-epoch fits on the card both ways (epoch wall time, the step's host
    time, the device's busy share; losses within rtol 1e-4 of each other);
-   each config trained 2 epochs on the CPU by the trainer and with the
+   each config trained 1 epoch on the CPU by the trainer and with the
    numpy builders, losses, MRR and every rank bit-identical; lp-WN18
    trained 2 epochs on the card by the trainer with the native calls and
    the launches zeroed just before it: exactly 1 edge set, 4 + 5E
    layouts and 1 + 2E lexsorts, and phase 13's launches; am_like()'s
-   build_edge_set with layouts and am_like() written as AM's .nt.gz graph
-   and parsed, each both ways, outputs equal (the parse also to the
+   build_edge_set with layouts and am_like() written as AM's .nt.gz
+   graph and parsed, once each way, outputs equal (the parse also to the
    source's triples), host seconds; one "host_build_ms" line (keys ending
    in _s are seconds);
 21. the single-device branches no shipped config reaches, each trained on
@@ -250,13 +250,13 @@ Phases, in order; any failure exits non-zero and prints no result:
 22. edge-sharded training (rgcn_tpu_torch.dist), each case on ranks the
    script starts (spawn) and against the port's single-device trainer on
    the card from the same seed (seed 0, its epochs): nc-AIFB R-GCN
-   (aifb_like(), hidden 16) 3 epochs on 2 ranks sharing the card over
+   (aifb_like(), hidden 16) 2 epochs on 2 ranks sharing the card over
    gloo (each shard's layer 1 on K1, layer 2 K3 + K1 both ways), nc-AM at
-   AM scale (am_like(), 40 bases) 2 epochs on the pair path (K1), lp-WN18
-   (wn18_like(), width 200, batch 30,000, 300,000 negatives) 2 epochs on
+   AM scale (am_like(), 40 bases) 1 epoch on the pair path (K1), lp-WN18
+   (wn18_like(), width 200, batch 30,000, 300,000 negatives) 1 epoch on
    the structured step (K4, K1) with the final candidate-sharded
    evaluation, all three on one 2-rank job; lp-FB-toy (fb_toy_like(),
-   width 500, 100 blocks) 2 epochs on a 2x2 mesh of 4 gloo ranks (K3, K1,
+   width 500, 100 blocks) 1 epoch on a 2x2 mesh of 4 gloo ranks (K3, K1,
    K4); nc-AIFB again on one NCCL rank, and on 2 NCCL ranks of one card
    each where the machine has two (else a line says it did not run); and
    lp-WN18 once more on the 2-rank job on the card's default edge stage
@@ -280,7 +280,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    classify_nodes.main and lp-WN18 1 epoch through predict_links.main
    (both --synthetic) with --profile-dir; the one *.pt.trace.json each
    writes must hold CUDA kernel events, and its events of K1 in both forms
-   (k1_aggregate_kernel), K2 (k2_fused_kernel), K3 (k3_tiled_kernel,
+   (k1_aggregate_kernel or k1_owned_kernel, by route), K2
+   (k2_fused_kernel), K3 (k3_tiled_kernel,
    k3_small_kernel) and K4 + K5 in both forms (weighted_runs.cuh's
    runs_kernel<...>) must equal the launch counters over the same run (the
    kernels launch through ctypes from the nvcc-built libraries), K1 and
@@ -321,7 +322,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    from per-epoch torch generators and builds the subgraph, its layouts
    and reverse; the structured decoder layout-free), counts zeroed just
    before each path: lp-WN18 (wn18_like(), width 200, 2 bases, batch
-   30,000) for 20 epochs, c-RGCN lp-WN18 (full batch) for 2 and
+   30,000) for 4 epochs, c-RGCN lp-WN18 (full batch) for 2 and
    lp-FB-toy (width 500, 100 blocks) for 3, each against the CPU's plain
    run of the card's own draws (replayed on the card, copied back): the
    first epoch's EdgeSet with its layouts and reverse bit-equal to the
@@ -344,7 +345,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    1e-5 (loss) and 1e-5 * max(1, max|ref|) (gradients, parameters) of
    the single-device device-built trainer on the card from the same
    generators; then
-   profile_epoch's fits of lp-WN18 and c-RGCN lp-WN18, 8 epochs each way
+   profile_epoch's fits of lp-WN18 and c-RGCN lp-WN18, 4 epochs each way
    in turns (host, device, device, host): epoch wall, step and set_epoch
    host ms, busy share, peak memory, the build's device ms (CUDA
    events) and one device-built step profiled as in phase 5; one
@@ -497,26 +498,27 @@ def cuda_ms(fn, iters: int = TIMING_ITERS, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = TIMING_ITERS, warmup: int = 5, tries: int = 3) -> float:
+def device_ms(fn, iters: int = TIMING_ITERS, warmup: int = 5, tries: int = 12) -> float:
     """Summed device time of the kernels ``fn()`` launches, per call, from
-    torch.profiler over ``iters`` calls (host launch cost excluded). A
-    profile that holds no device event at all is taken again, up to
-    ``tries`` times (the profiler now and then delivers none)."""
-    from torch.profiler import ProfilerActivity
+    torch.profiler over ``iters`` calls (host launch cost excluded), by
+    ``utils/profiling.device_split``: a profile that lost records is taken
+    again over half as many calls (on an H100 one plain version's profiles
+    lost records five times running), down to one call, up to ``tries``
+    times; then the run fails. A reading from a retaken profile is logged
+    with the number of calls it rests on."""
+    from rgcn_tpu_torch.utils.profiling import device_split
 
-    from rgcn_tpu_torch.utils.profiling import profile_session
+    def retaken(attempt, calls, lost, us):
+        log(f"  profile {attempt} of {tries} ({calls} calls) lost records ({lost} "
+            f"launches without a kernel record, {us:.1f} us of device time): taken again")
 
-    for _ in range(warmup):
-        fn()
-    for _ in range(tries):
-        with profile_session([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-        us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
-            return us / iters / 1e3
-    fail(f"torch.profiler recorded no device time in {tries} profiles")
+    try:
+        split = device_split(fn, iters, warmup, tries, retaken)
+    except RuntimeError as e:
+        fail(str(e))
+    if split["calls"] < iters:
+        log(f"  device ms {split['ms']:.5f} from a retaken profile of {split['calls']} calls")
+    return split["ms"]
 
 
 def timed(fn) -> tuple:
@@ -3006,9 +3008,11 @@ def phase_files(dev):
 
 # -- the native host builders: the LP epoch's host build, stage by stage --
 
-HOST_REPS = 5  # epochs timed per stage, each way, after a warm one
-HOST_FIT_EPOCHS = 8  # each card fit, each way
-HOST_TRAIN_EPOCHS = 2  # the CPU trainings held bit-identical; the counted run
+HOST_REPS = 3  # epochs timed per stage, each way, after a warm one
+HOST_FIT_EPOCHS = 4  # each card fit, each way (two timed after two warm)
+HOST_CPU_EPOCHS = 1  # the CPU trainings held bit-identical, each way
+HOST_TRAIN_EPOCHS = 2  # the counted run on the card
+HOST_AM_REPS = 1  # am_like()'s edge set built each way
 
 
 def native_train_calls(epochs: int) -> dict:
@@ -3092,7 +3096,7 @@ def host_epochs_card(dev, timing) -> None:
 
 
 def host_trainings_cpu(timing) -> None:
-    """Each LP config trained HOST_TRAIN_EPOCHS epochs on the CPU by the
+    """Each LP config trained HOST_CPU_EPOCHS epochs on the CPU by the
     trainer (native builders) and with the numpy builders: losses, MRR and
     every rank bit-identical."""
     from rgcn_tpu_torch import profile_epoch
@@ -3104,7 +3108,7 @@ def host_trainings_cpu(timing) -> None:
         t0 = time.perf_counter()
         base = load_experiment(path)
         cfg = dataclasses.replace(base, training=dataclasses.replace(
-            base.training, epochs=HOST_TRAIN_EPOCHS))
+            base.training, epochs=HOST_CPU_EPOCHS))
         data = synthetic_lp_data(cfg.dataset.name)
         ways = []
         for trainer in (
@@ -3117,7 +3121,7 @@ def host_trainings_cpu(timing) -> None:
                          np.asarray(ranks)))
         (l_a, m_a, r_a), (l_b, m_b, r_b) = ways
         same = l_a == l_b and m_a == m_b and np.array_equal(r_a, r_b)
-        log(f"host build [{key}] CPU training {HOST_TRAIN_EPOCHS} epochs, native vs "
+        log(f"host build [{key}] CPU training {HOST_CPU_EPOCHS} epochs, native vs "
             f"numpy builders: losses {l_a} vs {l_b}, MRR {m_a} vs {m_b}, {len(r_a)} "
             f"ranks bit-identical: {same} ({time.perf_counter() - t0:.1f} s)")
         if not same:
@@ -3178,7 +3182,7 @@ def host_am(am_data, timing) -> None:
 
     d = am_data
     built, secs = {}, {"native": [], "numpy": []}
-    for _ in range(3):
+    for _ in range(HOST_AM_REPS):
         for way in ("native", "numpy"):
             t0 = time.perf_counter()
             built[way] = build_edge_set(d.triples, d.num_nodes, d.num_relations,
@@ -3198,7 +3202,7 @@ def host_am(am_data, timing) -> None:
         path = os.path.join(root, "am_stripped.nt.gz")
         _, timing["am_nt_write_s"] = timed_s(lambda: write_am_nt(path, d))
         parsed, secs = {}, {"native": [], "python": []}
-        for way in ("native", "native", "python"):
+        for way in ("native", "python"):
             t0 = time.perf_counter()
             parsed[way] = _parse_graph(path, prefer_native=way == "native")
             secs[way].append(time.perf_counter() - t0)
@@ -3457,10 +3461,10 @@ def phase_branches(dev, am, wn18, lp_edges, dedup):
 
 # -- phase 22: edge-sharded training, ranks on the card ------------------------
 
-SHARDED_NC_EPOCHS = 3  # nc-AIFB R-GCN
-SHARDED_AM_EPOCHS = 2  # nc-AM at AM scale, pair path
-SHARDED_LP_EPOCHS = 2  # lp-WN18, structured step, final sharded evaluation
-SHARDED_FB_EPOCHS = 2  # lp-FB-toy on the 2x2 mesh (block layer)
+SHARDED_NC_EPOCHS = 2  # nc-AIFB R-GCN
+SHARDED_AM_EPOCHS = 1  # nc-AM at AM scale, pair path
+SHARDED_LP_EPOCHS = 1  # lp-WN18, structured step, final sharded evaluation
+SHARDED_FB_EPOCHS = 1  # lp-FB-toy on the 2x2 mesh (block layer)
 
 
 def epochs_cfg(path, epochs):
@@ -3763,12 +3767,16 @@ TOOLING_NC_EPOCHS = 2  # nc-AIFB under --profile-dir
 TOOLING_LP_EPOCHS = 1  # lp-WN18 under --profile-dir: the trace holds every op
 TOOLING_TIMER_STEPS = 50  # the canary step under StepTimer
 # each launch counter's kernel events in a trace, by the demangled names
-# CUPTI records: K1's f32 and bf16 forms both run k1_aggregate_kernel<TM,
-# VEC, LPS>; K4 and K5 and their bf16 forms all run weighted_runs.cuh's
-# templated runs_kernel<TX, TO, VEC, NB, PER_BASIS> (beside one
-# zero_shared_rows each, and narrow_shared_rows for a bf16 output)
+# CUPTI records: K1's f32 and bf16 forms both run one main kernel a call,
+# k1_aggregate_kernel<TM, VEC, LPS> on the atomics route (beside a memset,
+# and narrow_output for a bf16 output) or k1_owned_kernel<TM, TO, VEC, LPS>
+# on the owned-row route (beside zero_split_rows, and narrow_split_rows
+# for a bf16 output); K4 and K5 and their bf16 forms all run
+# weighted_runs.cuh's templated runs_kernel<TX, TO, VEC, NB, PER_BASIS>
+# (beside one zero_shared_rows each, and narrow_shared_rows for a bf16
+# output)
 TRACE_NAMES = {
-    "k1_aggregate+k1_aggregate_bf16": ("k1_aggregate_kernel",),
+    "k1_aggregate+k1_aggregate_bf16": ("k1_aggregate_kernel", "k1_owned_kernel"),
     "k2_fused": ("k2_fused_kernel",),
     "k3_messages": ("k3_tiled_kernel", "k3_small_kernel"),
     "k4_weighted_aggregate+k5_weighted_aggregate_dedup+k4_weighted_aggregate_bf16"
@@ -4282,11 +4290,11 @@ def phase_installed(dev, checkout):
     return summary, got["launches"], bf16
 
 
-DEVICE_WN18_EPOCHS = 20  # lp-WN18 built on the card
+DEVICE_WN18_EPOCHS = 4  # lp-WN18 built on the card
 DEVICE_CRGCN_EPOCHS = 2  # c-RGCN lp-WN18, full batch
 DEVICE_FB_EPOCHS = 3  # lp-FB-toy
 DEVICE_BIASED_EPOCHS = 2  # lp-WN18 with a biased decoder: the assembled batch
-DEVICE_FIT_EPOCHS = 8  # each fit of the host-vs-device comparison
+DEVICE_FIT_EPOCHS = 4  # each fit of the host-vs-device comparison (two timed)
 DEVICE_SHARDED_EPOCHS = 2  # make_sharded_lp_step on 2 ranks sharing the card
 
 

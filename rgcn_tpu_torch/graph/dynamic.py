@@ -410,7 +410,8 @@ def build_dst_layout_dynamic(dst: torch.Tensor, num_nodes: int,
     total = nrb * chunk + -(-e_pad // chunk) * chunk
     n_chunks = total // chunk
 
-    if src is not None and (nrb + 1) * (num_nodes + 1) < 2**31:
+    by_src = src is not None and (nrb + 1) * (num_nodes + 1) < 2**31
+    if by_src:
         pad = dst >= num_nodes
         blk = torch.where(pad, nrb, torch.div(dst, row_block, rounding_mode="floor"))
         key = blk * (num_nodes + 1) + torch.where(pad, num_nodes, src)
@@ -437,7 +438,7 @@ def build_dst_layout_dynamic(dst: torch.Tensor, num_nodes: int,
     return DstLayout(perm=perm, local_dst=local.reshape(n_chunks, chunk),
                      chunk_block=chunk_block, num_edges=int(e_pad),
                      num_row_blocks=int(nrb), row_block=int(row_block),
-                     chunk=int(chunk))
+                     chunk=int(chunk), dst_sorted=not by_src)
 
 
 def _reverse_edge_set_dynamic(es: EdgeSet, row_block: int, chunk: int) -> EdgeSet:

@@ -2,9 +2,11 @@
 
 Each ``launch_*`` function checks its tensors (CUDA device, dtype, shape,
 contiguity), allocates the output with ``torch.empty`` (zeroing, where a
-kernel needs it, is the C launcher's: K1 and K2 memset their outputs; K4
-zeroes only the rows two chunks share, K5 the rows of row blocks with
-several chunks), launches on
+kernel needs it, is the C launcher's: K2 memsets its output; K1, in either
+form, memsets it on its atomics route and zeroes only the rows two CTAs
+share on its owned-row route, chosen by the layout's shape; K4 zeroes only
+the rows two CTAs share, K5 the rows of row blocks with several chunks),
+launches on
 ``torch.cuda.current_stream()``, raises if the C launcher reports a CUDA
 error, and adds one to its kernel's count in :data:`LAUNCHES`. The count
 moves nowhere else, so a run that resets the counts and reads them after
@@ -51,9 +53,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argument types of each C launcher (pointers and the stream as c_void_p)
 _ARGTYPES = {
-    # K1: (msgs, index, local_dst, chunk_block, out, scratch, ..., out_bf16,
-    # stream), one list for the f32 and the bf16 form
-    "k1_aggregate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # K1: (msgs, index, local_dst, chunk_block, out, scratch, ..., dst_sorted,
+    # out_bf16, stream), one list for the f32 and the bf16 form
+    "k1_aggregate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "k2_fused": [_P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _I, _I, _I, _P],
     "k3_messages": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -173,14 +175,22 @@ def launch_k1_aggregate(
     row_block: int,
     num_row_blocks: int,
     out_dtype: torch.dtype = torch.float32,
+    dst_sorted: bool = True,
 ) -> torch.Tensor:
     """K1: ``out[n] = Σ_{slots l → n} msgs[index[l]]`` (``index`` None reads
     slot ``l`` of destination-sorted ``msgs``) over a destination layout's
     ``(n_chunks, CH)`` ``local_dst`` and ``chunk_block``. ``msgs`` f32 or
     bf16 (the bf16 form, ``k1_aggregate_bf16``); the sums are f32 and the
     output ``out_dtype``, f32 or bf16 (each element rounded once from its
-    f32 sum, through an f32 scratch). Returns ``(num_nodes, dout)``; rows
-    past ``num_nodes`` are dropped."""
+    f32 sum). Both forms take one of two routes by the layout's shape
+    (``csrc/k1_aggregate.cuh``, ``run()``): where ``dst_sorted`` (each row
+    block's slots sorted by destination: every builder's order but the
+    source-ordered one), ``dout % 4 == 0``, the launch has at least 1024
+    CTAs and the layout at least 3 slots an output row, the owned-row
+    route stores each row a CTA holds whole once and finishes only the
+    rows two CTAs share with atomics; else the atomics route adds every
+    run into a memset output. Returns ``(num_nodes, dout)``; rows past
+    ``num_nodes`` are dropped."""
     dev = msgs.device
     _check(local_dst, "local_dst", torch.int32, None)
     if local_dst.dim() != 2:
@@ -213,7 +223,7 @@ def launch_k1_aggregate(
         None if index is None else index.data_ptr(),
         local_dst.data_ptr(), chunk_block.data_ptr(), out.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
-        n_chunks, chunk, row_block, dout, num_nodes, int(bf16_out),
+        n_chunks, chunk, row_block, dout, num_nodes, int(dst_sorted), int(bf16_out),
     )
     return out
 

@@ -84,7 +84,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr size_t kStaticSmem = 48 * 1024;  // above this only with the attribute set
 constexpr size_t kMaxSmem = 232448;        // dynamic shared memory a block may use
-constexpr int kZeroParts = 16;             // CTAs that zero one row block
 
 struct Args {
   const void* x;           // (rows, din), or (NB, rows, din) per-basis tables, of TX
@@ -100,6 +99,7 @@ struct Args {
   int n_chunks, chunk, row_block, kk, din, num_nodes;
   int sum_bases;
   int dst_sorted;          // each row block's slots sorted by destination (K4)
+  void* hook_data;         // a variant's own (see Frame); unused by the launchers
 };
 
 // VEC consecutive values of a table row as loaded (16 bytes, or one value);
@@ -241,22 +241,21 @@ inline size_t smem_bytes(int row_block, int kk, int chunk, int nb, int vec) {
 }
 
 // The rows [r0, r1) that the main kernel adds to with atomics on behalf of
-// CTA (c, y), for chunk c. A destination-sorted frame (dst_sorted) has only
-// the rows its chunks split: the last row of chunk c when chunk c + 1 of
-// the same block starts with it. Any other frame has every row of a block
-// with several chunks: part y of the block of its first chunk c.
+// chunk c. A destination-sorted frame (dst_sorted) has only the rows its
+// chunks split: the last row of chunk c when chunk c + 1 of the same block
+// starts with it. Any other frame has every row of a block with several
+// chunks, counted at the block's first chunk c.
 __device__ __forceinline__ bool shared_rows(const int* __restrict__ chunk_block,
-                                            const int* __restrict__ local, int n_chunks,
+                                            const int* __restrict__ local, int c, int n_chunks,
                                             int chunk, int row_block, int num_nodes,
                                             int dst_sorted, long long& r0, long long& r1) {
-  const int c = blockIdx.x;
   const int blk = chunk_block[c];
   if (c + 1 >= n_chunks || chunk_block[c + 1] != blk) return false;
   const long long base = static_cast<long long>(blk) * row_block;
   if (dst_sorted) {
     const long long t = static_cast<long long>(c + 1) * chunk;
     const int r = local[t];
-    if (blockIdx.y > 0 || local[t - 1] != r) return false;
+    if (local[t - 1] != r) return false;
     r0 = base + r;
     r1 = r0 + 1;
   } else {
@@ -268,51 +267,112 @@ __device__ __forceinline__ bool shared_rows(const int* __restrict__ chunk_block,
   return r1 > r0;
 }
 
+// The passes over those rows before and after the main kernel give each
+// chunk a warp (a CTA of kWarps warps takes kWarps chunks): most chunks
+// have no such rows, and a CTA a chunk spent its time scheduling CTAs that
+// found none (K5's frame at lp-WN18: 7,376 CTAs of 16 parts a chunk, 1,184
+// with rows). An unsorted frame's block rows are split over kRowParts warps
+// (blockIdx.y), a sorted frame's one row taken by one warp. With the
+// narrowing's vectors below, on an H100 the two passes of K5's bf16 call
+// at lp-WN18 took 6.0 and 10.4 us of its 45.7, against 6.6 and 16.6 of
+// 52.5 as CTAs a chunk narrowing a value a thread (compare_k1_k5.py).
+constexpr int kRowParts = 32;
+
+inline dim3 rows_grid(int n_chunks, int dst_sorted) {
+  return dim3((n_chunks + kWarps - 1) / kWarps, dst_sorted ? 1 : kRowParts);
+}
+
+// Part blockIdx.y of [0, n) of a warp's rows, each lane every 32nd.
+__device__ __forceinline__ void warp_part(long long n, long long& lo, long long& hi) {
+  const long long part = (n + gridDim.y - 1) / gridDim.y;
+  lo = min(n, blockIdx.y * part);
+  hi = min(n, lo + part);
+}
+
+// A warp's part (blockIdx.y) of zeroing p[0, n).
+__device__ __forceinline__ void warp_zero(float* __restrict__ p, long long n, int lane) {
+  // scalars up to a 16-byte boundary, then vectors, then the scalar tail
+  const long long head =
+      min(n, static_cast<long long>((4 - (reinterpret_cast<std::uintptr_t>(p) / 4) % 4) % 4));
+  const long long n4 = (n - head) / 4;
+  if (blockIdx.y == 0) {
+    if (lane < head) p[lane] = 0.f;
+    for (long long i = head + 4 * n4 + lane; i < n; i += 32) p[i] = 0.f;
+  }
+  float4* p4 = reinterpret_cast<float4*>(p + head);
+  long long lo, hi;
+  warp_part(n4, lo, hi);
+  for (long long i = lo + lane; i < hi; i += 32) p4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
 // Before the main kernel: zero the f32 rows it adds to with atomics.
 __global__ void zero_shared_rows(const int* __restrict__ chunk_block,
                                  const int* __restrict__ local,
                                  float* __restrict__ out, int n_chunks, int chunk,
                                  int row_block, int row_len, int num_nodes,
                                  int dst_sorted) {
+  const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
   long long r0, r1;
-  if (!shared_rows(chunk_block, local, n_chunks, chunk, row_block, num_nodes, dst_sorted,
-                   r0, r1))
-    return;
-  float* p = out + r0 * row_len;
-  const long long n = (r1 - r0) * row_len;
-  // scalars up to a 16-byte boundary, then vectors, then the scalar tail
-  const long long head =
-      min(n, static_cast<long long>((4 - (reinterpret_cast<std::uintptr_t>(p) / 4) % 4) % 4));
-  const long long n4 = (n - head) / 4;
-  if (blockIdx.y == 0) {
-    if (threadIdx.x < head) p[threadIdx.x] = 0.f;
-    for (long long i = head + 4 * n4 + threadIdx.x; i < n; i += blockDim.x) p[i] = 0.f;
-  }
-  float4* p4 = reinterpret_cast<float4*>(p + head);
-  const long long part = (n4 + gridDim.y - 1) / gridDim.y;
-  const long long end = min(n4, (blockIdx.y + 1) * part);
-  for (long long i = blockIdx.y * part + threadIdx.x; i < end; i += blockDim.x)
-    p4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (c >= n_chunks || !shared_rows(chunk_block, local, c, n_chunks, chunk, row_block,
+                                    num_nodes, dst_sorted, r0, r1))
+    return;  // warp-uniform
+  warp_zero(out + r0 * row_len, (r1 - r0) * row_len, threadIdx.x & 31);
 }
 
 // After the main kernel, for a bf16 output: narrow the rows the atomics
-// finished in the f32 scratch, each element once.
+// finished in the f32 scratch, each element once: 16-byte loads of 4 sums
+// and 8-byte stores of their 4 bf16 values where the row length is a
+// multiple of 4 (K5's rows at lp-WN18 are 400 long), else one value a
+// lane.
 __global__ void narrow_shared_rows(const int* __restrict__ chunk_block,
                                    const int* __restrict__ local,
                                    const float* __restrict__ acc,
                                    __nv_bfloat16* __restrict__ out, int n_chunks,
                                    int chunk, int row_block, int row_len, int num_nodes,
                                    int dst_sorted) {
+  const int lane = threadIdx.x & 31;
+  const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
   long long r0, r1;
-  if (!shared_rows(chunk_block, local, n_chunks, chunk, row_block, num_nodes, dst_sorted,
-                   r0, r1))
+  if (c >= n_chunks || !shared_rows(chunk_block, local, c, n_chunks, chunk, row_block,
+                                    num_nodes, dst_sorted, r0, r1))
+    return;  // warp-uniform
+  const long long at = r0 * row_len, n = (r1 - r0) * row_len;
+  const bool vec = row_len % 4 == 0 && reinterpret_cast<std::uintptr_t>(acc) % 16 == 0 &&
+                   reinterpret_cast<std::uintptr_t>(out) % 8 == 0;
+  long long lo, hi;
+  warp_part(vec ? n / 4 : n, lo, hi);
+  if (!vec) {
+    for (long long i = lo + lane; i < hi; i += 32) out[at + i] = __float2bfloat16_rn(acc[at + i]);
     return;
-  const long long lo = r0 * row_len, n = (r1 - r0) * row_len;
-  const long long part = (n + gridDim.y - 1) / gridDim.y;
-  const long long end = min(n, (blockIdx.y + 1) * part);
-  for (long long i = blockIdx.y * part + threadIdx.x; i < end; i += blockDim.x)
-    out[lo + i] = __float2bfloat16_rn(acc[lo + i]);
+  }
+#pragma unroll 4
+  for (long long i = lo + lane; i < hi; i += 32) {
+    const float4 v = *reinterpret_cast<const float4*>(acc + at + 4 * i);
+    const unsigned w0 = static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(v.x))) |
+                        (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(v.y))) << 16);
+    const unsigned w1 = static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(v.z))) |
+                        (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(v.w))) << 16);
+    *reinterpret_cast<uint2*>(out + at + 4 * i) = make_uint2(w0, w1);
+  }
 }
+
+// What the main kernel reads of a lane, and does after its sums, as the
+// launchers use it: the source row a.src[slot] and the weight w (rounded
+// to the table's type), nothing after. The variants under variants/ (timed
+// by rgcn_tpu_torch/compare_k1_k5.py) instantiate the kernel with hooks of
+// their own, to time designs the launchers did not take; this default
+// leaves the launchers' kernel as it was without them.
+struct Frame {
+  __device__ __forceinline__ static int src(const Args& a, long long slot) {
+    return a.src[slot];
+  }
+  template <typename TX>
+  __device__ __forceinline__ static float weight(const float* wl, long long off) {
+    return table_weight<TX>(wl[off]);
+  }
+  template <typename TO>
+  __device__ __forceinline__ static void after(const Args&, int, bool, bool, long long) {}
+};
 
 // One run's sums to its row: stored (narrowed to TO) where this CTA owns
 // the row, else added to the f32 row ``acc_row`` with atomics.
@@ -351,7 +411,7 @@ __host__ __device__ constexpr int min_ctas() {
   return NB <= 2 ? 4 : (NB <= 4 || VEC <= 4 ? 2 : 1);
 }
 
-template <typename TX, typename TO, int VEC, int NB, bool PER_BASIS>
+template <typename TX, typename TO, int VEC, int NB, bool PER_BASIS, typename Hooks = Frame>
 __global__ void __launch_bounds__(kThreads, min_ctas<NB, VEC>()) runs_kernel(const Args a) {
   constexpr int NX = PER_BASIS ? NB : 1;  // row loads per lane
   constexpr int B = batch<NB, PER_BASIS, VEC>();
@@ -412,10 +472,11 @@ __global__ void __launch_bounds__(kThreads, min_ctas<NB, VEC>()) runs_kernel(con
         int at = 0;
         if (lane == leader) at = atomicAdd(cursor + ld, __popc(peers));
         at = __shfl_sync(peers, at, leader) + __popc(peers & ((1u << lane) - 1));
-        lanes[at] = make_int2(a.src[slot0 + t], ld);
+        lanes[at] = make_int2(Hooks::src(a, slot0 + t), ld);
         const float* wl = a.w + k * NB * a.num_slots + slot0 + t;
 #pragma unroll
-        for (int b = 0; b < NB; ++b) lane_w[at * NB + b] = table_weight<TX>(wl[b * a.num_slots]);
+        for (int b = 0; b < NB; ++b)
+          lane_w[at * NB + b] = Hooks::template weight<TX>(wl, b * a.num_slots);
       }
     }
   }
@@ -552,24 +613,25 @@ __global__ void __launch_bounds__(kThreads, min_ctas<NB, VEC>()) runs_kernel(con
     TO* q = static_cast<TO*>(a.out) + (base + r) * row_len;
     for (int i = lane; i < n_vec; i += 32) store_vec<TO, VEC>(q + i * VEC, zeros);
   }
+  Hooks::template after<TO>(a, blk, first, last, row_len);
 }
 
-template <typename TX, typename TO, int VEC, int NB, bool PER_BASIS>
+template <typename TX, typename TO, int VEC, int NB, bool PER_BASIS, typename Hooks = Frame>
 cudaError_t launch_runs(const Args& a, size_t smem, cudaStream_t st) {
   if (smem > kStaticSmem) {
     const cudaError_t e = cudaFuncSetAttribute(
-        runs_kernel<TX, TO, VEC, NB, PER_BASIS>,
+        runs_kernel<TX, TO, VEC, NB, PER_BASIS, Hooks>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  runs_kernel<TX, TO, VEC, NB, PER_BASIS><<<a.n_chunks, kThreads, smem, st>>>(a);
+  runs_kernel<TX, TO, VEC, NB, PER_BASIS, Hooks><<<a.n_chunks, kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
 // Zero the f32 rows the main kernel adds to, run it (with per-basis tables
 // when PER_BASIS), and for a bf16 output narrow those rows after. A table
 // of TX, an output of TO: (f32, f32), (bf16, f32) or (bf16, bf16).
-template <typename TX, typename TO, bool PER_BASIS>
+template <typename TX, typename TO, bool PER_BASIS, typename Hooks = Frame>
 cudaError_t run(const Args& a, int nb, cudaStream_t st) {
   if (a.n_chunks < 1 || a.chunk < 1 || a.row_block < 1 || a.din < 1 || a.kk < 1 ||
       nb < 1 || nb > 8 || (a.dst_sorted && a.kk != 1) || a.acc == nullptr)
@@ -581,8 +643,8 @@ cudaError_t run(const Args& a, int nb, cudaStream_t st) {
                     reinterpret_cast<std::uintptr_t>(a.acc) % 16 == 0;
   const size_t smem = smem_bytes(a.row_block, a.kk, a.chunk, nb, wide ? kVec : 1);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  const dim3 rows_grid(a.n_chunks, a.dst_sorted ? 1 : kZeroParts);
-  zero_shared_rows<<<rows_grid, kThreads, 0, st>>>(
+  const dim3 rows = rows_grid(a.n_chunks, a.dst_sorted);
+  zero_shared_rows<<<rows, kThreads, 0, st>>>(
       a.chunk_block, a.local, a.acc, a.n_chunks, a.chunk, a.row_block, nb_out * a.din,
       a.num_nodes, a.dst_sorted);
   cudaError_t err = cudaGetLastError();
@@ -590,15 +652,15 @@ cudaError_t run(const Args& a, int nb, cudaStream_t st) {
   switch (nb) {
 #define WR_CASE(N)                                                          \
   case N:                                                                   \
-    err = wide ? launch_runs<TX, TO, kVec, N, PER_BASIS>(a, smem, st)       \
-               : launch_runs<TX, TO, 1, N, PER_BASIS>(a, smem, st);         \
+    err = wide ? launch_runs<TX, TO, kVec, N, PER_BASIS, Hooks>(a, smem, st) \
+               : launch_runs<TX, TO, 1, N, PER_BASIS, Hooks>(a, smem, st);   \
     break;
     WR_CASE(1) WR_CASE(2) WR_CASE(3) WR_CASE(4)
     WR_CASE(5) WR_CASE(6) WR_CASE(7) WR_CASE(8)
 #undef WR_CASE
   }
   if (err != cudaSuccess || sizeof(TO) == 4) return err;
-  narrow_shared_rows<<<rows_grid, kThreads, 0, st>>>(
+  narrow_shared_rows<<<rows, kThreads, 0, st>>>(
       a.chunk_block, a.local, a.acc, static_cast<__nv_bfloat16*>(a.out), a.n_chunks, a.chunk,
       a.row_block, nb_out * a.din, a.num_nodes, a.dst_sorted);
   return cudaGetLastError();

@@ -8,13 +8,20 @@ chunk, so every output row is written.
 
 On a CUDA tensor :func:`aggregate_presorted` and :func:`aggregate_sorted`
 launch the hand-written kernel ``kernels/csrc/k1_aggregate.cu``; on a CPU
-tensor they take the plain PyTorch version beside them. The kernel spreads
-each chunk over warps of lane groups that sum runs of one destination in
-registers and finish them with f32 atomics into a zeroed output, so a hub
-row block is spread over as many CTAs as it has chunks; a warp whose span
-holds only pads returns after loading its ``local_dst`` once. Messages are
-f32 or bf16 (the edge stage's compute dtype): bf16 messages launch K1's
-bf16 form (``kernels/csrc/k1_aggregate_bf16.cu``), and both routes sum in
+tensor they take the plain PyTorch version beside them. Messages are f32
+or bf16 (the edge stage's compute dtype): bf16 messages launch K1's bf16
+form (``kernels/csrc/k1_aggregate_bf16.cu``). Both forms share one kernel
+header, ``k1_aggregate.cuh``, and one rule for its two routes. The
+owned-row route, taken where the layout is destination-sorted
+(``DstLayout.dst_sorted``), the rows split into 4-value lanes, the launch
+has at least 1024 CTAs and the layout at least 3 slots an output row,
+stores each destination a CTA holds whole once, zeros included, and
+zeroes and finishes with atomics only the rows two CTAs share: no memset.
+Every other layout takes the atomics route: lane groups sum runs of one
+destination in registers and add them with f32 atomics into an output
+zeroed by a memset, a hub row block spread over as many CTAs as it has
+chunks, and a warp whose span holds only pads returns after loading its
+``local_dst`` once. Both routes sum in
 f32 into an f32 output, as the Pallas kernel's default ``out_dtype``, or
 with ``out_dtype=torch.bfloat16`` into a bf16 one, each element rounded
 once from its whole f32 sum (the Pallas kernel rounds each chunk's f32
@@ -66,6 +73,10 @@ class DstLayout:
     ``perm`` maps layout position -> edge index, with pad positions
     pointing one past the last edge (an appended zero row); ``num_edges``
     is that edge count, the rows edge-order messages must have.
+    ``dst_sorted`` is False only for a layout whose row blocks run in
+    source order (``build_dst_layout(src=...)``): K1, in either form, then
+    takes its atomics route (a memset output, every run added with f32
+    atomics), never the owned-row route.
     """
 
     perm: object  # (L,) int32 — layout position -> edge index
@@ -75,6 +86,7 @@ class DstLayout:
     num_row_blocks: int
     row_block: int
     chunk: int
+    dst_sorted: bool = True
 
     @property
     def num_chunks(self) -> int:
@@ -100,8 +112,8 @@ def build_dst_layout(
     hold pads only and repeat the last row block (the host-built training
     subgraphs take the JAX package's shape-stable totals). ``src``, the
     per-edge source, orders the edges by source within each row block
-    instead of by destination (numpy; the JAX package's gather probe). K1
-    finishes destinations with atomics and takes either order; K4 needs
+    instead of by destination (numpy; the JAX package's gather probe;
+    ``dst_sorted`` False). K1 takes either order; K4 needs
     destination-sorted blocks, so no path builds this form for it.
 
     Runs the port's C++ counting sort
@@ -165,6 +177,7 @@ def build_dst_layout(
         num_row_blocks=int(num_row_blocks),
         row_block=int(row_block),
         chunk=int(chunk),
+        dst_sorted=src is None,
     )
 
 
@@ -244,7 +257,7 @@ def aggregate_presorted(
     kernels.refuse_grad("aggregate_presorted (K1)", msgs_sorted)
     return kernels.launch_k1_aggregate(
         msgs_sorted, None, layout.local_dst, layout.chunk_block,
-        num_nodes, layout.row_block, layout.num_row_blocks, out_dtype,
+        num_nodes, layout.row_block, layout.num_row_blocks, out_dtype, layout.dst_sorted,
     )
 
 
@@ -261,7 +274,7 @@ def _aggregate_sorted(messages, layout, num_nodes, out_dtype=torch.float32):
         return aggregate_sorted_plain(messages, layout, num_nodes, out_dtype)
     return kernels.launch_k1_aggregate(
         messages, layout.perm, layout.local_dst, layout.chunk_block,
-        num_nodes, layout.row_block, layout.num_row_blocks, out_dtype,
+        num_nodes, layout.row_block, layout.num_row_blocks, out_dtype, layout.dst_sorted,
     )
 
 

@@ -174,27 +174,37 @@ class _EpochClock:
         self.logger = Logger(verbose=False)
         self.epochs, self.warm, self.profile_device = epochs, warm, profile_device
         self.stamps, self.losses = {}, []
-        self.prof, self.window = None, None
+        self.session, self.prof, self.window = None, None, None
 
     def stamp(self, epoch: int, loss: float) -> None:
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity
 
-        now = time.perf_counter()
-        self.stamps[epoch] = now
+        from rgcn_tpu_torch.utils.profiling import profile_session
+
+        self.stamps[epoch] = time.perf_counter()
         self.losses.append(loss)
         if not self.profile_device:
             return
         if epoch == self.warm:
-            self.prof = profile(activities=[ProfilerActivity.CUDA])
-            self.prof.start()
-            self.window = time.perf_counter()
+            # primed (profile_session); the next epoch's wall starts after it
+            self.session = profile_session([ProfilerActivity.CUDA])
+            self.prof = self.session.__enter__()
+            self.window = self.stamps[epoch] = time.perf_counter()
         elif epoch == self.epochs and self.prof is not None:
             torch.cuda.synchronize()
             self.window = time.perf_counter() - self.window
-            self.prof.stop()
+            self.session.__exit__(None, None, None)
+
+    def lost_records(self) -> Optional[int]:
+        """Launches the profile holds no kernel record of (None: no profile)."""
+        from rgcn_tpu_torch.utils.profiling import lost_kernel_records
+
+        return None if self.prof is None else lost_kernel_records(self.prof.events())
 
     def busy_share(self) -> Optional[float]:
-        if self.prof is None:
+        """The window's summed kernel time over its length; None without a
+        profile or where the profile lost records (it would undercount)."""
+        if self.prof is None or self.lost_records():
             return None
         busy_us = sum(ev.time_range.elapsed_us() for ev in self.prof.events()
                       if ev.device_type == torch.autograd.DeviceType.CUDA
@@ -236,6 +246,7 @@ def fit_epochs(cfg, data, dev, prefer_native: bool, epochs: int,
         "set_epoch_ms": float(np.median(trainer.set_epoch_s[steady]) * 1e3),
         "prefetch_stages_ms": stages,
         "device_busy_share": clock.busy_share(),
+        "lost_kernel_records": clock.lost_records(),
         "losses": clock.losses,
         "mrr": float(mrr),
         "ranks": np.asarray(ranks),

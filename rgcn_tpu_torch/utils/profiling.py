@@ -8,7 +8,9 @@
   records every kernel launched on the card;
 * :func:`profile_session`: the profiler session under :func:`trace` and
   the device-time measurements, primed so that the card's first records
-  in a session are kept;
+  in a session are kept; :func:`lost_kernel_records` counts the launches
+  a finished session holds no kernel record of, and :func:`device_split`
+  times a call's kernels, taking again a profile that lost records;
 * :class:`StepTimer`: per-step times and the ``edges/s`` counter.
 
 A host clock around a step measures what the host enqueued, not what the
@@ -28,7 +30,7 @@ import torch
 
 from rgcn_tpu_torch.device import resolve_device
 
-__all__ = ["trace", "StepTimer"]
+__all__ = ["trace", "StepTimer", "lost_kernel_records", "device_split"]
 
 
 # one-element kernels the card runs between enabling CUPTI and opening the
@@ -72,6 +74,53 @@ def profile_session(activities, **kwargs):
         if cuda:  # the block's kernels have run before the window closes
             torch.cuda.synchronize()
         prof.stop()
+
+
+def lost_kernel_records(events) -> int:
+    """The host's kernel launch calls in a profile's ``events()`` whose
+    kernel has no device record: each launch call (a CPU event whose name
+    holds ``LaunchKernel``) and its kernel share a CUPTI correlation id (the
+    events' ``id``). A profile with lost records undercounts device time."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    launched = {ev.id for ev in events
+                if ev.device_type == cpu and "LaunchKernel" in ev.name}
+    recorded = {ev.id for ev in events if ev.device_type == cuda}
+    return len(launched - recorded)
+
+
+def device_split(fn, iters: int = 50, warmup: int = 5, tries: int = 5,
+                 retaken=None) -> dict:
+    """``fn()``'s kernels on the card: ``{"ms": device ms per call,
+    "kernels_us": {kernel name: µs per call}, "calls": the calls profiled}``,
+    from torch.profiler over ``iters`` back-to-back calls after ``warmup``
+    (host launch cost excluded). A profile that lost records -- a launch
+    without its kernel's record (:func:`lost_kernel_records`), or no device
+    event at all -- undercounts, and is taken again over half as many calls
+    (a longer session loses some more often), down to one call;
+    ``retaken(attempt, calls, lost, us)`` is called for each such profile.
+    After ``tries`` such profiles it raises RuntimeError."""
+    from torch.profiler import ProfilerActivity
+
+    for _ in range(warmup):
+        fn()
+    for attempt in range(tries):
+        with profile_session([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+        events = prof.events()
+        per: dict = {}
+        for ev in events:
+            if (ev.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(ev, "is_user_annotation", False)):
+                per[ev.name] = per.get(ev.name, 0.0) + ev.time_range.elapsed_us() / iters
+        us = sum(per.values())
+        lost = lost_kernel_records(events)
+        if us > 0 and not lost:
+            return {"ms": us / 1e3, "kernels_us": per, "calls": iters}
+        if retaken is not None:
+            retaken(attempt + 1, iters, lost, us * iters)
+        iters = max(1, iters // 2)
+    raise RuntimeError(f"torch.profiler lost kernel records in {tries} profiles")
 
 
 @contextlib.contextmanager

@@ -331,6 +331,42 @@ def test_compare_k4_k5_needs_cuda(monkeypatch):
         compare_k4_k5.main([])
 
 
+def test_compare_k1_k5_needs_cuda(monkeypatch):
+    """K1's routes and K5's passes are compared on the card only: without
+    CUDA the script raises before building anything."""
+    from rgcn_tpu_torch import compare_k1_k5
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(compare_k1_k5, "build_variants", lambda: pytest.fail("built"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compare_k1_k5.main([])
+
+
+@pytest.mark.parametrize("name", ["k1_owned_f32", "k1_atomics_f32", "k1_owned_bf16",
+                                  "k1_atomics_bf16", "k1_wruns_f32", "k1_wruns_bf16",
+                                  "k5_cta_passes", "k5_last_cta"])
+def test_compare_k1_k5_variant_signatures(name):
+    """The variants' C launchers have the argument types compare_k1_k5
+    binds them with (K1's and K5's launchers' lists; k5_last_cta takes its
+    per-block counters before the stream)."""
+    import ctypes
+
+    from rgcn_tpu_torch import compare_k1_k5, kernels
+    from rgcn_tpu_torch.kernels import build
+
+    src, argtypes = compare_k1_k5.VARIANTS[name]
+    text = open(os.path.join(build.CSRC, src)).read()
+    m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
+    assert m, f"no extern C launcher {name} in {src}"
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in m.group(1).split(",")]
+    assert argtypes == want
+    launcher = kernels._ARGTYPES["k5_weighted_aggregate_dedup" if name.startswith("k5")
+                                 else "k1_aggregate"]
+    if name == "k5_last_cta":
+        launcher = launcher[:-1] + [ctypes.c_void_p] + launcher[-1:]
+    assert argtypes == launcher
+
+
 def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     """K4's and K5's sources include weighted_runs.cuh: an edit of the header
     alone must give them a new library path, so they are rebuilt."""

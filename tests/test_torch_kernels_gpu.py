@@ -1499,3 +1499,158 @@ def test_dtype_options_refuse_on_card(cuda):
     with pytest.raises(RuntimeError, match="no backward on the card"):
         rs.rel_spmm_messages(es, x.to(BF16), w.to(BF16).requires_grad_())
     assert kernels.LAUNCHES == before
+
+
+# -- K1's owned-row route and K5's passes at adversarial layouts ---------------
+
+# (row_block, chunk, pad-only chunks appended, node count): the hub graph's
+# destination 7 spans a dozen chunks at CH 256 and ~190 at CH 16 (more than
+# any cluster or loop of CTAs would hold); single-chunk blocks; a node count
+# off the row blocks; CH 512 splits a chunk between two owned-row CTAs
+K1_GEOMETRIES = [(128, 256, 0, 1536), (64, 32, 2, 1531), (96, 48, 1, 1536),
+                 (256, 16, 3, 1531), (32, 512, 0, 1536)]
+
+
+@pytest.fixture(scope="module")
+def k1_routes():
+    """K1's two routes forced, both message types (variants/k1_routes.cu)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from rgcn_tpu_torch import compare_k1_k5
+
+    fns, _ = compare_k1_k5.build_variants()
+    return fns
+
+
+def _skew_layout(geometry, dev, src_order=False):
+    rb, ch, extra, n = geometry
+    t = skew_triples()
+    dst = np.concatenate([t[:, 2], t[:, 0]]).astype(np.int64)
+    src = np.concatenate([t[:, 0], t[:, 2]]).astype(np.int64)
+    dst = np.where((dst < n) & (src < n), dst, n)
+    pad_to = agg.build_dst_layout(dst, n, rb, ch).perm.shape[0] + extra * ch if extra else None
+    lay = agg.build_dst_layout(dst, n, rb, ch, pad_to=pad_to, src=src if src_order else None)
+    return lay.to(dev), n
+
+
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+@pytest.mark.parametrize("msg", ["f32", "bf16"])
+@pytest.mark.parametrize("dout", [10, 16, 32, 200])
+@pytest.mark.parametrize("geometry", K1_GEOMETRIES, ids=lambda g: "rb{}-ch{}-pad{}-n{}".format(*g))
+def test_k1_routes_adversarial(cuda_bf16, k1_routes, geometry, dout, msg, out):
+    """The launcher and both forced routes against the plain sums, through
+    perm and in slot order, into NaN-filled memory: a destination over
+    many chunks, pad-only chunks, single-chunk blocks, rows past the last
+    block's nodes."""
+    lay, n = _skew_layout(geometry, cuda_bf16)
+    assert lay.dst_sorted
+    rng = np.random.default_rng(dout + 7 * geometry[1])
+    mdt = BF16 if msg == "bf16" else torch.float32
+    odt = BF16 if out == "bf16" else torch.float32
+    for index, rows in ((lay.perm, lay.num_edges), (None, lay.num_chunks * lay.chunk)):
+        msgs = _t(rng, cuda_bf16, rows, dout).to(mdt)
+        if index is None:
+            ref = agg.aggregate_presorted_plain(msgs, lay, n)
+            launched = agg.aggregate_presorted(msgs, lay, n, odt)
+        else:
+            ref = agg.aggregate_sorted_plain(msgs, lay, n)
+            launched = agg.aggregate_sorted(msgs, lay, n, out_dtype=odt)
+        for route in ("owned", "atomics", None):
+            if route is None:
+                got = launched
+            else:
+                _nan_filled(n, dout)
+                got = torch.empty((n, dout), dtype=odt, device=cuda_bf16)
+                scratch = torch.empty((n, dout), device=cuda_bf16) if out == "bf16" else None
+                fn = k1_routes[f"k1_{route}_{msg}"]
+                assert fn(msgs.data_ptr(), None if index is None else index.data_ptr(),
+                          lay.local_dst.data_ptr(), lay.chunk_block.data_ptr(), got.data_ptr(),
+                          None if scratch is None else scratch.data_ptr(), lay.num_chunks,
+                          lay.chunk, lay.row_block, dout, n, 1, int(out == "bf16"),
+                          torch.cuda.current_stream().cuda_stream) == 0
+            if out == "bf16":
+                _close_bf16_out(got, ref)
+            else:
+                _close(got, ref)
+            assert (got[512:1024] == 0).all()  # the isolated nodes' rows
+
+
+@pytest.mark.parametrize("msg", ["f32", "bf16"])
+def test_k1_source_ordered_layout(cuda_bf16, msg):
+    """A layout in source order within its row blocks (dst_sorted False):
+    the launcher takes the atomics route, whatever the size, and sums
+    right."""
+    for geometry in K1_GEOMETRIES[:3]:
+        lay, n = _skew_layout(geometry, cuda_bf16, src_order=True)
+        assert not lay.dst_sorted
+        rng = np.random.default_rng(geometry[1])
+        msgs = _t(rng, cuda_bf16, lay.num_edges, 32).to(BF16 if msg == "bf16" else torch.float32)
+        ref = agg.aggregate_sorted_plain(msgs, lay, n)
+        _close(agg.aggregate_sorted(msgs, lay, n), ref)
+        if msg == "bf16":
+            _close_bf16_out(agg.aggregate_sorted(msgs, lay, n, out_dtype=BF16), ref)
+
+
+def _k1_kernel_names(call) -> set:
+    """The device events of one call, from a profile that kept every
+    kernel record (a profile that lost one is taken again)."""
+    from rgcn_tpu_torch.utils.profiling import device_split
+
+    split = device_split(call, iters=1, warmup=1, tries=8)
+    return {name.split("(")[0] for name in split["kernels_us"]}
+
+
+@pytest.mark.parametrize("msg", ["f32", "bf16"])
+def test_k1_route_by_shape(cuda_bf16, msg):
+    """The launcher's rule: a large, dense, destination-sorted layout with
+    4-wide lanes takes the owned route (no memset), a small one, scalar
+    lanes or a sparse one the atomics route (a memset)."""
+    mdt = BF16 if msg == "bf16" else torch.float32
+    es, rng = _edges(40_000, 5, 150_000, 9, cuda_bf16)  # ~7.5 slots a row, >1024 CTAs
+    lay = es.layout
+    assert lay.num_chunks >= 1024 and lay.num_chunks * lay.chunk >= 3 * 40_000
+    cases = [(es, 32, True), (es, 10, False)]
+    small, _ = _edges(900, 5, 4000, 1, cuda_bf16)
+    cases.append((small, 32, False))
+    # >1024 CTAs of CH 64, under 3 slots a row
+    sparse, _ = _edges(80_000, 5, 40_000, 9, cuda_bf16, layout_chunk=64)
+    assert sparse.layout.num_chunks >= 1024
+    cases.append((sparse, 32, False))
+    for edges, dout, owned in cases:
+        msgs = _t(rng, cuda_bf16, edges.layout.num_edges, dout).to(mdt)
+        n = edges.num_nodes
+        names = _k1_kernel_names(lambda: agg.aggregate_sorted(msgs, edges.layout, n))
+        assert any("k1_owned_kernel" in k for k in names) == owned, names
+        assert any("Memset" in k for k in names) == (not owned), names
+        _close(agg.aggregate_sorted(msgs, edges.layout, n),
+               agg.aggregate_sorted_plain(msgs, edges.layout, n))
+
+
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+@pytest.mark.parametrize("kk,nb,din", [(2, 2, 200), (3, 2, 10), (2, 1, 16)])
+def test_k5_many_chunk_block(cuda_bf16, kk, nb, din, out):
+    """K5's bf16 form over a dedup frame whose hub row block holds more
+    chunks than K5 meets at lp-WN18 (23): the rows of longer blocks
+    zeroed, added to and narrowed by a warp a chunk, into NaN-filled
+    memory; untouched rows 0."""
+    es = build_edge_set(skew_triples(), 1536, 4, with_dst_layout=True)
+    m = build_merged_layout(es.dst, es.src, es.rel, es.val, 1536, es.num_rels,
+                            dedup_k=kk, chunk=32).to(cuda_bf16)
+    dd = m.fwd_dedup
+    assert int(torch.bincount(dd.chunk_block.long()).max().item()) > 23
+    rng = np.random.default_rng(kk * 10 + din)
+    comps = _t(rng, cuda_bf16, es.num_rels, nb)
+    w_k = torch.einsum("klr,rb->kbl", dd.coeff_k, comps).contiguous()
+    x = _t(rng, cuda_bf16, 1536, din).to(BF16)
+    out_dtype = BF16 if out == "bf16" else torch.float32
+    _nan_filled(1536, nb, din)
+    _nan_filled(1536 * nb * din)
+    before = dict(kernels.LAUNCHES)
+    got = bs.weighted_aggregate_dedup(x, dd.src_sorted, w_k, dd, 1536, out_dtype=out_dtype)
+    assert _launched(before) == {"k5_weighted_aggregate_dedup_bf16": 1}
+    ref = bs.weighted_aggregate_dedup_plain(x, dd.src_sorted, w_k, dd, 1536)
+    if out == "bf16":
+        _close_bf16_out(got, ref)
+    else:
+        _close(got, ref)
+    assert (got[:, _untouched(dd, dd.local_k)] == 0).all()
