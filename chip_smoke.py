@@ -283,7 +283,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    (k1_aggregate_kernel or k1_owned_kernel, by route), K2
    (k2_fused_kernel), K3 (k3_tiled_kernel,
    k3_small_kernel) and K4 + K5 in both forms (weighted_runs.cuh's
-   runs_kernel<...>) must equal the launch counters over the same run (the
+   runs_kernel<...>, or K4 bf16's k4b::owned_kernel<...> on its owned-row
+   route) must equal the launch counters over the same run (the
    kernels launch through ctypes from the nvcc-built libraries), K1 and
    K2 (nc-AIFB), K1 and K4 (lp-WN18) at least once; measure_canary called
    twice on one fresh floor file (the WN18-scale merged basis op over its
@@ -368,7 +369,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    answers and both serve times. The bf16 forms
    against their plain versions (f32 sums) at lp-WN18's merged frame (bf16
    and f32 outputs), its merged reverse frame with per-basis tables summed
-   over bases, its dedup frame, and e-RGCN nc-AM's diagonal messages: f32
+   over bases, nc-AIFB's merged frame with 4 bases (K4's owned-row kernel,
+   which the route rule takes there), lp-WN18's dedup frame, and e-RGCN
+   nc-AM's diagonal messages: f32
    outputs within 1e-5 * max(1, max|ref|), bf16 outputs within 2^-8 * |ref|
    more; each timed beside its f32 form, with torch.sparse.mm in bf16 as
    the yardstick where torch takes it. One training step (loss and
@@ -429,8 +432,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    and the edge_precision and bf16_modes lines of phase 26 (each row's
    "precision_launches": its count on each of phase 26's paths; the bf16
    forms' rows, "K1 bf16", "K4 bf16" and "K5 bf16", each with its count on
-   the default path that serves through it, its counts on phase 22's and
-   24's paths, and its time beside its f32 form's), and the dtype_options
+   the default path that serves through it, and "K4 bf16 owned", K4's
+   owned-row kernel at nc-AIFB with 4 bases, with its count on that
+   config's bf16 step, each with its counts on phase 22's and 24's paths
+   and its time beside its f32 form's), and the dtype_options
    and dtype_modes lines of phase 27 (the rows "K2 bf16", "K3 bf16" and "K1
    bf16-out", each with its count on the phase-27 path that launches it;
    K1's bf16 output counts as its message form's launch);
@@ -1743,7 +1748,7 @@ def phase_am_kernels(dev, edges, hidden, classes):
     return modes
 
 
-PAIR_EPOCHS = 5  # nc-MUTAG, nc-BGS on the stand-in
+PAIR_EPOCHS = 4  # nc-MUTAG, nc-BGS on the stand-in
 AM_EPOCHS = 2  # nc-AM at AM scale
 
 
@@ -2286,7 +2291,7 @@ E_AIFB_PATH = dict(k1_aggregate=1, k2_fused=1)
 # K1 once in slot order, layer 2's W (532, 32, 11) past fused_fits, K3 + K1
 E_AM_PATH = dict(k1_aggregate=2, k3_messages=1)
 C_TRAIN_EPOCHS = 3  # lp-WN18 and lp-FB-toy, c-RGCN, full batch
-E_AIFB_EPOCHS = 5
+E_AIFB_EPOCHS = 4
 E_AM_EPOCHS = 2
 
 
@@ -3771,16 +3776,17 @@ TOOLING_TIMER_STEPS = 50  # the canary step under StepTimer
 # k1_aggregate_kernel<TM, VEC, LPS> on the atomics route (beside a memset,
 # and narrow_output for a bf16 output) or k1_owned_kernel<TM, TO, VEC, LPS>
 # on the owned-row route (beside zero_split_rows, and narrow_split_rows
-# for a bf16 output); K4 and K5 and their bf16 forms all run
-# weighted_runs.cuh's templated runs_kernel<TX, TO, VEC, NB, PER_BASIS>
-# (beside one zero_shared_rows each, and narrow_shared_rows for a bf16
-# output)
+# for a bf16 output); K4 and K5 and their bf16 forms run weighted_runs.cuh's
+# templated runs_kernel<TX, TO, VEC, NB, PER_BASIS> (beside one
+# zero_shared_rows each, and narrow_shared_rows for a bf16 output), but for
+# K4's bf16 form on its owned-row route (kernels.k4_bf16_route), which runs
+# k4_owned_bf16.cuh's k4b::owned_kernel<TO, NB, PER_BASIS, Cfg> alone
 TRACE_NAMES = {
     "k1_aggregate+k1_aggregate_bf16": ("k1_aggregate_kernel", "k1_owned_kernel"),
     "k2_fused": ("k2_fused_kernel",),
     "k3_messages": ("k3_tiled_kernel", "k3_small_kernel"),
     "k4_weighted_aggregate+k5_weighted_aggregate_dedup+k4_weighted_aggregate_bf16"
-    "+k5_weighted_aggregate_dedup_bf16": ("runs_kernel<",),
+    "+k5_weighted_aggregate_dedup_bf16": ("runs_kernel<", "k4b::owned_kernel<"),
 }
 
 
@@ -4786,6 +4792,7 @@ BF16_SOURCES = {
     "K2 bf16": ("k2_fused_bf16.cu", "rgcn_tpu/ops/pallas_fused.py:355"),
     "K3 bf16": ("k3_messages_bf16.cu", "rgcn_tpu/ops/pallas_spmm.py:70"),
     "K4 bf16": ("k4_weighted_aggregate_bf16.cu", "rgcn_tpu/ops/pallas_basis.py:53"),
+    "K4 bf16 owned": ("k4_owned_bf16.cuh", "rgcn_tpu/ops/pallas_basis.py:53"),
     "K5 bf16": ("k5_weighted_aggregate_dedup_bf16.cu", "rgcn_tpu/ops/pallas_basis.py:188"),
 }
 
@@ -4973,6 +4980,40 @@ def precision_kernels(dev, lp_edges, dedup, am_es):
         k_bytes, 2 * nb * real * din,
         bf16_sparse_mm(rnode.repeat(nb), torch.cat([b * n + rsrc for b in range(nb)]),
                        rw[:, rkeep].reshape(-1), (n, nb * n), G.reshape(nb * n, din))))
+
+    # K4's owned-row kernel (k4_owned_bf16.cuh), which its route rule takes
+    # on nc-AIFB's 4-basis layouts (kernels.k4_bf16_route): layer 2's Agg
+    # over the merged frame, hidden 16, 4 bases, bf16 out
+    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch.data.synthetic import aifb_like
+    from rgcn_tpu_torch.graph.structure import build_edge_set
+
+    aifb = aifb_like()
+    am4 = build_edge_set(aifb.triples, aifb.num_nodes, aifb.num_relations, tile_size=128,
+                         with_dst_layout=True, with_merged_layout=True).to(dev).merged
+    na, ha, nba = am4.num_nodes, 16, 4
+    xa16 = torch.relu(rand(na, ha)).to(bf16)
+    wa = bs.merged_wvec(am4.coeff, rand(am4.num_rels, nba, scale=0.3))
+    alay4 = am4.layout
+    if kernels.k4_bf16_route(ha, xa16.data_ptr(), alay4.num_chunks, nba,
+                             bf16) != kernels.K4_BF16_OWNED:
+        fail("K4 bf16 at nc-AIFB with 4 bases: the route rule does not take the owned-row "
+             "kernel")
+    oa = bs.weighted_aggregate(xa16, am4.src_sorted, wa, alay4, na, out_dtype=bf16)
+    akeep4 = alay4.local_dst.reshape(-1) < alay4.row_block
+    a_real4 = int(akeep4.sum().item())
+    oa_bytes = a_real4 * (4 + nba * 4) + nbytes(alay4.local_dst, alay4.chunk_block) \
+        + int(torch.unique(am4.src_sorted[akeep4]).numel()) * ha * 2 + oa.numel() * 2
+    rows.append(bf16_kernel_row(
+        "K4 bf16 owned", "K4 bf16 owned-row kernel, nc-AIFB layer 2 with 4 bases (bf16 out)",
+        lambda: bs.weighted_aggregate(xa16, am4.src_sorted, wa, alay4, na, out_dtype=bf16),
+        lambda: bs.weighted_aggregate_plain(xa16, am4.src_sorted, wa, alay4, na),
+        lambda: bs.weighted_aggregate(xa16.float(), am4.src_sorted, wa, alay4, na),
+        oa_bytes, 2 * nba * a_real4 * ha,
+        bf16_sparse_mm(torch.cat([b * na + slot_nodes(alay4, alay4.local_dst)[akeep4]
+                                  for b in range(nba)]),
+                       am4.src_sorted.long()[akeep4].repeat(nba), wa[:, akeep4].reshape(-1),
+                       (nba * na, na), xa16)))
 
     # K5 over the source-dedup'd frame, bf16 out (the dedup forward's Agg)
     dd = dedup.fwd_dedup
@@ -5674,6 +5715,7 @@ def main():
     # that serves through it
     bf16_key = {"K1 bf16": ("k1_aggregate_bf16", "ergcn_nc_aifb"),
                 "K4 bf16": ("k4_weighted_aggregate_bf16", "lp_wn18"),
+                "K4 bf16 owned": ("k4_weighted_aggregate_bf16", "step_nc_aifb_basis4"),
                 "K5 bf16": ("k5_weighted_aggregate_dedup_bf16", "lp_wn18_dedup")}
     for form, (kname, path) in bf16_key.items():
         r = next(r for r in bf16_rows if r["name"] == form)

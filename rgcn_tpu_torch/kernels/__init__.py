@@ -4,9 +4,11 @@ Each ``launch_*`` function checks its tensors (CUDA device, dtype, shape,
 contiguity), allocates the output with ``torch.empty`` (zeroing, where a
 kernel needs it, is the C launcher's: K2 memsets its output; K1, in either
 form, memsets it on its atomics route and zeroes only the rows two CTAs
-share on its owned-row route, chosen by the layout's shape; K4 zeroes only
-the rows two CTAs share, K5 the rows of row blocks with several chunks),
-launches on
+share on its owned-row route, chosen by the layout's shape; K4's f32 form
+zeroes only the rows two CTAs share, K5 the rows of row blocks with several
+chunks; K4's bf16 form zeroes nothing on its owned-row kernel, and takes
+an f32 scratch of two rows a CTA and the stream's split-run counters,
+``k4_bf16_counters``), launches on
 ``torch.cuda.current_stream()``, raises if the C launcher reports a CUDA
 error, and adds one to its kernel's count in :data:`LAUNCHES`. The count
 moves nowhere else, so a run that resets the counts and reads them after
@@ -68,9 +70,11 @@ _ARGTYPES = {
     "k5_weighted_aggregate_dedup": [_P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
-# a bf16 form takes its f32 form's arguments
+# a bf16 form takes its f32 form's arguments; K4's (x, src, w, local_dst,
+# chunk_block, out, scratch, counters, ..., out_bf16, route, span, stream)
 _ARGTYPES.update({name + "_bf16": _ARGTYPES[name] for name in (
-    "k1_aggregate", "k2_fused", "k4_weighted_aggregate", "k5_weighted_aggregate_dedup")})
+    "k1_aggregate", "k2_fused", "k5_weighted_aggregate_dedup")})
+_ARGTYPES["k4_weighted_aggregate_bf16"] = [_P] * 8 + [_I] * 12 + [_P]
 # the table and message dtypes of K1, K4 and K5, and the output dtypes a
 # table dtype allows
 _TABLE_DTYPES = (torch.float32, torch.bfloat16)
@@ -79,8 +83,73 @@ _OUT_DTYPES = {torch.float32: (torch.float32,),
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 # K4/K5 keep one sum per basis in registers: their launchers instantiate
-# 1 to 8 bases (csrc/weighted_runs.cuh)
+# 1 to 8 bases (csrc/weighted_runs.cuh, csrc/k4_owned_bf16.cuh)
 _NB_MAX = 8
+# slots of a unit (one CTA) of K4's bf16 form: a whole chunk of the
+# builders' 256 (csrc/k4_owned_bf16.cuh)
+K4_BF16_SPAN = 256
+
+
+# K4's bf16 form's split-run counters, one zeroed set a (device, stream)
+_K4_COUNTERS: Dict[tuple, torch.Tensor] = {}
+# the two kernels of K4's bf16 form (csrc/k4_weighted_aggregate_bf16.cu)
+K4_BF16_RUNS, K4_BF16_OWNED = 0, 1
+# the layouts K4's bf16 form takes the owned-row kernel over (k4_bf16_route):
+# any up to K4_BF16_OWNED_ALL_CHUNKS chunks, up to K4_BF16_OWNED_MAX_CHUNKS
+# but for a bf16 output of several bases
+K4_BF16_OWNED_ALL_CHUNKS = 384
+K4_BF16_OWNED_MAX_CHUNKS = 1024
+
+
+def k4_bf16_route(din: int, table_ptr: int, n_chunks: int, nb_out: int,
+                  out_dtype: torch.dtype) -> int:
+    """The kernel K4's bf16 form runs for a table of rows ``din`` wide at
+    address ``table_ptr``, over a layout of ``n_chunks`` chunks, into
+    ``nb_out`` outputs of ``out_dtype``, as measured on an H100
+    (``compare_k4_bf16``). The owned-row kernel (K4_BF16_OWNED,
+    csrc/k4_owned_bf16.cuh) needs whole 16-byte vectors (din % 8 == 0) of a
+    16-byte aligned table; it takes
+    - any layout of at most K4_BF16_OWNED_ALL_CHUNKS chunks, under three
+      CTAs an SM, where its shorter CTAs pay (nc-AIFB's 4-basis layouts,
+      260-261 chunks at din 16: 12-43% faster);
+    - a layout of at most K4_BF16_OWNED_MAX_CHUNKS, about a wave, but for a
+      bf16 output of several bases (lp-WN18's merged frames, 502 chunks:
+      the VJP's dx, one output, and an f32 output 2-5% faster; the forward's
+      Agg, a bf16 output of two bases, 0.3-4% slower in every run).
+    Anything else takes weighted_runs.cuh's (K4_BF16_RUNS): the structured
+    decoder's 1,492-chunk layouts (three waves: 9-20% faster there), nc-AM's
+    hidden width 10, an unaligned table."""
+    if din % 8 or table_ptr % 16 or n_chunks > K4_BF16_OWNED_MAX_CHUNKS:
+        return K4_BF16_RUNS
+    if n_chunks <= K4_BF16_OWNED_ALL_CHUNKS or nb_out == 1 or out_dtype != torch.bfloat16:
+        return K4_BF16_OWNED
+    return K4_BF16_RUNS
+
+
+def k4_bf16_units(n_chunks: int, chunk: int, span: int = K4_BF16_SPAN) -> int:
+    """CTAs of K4's bf16 form: ``span`` slots of a chunk each."""
+    return n_chunks * -(-chunk // min(span, chunk))
+
+
+def k4_bf16_scratch_floats(n_chunks: int, chunk: int, row_len: int,
+                           span: int = K4_BF16_SPAN) -> int:
+    """f32 scratch of K4's bf16 form: two rows of ``row_len`` (nb_out * din)
+    a unit (csrc/k4_owned_bf16.cuh: part[u][0], part[u][1])."""
+    return k4_bf16_units(n_chunks, chunk, span) * 2 * row_len
+
+
+def k4_bf16_counters(device: torch.device, units: int) -> torch.Tensor:
+    """At least ``units`` split-run counters of K4's bf16 form for the
+    current stream of ``device``: zeroed when made, and every launch leaves
+    them zero (csrc/k4_owned_bf16.cuh), so they are made once; a stream has
+    its own, so that launches on two streams never share one."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    have = _K4_COUNTERS.get(key)
+    if have is None or have.numel() < units:
+        have = torch.zeros(max(units, 2 * (0 if have is None else have.numel())),
+                           dtype=torch.int32, device=device)
+        _K4_COUNTERS[key] = have
+    return have
 
 
 def reset_launches() -> None:
@@ -390,14 +459,29 @@ def launch_k4_weighted_aggregate(
     _check(chunk_block, "chunk_block", torch.int32, dev, (n_chunks,))
     _check_blocks(num_nodes, row_block, num_row_blocks)
     din, rows = x.shape[-1], x.shape[-2]
-    out, scratch = _weighted_out(num_nodes, 1 if sum_bases else nb, din, out_dtype, dev)
+    nb_out = 1 if sum_bases else nb
+    owned = bool(form) and k4_bf16_route(din, x.data_ptr(), n_chunks, nb_out,
+                                         out_dtype) == K4_BF16_OWNED
+    if owned:
+        out = torch.empty((num_nodes, nb_out, din), dtype=out_dtype, device=dev)
+    else:
+        out, scratch = _weighted_out(num_nodes, nb_out, din, out_dtype, dev)
     if num_nodes == 0 or din == 0 or n_chunks == 0:
         return out.zero_().permute(1, 0, 2)
+    extra, tail = (), ()
+    if owned:  # f32 scratch of two rows a unit, the units' counters
+        scratch = torch.empty(k4_bf16_scratch_floats(n_chunks, chunk, nb_out * din),
+                              dtype=torch.float32, device=dev)
+        extra = (k4_bf16_counters(dev, k4_bf16_units(n_chunks, chunk)).data_ptr(),)
+    elif form:
+        extra = (None,)
+    if form:
+        tail = (K4_BF16_OWNED if owned else K4_BF16_RUNS, K4_BF16_SPAN)
     _launch("k4_weighted_aggregate" + form, dev, x.data_ptr(), src.data_ptr(),
             w.data_ptr(), local_dst.data_ptr(), chunk_block.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), *extra,
             n_chunks, chunk, row_block, nb, din, rows, num_nodes,
-            int(per_basis), int(sum_bases), int(out_dtype == torch.bfloat16))
+            int(per_basis), int(sum_bases), int(out_dtype == torch.bfloat16), *tail)
     return out.permute(1, 0, 2)
 
 

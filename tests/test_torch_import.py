@@ -56,6 +56,7 @@ MODULES = [
     "rgcn_tpu_torch.compare_k2",
     "rgcn_tpu_torch.compare_k3",
     "rgcn_tpu_torch.compare_k4_k5",
+    "rgcn_tpu_torch.compare_k4_bf16",
     "rgcn_tpu_torch.compare_gathers",
     "rgcn_tpu_torch.train",
     "rgcn_tpu_torch.train.optim",
@@ -365,6 +366,91 @@ def test_compare_k1_k5_variant_signatures(name):
     if name == "k5_last_cta":
         launcher = launcher[:-1] + [ctypes.c_void_p] + launcher[-1:]
     assert argtypes == launcher
+
+
+def test_compare_k4_bf16_needs_cuda(monkeypatch):
+    """K4's bf16 designs are compared on the card only: without CUDA the
+    script raises before building anything."""
+    from rgcn_tpu_torch import compare_k4_bf16
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(compare_k4_bf16, "build_variants", lambda: pytest.fail("built"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compare_k4_bf16.main([])
+
+
+@pytest.mark.parametrize("name", ["k4_bf16_variant", "k4_bf16_probe"])
+def test_compare_k4_bf16_variant_signatures(name):
+    """The variants' C launchers take the bf16 launcher's arguments, and one
+    more before the stream (k4_bf16_variant the variant's number,
+    k4_bf16_probe its stamps), as compare_k4_bf16 binds them."""
+    import ctypes
+
+    from rgcn_tpu_torch import compare_k4_bf16, kernels
+    from rgcn_tpu_torch.kernels import build
+
+    src, argtypes = compare_k4_bf16.VARIANTS[name]
+    text = open(os.path.join(build.CSRC, src)).read()
+    m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
+    assert m, f"no extern C launcher {name} in {src}"
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in m.group(1).split(",")]
+    assert argtypes == want
+    launcher = kernels._ARGTYPES["k4_weighted_aggregate_bf16"]
+    extra = ctypes.c_int if name == "k4_bf16_variant" else ctypes.c_void_p
+    launcher = launcher[:-1] + [extra] + launcher[-1:]
+    assert want == launcher
+
+
+@pytest.mark.parametrize("n_chunks,chunk,row_len,span,want", [
+    (502, 256, 400, 256, 502 * 2 * 400),    # lp-WN18's merged frame, nb 2, din 200
+    (502, 256, 200, 128, 502 * 2 * 2 * 200),  # half-chunk units: two a chunk
+    (261, 256, 64, 256, 261 * 2 * 64),      # nc-AIFB, 4 bases of 16
+    (6925, 256, 10, 256, 6925 * 2 * 10),    # nc-AM's featureless layer, sum_bases
+    (40, 64, 400, 256, 40 * 2 * 400),       # a span past the chunk: a unit a chunk
+    (7, 100, 3, 64, 7 * 2 * 2 * 3),         # a chunk of a unit and a part
+])
+def test_k4_bf16_scratch_floats(n_chunks, chunk, row_len, span, want):
+    """K4's bf16 form's f32 scratch: two rows a unit of ``span`` slots of a
+    chunk, as csrc/k4_owned_bf16.cuh's units address it."""
+    from rgcn_tpu_torch import kernels
+
+    assert kernels.k4_bf16_scratch_floats(n_chunks, chunk, row_len, span) == want
+    assert kernels.K4_BF16_SPAN == 256
+
+
+@pytest.mark.parametrize("shape,din,offset,n_chunks,nb_out,out,route", [
+    ("nc-AIFB with 4 bases: the featureless layer, f32 out", 16, 0, 261, 1, "f32", "owned"),
+    ("nc-AIFB's layer-2 Agg over its merged frame", 16, 0, 260, 4, "bf16", "owned"),
+    ("nc-AIFB's layer-2 dx", 16, 0, 260, 1, "bf16", "owned"),
+    ("nc-AIFB's dbases", 16, 0, 261, 4, "f32", "owned"),
+    ("lp-WN18's forward Agg: merged frame, 2 bases, bf16 out", 200, 0, 502, 2, "bf16", "runs"),
+    ("lp-WN18's VJP dx: one output", 200, 0, 502, 1, "bf16", "owned"),
+    ("lp-WN18's merged frame with an f32 output", 200, 0, 502, 2, "f32", "owned"),
+    ("nc-AM with 4 bases: hidden 10", 10, 0, 6925, 1, "f32", "runs"),
+    ("nc-AM's width at few chunks", 10, 0, 64, 4, "bf16", "runs"),
+    ("the decoder's bwd_dtype pair over the corrupted layout", 200, 256, 1492, 1, "f32", "runs"),
+    ("a table one bf16 value off 16 bytes", 200, 2, 261, 1, "f32", "runs"),
+    ("a table 8 bytes off 16", 64, 8, 100, 2, "bf16", "runs"),
+    ("every output at the most chunks of the first bound", 200, 0, 384, 8, "bf16", "owned"),
+    ("several bf16 outputs one chunk past it", 200, 0, 385, 2, "bf16", "runs"),
+    ("one output at the most chunks", 200, 0, 1024, 1, "bf16", "owned"),
+    ("one chunk more", 200, 0, 1025, 1, "bf16", "runs"),
+])
+def test_k4_bf16_route_by_shape(shape, din, offset, n_chunks, nb_out, out, route):
+    """K4's bf16 form picks its kernel from the table's width and alignment,
+    the layout's chunk count and the output's bases and dtype alone: the
+    owned-row kernel for whole 16-byte vectors of a 16-byte aligned table
+    over at most 384 chunks, or at most 1,024 but for a bf16 output of
+    several bases; weighted_runs.cuh's otherwise."""
+    from rgcn_tpu_torch import kernels
+
+    want = kernels.K4_BF16_OWNED if route == "owned" else kernels.K4_BF16_RUNS
+    dtype = torch.bfloat16 if out == "bf16" else torch.float32
+    got = kernels.k4_bf16_route(din, 0x7f0000000000 + offset, n_chunks, nb_out, dtype)
+    assert got == want, shape
+    assert (kernels.K4_BF16_OWNED_ALL_CHUNKS, kernels.K4_BF16_OWNED_MAX_CHUNKS) == (384, 1024)
+    src = open(os.path.join(PKG, "kernels", "csrc", "k4_weighted_aggregate_bf16.cu")).read()
+    assert "if (route == 0)" in src and "if (route != 1)" in src
 
 
 def test_library_hash_covers_included_headers(tmp_path, monkeypatch):

@@ -73,7 +73,15 @@ wrappers refusing f16 tables and a bf16 output of an f32 table; and the
 bf16 ops (the basis op over an unmerged, merged and dedup frame, the
 featureless basis op with 4 bases, the diagonal op in both frames, the
 pair op) on the card against the CPU's bf16 ops, forward and gradients,
-within 8e-3·max(1, max|ref|), with their exact bf16 launches.
+within 8e-3·max(1, max|ref|), with their exact bf16 launches. K4's bf16
+form's owned-row kernel (``csrc/k4_owned_bf16.cuh``) in every mode at 1,
+2, 4 and 8 bases and din 16, 200 and 400 (din 10 and an unaligned table:
+its route to ``weighted_runs.cuh``), on a layout with a destination over
+40 chunks and one over three, an empty block, pad-only chunks and rows
+past the output, into NaN-filled memory, its pads' weights NaN, its
+split-run counters left zero, on chunks of 16 and 64; the route rule's
+kernel read from the profile, by width, alignment and chunk count; and its
+scratch and per-stream counters.
 """
 
 import copy
@@ -1321,6 +1329,186 @@ def test_pair_op_bf16_on_the_card(cuda_bf16):
     # K1's bf16 form through the by-source layout
     assert launched == {"k1_aggregate": 2, "k1_aggregate_bf16": 1}
 
+
+
+# -- K4's bf16 form: the owned-row kernel (csrc/k4_owned_bf16.cuh) ------------
+
+K4B_NODES = 1000  # the output's rows: inside the layout's last row block of 128
+
+
+def _k4b_layout(dev, chunk=256):
+    """A destination-sorted layout with every shape K4's bf16 units meet
+    (layout over 1024 nodes, row blocks of 128): node 5 over more than 40
+    chunks of row block 0, node 200 over three chunks of block 1, block 3
+    empty (one chunk of pads), two pad-only chunks appended (``pad_to``),
+    and slots to rows 1000-1023, past the output's K4B_NODES. Returns the
+    layout on ``dev`` and its per-slot source rows (a pad's is far out of
+    range: a kernel that read it would fault)."""
+    rng = np.random.default_rng(41)
+    rand = rng.integers(0, 1024, 3000)
+    rand = rand[(rand < 384) | (rand >= 512)]
+    dst = np.concatenate([rand, np.full(40 * chunk, 5), np.full(2 * chunk + 50, 200),
+                          rng.integers(1000, 1024, 200)])
+    base = agg.build_dst_layout(dst, 1024, row_block=128, chunk=chunk)
+    total = base.num_chunks * chunk + 2 * chunk
+    lay = agg.build_dst_layout(dst, 1024, row_block=128, chunk=chunk, pad_to=total)
+    local = lay.local_dst.reshape(-1)
+    blocks = np.repeat(lay.chunk_block, chunk)
+    assert (np.bincount(lay.chunk_block) >= 40).any()
+    assert (local.reshape(-1, chunk) == 128).all(1).sum() >= 3
+    src = np.where(local < 128, rng.integers(0, 1024, local.shape[0]), 1 << 30)
+    assert ((blocks * 128 + local)[local < 128] >= K4B_NODES).any()
+    return lay.to(dev), torch.as_tensor(src, dtype=torch.int32, device=dev)
+
+
+def _k4b_case(dev, lay, src, nb, din, per_basis, sum_bases, out, aligned=True):
+    """K4's bf16 form into NaN-filled memory against the plain version's
+    f32 sums; pads' weights NaN (never read). Returns the output."""
+    rng = np.random.default_rng(nb * 1000 + din)
+    shape = (nb, 1024, din) if per_basis else (1024, din)
+    flat = _t(rng, dev, int(np.prod(shape)) + 1).to(BF16)
+    x = (flat[:-1] if aligned else flat[1:]).view(shape)
+    real = lay.local_dst.reshape(-1) < lay.row_block
+    w = torch.where(real, _t(rng, dev, nb, real.shape[0]), torch.full_like(real, float("nan"),
+                                                                          dtype=torch.float32))
+    n_out = 1 if sum_bases else nb
+    out_dtype = BF16 if out == "bf16" else torch.float32
+    _nan_filled(K4B_NODES, n_out, din)
+    before = dict(kernels.LAUNCHES)
+    got = bs.weighted_aggregate(x, src, w, lay, K4B_NODES, sum_bases=sum_bases,
+                                out_dtype=out_dtype)
+    assert _launched(before) == {"k4_weighted_aggregate_bf16": 1}
+    _node_major(got, (n_out, K4B_NODES, din))
+    ref = bs.weighted_aggregate_plain(x, src, w, lay, K4B_NODES, sum_bases=sum_bases)
+    if out == "bf16":
+        _close_bf16_out(got, ref)
+    else:
+        _close(got, ref)
+    assert got.dtype == out_dtype
+    # the split-run counters are left as they were found: zero
+    assert not int(kernels.k4_bf16_counters(dev, 1).count_nonzero().item())
+    return got
+
+
+@pytest.mark.parametrize("din", [10, 16, 200, 400])
+@pytest.mark.parametrize("nb", [1, 2, 4, 8])
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+@pytest.mark.parametrize("per_basis,sum_bases", [(False, False), (False, True),
+                                                 (True, False), (True, True)],
+                         ids=["shared", "shared-sum", "per-basis", "per-basis-sum"])
+def test_k4_bf16_owned_every_mode(cuda_bf16, per_basis, sum_bases, out, nb, din):
+    """Every mode of K4's bf16 form (shared or per-basis tables, with and
+    without sum_bases, f32 or bf16 out) at 1 to 8 bases and din 16
+    (nc-AIFB's: two 16-byte vectors a row), 200 and 400 (the owned-row
+    kernel) and 10 (nc-AM's hidden width: weighted_runs.cuh), on the
+    adversarial layout: a destination over 40 chunks and one over three
+    (runs that cross units, finished by their last unit from two scratch
+    rows a unit), an empty block, pad-only chunks, rows past the output
+    dropped; every row written (those no slot reaches exactly 0)."""
+    lay, src = _k4b_layout(cuda_bf16)
+    got = _k4b_case(cuda_bf16, lay, src, nb, din, per_basis, sum_bases, out)
+    untouched = _untouched(lay, lay.local_dst)[:K4B_NODES]
+    assert bool(untouched[384:512].all())
+    assert (got[:, untouched] == 0).all()
+
+
+@pytest.mark.parametrize("din", [16, 200])
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+@pytest.mark.parametrize("per_basis", [False, True])
+def test_k4_bf16_owned_unaligned_table(cuda_bf16, per_basis, out, din):
+    """A table that is not 16-byte aligned takes weighted_runs.cuh's
+    kernel (scalar columns), with the same answers."""
+    lay, src = _k4b_layout(cuda_bf16)
+    _k4b_case(cuda_bf16, lay, src, 2, din, per_basis, per_basis, out, aligned=False)
+
+
+@pytest.mark.parametrize("din,aligned,kernel", [
+    (200, True, "k4b::owned_kernel"), (16, True, "k4b::owned_kernel"),
+    (10, True, "wruns::runs_kernel"), (200, False, "wruns::runs_kernel")])
+def test_k4_bf16_route_runs_the_chosen_kernel(cuda_bf16, din, aligned, kernel):
+    """The kernel the route rule (kernels.k4_bf16_route) names is the one the
+    card runs, read from the profile (utils/profiling.device_split): the
+    owned-row kernel alone (one launch), or weighted_runs.cuh's with its
+    zeroing and, for a bf16 output, narrowing launches."""
+    from rgcn_tpu_torch.utils.profiling import device_split
+
+    lay, src = _k4b_layout(cuda_bf16)
+    rng = np.random.default_rng(din)
+    flat = _t(rng, cuda_bf16, 1024 * din + 1).to(BF16)
+    x = (flat[:-1] if aligned else flat[1:]).view(1024, din)
+    w = _t(rng, cuda_bf16, 2, lay.num_chunks * lay.chunk)
+    want = kernels.K4_BF16_OWNED if kernel.startswith("k4b") else kernels.K4_BF16_RUNS
+    assert kernels.k4_bf16_route(din, x.data_ptr(), lay.num_chunks, 2, BF16) == want
+    split = device_split(lambda: bs.weighted_aggregate(x, src, w, lay, K4B_NODES,
+                                                       out_dtype=BF16), iters=3)
+    names = list(split["kernels_us"])
+    assert any(kernel in k for k in names), names
+    if want == kernels.K4_BF16_OWNED:
+        assert len(names) == 1
+    else:
+        assert not any("k4b::" in k for k in names) and len(names) == 3
+
+
+@pytest.mark.parametrize("nb,sum_bases,out,owned", [
+    (2, False, "bf16", False), (2, True, "bf16", True), (2, False, "f32", True)])
+def test_k4_bf16_route_by_chunk_count(cuda_bf16, monkeypatch, nb, sum_bases, out, owned):
+    """Past K4_BF16_OWNED_ALL_CHUNKS (lowered here to the adversarial
+    layout's chunk count less one) a bf16 output of several bases takes
+    weighted_runs.cuh's kernel, one output or an f32 output the owned-row
+    kernel; past K4_BF16_OWNED_MAX_CHUNKS every call takes
+    weighted_runs.cuh's; the same answers each way."""
+    from rgcn_tpu_torch.utils.profiling import device_split
+
+    lay, src = _k4b_layout(cuda_bf16)
+    rng = np.random.default_rng(5)
+    x = _t(rng, cuda_bf16, 1024, 200).to(BF16)
+    w = _t(rng, cuda_bf16, nb, lay.num_chunks * lay.chunk)
+    out_dtype = BF16 if out == "bf16" else torch.float32
+
+    def kernel_names():
+        return list(device_split(lambda: bs.weighted_aggregate(
+            x, src, w, lay, K4B_NODES, sum_bases=sum_bases, out_dtype=out_dtype),
+            iters=3)["kernels_us"])
+
+    for limit, takes_owned in (("K4_BF16_OWNED_ALL_CHUNKS", owned),
+                               ("K4_BF16_OWNED_MAX_CHUNKS", False)):
+        monkeypatch.setattr(kernels, limit, lay.num_chunks - 1)
+        names = kernel_names()
+        assert any("k4b::owned_kernel" in k for k in names) == takes_owned, names
+        assert any("wruns::runs_kernel" in k for k in names) != takes_owned, names
+        _k4b_case(cuda_bf16, lay, src, nb, 200, False, sum_bases, out)
+
+
+@pytest.mark.parametrize("chunk", [64, 16])
+def test_k4_bf16_owned_small_chunks(cuda_bf16, chunk):
+    """Chunks of 64 and 16 slots: a unit is a whole chunk, so the hub's
+    run crosses hundreds of units (one ballot of 32 units a step in the
+    finishing launch)."""
+    lay, src = _k4b_layout(cuda_bf16, chunk=chunk)
+    for out in ("f32", "bf16"):
+        _k4b_case(cuda_bf16, lay, src, 2, 200, False, False, out)
+        _k4b_case(cuda_bf16, lay, src, 2, 200, True, True, out)
+
+
+def test_k4_bf16_scratch_is_two_rows_a_unit(cuda_bf16):
+    """The launcher's f32 scratch is two rows a unit (a unit a chunk at
+    chunk 256), far less than the output's rows; its counters are made once
+    for the stream, and a second stream gets its own."""
+    lay, src = _k4b_layout(cuda_bf16)
+    units = kernels.k4_bf16_units(lay.num_chunks, lay.chunk)
+    assert units == lay.num_chunks
+    assert kernels.k4_bf16_scratch_floats(lay.num_chunks, lay.chunk, 400) == units * 2 * 400
+    assert units * 2 < K4B_NODES
+    _k4b_case(cuda_bf16, lay, src, 2, 200, False, False, "bf16")
+    first = kernels.k4_bf16_counters(cuda_bf16, units)
+    _k4b_case(cuda_bf16, lay, src, 2, 200, True, True, "f32")
+    assert kernels.k4_bf16_counters(cuda_bf16, units).data_ptr() == first.data_ptr()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        other = kernels.k4_bf16_counters(cuda_bf16, units)
+        _k4b_case(cuda_bf16, lay, src, 2, 200, False, False, "f32")
+    torch.cuda.synchronize()
+    assert other.data_ptr() != first.data_ptr()
 
 
 # -- the JAX kernels' own dtype options: K1's bf16 output, K2's and K3's bf16

@@ -174,13 +174,15 @@ def test_plain_k1_bf16_adversarial_layouts(geometry, dout, out):
 
 
 @pytest.mark.parametrize("out", ["f32", "bf16"])
-@pytest.mark.parametrize("kernel,kk", [("k5", 2), ("k5", 3), ("k4", 1)])
+@pytest.mark.parametrize("kernel,kk", [("k5", 2), ("k5", 3), ("k4", 1),
+                                       ("k4-per-basis-sum", 1)])
 def test_plain_k4_k5_bf16_many_chunk_blocks(kernel, kk, out):
     """K5 (dedup frame) and K4 (merged frame) on a bf16 table against the
     Pallas kernels where the hub's row block holds 40 and more chunks of 8
     (K5 meets 23 at lp-WN18, K1 219 at nc-AM), beside single-chunk blocks
     (the isolated nodes'), with a node count off the row blocks (380 over
-    blocks of 16)."""
+    blocks of 16); K4 also with per-basis tables summed over bases (the
+    basis VJP's dx)."""
     n, r, din, nb = 380, 4, 16, 2
     from rgcn_tpu_torch.data.synthetic import skew_triples
 
@@ -207,10 +209,15 @@ def test_plain_k4_k5_bf16_many_chunk_blocks(kernel, kk, out):
     else:
         lay, jlay = tm.layout, jm.layout
         w = _f32(rng, nb, lay.num_chunks * lay.chunk)
+        per_basis = kernel == "k4-per-basis-sum"
+        if per_basis:
+            x = torch.from_numpy(_f32(rng, nb, n, din)).to(BF16)
+            xj = jnp.asarray(x.float().numpy())
+        src = jnp.asarray(jm.src_sorted)
         got = tbasis.weighted_aggregate(x, tm.src_sorted, torch.from_numpy(w), lay, n,
-                                        out_dtype=out_dtype)
-        want = j_k4(xj[jnp.asarray(jm.src_sorted)], jnp.asarray(w), jlay, n,
-                    compute_dtype=jnp.bfloat16)
+                                        sum_bases=per_basis, out_dtype=out_dtype)
+        want = j_k4(xj[:, src] if per_basis else xj[src], jnp.asarray(w), jlay, n,
+                    sum_bases=per_basis, compute_dtype=jnp.bfloat16)
     want = np.asarray(want)
     tol = 1e-5 * max(1.0, float(np.abs(want).max()))
     if out == "bf16":
