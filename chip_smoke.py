@@ -45,7 +45,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    max|ref|); the main path must launch exactly K1 2E + 1 and K2 3E + 1
    times (E epochs; the extra K2 a step is layer 2's dx over
    edges.reverse), the same training without fused layouts K1 5E + 2 and
-   K3 3E + 1; then K2 and K3 (small route) at the dx shape (g (N, 4), W^T
+   K3 3E + 1; the main path trained a second time from the same
+   initialisation (a fresh trainer, counts zeroed) must launch the same and
+   end with the same records and bit-equal final parameters and logits (K1
+   and K2 sum in a fixed order, the dense layer's dW by relation in tile
+   order: train_main_twice), checked before the CPU gate; then K2 and K3
+   (small route) at the dx shape (g (N, 4), W^T
    (90, 4, 16) over the reversed edges) held and timed as in phase 3, and
    one warm training step profiled (train_timing_ms: host median of 20
    steps, device time split into forward, backward and optimizer, busy
@@ -280,8 +285,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    classify_nodes.main and lp-WN18 1 epoch through predict_links.main
    (both --synthetic) with --profile-dir; the one *.pt.trace.json each
    writes must hold CUDA kernel events, and its events of K1 in both forms
-   (k1_aggregate_kernel or k1_owned_kernel, by route), K2
-   (k2_fused_kernel), K3 (k3_tiled_kernel,
+   (k1_fixed_kernel; chunk_kernel<k1:: over a source-ordered layout;
+   over 1,024 CTAs or more k1_aggregate_kernel for scalar lanes and
+   k1_owned_kernel for dense 4-value lanes of at most 128 columns),
+   K2 in both forms (chunk_kernel<k2::), K3 (k3_tiled_kernel,
    k3_small_kernel) and K4 + K5 in both forms (weighted_runs.cuh's
    runs_kernel<...>, or K4 bf16's k4b::owned_kernel<...> on its owned-row
    route) must equal the launch counters over the same run (the
@@ -1005,7 +1012,45 @@ def diagnose_params(cfg, data, model, logits, ref_state) -> str:
             f"the CPU run's: {moved}")
 
 
-def train_against_cpu(name, cfg, data, dev, runs):
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (NaN included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return bool(torch.equal(a.contiguous().view(bits), b.contiguous().view(bits)))
+
+
+def check_repeat(label, first, logits, records, again, expect) -> dict:
+    """The first card run trained again from the same initialisation
+    (``again``, counts zeroed just before its fit): exactly the same
+    launches, and records, final parameters and final logits bit-equal to
+    the first run's (K1, K2 and the dense layer's dW sum in a fixed
+    order)."""
+    from rgcn_tpu_torch import kernels
+
+    kernels.reset_launches()
+    got = records_logger()
+    again.fit(got)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    if counts != launches(**expect):
+        fail(f"training [{label}] again: launches {counts}, expected {launches(**expect)}")
+    state0, state1 = first.model.state_dict(), again.model.state_dict()
+    differ = {k: (v - state1[k]).abs().max().item() for k, v in state0.items()
+              if not same_bits(v, state1[k])}
+    logits1 = again.logits()
+    out = {"params_bit_equal": not differ, "logits_bit_equal": same_bits(logits, logits1),
+           "records_equal": got.records == records}
+    log(f"  [{label}] trained twice from the seed-0 initialisation: {json.dumps(out)}"
+        + (f"; parameters that differ (max abs): {differ}" if differ else "")
+        + ("" if out["logits_bit_equal"] else
+           f"; logits max abs diff {(logits - logits1).abs().max().item():.3e}"))
+    if not all(out.values()):
+        fail(f"training [{label}]: two card runs from one initialisation differ")
+    return out
+
+
+def train_against_cpu(name, cfg, data, dev, runs, repeat_first=False):
     """Train ``cfg`` on ``data`` on the card and on the CPU's plain versions
     from the seed-0 initialisation. Every gradient after one backward must
     be within 1e-5 * max(1, max|ref|); then the CPU trains, and each of
@@ -1013,9 +1058,10 @@ def train_against_cpu(name, cfg, data, dev, runs):
     trains on the card with the counts zeroed just before it, held to
     exactly those launches and to the CPU's records and final logits
     (check_train_against_cpu). The first run reuses the trainer whose
-    gradients were checked (it took no step). Returns (launches per key,
-    the checks per key, the first run's trainer, that run's peak device
-    GB)."""
+    gradients were checked (it took no step); with ``repeat_first`` a fresh
+    trainer runs it again, held bit-equal to it (check_repeat, under
+    ``checks["<key>_repeat"]``). Returns (launches per key, the checks per
+    key, the first run's trainer, that run's peak device GB)."""
     from rgcn_tpu_torch import kernels
     from rgcn_tpu_torch.models.node_classification import build_nc_model
     from rgcn_tpu_torch.train.node_classification import NodeClassificationTrainer
@@ -1076,6 +1122,12 @@ def train_against_cpu(name, cfg, data, dev, runs):
         if tuple(logits.shape) != (data.num_nodes, data.num_classes) \
                 or not torch.isfinite(logits).all():
             fail(f"training [{label}]: logits {tuple(logits.shape)} not finite (N, C)")
+        if first is None and repeat_first:  # before the gate: a diagnosis either way
+            again = trainer(dev)
+            again.edges = edit(again.edges)
+            checks[f"{key}_repeat"] = check_repeat(label, t, logits, got.records, again,
+                                                   expect)
+            del again
         checks[key] = check_train_against_cpu(
             label, got.records, ref.records, logits, ref_logits,
             diagnose=lambda: diagnose_params(cfg, data, t.model, logits, ref_state))
@@ -1102,7 +1154,8 @@ def phase_train(dev, data, edges):
          train_main_path(TRAIN_EPOCHS)),
         ("train_k3_k1_branch", "K3 + K1 branch", without_fused,
          train_k3_branch(TRAIN_EPOCHS)),
-    ))
+    ), repeat_first=True)
+    repeat = checks.pop("train_main_repeat")
     modes = phase_dx_kernels(dev, data, edges, paths)
     prof = profile_train_step(main)
     timing = {
@@ -1117,6 +1170,7 @@ def phase_train(dev, data, edges):
         "step_host_ops_us": prof["step"]["host_ops_us"],
         "loss_max_rel_diff": {k: v[0] for k, v in checks.items()},
         "logits_max_abs_diff": {k: v[1] for k, v in checks.items()},
+        "train_main_twice": repeat,
     }
     return paths, modes, timing
 
@@ -3772,18 +3826,24 @@ TOOLING_NC_EPOCHS = 2  # nc-AIFB under --profile-dir
 TOOLING_LP_EPOCHS = 1  # lp-WN18 under --profile-dir: the trace holds every op
 TOOLING_TIMER_STEPS = 50  # the canary step under StepTimer
 # each launch counter's kernel events in a trace, by the demangled names
-# CUPTI records: K1's f32 and bf16 forms both run one main kernel a call,
-# k1_aggregate_kernel<TM, VEC, LPS> on the atomics route (beside a memset,
-# and narrow_output for a bf16 output) or k1_owned_kernel<TM, TO, VEC, LPS>
-# on the owned-row route (beside zero_split_rows, and narrow_split_rows
-# for a bf16 output); K4 and K5 and their bf16 forms run weighted_runs.cuh's
+# CUPTI records: K1's f32 and bf16 forms run one kernel a call and nothing
+# beside it, k1::k1_fixed_kernel<TM, TO, VEC, LPS> over a destination-sorted
+# layout or csum::chunk_kernel<k1::Rows<TM>, TO, KS> over a source-ordered
+# one, but over 1,024 CTAs or more (kernels.k1_route): scalar lanes run
+# k1::k1_aggregate_kernel<TM, VEC, LPS> after a memset (and a narrow_output
+# for a bf16 output), dense 4-value lanes of at most 128 columns
+# k1::k1_owned_kernel<TM, TO, VEC, LPS> after zero_split_rows (and
+# narrow_split_rows for a bf16 output);
+# K2's two forms csum::chunk_kernel<k2::Msgs<TX, VX, DO>, float> alone (no
+# memset); K4 and K5 and their bf16 forms run weighted_runs.cuh's
 # templated runs_kernel<TX, TO, VEC, NB, PER_BASIS> (beside one
 # zero_shared_rows each, and narrow_shared_rows for a bf16 output), but for
 # K4's bf16 form on its owned-row route (kernels.k4_bf16_route), which runs
 # k4_owned_bf16.cuh's k4b::owned_kernel<TO, NB, PER_BASIS, Cfg> alone
 TRACE_NAMES = {
-    "k1_aggregate+k1_aggregate_bf16": ("k1_aggregate_kernel", "k1_owned_kernel"),
-    "k2_fused": ("k2_fused_kernel",),
+    "k1_aggregate+k1_aggregate_bf16": ("k1_fixed_kernel", "chunk_kernel<k1::",
+                                       "k1_aggregate_kernel", "k1_owned_kernel"),
+    "k2_fused+k2_fused_bf16": ("chunk_kernel<k2::",),
     "k3_messages": ("k3_tiled_kernel", "k3_small_kernel"),
     "k4_weighted_aggregate+k5_weighted_aggregate_dedup+k4_weighted_aggregate_bf16"
     "+k5_weighted_aggregate_dedup_bf16": ("runs_kernel<", "k4b::owned_kernel<"),

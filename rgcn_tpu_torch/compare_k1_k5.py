@@ -2,13 +2,14 @@
 
     python -m rgcn_tpu_torch.compare_k1_k5 [--out PATH]
 
-K1 (``kernels/csrc/k1_aggregate.cuh``) takes one of two routes by the
-layout's shape: owned rows (a CTA stores each destination whose slots lie
-in its span once; only the rows two spans share are zeroed before and
-finished with atomics) or atomics (every run added with an f32 atomic into
-a memset output). ``kernels/csrc/variants/k1_routes.cu`` forces either
-route, for both message types, so that both can be timed where the launcher
-takes one; ``variants/k1_weighted_runs.cu`` computes K1 by K4's design
+K1 (``kernels/csrc/k1_aggregate.cuh``) takes a route by the layout's
+shape (``kernels.k1_route``), among them owned rows (a CTA stores each
+destination whose slots lie in its span once; only the rows two spans
+share are zeroed before and finished with atomics) and atomics (every run
+added with an f32 atomic into a memset output).
+``kernels/csrc/variants/k1_routes.cu`` forces either of those two, for
+both message types, so that both can be timed where the launcher takes
+another; ``variants/k1_weighted_runs.cu`` computes K1 by K4's design
 (``weighted_runs.cuh`` with one basis, weight 1, the perm or the slot as
 the source row), the other design K1's redesign could have taken. K5's
 bf16 form (``k5_weighted_aggregate_dedup_bf16.cu``) zeroes the f32 scratch
@@ -27,7 +28,7 @@ max|ref|), a bf16 output within 2^-8 * |ref| more) and timed in turns:
   in slot order (``am_like()``, dout 32: f32, bf16, bf16 with a bf16
   output), nc-AM through perm at dout 10 (scalar lanes) and 400; then a
   sweep over ``am_like()``'s triples cut to 1/16, 1/8, 1/4 and 1/2 (bf16,
-  dout 32) that places the launcher's ``kOwnedMinUnits``;
+  dout 32) that places the owned route's 1,024 CTAs (``kernels.k1_route``);
 * K5 bf16 at lp-WN18 (``wn18_like()``'s dedup frame, din 200, 2 bases,
   bf16 out) against those two variants and against its f32 form.
 

@@ -133,7 +133,7 @@ def k4_call(fn, x, src, w, layout, num_nodes, sum_bases, out_dtype, span, old=Fa
             scratch = torch.empty(kernels.k4_bf16_scratch_floats(n_chunks, chunk,
                                                                  nb_out * din, span),
                                   dtype=torch.float32, device=dev)
-        counters = None if old else kernels.k4_bf16_counters(
+        counters = None if old else kernels.stream_counters(
             dev, kernels.k4_bf16_units(n_chunks, chunk, span)).data_ptr()
         err = fn(x.data_ptr(), src.data_ptr(), w.data_ptr(), layout.local_dst.data_ptr(),
                  layout.chunk_block.data_ptr(), out.data_ptr(),
@@ -250,7 +250,7 @@ def compare_shape(fns, label, x, src, w, layout, num_nodes, sum_bases, out_dtype
         if layout.chunk > 64:
             rep["probe_span64"] = probe(fns, label + " span 64", x, src, w, layout,
                                         num_nodes, sum_bases, out_dtype, span=64)
-    counters = kernels.k4_bf16_counters(x.device, 1)
+    counters = kernels.stream_counters(x.device, 1)
     if int(counters.count_nonzero().item()):
         raise RuntimeError(f"{label}: a design left split-run counters set")
     nb_out = 1 if sum_bases else w.shape[0]

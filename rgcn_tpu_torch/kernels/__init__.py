@@ -1,14 +1,14 @@
 """ctypes bindings of the hand-written Hopper kernels, with launch counters.
 
 Each ``launch_*`` function checks its tensors (CUDA device, dtype, shape,
-contiguity), allocates the output with ``torch.empty`` (zeroing, where a
-kernel needs it, is the C launcher's: K2 memsets its output; K1, in either
-form, memsets it on its atomics route and zeroes only the rows two CTAs
-share on its owned-row route, chosen by the layout's shape; K4's f32 form
-zeroes only the rows two CTAs share, K5 the rows of row blocks with several
-chunks; K4's bf16 form zeroes nothing on its owned-row kernel, and takes
-an f32 scratch of two rows a CTA and the stream's split-run counters,
-``k4_bf16_counters``), launches on
+contiguity), allocates the output with ``torch.empty`` and any scratch the
+kernel takes (nothing is zeroed per call: K1 and K2 store every output row
+once and sum in a fixed order, finishing the rows several CTAs share from
+f32 parts in a small scratch through the stream's split-run counters,
+:func:`stream_counters`; K4's f32 form zeroes only the rows two CTAs
+share, K5 the rows of row blocks with several chunks; K4's bf16 form
+zeroes nothing on its owned-row kernel, and takes an f32 scratch of two
+rows a CTA and the same counters), launches on
 ``torch.cuda.current_stream()``, raises if the C launcher reports a CUDA
 error, and adds one to its kernel's count in :data:`LAUNCHES`. The count
 moves nowhere else, so a run that resets the counts and reads them after
@@ -42,6 +42,14 @@ __all__ = [
     "reset_launches",
     "refuse_grad",
     "table_form",
+    "stream_counters",
+    "k1_route",
+    "k1_wide",
+    "k1_fixed_units",
+    "k1_fixed_counters",
+    "k1_scratch_floats",
+    "chunk_smem_bytes",
+    "chunk_scratch_floats",
     "launch_k1_aggregate",
     "launch_k2_fused",
     "launch_k3_messages",
@@ -55,11 +63,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argument types of each C launcher (pointers and the stream as c_void_p)
 _ARGTYPES = {
-    # K1: (msgs, index, local_dst, chunk_block, out, scratch, ..., dst_sorted,
-    # out_bf16, stream), one list for the f32 and the bf16 form
-    "k1_aggregate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "k2_fused": [_P, _P, _P, _P, _P, _P, _P, _P,
-                 _I, _I, _I, _I, _I, _I, _I, _P],
+    # K1: (msgs, index, local_dst, chunk_block, out, scratch, counters, ...,
+    # route, out_bf16, stream), one list for the f32 and the bf16 form
+    "k1_aggregate": [_P] * 7 + [_I] * 7 + [_P],
+    # K2: (x, w, src, val, local_dst, quantum_rel, chunk_block, out, part,
+    # counters, ..., stream), one list for the f32 and the bf16 form
+    "k2_fused": [_P] * 10 + [_I] * 7 + [_P],
     "k3_messages": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # K3's bf16 form: (..., din, dout, x_bf16, out_bf16, stream)
     "k3_messages_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -90,8 +99,9 @@ _NB_MAX = 8
 K4_BF16_SPAN = 256
 
 
-# K4's bf16 form's split-run counters, one zeroed set a (device, stream)
-_K4_COUNTERS: Dict[tuple, torch.Tensor] = {}
+# the split-run counters of K1, K2 and K4's bf16 form, one zeroed set a
+# (device, stream)
+_COUNTERS: Dict[tuple, torch.Tensor] = {}
 # the two kernels of K4's bf16 form (csrc/k4_weighted_aggregate_bf16.cu)
 K4_BF16_RUNS, K4_BF16_OWNED = 0, 1
 # the layouts K4's bf16 form takes the owned-row kernel over (k4_bf16_route):
@@ -138,18 +148,152 @@ def k4_bf16_scratch_floats(n_chunks: int, chunk: int, row_len: int,
     return k4_bf16_units(n_chunks, chunk, span) * 2 * row_len
 
 
-def k4_bf16_counters(device: torch.device, units: int) -> torch.Tensor:
-    """At least ``units`` split-run counters of K4's bf16 form for the
-    current stream of ``device``: zeroed when made, and every launch leaves
-    them zero (csrc/k4_owned_bf16.cuh), so they are made once; a stream has
-    its own, so that launches on two streams never share one."""
+def stream_counters(device: torch.device, units: int) -> torch.Tensor:
+    """At least ``units`` split-run counters for the current stream of
+    ``device``, shared by K1, K2 and K4's bf16 form: zeroed when made, and
+    every launch leaves them zero (each run's or block's last CTA wraps its
+    counter back with atomicInc), so they are made once; a stream has its
+    own, so that launches on two streams never share one. Launches on one
+    stream run one after another, so they may share a set."""
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
-    have = _K4_COUNTERS.get(key)
+    have = _COUNTERS.get(key)
     if have is None or have.numel() < units:
         have = torch.zeros(max(units, 2 * (0 if have is None else have.numel())),
                            dtype=torch.int32, device=device)
-        _K4_COUNTERS[key] = have
+        _COUNTERS[key] = have
     return have
+
+
+# K1's routes (csrc/k1_aggregate.cuh): owned rows over a destination-sorted
+# layout, chunk_sum.cuh's chunk-a-CTA sum over any order (both in a fixed
+# order), and two designs kept where they measured faster: atomics, and
+# owned rows with atomics on the rows two CTAs share
+K1_FIXED, K1_CHUNK, K1_ATOMICS, K1_OWNED = 0, 1, 2, 3
+# K1's kFixed and kOwned units: CTAs of at most 8 warps, a group of LPS
+# lanes (the power of two at least the row's vectors, at most 32) walking
+# max(8, LPS) slots; kFixed takes a CTA a column group of LPS x VEC columns
+_K1_WARPS = 8
+# the CTAs from which scalar lanes take the atomics route (K1_ATOMICS) and
+# 4-value lanes over one column group the owned route with atomics on
+# split rows (K1_OWNED)
+K1_ATOMICS_MIN_UNITS = 1024
+# ... the latter where the layout holds at least this many slots an output
+# row (the crossover measured against the atomics route)
+K1_OWNED_MIN_SLOTS_PER_ROW = 3
+
+
+def _k1_lanes(dout: int, wide: bool):
+    """K1's lanes on a row: (LPS, VEC), as csrc/k1_aggregate.cuh's run()."""
+    vectors = dout // 4 if wide else dout
+    return min(32, 1 << max(0, (vectors - 1).bit_length())), 4 if wide else 1
+
+
+def _k1_span(lps: int, chunk: int) -> int:
+    return min(chunk, _K1_WARPS * 32 * (max(8, lps) // lps))
+
+
+def k1_wide(dout: int, msgs_ptr: int, itemsize: int) -> bool:
+    """Does K1 take 4-value lanes? Rows of whole vectors of an aligned
+    message table (the output and scratch come from ``torch.empty``)."""
+    return dout % 4 == 0 and msgs_ptr % (4 * itemsize) == 0
+
+
+def _k1_units_groups(n_chunks: int, chunk: int, dout: int, wide: bool):
+    lps, vec = _k1_lanes(dout, wide)
+    units = n_chunks * -(-chunk // _k1_span(lps, chunk))
+    return units, -(-dout // (lps * vec))
+
+
+def k1_route(dst_sorted: bool, n_chunks: int = 0, chunk: int = 1, dout: int = 1,
+             wide: bool = True, num_nodes: int = 0) -> int:
+    """The route K1 takes over a layout of ``n_chunks`` chunks of ``chunk``
+    slots at width ``dout`` (``wide``: 4-value lanes, :func:`k1_wide`) into
+    ``num_nodes`` output rows, in either form and for either output
+    (csrc/k1_aggregate.cuh), as measured on an H100 (``compare_k1_k2``):
+    K1_CHUNK (a CTA a chunk, slots summed by destination in slot order, a
+    block's chunks finished by their last CTA) where the row blocks are not
+    sorted by destination; of at least K1_ATOMICS_MIN_UNITS owned-row CTAs,
+    K1_ATOMICS (the memset-and-atomics design) for scalar lanes (nc-AM's
+    pair path at width 10: the atomics 0.065 ms against 0.16-0.17 fixed-order)
+    and K1_OWNED (owned rows, the rows two CTAs share finished with
+    atomics) for 4-value lanes over one column group (dout <= 128) with at
+    least K1_OWNED_MIN_SLOTS_PER_ROW slots an output row (e-RGCN nc-AM's
+    diagonal messages, dout 32: 0.081 ms in bf16 and 0.100 in f32 against
+    K1_FIXED's 0.145 and 0.140; wider rows keep K1_FIXED, which gives each
+    column group a CTA: the pair path's dT at dout 400 / 440 took 0.658 /
+    0.681 there against 0.692 / 0.785 owned); else K1_FIXED (owned rows,
+    the rows CTAs share finished by one of them; every phase-5 and
+    nc-AIFB launch). K1_FIXED and K1_CHUNK sum in a fixed order in one
+    launch."""
+    if not dst_sorted:
+        return K1_CHUNK
+    units, groups = _k1_units_groups(n_chunks, chunk, dout, wide)
+    if units >= K1_ATOMICS_MIN_UNITS:
+        if not wide:
+            return K1_ATOMICS
+        if groups == 1 and n_chunks * chunk >= K1_OWNED_MIN_SLOTS_PER_ROW * num_nodes:
+            return K1_OWNED
+    return K1_FIXED
+
+
+def k1_fixed_units(n_chunks: int, chunk: int, dout: int) -> int:
+    """CTAs of K1's K1_FIXED route over ``n_chunks`` chunks of ``chunk``
+    slots at width ``dout``, column groups aside: the most of its two lane
+    maps (4-value lanes where rows are 16-byte vectors, scalar lanes else),
+    since the kernel picks one by the tensors' alignment. Its scratch holds
+    two rows of ``dout`` f32 a unit."""
+    return max(_k1_units_groups(n_chunks, chunk, dout, w)[0] for w in (True, False))
+
+
+def k1_fixed_counters(n_chunks: int, chunk: int, dout: int) -> int:
+    """Split-run counters of a K1_FIXED launch: one a (unit, column group),
+    the most of the two lane maps."""
+    return max(u * g for u, g in (_k1_units_groups(n_chunks, chunk, dout, w)
+                                  for w in (True, False)))
+
+
+# shared memory a CTA may take on an H100 (232,448 bytes) and the columns
+# csrc/chunk_sum.cuh holds a pass
+_MAX_SMEM = 232_448
+_CHUNK_SLICE = 32
+
+
+def chunk_smem_bytes(chunk: int, row_block: int, dout: int) -> int:
+    """Shared memory of a chunk_sum.cuh CTA (K2, K1's K1_CHUNK route): a
+    chunk's messages, a slice of the power of two at least ``dout`` columns
+    (4 to 32) at a pitch 4 floats wider from 8 up (the banks), and a bit a
+    slot for each row of the block."""
+    width = 4
+    while width < dout and width < _CHUNK_SLICE:
+        width *= 2
+    pitch = 4 if width == 4 else width + 4
+    return 4 * (chunk * pitch + -(-chunk // 32) * row_block + -(-row_block // 32))
+
+
+def chunk_scratch_floats(n_chunks: int, row_block: int, dout: int) -> int:
+    """f32 scratch of a chunk_sum.cuh launch (K2, K1's K1_CHUNK route): an
+    ``(RB, dout)`` tile a chunk, then a bit a row of each chunk."""
+    return n_chunks * (row_block * dout + -(-row_block // 32))
+
+
+def _check_chunk_smem(what: str, chunk: int, row_block: int, dout: int) -> None:
+    need = chunk_smem_bytes(chunk, row_block, dout)
+    if need > _MAX_SMEM:
+        raise ValueError(f"{what}: chunks of {chunk} slots over row blocks of {row_block} "
+                         f"need {need} bytes of shared memory, past {_MAX_SMEM}")
+
+
+def k1_scratch_floats(route: int, n_chunks: int, chunk: int, row_block: int,
+                      dout: int, num_nodes: int = 0) -> int:
+    """f32 scratch of a K1 launch: two rows a unit (K1_FIXED), an (RB,
+    dout) tile and a bit a row a chunk (K1_CHUNK), the ``(num_nodes,
+    dout)`` sums of a bf16 output (K1_ATOMICS, K1_OWNED; give 0 for an
+    f32 output)."""
+    if route == K1_FIXED:
+        return k1_fixed_units(n_chunks, chunk, dout) * 2 * dout
+    if route == K1_CHUNK:
+        return chunk_scratch_floats(n_chunks, row_block, dout)
+    return num_nodes * dout
 
 
 def reset_launches() -> None:
@@ -251,15 +395,17 @@ def launch_k1_aggregate(
     ``(n_chunks, CH)`` ``local_dst`` and ``chunk_block``. ``msgs`` f32 or
     bf16 (the bf16 form, ``k1_aggregate_bf16``); the sums are f32 and the
     output ``out_dtype``, f32 or bf16 (each element rounded once from its
-    f32 sum). Both forms take one of two routes by the layout's shape
-    (``csrc/k1_aggregate.cuh``, ``run()``): where ``dst_sorted`` (each row
-    block's slots sorted by destination: every builder's order but the
-    source-ordered one), ``dout % 4 == 0``, the launch has at least 1024
-    CTAs and the layout at least 3 slots an output row, the owned-row
-    route stores each row a CTA holds whole once and finishes only the
-    rows two CTAs share with atomics; else the atomics route adds every
-    run into a memset output. Returns ``(num_nodes, dout)``; rows past
-    ``num_nodes`` are dropped."""
+    f32 sum). By :func:`k1_route`: where ``dst_sorted`` (each row block's
+    slots sorted by destination: every builder's order but the
+    source-ordered one) owned rows, each stored once by the CTA its slots
+    lie in and a row several CTAs share by the last of them from f32 parts;
+    else a CTA a chunk; both take one launch, no memset, and sum in a fixed
+    order (the same bits on every launch). Over 1,024 CTAs or more, scalar
+    lanes take the atomics design, and dense 4-value lanes on rows of at
+    most 128 columns owned rows with atomics on the rows two CTAs share,
+    which measured faster there. Every
+    row block must have a chunk, as every builder gives it. Returns
+    ``(num_nodes, dout)``; rows past ``num_nodes`` are dropped."""
     dev = msgs.device
     _check(local_dst, "local_dst", torch.int32, None)
     if local_dst.dim() != 2:
@@ -285,14 +431,21 @@ def launch_k1_aggregate(
     if num_nodes == 0 or dout == 0:
         return out
     bf16_out = out_dtype == torch.bfloat16
-    scratch = torch.empty((num_nodes, dout), dtype=torch.float32, device=dev) \
-        if bf16_out else None
+    route = k1_route(dst_sorted, n_chunks, chunk, dout,
+                     k1_wide(dout, msgs.data_ptr(), msgs.element_size()), num_nodes)
+    if route == K1_CHUNK:
+        _check_chunk_smem("K1", chunk, row_block, dout)
+    scratch = torch.empty(k1_scratch_floats(route, n_chunks, chunk, row_block, dout,
+                                            num_nodes if bf16_out else 0),
+                          dtype=torch.float32, device=dev)
+    counters = {K1_FIXED: k1_fixed_counters(n_chunks, chunk, dout),
+                K1_CHUNK: n_chunks, K1_ATOMICS: 1, K1_OWNED: 1}[route]
     _launch(
         "k1_aggregate" + form, dev, msgs.data_ptr(),
         None if index is None else index.data_ptr(),
-        local_dst.data_ptr(), chunk_block.data_ptr(), out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
-        n_chunks, chunk, row_block, dout, num_nodes, int(dst_sorted), int(bf16_out),
+        local_dst.data_ptr(), chunk_block.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        stream_counters(dev, counters).data_ptr(),
+        n_chunks, chunk, row_block, dout, num_nodes, route, int(bf16_out),
     )
     return out
 
@@ -310,11 +463,16 @@ def launch_k2_fused(
     num_row_blocks: int,
     quantum: int,
 ) -> torch.Tensor:
-    """K2: ``out[n] = Σ val·(x[src] @ W[rel_q])`` over a fused layout, one
-    quantum per CTA with its ``W[rel_q]`` staged in shared memory. ``x`` and
-    ``weights`` f32, or both bf16 (the bf16 form, ``k2_fused_bf16``: f32
-    sums, each message rounded to bf16, f32 destination sums). Returns
-    ``(num_nodes, dout)`` f32; rows past ``num_nodes`` are dropped."""
+    """K2: ``out[n] = Σ val·(x[src] @ W[rel_q])`` over a fused layout, a
+    CTA a chunk: each slot's message staged in shared memory, each row's
+    messages summed in slot order, a row block's chunks by their last CTA
+    in chunk order from an ``(RB, dout)`` f32 tile a chunk (one launch, no
+    memset, the same bits on every launch; every row block must have a
+    chunk and a block's chunks be adjacent, as both fused builders lay them
+    out). ``x`` and ``weights`` f32, or both bf16 (the bf16 form,
+    ``k2_fused_bf16``: f32 sums, each message rounded to bf16, f32
+    destination sums). Returns ``(num_nodes, dout)`` f32; rows past
+    ``num_nodes`` are dropped."""
     dev = x.device
     _check(local_dst, "local_dst", torch.int32, None)
     if local_dst.dim() != 2:
@@ -344,10 +502,14 @@ def launch_k2_fused(
     out = torch.empty((num_nodes, dout), dtype=torch.float32, device=dev)
     if num_nodes == 0 or dout == 0 or din == 0:
         return out.zero_()
+    _check_chunk_smem("K2", chunk, row_block, dout)
+    part = torch.empty(chunk_scratch_floats(n_chunks, row_block, dout),
+                       dtype=torch.float32, device=dev)
     _launch(
         "k2_fused" + form, dev, x.data_ptr(), weights.data_ptr(), src.data_ptr(),
         val.data_ptr(), local_dst.data_ptr(), quantum_rel.data_ptr(),
-        chunk_block.data_ptr(), out.data_ptr(),
+        chunk_block.data_ptr(), out.data_ptr(), part.data_ptr(),
+        stream_counters(dev, n_chunks).data_ptr(),
         n_quanta, din, dout, row_block, chunk, quantum, num_nodes,
     )
     return out
@@ -472,7 +634,7 @@ def launch_k4_weighted_aggregate(
     if owned:  # f32 scratch of two rows a unit, the units' counters
         scratch = torch.empty(k4_bf16_scratch_floats(n_chunks, chunk, nb_out * din),
                               dtype=torch.float32, device=dev)
-        extra = (k4_bf16_counters(dev, k4_bf16_units(n_chunks, chunk)).data_ptr(),)
+        extra = (stream_counters(dev, k4_bf16_units(n_chunks, chunk)).data_ptr(),)
     elif form:
         extra = (None,)
     if form:

@@ -94,16 +94,26 @@ def _nvcc() -> str:
     return path
 
 
+def _local_includes(path: str, seen: list) -> None:
+    """``path`` and, depth first, the local headers it includes (each once)."""
+    seen.append(path)
+    with open(path, "rb") as f:
+        text = f.read()
+    for header in re.findall(rb'^#include "([^"]+)"', text, re.M):
+        inc = os.path.normpath(os.path.join(os.path.dirname(path), header.decode()))
+        if inc not in seen:
+            _local_includes(inc, seen)
+
+
 def library_path(name: str) -> str:
     """Path of the built library for kernel ``name`` (may not exist yet);
-    the hash covers the source and the local headers it includes."""
-    src = os.path.join(CSRC, SOURCES[name])
+    the hash covers the source and the local headers it includes, and
+    theirs."""
+    files: list = []
+    _local_includes(os.path.join(CSRC, SOURCES[name]), files)
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        text = f.read()
-    h.update(text)
-    for header in re.findall(rb'^#include "([^"]+)"', text, re.M):
-        with open(os.path.join(CSRC, header.decode()), "rb") as f:
+    for path in files:
+        with open(path, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 

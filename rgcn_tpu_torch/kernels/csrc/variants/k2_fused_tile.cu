@@ -1,20 +1,22 @@
 // K2's rejected alternative: a shared-memory tile per chunk (sm_90a).
 //
-// The same function as k2_fused.cu, with the same C signature; no serving
-// path launches it. rgcn_tpu_torch/compare_k2.py builds it and times it
-// against K2 on the card, which is why K2 keeps direct global atomics.
+// The same function as K2, with the C signature K2 had before its
+// fixed-order redesign; no serving path launches it.
+// rgcn_tpu_torch/compare_k2.py builds it and times it against K2 on the
+// card; it lost to the atomics design it was measured against then
+// (k2_atomics.cu).
 //
 // Design. One CTA per chunk (296 at nc-AIFB) of min(chunk, 512) threads,
 // one slot a thread. The CTA zeroes an (RB x dout) f32 tile in shared
 // memory and stages the W[rel] of each of the chunk's quanta (gap quanta
 // stage nothing); after a barrier each real slot computes its dout outputs
-// exactly as K2 does (row_times_w, from k2_fused.cu), scales them by val and
+// exactly as K2 does (row_times_w, from k2_atomics.cu), scales them by val and
 // adds them to its tile row with shared-memory atomics; after a second
 // barrier the CTA adds the tile's non-zero entries to the output with
 // global f32 atomics (a row block spans several chunks), into an output
 // the launcher zeroes first.
 
-#include "../k2_fused.cu"
+#include "k2_atomics.cu"
 
 namespace {
 

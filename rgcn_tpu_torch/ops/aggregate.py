@@ -11,18 +11,26 @@ launch the hand-written kernel ``kernels/csrc/k1_aggregate.cu``; on a CPU
 tensor they take the plain PyTorch version beside them. Messages are f32
 or bf16 (the edge stage's compute dtype): bf16 messages launch K1's bf16
 form (``kernels/csrc/k1_aggregate_bf16.cu``). Both forms share one kernel
-header, ``k1_aggregate.cuh``, and one rule for its two routes. The
-owned-row route, taken where the layout is destination-sorted
-(``DstLayout.dst_sorted``), the rows split into 4-value lanes, the launch
-has at least 1024 CTAs and the layout at least 3 slots an output row,
-stores each destination a CTA holds whole once, zeros included, and
-zeroes and finishes with atomics only the rows two CTAs share: no memset.
-Every other layout takes the atomics route: lane groups sum runs of one
-destination in registers and add them with f32 atomics into an output
-zeroed by a memset, a hub row block spread over as many CTAs as it has
-chunks, and a warp whose span holds only pads returns after loading its
-``local_dst`` once. Both routes sum in
-f32 into an f32 output, as the Pallas kernel's default ``out_dtype``, or
+header, ``k1_aggregate.cuh``, and one rule for its routes
+(``kernels.k1_route``). The two fixed-order routes take one launch with no
+memset and sum in an order fixed by the layout, so the same inputs give
+the same bits on every launch. A destination-sorted layout
+(``DstLayout.dst_sorted``: every builder's but the source-ordered one)
+takes the owned-row route: lane
+groups sum runs of one destination in registers, each CTA stores every
+row whose slots all lie in its span once, zeros included, and a row that
+crosses CTAs (a hub over many chunks) is finished by the last of its CTAs
+from f32 parts, in CTA order. A source-ordered layout takes the chunk
+route: a CTA a chunk sums its slots by destination in slot order, a row
+block's chunks finished by their last CTA in chunk order. Over 1,024 CTAs
+or more two earlier designs stay where they measured faster: scalar lanes
+(a width not a multiple of 4; nc-AM's pair path) take the atomics route,
+a memset and every run added with an f32 atomic, in no fixed order; 4-value
+lanes on rows of at most 128 columns with 3 slots an output row or more
+(e-RGCN nc-AM's diagonal messages) the owned-row route with atomics on the rows two CTAs share
+(beside a zeroing launch, and a narrowing one for a bf16 output;
+a row over three CTAs or more sums in no fixed order). All sum in f32
+into an f32 output, as the Pallas kernel's default ``out_dtype``, or
 with ``out_dtype=torch.bfloat16`` into a bf16 one, each element rounded
 once from its whole f32 sum (the Pallas kernel rounds each chunk's f32
 partial into its bf16 output block, ``pallas_aggregate.py:196-198``: a
@@ -75,8 +83,8 @@ class DstLayout:
     is that edge count, the rows edge-order messages must have.
     ``dst_sorted`` is False only for a layout whose row blocks run in
     source order (``build_dst_layout(src=...)``): K1, in either form, then
-    takes its atomics route (a memset output, every run added with f32
-    atomics), never the owned-row route.
+    takes its chunk route (a CTA a chunk, slots summed by destination in
+    slot order), never the owned-row route.
     """
 
     perm: object  # (L,) int32 — layout position -> edge index

@@ -11,10 +11,11 @@ On a CUDA tensor :func:`rel_spmm_fused` launches
 ``kernels/csrc/k2_fused.cu``, or with ``compute_dtype=torch.bfloat16`` (its
 default, as the JAX function's) ``kernels/csrc/k2_fused_bf16.cu``; on a CPU
 tensor it takes :func:`rel_spmm_fused_plain`, which rounds at the same
-places. The kernel gives each quantum its own CTA (a gap quantum returns
-after reading its relation), stages that quantum's ``W[rel]`` alone in
-shared memory, computes each slot's outputs in registers and finishes them
-with f32 atomics into a zeroed output.
+places. The kernel gives each chunk its own CTA, stages each real slot's
+message (its ``W[rel]`` read through L1) in shared memory, sums each row's
+messages in slot order and finishes a row block's chunks by their last
+CTA in chunk order: one launch, no memset, the same bits on every
+launch.
 """
 
 from __future__ import annotations
@@ -207,7 +208,7 @@ def rel_spmm_fused(
     message ``(x[src] @ W) · val`` is summed in f32 and rounded to it, and
     the destination sums are f32; None (or f32) computes in f32 throughout,
     as the model's forward (``ops/rel_spmm.py::fwd_spmm``) does. The kernel
-    stages one ``W[rel]`` per CTA in shared memory; ``ops/rel_spmm.py``
+    stages a chunk's messages in shared memory; ``ops/rel_spmm.py``
     decides when to take it. No backward of its own
     (``ops/rel_spmm.py::rel_spmm_ad`` has one, over this function at f32):
     on the card, grad mode with ``x`` or ``weights`` requiring grad

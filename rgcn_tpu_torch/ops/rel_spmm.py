@@ -18,7 +18,11 @@ cotangents are the same class of computation as the forward:
     dW[r] = Σ_{e ∈ r} val_e · x[src_e]ᵀ ⊗ g[dst_e]          (per-tile products, summed by tile_rel)
 
 so dx runs K2 (or K3 then K1) over the reversed edges, and dW, an XLA einsum
-in the JAX package, is one ``torch.bmm`` and one ``index_add_`` here.
+and ``segment_sum(indices_are_sorted=True)`` in the JAX package, is one
+``torch.bmm`` and one ``torch.segment_reduce`` here: each relation's tile
+partials summed in tile order (a relation's tiles are adjacent, ``tile_rel``
+sorted), the same bits on every run where ``index_add_``'s atomics added
+them in no fixed order.
 :func:`rel_spmm_messages` has no backward: on the card it refuses inputs
 that need one.
 """
@@ -50,11 +54,13 @@ __all__ = [
 # _FUSED_VMEM_BUDGET). Results agree either way; only the route differs,
 # for a W between the two budgets (e.g. 8 relations of 72 x 72), which the
 # port sends through K3 + K1 and the JAX package through its fused kernel.
-# K2 stages one whole W[rel] per CTA, so a W[rel] past 227 KB (lp-FB-toy's
-# 1 MB) cannot take it whatever the rule. A rule keyed on one W[rel] would
-# send nc-AM's layer 2 (W (532, 10, 11) over an 11.7M-slot fused layout) to
-# K2, which measured 2.80 ms there against 0.17 ms for K3 + K1 (chip_smoke.py
-# on an H100 80GB HBM3 at 700 W), so the rule keys on the whole W.
+# The rule was set while K2 staged one whole W[rel] per CTA (a W[rel] past
+# 227 KB, lp-FB-toy's 1 MB, could not take it); K2 now reads W through L1,
+# and the rule stays, so that every path keeps its route. A rule keyed on
+# one W[rel] would send nc-AM's layer 2 (W (532, 10, 11) over an
+# 11.7M-slot fused layout) to K2, which measured 2.80 ms there against 0.17
+# ms for K3 + K1 (chip_smoke.py on an H100 80GB HBM3 at 700 W), so the rule
+# keys on the whole W.
 FUSED_SMEM_BUDGET = 232_448
 
 
@@ -152,15 +158,19 @@ def fwd_spmm(edges, x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
 def rel_spmm_weight_grad(edges, x: torch.Tensor, g: torch.Tensor,
                          num_rels: int) -> torch.Tensor:
     """``dW (num_rels, din, dout)``: per tile ``x[src]ᵀ @ (g[dst] · val)``
-    in full f32, summed by ``tile_rel``; the pad edges read a zero row of
-    ``g``."""
+    in full f32, each relation's partials summed in tile order (``tile_rel``
+    is sorted, a relation's tiles adjacent: JAX's ``segment_sum(...,
+    indices_are_sorted=True)``, ``pallas_spmm.py:268-271``), a relation
+    with no tile 0; the pad edges read a zero row of ``g``. No atomics: the
+    same bits on every run."""
     tile, n_tiles = edges.tile_size, edges.num_tiles
     xg = x[edges.src.long()].reshape(n_tiles, tile, x.shape[-1])
     gd = (gather_by_dst(g, edges.dst) * edges.val[:, None]).reshape(n_tiles, tile, -1)
     with full_f32_matmul():
         partials = torch.bmm(xg.transpose(1, 2), gd)
-    dw = partials.new_zeros((num_rels, x.shape[-1], g.shape[1]))
-    return dw.index_add_(0, edges.tile_rel.long(), partials)
+    rel = edges.tile_rel.long()
+    starts = torch.searchsorted(rel, torch.arange(num_rels + 1, device=rel.device))
+    return torch.segment_reduce(partials, "sum", lengths=starts[1:] - starts[:-1], axis=0)
 
 
 class _RelSpmm(torch.autograd.Function):

@@ -1,7 +1,7 @@
 """Trace the nc-AIFB training gate of ``chip_smoke.py`` on the card.
 
     python -m rgcn_tpu_torch.trace_train_gate [--runs 20] [--poison-runs 10] \\
-        [--epochs 5] [--race-repeats 200] [--out trace_train_gate.json]
+        [--epochs 5] [--race-repeats 200] [--same] [--out trace_train_gate.json]
 
 Trains ``configs/rgcn/nc-AIFB.yaml`` on ``aifb_like()`` for ``--epochs``
 epochs from the seed-0 initialisation, first on the CPU's plain versions
@@ -23,7 +23,20 @@ training phase does: one backward for the first gradients, then
   difference between the two first Adam updates those gradients predict
   (``lr * g / (|g| + eps)`` after bias correction);
 * ``top``: the five parameter entries that moved furthest from the CPU's,
-  with their first gradients on both sides.
+  with their first gradients on both sides;
+* ``params_sha256`` and ``logits_sha256``: digests of the final parameters'
+  and logits' bits.
+
+Before the runs, one more card run trains under
+``torch.use_deterministic_algorithms(True, warn_only=True)``: the summary's
+``nondeterministic_ops`` lists the warnings PyTorch raised for ops on the
+path without a deterministic implementation (the ctypes kernels are
+outside its sight).
+
+The summary's ``same`` says whether every card run ended with the same
+parameter and logit bits and the same ``logits_diff`` (K1, K2 and the
+dense layer's dW sum in a fixed order); ``--same`` makes a run that
+differs fail the script (exit 1) after it has printed its lines.
 
 ``--poison-runs`` more runs first fill the caching allocator's free
 memory with NaN (both its small and its large pool), so that a kernel
@@ -48,6 +61,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import sys
@@ -93,6 +107,30 @@ def _poison_allocator(dev) -> float:
     torch.cuda.synchronize()
     del junk
     return gb
+
+
+def _digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _nondeterministic_ops(train) -> list:
+    """``train()`` under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``: the distinct warnings it raised."""
+    import warnings
+
+    before = torch.are_deterministic_algorithms_enabled()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            train()
+        finally:
+            torch.use_deterministic_algorithms(before)
+    return sorted({str(w.message)[:300] for w in caught})
 
 
 def _flips(card_grads: dict, cpu_grads: dict, lr: float, eps: float = 1e-8) -> dict:
@@ -168,6 +206,8 @@ def main(argv=None):
     ap.add_argument("--poison-runs", type=int, default=10)
     ap.add_argument("--epochs", type=int, default=5)
     ap.add_argument("--race-repeats", type=int, default=200)
+    ap.add_argument("--same", action="store_true",
+                    help="fail unless every card run ends with the same bits")
     ap.add_argument("--out", default=None, help="write every record here (JSON)")
     ap.add_argument("--smoke-runs", type=int, default=0,
                     help="instead: chip_smoke.py's phases 1-5 this many times, "
@@ -188,7 +228,9 @@ def main(argv=None):
     if args.smoke_runs:
         trace_smoke(args.smoke_runs, args.out)
     else:
-        trace(torch.device("cuda"), args)
+        summary = trace(torch.device("cuda"), args)
+        if args.same and not summary.get("same"):
+            sys.exit("trace_train_gate: the card runs did not all end with the same bits")
 
 
 def smoke_phases() -> dict:
@@ -280,6 +322,15 @@ def trace(dev, args) -> dict:
     print(json.dumps({"reference": "cpu", "epochs": args.epochs,
                       "seconds": time.perf_counter() - t0}), flush=True)
 
+    def one_run():
+        t = trainer(dev)
+        t.loss().backward()
+        t.fit(_snapshot_logger(t.model, []))
+        t.logits()
+
+    nondeterministic = _nondeterministic_ops(one_run)
+    print(json.dumps({"nondeterministic_ops": nondeterministic}), flush=True)
+
     records = []
     for i in range(args.runs + args.poison_runs):
         poison = i >= args.runs
@@ -291,7 +342,6 @@ def trace(dev, args) -> dict:
         epochs = []
         t.fit(_snapshot_logger(t.model, epochs))
         logits = t.logits().cpu()
-        torch.cuda.synchronize()
         final = _state(t.model)
         cpu.model.load_state_dict(final)  # the CPU forward of these parameters
         own = cpu.logits()
@@ -305,20 +355,27 @@ def trace(dev, args) -> dict:
                            for e, r in zip(epochs, ref_epochs)],
             "flips": _flips(card_grads, cpu_grads, lr),
             "top": _top_moves(final, ref_epochs[-1], card_grads, cpu_grads),
+            "params_sha256": _digest(final.values()),
+            "logits_sha256": _digest([logits]),
         }
         records.append(rec)
         print(json.dumps(rec), flush=True)
 
     race = _race_check(dev, data, args.race_repeats) if args.race_repeats else None
-    summary = {"device": torch.cuda.get_device_name(0), "runs": args.runs,
-               "poison_runs": args.poison_runs, "race": race}
+    device = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
+    summary = {"device": device, "runs": args.runs,
+               "poison_runs": args.poison_runs, "race": race,
+               "nondeterministic_ops": nondeterministic}
     if records:
         diffs = [r["logits_diff"] for r in records]
         summary.update(
             logits_diff_max=max(diffs), logits_diff_median=float(np.median(diffs)),
             over_tol=sum(r["logits_diff"] > r["tol"] for r in records),
             own_params_diff_max=max(r["own_params_diff"] for r in records),
-            all_finite=all(r["finite"] for r in records))
+            all_finite=all(r["finite"] for r in records),
+            same=len({(r["params_sha256"], r["logits_sha256"], r["logits_diff"])
+                      for r in records}) == 1,
+            distinct_params=len({r["params_sha256"] for r in records}))
     print(json.dumps({"summary": summary}), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

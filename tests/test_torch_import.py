@@ -54,6 +54,7 @@ MODULES = [
     "rgcn_tpu_torch.profile_serve",
     "rgcn_tpu_torch.profile_epoch",
     "rgcn_tpu_torch.compare_k2",
+    "rgcn_tpu_torch.compare_k1_k2",
     "rgcn_tpu_torch.compare_k3",
     "rgcn_tpu_torch.compare_k4_k5",
     "rgcn_tpu_torch.compare_k4_bf16",
@@ -235,17 +236,21 @@ def test_basis_wrappers_refuse_node_count_off_layout(num_nodes, device):
 
 def test_ctypes_signatures_match_sources():
     """Each launcher's ctypes argtypes match its C signature in csrc/; K2's
-    tile variant and K3's FMA, edge-column and probe variants (bound with
-    K2's and K3's argtypes) have their kernels' signatures; the K4/K5 variants match the
-    argtypes compare_k4_k5 binds them with."""
+    tile and atomics variants (bound with K2's argument list before its
+    redesign) and K3's FMA, edge-column and probe variants (bound with K3's
+    argtypes) have their kernels' signatures; the K4/K5 variants and
+    compare_k1_k2's match the argtypes their scripts bind them with."""
     import ctypes
 
-    from rgcn_tpu_torch import compare_k2, compare_k3, compare_k4_k5, kernels
+    from rgcn_tpu_torch import compare_k1_k2, compare_k2, compare_k3, compare_k4_k5, kernels
     from rgcn_tpu_torch.kernels import build
 
     launchers = [(name, src, kernels._ARGTYPES[name])
                  for name, src in build.SOURCES.items()]
-    launchers.append(("k2_fused_tile", compare_k2.VARIANT, kernels._ARGTYPES["k2_fused"]))
+    launchers.append(("k2_fused_tile", compare_k2.VARIANT, compare_k2.OLD_K2_ARGS))
+    launchers.append(("k2_atomics_f32", compare_k2.ATOMICS, compare_k2.OLD_K2_ARGS))
+    launchers += [(name, src, argtypes)
+                  for name, (src, argtypes) in compare_k1_k2.VARIANTS.items()]
     launchers += [(name, src, kernels._ARGTYPES["k3_messages"])
                   for name, src in {**compare_k3.VARIANTS, **compare_k3.PROBES}.items()]
     launchers += [(name, src, argtypes)
@@ -268,6 +273,145 @@ def test_compare_k2_needs_cuda(monkeypatch):
     monkeypatch.setattr(compare_k2, "build_tile", lambda: pytest.fail("built"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         compare_k2.main([])
+
+
+def test_compare_k1_k2_needs_cuda(monkeypatch):
+    """K1's and K2's fixed-order designs are compared with the atomics
+    designs on the card only: without CUDA the script raises before
+    building anything."""
+    from rgcn_tpu_torch import compare_k1_k2
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(compare_k1_k2, "build_variants", lambda: pytest.fail("built"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compare_k1_k2.main([])
+
+
+@pytest.mark.parametrize("name", ["k1_aggregate", "k1_aggregate_bf16", "k2_fused",
+                                  "k2_fused_bf16"])
+def test_fixed_order_launchers_take_scratch_and_counters(name):
+    """K1's and K2's C launchers take the f32 scratch and the stream's
+    counters after the output, and K1 its route where it took dst_sorted;
+    no memset is left in their fixed-order launch paths (K1's only one is
+    its kept atomics route's)."""
+    import ctypes
+
+    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch.kernels import build
+
+    text = open(os.path.join(build.CSRC, build.SOURCES[name])).read()
+    m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
+    params = [p.strip().split()[-1].lstrip("*") for p in m.group(1).split(",")]
+    out = params.index("out")
+    assert params[out + 1] in ("scratch", "part") and params[out + 2] == "counters"
+    assert ("route" in params) == name.startswith("k1") and "dst_sorted" not in params
+    assert kernels._ARGTYPES[name][out + 2] is ctypes.c_void_p
+    for header in ("k2_fused.cuh", "chunk_sum.cuh"):
+        assert "cudaMemsetAsync" not in open(os.path.join(build.CSRC, header)).read()
+    k1 = open(os.path.join(build.CSRC, "k1_aggregate.cuh")).read()
+    assert k1.count("cudaMemsetAsync") == 1
+    at = k1.index("cudaMemsetAsync")
+    assert "if (route == kAtomics)" in k1[at - 300:at]
+
+
+def _layout_shape(lay, dout):
+    return dict(n_chunks=lay.num_chunks, chunk=lay.chunk, row_block=lay.row_block, dout=dout)
+
+
+def test_k1_route_by_layout_at_the_model_shapes():
+    """K1's route is a function of the layout alone: the builders'
+    destination-sorted layouts (nc-AIFB's, dout 16; the pair path's layout
+    of slots grouped by pair, dout 10, at a small size; lp-FB-toy's, dout
+    500; lp-WN18's, 1,014 CTAs) take the fixed-order owned-row route, a
+    source-ordered one the chunk route; over 1,024 CTAs or more (AM scale)
+    scalar lanes (nc-AM's pair path at width 10) take the atomics route,
+    4-value lanes over one column group with 3 slots an output row or more
+    (e-RGCN nc-AM's diagonal, dout 32) the owned route with atomics on
+    split rows, and fewer slots a row or wider rows (the pair path's dT)
+    the fixed-order route; the scratch is two rows a
+    unit of the wider of the two lane maps, an (RB, dout) tile a chunk, or
+    a bf16 output's f32 sums; the counters one a (unit, column group)."""
+    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch.data.synthetic import aifb_like, fb_toy_like
+    from rgcn_tpu_torch.graph.structure import build_edge_set
+    from rgcn_tpu_torch.ops.aggregate import build_dst_layout
+
+    aifb = aifb_like()
+    es = build_edge_set(aifb.triples, aifb.num_nodes, aifb.num_relations, tile_size=128,
+                        with_dst_layout=True)
+    fb = fb_toy_like()
+    fes = build_edge_set(fb.train, fb.num_nodes, fb.num_relations, tile_size=128,
+                         with_dst_layout=True)
+    rng = np.random.default_rng(3)
+    triples = np.stack([rng.integers(0, 500, 4000), rng.integers(0, 6, 4000),
+                        rng.integers(0, 500, 4000)], axis=1)
+    pes = build_edge_set(triples, 500, 6, with_dst_layout=True, with_pair_index=True,
+                         with_pair_agg=True)
+    cases = [(es.layout, 16, es.num_nodes), (pes.pairs.agg.grad_layout, 10, 500),
+             (fes.layout, 500, fes.num_nodes)]
+    assert es.layout.num_chunks == 261 and es.layout.chunk == 256
+    for lay, dout, n in cases:
+        wide = dout % 4 == 0
+        assert lay.dst_sorted and kernels.k1_route(
+            True, lay.num_chunks, lay.chunk, dout, wide, n) == kernels.K1_FIXED
+        shape = _layout_shape(lay, dout)
+        units = kernels.k1_fixed_units(shape["n_chunks"], shape["chunk"], dout)
+        assert units >= lay.num_chunks
+        assert kernels.k1_scratch_floats(kernels.K1_FIXED, **shape) == units * 2 * dout
+    # nc-AIFB: a CTA a chunk on either lane map (span 256)
+    assert kernels.k1_fixed_units(261, 256, 16) == 261
+    # scalar lanes at dout 10 (16 lanes a row) and 4-value lanes (4) both span 256
+    assert kernels.k1_fixed_units(100, 256, 10) == 100
+    # 4-value lanes at dout 4 (1 lane) span 2,048 slots, scalar lanes (4) 512
+    assert kernels.k1_fixed_units(10, 2048, 4) == 40
+    # nc-AM at AM scale: 6,925 chunks of 256 (am_like()'s destination
+    # layout); width 10 takes scalar lanes, 16 lanes a row: a CTA a chunk
+    assert kernels.k1_route(True, 6925, 256, 10, False, 300_000) == kernels.K1_ATOMICS
+    assert kernels.k1_route(True, 1000, 256, 10, False, 300_000) == kernels.K1_FIXED
+    # e-RGCN nc-AM's diagonal: 5.9 slots a row; the same CTAs over more rows
+    assert kernels.k1_route(True, 6925, 256, 32, True, 300_000) == kernels.K1_OWNED
+    assert kernels.k1_route(True, 6925, 256, 32, True, 600_000) == kernels.K1_FIXED
+    assert kernels.k1_route(True, 1023, 256, 32, True, 30_000) == kernels.K1_FIXED
+    # wider than one column group (128): the pair path's dT at 400 and 440
+    assert kernels.k1_route(True, 6925, 256, 128, True, 300_000) == kernels.K1_OWNED
+    assert kernels.k1_route(True, 6925, 256, 400, True, 300_000) == kernels.K1_FIXED
+    assert kernels.k1_route(True, 6925, 256, 440, True, 300_000) == kernels.K1_FIXED
+    # lp-WN18's 1,014 chunks at any width stay under 1,024 CTAs
+    assert kernels.k1_route(True, 1014, 256, 200, True, 40_943) == kernels.K1_FIXED
+    assert kernels.k1_scratch_floats(kernels.K1_ATOMICS, 6925, 256, 128, 10, 300_000) == \
+        3_000_000
+    assert kernels.k1_scratch_floats(kernels.K1_OWNED, 6925, 256, 128, 32, 300_000) == \
+        9_600_000
+    # lp-FB-toy's dout 500: 4 column groups of 32 lanes x 4 values (scalar
+    # lanes: 16 of 32), the counters one a (unit, column group)
+    n_fb = fes.layout.num_chunks
+    assert kernels.k1_fixed_counters(n_fb, 256, 500) == n_fb * 16
+    assert kernels.k1_wide(16, 0x7f0000000010, 4) and not kernels.k1_wide(16, 0x7f0000000008, 4)
+    assert kernels.k1_wide(16, 0x7f0000000008, 2) and not kernels.k1_wide(10, 0x7f0000000000, 4)
+    by_src = build_dst_layout(es.dst, es.num_nodes, src=es.src)
+    assert not by_src.dst_sorted and kernels.k1_route(False) == kernels.K1_CHUNK
+    shape = _layout_shape(by_src, 16)
+    assert kernels.k1_scratch_floats(kernels.K1_CHUNK, **shape) == \
+        by_src.num_chunks * (by_src.row_block * 16 + by_src.row_block // 32)
+    assert kernels.chunk_scratch_floats(296, 512, 4) == 296 * (512 * 4 + 16)
+
+
+def test_chunk_sum_shared_memory():
+    """chunk_sum.cuh's shared memory (K2, K1's chunk route): a slice (the
+    power of two at least dout, 4 to 32 columns, at a pitch 4 floats wider
+    from 8 up) of every slot's message, a bit a slot for each row and a bit
+    a row of the block; the builders' fused geometry (RB 512, CH 512) fits
+    at any width, and a
+    geometry past an H100 CTA's 232,448 bytes is refused before a launch."""
+    from rgcn_tpu_torch import kernels
+
+    assert kernels.chunk_smem_bytes(512, 512, 4) == 4 * (512 * 4 + 16 * 512 + 16)
+    assert kernels.chunk_smem_bytes(512, 512, 10) == 4 * (512 * 20 + 16 * 512 + 16)
+    assert kernels.chunk_smem_bytes(512, 512, 500) == 4 * (512 * 36 + 16 * 512 + 16)
+    assert kernels.chunk_smem_bytes(48, 96, 16) == 4 * (48 * 20 + 2 * 96 + 3)
+    kernels._check_chunk_smem("K2", 512, 512, 500)
+    with pytest.raises(ValueError, match="past 232448"):
+        kernels._check_chunk_smem("K2", 4096, 2048, 16)
 
 
 def test_compare_gathers_needs_cuda(monkeypatch):
@@ -348,8 +492,9 @@ def test_compare_k1_k5_needs_cuda(monkeypatch):
                                   "k5_cta_passes", "k5_last_cta"])
 def test_compare_k1_k5_variant_signatures(name):
     """The variants' C launchers have the argument types compare_k1_k5
-    binds them with (K1's and K5's launchers' lists; k5_last_cta takes its
-    per-block counters before the stream)."""
+    binds them with (K1's launcher's list before its fixed-order redesign,
+    K5's launcher's list; k5_last_cta takes its per-block counters before
+    the stream)."""
     import ctypes
 
     from rgcn_tpu_torch import compare_k1_k5, kernels
@@ -361,8 +506,8 @@ def test_compare_k1_k5_variant_signatures(name):
     assert m, f"no extern C launcher {name} in {src}"
     want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in m.group(1).split(",")]
     assert argtypes == want
-    launcher = kernels._ARGTYPES["k5_weighted_aggregate_dedup" if name.startswith("k5")
-                                 else "k1_aggregate"]
+    launcher = kernels._ARGTYPES["k5_weighted_aggregate_dedup"] if name.startswith("k5") \
+        else [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     if name == "k5_last_cta":
         launcher = launcher[:-1] + [ctypes.c_void_p] + launcher[-1:]
     assert argtypes == launcher
@@ -495,6 +640,31 @@ def test_serve_nodes_cli_cpu(capsys):
         serve_nodes.main(["--config", cfg, "--cpu"])  # no dataset files in data/
     probs = np.array([float(line.split("p=")[1].rstrip(")")) for line in out[1:]])
     assert ((probs > 0) & (probs <= 1)).all()
+
+
+def test_trace_train_gate_same_bits_on_cpu():
+    """The gate's trace rehearsed on the CPU's plain versions: two runs from
+    one initialisation end with the same parameter and logit bits
+    (``same``), and the run under use_deterministic_algorithms reports its
+    warnings (none on the CPU's path), leaving the mode as it found it. On
+    the CPU the featureless layer's index backward (``index_put_`` with
+    accumulate) adds in parallel in no fixed order unless deterministic
+    algorithms are asked for, so the rehearsal asks for them; on the card
+    that backward sorts its indices and adds in a fixed order."""
+    import argparse
+
+    from rgcn_tpu_torch import trace_train_gate as tg
+
+    args = argparse.Namespace(config=tg.CONFIG, runs=2, poison_runs=0, epochs=1,
+                              race_repeats=0, out=None, same=True)
+    torch.use_deterministic_algorithms(True)
+    try:
+        summary = tg.trace(torch.device("cpu"), args)
+        assert torch.are_deterministic_algorithms_enabled()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert summary["device"] == "cpu" and summary["same"]
+    assert summary["distinct_params"] == 1 and summary["nondeterministic_ops"] == []
 
 
 def test_trace_smoke_phases_records_each_gate(monkeypatch):

@@ -54,8 +54,8 @@ merged and unmerged frames, d 32 and 7) against the CPU and the plain
 refusing an EdgeSet without its layout, three epochs of e-RGCN on a
 merged and an unmerged graph with exact launches, and the c-RGCN encoder's
 gradients over a training subgraph (K3 then K1 both ways, per layer).
-Tolerance: max abs diff <= 1e-5 * max(1, max|ref|) (f32 sums reordered by
-atomics). Every test above runs the layers with the edge stage pinned to
+Tolerance: max abs diff <= 1e-5 * max(1, max|ref|) (f32 sums in another
+order than the plain version's). Every test above runs the layers with the edge stage pinned to
 f32 (``_edge_compute_dtype`` patched to None by the ``cuda`` fixture), so
 each compares what it compared before the bf16 edge stage.
 
@@ -81,7 +81,14 @@ its route to ``weighted_runs.cuh``), on a layout with a destination over
 past the output, into NaN-filled memory, its pads' weights NaN, its
 split-run counters left zero, on chunks of 16 and 64; the route rule's
 kernel read from the profile, by width, alignment and chunk count; and its
-scratch and per-stream counters.
+scratch and per-stream counters. K1's and K2's fixed-order designs (K1 in
+both message forms and both outputs, K2 in both forms) over adversarial
+layouts (a destination over 3+ chunks, pad-only chunks and gap quanta, a
+whole row block past num_nodes, a source-ordered layout for K1, dout 4,
+10, 16 and 32) into NaN-filled memory, exactly one launch a call and the
+same bits on a second launch; their kernel names (one a call, no memset,
+no narrowing kernel); the route rule's kernels; and nc-AIFB-like training
+twice from one initialisation, bit-equal.
 """
 
 import copy
@@ -1386,7 +1393,7 @@ def _k4b_case(dev, lay, src, nb, din, per_basis, sum_bases, out, aligned=True):
         _close(got, ref)
     assert got.dtype == out_dtype
     # the split-run counters are left as they were found: zero
-    assert not int(kernels.k4_bf16_counters(dev, 1).count_nonzero().item())
+    assert not int(kernels.stream_counters(dev, 1).count_nonzero().item())
     return got
 
 
@@ -1500,12 +1507,12 @@ def test_k4_bf16_scratch_is_two_rows_a_unit(cuda_bf16):
     assert kernels.k4_bf16_scratch_floats(lay.num_chunks, lay.chunk, 400) == units * 2 * 400
     assert units * 2 < K4B_NODES
     _k4b_case(cuda_bf16, lay, src, 2, 200, False, False, "bf16")
-    first = kernels.k4_bf16_counters(cuda_bf16, units)
+    first = kernels.stream_counters(cuda_bf16, units)
     _k4b_case(cuda_bf16, lay, src, 2, 200, True, True, "f32")
-    assert kernels.k4_bf16_counters(cuda_bf16, units).data_ptr() == first.data_ptr()
+    assert kernels.stream_counters(cuda_bf16, units).data_ptr() == first.data_ptr()
     side = torch.cuda.Stream()
     with torch.cuda.stream(side):
-        other = kernels.k4_bf16_counters(cuda_bf16, units)
+        other = kernels.stream_counters(cuda_bf16, units)
         _k4b_case(cuda_bf16, lay, src, 2, 200, False, False, "f32")
     torch.cuda.synchronize()
     assert other.data_ptr() != first.data_ptr()
@@ -1766,15 +1773,17 @@ def test_k1_routes_adversarial(cuda_bf16, k1_routes, geometry, dout, msg, out):
 @pytest.mark.parametrize("msg", ["f32", "bf16"])
 def test_k1_source_ordered_layout(cuda_bf16, msg):
     """A layout in source order within its row blocks (dst_sorted False):
-    the launcher takes the atomics route, whatever the size, and sums
-    right."""
+    the launcher takes the chunk route (chunk_sum.cuh), whatever the size,
+    sums right, and gives the same bits twice."""
     for geometry in K1_GEOMETRIES[:3]:
         lay, n = _skew_layout(geometry, cuda_bf16, src_order=True)
         assert not lay.dst_sorted
         rng = np.random.default_rng(geometry[1])
         msgs = _t(rng, cuda_bf16, lay.num_edges, 32).to(BF16 if msg == "bf16" else torch.float32)
         ref = agg.aggregate_sorted_plain(msgs, lay, n)
-        _close(agg.aggregate_sorted(msgs, lay, n), ref)
+        got = agg.aggregate_sorted(msgs, lay, n)
+        _close(got, ref)
+        assert _same_bits(got, agg.aggregate_sorted(msgs, lay, n))
         if msg == "bf16":
             _close_bf16_out(agg.aggregate_sorted(msgs, lay, n, out_dtype=BF16), ref)
 
@@ -1790,28 +1799,47 @@ def _k1_kernel_names(call) -> set:
 
 @pytest.mark.parametrize("msg", ["f32", "bf16"])
 def test_k1_route_by_shape(cuda_bf16, msg):
-    """The launcher's rule: a large, dense, destination-sorted layout with
-    4-wide lanes takes the owned route (no memset), a small one, scalar
-    lanes or a sparse one the atomics route (a memset)."""
+    """The launcher's rule (kernels.k1_route): a destination-sorted layout,
+    small, or large and sparse, takes the fixed-order owned-row kernel
+    alone (k1_fixed_kernel: no memset, no narrowing kernel, one event a
+    call); over 1,024 CTAs or more, 4-value lanes (one column group) with
+    3 slots a row or more take the owned-row kernel with atomics on split rows
+    (k1_owned_kernel after zero_split_rows, and narrow_split_rows for a
+    bf16 output) and scalar lanes the atomics kernel after a memset (and a
+    narrowing kernel for a bf16 output); a source-ordered one
+    chunk_sum.cuh's kernel alone. Each against the plain sums."""
     mdt = BF16 if msg == "bf16" else torch.float32
     es, rng = _edges(40_000, 5, 150_000, 9, cuda_bf16)  # ~7.5 slots a row, >1024 CTAs
     lay = es.layout
     assert lay.num_chunks >= 1024 and lay.num_chunks * lay.chunk >= 3 * 40_000
-    cases = [(es, 32, True), (es, 10, False)]
+    cases = [(es, 32, "k1_owned_kernel"), (es, 10, "k1_aggregate_kernel")]
     small, _ = _edges(900, 5, 4000, 1, cuda_bf16)
-    cases.append((small, 32, False))
+    cases.append((small, 32, "k1_fixed_kernel"))
     # >1024 CTAs of CH 64, under 3 slots a row
     sparse, _ = _edges(80_000, 5, 40_000, 9, cuda_bf16, layout_chunk=64)
     assert sparse.layout.num_chunks >= 1024
-    cases.append((sparse, 32, False))
-    for edges, dout, owned in cases:
-        msgs = _t(rng, cuda_bf16, edges.layout.num_edges, dout).to(mdt)
-        n = edges.num_nodes
-        names = _k1_kernel_names(lambda: agg.aggregate_sorted(msgs, edges.layout, n))
-        assert any("k1_owned_kernel" in k for k in names) == owned, names
-        assert any("Memset" in k for k in names) == (not owned), names
-        _close(agg.aggregate_sorted(msgs, edges.layout, n),
-               agg.aggregate_sorted_plain(msgs, edges.layout, n))
+    cases.append((sparse, 32, "k1_fixed_kernel"))
+    by_src, n_src = _skew_layout(K1_GEOMETRIES[0], cuda_bf16, src_order=True)
+    for edges, dout, kernel in cases + [(None, 16, "chunk_kernel<k1::")]:
+        lay = by_src if edges is None else edges.layout
+        n = n_src if edges is None else edges.num_nodes
+        msgs = _t(rng, cuda_bf16, lay.num_edges, dout).to(mdt)
+        ref = agg.aggregate_sorted_plain(msgs, lay, n)
+        for out in (torch.float32, BF16):
+            call = lambda: agg.aggregate_sorted(msgs, lay, n, out_dtype=out)  # noqa: E731
+            names = _k1_kernel_names(call)
+            if kernel == "k1_aggregate_kernel":  # the atomics route
+                assert any(kernel in k for k in names) and any("Memset" in k for k in names)
+                assert len(names) == (3 if out == BF16 else 2), names
+            elif kernel == "k1_owned_kernel":  # owned rows, atomics on split rows
+                assert any(kernel in k for k in names), names
+                assert any("zero_split_rows" in k for k in names), names
+                assert any("narrow_split_rows" in k for k in names) == (out == BF16), names
+                assert len(names) == (3 if out == BF16 else 2), names
+            else:
+                assert len(names) == 1 and kernel in next(iter(names)), names
+            (_close_bf16_out if out == BF16 else _close)(call(), ref)
+        _close(agg.aggregate_sorted(msgs, lay, n), agg.aggregate_sorted_plain(msgs, lay, n))
 
 
 @pytest.mark.parametrize("out", ["f32", "bf16"])
@@ -1842,3 +1870,160 @@ def test_k5_many_chunk_block(cuda_bf16, kk, nb, din, out):
     else:
         _close(got, ref)
     assert (got[:, _untouched(dd, dd.local_k)] == 0).all()
+
+
+# -- K1's and K2's fixed-order designs: one launch, the same bits twice ---------
+
+def _same_bits(a, b):
+    """Equal bit for bit (NaN included)."""
+    bits = torch.int16 if a.dtype == BF16 else torch.int32
+    return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a.view(bits),
+                                                                          b.view(bits)))
+
+
+def _twice_into_nan(call, shape, dtype):
+    """``call()`` twice, each into memory that held NaN (nothing is zeroed
+    first); both results."""
+    out = []
+    for _ in range(2):
+        _nan_filled(*shape)
+        if dtype == BF16:  # a bf16 output takes half the bytes: NaN them too
+            _nan_filled(shape[0], -(-shape[1] // 2))
+        got = call()
+        torch.cuda.synchronize()
+        out.append(got)
+    return out
+
+
+# (row_block, chunk, pad-only chunks appended, node count, source order):
+# the hub destination spans a dozen chunks at CH 256 and ~190 at CH 16
+K1_FIXED_LAYOUTS = [(128, 256, 0, 1536, False), (64, 32, 2, 1531, False),
+                    (256, 16, 3, 1531, False), (32, 512, 0, 1536, False),
+                    (128, 256, 1, 1536, True), (64, 32, 0, 1531, True)]
+
+
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+@pytest.mark.parametrize("msg", ["f32", "bf16"])
+@pytest.mark.parametrize("dout", [4, 10, 16, 32])
+@pytest.mark.parametrize("layout", K1_FIXED_LAYOUTS,
+                         ids=lambda g: "rb{}-ch{}-pad{}-n{}-{}".format(
+                             *g[:4], "src" if g[4] else "dst"))
+def test_k1_fixed_order_adversarial(cuda_bf16, layout, dout, msg, out):
+    """K1 in both message forms and both outputs over the hub graph: a
+    destination over 3+ chunks (and CTAs), pad-only chunks, a node count
+    inside the last block and a call whose num_nodes leaves whole row
+    blocks past it, destination- and source-ordered layouts; through perm
+    and in slot order, into NaN-filled memory; against the plain sums,
+    exactly one launch a call, and the same bits on a second launch."""
+    *geometry, src_order = layout
+    lay, n = _skew_layout(tuple(geometry), cuda_bf16, src_order=src_order)
+    assert lay.dst_sorted != src_order
+    hub_chunks = int((lay.chunk_block == lay.chunk_block[0]).sum().item())
+    assert hub_chunks >= 3
+    rng = np.random.default_rng(dout + 13 * geometry[1])
+    mdt = BF16 if msg == "bf16" else torch.float32
+    odt = BF16 if out == "bf16" else torch.float32
+    name = "k1_aggregate" + ("_bf16" if msg == "bf16" else "")
+    for n_out in (n, n - lay.row_block - 5):  # the latter: a whole block past it
+        for index in (lay.perm, None):
+            rows = lay.num_edges if index is not None else lay.num_chunks * lay.chunk
+            msgs = _t(rng, cuda_bf16, rows, dout).to(mdt)
+            if index is None:
+                ref = agg.aggregate_presorted_plain(msgs, lay, n_out)
+                call = lambda: agg.aggregate_presorted(msgs, lay, n_out, odt)  # noqa: E731
+            else:
+                ref = agg.aggregate_sorted_plain(msgs, lay, n_out)
+                call = lambda: agg.aggregate_sorted(msgs, lay, n_out, out_dtype=odt)  # noqa: E731
+            before = dict(kernels.LAUNCHES)
+            a, b = _twice_into_nan(call, (n_out, dout), odt)
+            assert _launched(before) == {name: 2}
+            (_close_bf16_out if out == "bf16" else _close)(a, ref)
+            assert _same_bits(a, b)
+            assert (a[512:1024] == 0).all()  # the isolated nodes' rows
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16"])
+@pytest.mark.parametrize("din,dout", [(16, 4), (16, 16), (10, 10), (8, 32)])
+@pytest.mark.parametrize("graph", ["hub", "random"])
+def test_k2_fixed_order_adversarial(cuda, graph, din, dout, form):
+    """K2 in both forms over the hub graph (a destination over more than
+    four fused chunks, all-gap chunks, pad slots) and a random one, at a
+    node count inside the last row block and with a whole row block past
+    num_nodes, into NaN-filled memory: against the plain version rounding
+    at the same places, exactly one launch a call, the same bits on a
+    second launch."""
+    if graph == "hub":
+        n = 1536
+        es = build_edge_set(skew_triples(), n, 4, with_dst_layout=True).to(cuda)
+        rng = np.random.default_rng(din * dout)
+        fl = es.fused
+        assert int((fl.chunk_block == 0).sum().item()) > 4
+        assert bool((fl.quantum_rel.reshape(fl.num_chunks, -1) < 0).all(1).any())
+    else:
+        n = 1300
+        es, rng = _edges(n, 6, 6000, din + dout, cuda)
+        fl = es.fused
+    x = torch.relu(_t(rng, cuda, n, din))
+    w = _t(rng, cuda, es.num_rels, din, dout, scale=din ** -0.5)
+    cd = BF16 if form == "bf16" else None
+    name = "k2_fused" + ("_bf16" if form == "bf16" else "")
+    for n_out in (n, n - fl.row_block - 3):
+        call = lambda: fz.rel_spmm_fused(fl, n_out, x, w, compute_dtype=cd)  # noqa: E731
+        before = dict(kernels.LAUNCHES)
+        a, b = _twice_into_nan(call, (n_out, dout), torch.float32)
+        assert _launched(before) == {name: 2}
+        ref = fz.rel_spmm_fused_plain(fl, n_out, x, w, cd)
+        if form == "bf16":
+            _close_rounded_msgs(a, ref, fz.rel_spmm_fused_plain(fl, n_out, x.abs(), w.abs(),
+                                                                cd))
+        else:
+            _close(a, ref)
+        assert _same_bits(a, b)
+        if graph == "hub":
+            assert (a[512:1024] == 0).all()
+
+
+def test_k1_k2_one_kernel_a_call(cuda):
+    """K1 (both outputs) and K2 (both forms) at nc-AIFB-like sizes: the
+    profiler's kernel names of one call are one kernel each, no memset, no
+    narrowing launch."""
+    es, rng = _edges(8285, 45, 29_000, 3, cuda)
+    n = es.num_nodes
+    msgs = _t(rng, cuda, es.layout.num_edges, 16)
+    x, w = torch.relu(_t(rng, cuda, n, 16)), _t(rng, cuda, es.num_rels, 16, 4, scale=0.25)
+    xb, wb = x.to(BF16), w.to(BF16)
+    for call, kernel in (
+            (lambda: agg.aggregate_sorted(msgs, es.layout, n), "k1_fixed_kernel"),
+            (lambda: agg.aggregate_sorted(msgs, es.layout, n, out_dtype=BF16),
+             "k1_fixed_kernel"),
+            (lambda: fz.rel_spmm_fused(es.fused, n, x, w, compute_dtype=None),
+             "chunk_kernel<k2::"),
+            # bf16 operands given as bf16: no cast kernel beside K2's
+            (lambda: fz.rel_spmm_fused(es.fused, n, xb, wb), "chunk_kernel<k2::")):
+        names = _k1_kernel_names(call)
+        assert len(names) == 1 and kernel in next(iter(names)), names
+
+
+def test_nc_training_is_bit_reproducible(cuda):
+    """Two trainings of nc-AIFB-like data from one initialisation on the
+    card (K1 and K2 both ways, the dense layer's dW by relation in tile
+    order) end with the same parameter bits."""
+    from rgcn_tpu_torch.config import load_experiment
+    from rgcn_tpu_torch.data.synthetic import aifb_like
+    from rgcn_tpu_torch.models.node_classification import build_nc_model
+    from rgcn_tpu_torch.train.node_classification import NodeClassificationTrainer
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "configs", "rgcn",
+                        "nc-AIFB.yaml")
+    base = load_experiment(path)
+    cfg = dataclasses.replace(base, training=dataclasses.replace(base.training, epochs=4))
+    data = aifb_like()
+    init = build_nc_model(cfg, data, seed=0).state_dict()
+    states = []
+    for _ in range(2):
+        t = NodeClassificationTrainer(cfg, data, init_params=init, device=cuda)
+        t.fit()
+        states.append({k: v.detach().clone() for k, v in t.model.state_dict().items()})
+    for k, v in states[0].items():
+        assert _same_bits(v, states[1][k]), k
