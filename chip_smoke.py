@@ -307,14 +307,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    install ." installs it, into a fresh temporary directory, made
    read-only; a child process run from there, with neither the checkout
    nor JAX importable (it loads this script by path), builds every kernel
-   (the five and the bf16 forms of K1-K5; nvcc, in parallel) and both host libraries (g++) from scratch
+   (the five, the bf16 forms of K1-K5 and K2's and K3's bf16-weight forms;
+   nvcc, in parallel) and both host libraries (g++) from scratch
    into the per-user cache ($XDG_CACHE_HOME/rgcn_tpu_torch, a fresh
    directory; the copy must be left as it was), serves nc-AIFB (aifb_like(), exactly K1 1, K2 1) and
    lp-WN18 (wn18_like(), 2 bases, width 200, exactly K4 1) with counts
    zeroed just before each, and holds K1-K3 on the nc-AIFB server's edges
    and K4, K5 on the lp-WN18 server's (phase 3's and 6's shapes and
    tolerance), and the bf16 forms there (f32 outputs; K2's bf16-rounded
-   messages with phase 27's bound), against their plain versions; the
+   messages with phase 27's bound) and the bf16-weight forms (f32 x, W in
+   bf16), against their plain versions; the
    edge stage pinned to f32; then lp-WN18 served once more
    on the card's default edge stage (exactly K4's bf16 form once; phase 26
    holds its answers to the CPU's bf16 run); no library of the checkout's
@@ -415,7 +417,30 @@ Phases, in order; any failure exits non-zero and prints no result:
    exactly the launches of DTYPE_PATHS and within 8e-3 * max(1, max|ref|)
    of the port's CPU run (and a quarter of the f32 answer's distance from
    it); one dtype_options line and one dtype_modes line;
-28. summary: one JSON line of each path's launch counts (serving, and
+28. bf16 parameters (the layers' param_dtype, PARAM_PATHS): K2's
+   bf16-weight form at nc-AIFB's layer 2 (x f32, W (90, 16, 4) bf16) and
+   K3's at lp-FB-toy's block layer (x (280, 500) f32, W (224, 500, 500)
+   bf16, its tiled route's two TF32 passes), each against its plain
+   version's f32 sums (1e-5 * max(1, max|ref|)), timed beside its f32 form
+   on W widened beforehand (K2's form must give that form's bits), no
+   PyTorch call as yardstick (the row says why); nc-AIFB at full width
+   with its layers in bf16 from the seed-0 initialisation: the served
+   forward (exactly K1 and K2's bf16-weight form once) and one loss and
+   backward (K1 once, the form twice: layer 2's forward and dx) against
+   the CPU's with the same parameters and the edge stage pinned to bf16
+   (logits, loss and every gradient, bf16 for the parameters, within 8e-3
+   * max(1, max|ref|)), then PARAM_NC_STEPS Adam steps trained twice from
+   that initialisation, bit-equal; lp-WN18 (width 200, 2 bases) and
+   lp-FB-toy (width 500, 100 blocks) with their encoder layers and DistMult
+   in bf16: lp-WN18's encode (K4's bf16 form) and each one's epoch-1 loss
+   and backward (lp-WN18: K4's bf16 form and K1; lp-FB-toy: K3's
+   bf16-weight form and K1) against the CPU's (8e-3 * max|ref|); and
+   rel_spmm_featureless_basis at nc-AM layer 1's shapes (am_like(), 40
+   bases, width 10, summed by K1) under precision None, "highest" and
+   "high": None and "highest" bit-equal, "high" (3xTF32) within 1e-5 *
+   max(1, max|ref|), each timed with CUDA events; one param_dtype line and
+   one param_dtype_modes line;
+29. summary: one JSON line of each path's launch counts (serving, and
    training), the training steps' timing (nc-AIFB, nc-AM, lp-WN18,
    lp-FB-toy, the c-RGCN and e-RGCN configs), one of the extra nc modes
    (K1 at dout 4, K3 at nc-AIFB, K2 and K3 at the dx shape,
@@ -445,8 +470,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    and its time beside its f32 form's), and the dtype_options
    and dtype_modes lines of phase 27 (the rows "K2 bf16", "K3 bf16" and "K1
    bf16-out", each with its count on the phase-27 path that launches it;
-   K1's bf16 output counts as its message form's launch);
-29. last line: {"ok": true, "device": {...}}.
+   K1's bf16 output counts as its message form's launch), and the
+   param_dtype and param_dtype_modes lines of phase 28 (the rows "K2
+   bf16-W" and "K3 bf16-W", each with its count on the phase-28 path
+   that launches it: nc-AIFB's served forward, lp-FB-toy's step);
+30. last line: {"ok": true, "device": {...}}.
 
 Needs CUDA (exits 1 without it) and the repository around it.
 """
@@ -478,10 +506,13 @@ E_AM_CONFIG = os.path.join(ROOT, "configs", "e-rgcn", "nc-AM.yaml")
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, f32
 # CUDA-core FLOP/s (the kernels' f32 work, and the products of bf16 values
-# summed in f32 on CUDA cores) and bf16 tensor-core FLOP/s (K3's bf16 form)
+# summed in f32 on CUDA cores), bf16 tensor-core FLOP/s (K3's bf16 form)
+# and TF32 tensor-core FLOP/s (K3's tiled route: three passes of f32
+# operands, two of f32 x with a bf16 W, whose low part is zero)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_TC_FLOPS = 989e12
+PEAK_TF32_TC_FLOPS = 495e12
 
 TIMING_ITERS = 50
 
@@ -1450,7 +1481,7 @@ def phase_fb_kernels(dev, edges):
         library="torch.bmm over x[src] tiles and W[tile_rel] gathered "
                 "beforehand (TF32 off, gathers not timed)",
         real_rows=real, tiles=edges.num_tiles,
-        _bound=bound_ms(k3_bytes, real * (2 * din * dout + dout)),
+        _bound=bound_ms(k3_bytes, real * (2 * din * dout + dout), PEAK_TF32_TC_FLOPS / 3),
     )
 
     # K1 at dout 500: the encode's aggregation of K3's messages
@@ -2137,10 +2168,12 @@ def lp_train_against_cpu(key, path, data, dev, epochs, expect=None, rank_band=Fa
     return counts, checks, card, peak
 
 
-def mode_row(name, label, call, plain, library, k_bytes, flops, ref=None, **meta):
+def mode_row(name, label, call, plain, library, k_bytes, flops, ref=None,
+             peak_flops=PEAK_F32_FLOPS, **meta):
     """Hold ``call()`` against ``plain()`` (or ``ref()``, the plain version
     on the same inputs in f64, where given) and time ``call``, ``plain``
-    and the yardstick ``library`` as in phase 3; one kernel_check row."""
+    and the yardstick ``library`` as in phase 3, the bound's operations at
+    ``peak_flops``; one kernel_check row."""
     source = {"K1": ("k1_aggregate.cu", "rgcn_tpu/ops/pallas_aggregate.py:203"),
               "K3": ("k3_messages.cu", "rgcn_tpu/ops/pallas_spmm.py:70"),
               "K4": ("k4_weighted_aggregate.cu", "rgcn_tpu/ops/pallas_basis.py:53")}[name]
@@ -2148,7 +2181,7 @@ def mode_row(name, label, call, plain, library, k_bytes, flops, ref=None, **meta
     ms, call_ms = timed(call)
     plain_ms, plain_call = timed(plain)
     lib_ms, lib_call = timed(library)
-    bound, by = bound_ms(k_bytes, flops)
+    bound, by = bound_ms(k_bytes, flops, peak_flops)
     row = dict(name=name, mode=label, route="cuda",
                source=f"rgcn_tpu_torch/kernels/csrc/{source[0]}", replaces=source[1],
                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -2275,6 +2308,7 @@ def lp_fb_modes(dev, trainer, counts):
         lambda: rs.rel_spmm_messages_plain(rev, g, wt),
         lambda: torch.bmm(xg, wg),
         k3_needed_bytes(rev, g, wt), real * (2 * din * dout + dout),
+        peak_flops=PEAK_TF32_TC_FLOPS / 3,
         launches=counts["k3_messages"], mode_launches=LP_TRAIN_EPOCHS, **meta)
     del xg, wg
     msgs = rs.rel_spmm_messages(rev, g, wt)
@@ -4184,6 +4218,15 @@ def installed_serve(dev, site) -> dict:
         "installed K3 bf16 rel_spmm_messages",
         rs.rel_spmm_messages(edges, xb16, wb16, out_dtype=torch.float32),
         rs.rel_spmm_messages_plain(edges, xb16, wb16, torch.float32))
+    # the bf16-weight forms (f32 x, bf16 W): f32 sums, the f32 bound
+    errs["K2 bf16-W"] = check_close(
+        "installed K2 bf16-W rel_spmm_fused",
+        fz.rel_spmm_fused(edges.fused, n, x, wb16, compute_dtype=None),
+        fz.rel_spmm_fused_plain(edges.fused, n, x, wb16))
+    errs["K3 bf16-W"] = check_close(
+        "installed K3 bf16-W rel_spmm_messages",
+        rs.rel_spmm_messages(edges, x, wb16, out_dtype=torch.float32),
+        rs.rel_spmm_messages_plain(edges, x, wb16, torch.float32))
 
     wn18 = wn18_like()
     lp, lp_answers, lp_counts = serve(
@@ -4340,7 +4383,8 @@ def phase_installed(dev, checkout):
              "K4": "k4_weighted_aggregate", "K5": "k5_weighted_aggregate_dedup",
              "K1 bf16": "k1_aggregate_bf16", "K2 bf16": "k2_fused_bf16",
              "K3 bf16": "k3_messages_bf16", "K4 bf16": "k4_weighted_aggregate_bf16",
-             "K5 bf16": "k5_weighted_aggregate_dedup_bf16"}
+             "K5 bf16": "k5_weighted_aggregate_dedup_bf16",
+             "K2 bf16-W": "k2_fused_wbf16", "K3 bf16-W": "k3_messages_wbf16"}
     summary = {
         "card": card_line(), "seconds": seconds, "build_py_s": build_py_s,
         "build_s": got["build_s"],
@@ -4854,6 +4898,8 @@ BF16_SOURCES = {
     "K4 bf16": ("k4_weighted_aggregate_bf16.cu", "rgcn_tpu/ops/pallas_basis.py:53"),
     "K4 bf16 owned": ("k4_owned_bf16.cuh", "rgcn_tpu/ops/pallas_basis.py:53"),
     "K5 bf16": ("k5_weighted_aggregate_dedup_bf16.cu", "rgcn_tpu/ops/pallas_basis.py:188"),
+    "K2 bf16-W": ("k2_fused_wbf16.cu", "rgcn_tpu/ops/pallas_fused.py:339"),
+    "K3 bf16-W": ("k3_messages_wbf16.cu", "rgcn_tpu/ops/pallas_spmm.py:53"),
 }
 
 
@@ -5568,7 +5614,7 @@ def phase_dtype_options(dev, fb_edges):
         lambda: rs.rel_spmm_messages(fe, x3, w3),
         k3_bytes, real3 * (2 * din * dout + dout),
         (None, "none: torch.bmm writes its operands' dtype; f32 sums rounded once "
-               "to bf16 are no one call")))
+               "to bf16 are no one call"), peak_flops=PEAK_TF32_TC_FLOPS / 3))
 
     # K1 with a bf16 output over the nc-AIFB layout
     real_slots = int((lay.local_dst < lay.row_block).sum().item())
@@ -5612,6 +5658,327 @@ def phase_dtype_options(dev, fb_edges):
     seconds = time.perf_counter() - t0
     log(f"phase 27 (kernel dtype options): {seconds:.1f} s ({card_line()})")
     summary = {"card": card_line(), "seconds": seconds, "cpu_gaps": gaps,
+               "kernels": [{k: r[k] for k in ("mode", "max_abs_err", "ms", "f32_form_ms",
+                                              "plain_ms", "library_ms", "bound_ms")}
+                           for r in rows]}
+    return summary, rows, paths
+
+
+# phase 28: bf16 parameters (the layers' param_dtype). The paths' exact
+# launches, counts zeroed before each: nc-AIFB's served forward (layer 1's
+# messages through K1, layer 2 through K2's bf16-weight form) and one loss
+# and backward (K2's bf16-weight form again for layer 2's dx)
+PARAM_PATHS = {
+    "nc_aifb_serve": dict(k1_aggregate=1, k2_fused_wbf16=1),
+    "nc_aifb_step": dict(k1_aggregate=1, k2_fused_wbf16=2),
+}
+PARAM_NC_STEPS = 5  # Adam steps of nc-AIFB in bf16, trained twice
+# the kernels each LP path must launch (its other counts are logged)
+PARAM_LP_NEEDS = {
+    "lp_wn18_encode": ("k4_weighted_aggregate_bf16",),
+    "lp_wn18_step": ("k4_weighted_aggregate_bf16", "k1_aggregate"),
+    "lp_fb_toy_step": ("k3_messages_wbf16", "k1_aggregate"),
+}
+PARAM_AM_ITERS = 10  # CUDA-event timing of the AM-scale contraction
+
+
+def bf16_params(model):
+    """``model`` with every RGCNConv, DistMult and TorchLinear in bf16 (the
+    layers' param_dtype; an LP model's node embeddings stay f32, as the
+    JAX layers' param_dtype leaves the model's own parameters)."""
+    from rgcn_tpu_torch.nn.layers import DistMult, RGCNConv, TorchLinear
+
+    for m in model.modules():
+        if isinstance(m, (RGCNConv, DistMult, TorchLinear)):
+            m.to(torch.bfloat16)
+    return model
+
+
+def counted(label, fn, expect=None, needs=()):
+    """Zero the counts, run ``fn`` on the card, read the counts: exactly
+    ``expect``, or each of ``needs`` at least once. Returns (fn's result,
+    the counts)."""
+    from rgcn_tpu_torch import kernels
+
+    kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    log(f"  [{label}] launches {({k: v for k, v in counts.items() if v})}")
+    if expect is not None and counts != launches(**expect):
+        fail(f"param dtype [{label}]: launches {counts}, expected {launches(**expect)}")
+    missing = [k for k in needs if counts[k] < 1]
+    if missing:
+        fail(f"param dtype [{label}]: {missing} never launched ({counts})")
+    return out, counts
+
+
+def grads_close(label, card, cpu, floor=1.0) -> float:
+    """Every gradient of ``card``'s model (bf16 for the bf16 parameters)
+    within 8e-3 * max(floor, max|ref|) of ``cpu``'s, in the same dtype."""
+    ref = dict(cpu.model.named_parameters())
+    worst = 0.0
+    for name, p in card.model.named_parameters():
+        if p.grad.dtype != ref[name].grad.dtype or p.grad.dtype != p.dtype:
+            fail(f"[{label}] grad {name}: {p.grad.dtype}, CPU {ref[name].grad.dtype}, "
+                 f"parameter {p.dtype}")
+        worst = max(worst, bf16_close(f"[{label}] grad {name}", p.grad, ref[name].grad,
+                                      floor=floor))
+    return worst
+
+
+def param_dtype_kernels(dev, aifb_es, fb_edges):
+    """K2's bf16-weight form at nc-AIFB's layer 2 (x (N, 16) f32, W (90,
+    16, 4) bf16) and K3's at lp-FB-toy's block layer (x (280, 500) f32, W
+    (224, 500, 500) bf16), each against its plain version's f32 sums
+    (1e-5 * max(1, max|ref|)) and timed beside its f32 form on W widened
+    beforehand (bf16_kernel_row); K2's form must give that f32 form's bits.
+    Returns the two rows."""
+    from rgcn_tpu_torch.ops import fused as fz
+    from rgcn_tpu_torch.ops import rel_spmm as rs
+
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(28)
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).to(dev)
+
+    fl, n, hidden, classes = aifb_es.fused, aifb_es.num_nodes, 16, 4
+    x = torch.relu(rand(n, hidden))
+    wb = rand(aifb_es.num_rels, hidden, classes, scale=0.3).to(bf16)
+    if not rs.fused_fits(wb, fl.row_block):
+        fail("K2 bf16-W: nc-AIFB's bf16 weights do not fit the shared-memory budget")
+    got = fz.rel_spmm_fused(fl, n, x, wb, compute_dtype=None)
+    same = same_bits(got, fz.rel_spmm_fused(fl, n, x, wb.float(), compute_dtype=None))
+    log(f"  K2 bf16-W: the f32 form's bits on W widened: {same}")
+    if not same:
+        fail("K2 bf16-W differs from the f32 form on the widened weights")
+    keep = (fl.local_dst.reshape(-1) < fl.row_block) \
+        & (fl.quantum_rel.repeat_interleave(fl.quantum) >= 0)
+    real = int(keep.sum().item())
+    x_rows = int(torch.unique(fl.src[keep]).numel())
+    w_rels = int(torch.unique(fl.quantum_rel[fl.quantum_rel >= 0]).numel())
+    k2_bytes = real * 12 + x_rows * hidden * 4 + w_rels * hidden * classes * 2 \
+        + nbytes(fl.quantum_rel, fl.chunk_block) + n * classes * 4
+    rows = [bf16_kernel_row(
+        "K2 bf16-W", "K2 bf16-W nc-AIFB layer 2 (x f32, W (90, 16, 4) bf16)",
+        lambda: fz.rel_spmm_fused(fl, n, x, wb, compute_dtype=None),
+        lambda: fz.rel_spmm_fused_plain(fl, n, x, wb),
+        lambda: fz.rel_spmm_fused(fl, n, x, wb.float(), compute_dtype=None),
+        k2_bytes, real * (2 * hidden * classes + classes),
+        (None, "none: no one PyTorch call computes the fused relation-quantum SpMM, "
+               "and torch.bmm takes operands of one dtype"))]
+    rows[-1]["bit_equal_to_f32_form"] = same
+
+    fe = fb_edges
+    din = dout = 500
+    x3 = torch.relu(rand(fe.num_nodes, din))
+    w3b = rand(fe.num_rels, din, dout, scale=din ** -0.5).to(bf16)
+    live = fe.val != 0
+    real3 = int(live.sum().item())
+    live_tiles = live.reshape(fe.num_tiles, -1).any(1)
+    n_rels = int(torch.unique(fe.tile_rel[live_tiles]).numel())
+    n_rows = int(torch.unique(fe.src[live]).numel())
+    k3_bytes = n_rels * din * dout * 2 + n_rows * din * 4 \
+        + nbytes(fe.src, fe.val, fe.tile_rel) + fe.src.shape[0] * dout * 4
+    w3 = w3b.float()
+    rows.append(bf16_kernel_row(
+        "K3 bf16-W", "K3 bf16-W lp-FB-toy (x f32, W (224, 500, 500) bf16: two TF32 passes)",
+        lambda: rs.rel_spmm_messages(fe, x3, w3b, out_dtype=torch.float32),
+        lambda: rs.rel_spmm_messages_plain(fe, x3, w3b, torch.float32),
+        lambda: rs.rel_spmm_messages(fe, x3, w3),
+        k3_bytes, real3 * (2 * din * dout + dout),
+        (None, "none: torch.bmm takes operands of one dtype; f32 x with bf16 "
+               "weights needs a cast before it"), peak_flops=PEAK_TF32_TC_FLOPS / 2))
+    return rows
+
+
+def param_dtype_nc(dev, data):
+    """nc-AIFB (configs/rgcn/nc-AIFB.yaml, aifb_like()) with its layers in
+    bf16 from the seed-0 initialisation: a served forward and one loss and
+    backward (PARAM_PATHS) against the CPU with the same parameters (edge
+    stage pinned to bf16), then PARAM_NC_STEPS Adam steps trained twice,
+    each from that initialisation, ending with the same bits."""
+    from rgcn_tpu_torch.config import load_experiment
+    from rgcn_tpu_torch.models.node_classification import build_nc_model
+    from rgcn_tpu_torch.serve import NodeClassificationServer
+    from rgcn_tpu_torch.train.node_classification import NodeClassificationTrainer
+
+    cfg = load_experiment(CONFIG)
+    init = build_nc_model(cfg, data, seed=0).state_dict()
+
+    def trainer(device):
+        t = NodeClassificationTrainer(cfg, data, init_params=init, device=device)
+        bf16_params(t.model)
+        return t
+
+    card, cpu = trainer(dev), trainer("cpu")
+    srv, serve = counted("nc_aifb_serve", lambda: NodeClassificationServer(card.model, card.edges),
+                         PARAM_PATHS["nc_aifb_serve"])
+    with edge_stage(torch.bfloat16), torch.no_grad():
+        ref = cpu.model(cpu.edges)
+    out = {"logits_max_abs_diff": bf16_close("nc_aifb served logits", srv.logits, ref)}
+
+    def loss_backward(t):
+        t.optimizer.zero_grad(set_to_none=True)
+        loss = t.loss()
+        loss.backward()
+        return loss.item()
+
+    loss, step = counted("nc_aifb_step", lambda: loss_backward(card), PARAM_PATHS["nc_aifb_step"])
+    with edge_stage(torch.bfloat16):
+        cpu_loss = loss_backward(cpu)
+    log(f"  [nc_aifb] loss card {loss:.7f}, CPU {cpu_loss:.7f}")
+    if not abs(loss - cpu_loss) <= BF16_TOL * max(1.0, abs(cpu_loss)):
+        fail(f"param dtype nc_aifb: loss {loss} against the CPU's {cpu_loss}")
+    out["grad_max_abs_diff"] = grads_close("nc_aifb", card, cpu)
+    del cpu
+
+    runs = []
+    for _ in range(2):
+        t = trainer(dev)
+        (losses, logits), counts = counted(
+            "nc_aifb_train", lambda t=t: ([t.step() for _ in range(PARAM_NC_STEPS)], t.logits()),
+            needs=("k1_aggregate", "k2_fused_wbf16"))
+        runs.append((losses, logits, {k: v.detach().clone() for k, v in t.model.state_dict().items()},
+                     counts))
+    (l0, z0, s0, c0), (l1, z1, s1, c1) = runs
+    same = l0 == l1 and c0 == c1 and same_bits(z0, z1) and all(
+        same_bits(v, s1[k]) for k, v in s0.items())
+    log(f"  [nc_aifb] {PARAM_NC_STEPS} Adam steps twice: losses {l0}, bit-equal {same}")
+    if not same or not np.isfinite(l0).all():
+        fail(f"param dtype nc_aifb: two trainings differ ({l0} / {l1}, {c0} / {c1})")
+    if any(v.dtype != torch.bfloat16 for v in s0.values()):
+        fail("param dtype nc_aifb: a parameter left bf16 in training")
+    out.update(losses=l0, bit_equal=same)
+    return out, {"nc_aifb_serve": serve, "nc_aifb_step": step, "nc_aifb_train": c0}
+
+
+def param_dtype_lp(dev, key, config, data):
+    """``config`` (lp-WN18 or lp-FB-toy) with its encoder layers and
+    DistMult in bf16 from the seed-0 initialisation, epoch 1's batch: one
+    encode of the evaluation graph (lp-WN18) and one loss and backward
+    against the CPU with the same parameters (edge stage pinned to bf16):
+    z and every gradient within 8e-3 * max|ref| (floor 0, as phase 26's LP
+    steps), the loss within 8e-3 * max(1, |ref|)."""
+    from rgcn_tpu_torch.config import load_experiment
+    from rgcn_tpu_torch.train.link_prediction import LinkPredictionTrainer
+
+    quiet = records_logger()
+    cfg = load_experiment(config)
+    card = LinkPredictionTrainer(cfg, data, device=dev, logger=quiet)
+    bf16_params(card.model)
+    state = {k: v.detach().cpu() for k, v in card.model.state_dict().items()}
+    cpu = LinkPredictionTrainer(cfg, data, init_state=state, device="cpu", logger=quiet)
+    bf16_params(cpu.model)
+    out, paths = {}, {}
+    if key == "lp_wn18":
+        with torch.no_grad():
+            z, paths["lp_wn18_encode"] = counted(
+                "lp_wn18_encode", lambda: card.model.encode(card.eval_edges),
+                needs=PARAM_LP_NEEDS["lp_wn18_encode"])
+            with edge_stage(torch.bfloat16):
+                ref = cpu.model.encode(cpu.eval_edges)
+        out["z_max_abs_diff"] = bf16_close("lp_wn18 encode z", z, ref, floor=0.0)
+    for t in (card, cpu):
+        t.set_epoch(1)
+
+    def loss_backward(t):
+        t.optimizer.zero_grad(set_to_none=True)
+        loss = t.loss()
+        loss.backward()
+        return loss.item()
+
+    loss, paths[f"{key}_step"] = counted(f"{key}_step", lambda: loss_backward(card),
+                                         needs=PARAM_LP_NEEDS[f"{key}_step"])
+    with edge_stage(torch.bfloat16):
+        cpu_loss = loss_backward(cpu)
+    log(f"  [{key}] loss card {loss:.7f}, CPU {cpu_loss:.7f}")
+    if not abs(loss - cpu_loss) <= BF16_TOL * max(1.0, abs(cpu_loss)):
+        fail(f"param dtype {key}: loss {loss} against the CPU's {cpu_loss}")
+    out.update(loss=loss, cpu_loss=cpu_loss, grad_max_abs_diff=grads_close(key, card, cpu, 0.0))
+    return out, paths
+
+
+def param_dtype_precision(dev, am_data):
+    """rel_spmm_featureless_basis at nc-AM layer 1's shapes (am_like(): the
+    served EdgeSet, 40 bases, width 10) under precision None, "highest" and
+    "high": its per-edge messages (the products ``precision`` sets, before
+    K1's sum, which takes the atomics route at this width and adds in no
+    fixed order) under None and "highest" bit-equal (one full-f32 path),
+    under "high" (3xTF32) within 1e-5 * max(1, max|ref|) of "highest"; the
+    op with K1's sum timed under each with CUDA events (PARAM_AM_ITERS
+    calls)."""
+    from rgcn_tpu_torch.graph.structure import build_edge_set
+    from rgcn_tpu_torch.nn import layers
+    from rgcn_tpu_torch.ops import spmm
+
+    es = build_edge_set(am_data.triples, am_data.num_nodes, am_data.num_relations,
+                        tile_size=128, with_dst_layout=True).to(dev)
+    rng = np.random.default_rng(128)
+    nb, hidden = 40, 10
+    bases = torch.from_numpy(rng.standard_normal((nb, es.num_nodes, hidden)).astype(
+        np.float32) * 0.01).to(dev)
+    comps = torch.from_numpy(rng.standard_normal((es.num_rels, nb)).astype(np.float32)).to(dev)
+
+    def call(p, aggregate=layers._aggregate_k1):
+        return spmm.rel_spmm_featureless_basis(es, bases, comps, precision=p,
+                                               aggregate=aggregate)
+
+    out = {}
+    with torch.no_grad():
+        got = {p: call(p, lambda msgs, edges: msgs) for p in (None, "highest", "high")}
+        torch.cuda.synchronize()
+        same = same_bits(got[None], got["highest"])
+        log(f"  AM layer 1 (E_pad {es.src.shape[0]}, nb {nb}, dout {hidden}): messages "
+            f"under None and 'highest' bit-equal {same}")
+        if not same:
+            fail("precision None and 'highest' differ at nc-AM layer 1")
+        out["high_max_abs_err"] = check_close(
+            "AM layer 1 messages, precision 'high' against 'highest'", got["high"],
+            got["highest"])
+        del got
+        for p in (None, "highest", "high"):
+            out[f"{p}_ms"] = cuda_ms(lambda p=p: call(p), iters=PARAM_AM_ITERS, warmup=2)
+    log(f"  AM layer 1 ms (CUDA events, {card_line()}): None {out['None_ms']:.3f}, "
+        f"highest {out['highest_ms']:.3f}, high {out['high_ms']:.3f}")
+    out["bit_equal_none_highest"] = same
+    return out
+
+
+def phase_param_dtype(dev, fb_edges, wn18, fb, am_data):
+    """Phase 28: bf16 parameters. The two bf16-weight forms' kernel rows,
+    nc-AIFB (served, a step against the CPU, trained twice), lp-WN18 and
+    lp-FB-toy (a step against the CPU; lp-WN18's encode too) and the XLA
+    ops' precision at nc-AM layer 1. Returns (the summary, the two rows,
+    each path's launches)."""
+    from rgcn_tpu_torch.data.synthetic import aifb_like
+    from rgcn_tpu_torch.graph.structure import build_edge_set
+
+    t0 = time.perf_counter()
+    log("phase 28 (bf16 parameters):")
+    aifb = aifb_like()
+    aifb_es = build_edge_set(aifb.triples, aifb.num_nodes, aifb.num_relations,
+                             tile_size=128, with_dst_layout=True).to(dev)
+    rows = param_dtype_kernels(dev, aifb_es, fb_edges)
+    del aifb_es
+    log(f"  the two forms: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    nc, paths = param_dtype_nc(dev, aifb)
+    log(f"  [nc_aifb] {time.perf_counter() - t1:.1f} s")
+    lp = {}
+    for key, config, data in (("lp_wn18", LP_CONFIG, wn18), ("lp_fb_toy", FB_CONFIG, fb)):
+        t1 = time.perf_counter()
+        lp[key], p = param_dtype_lp(dev, key, config, data)
+        paths.update(p)
+        log(f"  [{key}] {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    precision = param_dtype_precision(dev, am_data)
+    log(f"  precision at AM layer 1: {time.perf_counter() - t1:.1f} s")
+    seconds = time.perf_counter() - t0
+    log(f"phase 28 (bf16 parameters): {seconds:.1f} s ({card_line()})")
+    summary = {"card": card_line(), "seconds": seconds, "nc_aifb": nc, **lp,
+               "precision_am_layer1": precision,
                "kernels": [{k: r[k] for k in ("mode", "max_abs_err", "ms", "f32_form_ms",
                                               "plain_ms", "library_ms", "bound_ms")}
                            for r in rows]}
@@ -5745,6 +6112,7 @@ def main():
     precision, bf16_rows, precision_counts = phase_precision(dev, lp, lp_edges, dedup,
                                                              am_data, installed_bf16)
     dtype_options, dtype_rows, dtype_counts = phase_dtype_options(dev, fb_edges)
+    param_dtype, param_rows, param_counts = phase_param_dtype(dev, fb_edges, lp, fb, am_data)
 
     # each kernel's count on the path that serves through it
     key = {"K1": ("k1_aggregate", "main"), "K2": ("k2_fused", "main"),
@@ -5814,6 +6182,24 @@ def main():
             "call_ms": r["call_ms"], "plain_call_ms": r["plain_call_ms"],
             "library_call_ms": r["library_call_ms"],
         })
+    # the bf16-weight forms (phase 28): each on the phase-28 path that
+    # launches it
+    param_key = {"K2 bf16-W": ("k2_fused_wbf16", "nc_aifb_serve"),
+                 "K3 bf16-W": ("k3_messages_wbf16", "lp_fb_toy_step")}
+    for form, (kname, path) in param_key.items():
+        r = next(r for r in param_rows if r["name"] == form)
+        out.append({
+            "name": form, "route": r["route"], "source": r["source"],
+            "replaces": r["replaces"], "status": "ported", "mode": r["mode"],
+            "path": path, "launches": param_counts[path][kname],
+            "param_dtype_launches": {pp: c[kname] for pp, c in param_counts.items()},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "f32_form_ms": r["f32_form_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "library_note": r["library_note"],
+            "call_ms": r["call_ms"], "plain_call_ms": r["plain_call_ms"],
+            "library_call_ms": r["library_call_ms"],
+        })
     print(json.dumps({"serve_launches": paths}), flush=True)
     print(json.dumps({"serve_timing_ms": timing}), flush=True)
     print(json.dumps({"train_launches": train_paths}), flush=True)
@@ -5835,6 +6221,8 @@ def main():
     print(json.dumps({"bf16_modes": bf16_rows}), flush=True)
     print(json.dumps({"dtype_options": dtype_options}), flush=True)
     print(json.dumps({"dtype_modes": dtype_rows}), flush=True)
+    print(json.dumps({"param_dtype": param_dtype}), flush=True)
+    print(json.dumps({"param_dtype_modes": param_rows}), flush=True)
     log(f"command time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,11 +21,14 @@ and K3 f32 or bf16 ``x`` and ``W`` (the JAX kernels' ``compute_dtype``): a
 bf16 one launches the kernel's bf16 form, an entry point and library of
 its own with its own count (``k1_aggregate_bf16``, ``k2_fused_bf16``,
 ``k3_messages_bf16``, ``k4_weighted_aggregate_bf16``,
-``k5_weighted_aggregate_dedup_bf16``), which sums in f32. K1 writes f32
-or, with ``out_dtype=torch.bfloat16``, bf16 from either message dtype; K4
-and K5 a bf16 output from bf16 tables; K3 messages of ``out_dtype`` (f32
-or bf16; the bf16 form also takes f32 operands with bf16 messages). Any
-other dtype raises: nothing is converted to reach a kernel.
+``k5_weighted_aggregate_dedup_bf16``), which sums in f32. K2 and K3 also
+take f32 ``x`` with a bf16 ``W`` (the layers' ``param_dtype=bfloat16``)
+in their bf16-weight forms (``k2_fused_wbf16``, ``k3_messages_wbf16``:
+the weights widened exactly, f32 products and sums). K1 writes f32 or,
+with ``out_dtype=torch.bfloat16``, bf16 from either message dtype; K4 and
+K5 a bf16 output from bf16 tables; K3 messages of ``out_dtype`` (f32 or
+bf16; the bf16 form also takes f32 operands with bf16 messages). Any
+other dtype or mix raises: nothing is converted to reach a kernel.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ __all__ = [
     "reset_launches",
     "refuse_grad",
     "table_form",
+    "pair_form",
     "stream_counters",
     "k1_route",
     "k1_wide",
@@ -83,6 +87,10 @@ _ARGTYPES = {
 # chunk_block, out, scratch, counters, ..., out_bf16, route, span, stream)
 _ARGTYPES.update({name + "_bf16": _ARGTYPES[name] for name in (
     "k1_aggregate", "k2_fused", "k5_weighted_aggregate_dedup")})
+# the bf16-weight forms: K2's takes its f32 form's arguments, K3's (...,
+# din, dout, out_bf16, stream)
+_ARGTYPES["k2_fused_wbf16"] = _ARGTYPES["k2_fused"]
+_ARGTYPES["k3_messages_wbf16"] = [_P] * 6 + [_I] * 5 + [_P]
 _ARGTYPES["k4_weighted_aggregate_bf16"] = [_P] * 8 + [_I] * 12 + [_P]
 # the table and message dtypes of K1, K4 and K5, and the output dtypes a
 # table dtype allows
@@ -353,14 +361,18 @@ def table_form(t: torch.Tensor, what: str, out_dtype=torch.float32,
     return "" if t.dtype == torch.float32 else "_bf16"
 
 
-def _pair_form(x: torch.Tensor, weights: torch.Tensor) -> str:
+def pair_form(x: torch.Tensor, weights: torch.Tensor) -> str:
     """K2's and K3's operand form: ``x`` and ``W`` of one dtype, f32 ("")
-    or bf16 ("_bf16")."""
+    or bf16 ("_bf16"), or f32 ``x`` with a bf16 ``W`` ("_wbf16", bf16
+    parameters, which JAX's kernels promote); any other mix raises. Their
+    plain versions hold the same rule."""
     form = table_form(x, "x")
-    if weights.dtype != x.dtype:
-        raise TypeError(f"weights: dtype {weights.dtype}, x is {x.dtype}: "
-                        "the kernel takes operands of one dtype")
-    return form
+    if weights.dtype == x.dtype:
+        return form
+    if x.dtype == torch.float32 and weights.dtype == torch.bfloat16:
+        return "_wbf16"
+    raise TypeError(f"weights: dtype {weights.dtype}, x is {x.dtype}: the kernel "
+                    "takes operands of one dtype, or f32 x with a bf16 W")
 
 
 def _check_blocks(num_nodes: int, row_block: int, num_row_blocks: int) -> None:
@@ -471,7 +483,9 @@ def launch_k2_fused(
     chunk and a block's chunks be adjacent, as both fused builders lay them
     out). ``x`` and ``weights`` f32, or both bf16 (the bf16 form,
     ``k2_fused_bf16``: f32 sums, each message rounded to bf16, f32
-    destination sums). Returns ``(num_nodes, dout)`` f32; rows past
+    destination sums), or f32 ``x`` with a bf16 ``weights`` (the
+    bf16-weight form, ``k2_fused_wbf16``: each weight widened exactly,
+    f32 messages and sums). Returns ``(num_nodes, dout)`` f32; rows past
     ``num_nodes`` are dropped."""
     dev = x.device
     _check(local_dst, "local_dst", torch.int32, None)
@@ -483,9 +497,9 @@ def launch_k2_fused(
     if quantum < 1 or chunk % quantum:
         raise ValueError(f"quantum {quantum} does not divide the chunk {chunk}")
     n_quanta = num_slots // quantum
-    form = _pair_form(x, weights)
+    form = pair_form(x, weights)
     _check(x, "x", x.dtype, local_dst.device)
-    _check(weights, "weights", x.dtype, dev)
+    _check(weights, "weights", weights.dtype, dev)
     if x.dim() != 2 or weights.dim() != 3 or weights.shape[1] != x.shape[1]:
         raise ValueError(
             f"x {tuple(x.shape)} and weights {tuple(weights.shape)} do not "
@@ -530,19 +544,21 @@ def launch_k3_messages(
     and a tiled one otherwise. ``x`` and ``weights`` f32 or both bf16;
     messages of ``out_dtype`` (default the weights' dtype), f32 or bf16,
     summed in f32 and rounded once; anything but f32 throughout launches
-    the bf16 form (``k3_messages_bf16``). Returns ``(E_pad, dout)``, every
-    element stored by the kernel (no memset)."""
+    the bf16 form (``k3_messages_bf16``). f32 ``x`` with a bf16 ``weights``
+    launches the bf16-weight form (``k3_messages_wbf16``: each weight
+    widened exactly, f32 sums, messages of either dtype). Returns
+    ``(E_pad, dout)``, every element stored by the kernel (no memset)."""
     dev = x.device
     n_tiles = tile_rel.shape[0]
     e_pad = n_tiles * tile_size
     out_dtype = out_dtype or weights.dtype
-    form = _pair_form(x, weights)
+    form = pair_form(x, weights)
     if out_dtype not in _TABLE_DTYPES:
         raise TypeError(f"out_dtype {out_dtype}: K3 writes float32 or bfloat16")
-    if out_dtype == torch.bfloat16:
+    if out_dtype == torch.bfloat16 and form != "_wbf16":
         form = "_bf16"
     _check(x, "x", x.dtype, None)
-    _check(weights, "weights", x.dtype, dev)
+    _check(weights, "weights", weights.dtype, dev)
     if x.dim() != 2 or weights.dim() != 3 or weights.shape[1] != x.shape[1]:
         raise ValueError(
             f"x {tuple(x.shape)} and weights {tuple(weights.shape)} do not "
@@ -555,8 +571,8 @@ def launch_k3_messages(
     out = torch.empty((e_pad, dout), dtype=out_dtype, device=dev)
     if e_pad == 0 or dout == 0:
         return out
-    flags = (int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16)) \
-        if form else ()
+    flags = {"": (), "_wbf16": (int(out_dtype == torch.bfloat16),),
+             "_bf16": (int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16))}[form]
     _launch(
         "k3_messages" + form, dev, x.data_ptr(), weights.data_ptr(), src.data_ptr(),
         val.data_ptr(), tile_rel.data_ptr(), out.data_ptr(),

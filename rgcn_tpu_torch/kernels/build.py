@@ -70,6 +70,9 @@ SOURCES = {
     "k3_messages_bf16": "k3_messages_bf16.cu",
     "k4_weighted_aggregate_bf16": "k4_weighted_aggregate_bf16.cu",
     "k5_weighted_aggregate_dedup_bf16": "k5_weighted_aggregate_dedup_bf16.cu",
+    # the bf16-weight forms (f32 x, bf16 W: the layers' param_dtype)
+    "k2_fused_wbf16": "k2_fused_wbf16.cu",
+    "k3_messages_wbf16": "k3_messages_wbf16.cu",
 }
 
 NVCC_FLAGS = [

@@ -1,14 +1,16 @@
-// K2's kernel, templated on the operand type: f32 (k2_fused.cu) or bf16
-// (k2_fused_bf16.cu). chunk_sum.cuh's chunk-a-CTA fixed-order sum, with a
-// slot's message computed where it is staged:
-//     f32:  val[l] * (x[src[l]] @ W[rel])
+// K2's kernel, templated on the type of x (TX) and of W (TW, by default
+// TX's): f32 (k2_fused.cu), bf16 (k2_fused_bf16.cu), or f32 x with a bf16
+// W (k2_fused_wbf16.cu). chunk_sum.cuh's chunk-a-CTA fixed-order sum, with
+// a slot's message computed where it is staged:
+//     f32, f32 x with bf16 W:  val[l] * (x[src[l]] @ W[rel])
 //     bf16: bf16(val[l] * (x[src[l]] @ W[rel])), the products of bf16
 //           values summed in f32 (pallas_fused.py:339-343)
 // where rel = quantum_rel[l / Q]; a slot of a gap quantum (rel -1) sends
-// nothing. The x row is gathered in 16-byte vectors (4 f32 or 8 bf16
-// values) where din and x allow it, else a value at a time; W[rel] is read
-// through L1 (a warp's slots share a quantum, so its loads are broadcasts),
-// 4 outputs a step where dout and W allow it, else one.
+// nothing. Every value is widened exactly to f32 where it multiplies. The
+// x row is gathered in 16-byte vectors (4 f32 or 8 bf16 values) where din
+// and x allow it, else a value at a time; W[rel] is read through L1 (a
+// warp's slots share a quantum, so its loads are broadcasts), 4 outputs a
+// step (16 bytes of f32, 8 of bf16) where dout and W allow it, else one.
 
 #pragma once
 
@@ -68,10 +70,10 @@ __device__ __forceinline__ void load_w(const TX* __restrict__ p, float (&v)[DO])
 }
 
 // chunk_sum.cuh's producer: a fused slot's message.
-template <typename TX, int VX, int DO>
+template <typename TX, typename TW, int VX, int DO>
 struct Msgs {
   const TX* x;             // (N, din)
-  const TX* w;             // (R, din, dout)
+  const TW* w;             // (R, din, dout)
   const int* src;          // (L,)
   const float* val;        // (L,)
   const int* quantum_rel;  // (L / Q,)
@@ -88,7 +90,7 @@ struct Msgs {
   template <int KS>
   __device__ __forceinline__ void message(const Slot& s, int o0, int ns, float (&m)[KS]) const {
     const TX* xr = x + static_cast<long long>(s.src) * din;
-    const TX* wr = w + static_cast<long long>(s.rel) * din * dout + o0;
+    const TW* wr = w + static_cast<long long>(s.rel) * din * dout + o0;
 #pragma unroll
     for (int j = 0; j < KS; j += DO) {
       if (j >= ns) break;
@@ -102,7 +104,7 @@ struct Msgs {
 #pragma unroll
         for (int k = 0; k < VX; ++k) {
           float wv[DO];
-          load_w<TX, DO>(wr + (i + k) * dout + j, wv);
+          load_w<TW, DO>(wr + (i + k) * dout + j, wv);
 #pragma unroll
           for (int o = 0; o < DO; ++o) acc[o] = fmaf(xv[k], wv[o], acc[o]);
         }
@@ -111,26 +113,27 @@ struct Msgs {
       for (int o = 0; o < DO; ++o) {
         const float v = acc[o] * s.val;
         // the bf16 form's message as the Pallas kernel keeps it: rounded
+        // (f32 x keeps an f32 message, as compute_dtype=None does)
         m[j + o] = sizeof(TX) == 4 ? v : __bfloat162float(__float2bfloat16_rn(v));
       }
     }
   }
 };
 
-template <typename TX, int VX, int DO, int PROBE>
-cudaError_t launch(const csum::Frame& f, const TX* x, const TX* w, const int* src,
+template <typename TX, typename TW, int VX, int DO, int PROBE>
+cudaError_t launch(const csum::Frame& f, const TX* x, const TW* w, const int* src,
                    const float* val, const int* quantum_rel, int din, int quantum,
                    cudaStream_t st) {
-  const Msgs<TX, VX, DO> prod{x, w, src, val, quantum_rel, din, f.dout, quantum};
-  return csum::launch<Msgs<TX, VX, DO>, float, PROBE>(f, prod, st);
+  const Msgs<TX, TW, VX, DO> prod{x, w, src, val, quantum_rel, din, f.dout, quantum};
+  return csum::launch<Msgs<TX, TW, VX, DO>, float, PROBE>(f, prod, st);
 }
 
-// The launcher of either form: n_quanta quanta of Q slots, chunks of CH;
+// The launcher of every form: n_quanta quanta of Q slots, chunks of CH;
 // ``part`` an (RB, dout) f32 tile a chunk, ``counters`` one zeroed counter
 // a chunk (the wrapper's, rgcn_tpu_torch.kernels); ``stamps`` and PROBE: a
 // probe's (chunk_sum.cuh), null and 0 on every serving path.
-template <typename TX, int PROBE = 0>
-int run(const TX* x, const TX* w, const int* src, const float* val, const int* local_dst,
+template <typename TX, int PROBE = 0, typename TW = TX>
+int run(const TX* x, const TW* w, const int* src, const float* val, const int* local_dst,
         const int* quantum_rel, const int* chunk_block, float* out, float* part,
         unsigned* counters, int n_quanta, int din, int dout, int row_block, int chunk,
         int quantum, int num_nodes, void* stream, long long* stamps = nullptr) {
@@ -146,16 +149,16 @@ int run(const TX* x, const TX* w, const int* src, const float* val, const int* l
   // outputs a step when every W row's 4-column groups are whole vectors
   constexpr int kVx = 16 / sizeof(TX);
   const bool vx = din % kVx == 0 && al(x, 16);
-  const bool do4 = dout % 4 == 0 && al(w, 4 * sizeof(TX));
+  const bool do4 = dout % 4 == 0 && al(w, 4 * sizeof(TW));
   cudaError_t err;
   if (vx && do4)
-    err = launch<TX, kVx, 4, PROBE>(f, x, w, src, val, quantum_rel, din, quantum, st);
+    err = launch<TX, TW, kVx, 4, PROBE>(f, x, w, src, val, quantum_rel, din, quantum, st);
   else if (vx)
-    err = launch<TX, kVx, 1, PROBE>(f, x, w, src, val, quantum_rel, din, quantum, st);
+    err = launch<TX, TW, kVx, 1, PROBE>(f, x, w, src, val, quantum_rel, din, quantum, st);
   else if (do4)
-    err = launch<TX, 1, 4, PROBE>(f, x, w, src, val, quantum_rel, din, quantum, st);
+    err = launch<TX, TW, 1, 4, PROBE>(f, x, w, src, val, quantum_rel, din, quantum, st);
   else
-    err = launch<TX, 1, 1, PROBE>(f, x, w, src, val, quantum_rel, din, quantum, st);
+    err = launch<TX, TW, 1, 1, PROBE>(f, x, w, src, val, quantum_rel, din, quantum, st);
   return static_cast<int>(err);
 }
 

@@ -1,10 +1,12 @@
-// K3's kernels, templated on the operand type TX (f32 or bf16, x and W
-// alike) and the message type TO (f32 or bf16). The f32 form
+// K3's kernels, templated on the operand types (TX for x, TW for W: f32 or
+// bf16) and the message type TO (f32 or bf16). The f32 form
 // (k3_messages.cu) instantiates f32 operands and messages; the bf16 form
 // (k3_messages_bf16.cu) bf16 operands with f32 or bf16 messages, and f32
-// operands with bf16 messages. Every form sums in f32, scales by val in
-// f32 and rounds each message once to TO. The designs are described in
-// k3_messages.cu (the f32 routes) and k3_messages_bf16.cu (the bf16 ones).
+// operands with bf16 messages; the bf16-weight form (k3_messages_wbf16.cu)
+// f32 x and a bf16 W with f32 messages. Every form sums in f32, scales by
+// val in f32 and rounds each message once to TO. The designs are described
+// in k3_messages.cu (the f32 routes), k3_messages_bf16.cu (the bf16 ones)
+// and k3_messages_wbf16.cu (the bf16-weight ones).
 
 #pragma once
 
@@ -71,15 +73,15 @@ __device__ __forceinline__ void load_x(const TX* __restrict__ p, float (&v)[VX])
 
 // One CTA per tile stages W[rel] (widened to f32) in shared memory; each
 // thread computes (edge, column) dots in f32, skipping rows whose val is 0.
-template <typename TX, typename TO, int VX>
+template <typename TX, typename TW, typename TO, int VX>
 __global__ void __launch_bounds__(kSmallThreads)
-k3_small_kernel(const TX* __restrict__ x, const TX* __restrict__ w,
+k3_small_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
                 const int* __restrict__ src, const float* __restrict__ val,
                 const int* __restrict__ tile_rel, TO* __restrict__ out,
                 int tile, int din, int dout) {
   extern __shared__ float w_s[];
   const int t = blockIdx.x;
-  const TX* wr = w + static_cast<long long>(tile_rel[t]) * din * dout;
+  const TW* wr = w + static_cast<long long>(tile_rel[t]) * din * dout;
   for (int i = threadIdx.x; i < din * dout; i += blockDim.x) w_s[i] = widen(wr[i]);
   __syncthreads();
   const long long e0 = static_cast<long long>(t) * tile;
@@ -251,25 +253,42 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
 }
 
 // A CTA owns kWin rows and kBN columns (a warp 16); kBK-deep slabs in a
-// kStages ring; 2 CTAs an SM bound the registers.
+// kStages ring; 2 CTAs an SM bound the registers. TW: the W slab's values,
+// float, or unsigned short (bf16 bits) for the bf16-weight form, whose W
+// slab takes half the bytes (its B fragment loads stay conflict-free: a
+// row of 136 halves is 68 words, 4 banks on from the row before).
+template <typename TW = float>
 struct K3Tiling {
   static constexpr int kBK = 32, kStages = 4, kMinBlocks = 2;
   static constexpr int kXStride = kBK + 4;  // A fragment loads conflict-free
   static constexpr int kWStride = kBN + 8;  // B fragment loads conflict-free
-  static constexpr size_t kSmem =
-      sizeof(float) * kStages * (kWin * kXStride + kBK * kWStride) + sizeof(int) * 4 * kWin;
+  static constexpr size_t kSmem = sizeof(float) * kStages * kWin * kXStride +
+                                  sizeof(TW) * kStages * kBK * kWStride + sizeof(int) * 4 * kWin;
   static_assert(kBN == (kThreads / 32) * 16 && kWin % 32 == 0 && kBK % 8 == 0, "tiling");
 };
+
+// A W value's tf32 parts: an f32 value split as split_tf32 does; a bf16
+// value (its bits) is exact in tf32 (8 of its 10 mantissa bits), so its
+// high part is the value and its low part 0
+__device__ __forceinline__ void split_w(float f, unsigned& hi, unsigned& lo) {
+  split_tf32(f, hi, lo);
+}
+__device__ __forceinline__ void split_w(unsigned short b, unsigned& hi, unsigned& lo) {
+  hi = static_cast<unsigned>(b) << 16;
+  lo = 0u;
+}
 
 // kProbe (variants/k3_probe.cu only): bit 0 skips the MMAs, bit 1 the W
 // slab loads, bit 2 the x slab loads (zero-filled instead)
 
-// the pipelined k loop over kMT live m16 tiles; acc holds the f32 sums
-template <int kMT, int kProbe, class Load>
-__device__ __forceinline__ void mma_steps(const float* xs_all, const float* ws_all, int n_k,
+// the pipelined k loop over kMT live m16 tiles; acc holds the f32 sums.
+// An f32 W takes three passes (lo*hi + hi*lo + hi*hi); a bf16 W, whose low
+// parts are 0, two (x_lo*W + x_hi*W)
+template <int kMT, int kProbe, typename TW, class Load>
+__device__ __forceinline__ void mma_steps(const float* xs_all, const TW* ws_all, int n_k,
                                           int warp, int g, int tq, Load load_stage,
                                           float (&acc)[4][2][4]) {
-  using T = K3Tiling;
+  using T = K3Tiling<TW>;
   constexpr int kBK = T::kBK, kS = T::kStages, kXS = T::kXStride, kWS = T::kWStride;
   for (int kt = 0; kt < n_k; ++kt) {
     cp_async_wait<kS - 2>();
@@ -278,7 +297,7 @@ __device__ __forceinline__ void mma_steps(const float* xs_all, const float* ws_a
     cp_async_commit();
     if (kProbe & 1) continue;
     const float* xs = xs_all + (kt % kS) * kWin * kXS;
-    const float* ws = ws_all + (kt % kS) * kBK * kWS + warp * 16 + g;
+    const TW* ws = ws_all + (kt % kS) * kBK * kWS + warp * 16 + g;
     float part[kMT][2][4];
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
@@ -293,8 +312,8 @@ __device__ __forceinline__ void mma_steps(const float* xs_all, const float* ws_a
       unsigned bh[2][2], bl[2][2], ah[kMT][4], al[kMT][4];
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
-        split_tf32(ws[(k8 + tq) * kWS + nt * 8], bh[nt][0], bl[nt][0]);
-        split_tf32(ws[(k8 + tq + 4) * kWS + nt * 8], bh[nt][1], bl[nt][1]);
+        split_w(ws[(k8 + tq) * kWS + nt * 8], bh[nt][0], bl[nt][0]);
+        split_w(ws[(k8 + tq + 4) * kWS + nt * 8], bh[nt][1], bl[nt][1]);
       }
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt) {
@@ -309,10 +328,12 @@ __device__ __forceinline__ void mma_steps(const float* xs_all, const float* ws_a
       for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt) mma_tf32(part[mt][nt], al[mt], bh[nt]);
+      if constexpr (sizeof(TW) == 4) {
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
+        for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) mma_tf32(part[mt][nt], ah[mt], bl[nt]);
+          for (int nt = 0; nt < 2; ++nt) mma_tf32(part[mt][nt], ah[mt], bl[nt]);
+      }
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -327,18 +348,21 @@ __device__ __forceinline__ void mma_steps(const float* xs_all, const float* ws_a
   }
 }
 
-template <bool kVec, int kProbe, typename TO>
-__global__ void __launch_bounds__(kThreads, K3Tiling::kMinBlocks)
-k3_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
+// kVec: 16-byte x copies and 16-byte (f32) or 8-byte (bf16) W copies of 4
+// values, else 4-byte x copies and 4-byte (f32) or plain 2-byte (bf16) W
+// copies of one
+template <bool kVec, int kProbe, typename TO, typename TW = float>
+__global__ void __launch_bounds__(kThreads, K3Tiling<TW>::kMinBlocks)
+k3_tiled_kernel(const float* __restrict__ x, const TW* __restrict__ w,
                 const int* __restrict__ src, const float* __restrict__ val,
                 const int* __restrict__ tile_rel, TO* __restrict__ out,
                 int tile, int din, int dout, int slices, int windows) {
-  using T = K3Tiling;
+  using T = K3Tiling<TW>;
   constexpr int kBK = T::kBK, kS = T::kStages;
   constexpr int kXS = T::kXStride, kWS = T::kWStride;
   extern __shared__ __align__(16) float smem[];
   float* xs_all = smem;                         // [stage][kWin][kXS]
-  float* ws_all = xs_all + kS * kWin * kXS;     // [stage][kBK][kWS]
+  TW* ws_all = reinterpret_cast<TW*>(xs_all + kS * kWin * kXS);  // [stage][kBK][kWS]
   int* srow = reinterpret_cast<int*>(ws_all + kS * kBK * kWS);  // src row
   float* sval = reinterpret_cast<float*>(srow + kWin);          // val
   int* live_at = reinterpret_cast<int*>(sval + kWin);  // window row, computed
@@ -353,7 +377,7 @@ k3_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int rows = min(kWin, tile - r0);
   const long long e0 = static_cast<long long>(t) * tile + r0;
   const int c0 = slice * kBN;
-  const float* wr = w + static_cast<long long>(tile_rel[t]) * din * dout;
+  const TW* wr = w + static_cast<long long>(tile_rel[t]) * din * dout;
 
   const int m = compact_window<TO, kVec>(src, val, out, e0, rows, c0, dout, srow, sval,
                                          live_at, dead_at, counts);
@@ -364,7 +388,7 @@ k3_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
   auto load_stage = [&](int stage, int kt) {
     float* xs = xs_all + stage * kWin * kXS;
-    float* ws = ws_all + stage * kBK * kWS;
+    TW* ws = ws_all + stage * kBK * kWS;
     const int k0 = kt * kBK;
     if (kVec) {
       for (int i = tid; i < m_pad * (kBK / 4); i += kThreads) {
@@ -376,8 +400,9 @@ k3_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
       for (int i = tid; i < kBK * (kBN / 4); i += kThreads) {
         const int kr = i / (kBN / 4), c = c0 + (i % (kBN / 4)) * 4;
         const bool ok = !(kProbe & 2) && k0 + kr < din && c < dout;
-        cp_async16(ws + kr * kWS + (c - c0),
-                   ok ? wr + static_cast<long long>(k0 + kr) * dout + c : w, ok);
+        const TW* gp = ok ? wr + static_cast<long long>(k0 + kr) * dout + c : w;
+        if constexpr (sizeof(TW) == 4) cp_async16(ws + kr * kWS + (c - c0), gp, ok);
+        else cp_async8(ws + kr * kWS + (c - c0), gp, ok);
       }
     } else {
       for (int i = tid; i < m_pad * kBK; i += kThreads) {
@@ -389,8 +414,9 @@ k3_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
       for (int i = tid; i < kBK * kBN; i += kThreads) {
         const int kr = i / kBN, c = c0 + i % kBN;
         const bool ok = !(kProbe & 2) && k0 + kr < din && c < dout;
-        cp_async4(ws + kr * kWS + (c - c0),
-                  ok ? wr + static_cast<long long>(k0 + kr) * dout + c : w, ok);
+        const TW* gp = ok ? wr + static_cast<long long>(k0 + kr) * dout + c : w;
+        if constexpr (sizeof(TW) == 4) cp_async4(ws + kr * kWS + (c - c0), gp, ok);
+        else ws[kr * kWS + (c - c0)] = ok ? *gp : static_cast<TW>(0);
       }
     }
   };
@@ -411,10 +437,10 @@ k3_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int u = 0; u < 4; ++u) acc[mt][nt][u] = 0.f;
   switch (m_pad / 16) {  // block-uniform: straight-line code per count
-    case 1: mma_steps<1, kProbe>(xs_all, ws_all, n_k, warp, g, tq, load_stage, acc); break;
-    case 2: mma_steps<2, kProbe>(xs_all, ws_all, n_k, warp, g, tq, load_stage, acc); break;
-    case 3: mma_steps<3, kProbe>(xs_all, ws_all, n_k, warp, g, tq, load_stage, acc); break;
-    default: mma_steps<4, kProbe>(xs_all, ws_all, n_k, warp, g, tq, load_stage, acc); break;
+    case 1: mma_steps<1, kProbe, TW>(xs_all, ws_all, n_k, warp, g, tq, load_stage, acc); break;
+    case 2: mma_steps<2, kProbe, TW>(xs_all, ws_all, n_k, warp, g, tq, load_stage, acc); break;
+    case 3: mma_steps<3, kProbe, TW>(xs_all, ws_all, n_k, warp, g, tq, load_stage, acc); break;
+    default: mma_steps<4, kProbe, TW>(xs_all, ws_all, n_k, warp, g, tq, load_stage, acc); break;
   }
   store_rows<TO, kVec>(out, e0, m, c0, dout, warp, g, tq, sval, live_at, acc);
 }
@@ -613,19 +639,19 @@ cudaError_t launch_tiled_kernel(Kernel kernel, size_t smem, int num_tiles, int t
                               static_cast<int>(smem));
 }
 
-template <bool kVec, int kProbe, typename TO>
-cudaError_t launch_tiled(const float* x, const float* w, const int* src,
+template <bool kVec, int kProbe, typename TO, typename TW = float>
+cudaError_t launch_tiled(const float* x, const TW* w, const int* src,
                          const float* val, const int* tile_rel, TO* out,
                          int num_tiles, int tile, int din, int dout,
                          cudaStream_t stream) {
   long long blocks;
   int slices, windows;
-  const cudaError_t err = launch_tiled_kernel(k3_tiled_kernel<kVec, kProbe, TO>,
-                                              K3Tiling::kSmem, num_tiles, tile, dout,
+  const cudaError_t err = launch_tiled_kernel(k3_tiled_kernel<kVec, kProbe, TO, TW>,
+                                              K3Tiling<TW>::kSmem, num_tiles, tile, dout,
                                               stream, blocks, slices, windows);
   if (err != cudaSuccess) return err;
-  k3_tiled_kernel<kVec, kProbe, TO>
-      <<<static_cast<int>(blocks), kThreads, K3Tiling::kSmem, stream>>>(
+  k3_tiled_kernel<kVec, kProbe, TO, TW>
+      <<<static_cast<int>(blocks), kThreads, K3Tiling<TW>::kSmem, stream>>>(
           x, w, src, val, tile_rel, out, tile, din, dout, slices, windows);
   return cudaGetLastError();
 }
@@ -659,7 +685,7 @@ int dispatch_f32(const float* x, const float* w, const int* src, const float* va
   if (num_tiles < 1 || tile < 1 || din < 0 || dout < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (small_route(din, dout)) {
-    k3_small_kernel<float, TO, 1><<<num_tiles, kSmallThreads, sizeof(float) * din * dout, s>>>(
+    k3_small_kernel<float, float, TO, 1><<<num_tiles, kSmallThreads, sizeof(float) * din * dout, s>>>(
         x, w, src, val, tile_rel, out, tile, din, dout);
     return static_cast<int>(cudaGetLastError());
   }
@@ -685,10 +711,10 @@ int dispatch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w, const int* src
   if (small_route(din, dout)) {
     const size_t smem = sizeof(float) * din * dout;
     if (din % 8 == 0 && aligned(x, 16))
-      k3_small_kernel<bf16, TO, 8><<<num_tiles, kSmallThreads, smem, s>>>(
+      k3_small_kernel<bf16, bf16, TO, 8><<<num_tiles, kSmallThreads, smem, s>>>(
           x, w, src, val, tile_rel, out, tile, din, dout);
     else
-      k3_small_kernel<bf16, TO, 1><<<num_tiles, kSmallThreads, smem, s>>>(
+      k3_small_kernel<bf16, bf16, TO, 1><<<num_tiles, kSmallThreads, smem, s>>>(
           x, w, src, val, tile_rel, out, tile, din, dout);
     return static_cast<int>(cudaGetLastError());
   }
@@ -703,6 +729,34 @@ int dispatch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w, const int* src
   else
     err = launch_tiled_bf16<1, TO>(x, w, src, val, tile_rel, out, num_tiles, tile, din,
                                    dout, s);
+  return static_cast<int>(err);
+}
+
+// f32 x, bf16 W, TO messages: the small route (W[rel] widened to f32 in
+// shared memory), or the tiled route with a bf16 W slab and two TF32
+// passes (8-byte W copies and 16-byte x copies where din and dout are
+// multiples of 4, else one value a copy)
+template <typename TO>
+int dispatch_wbf16(const float* x, const __nv_bfloat16* w, const int* src, const float* val,
+                   const int* tile_rel, TO* out, int num_tiles, int tile, int din, int dout,
+                   void* stream) {
+  if (num_tiles < 1 || tile < 1 || din < 0 || dout < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (small_route(din, dout)) {
+    k3_small_kernel<float, __nv_bfloat16, TO, 1>
+        <<<num_tiles, kSmallThreads, sizeof(float) * din * dout, s>>>(
+            x, w, src, val, tile_rel, out, tile, din, dout);
+    return static_cast<int>(cudaGetLastError());
+  }
+  using u16 = unsigned short;
+  const u16* wb = reinterpret_cast<const u16*>(w);
+  const bool vec = din % 4 == 0 && dout % 4 == 0 && aligned(x, 16) && aligned(w, 8) &&
+                   aligned(out, 4 * sizeof(TO));
+  const cudaError_t err =
+      vec ? launch_tiled<true, 0, TO, u16>(x, wb, src, val, tile_rel, out, num_tiles, tile,
+                                           din, dout, s)
+          : launch_tiled<false, 0, TO, u16>(x, wb, src, val, tile_rel, out, num_tiles, tile,
+                                            din, dout, s);
   return static_cast<int>(err);
 }
 

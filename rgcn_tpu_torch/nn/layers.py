@@ -94,6 +94,26 @@ replicated math and take no collective.
 
 :class:`TorchLinear` is the c-RGCN bottleneck: ``x @ kernel + bias`` with
 the flax layout ``kernel (din, dout)``.
+
+Parameter dtype (``param_dtype``, the JAX layers' field of that name, on
+all three modules): every parameter is created in it, bf16 or the default
+f32. Parameters are drawn in f32 from the generator and rounded once; flax
+draws in the narrow dtype, but the two frameworks' random streams differ
+anyway and the tests carry parameters across
+(:func:`~rgcn_tpu_torch.weights.from_jax_params`). Where a bf16 parameter
+meets an f32 activation the JAX layers rely on ``jnp``'s promotion; the
+port widens the parameter exactly at the products PyTorch does not
+promote (the self messages ``x @ W_self``, ``x @ (comps[-1] @ bases)``
+and the NC block layer's blockwise one, ``TorchLinear``'s ``x @ kernel``:
+:func:`~rgcn_tpu_torch.ops.spmm.product`), and elementwise products and
+sums (``x ⊙ dw[-1]``, ``out + bias``, the scorer's ``z[s] ⊙ r[p] ⊙ z[o]``)
+promote by PyTorch's own rule, the same. Products of two parameters stay
+in their dtype, as in JAX (``comps[-1] @ bases``, the expanded ``comps @
+bases`` and the block expansion: bf16). The edge stage takes bf16 weights
+through the kernels' bf16-weight forms (K2's and K3's) or widens them
+where it gathers them (see :mod:`rgcn_tpu_torch.ops`). With f32 ``x`` every
+branch's output is f32, and each gradient comes back in its parameter's
+dtype, as JAX's.
 """
 
 from __future__ import annotations
@@ -137,9 +157,23 @@ def _aggregate_k1(msgs, edges):
     return aggregate_sorted(msgs, edges.layout, edges.num_nodes, dst=edges.dst)
 
 
+def _param(values: torch.Tensor, dtype: torch.dtype) -> nn.Parameter:
+    """A parameter of values drawn in f32, rounded once to ``dtype``."""
+    return nn.Parameter(values.to(dtype))
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in full f32, a bf16 parameter widened (``product``)."""
+    return spmm_ops.product(torch.matmul, a, b)
+
+
+def _blockwise_self(xb: torch.Tensor, b_self: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("nbi,bio->nbo", xb, b_self)
+
+
 def expand_blocks(blocks: torch.Tensor) -> torch.Tensor:
     """Block-diagonal ``(r, din, dout)`` matrices of ``(r, B, ib, ob)``
-    blocks: one index scatter into zeros."""
+    blocks, in the blocks' dtype: one index scatter into zeros."""
     r, nb, ib, ob = blocks.shape
     din, dout = nb * ib, nb * ob
     rows = torch.arange(din, device=blocks.device)
@@ -168,7 +202,8 @@ class RGCNConv(nn.Module):
     False (the JAX layer's field; every JAX caller sets ``bias_init=None``
     instead). Parameters are drawn
     from ``generator`` with the named initializers (NC layers:
-    glorot-uniform with the relu gain, zero bias). ``self_loop_dropout`` is
+    glorot-uniform with the relu gain, zero bias), in f32, and created in
+    ``param_dtype`` (see the module docstring). ``self_loop_dropout`` is
     the rate of the self message's dropout where a keep mask is given.
     ``group``: the edge group of a sharded EdgeSet (see the module
     docstring), None on one device.
@@ -195,6 +230,7 @@ class RGCNConv(nn.Module):
         generator: Optional[torch.Generator] = None,
         group=None,
         use_bias: bool = True,
+        param_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.group = group
@@ -233,14 +269,18 @@ class RGCNConv(nn.Module):
             generator = torch.Generator().manual_seed(0)
         gain = rinit.relu_gain() if weight_gain else 1.0
         w_init = rinit.select_weight_init(weight_init, gain)
+
+        def param(values):
+            return _param(values, param_dtype)
+
         if diag:
             # no bias (torch_rgcn/layers.py:151)
-            self.weights = nn.Parameter(w_init((num_relations, din), generator))
+            self.weights = param(w_init((num_relations, din), generator))
             self.register_parameter("bias", None)
             return
         if decomposition == "basis":
-            self.bases = nn.Parameter(w_init((num_bases, din, out_features), generator))
-            self.comps = nn.Parameter(w_init((num_relations, num_bases), generator))
+            self.bases = param(w_init((num_bases, din, out_features), generator))
+            self.comps = param(w_init((num_relations, num_bases), generator))
         elif decomposition == "block":
             ib, ob = din // num_blocks, out_features // num_blocks
             if self.separate_self_weight:
@@ -250,20 +290,16 @@ class RGCNConv(nn.Module):
                     return rinit.schlichtkrull_normal(shape, generator, gain,
                                                       fan_shape=fan)
 
-                self.blocks = nn.Parameter(
-                    blk_init((num_relations - 1, num_blocks, ib, ob)))
-                self.self_weight = nn.Parameter(blk_init((din, out_features)))
+                self.blocks = param(blk_init((num_relations - 1, num_blocks, ib, ob)))
+                self.self_weight = param(blk_init((din, out_features)))
             else:
-                self.blocks = nn.Parameter(
-                    w_init((num_relations, num_blocks, ib, ob), generator))
+                self.blocks = param(w_init((num_relations, num_blocks, ib, ob), generator))
         else:
-            self.weights = nn.Parameter(
-                w_init((num_relations, din, out_features), generator))
+            self.weights = param(w_init((num_relations, din, out_features), generator))
         if bias_init is None or not use_bias:
             self.register_parameter("bias", None)
         else:
-            self.bias = nn.Parameter(
-                rinit.select_bias_init(bias_init)((out_features,), generator))
+            self.bias = param(rinit.select_bias_init(bias_init)((out_features,), generator))
 
     def forward(self, edges, x: Optional[torch.Tensor] = None,
                 self_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -336,8 +372,7 @@ class RGCNConv(nn.Module):
             agg = rel_spmm_ad(edges, fan(x), fan(w[:-1]))
         else:
             agg = spmm_ops.rel_spmm(edges, fan(x), fan(w[:-1]))
-        with full_f32_matmul():
-            return self._reduce(agg) + self._self(x @ w[-1], mask)
+        return self._reduce(agg) + self._self(_matmul(x, w[-1]), mask)
 
     def _basis(self, edges, x, mask):
         bases, comps = self.bases, self.comps
@@ -363,9 +398,7 @@ class RGCNConv(nn.Module):
                 edges, self._fan(x), fb, fc,
                 aggregate=_aggregate_k1 if edges.layout is not None else None,
                 compute_dtype=cd)
-            with full_f32_matmul():
-                self_msg = x @ torch.einsum("b,bio->io", comps[-1], bases)
-                return self._reduce(agg) + self._self(self_msg, mask)
+            return self._reduce(agg) + self._self(self._basis_self(x), mask)
         if many or (edges.merged is None and edges.layout is None):
             # expand to dense per-relation weights: K4/K5 keep one sum per
             # basis in registers and take at most MAX_BASES
@@ -373,9 +406,15 @@ class RGCNConv(nn.Module):
                 w = torch.einsum("rb,bio->rio", comps, bases)
             return self._dense(edges, x, w, mask)
         agg = rel_spmm_basis(edges, self._fan(x), fb, fc, compute_dtype=cd)
+        return self._reduce(agg) + self._self(self._basis_self(x), mask)
+
+    def _basis_self(self, x):
+        """``x @ (comps[-1] @ bases)``: the self weight in the parameters'
+        dtype, as JAX's einsum of two parameters leaves it, then widened
+        for the product with ``x``."""
         with full_f32_matmul():
-            self_msg = x @ torch.einsum("b,bio->io", comps[-1], bases)
-            return self._reduce(agg) + self._self(self_msg, mask)
+            w_self = torch.einsum("b,bio->io", self.comps[-1], self.bases)
+        return _matmul(x, w_self)
 
     def _block_messages(self, edges, x, blocks):
         """General-relation messages of ``blocks (r, B, ib, ob)``,
@@ -398,12 +437,10 @@ class RGCNConv(nn.Module):
         blocks = self.blocks
         if self.separate_self_weight:
             agg = self._block_messages(edges, x, blocks)
-            with full_f32_matmul():
-                return agg + self._self(x @ self.self_weight, mask)
+            return agg + self._self(_matmul(x, self.self_weight), mask)
         agg = self._block_messages(edges, x, blocks[:-1])
         n, (nb, ib, ob) = x.shape[0], blocks.shape[1:]
-        with full_f32_matmul():
-            self_msg = torch.einsum("nbi,bio->nbo", x.reshape(n, nb, ib), blocks[-1])
+        self_msg = spmm_ops.product(_blockwise_self, x.reshape(n, nb, ib), blocks[-1])
         return agg + self._self(self_msg.reshape(n, nb * ob), mask)
 
 
@@ -424,6 +461,10 @@ class DistMult(nn.Module):
     sums stay f32 and the forward is unchanged. ``group``: the ranks a
     sharded scoring batch is split over (its replicated inputs are
     fanned out in the training scorers and penalties), None on one device.
+    ``param_dtype``: the parameters' dtype (drawn in f32, rounded once);
+    bf16 relations and biases promote to f32 where they meet the f32
+    embeddings, as JAX's scorers' do, and their gradients come back in
+    bf16.
     """
 
     def __init__(
@@ -437,6 +478,7 @@ class DistMult(nn.Module):
         generator: Optional[torch.Generator] = None,
         group=None,
         bwd_dtype=None,
+        param_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.group = group
@@ -444,16 +486,20 @@ class DistMult(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         gain = rinit.relu_gain() if weight_gain else 1.0
-        self.relations = nn.Parameter(rinit.select_weight_init(weight_init, gain)(
+
+        def param(values):
+            return _param(values, param_dtype)
+
+        self.relations = param(rinit.select_weight_init(weight_init, gain)(
             (num_relations, emb_dim), generator))
         if bias_init is None:
             for name in ("sbias", "obias", "pbias"):
                 self.register_parameter(name, None)
         else:
             b_init = rinit.select_bias_init(bias_init)
-            self.sbias = nn.Parameter(b_init((num_nodes,), generator))
-            self.obias = nn.Parameter(b_init((num_nodes,), generator))
-            self.pbias = nn.Parameter(b_init((num_relations,), generator))
+            self.sbias = param(b_init((num_nodes,), generator))
+            self.obias = param(b_init((num_nodes,), generator))
+            self.pbias = param(b_init((num_relations,), generator))
 
     def _fan(self, x):
         return x if x is None else maybe_fanout(x, self.group)
@@ -535,18 +581,20 @@ class TorchLinear(nn.Module):
     """Dense layer with torch ``nn.Linear``'s default initialisation in the
     flax layout: ``kernel (din, dout)`` (``nn.Linear`` stores ``(out,
     in)``) and ``bias (dout,)``, both U(-1/sqrt(din), 1/sqrt(din)), drawn
-    kernel first. Counterpart of ``rgcn_tpu/nn/layers.py::TorchLinear``."""
+    kernel first, in f32, and created in ``param_dtype`` (a bf16 kernel is
+    widened for the product with f32 ``x``, as ``jnp`` promotes it).
+    Counterpart of ``rgcn_tpu/nn/layers.py::TorchLinear``."""
 
     def __init__(self, in_features: int, out_features: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        self.kernel = nn.Parameter(
-            rinit.torch_linear_weight((in_features, out_features), generator))
-        self.bias = nn.Parameter(
-            rinit.torch_linear_bias(in_features)((out_features,), generator))
+        self.kernel = _param(rinit.torch_linear_weight((in_features, out_features), generator),
+                             param_dtype)
+        self.bias = _param(rinit.torch_linear_bias(in_features)((out_features,), generator),
+                           param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        with full_f32_matmul():
-            return x @ self.kernel + self.bias
+        return _matmul(x, self.kernel) + self.bias

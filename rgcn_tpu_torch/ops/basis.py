@@ -73,6 +73,16 @@ featureless forward and ``dbases`` f32. The closing product and ``dbases
 ``dcomps`` sums f32 products of the bf16 rows (JAX's
 ``preferred_element_type=f32``). None keeps everything f32.
 
+bf16 parameters (the layers' ``param_dtype``): ``bases`` and ``comps``
+meet f32 operands in the products outside the kernels, where the JAX
+functions rely on promotion; here each such product widens the bf16
+operand exactly first (``.float()``: these products are full f32 whatever
+their operands' dtypes, as the closing product always was). Every gradient comes back in
+its input's dtype, summed in f32 and rounded once, as the JAX VJPs end
+in ``.astype(bases.dtype)``, ``.astype(comps.dtype)`` and
+``.astype(x.dtype)``. A featureless layer's bf16 ``bases`` reach K4 as a
+bf16 table (the bf16 form), as JAX's kernel gathers them.
+
 Snapshot of ``val``: over a merged layout the weights come from
 ``merged.coeff`` (or ``fwd_dedup.coeff_k``), which froze the EdgeSet's
 ``val`` when the layout was built; only the unmerged path
@@ -105,10 +115,12 @@ __all__ = [
 
 
 @contextlib.contextmanager
-def full_f32_matmul():
-    """Matmuls in full f32 on the card (TF32 off) for the block's length."""
+def full_f32_matmul(tf32: bool = False):
+    """Matmuls in full f32 on the card (TF32 off) for the block's length;
+    ``tf32=True`` turns the card's TF32 path on instead (the passes of a
+    3xTF32 product, ``ops/spmm.py::product``)."""
     prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = tf32
     try:
         yield
     finally:
@@ -279,9 +291,9 @@ def sorted_inputs(edges, comps: torch.Tensor):
 
 def merged_wvec(coeff: torch.Tensor, comps: torch.Tensor) -> torch.Tensor:
     """``(nb, L)`` per-slot basis weights from the frozen ``(L, R')``
-    coefficients, in full f32."""
+    coefficients, in full f32 (bf16 ``comps`` widened)."""
     with full_f32_matmul():
-        return (coeff @ comps).T.contiguous()
+        return (coeff @ comps.float()).T.contiguous()
 
 
 def _narrow(t: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -298,22 +310,37 @@ def _agg_dtype(compute_dtype) -> torch.dtype:
 def closing_product(agg: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
     """``Σ_b agg[b] @ bases[b]`` for ``agg (nb, N, din)`` and ``bases (nb,
     din, dout)``, as one full-f32 ``(N, nb·din) @ (nb·din, dout)`` product
-    (a bf16 ``agg`` promoted to f32, as JAX's einsum promotes it).
-    Over the node-major storage K4/K5 and their plain versions return,
-    ``agg.permute(1, 0, 2)`` is contiguous and the reshape copies nothing."""
+    (a bf16 ``agg`` or ``bases`` promoted to f32, as JAX's einsum promotes
+    them). Over the node-major storage K4/K5 and their plain versions
+    return, ``agg.permute(1, 0, 2)`` is contiguous and the reshape copies
+    nothing."""
     nb, n, din = agg.shape
     with full_f32_matmul():
         return (agg.permute(1, 0, 2).reshape(n, nb * din).float()
-                @ bases.reshape(nb * din, -1))
+                @ bases.reshape(nb * din, -1).float())
 
 
 def _agg_grad(agg: torch.Tensor, g: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
     """``dbases_b = Agg_bᵀ g`` for every basis, as one full-f32 ``(nb·din,
-    N) @ (N, dout)`` product (a bf16 ``Agg`` promoted to f32)."""
+    N) @ (N, dout)`` product (a bf16 ``Agg`` promoted to f32), rounded once
+    to the bases' dtype."""
     nb, din, dout = bases.shape
     with full_f32_matmul():
         return (agg.permute(1, 0, 2).reshape(g.shape[0], nb * din).float().T @ g
-                ).reshape(nb, din, dout)
+                ).reshape(nb, din, dout).to(bases.dtype)
+
+
+def _cotangent_rows(g: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
+    """``G_b = g @ B_bᵀ`` ``(nb, N, din)`` in full f32 (bf16 bases
+    widened)."""
+    with full_f32_matmul():
+        return torch.matmul(g, bases.float().transpose(1, 2))
+
+
+def _rel_sums(t: torch.Tensor, rel: torch.Tensor, comps: torch.Tensor) -> torch.Tensor:
+    """``dcomps[r] = Σ_{rows of rel r} t`` in f32, rounded once to the comps'
+    dtype (JAX's ``segment_sum(t).astype(comps.dtype)``)."""
+    return t.new_zeros(comps.shape).index_add_(0, rel, t).to(comps.dtype)
 
 
 def _featureless_fwd(edges, bases, comps, compute_dtype):
@@ -342,13 +369,13 @@ class _FeaturelessBasisAD(torch.autograd.Function):
         # the reversed frame (receiver = source), one output per basis;
         # K4 returns a node-major view, the parameter gradient is (nb, N, dout)
         rsrc, rwvec = sorted_inputs(rev, comps)
-        dbases = weighted_aggregate(gc, rsrc, rwvec, rev.layout, n).contiguous()
+        dbases = weighted_aggregate(gc, rsrc, rwvec, rev.layout, n).contiguous().to(
+            bases.dtype)
         # d comps over the padded edge arrays, one basis at a time: pads
         # (dst == N, val 0) read the appended zero row of g
         gd = torch.cat([gc, gc.new_zeros((1, gc.shape[1]))])[edges.dst.long()]
         t = _slot_dots(_narrow(bases, cd), edges.src.long(), gd) * edges.val[:, None]
-        dcomps = torch.zeros_like(comps).index_add_(0, edges.rel.long(), t)
-        return dbases, dcomps, None, None
+        return dbases, _rel_sums(t, edges.rel.long(), comps), None, None
 
 
 def _needs_backward(*tensors) -> bool:
@@ -404,9 +431,7 @@ class _BasisAD(torch.autograd.Function):
         g = g.contiguous()
         n = edges.num_nodes
         dbases = _agg_grad(agg, g, bases)
-        with full_f32_matmul():
-            G = torch.matmul(g, bases.transpose(1, 2))  # (nb, N, din)
-        G = _narrow(G, cd)  # cast before the gather, as JAX does
+        G = _narrow(_cotangent_rows(g, bases), cd)  # cast before the gather, as JAX does
         rsrc, rwvec = sorted_inputs(rev, comps)
         dx = weighted_aggregate(G, rsrc, rwvec, rev.layout, n, sum_bases=True,
                                 out_dtype=_agg_dtype(cd))[0]
@@ -416,8 +441,7 @@ class _BasisAD(torch.autograd.Function):
         rdst = _slot_order(rev.dst, perm).clamp_max(n - 1).long()
         t = _slot_dots(G, rsrc.long(), _narrow(x, cd).index_select(0, rdst))
         t = t * _slot_order(rev.val, perm)[:, None]
-        dcomps = torch.zeros_like(comps).index_add_(
-            0, _slot_order(rev.rel, perm).long(), t)
+        dcomps = _rel_sums(t, _slot_order(rev.rel, perm).long(), comps)
         return dx.to(x.dtype).contiguous(), dbases, dcomps, None, None
 
 
@@ -428,7 +452,7 @@ def _merged_agg(x, comps, merged, compute_dtype=None):
     dd = merged.fwd_dedup
     if dd is not None:
         with full_f32_matmul():
-            w_k = torch.einsum("klr,rb->kbl", dd.coeff_k, comps).contiguous()
+            w_k = torch.einsum("klr,rb->kbl", dd.coeff_k, comps.float()).contiguous()
         return weighted_aggregate_dedup(xc, dd.src_sorted, w_k, dd, merged.num_nodes,
                                         out_dtype=out_dtype)
     return weighted_aggregate(xc, merged.src_sorted, merged_wvec(merged.coeff, comps),
@@ -455,9 +479,7 @@ class _BasisMergedAD(torch.autograd.Function):
         g = g.contiguous()
         n = m.num_nodes
         dbases = _agg_grad(agg, g, bases)
-        with full_f32_matmul():
-            G = torch.matmul(g, bases.transpose(1, 2))  # (nb, N, din)
-        G = _narrow(G, cd)
+        G = _narrow(_cotangent_rows(g, bases), cd)
         # dx over the merged reverse frame: its sources are the forward
         # receivers; pads read slot weight 0 and are dropped by K4
         dx = weighted_aggregate(G, m.rev_src_sorted, merged_wvec(m.rev_coeff, comps),
@@ -466,7 +488,7 @@ class _BasisMergedAD(torch.autograd.Function):
         t = _slot_dots(G, m.rev_src_sorted.long(),
                        _narrow(x, cd).index_select(0, m.rev_receiver.long()))
         with full_f32_matmul():
-            dcomps = m.rev_coeff.T @ t
+            dcomps = (m.rev_coeff.T @ t).to(comps.dtype)
         return dx.to(x.dtype).contiguous(), dbases, dcomps, None, None
 
 

@@ -37,6 +37,12 @@ at each call in the unmerged frame; the merged frame's ``coeff`` and
 ``rev_coeff`` are the layout's snapshot of it (see
 :mod:`rgcn_tpu_torch.graph.coalesce`). On CPU tensors K1 is its plain
 version (:func:`~rgcn_tpu_torch.ops.aggregate.aggregate_presorted`).
+
+bf16 weights (the layers' ``param_dtype``) with f32 ``x``: the messages
+``x ⊙ dw`` promote to f32 as JAX's do (the merged frame's ``coeff @ dw``
+widens ``dw`` first), and ``d dw`` sums in f32 and rounds once to ``dw``'s
+dtype, as JAX's VJPs end in ``.astype(dw.dtype)``; ``dx`` comes back in
+``x``'s dtype.
 """
 
 from __future__ import annotations
@@ -106,17 +112,17 @@ class _DiagUnmerged(torch.autograd.Function):
         g = g.contiguous()
         dx = ddw = None
         if ctx.needs_input_grad[0]:
-            dx = _diag_sorted_agg(g, dw, edges.reverse, cd)
+            dx = _diag_sorted_agg(g, dw, edges.reverse, cd).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            ddw = diag_weight_grad(x, g, edges, cd)
+            ddw = diag_weight_grad(x, g, edges, cd).to(dw.dtype)
         return dx, ddw, None, None
 
 
 def merged_dvec(coeff: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
     """Per-slot weight vectors ``coeff @ dw`` (``(L, R') @ (R', d)``) in
-    full f32."""
+    full f32 (bf16 ``dw`` widened)."""
     with full_f32_matmul():
-        return coeff @ dw
+        return coeff @ dw.float()
 
 
 class _DiagMerged(torch.autograd.Function):
@@ -140,11 +146,11 @@ class _DiagMerged(torch.autograd.Function):
         dx = ddw = None
         if ctx.needs_input_grad[0]:
             dvec = _narrow(merged_dvec(m.rev_coeff, dw), cd)
-            dx = aggregate_presorted(gg * dvec, m.rev_layout, m.num_nodes)
+            dx = aggregate_presorted(gg * dvec, m.rev_layout, m.num_nodes).to(x.dtype)
         if ctx.needs_input_grad[1]:
             t = (_narrow(x, cd)[m.rev_receiver.long()] * gg).float()
             with full_f32_matmul():
-                ddw = m.rev_coeff.t() @ t
+                ddw = (m.rev_coeff.t() @ t).to(dw.dtype)
         return dx, ddw, None, None
 
 

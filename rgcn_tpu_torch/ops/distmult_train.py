@@ -47,6 +47,11 @@ rounds each weight to bf16 and sums in f32 into an f32 output). The
 forward, its scores and its penalty are the f32 path's bit for bit; the
 gradients are sums over the narrowed rows. Without layouts a set
 ``bwd_dtype`` warns and is ignored, as JAX's ``layouts=None`` does.
+
+bf16 relations (the scorer's ``param_dtype``): the products with the f32
+embeddings promote to f32, as JAX's do (``pallas_distmult.py:395``: the
+table's dtype is ``q``'s, f32), and ``d relations`` sums in f32 and rounds
+once to the relations' dtype, ``d nodes`` to the nodes'.
 """
 
 from __future__ import annotations
@@ -176,7 +181,7 @@ class _Structured(torch.autograd.Function):
         scores, penalty, res = _forward(positives, ch, corrupt_ent, nodes,
                                         relations, pw)
         ctx.layouts, ctx.bwd_dtype = layouts, bwd_dtype
-        ctx.num_rels = relations.shape[0]
+        ctx.num_rels, ctx.rel_dtype = relations.shape[0], relations.dtype
         if bwd_dtype is not None:  # the corrupted rows, the widest residual
             res = res[:6] + (res[6].to(bwd_dtype),) + res[7:]
         ctx.save_for_backward(nodes, positives, *res)
@@ -226,7 +231,8 @@ class _Structured(torch.autograd.Function):
                     + (pc * pw_all)[:, None] * rp)
         drel = rel_rows.new_zeros((ctx.num_rels, d)).index_add_(
             0, positives[:, 1], rel_rows)
-        return dz, drel, None, None, None, None, None, None
+        return (dz.to(nodes.dtype), drel.to(ctx.rel_dtype), None, None, None, None, None,
+                None)
 
 
 def structured_scores(positives: torch.Tensor, corrupt_head: torch.Tensor,
@@ -283,6 +289,7 @@ class _ScoreAgg(torch.autograd.Function):
         scores, penalty, res = _batch_forward(triples, nodes, relations, pw)
         ctx.layouts = layouts
         ctx.num_nodes, ctx.num_rels = nodes.shape[0], relations.shape[0]
+        ctx.dtypes = nodes.dtype, relations.dtype
         ctx.with_penalty = pw is not None
         ctx.save_for_backward(triples, *res, *(() if pw is None else (pw,)))
         return scores if pw is None else (scores, penalty)
@@ -301,7 +308,7 @@ class _ScoreAgg(torch.autograd.Function):
             0, triples[:, 1], rel_rows)
         dz = aggregate_sorted(s_rows, s_lay, ctx.num_nodes)
         dz = dz + aggregate_sorted(o_rows, o_lay, ctx.num_nodes)
-        return dz, drel, None, None, None
+        return dz.to(ctx.dtypes[0]), drel.to(ctx.dtypes[1]), None, None, None
 
 
 def distmult_score_agg(triples: torch.Tensor, nodes: torch.Tensor,

@@ -9,7 +9,9 @@ outside every run carry relation ``-1``; their slots have ``val == 0`` and
 
 On a CUDA tensor :func:`rel_spmm_fused` launches
 ``kernels/csrc/k2_fused.cu``, or with ``compute_dtype=torch.bfloat16`` (its
-default, as the JAX function's) ``kernels/csrc/k2_fused_bf16.cu``; on a CPU
+default, as the JAX function's) ``kernels/csrc/k2_fused_bf16.cu``, or with
+``compute_dtype=None`` over f32 ``x`` and a bf16 ``W`` (the layers'
+``param_dtype=bfloat16``) ``kernels/csrc/k2_fused_wbf16.cu``; on a CPU
 tensor it takes :func:`rel_spmm_fused_plain`, which rounds at the same
 places. The kernel gives each chunk its own CTA, stages each real slot's
 message (its ``W[rel]`` read through L1) in shared memory, sums each row's
@@ -182,10 +184,14 @@ def rel_spmm_fused_plain(
     0), summed per row. With a ``compute_dtype``, ``x`` and ``W`` are
     rounded to it and each message is rounded to it (the JAX kernel's
     ``msgs_ref``); the products of the rounded values and every sum stay
-    f32."""
+    f32. Without one, a bf16 ``W`` with f32 ``x`` is widened exactly (the
+    bf16-weight form's products)."""
     compute_dtype = _compute_dtype(compute_dtype)
     if compute_dtype is not None:
         x, weights = x.to(compute_dtype).float(), weights.to(compute_dtype).float()
+    else:
+        kernels.pair_form(x, weights)
+        weights = weights.to(x.dtype)
     rel = layout.quantum_rel.long().clamp(min=0)
     xg = x[layout.src.long()].reshape(rel.shape[0], layout.quantum, x.shape[-1])
     msgs = torch.bmm(xg, weights[rel]).reshape(xg.shape[0] * layout.quantum, -1)
@@ -207,7 +213,9 @@ def rel_spmm_fused(
     bf16, as ``pallas_fused.py:361``): ``x`` and ``W`` are cast to it, each
     message ``(x[src] @ W) · val`` is summed in f32 and rounded to it, and
     the destination sums are f32; None (or f32) computes in f32 throughout,
-    as the model's forward (``ops/rel_spmm.py::fwd_spmm``) does. The kernel
+    as the model's forward (``ops/rel_spmm.py::fwd_spmm``) does, and then
+    takes f32 ``x`` with a bf16 ``W`` as well (bf16 parameters: the
+    bf16-weight form, the weights widened exactly). The kernel
     stages a chunk's messages in shared memory; ``ops/rel_spmm.py``
     decides when to take it. No backward of its own
     (``ops/rel_spmm.py::rel_spmm_ad`` has one, over this function at f32):

@@ -7,6 +7,11 @@ Counterpart of ``rgcn_tpu/ops/pallas_spmm.py``. :func:`fwd_spmm` computes
 through the fused kernel (K2) when the EdgeSet carries a fused layout and
 ``W`` fits the shared-memory budget, else through per-tile messages (K3)
 aggregated by K1, all in f32 as JAX's ``_fwd_spmm`` (``compute_dtype=None``).
+A bf16 ``W`` (the layers' ``param_dtype``) with f32 ``x`` takes the same
+routes through K2's and K3's bf16-weight forms (the weights widened
+exactly, f32 products, messages and sums), routed by ``W``'s own bytes as
+JAX routes it (``pallas_spmm.py:237``); the backward's ``dx`` comes back in
+``x``'s dtype and ``dW`` in ``W``'s, each rounded once from its f32 sums.
 :func:`rel_spmm_pallas` and :func:`rel_spmm_full` are the JAX package's
 two-stage entry points with their ``compute_dtype`` / ``accum_dtype``
 (``pallas_spmm.py:151-208``), through K3's and K1's bf16 forms where a
@@ -86,13 +91,14 @@ def _cast(x: torch.Tensor, weights: torch.Tensor, compute_dtype):
 def rel_spmm_messages_plain(edges, x: torch.Tensor, weights: torch.Tensor,
                             out_dtype=None) -> torch.Tensor:
     """Plain version of K3: ``(x[src] @ W[tile_rel]) · val`` per tile, the
-    products of the operands as given (bf16 widened exactly) summed in f32,
+    products of the operands as given (bf16 widened exactly, a bf16 ``W``
+    with f32 ``x`` too) summed in f32,
     rounded once to ``out_dtype`` (default the weights' dtype). A source
     past the last row (a reversed pad edge of a training subgraph, ``val ==
     0``) is clamped; K3 never reads the source of such a row."""
+    kernels.pair_form(x, weights)
     out_dtype = out_dtype or weights.dtype
-    if x.dtype == torch.bfloat16:
-        x, weights = x.float(), weights.float()
+    x, weights = x.float(), weights.float()
     tile, n_tiles = edges.tile_size, edges.num_tiles
     src = edges.src.long().clamp_max(x.shape[0] - 1)
     xg = x[src].reshape(n_tiles, tile, x.shape[-1])
@@ -104,8 +110,9 @@ def rel_spmm_messages_plain(edges, x: torch.Tensor, weights: torch.Tensor,
 def rel_spmm_messages(edges, x: torch.Tensor, weights: torch.Tensor, *,
                       out_dtype=None) -> torch.Tensor:
     """Per-edge messages ``(E_pad, dout)`` in edge order, for ``x (N,
-    din)`` and general-relation ``weights (R, din, dout)``, both f32 or
-    both bf16: f32 sums, rounded once to ``out_dtype`` (default the
+    din)`` and general-relation ``weights (R, din, dout)``, both f32, both
+    bf16, or f32 ``x`` with bf16 ``weights`` (K3's bf16-weight form): f32
+    sums, rounded once to ``out_dtype`` (default the
     weights' dtype, as in JAX), f32 or bf16. No backward: on the card, grad
     mode with ``x`` or ``weights`` requiring grad raises."""
     check_operands(x, weights, edges.num_nodes, edges.num_rels)
@@ -148,8 +155,9 @@ def rel_spmm_full(edges, layout, x: torch.Tensor, weights: torch.Tensor, *,
 
 
 def fwd_spmm(edges, x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """K2 when ``edges.fused`` exists and ``W`` fits, else K3 then K1; f32
-    throughout, as JAX's ``_fwd_spmm``."""
+    """K2 when ``edges.fused`` exists and ``W`` fits (at ``W``'s own dtype),
+    else K3 then K1; f32 throughout, as JAX's ``_fwd_spmm`` (a bf16 ``W``
+    widened inside the kernels' bf16-weight forms)."""
     if edges.fused is not None and fused_fits(weights, edges.fused.row_block):
         return rel_spmm_fused(edges.fused, edges.num_nodes, x, weights, compute_dtype=None)
     return rel_spmm_full(edges, edges.layout, x, weights)
@@ -190,8 +198,9 @@ class _RelSpmm(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[0]:
             dx = fwd_spmm(edges.reverse, g, weights.transpose(1, 2).contiguous())
+            dx = dx.to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dw = rel_spmm_weight_grad(edges, x, g, weights.shape[0])
+            dw = rel_spmm_weight_grad(edges, x, g, weights.shape[0]).to(weights.dtype)
         return dx, dw, None
 
 

@@ -29,6 +29,27 @@ that reach K1 are f32, as in JAX. The coefficients are rounded to the
 compute dtype and widened back before their gather (the same values), so
 their gradient sums in f32 and rounds once to bf16, where JAX's bf16
 gather scatter-adds in bf16.
+
+bf16 parameters (the layers' ``param_dtype``): each product of a bf16
+parameter with an f32 operand widens the parameter exactly first
+(:func:`product`), where ``jnp`` promotes it.
+The gather table keeps its own dtype: a featureless layer's bf16 bases
+are gathered as bf16 (the ungrouped pair contraction then rounds each
+term to bf16, as JAX's GEMM form does for a bf16 table) and widened
+exactly for the per-tile contraction. A bf16 table's gradient sums in f32
+and rounds once (:func:`gather_rows`), where JAX's bf16 gather
+scatter-adds in bf16, rounding every update, as the coefficients' above.
+
+``precision`` (the four ops JAX gives it to: :func:`rel_spmm`,
+:func:`rel_spmm_block`, :func:`rel_spmm_featureless_basis`,
+:func:`rel_spmm_basis_pairs`): the name of a ``jax.lax.Precision``, None,
+``"default"``, ``"high"`` or ``"highest"``, for the products these ops
+compute with XLA einsums in JAX (:func:`product`). None, ``"default"``
+and ``"highest"`` run in full f32 (TF32 off), which is what JAX computes
+on the CPU the tests compare with; ``"high"`` runs 3xTF32, each f32
+operand split into a TF32 high part and its f32 remainder, three products
+on the card's TF32 path (``lo·hi + hi·lo + hi·hi``, about 21 bits of
+each product). Any other value raises.
 """
 
 from __future__ import annotations
@@ -42,9 +63,13 @@ from rgcn_tpu_torch.ops.basis import _narrow, full_f32_matmul
 
 __all__ = [
     "aggregate_messages",
+    "gather_rows",
     "gather_rows_agg",
     "pair_contract",
     "pair_fan_aggregate",
+    "PRECISIONS",
+    "check_precision",
+    "product",
     "rel_spmm",
     "rel_spmm_basis_pairs",
     "rel_spmm_block",
@@ -63,6 +88,50 @@ _ELEM_BUDGET = 64_000_000
 _PAIR_ELEM_BUDGET = 512_000_000
 
 
+# the jax.lax.Precision names the XLA-route ops take (None: XLA's default)
+PRECISIONS = (None, "default", "high", "highest")
+
+
+def check_precision(precision) -> bool:
+    """Is ``precision`` ``"high"`` (3xTF32)? None, ``"default"`` and
+    ``"highest"`` are full f32; anything else raises."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r}: one of {PRECISIONS} "
+                         "(the names of jax.lax.Precision)")
+    return precision == "high"
+
+
+def _tf32_low(t: torch.Tensor) -> torch.Tensor:
+    """The f32 remainder of ``t`` past its TF32 high part (``t`` with its
+    low 13 mantissa bits cleared), detached: ``t - low`` is that high part,
+    exactly, and carries ``t``'s gradient."""
+    t = t.detach().contiguous()
+    return t - (t.view(torch.int32) & -8192).view(torch.float32)
+
+
+def product(fn, a: torch.Tensor, b: torch.Tensor, precision=None) -> torch.Tensor:
+    """``fn(a, b)``, a product bilinear in its operands (``torch.bmm``,
+    ``torch.matmul``, an einsum of two), of the operands promoted to one
+    dtype (a bf16 parameter widened exactly, as ``jnp`` promotes it), at
+    ``precision`` (:func:`check_precision`): full f32, or, for ``"high"``
+    on f32 operands, 3xTF32 from split operands, ``fn(a_lo, b_hi) +
+    fn(a_hi, b_lo) + fn(a_hi, b_hi)`` with TF32 on. The split parts carry
+    the gradient as ``a`` and ``b`` (the low parts are constants, the high
+    parts ``a - a_lo``), so the backward is autograd's of ``fn``, in full
+    f32. On the CPU the three products are exact f32 and sum to the full
+    f32 product up to rounding."""
+    high = check_precision(precision)
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    a, b = a.to(dtype), b.to(dtype)
+    if not high or a.dtype != torch.float32:
+        with full_f32_matmul():
+            return fn(a, b)
+    a_lo, b_lo = _tf32_low(a), _tf32_low(b)
+    a_hi, b_hi = a - a_lo, b - b_lo
+    with full_f32_matmul(tf32=True):
+        return fn(a_lo, b_hi) + fn(a_hi, b_lo) + fn(a_hi, b_hi)
+
+
 def aggregate_messages(
     messages: torch.Tensor, dst: torch.Tensor, num_nodes: int
 ) -> torch.Tensor:
@@ -73,27 +142,34 @@ def aggregate_messages(
     return out[:num_nodes]
 
 
-def rel_spmm(edges, x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+def rel_spmm(edges, x: torch.Tensor, weights: torch.Tensor, *,
+             precision=None) -> torch.Tensor:
     """Dense-weight relational SpMM; ``weights (R, din, dout)`` covers the
-    general relations only (the caller adds the self-loop densely)."""
+    general relations only (the caller adds the self-loop densely).
+    ``precision``: the per-tile products' (see the module docstring)."""
     tile, n_tiles = edges.tile_size, edges.num_tiles
     xg = x[edges.src.long()].reshape(n_tiles, tile, x.shape[-1])
-    msgs = torch.bmm(xg, weights[edges.tile_rel.long()])
+    msgs = product(torch.bmm, xg, weights[edges.tile_rel.long()], precision)
     msgs = msgs.reshape(n_tiles * tile, -1) * edges.val[:, None]
     return aggregate_messages(msgs, edges.dst, edges.num_nodes)
 
 
+def _blockwise(xg: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("tnbi,tbio->tnbo", xg, b_t)
+
+
 def rel_spmm_block(edges, x: torch.Tensor, blocks: torch.Tensor, *,
-                   aggregate=None) -> torch.Tensor:
+                   precision=None, aggregate=None) -> torch.Tensor:
     """Block-diagonal-weight SpMM; ``blocks (R, B, din // B, dout // B)``
     covers the general relations. Messages are computed blockwise, one
     ``(B, ib) @ (B, ib, ob)`` product per edge, so the block-diagonal
     matrix never exists; ``aggregate(msgs, edges)`` overrides the
-    destination sum (e.g. K1 over the EdgeSet's layout)."""
+    destination sum (e.g. K1 over the EdgeSet's layout). ``precision``:
+    the blockwise products' (see the module docstring)."""
     tile, n_tiles = edges.tile_size, edges.num_tiles
     _, nb, ib, ob = blocks.shape
     xg = x[edges.src.long()].reshape(n_tiles, tile, nb, ib)
-    msgs = torch.einsum("tnbi,tbio->tnbo", xg, blocks[edges.tile_rel.long()])
+    msgs = product(_blockwise, xg, blocks[edges.tile_rel.long()], precision)
     msgs = msgs.reshape(n_tiles * tile, nb * ob) * edges.val[:, None]
     if aggregate is not None:
         return aggregate(msgs, edges)
@@ -106,8 +182,11 @@ def rel_spmm_diag(edges, x: torch.Tensor, diag_weights: torch.Tensor, *,
     ``(src, rel)`` is ``x[src] ⊙ dw[rel] · val``, an elementwise product.
     ``diag_weights (R, d)`` covers the general relations (the self-loop
     term is the caller's); ``aggregate(msgs, edges)`` overrides the
-    destination sum (e.g. K1 over the EdgeSet's layout)."""
-    msgs = x[edges.src.long()] * diag_weights[edges.rel.long()] * edges.val[:, None]
+    destination sum (e.g. K1 over the EdgeSet's layout). bf16 weights'
+    gradient sums in f32 (:func:`gather_rows`), as JAX's diagonal VJP's
+    does."""
+    msgs = x[edges.src.long()] * gather_rows(diag_weights, edges.rel.long()) \
+        * edges.val[:, None]
     if aggregate is not None:
         return aggregate(msgs, edges)
     return aggregate_messages(msgs, edges.dst, edges.num_nodes)
@@ -118,15 +197,51 @@ def rel_spmm_featureless(edges, weights: torch.Tensor, *, aggregate=None) -> tor
     ``(src, rel)`` is row ``src`` of ``W[rel]``, a gather.
 
     ``weights (R, N, dout)``; ``aggregate(msgs, edges)`` overrides the
-    destination sum (e.g. K1 over the EdgeSet's layout).
+    destination sum (e.g. K1 over the EdgeSet's layout). An f32 table's
+    gradient sums by indexing's accumulating ``index_put_`` (a fixed order
+    on the card), a bf16 table's the same way in f32, rounded once
+    (:func:`gather_rows`).
     """
     num_rels, n_rows, dout = weights.shape
     flat = weights.reshape(num_rels * n_rows, dout)
     idx = edges.rel.long() * n_rows + edges.src.long()
-    msgs = flat[idx] * edges.val[:, None]
+    rows = flat[idx] if flat.dtype == torch.float32 else gather_rows(flat, idx)
+    msgs = rows * edges.val[:, None]
     if aggregate is not None:
         return aggregate(msgs, edges)
     return aggregate_messages(msgs, edges.dst, edges.num_nodes)
+
+
+class _GatherWideGrad(torch.autograd.Function):
+    """``table.index_select(0, idx)`` widened to f32; the gradient summed
+    in f32 (an accumulating ``index_put_``, which on the card sorts the
+    indices and sums each row's run in a fixed order) and rounded once to
+    the table's dtype."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape, ctx.dtype = table.shape, table.dtype
+        return table.index_select(0, idx).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        d = g.new_zeros(ctx.shape, dtype=torch.float32).index_put_(
+            (idx,), g.float(), accumulate=True)
+        return d.to(ctx.dtype), None
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` (``idx`` int64) widened to f32 after the gather (a
+    bf16 table's rows read at their own width); with a gradient to keep, a
+    narrow table's gradient sums the rows' f32 cotangents and rounds once
+    (widening after a plain gather would round each row's cotangent to bf16
+    before an ``index_add_`` that rounds every add)."""
+    if table.dtype == torch.float32 or not (torch.is_grad_enabled()
+                                            and table.requires_grad):
+        return table.index_select(0, idx).float()
+    return _GatherWideGrad.apply(table, idx)
 
 
 def _rounded(t: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -136,7 +251,8 @@ def _rounded(t: torch.Tensor, compute_dtype) -> torch.Tensor:
 
 
 def rel_spmm_featureless_basis(edges, bases: torch.Tensor, comps: torch.Tensor, *,
-                               aggregate=None, compute_dtype=None) -> torch.Tensor:
+                               precision=None, aggregate=None,
+                               compute_dtype=None) -> torch.Tensor:
     """Featureless SpMM under basis decomposition, without expanding
     ``comps @ bases`` to ``(R, N, dout)``: the message of edge ``(src,
     rel)`` is ``Σ_b comps[rel, b] · bases[b, src]``, a contraction of the
@@ -149,33 +265,46 @@ def rel_spmm_featureless_basis(edges, bases: torch.Tensor, comps: torch.Tensor, 
     per edge: the gather table is node-major
     with the basis innermost, ``(N, dout, nb)``, so a group of ``g`` tiles
     contracts as one ``(g, tile·dout, nb) @ (g, nb, 1)`` product of the
-    gathered rows as they lie, in full f32. While ``E_pad·nb·dout`` exceeds
+    gathered rows as they lie, widened to f32 (exact products, f32 sums,
+    at ``precision``). While ``E_pad·nb·dout`` exceeds
     :data:`_ELEM_BUDGET`, tiles go in groups whose size divides the tile
     count (the JAX package's search), so the gathered rows of one group
-    exist at a time. ``aggregate(msgs, edges)`` overrides the destination
-    sum (e.g. K1 over the EdgeSet's layout). ``compute_dtype``: the gather
-    table's dtype (see the module docstring).
+    exist at a time, each group's messages written into one buffer.
+    ``aggregate(msgs, edges)`` overrides the destination sum (e.g. K1 over
+    the EdgeSet's layout). ``compute_dtype``: the gather table's dtype (see
+    the module docstring).
     """
     tile, n_tiles = edges.tile_size, edges.num_tiles
     nb, n_rows, dout = bases.shape
     table = _narrow(bases, compute_dtype).permute(1, 2, 0).contiguous().view(
         n_rows, dout * nb)
     if edges.pairs is not None:
-        m = pair_contract(table, comps, edges.pairs, nb, dout, compute_dtype)
+        m = pair_contract(table, comps, edges.pairs, nb, dout, compute_dtype, precision)
         return pair_fan_aggregate(m, edges, aggregate)
-    coef = _rounded(comps, compute_dtype)[edges.tile_rel.long()][:, :, None]  # (n_tiles, nb, 1)
+    coef = _rounded(comps, compute_dtype).float()[edges.tile_rel.long()][:, :, None]
     group = n_tiles
     if n_tiles * tile * nb * dout > _ELEM_BUDGET:
         group = max(1, _ELEM_BUDGET // (tile * nb * dout))
         while n_tiles % group:
             group -= 1
     src = edges.src.long()
-    msgs = torch.empty((n_tiles * tile, dout), dtype=bases.dtype, device=bases.device)
-    with full_f32_matmul():
+    if group < n_tiles and table.requires_grad:
+        # one f32 copy of a bf16 table: the groups' gradients summed in f32
+        # and rounded once, at the cast
+        table = table.float()
+
+    def contract(t0):  # (group·tile, dout) f32 messages of tiles t0 on
+        lo, hi = t0 * tile, (t0 + group) * tile
+        rows = gather_rows(table, src[lo:hi]).view(group, tile * dout, nb)
+        return product(torch.bmm, rows, coef[t0:t0 + group], precision).view(-1, dout)
+
+    if group == n_tiles:
+        msgs = contract(0)
+    else:  # each group's messages written in place (autograd records the copy)
+        msgs = torch.empty((n_tiles * tile, dout), dtype=torch.float32,
+                           device=bases.device)
         for t0 in range(0, n_tiles, group):
-            lo, hi = t0 * tile, (t0 + group) * tile
-            rows = table.index_select(0, src[lo:hi]).float().view(group, tile * dout, nb)
-            torch.bmm(rows, coef[t0:t0 + group], out=msgs[lo:hi].view(group, tile * dout, 1))
+            msgs[t0 * tile:(t0 + group) * tile] = contract(t0)
     msgs = msgs * edges.val[:, None]
     if aggregate is not None:
         return aggregate(msgs, edges)
@@ -210,25 +339,28 @@ def gather_rows_agg(table: torch.Tensor, idx: torch.Tensor, layout) -> torch.Ten
     return _GatherRowsAgg.apply(table, idx, layout)
 
 
-def _contract(rows: torch.Tensor, coef: torch.Tensor, dout: int, nb: int) -> torch.Tensor:
+def _contract(rows: torch.Tensor, coef: torch.Tensor, dout: int, nb: int,
+              precision=None) -> torch.Tensor:
     """``m[u] = rows[u] · coef[u]`` for rows laid out ``(dout, nb)``."""
-    return torch.bmm(rows.view(-1, dout, nb), coef.unsqueeze(-1)).view(-1, dout)
+    return product(torch.bmm, rows.view(-1, dout, nb), coef.unsqueeze(-1),
+                   precision).view(-1, dout)
 
 
-def _contract_group(table, src, coef, dout, nb):
-    return _contract(table.index_select(0, src).float(), coef, dout, nb)
+def _contract_group(table, src, coef, dout, nb, precision):
+    return _contract(gather_rows(table, src), coef, dout, nb, precision)
 
 
 def _contract_rounded(rows: torch.Tensor, coef: torch.Tensor, dout: int,
-                      nb: int) -> torch.Tensor:
-    """:func:`_contract` with each term ``rows · coef`` rounded to the
-    rows' (compute) dtype before the f32 sum: JAX's GEMM form
-    ``dot(rows * c_wide, collapse, preferred_element_type=f32)``."""
-    return (rows.view(-1, dout, nb) * coef[:, None, :]).float().sum(-1)
+                      nb: int, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_contract` with each term ``rows · coef`` (values of
+    ``dtype``) taken in ``dtype``, rounded, before the f32 sum: JAX's GEMM
+    form ``dot(rows * c_wide, collapse, preferred_element_type=f32)``,
+    whose backward rounds each product to ``dtype`` too."""
+    return (rows.view(-1, dout, nb).to(dtype) * coef.to(dtype)[:, None, :]).float().sum(-1)
 
 
 def pair_contract(table: torch.Tensor, comps: torch.Tensor, pairs, nb: int,
-                  dout: int, compute_dtype=None) -> torch.Tensor:
+                  dout: int, compute_dtype=None, precision=None) -> torch.Tensor:
     """Per-pair contraction ``m[u] = Σ_b comps[pair_rel_u, b] ·
     table[pair_src_u][:, b]`` (counterpart of ``_pair_contract``,
     ``ops/spmm.py:410-456``) of a ``(N, dout·nb)`` table laid out ``(N,
@@ -246,35 +378,37 @@ def pair_contract(table: torch.Tensor, comps: torch.Tensor, pairs, nb: int,
     ``torch.utils.checkpoint``, so one group's rows exist at a time and
     the backward gathers them again (the JAX ``jax.checkpoint``).
 
-    ``compute_dtype`` set: ``table`` is in it already, ``coef`` is rounded
-    to it, the ungrouped contraction rounds each term to it before the f32
-    sum (:func:`_contract_rounded`) and the grouped one sums exact f32
-    products, as JAX's two forms do.
+    ``compute_dtype`` set: ``table`` is in it already and ``coef`` is
+    rounded to it. A bf16 ``table`` (a compute dtype, or a featureless
+    layer's bf16 bases): the ungrouped contraction rounds each term to it
+    before the f32 sum (:func:`_contract_rounded`) and the grouped one sums
+    exact f32 products, as JAX's two forms do; bf16 ``comps`` are widened
+    exactly. ``precision``: the f32 products' (see the module docstring).
     """
     src = pairs.pair_src.long()
     u_pad = src.shape[0]
     # rounded before the gather, widened back: the gather's backward sums in
-    # f32 and the gradient rounds once to the compute dtype
-    coef = _rounded(comps, compute_dtype).index_select(0, pairs.pair_rel.long())  # (U_pad, nb)
-    with full_f32_matmul():
-        if u_pad * nb * dout <= _PAIR_ELEM_BUDGET:
-            if pairs.src_layout is not None:
-                rows = gather_rows_agg(table, pairs.pair_src, pairs.src_layout)
-            else:
-                rows = table.index_select(0, src)
-            if compute_dtype is not None:
-                return _contract_rounded(rows, coef.to(compute_dtype), dout, nb)
-            return _contract(rows, coef, dout, nb)
-        group = max(1, _PAIR_ELEM_BUDGET // (nb * dout))
-        while u_pad % group:
-            group -= 1
-        grad = torch.is_grad_enabled() and (table.requires_grad or coef.requires_grad)
-        parts = []
-        for lo in range(0, u_pad, group):
-            args = (table, src[lo:lo + group], coef[lo:lo + group], dout, nb)
-            parts.append(checkpoint(_contract_group, *args, use_reentrant=False)
-                         if grad else _contract_group(*args))
-        return torch.cat(parts)
+    # f32 and the gradient rounds once to the compute (or comps') dtype
+    coef = _rounded(comps, compute_dtype).float().index_select(
+        0, pairs.pair_rel.long())  # (U_pad, nb)
+    if u_pad * nb * dout <= _PAIR_ELEM_BUDGET:
+        if pairs.src_layout is not None:
+            rows = gather_rows_agg(table, pairs.pair_src, pairs.src_layout)
+        else:
+            rows = gather_rows(table, src)
+        if table.dtype != torch.float32:
+            return _contract_rounded(rows, coef.to(table.dtype), dout, nb, table.dtype)
+        return _contract(rows, coef, dout, nb, precision)
+    group = max(1, _PAIR_ELEM_BUDGET // (nb * dout))
+    while u_pad % group:
+        group -= 1
+    grad = torch.is_grad_enabled() and (table.requires_grad or coef.requires_grad)
+    parts = []
+    for lo in range(0, u_pad, group):
+        args = (table, src[lo:lo + group], coef[lo:lo + group], dout, nb, precision)
+        parts.append(checkpoint(_contract_group, *args, use_reentrant=False)
+                     if grad else _contract_group(*args))
+    return torch.cat(parts)
 
 
 def pair_fan_aggregate(m: torch.Tensor, edges, aggregate=None) -> torch.Tensor:
@@ -297,8 +431,12 @@ def pair_fan_aggregate(m: torch.Tensor, edges, aggregate=None) -> torch.Tensor:
     return aggregate_messages(msgs, edges.dst, edges.num_nodes)
 
 
+def _stacked(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x @ w
+
+
 def rel_spmm_basis_pairs(edges, x: torch.Tensor, bases: torch.Tensor,
-                         comps: torch.Tensor, *, aggregate=None,
+                         comps: torch.Tensor, *, precision=None, aggregate=None,
                          compute_dtype=None) -> torch.Tensor:
     """Featureful basis SpMM through the unique-(src, rel) pair index
     (counterpart of ``rel_spmm_basis_pairs``, ``ops/spmm.py:459-493``):
@@ -308,12 +446,12 @@ def rel_spmm_basis_pairs(edges, x: torch.Tensor, bases: torch.Tensor,
     ``bases (nb, din, dout)``, ``comps (R, nb)`` over the general
     relations; the weights are never expanded to ``(R, din, dout)``.
     ``compute_dtype``: ``H``'s dtype from its product on (see the module
-    docstring)."""
+    docstring). ``precision``: the products' (``H`` and the pair
+    contraction)."""
     if edges.pairs is None:
         raise ValueError("rel_spmm_basis_pairs requires edges.pairs")
     nb, din, dout = bases.shape
-    with full_f32_matmul():
-        h = x @ bases.permute(1, 2, 0).reshape(din, dout * nb)
+    h = product(_stacked, x, bases.permute(1, 2, 0).reshape(din, dout * nb), precision)
     m = pair_contract(_narrow(h, compute_dtype), comps, edges.pairs, nb, dout,
-                      compute_dtype)
+                      compute_dtype, precision)
     return pair_fan_aggregate(m, edges, aggregate)

@@ -7,6 +7,16 @@ transform; AdamW decays the parameter, as ``optax.adamw`` does. Adagrad is
 the JAX package's own: ``scale_by_rss`` with a zero initial accumulator
 and eps 1e-10 *inside* the root (``g / sqrt(Σg² + eps)``, and 0 where
 ``Σg²`` is 0), which ``torch.optim.Adagrad`` (eps outside) is not.
+
+bf16 parameters (the layers' ``param_dtype``): the optimizer state is kept
+in each parameter's dtype, as optax keeps it (``scale_by_adam``'s ``mu``
+and ``nu`` are ``zeros_like(params)``, and ``scale_by_rss``'s sum of
+squares too), and the update is applied to the parameter as it is. There
+is no f32 master copy, because the JAX package keeps none. ``torch.optim``'s
+Adam, AdamW and SGD and :class:`_RssAdagrad` already make their state with
+``zeros_like(p)``; their arithmetic rounds at other places than optax's
+bf16 arithmetic, within bf16's own rounding
+(``tests/test_torch_param_dtype.py`` holds one Adam step to optax's).
 """
 
 from __future__ import annotations

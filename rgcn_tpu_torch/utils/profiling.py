@@ -93,7 +93,8 @@ def device_split(fn, iters: int = 50, warmup: int = 5, tries: int = 5,
     """``fn()``'s kernels on the card: ``{"ms": device ms per call,
     "kernels_us": {kernel name: µs per call}, "calls": the calls profiled}``,
     from torch.profiler over ``iters`` back-to-back calls after ``warmup``
-    (host launch cost excluded). A profile that lost records -- a launch
+    (host launch cost excluded), the card idle when each profile starts.
+    A profile that lost records -- a launch
     without its kernel's record (:func:`lost_kernel_records`), or no device
     event at all -- undercounts, and is taken again over half as many calls
     (a longer session loses some more often), down to one call;
@@ -104,6 +105,10 @@ def device_split(fn, iters: int = 50, warmup: int = 5, tries: int = 5,
     for _ in range(warmup):
         fn()
     for attempt in range(tries):
+        if torch.cuda.is_available():
+            # work queued before the session (the warm calls, the caller's
+            # own) would otherwise run, and be recorded, inside it
+            torch.cuda.synchronize()
         with profile_session([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()

@@ -16,6 +16,10 @@ The JAX layer that gathers from those blocks
 comment records it as a TPU gather experiment, measured slower than the
 gather from the one table and kept as no default, and it computes the
 same function as the one-table layer.
+
+A bf16 leaf (a JAX model with ``param_dtype=jnp.bfloat16``, or a tree
+cast to it: numpy holds it as ``ml_dtypes.bfloat16``) arrives as a bf16
+tensor, bit for bit; every other leaf as f32.
 """
 
 from __future__ import annotations
@@ -35,12 +39,19 @@ _MODULE_LEAVES = ("weights", "bias", "bases", "comps", "blocks", "self_weight",
 
 
 def _tensor(value) -> torch.Tensor:
-    return torch.from_numpy(np.array(value, dtype=np.float32))
+    """A bf16 array's bits as a bf16 tensor (through a ``uint16`` view),
+    anything else as f32."""
+    array = np.asarray(value)
+    if array.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(array).view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(array, dtype=np.float32))
 
 
 def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """``{"params": {...}}`` of numpy arrays (or anything ``np.asarray``
-    takes) -> the port's ``state_dict`` of f32 CPU tensors: ``rgc1/bases``
+    takes) -> the port's ``state_dict`` of CPU tensors, bf16 where the
+    leaf is bf16 and f32 otherwise: ``rgc1/bases``
     becomes ``rgc1.bases``, ``scoring_function/relations`` becomes
     ``scoring_function.relations``, ``node_embeddings`` stays, and
     ``node_embeddings_block{i}`` join along the columns in index order

@@ -246,9 +246,6 @@ ARGS_NOT_PORTED = {
                "partial_keys",
     "pallas_train_step": "the XLA training step (segment sums, no kernel): "
                          "the port trains on its kernels only",
-    "param_dtype": "bf16 parameters through every op: the next slice",
-    "precision": "XLA's matmul precision: the next slice (the port's products "
-                 "are full f32)",
 }
 
 

@@ -2027,3 +2027,121 @@ def test_nc_training_is_bit_reproducible(cuda):
         states.append({k: v.detach().clone() for k, v in t.model.state_dict().items()})
     for k, v in states[0].items():
         assert _same_bits(v, states[1][k]), k
+
+
+# -- K2's and K3's bf16-weight forms (the layers' param_dtype) ------------------------
+
+
+@pytest.mark.parametrize("din,dout", [(16, 4), (32, 40), (6, 5)])
+def test_k2_wbf16(cuda, din, dout):
+    """f32 x with a bf16 W: k2_fused_wbf16 (one launch, nothing else)
+    against its plain version (W widened), the same bits on a second
+    launch into NaN-filled memory, and the f32 form's bits on W widened
+    beforehand (the same products in the same order)."""
+    es, rng = _edges(1300, 6, 6000, 3, cuda)
+    x = torch.relu(_t(rng, cuda, 1300, din))
+    wb = _t(rng, cuda, 12, din, dout, scale=din ** -0.5).to(BF16)
+    assert rs.fused_fits(wb, es.fused.row_block)
+    before = dict(kernels.LAUNCHES)
+    a, b = _twice_into_nan(lambda: fz.rel_spmm_fused(es.fused, 1300, x, wb, compute_dtype=None),
+                           (1300, dout), torch.float32)
+    assert _launched(before) == {"k2_fused_wbf16": 2}
+    _close(a, fz.rel_spmm_fused_plain(es.fused, 1300, x, wb))
+    assert _same_bits(a, b)
+    assert _same_bits(a, fz.rel_spmm_fused(es.fused, 1300, x, wb.float(), compute_dtype=None))
+
+
+def test_k2_wbf16_skewed(cuda):
+    es = build_edge_set(skew_triples(), 1536, 4, with_dst_layout=True).to(cuda)
+    rng = np.random.default_rng(6)
+    x = torch.relu(_t(rng, cuda, 1536, 16))
+    wb = _t(rng, cuda, 8, 16, 4, scale=0.25).to(BF16)
+    got = fz.rel_spmm_fused(es.fused, 1500, x, wb, compute_dtype=None)
+    _close(got, fz.rel_spmm_fused_plain(es.fused, 1536, x, wb)[:1500])
+
+
+@pytest.mark.parametrize("out", [torch.float32, BF16])
+@pytest.mark.parametrize("din,dout", [(500, 500), (37, 70), (130, 260), (16, 4), (10, 11)])
+def test_k3_wbf16(cuda, din, dout, out):
+    """f32 x with a bf16 W: k3_messages_wbf16 (its small route, and its
+    tiled route's two TF32 passes) against its plain version's f32 sums,
+    rows of val 0 zero, one launch."""
+    es, rng = _edges(300, 5, 1800, 8, cuda)
+    x = torch.relu(_t(rng, cuda, 300, din))
+    wb = _t(rng, cuda, 10, din, dout, scale=din ** -0.5).to(BF16)
+    junk = torch.full((es.src.shape[0], dout), float("nan"), device=cuda)
+    del junk
+    before = dict(kernels.LAUNCHES)
+    got = rs.rel_spmm_messages(es, x, wb, out_dtype=out)
+    assert _launched(before) == {"k3_messages_wbf16": 1}
+    ref = rs.rel_spmm_messages_plain(es, x, wb, torch.float32)
+    if out == BF16:
+        _close_bf16_out(got, ref)
+    else:
+        _close(got, ref)
+    assert (got[es.val == 0] == 0).all()
+
+
+def test_bf16_weights_other_mixes_raise(cuda):
+    es, rng = _edges(200, 3, 900, 9, cuda)
+    x = _t(rng, cuda, 200, 8)
+    w = _t(rng, cuda, 6, 8, 4)
+    for xx, ww in ((x.to(BF16), w), (x, w.half())):
+        with pytest.raises(TypeError):
+            kernels.launch_k3_messages(xx, ww, es.src, es.val, es.tile_rel, es.tile_size)
+        with pytest.raises(TypeError):
+            fz.rel_spmm_fused(es.fused, 200, xx, ww, compute_dtype=None)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_spmm_function_bf16_weights(cuda, fused):
+    """rel_spmm_ad with bf16 weights on the card (K2's or K3's bf16-weight
+    form both ways, K1 after K3) against the CPU: forward and dx within
+    1e-5·max(1, max|ref|), dW (bf16) within one rounding of its f32 sums."""
+    es, rng = _edges(700, 5, 3500, 11, cuda)
+    if not fused:
+        es = _no_fused(es)
+    x = torch.relu(_t(rng, cuda, 700, 16))
+    wb = _t(rng, cuda, es.num_rels, 16, 8, scale=0.25).to(BF16)
+    cot = _t(rng, cuda, 700, 8)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        xx = x.detach().to(dev).clone().requires_grad_()
+        ww = wb.detach().to(dev).clone().requires_grad_()
+        before = dict(kernels.LAUNCHES)
+        out = rs.rel_spmm_ad(es.to(dev), xx, ww)
+        out.backward(cot.to(dev))
+        runs[dev.type] = (out.detach().cpu(), xx.grad.cpu(), ww.grad.cpu(), _launched(before))
+    out, dx, dw, used = runs["cuda"]
+    form = {"k2_fused_wbf16": 2} if fused else {"k3_messages_wbf16": 2, "k1_aggregate": 2}
+    assert used == form
+    assert dw.dtype == BF16 and dx.dtype == torch.float32
+    for got, ref in ((out, runs["cpu"][0]), (dx, runs["cpu"][1])):
+        tol = 1e-5 * max(1.0, ref.abs().max().item())
+        assert (got - ref).abs().max().item() <= tol
+    ref = runs["cpu"][2].float()
+    assert bool(((dw.float() - ref).abs()
+                 <= 2.0 ** -8 * ref.abs() + 1e-5 * max(1.0, ref.abs().max().item())).all())
+
+
+def test_bf16_layer_launches_the_bf16_weight_forms(cuda):
+    """RGCNConv with param_dtype=bfloat16 on the card: the dense layer's
+    forward through k2_fused_wbf16, the block layer (expanded weights past
+    the fused budget) through k3_messages_wbf16 and K1; f32 outputs."""
+    from rgcn_tpu_torch.nn.layers import RGCNConv
+
+    es, rng = _edges(400, 4, 2000, 12, cuda)
+    x = torch.relu(_t(rng, cuda, 400, 16))
+    dense = RGCNConv(400, 9, 4, in_features=16, param_dtype=BF16).to(cuda)
+    before = dict(kernels.LAUNCHES)
+    with torch.no_grad():
+        out = dense(es, x)
+    assert out.dtype == torch.float32 and _launched(before) == {"k2_fused_wbf16": 1}
+    wide = torch.relu(_t(rng, cuda, 400, 400))
+    block = RGCNConv(400, 9, 400, in_features=400, decomposition="block", num_blocks=100,
+                     separate_self_weight=True, bias_init=None, param_dtype=BF16).to(cuda)
+    before = dict(kernels.LAUNCHES)
+    with torch.no_grad():
+        out = block(es, wide)
+    assert out.dtype == torch.float32
+    assert _launched(before) == {"k3_messages_wbf16": 1, "k1_aggregate": 1}
