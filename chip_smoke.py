@@ -120,20 +120,28 @@ Phases, in order; any failure exits non-zero and prints no result:
    and no other kernel (per epoch: train forward 2, backward 4 (each
    layer's pair-message gradient and basis-table gradient), eval forward
    2; then the final prediction's 2), with the run's peak device memory;
-   then K1 in the path's modes at nc-AM's shapes, held and timed as in
+   nc-AM trained again from the seed-0 initialisation must repeat the
+   first run's launches, records, parameters and logits bit for bit
+   (check_repeat: K1's fixed-order kernel at width 10, 4-value lanes with
+   a masked tail in 8-byte pieces, and the relation gathers' fixed-order
+   backward); then K1 in the path's modes at nc-AM's shapes, held and timed as in
    phase 3 with a torch.index_add yardstick (the composed forward at dout
    10 and 11, the pair messages' gradient over grad_layout at 10 and 11,
    the basis table's gradient over src_layout at 400 and 440), and the
    AM-scale step profiled as in phase 5;
 13. training lp-WN18 (wn18_like(), width 200, 2 bases, batch 30,000, 10
    negatives a positive) and lp-FB-toy (fb_toy_like(), width 500, 100
-   blocks, batch 300) for 3 epochs each through the trainer's production
+   blocks, batch 300) for 2 epochs each through the trainer's production
    step (subgraph, negatives and scoring layouts built on the host; the
    structured DistMult scorer), counts zeroed before each path: from the
    seed-0 initialisation on the card and on the CPU's plain versions,
    every gradient after one backward within 1e-5 * max(1, max|ref|),
    per-epoch loss within rtol 1e-4, the final filtered MRR within 1e-3
-   and at least 99% of the ranks of the whole test split equal; exactly
+   and at least 99% of the ranks of the whole test split equal, after the
+   card has trained again from the same initialisation and repeated its
+   launches, records, parameters and test ranks bit for bit
+   (check_lp_repeat: K4 and K1 sum in a fixed order, dcomps and d
+   relations by ops/ordered.py's segment sums); exactly
    K4 4E + 1 and K1 2E (lp-WN18: per step K4 forward, K4 dx over the
    reversed subgraph, two K4 terms of the corrupted entities, K1 for the
    subjects' and the objects' rows; one K4 encode over the merged frame
@@ -152,7 +160,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    are matmuls); z and point scores within 1e-4 * max(1, max|ref|) of the
    CPU plain run, top-10 sets as in phase 7; each encode's host-clock
    median of 20;
-15. training c-RGCN on both configs for 3 epochs, full batch (no
+15. training c-RGCN on both configs for 2 epochs, full batch (no
    graph_batch_size: every training triple a positive, 10 negatives
    each), gated as in phase 13 but for the ranks: every test rank must
    lie within the CPU model's band of ranks whose scores are within 1e-4 *
@@ -169,9 +177,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    exactly K1 1 and K2 1, nc-AM on am_like() at AM scale (532: unmerged,
    slot order) exactly K1 2 and K3 1; logits and classes as in phase 10;
    each forward's host-clock median of 20;
-17. training e-RGCN: nc-AIFB for 5 epochs (exactly K1 3E + 1, K2 3E + 1)
+17. training e-RGCN: nc-AIFB for 4 epochs (exactly K1 3E + 1, K2 3E + 1)
    and nc-AM at AM scale for 2 (exactly K1 6E + 2, K3 3E + 1), gated as
-   in phase 12, each step profiled as in phase 5;
+   in phase 12, nc-AM trained twice bit-equal (check_repeat: the diagonal
+   layer's K1 on its fixed-order kernel, d dw by relation run), each step
+   profiled as in phase 5;
 18. K1 in the diagonal layer's four modes at d 32 (merged forward and dx
    on the nc-AIFB training EdgeSet, unmerged forward and dx at AM scale),
    held against the plain version run in f64 on the same rows (at AM
@@ -245,13 +255,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    a biased decoder (the assembled batch scored by plain gathers and
    autograd: K4 2E + 1), a plain L2 (the assembled batch's scorer, K1 for
    the subjects' and objects' rows: K4 2E + 1, K1 2E) and the structural
-   self-loop mask (one (N, 1) mask, structured scorer: K4 4E + 1, K1 2E),
-   under phase 13's gates, the assembled branch's sample_epoch stages
+   self-loop mask (one (N, 1) mask, structured scorer: K4 4E + 1, K1 2E,
+   trained twice bit-equal before the gates against the CPU, as in phase
+   13), under phase 13's gates, the assembled branch's sample_epoch stages
    timed; each step profiled as in phase 5; then one forward and backward
    of the merged-frame basis Function over phase 6's dedup frame (exactly
    K5 1 and K4 1) held against the same Function over the plain merged
    frame within 1e-5 * max(1, max|ref|), both timed, and K4 under grad
-   outside the Functions must raise; one "branches" line;
+   outside the Functions must raise; K4's f32 form at nc-AM's width 10
+   (8-byte pieces) over the 4-basis branch's layout, held and timed as in
+   phase 3; one "branches" line;
 22. edge-sharded training (rgcn_tpu_torch.dist), each case on ranks the
    script starts (spawn) and against the port's single-device trainer on
    the card from the same seed (seed 0, its epochs): nc-AIFB R-GCN
@@ -285,13 +298,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    classify_nodes.main and lp-WN18 1 epoch through predict_links.main
    (both --synthetic) with --profile-dir; the one *.pt.trace.json each
    writes must hold CUDA kernel events, and its events of K1 in both forms
-   (k1_fixed_kernel; chunk_kernel<k1:: over a source-ordered layout;
-   over 1,024 CTAs or more k1_aggregate_kernel for scalar lanes and
-   k1_owned_kernel for dense 4-value lanes of at most 128 columns),
+   (k1_fixed_kernel; chunk_kernel<k1:: over a source-ordered layout),
    K2 in both forms (chunk_kernel<k2::), K3 (k3_tiled_kernel,
-   k3_small_kernel) and K4 + K5 in both forms (weighted_runs.cuh's
-   runs_kernel<...>, or K4 bf16's k4b::owned_kernel<...> on its owned-row
-   route) must equal the launch counters over the same run (the
+   k3_small_kernel) and K4 + K5 in both forms (K4's k4o::owned_kernel<...>,
+   K5's weighted_runs.cuh runs_kernel<...>) must equal the launch counters over the same run (the
    kernels launch through ctypes from the nvcc-built libraries), K1 and
    K2 (nc-AIFB), K1 and K4 (lp-WN18) at least once; measure_canary called
    twice on one fresh floor file (the WN18-scale merged basis op over its
@@ -390,8 +400,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    distance from them (as the answers): nc-AIFB with 4 bases, nc-MUTAG
    (pairs), e-RGCN nc-AIFB and nc-AM, lp-WN18, and lp-WN18 with
    decoder.bwd_dtype bfloat16 (its scores and penalty bit-equal to the f32
-   decoder's); the step times both ways; three lp-WN18 epochs with finite
-   losses; lp-WN18 trained 1 epoch through predict_links.main with
+   decoder's); the step times both ways; two lp-WN18 epochs with finite
+   losses, trained again by a fresh trainer from the same parameters with
+   the same launches and bit-equal losses and parameters (K4's bf16 form
+   on its owned-row kernel at every layout); lp-WN18 trained 1 epoch through predict_links.main with
    --profile-dir on the default path (the trace's events equal the
    counters, exactly K4's bf16 form 2E + 1, its f32 form and K1 2E each,
    the first loss within 8e-3 * max(1, |ref|) of the CPU's bf16 loss);
@@ -473,7 +485,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    K1's bf16 output counts as its message form's launch), and the
    param_dtype and param_dtype_modes lines of phase 28 (the rows "K2
    bf16-W" and "K3 bf16-W", each with its count on the phase-28 path
-   that launches it: nc-AIFB's served forward, lp-FB-toy's step);
+   that launches it: nc-AIFB's served forward, lp-FB-toy's step), and the
+   rows "K1 masked lanes" (K1's fixed-order kernel at nc-AM's width 10,
+   the pair path's composed forward) and "K4 f32 pieces" (phase 21's row)
+   with their counts on the nc-AM training paths; then the routes line:
+   every K1 and K4 launch of the run by route and lane piece
+   (kernels.ROUTES), which must name only the fixed-order routes;
 30. last line: {"ok": true, "device": {...}}.
 
 Needs CUDA (exits 1 without it) and the repository around it.
@@ -1856,7 +1873,7 @@ def phase_train_pairs(dev, am_data):
     from rgcn_tpu_torch.data.synthetic import synthetic_nc_data
     from rgcn_tpu_torch.profile_serve import profile_train_step
 
-    paths, checks = {}, {}
+    paths, checks, repeats = {}, {}, {}
     for key, path, epochs in (("train_nc_mutag", MUTAG_CONFIG, PAIR_EPOCHS),
                               ("train_nc_bgs", BGS_CONFIG, PAIR_EPOCHS),
                               ("train_nc_am", AM_CONFIG, AM_EPOCHS)):
@@ -1865,10 +1882,12 @@ def phase_train_pairs(dev, am_data):
             base.training, epochs=epochs))
         data = am_data if key == "train_nc_am" else synthetic_nc_data(cfg.dataset.name)
         got, check, card, peak_gb = train_against_cpu(
-            key, cfg, data, dev, ((key, key, lambda es: es, train_pair_path(epochs)),))
+            key, cfg, data, dev, ((key, key, lambda es: es, train_pair_path(epochs)),),
+            repeat_first=key == "train_nc_am")
         if card.edges.pairs is None or card.edges.pairs.agg is None:
             fail(f"training [{key}]: the trainer built no composed pair layout")
         paths.update(got)
+        repeats.update({k: check.pop(k) for k in list(check) if k.endswith("_repeat")})
         checks.update(check)
     modes = phase_pair_kernels(dev, card, counts=paths["train_nc_am"])
     prof = profile_train_step(card)
@@ -1886,6 +1905,7 @@ def phase_train_pairs(dev, am_data):
         "step_host_ops_us": prof["step"]["host_ops_us"],
         "loss_max_rel_diff": {k: v[0] for k, v in checks.items()},
         "logits_max_abs_diff": {k: v[1] for k, v in checks.items()},
+        "train_nc_am_twice": repeats["train_nc_am_repeat"],
     }
     log(json.dumps({"train_nc_am_step": timing}))
     return paths, modes, timing
@@ -1993,7 +2013,7 @@ def phase_pair_kernels(dev, trainer, counts):
     return modes
 
 
-LP_TRAIN_EPOCHS = 3  # lp-WN18 and lp-FB-toy at full width
+LP_TRAIN_EPOCHS = 2  # lp-WN18 and lp-FB-toy at full width, each trained twice
 
 
 def train_lp_path(decomposition: str, epochs: int) -> dict:
@@ -2038,8 +2058,45 @@ def rank_bands(trainer):
     return np.concatenate(lo), np.concatenate(hi)
 
 
+def check_lp_repeat(key, cfg, data, dev, first, records, ranks, expect) -> dict:
+    """An LP config trained again on the card from the same initialisation
+    as ``first`` (a fresh trainer, the same one-backward gradient check
+    before its fit, counts zeroed just before the fit): exactly the same
+    launches, and records, final parameters and test ranks equal to the
+    first run's bit for bit (K1 and K4 sum in a fixed order, the gradients'
+    segment sums too)."""
+    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch.train.link_prediction import LinkPredictionTrainer
+
+    t0 = time.perf_counter()
+    again = LinkPredictionTrainer(cfg, data, device=dev, logger=records_logger())
+    again.set_epoch(1)
+    again.loss().backward()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    got = records_logger()
+    _, _, ranks1 = again.fit(got)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    if counts != expect:
+        fail(f"training [{key}] again: launches {counts}, expected {expect}")
+    state0, state1 = first.model.state_dict(), again.model.state_dict()
+    differ = {k: (v - state1[k]).abs().max().item() for k, v in state0.items()
+              if not same_bits(v, state1[k])}
+    out = {"params_bit_equal": not differ, "records_equal": got.records == records,
+           "ranks_equal": bool(np.array_equal(ranks, ranks1))}
+    log(f"  [{key}] trained twice from the seed-0 initialisation "
+        f"({time.perf_counter() - t0:.1f} s): {json.dumps(out)}"
+        + (f"; parameters that differ (max abs): {differ}" if differ else "")
+        + ("" if out["ranks_equal"] else
+           f"; ranks equal {float(np.mean(ranks == ranks1)):.4%}"))
+    if not all(out.values()):
+        fail(f"training [{key}]: two card runs from one initialisation differ")
+    return out
+
+
 def lp_train_against_cpu(key, path, data, dev, epochs, expect=None, rank_band=False,
-                         edit=None):
+                         edit=None, repeat=False):
     """Train an LP config on the card and on the CPU's plain versions from
     the seed-0 initialisation and the same epoch schedule: every gradient
     after one backward within 1e-5 * max|ref| of its own parameter (the
@@ -2052,7 +2109,10 @@ def lp_train_against_cpu(key, path, data, dev, epochs, expect=None, rank_band=Fa
     initialisation moved by 1e-7 relative); exactly ``expect``
     (default train_lp_path's launches), counts zeroed just before the
     card's run. ``edit``: a function of the loaded config, applied before
-    the epochs are set (phase 21's branches).
+    the epochs are set (phase 21's branches). ``repeat``: before the
+    gates against the CPU, the card trains again from the same
+    initialisation and must repeat its launches, records, parameters and
+    ranks bit for bit (check_lp_repeat, ``checks["repeat"]``).
     Returns (launches, checks, the card's trainer, its peak device GB)."""
     from rgcn_tpu_torch import kernels
     from rgcn_tpu_torch.config import load_experiment
@@ -2135,6 +2195,8 @@ def lp_train_against_cpu(key, path, data, dev, epochs, expect=None, rank_band=Fa
         f"{peak:.3f} GB")
     if counts != expect:
         fail(f"training [{key}]: launches {counts}, expected {expect}")
+    repeated = (check_lp_repeat(key, cfg, data, dev, card, got.records, ranks, expect)
+                if repeat else None)
     if [r[:2] for r in got.records] != [r[:2] for r in ref.records]:
         fail(f"training [{key}]: records {[r[:2] for r in got.records]} != CPU's")
     worst = 0.0
@@ -2149,6 +2211,8 @@ def lp_train_against_cpu(key, path, data, dev, epochs, expect=None, rank_band=Fa
         f"{len(ranks)} ranks equal")
     checks = dict(loss_max_rel_diff=worst, mrr=mrr, cpu_mrr=ref_mrr, hits=hits,
                   cpu_hits=ref_hits, ranks_equal=same)
+    if repeated is not None:
+        checks["repeat"] = repeated
     if bands is not None:
         lo, hi = bands
         inside = float(np.mean((ranks >= lo) & (ranks <= hi)))
@@ -2341,7 +2405,7 @@ def phase_train_lp(dev):
             ("train_lp_wn18", LP_CONFIG, wn18_like(), lp_wn18_modes),
             ("train_lp_fb_toy", FB_CONFIG, fb_toy_like(), lp_fb_modes)):
         counts, checks, trainer, peak = lp_train_against_cpu(
-            key, path, data, dev, LP_TRAIN_EPOCHS)
+            key, path, data, dev, LP_TRAIN_EPOCHS, repeat=True)
         paths[key] = counts
         modes.extend(mode_fn(dev, trainer, counts))
         torch.cuda.reset_peak_memory_stats()
@@ -2378,7 +2442,7 @@ E_AIFB_PATH = dict(k1_aggregate=1, k2_fused=1)
 # e-RGCN at AM scale (532 general relations, unmerged): the diagonal layer
 # K1 once in slot order, layer 2's W (532, 32, 11) past fused_fits, K3 + K1
 E_AM_PATH = dict(k1_aggregate=2, k3_messages=1)
-C_TRAIN_EPOCHS = 3  # lp-WN18 and lp-FB-toy, c-RGCN, full batch
+C_TRAIN_EPOCHS = 2  # lp-WN18 and lp-FB-toy, c-RGCN, full batch
 E_AIFB_EPOCHS = 4
 E_AM_EPOCHS = 2
 
@@ -2563,11 +2627,13 @@ def phase_ergcn_train(dev, aifb, am):
         cfg = dataclasses.replace(base, training=dataclasses.replace(
             base.training, epochs=epochs))
         got, check, card, peak = train_against_cpu(
-            key, cfg, data, dev, ((key, key, lambda es: es, expect),))
+            key, cfg, data, dev, ((key, key, lambda es: es, expect),),
+            repeat_first=key == "train_ergcn_nc_am")
         paths.update(got)
+        twice = {f"{key}_twice": check[f"{key}_repeat"]} if f"{key}_repeat" in check else {}
         timing[key] = train_step_timing(
             card, peak_memory_gb_training_run=peak,
-            loss_max_rel_diff=check[key][0], logits_max_abs_diff=check[key][1])
+            loss_max_rel_diff=check[key][0], logits_max_abs_diff=check[key][1], **twice)
         log(json.dumps({f"{key}_step": timing[key]}))
         edges[key] = card.edges
         del card
@@ -3476,11 +3542,56 @@ def branch_k5_grad(dev, lp_edges, dedup):
     return counts, row
 
 
+def k4_pieces_row(dev, edges) -> dict:
+    """K4's f32 form at nc-AM's hidden width 10 (40-byte rows: 8-byte
+    pieces, the last 4-value vector of a row masked) over ``edges``'
+    destination layout, as the featureless 4-basis layer sums it
+    (per-basis (4, N, 10) tables, sum_bases): held against its plain
+    version, timed with its bound and a torch.sparse.mm yardstick."""
+    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch.ops import basis as bs
+
+    rng = np.random.default_rng(24)
+    n, nb, din = edges.num_nodes, 4, 10
+    comps = torch.from_numpy((rng.standard_normal((edges.num_rels, nb)) * 0.3)
+                             .astype(np.float32)).to(dev)
+    table = torch.from_numpy(rng.standard_normal((nb, n, din)).astype(np.float32)).to(dev)
+    src, w = bs.sorted_inputs(edges, comps)
+    lay = edges.layout
+    if kernels.k4_piece(din, table.data_ptr(), 4) != 2:
+        fail("K4 at width 10: not the 8-byte pieces")
+    label = "K4 f32 pieces: nc-AM featureless sum, (4, N, 10), sum_bases"
+    err = check_close(label, bs.weighted_aggregate(table, src, w, lay, n, sum_bases=True),
+                      bs.weighted_aggregate_plain(table, src, w, lay, n, sum_bases=True))
+    keep = lay.local_dst.reshape(-1) < lay.row_block
+    real = int(keep.sum().item())
+    n_rows = int(torch.unique(src[keep]).numel())
+    k_bytes = real * (4 + nb * 4) + nbytes(lay.local_dst, lay.chunk_block) \
+        + nb * n_rows * din * 4 + n * din * 4
+    node, src_k = slot_nodes(lay, lay.local_dst)[keep], src.long()[keep]
+    a = lp_csr(node.repeat(nb), torch.cat([b * n + src_k for b in range(nb)]),
+               w[:, keep].reshape(-1), (n, nb * n))
+    flat = table.reshape(nb * n, din)
+    ms, call = timed(lambda: bs.weighted_aggregate(table, src, w, lay, n, sum_bases=True))
+    plain_ms, plain_call = timed(lambda: bs.weighted_aggregate_plain(
+        table, src, w, lay, n, sum_bases=True))
+    lib_ms, lib_call = timed(lambda: torch.sparse.mm(a, flat))
+    bound, by = bound_ms(k_bytes, 2 * nb * real * din)
+    row = dict(name="K4 f32 pieces", mode=label, route="cuda",
+               source="rgcn_tpu_torch/kernels/csrc/k4_owned.cuh",
+               replaces="rgcn_tpu/ops/pallas_basis.py:166", max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
+               call_ms=call, plain_call_ms=plain_call, library_call_ms=lib_call)
+    log(json.dumps({"kernel_check": row}))
+    return row
+
+
 def phase_branches(dev, am, wn18, lp_edges, dedup):
     """Phase 21: train the branches no shipped config reaches on the card,
     each against the CPU from the same initialisation, counts zeroed just
     before each path; each step profiled. Returns (launches per path, the
-    timing per path, the branches line)."""
+    timing per path, the branches line, K4's f32 row at nc-AM's width 10
+    over branch_nc_am_basis4's layout)."""
     from rgcn_tpu_torch.config import DecompositionConfig
     from rgcn_tpu_torch.data.synthetic import aifb_like
 
@@ -3503,6 +3614,8 @@ def phase_branches(dev, am, wn18, lp_edges, dedup):
             key, cfg, data, dev, ((key, key, lambda es: es, expect),))
         if (card.edges.merged is not None) != merged:
             fail(f"training [{key}]: merged frame present {card.edges.merged is not None}")
+        if key == "branch_nc_am_basis4":
+            pieces_row = k4_pieces_row(dev, card.edges)
         paths.update(got)
         timing[key] = train_step_timing(
             card, peak_memory_gb_training_run=peak,
@@ -3523,7 +3636,7 @@ def phase_branches(dev, am, wn18, lp_edges, dedup):
         t0 = time.perf_counter()
         counts, checks, trainer, peak = lp_train_against_cpu(
             key, LP_CONFIG, wn18, dev, BRANCH_LP_EPOCHS, expect=launches(**expect),
-            edit=edit)
+            edit=edit, repeat=key == "branch_lp_wn18_structural")
         b = trainer.batch
         assembled = key != "branch_lp_wn18_structural"
         if (b.batch is not None) != assembled:
@@ -3542,14 +3655,15 @@ def phase_branches(dev, am, wn18, lp_edges, dedup):
         summary[key] = branch_summary(
             counts, timing[key], loss_max_rel_diff=checks["loss_max_rel_diff"],
             mrr=checks["mrr"], cpu_mrr=checks["cpu_mrr"],
-            ranks_equal=checks["ranks_equal"])
+            ranks_equal=checks["ranks_equal"],
+            **({"repeat": checks["repeat"]} if "repeat" in checks else {}))
         log(json.dumps({f"{key}_step": timing[key]}))
         log(f"phase 21 [{key}]: {time.perf_counter() - t0:.1f} s")
         del trainer
     counts, row = branch_k5_grad(dev, lp_edges, dedup)
     paths["branch_k5_grad"] = counts
     summary["branch_k5_grad"] = {"launches": counts, **row}
-    return paths, timing, summary
+    return paths, timing, summary, pieces_row
 
 
 # -- phase 22: edge-sharded training, ranks on the card ------------------------
@@ -3861,26 +3975,20 @@ TOOLING_LP_EPOCHS = 1  # lp-WN18 under --profile-dir: the trace holds every op
 TOOLING_TIMER_STEPS = 50  # the canary step under StepTimer
 # each launch counter's kernel events in a trace, by the demangled names
 # CUPTI records: K1's f32 and bf16 forms run one kernel a call and nothing
-# beside it, k1::k1_fixed_kernel<TM, TO, VEC, LPS> over a destination-sorted
-# layout or csum::chunk_kernel<k1::Rows<TM>, TO, KS> over a source-ordered
-# one, but over 1,024 CTAs or more (kernels.k1_route): scalar lanes run
-# k1::k1_aggregate_kernel<TM, VEC, LPS> after a memset (and a narrow_output
-# for a bf16 output), dense 4-value lanes of at most 128 columns
-# k1::k1_owned_kernel<TM, TO, VEC, LPS> after zero_split_rows (and
-# narrow_split_rows for a bf16 output);
-# K2's two forms csum::chunk_kernel<k2::Msgs<TX, VX, DO>, float> alone (no
-# memset); K4 and K5 and their bf16 forms run weighted_runs.cuh's
-# templated runs_kernel<TX, TO, VEC, NB, PER_BASIS> (beside one
-# zero_shared_rows each, and narrow_shared_rows for a bf16 output), but for
-# K4's bf16 form on its owned-row route (kernels.k4_bf16_route), which runs
-# k4_owned_bf16.cuh's k4b::owned_kernel<TO, NB, PER_BASIS, Cfg> alone
+# beside it, k1::k1_fixed_kernel<TM, TO, VEC, LPS, P> over a
+# destination-sorted layout or csum::chunk_kernel<k1::Rows<TM>, TO, KS>
+# over a source-ordered one; K2's two forms csum::chunk_kernel<k2::Msgs<TX,
+# VX, DO>, float> alone (no memset); K4's two forms k4_owned.cuh's
+# k4o::owned_kernel<TX, TO, NB, PER_BASIS, Cfg> alone; K5 and its bf16 form
+# weighted_runs.cuh's templated runs_kernel<TX, TO, VEC, NB, PER_BASIS>
+# (beside one zero_shared_rows each, and narrow_shared_rows for a bf16
+# output)
 TRACE_NAMES = {
-    "k1_aggregate+k1_aggregate_bf16": ("k1_fixed_kernel", "chunk_kernel<k1::",
-                                       "k1_aggregate_kernel", "k1_owned_kernel"),
+    "k1_aggregate+k1_aggregate_bf16": ("k1_fixed_kernel", "chunk_kernel<k1::"),
     "k2_fused+k2_fused_bf16": ("chunk_kernel<k2::",),
     "k3_messages": ("k3_tiled_kernel", "k3_small_kernel"),
     "k4_weighted_aggregate+k5_weighted_aggregate_dedup+k4_weighted_aggregate_bf16"
-    "+k5_weighted_aggregate_dedup_bf16": ("runs_kernel<", "k4b::owned_kernel<"),
+    "+k5_weighted_aggregate_dedup_bf16": ("runs_kernel<", "k4o::owned_kernel<"),
 }
 
 
@@ -4861,7 +4969,7 @@ def phase_device_epochs(dev, wn18, fb):
 
 # -- phase 26: the edge stage in bf16, the card's default ---------------------
 
-PRECISION_LP_EPOCHS = 3  # lp-WN18 on the default (bf16) path: finite losses
+PRECISION_LP_EPOCHS = 2  # lp-WN18 on the default (bf16) path: finite, trained twice
 DEVICE_BF16_EPOCHS = 2  # device-built lp-WN18 epochs on the default path
 # the JAX package's bf16 bound (tests/test_basis.py:58): x max(1, max|ref|)
 BF16_TOL = 8e-3
@@ -4896,7 +5004,7 @@ BF16_SOURCES = {
     "K2 bf16": ("k2_fused_bf16.cu", "rgcn_tpu/ops/pallas_fused.py:355"),
     "K3 bf16": ("k3_messages_bf16.cu", "rgcn_tpu/ops/pallas_spmm.py:70"),
     "K4 bf16": ("k4_weighted_aggregate_bf16.cu", "rgcn_tpu/ops/pallas_basis.py:53"),
-    "K4 bf16 owned": ("k4_owned_bf16.cuh", "rgcn_tpu/ops/pallas_basis.py:53"),
+    "K4 bf16 owned": ("k4_owned.cuh", "rgcn_tpu/ops/pallas_basis.py:53"),
     "K5 bf16": ("k5_weighted_aggregate_dedup_bf16.cu", "rgcn_tpu/ops/pallas_basis.py:188"),
     "K2 bf16-W": ("k2_fused_wbf16.cu", "rgcn_tpu/ops/pallas_fused.py:339"),
     "K3 bf16-W": ("k3_messages_wbf16.cu", "rgcn_tpu/ops/pallas_spmm.py:53"),
@@ -5087,8 +5195,8 @@ def precision_kernels(dev, lp_edges, dedup, am_es):
         bf16_sparse_mm(rnode.repeat(nb), torch.cat([b * n + rsrc for b in range(nb)]),
                        rw[:, rkeep].reshape(-1), (n, nb * n), G.reshape(nb * n, din))))
 
-    # K4's owned-row kernel (k4_owned_bf16.cuh), which its route rule takes
-    # on nc-AIFB's 4-basis layouts (kernels.k4_bf16_route): layer 2's Agg
+    # K4's owned-row kernel (k4_owned.cuh, every layout's) on nc-AIFB's
+    # 4-basis layouts: layer 2's Agg
     # over the merged frame, hidden 16, 4 bases, bf16 out
     from rgcn_tpu_torch import kernels
     from rgcn_tpu_torch.data.synthetic import aifb_like
@@ -5101,10 +5209,8 @@ def precision_kernels(dev, lp_edges, dedup, am_es):
     xa16 = torch.relu(rand(na, ha)).to(bf16)
     wa = bs.merged_wvec(am4.coeff, rand(am4.num_rels, nba, scale=0.3))
     alay4 = am4.layout
-    if kernels.k4_bf16_route(ha, xa16.data_ptr(), alay4.num_chunks, nba,
-                             bf16) != kernels.K4_BF16_OWNED:
-        fail("K4 bf16 at nc-AIFB with 4 bases: the route rule does not take the owned-row "
-             "kernel")
+    if kernels.k4_piece(ha, xa16.data_ptr(), 2) != 8:
+        fail("K4 bf16 at nc-AIFB with 4 bases: not whole 16-byte vectors")
     oa = bs.weighted_aggregate(xa16, am4.src_sorted, wa, alay4, na, out_dtype=bf16)
     akeep4 = alay4.local_dst.reshape(-1) < alay4.row_block
     a_real4 = int(akeep4.sum().item())
@@ -5385,6 +5491,7 @@ def precision_training(dev, lp, am_es, am_data):
             if not np.isfinite(losses).all():
                 fail(f"lp_wn18 (bf16 edge stage): losses {losses} not finite")
             out[key]["epoch_losses"] = losses
+            out[key]["twice"] = bf16_lp_repeat(cfg, lp, dev, state, card, losses)
         else:
             # the structured scorer's forward under grad, from one encode,
             # with and without the narrow backward: bit-equal
@@ -5402,6 +5509,39 @@ def precision_training(dev, lp, am_es, am_data):
                 fail("decoder.bwd_dtype changed the structured scorer's forward")
             out[key]["scores_bit_equal_to_f32"] = same
         del card, cpu
+    return out
+
+
+def bf16_lp_repeat(cfg, data, dev, state, first, losses) -> dict:
+    """The bf16 default lp-WN18 epochs trained again on the card from the
+    same parameters ``state`` as ``first`` (a fresh trainer, counts zeroed
+    just before): the launches of PRECISION_LP_EPOCHS steps (BF16_STEP's
+    each) and losses and final parameters bit-equal to ``first``'s."""
+    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch.train.link_prediction import LinkPredictionTrainer
+
+    again = LinkPredictionTrainer(cfg, data, init_state=state, device=dev,
+                                  logger=records_logger())
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    got = []
+    for epoch in range(1, 1 + PRECISION_LP_EPOCHS):
+        again.set_epoch(epoch)
+        got.append(again.step())
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    want = launches(**{k: PRECISION_LP_EPOCHS * v for k, v in BF16_STEP["lp_wn18"].items()})
+    if counts != want:
+        fail(f"lp_wn18 (bf16 edge stage) again: launches {counts}, expected {want}")
+    state0, state1 = first.model.state_dict(), again.model.state_dict()
+    differ = {k: (v - state1[k]).abs().max().item() for k, v in state0.items()
+              if not same_bits(v, state1[k])}
+    out = {"params_bit_equal": not differ, "losses_equal": got == losses,
+           "launches": counts}
+    log(f"  lp_wn18 (bf16 edge stage) trained twice from one state: {json.dumps(out)}"
+        + (f"; parameters that differ (max abs): {differ}" if differ else ""))
+    if not (out["params_bit_equal"] and out["losses_equal"]):
+        fail("lp_wn18 (bf16 edge stage): two card runs from one state differ")
     return out
 
 
@@ -5904,8 +6044,7 @@ def param_dtype_precision(dev, am_data):
     """rel_spmm_featureless_basis at nc-AM layer 1's shapes (am_like(): the
     served EdgeSet, 40 bases, width 10) under precision None, "highest" and
     "high": its per-edge messages (the products ``precision`` sets, before
-    K1's sum, which takes the atomics route at this width and adds in no
-    fixed order) under None and "highest" bit-equal (one full-f32 path),
+    K1's sum) under None and "highest" bit-equal (one full-f32 path),
     under "high" (3xTF32) within 1e-5 * max(1, max|ref|) of "highest"; the
     op with K1's sum timed under each with CUDA events (PARAM_AM_ITERS
     calls)."""
@@ -6096,8 +6235,8 @@ def main():
     train_paths.update(files_paths)
     host_build = phase_host_build(dev, am_data)
     t0 = time.perf_counter()
-    branch_paths, branch_timing, branches = phase_branches(dev, am_data, lp, lp_edges,
-                                                           dedup)
+    branch_paths, branch_timing, branches, k4_pieces = phase_branches(
+        dev, am_data, lp, lp_edges, dedup)
     log(f"phase 21 (single-device branches): {time.perf_counter() - t0:.1f} s")
     train_paths.update(branch_paths)
     train_timing.update(branch_timing)
@@ -6133,6 +6272,24 @@ def main():
             "installed_launches": {ip: c[kname] for ip, c in installed_counts.items()},
             "device_launches": {dp: c[kname] for dp, c in device_counts.items()},
             "precision_launches": {pp: c[kname] for pp, c in precision_counts.items()},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "call_ms": r["call_ms"], "plain_call_ms": r["plain_call_ms"],
+            "library_call_ms": r["library_call_ms"],
+        })
+    # the fixed-order kernels' lane maps for rows that are not whole 16-byte
+    # vectors: K1's 4-value lanes with a masked tail in 8-byte pieces (the
+    # nc-AM pair path's composed forward at width 10) and K4's f32 form in
+    # 8-byte pieces (nc-AM's featureless 4-basis sum at width 10)
+    for r, path, kname in ((dict(pair_modes[0], name="K1 masked lanes"), "train_nc_am",
+                            "k1_aggregate"),
+                           (k4_pieces, "branch_nc_am_basis4", "k4_weighted_aggregate")):
+        out.append({
+            "name": r["name"], "route": r["route"], "source": r["source"],
+            "replaces": r["replaces"], "status": "ported", "mode": r["mode"],
+            "path": path, "launches": train_paths[path][kname],
+            "train_launches": {tp: c[kname] for tp, c in train_paths.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -6223,6 +6380,13 @@ def main():
     print(json.dumps({"dtype_modes": dtype_rows}), flush=True)
     print(json.dumps({"param_dtype": param_dtype}), flush=True)
     print(json.dumps({"param_dtype_modes": param_rows}), flush=True)
+    # every K1 and K4 launch of the run by route and lane piece: the
+    # fixed-order routes only (K1 kFixed or kChunk, K4's owned-row kernel)
+    from rgcn_tpu_torch import kernels
+
+    print(json.dumps({"routes": kernels.ROUTES}), flush=True)
+    if any(not k.startswith(("k1_fixed_", "k1_chunk_", "k4_owned_")) for k in kernels.ROUTES):
+        fail(f"a launch took a route in no fixed order: {kernels.ROUTES}")
     log(f"command time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,19 @@
 """K1's and K2's fixed-order designs against the designs they were chosen over, on the card.
 
-    python -m rgcn_tpu_torch.compare_k1_k2 [--out PATH]
+    python -m rgcn_tpu_torch.compare_k1_k2 [--out PATH] [--am]
 
-K1 (``kernels/csrc/k1_aggregate.cuh``) takes one of four routes by the
-layout's shape (``kernels.k1_route``): two sum in an order fixed by the
-layout in one launch with no memset (kFixed, owned rows over a
-destination-sorted layout; kChunk, ``chunk_sum.cuh``'s CTA a chunk), two
-are the designs kept where they measured faster (kAtomics, every run added
-with an f32 atomic into a memset output, a bf16 output summed in an f32
-scratch and narrowed by a second kernel; kOwned, owned rows whose shared
-rows are zeroed first and finished with atomics). The launcher entry takes
-the route as an argument, so each is timed here at shapes where the
-launcher takes another. K2 (``k2_fused.cuh`` over ``chunk_sum.cuh``) sums
+K1 (``kernels/csrc/k1_aggregate.cuh``) takes one of two routes by the
+layout's order (``kernels.k1_route``), both summing in an order fixed by
+the layout in one launch with no memset: kFixed, owned rows over a
+destination-sorted layout (every model path's), 4-value lanes with a
+masked tail and 8- or 4-byte pieces where dout % 4 != 0; kChunk,
+``chunk_sum.cuh``'s CTA a chunk. The launcher entry takes the route as an
+argument, so each is timed here at shapes where the launcher takes the
+other. The two designs kept before at AM scale, in no fixed order, are
+built from ``variants/k1_routes.cu`` (kAtomics, every run added with an
+f32 atomic into a memset output, a bf16 output summed in an f32 scratch
+and narrowed by a second kernel; kOwned, owned rows whose shared rows are
+zeroed first and finished with atomics) and timed beside them. K2 (``k2_fused.cuh`` over ``chunk_sum.cuh``) sums
 in a fixed order in one launch with no memset; the design before it is
 kept as variants and built here: the quantum-a-CTA kernels with vector f32
 atomics into a memset output, both forms (``variants/k2_atomics.cu``,
@@ -32,10 +34,10 @@ turns, the launcher (``new``) first, the others in order, then back:
 * K2 f32 at c-RGCN lp-WN18's encode (W (36, 16, 16) over the fused layout
   of ``load_lp_server``'s EdgeSet on ``wn18_like()``);
 * K1 at the model paths' other shapes: lp-FB-toy's dout 500 against the
-  other three routes, and against kFixed and kChunk nc-AM's pair path
-  width 10 (scalar lanes, through perm, f32 and bf16; the launcher takes
-  kAtomics) and e-RGCN nc-AM's diagonal messages (dout 32 in slot order,
-  f32 and bf16; the launcher takes kOwned).
+  other three routes, nc-AM's pair path width 10 (through perm, f32 and
+  bf16; the atomics route took it before) and e-RGCN nc-AM's diagonal
+  messages (dout 32 in slot order, f32 and bf16; the owned route took it
+  before), each against the three others.
 
 Each design's device time per call is the kernels torch.profiler records
 over 50 back-to-back calls, summed, with the per-kernel split
@@ -66,7 +68,8 @@ import os
 import numpy as np
 import torch
 
-from rgcn_tpu_torch.compare_k1_k5 import in_turns
+from rgcn_tpu_torch.compare_k1_k5 import VARIANTS as K1_VARIANTS
+from rgcn_tpu_torch.compare_k1_k5 import in_turns, k1_variant
 from rgcn_tpu_torch.compare_k2 import OLD_K2_ARGS, card
 from rgcn_tpu_torch.device import resolve_device
 
@@ -82,6 +85,9 @@ VARIANTS = {
     "k2_atomics_f32": (os.path.join("variants", "k2_atomics.cu"), OLD_K2_ARGS),
     "k2_atomics_bf16": (os.path.join("variants", "k2_atomics_bf16.cu"), OLD_K2_ARGS),
 }
+# K1's designs in no fixed order (compare_k1_k5's variants)
+VARIANTS.update({name: K1_VARIANTS[name] for name in (
+    "k1_atomics_f32", "k1_atomics_bf16", "k1_owned_f32", "k1_owned_bf16")})
 BF16 = torch.bfloat16
 
 
@@ -136,19 +142,23 @@ def bit_equal(call) -> bool:
 ROUTE_NAMES = {0: "fixed", 1: "chunk", 2: "atomics", 3: "owned"}
 
 
-def forced_k1(route, msgs, index, layout, num_nodes, out_dtype=torch.float32):
+def forced_k1(route, msgs, index, layout, num_nodes, out_dtype=torch.float32, fns=None):
     """K1's launcher entry with its route forced (``kernels.K1_*``), the
-    scratch and counters sized as the wrapper sizes them."""
+    scratch and counters sized as the wrapper sizes them; routes 2 and 3
+    (atomics, owned) from ``variants/k1_routes.cu`` in ``fns``."""
     from rgcn_tpu_torch import kernels
 
     dev, dout = msgs.device, msgs.shape[1]
     bf16_out = out_dtype == BF16
+    if route > kernels.K1_CHUNK:
+        form = "bf16" if msgs.dtype == BF16 else "f32"
+        return k1_variant(fns[f"k1_{ROUTE_NAMES[route]}_{form}"], msgs, index, layout,
+                          num_nodes, out_dtype)
     fn = kernels._fn("k1_aggregate" + ("_bf16" if msgs.dtype == BF16 else ""))
     lay = layout
-    floats = kernels.k1_scratch_floats(route, lay.num_chunks, lay.chunk, lay.row_block, dout,
-                                       num_nodes if bf16_out else 0)
-    counters = {kernels.K1_FIXED: kernels.k1_fixed_counters(lay.num_chunks, lay.chunk, dout),
-                kernels.K1_CHUNK: lay.num_chunks}.get(route, 1)
+    floats = kernels.k1_scratch_floats(route, lay.num_chunks, lay.chunk, lay.row_block, dout)
+    counters = (kernels.k1_fixed_counters(lay.num_chunks, lay.chunk, dout)
+                if route == kernels.K1_FIXED else lay.num_chunks)
 
     def call():
         out = torch.empty((num_nodes, dout), dtype=out_dtype, device=dev)
@@ -211,7 +221,7 @@ def _rand(rng, dev, *shape, scale=1.0):
     return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
 
 
-def compare_k1(fns, dev) -> dict:
+def compare_k1(fns, dev, am_only=False) -> dict:
     from rgcn_tpu_torch.data.synthetic import aifb_like, am_like, fb_toy_like
     from rgcn_tpu_torch.graph.structure import build_edge_set
     from rgcn_tpu_torch.ops import aggregate as agg
@@ -232,40 +242,40 @@ def compare_k1(fns, dev) -> dict:
             ref = agg.aggregate_presorted_plain(m, lay, n)
             new = lambda: agg.aggregate_presorted(m, lay, n, out_dtype)  # noqa: E731
         dout = int(m.shape[1])
-        route = ROUTE_NAMES[kernels.k1_route(
-            lay.dst_sorted, lay.num_chunks, lay.chunk, dout,
-            kernels.k1_wide(dout, m.data_ptr(), m.element_size()), n)]
+        route = ROUTE_NAMES[kernels.k1_route(lay.dst_sorted)]
         designs = {"new": new}
         for name in others:
             if name != route:
                 code = next(k for k, v in ROUTE_NAMES.items() if v == name)
                 designs[name] = forced_k1(code, m, lay.perm if index else None, lay, n,
-                                          out_dtype)
+                                          out_dtype, fns)
         rep = case(label, designs, ref)
-        rep.update(route=route, units=lay.num_chunks, dout=dout)
+        rep.update(route=route, units=lay.num_chunks, dout=dout,
+                   piece=kernels.k1_piece(dout, m.data_ptr(), m.element_size()))
         return rep
 
-    aifb = aifb_like()
-    es = build_edge_set(aifb.triples, aifb.num_nodes, aifb.num_relations, tile_size=128,
-                        with_dst_layout=True).to(dev)
-    m = _rand(rng, dev, es.layout.num_edges, 16) * es.val[:, None]
-    n = es.num_nodes
     every = ("atomics", "fixed", "chunk", "owned")
-    report["nc_aifb_d16_f32"] = k1("K1 nc-AIFB d16 f32", m, es.layout, n, every)
-    report["nc_aifb_d16_f32_bf16out"] = k1("K1 nc-AIFB d16 f32 msgs, bf16 out", m, es.layout,
-                                           n, every, out_dtype=BF16)
-    report["nc_aifb_d16_bf16_bf16out"] = k1("K1 nc-AIFB d16 bf16 msgs, bf16 out",
-                                            m.to(BF16), es.layout, n, every,
-                                            out_dtype=BF16)
-    del es, m
+    if not am_only:  # nc-AIFB and lp-FB-toy
+        aifb = aifb_like()
+        es = build_edge_set(aifb.triples, aifb.num_nodes, aifb.num_relations, tile_size=128,
+                            with_dst_layout=True).to(dev)
+        m = _rand(rng, dev, es.layout.num_edges, 16) * es.val[:, None]
+        n = es.num_nodes
+        report["nc_aifb_d16_f32"] = k1("K1 nc-AIFB d16 f32", m, es.layout, n, every)
+        report["nc_aifb_d16_f32_bf16out"] = k1("K1 nc-AIFB d16 f32 msgs, bf16 out", m, es.layout,
+                                               n, every, out_dtype=BF16)
+        report["nc_aifb_d16_bf16_bf16out"] = k1("K1 nc-AIFB d16 bf16 msgs, bf16 out",
+                                                m.to(BF16), es.layout, n, every,
+                                                out_dtype=BF16)
+        del es, m
 
-    fb = fb_toy_like()
-    es = build_edge_set(fb.train, fb.num_nodes, fb.num_relations, tile_size=128,
-                        with_dst_layout=True).to(dev)
-    m = _rand(rng, dev, es.layout.num_edges, 500)
-    report["lp_fb_toy_d500_f32"] = k1("K1 lp-FB-toy d500 f32", m, es.layout, es.num_nodes,
-                                      every)
-    del es, m
+        fb = fb_toy_like()
+        es = build_edge_set(fb.train, fb.num_nodes, fb.num_relations, tile_size=128,
+                            with_dst_layout=True).to(dev)
+        m = _rand(rng, dev, es.layout.num_edges, 500)
+        report["lp_fb_toy_d500_f32"] = k1("K1 lp-FB-toy d500 f32", m, es.layout, es.num_nodes,
+                                          every)
+        del es, m
 
     am = am_like()
     es = build_edge_set(am.triples, am.num_nodes, am.num_relations, tile_size=128,
@@ -275,13 +285,13 @@ def compare_k1(fns, dev) -> dict:
     for dt in (torch.float32, BF16):
         key = "bf16" if dt == BF16 else "f32"
         report[f"nc_am_perm_d10_{key}"] = k1(f"K1 nc-AM perm d10 {key}", m.to(dt), lay, n,
-                                             ("fixed", "chunk"))
+                                             every)
     del m
     x, dw = _rand(rng, dev, n, 32), _rand(rng, dev, es.num_rels, 32, scale=0.5)
     for key, dt in (("f32", None), ("bf16", BF16)):
         msgs = dg.diag_slot_messages(x, dw, es, compute_dtype=dt)
         report[f"nc_am_diag_d32_{key}"] = k1(f"K1 nc-AM diagonal d32 {key}", msgs, lay, n,
-                                             ("fixed", "chunk"), index=False)
+                                             every, index=False)
         del msgs
     return report
 
@@ -455,6 +465,8 @@ def main(argv=None):
     ap.add_argument("--out", default=None, help="also write the JSON report here")
     ap.add_argument("--probe", action="store_true",
                     help="the new designs' per-CTA phase probe instead")
+    ap.add_argument("--am", action="store_true",
+                    help="K1 at nc-AM's shapes only (the pair path, the diagonal)")
     args = ap.parse_args(argv)
     dev = resolve_device(None)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -464,7 +476,9 @@ def main(argv=None):
     if args.probe:
         report = {"card": card(), "probe": probe(fns, dev)}
     else:
-        report = {"card": card(), "k1": compare_k1(fns, dev), "k2": compare_k2(fns, dev)}
+        report = {"card": card(), "k1": compare_k1(fns, dev, args.am)}
+        if not args.am:
+            report["k2"] = compare_k2(fns, dev)
     line = json.dumps(report)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

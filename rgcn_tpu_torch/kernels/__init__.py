@@ -2,13 +2,11 @@
 
 Each ``launch_*`` function checks its tensors (CUDA device, dtype, shape,
 contiguity), allocates the output with ``torch.empty`` and any scratch the
-kernel takes (nothing is zeroed per call: K1 and K2 store every output row
-once and sum in a fixed order, finishing the rows several CTAs share from
-f32 parts in a small scratch through the stream's split-run counters,
-:func:`stream_counters`; K4's f32 form zeroes only the rows two CTAs
-share, K5 the rows of row blocks with several chunks; K4's bf16 form
-zeroes nothing on its owned-row kernel, and takes an f32 scratch of two
-rows a CTA and the same counters), launches on
+kernel takes (nothing is zeroed per call: K1, K2 and K4 store every output
+row once and sum in an order the layout fixes, finishing the rows several
+CTAs share from f32 parts in a small scratch through the stream's
+split-run counters, :func:`stream_counters`; K5 zeroes the rows of row
+blocks with several chunks and adds to them with atomics), launches on
 ``torch.cuda.current_stream()``, raises if the C launcher reports a CUDA
 error, and adds one to its kernel's count in :data:`LAUNCHES`. The count
 moves nowhere else, so a run that resets the counts and reads them after
@@ -42,13 +40,18 @@ from rgcn_tpu_torch.kernels import build as _build
 
 __all__ = [
     "LAUNCHES",
+    "ROUTES",
     "reset_launches",
     "refuse_grad",
     "table_form",
     "pair_form",
     "stream_counters",
     "k1_route",
-    "k1_wide",
+    "k1_piece",
+    "k4_piece",
+    "k4_units",
+    "k4_row_floats",
+    "k4_scratch_floats",
     "k1_fixed_units",
     "k1_fixed_counters",
     "k1_scratch_floats",
@@ -62,6 +65,10 @@ __all__ = [
 ]
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in _build.SOURCES}
+# K1's and K4's launches by route and lane piece (``k1_fixed_piece2``,
+# ``k4_owned_piece8``, ...) since the process started: reset_launches
+# leaves them, so a run can show every route it took
+ROUTES: Dict[str, int] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -76,22 +83,20 @@ _ARGTYPES = {
     "k3_messages": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # K3's bf16 form: (..., din, dout, x_bf16, out_bf16, stream)
     "k3_messages_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # K4 and K5: (..., out, scratch, ..., out_bf16, stream), one list for
-    # the f32 and the bf16 form
-    "k4_weighted_aggregate": [_P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # K4: (x, src, w, local_dst, chunk_block, out, scratch, counters, ...,
+    # out_bf16, span, stream); K5: (..., out, scratch, ..., out_bf16,
+    # stream); one list for the f32 and the bf16 form of each
+    "k4_weighted_aggregate": [_P] * 8 + [_I] * 11 + [_P],
     "k5_weighted_aggregate_dedup": [_P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
-# a bf16 form takes its f32 form's arguments; K4's (x, src, w, local_dst,
-# chunk_block, out, scratch, counters, ..., out_bf16, route, span, stream)
+# a bf16 form takes its f32 form's arguments
 _ARGTYPES.update({name + "_bf16": _ARGTYPES[name] for name in (
-    "k1_aggregate", "k2_fused", "k5_weighted_aggregate_dedup")})
+    "k1_aggregate", "k2_fused", "k4_weighted_aggregate", "k5_weighted_aggregate_dedup")})
 # the bf16-weight forms: K2's takes its f32 form's arguments, K3's (...,
 # din, dout, out_bf16, stream)
 _ARGTYPES["k2_fused_wbf16"] = _ARGTYPES["k2_fused"]
 _ARGTYPES["k3_messages_wbf16"] = [_P] * 6 + [_I] * 5 + [_P]
-_ARGTYPES["k4_weighted_aggregate_bf16"] = [_P] * 8 + [_I] * 12 + [_P]
 # the table and message dtypes of K1, K4 and K5, and the output dtypes a
 # table dtype allows
 _TABLE_DTYPES = (torch.float32, torch.bfloat16)
@@ -100,65 +105,59 @@ _OUT_DTYPES = {torch.float32: (torch.float32,),
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 # K4/K5 keep one sum per basis in registers: their launchers instantiate
-# 1 to 8 bases (csrc/weighted_runs.cuh, csrc/k4_owned_bf16.cuh)
+# 1 to 8 bases (csrc/k4_owned.cuh, csrc/weighted_runs.cuh)
 _NB_MAX = 8
-# slots of a unit (one CTA) of K4's bf16 form: a whole chunk of the
-# builders' 256 (csrc/k4_owned_bf16.cuh)
-K4_BF16_SPAN = 256
+# slots of a unit (one CTA) of K4: a whole chunk of the builders' 256
+# (csrc/k4_owned.cuh)
+K4_SPAN = 256
 
 
-# the split-run counters of K1, K2 and K4's bf16 form, one zeroed set a
-# (device, stream)
+# the split-run counters of K1, K2 and K4, one zeroed set a (device, stream)
 _COUNTERS: Dict[tuple, torch.Tensor] = {}
-# the two kernels of K4's bf16 form (csrc/k4_weighted_aggregate_bf16.cu)
-K4_BF16_RUNS, K4_BF16_OWNED = 0, 1
-# the layouts K4's bf16 form takes the owned-row kernel over (k4_bf16_route):
-# any up to K4_BF16_OWNED_ALL_CHUNKS chunks, up to K4_BF16_OWNED_MAX_CHUNKS
-# but for a bf16 output of several bases
-K4_BF16_OWNED_ALL_CHUNKS = 384
-K4_BF16_OWNED_MAX_CHUNKS = 1024
 
 
-def k4_bf16_route(din: int, table_ptr: int, n_chunks: int, nb_out: int,
-                  out_dtype: torch.dtype) -> int:
-    """The kernel K4's bf16 form runs for a table of rows ``din`` wide at
-    address ``table_ptr``, over a layout of ``n_chunks`` chunks, into
-    ``nb_out`` outputs of ``out_dtype``, as measured on an H100
-    (``compare_k4_bf16``). The owned-row kernel (K4_BF16_OWNED,
-    csrc/k4_owned_bf16.cuh) needs whole 16-byte vectors (din % 8 == 0) of a
-    16-byte aligned table; it takes
-    - any layout of at most K4_BF16_OWNED_ALL_CHUNKS chunks, under three
-      CTAs an SM, where its shorter CTAs pay (nc-AIFB's 4-basis layouts,
-      260-261 chunks at din 16: 12-43% faster);
-    - a layout of at most K4_BF16_OWNED_MAX_CHUNKS, about a wave, but for a
-      bf16 output of several bases (lp-WN18's merged frames, 502 chunks:
-      the VJP's dx, one output, and an f32 output 2-5% faster; the forward's
-      Agg, a bf16 output of two bases, 0.3-4% slower in every run).
-    Anything else takes weighted_runs.cuh's (K4_BF16_RUNS): the structured
-    decoder's 1,492-chunk layouts (three waves: 9-20% faster there), nc-AM's
-    hidden width 10, an unaligned table."""
-    if din % 8 or table_ptr % 16 or n_chunks > K4_BF16_OWNED_MAX_CHUNKS:
-        return K4_BF16_RUNS
-    if n_chunks <= K4_BF16_OWNED_ALL_CHUNKS or nb_out == 1 or out_dtype != torch.bfloat16:
-        return K4_BF16_OWNED
-    return K4_BF16_RUNS
+def _piece(width: int, ptr: int, itemsize: int, most: int) -> int:
+    """The most values (a power of two, at most ``most``) that divide
+    ``width`` and whose bytes divide the address ``ptr``."""
+    p = most
+    while p > 1 and (width % p or ptr % (p * itemsize)):
+        p //= 2
+    return p
 
 
-def k4_bf16_units(n_chunks: int, chunk: int, span: int = K4_BF16_SPAN) -> int:
-    """CTAs of K4's bf16 form: ``span`` slots of a chunk each."""
+def k4_piece(din: int, table_ptr: int, itemsize: int) -> int:
+    """The values K4 moves a copy and a store for a table of rows ``din``
+    wide at address ``table_ptr`` with ``itemsize``-byte values
+    (csrc/k4_owned.cuh's choose_piece): a whole 16-byte vector (4 f32, 8
+    bf16) where din is whole vectors of a 16-byte aligned table, else the
+    most that din and the table's alignment allow (nc-AM's width 10: 2 f32
+    or 2 bf16 values). Every layout takes K4's one kernel, the owned-row
+    kernel of csrc/k4_owned.cuh: a fixed-order sum in one launch."""
+    return _piece(din, table_ptr, itemsize, 16 // itemsize)
+
+
+def k4_units(n_chunks: int, chunk: int, span: int = K4_SPAN) -> int:
+    """CTAs of K4: ``span`` slots of a chunk each."""
     return n_chunks * -(-chunk // min(span, chunk))
 
 
-def k4_bf16_scratch_floats(n_chunks: int, chunk: int, row_len: int,
-                           span: int = K4_BF16_SPAN) -> int:
-    """f32 scratch of K4's bf16 form: two rows of ``row_len`` (nb_out * din)
-    a unit (csrc/k4_owned_bf16.cuh: part[u][0], part[u][1])."""
-    return k4_bf16_units(n_chunks, chunk, span) * 2 * row_len
+def k4_row_floats(nb_out: int, din: int, itemsize: int) -> int:
+    """A row of K4's f32 scratch: ``nb_out`` bases of ``din`` rounded up to
+    whole 16-byte vectors of the table (csrc/k4_owned.cuh's din_p)."""
+    vec = 16 // itemsize
+    return nb_out * -(-din // vec) * vec
+
+
+def k4_scratch_floats(n_chunks: int, chunk: int, row_len: int,
+                      span: int = K4_SPAN) -> int:
+    """f32 scratch of K4: two rows of ``row_len`` (:func:`k4_row_floats`) a
+    unit (csrc/k4_owned.cuh: part[u][0], part[u][1])."""
+    return k4_units(n_chunks, chunk, span) * 2 * row_len
 
 
 def stream_counters(device: torch.device, units: int) -> torch.Tensor:
     """At least ``units`` split-run counters for the current stream of
-    ``device``, shared by K1, K2 and K4's bf16 form: zeroed when made, and
+    ``device``, shared by K1, K2 and K4: zeroed when made, and
     every launch leaves them zero (each run's or block's last CTA wraps its
     counter back with atomicInc), so they are made once; a stream has its
     own, so that launches on two streams never share one. Launches on one
@@ -173,91 +172,64 @@ def stream_counters(device: torch.device, units: int) -> torch.Tensor:
 
 
 # K1's routes (csrc/k1_aggregate.cuh): owned rows over a destination-sorted
-# layout, chunk_sum.cuh's chunk-a-CTA sum over any order (both in a fixed
-# order), and two designs kept where they measured faster: atomics, and
-# owned rows with atomics on the rows two CTAs share
-K1_FIXED, K1_CHUNK, K1_ATOMICS, K1_OWNED = 0, 1, 2, 3
-# K1's kFixed and kOwned units: CTAs of at most 8 warps, a group of LPS
-# lanes (the power of two at least the row's vectors, at most 32) walking
-# max(8, LPS) slots; kFixed takes a CTA a column group of LPS x VEC columns
+# layout, chunk_sum.cuh's chunk-a-CTA sum over any order, both in a fixed
+# order
+K1_FIXED, K1_CHUNK = 0, 1
+# K1's K1_FIXED units: CTAs of at most 8 warps, a group of LPS lanes of 4
+# values (the power of two at least the row's lanes, at most 32) walking
+# max(8, LPS) slots; a CTA a column group of LPS x 4 columns
 _K1_WARPS = 8
-# the CTAs from which scalar lanes take the atomics route (K1_ATOMICS) and
-# 4-value lanes over one column group the owned route with atomics on
-# split rows (K1_OWNED)
-K1_ATOMICS_MIN_UNITS = 1024
-# ... the latter where the layout holds at least this many slots an output
-# row (the crossover measured against the atomics route)
-K1_OWNED_MIN_SLOTS_PER_ROW = 3
+_K1_VEC = 4
 
 
-def _k1_lanes(dout: int, wide: bool):
-    """K1's lanes on a row: (LPS, VEC), as csrc/k1_aggregate.cuh's run()."""
-    vectors = dout // 4 if wide else dout
-    return min(32, 1 << max(0, (vectors - 1).bit_length())), 4 if wide else 1
+def _k1_lps(dout: int) -> int:
+    """K1's lanes on a row, as csrc/k1_aggregate.cuh's run(): the power of
+    two at least its 4-value lanes, at most 32."""
+    lanes = -(-dout // _K1_VEC)
+    return min(32, 1 << max(0, (lanes - 1).bit_length()))
 
 
 def _k1_span(lps: int, chunk: int) -> int:
     return min(chunk, _K1_WARPS * 32 * (max(8, lps) // lps))
 
 
-def k1_wide(dout: int, msgs_ptr: int, itemsize: int) -> bool:
-    """Does K1 take 4-value lanes? Rows of whole vectors of an aligned
-    message table (the output and scratch come from ``torch.empty``)."""
-    return dout % 4 == 0 and msgs_ptr % (4 * itemsize) == 0
+def k1_piece(dout: int, msgs_ptr: int, itemsize: int) -> int:
+    """The values a K1 lane moves a load or store (csrc/k1_aggregate.cuh's
+    lane_piece): its 4 values where rows are whole lanes of a table
+    aligned to them, else 2 (dout even, the table aligned to 2 values;
+    nc-AM's width 10), else 1."""
+    return _piece(dout, msgs_ptr, itemsize, _K1_VEC)
 
 
-def _k1_units_groups(n_chunks: int, chunk: int, dout: int, wide: bool):
-    lps, vec = _k1_lanes(dout, wide)
+def k1_route(dst_sorted: bool) -> int:
+    """The route K1 takes, in either form and for either output
+    (csrc/k1_aggregate.cuh): K1_FIXED (owned rows, the rows CTAs share
+    finished by one of them from f32 parts) where each row block's slots
+    are sorted by destination, as every model path's layouts are, at any
+    size and width; K1_CHUNK (a CTA a chunk, slots summed by destination
+    in slot order, a block's chunks finished by their last CTA) where they
+    are not. Both sum in a fixed order in one launch."""
+    return K1_FIXED if dst_sorted else K1_CHUNK
+
+
+def _k1_units_groups(n_chunks: int, chunk: int, dout: int):
+    lps = _k1_lps(dout)
     units = n_chunks * -(-chunk // _k1_span(lps, chunk))
-    return units, -(-dout // (lps * vec))
-
-
-def k1_route(dst_sorted: bool, n_chunks: int = 0, chunk: int = 1, dout: int = 1,
-             wide: bool = True, num_nodes: int = 0) -> int:
-    """The route K1 takes over a layout of ``n_chunks`` chunks of ``chunk``
-    slots at width ``dout`` (``wide``: 4-value lanes, :func:`k1_wide`) into
-    ``num_nodes`` output rows, in either form and for either output
-    (csrc/k1_aggregate.cuh), as measured on an H100 (``compare_k1_k2``):
-    K1_CHUNK (a CTA a chunk, slots summed by destination in slot order, a
-    block's chunks finished by their last CTA) where the row blocks are not
-    sorted by destination; of at least K1_ATOMICS_MIN_UNITS owned-row CTAs,
-    K1_ATOMICS (the memset-and-atomics design) for scalar lanes (nc-AM's
-    pair path at width 10: the atomics 0.065 ms against 0.16-0.17 fixed-order)
-    and K1_OWNED (owned rows, the rows two CTAs share finished with
-    atomics) for 4-value lanes over one column group (dout <= 128) with at
-    least K1_OWNED_MIN_SLOTS_PER_ROW slots an output row (e-RGCN nc-AM's
-    diagonal messages, dout 32: 0.081 ms in bf16 and 0.100 in f32 against
-    K1_FIXED's 0.145 and 0.140; wider rows keep K1_FIXED, which gives each
-    column group a CTA: the pair path's dT at dout 400 / 440 took 0.658 /
-    0.681 there against 0.692 / 0.785 owned); else K1_FIXED (owned rows,
-    the rows CTAs share finished by one of them; every phase-5 and
-    nc-AIFB launch). K1_FIXED and K1_CHUNK sum in a fixed order in one
-    launch."""
-    if not dst_sorted:
-        return K1_CHUNK
-    units, groups = _k1_units_groups(n_chunks, chunk, dout, wide)
-    if units >= K1_ATOMICS_MIN_UNITS:
-        if not wide:
-            return K1_ATOMICS
-        if groups == 1 and n_chunks * chunk >= K1_OWNED_MIN_SLOTS_PER_ROW * num_nodes:
-            return K1_OWNED
-    return K1_FIXED
+    return units, -(-dout // (lps * _K1_VEC))
 
 
 def k1_fixed_units(n_chunks: int, chunk: int, dout: int) -> int:
     """CTAs of K1's K1_FIXED route over ``n_chunks`` chunks of ``chunk``
-    slots at width ``dout``, column groups aside: the most of its two lane
-    maps (4-value lanes where rows are 16-byte vectors, scalar lanes else),
-    since the kernel picks one by the tensors' alignment. Its scratch holds
-    two rows of ``dout`` f32 a unit."""
-    return max(_k1_units_groups(n_chunks, chunk, dout, w)[0] for w in (True, False))
+    slots at width ``dout``, column groups aside. Its scratch holds two
+    rows of ``dout`` rounded up to whole lanes, f32, a unit."""
+    return _k1_units_groups(n_chunks, chunk, dout)[0]
 
 
 def k1_fixed_counters(n_chunks: int, chunk: int, dout: int) -> int:
-    """Split-run counters of a K1_FIXED launch: one a (unit, column group),
-    the most of the two lane maps."""
-    return max(u * g for u, g in (_k1_units_groups(n_chunks, chunk, dout, w)
-                                  for w in (True, False)))
+    """Split-run counters of a K1_FIXED launch: one a (unit, column
+    group)."""
+    units, groups = _k1_units_groups(n_chunks, chunk, dout)
+    return units * groups
 
 
 # shared memory a CTA may take on an H100 (232,448 bytes) and the columns
@@ -292,16 +264,17 @@ def _check_chunk_smem(what: str, chunk: int, row_block: int, dout: int) -> None:
 
 
 def k1_scratch_floats(route: int, n_chunks: int, chunk: int, row_block: int,
-                      dout: int, num_nodes: int = 0) -> int:
-    """f32 scratch of a K1 launch: two rows a unit (K1_FIXED), an (RB,
-    dout) tile and a bit a row a chunk (K1_CHUNK), the ``(num_nodes,
-    dout)`` sums of a bf16 output (K1_ATOMICS, K1_OWNED; give 0 for an
-    f32 output)."""
+                      dout: int) -> int:
+    """f32 scratch of a K1 launch: two rows of ``dout`` rounded up to whole
+    4-value lanes a unit (K1_FIXED), an (RB, dout) tile and a bit a row a
+    chunk (K1_CHUNK)."""
     if route == K1_FIXED:
-        return k1_fixed_units(n_chunks, chunk, dout) * 2 * dout
-    if route == K1_CHUNK:
-        return chunk_scratch_floats(n_chunks, row_block, dout)
-    return num_nodes * dout
+        return k1_fixed_units(n_chunks, chunk, dout) * 2 * -(-dout // _K1_VEC) * _K1_VEC
+    return chunk_scratch_floats(n_chunks, row_block, dout)
+
+
+def _count_route(key: str) -> None:
+    ROUTES[key] = ROUTES.get(key, 0) + 1
 
 
 def reset_launches() -> None:
@@ -412,10 +385,7 @@ def launch_k1_aggregate(
     source-ordered one) owned rows, each stored once by the CTA its slots
     lie in and a row several CTAs share by the last of them from f32 parts;
     else a CTA a chunk; both take one launch, no memset, and sum in a fixed
-    order (the same bits on every launch). Over 1,024 CTAs or more, scalar
-    lanes take the atomics design, and dense 4-value lanes on rows of at
-    most 128 columns owned rows with atomics on the rows two CTAs share,
-    which measured faster there. Every
+    order (the same bits on every launch), at every size and width. Every
     row block must have a chunk, as every builder gives it. Returns
     ``(num_nodes, dout)``; rows past ``num_nodes`` are dropped."""
     dev = msgs.device
@@ -443,15 +413,15 @@ def launch_k1_aggregate(
     if num_nodes == 0 or dout == 0:
         return out
     bf16_out = out_dtype == torch.bfloat16
-    route = k1_route(dst_sorted, n_chunks, chunk, dout,
-                     k1_wide(dout, msgs.data_ptr(), msgs.element_size()), num_nodes)
+    route = k1_route(dst_sorted)
     if route == K1_CHUNK:
         _check_chunk_smem("K1", chunk, row_block, dout)
-    scratch = torch.empty(k1_scratch_floats(route, n_chunks, chunk, row_block, dout,
-                                            num_nodes if bf16_out else 0),
+    scratch = torch.empty(k1_scratch_floats(route, n_chunks, chunk, row_block, dout),
                           dtype=torch.float32, device=dev)
-    counters = {K1_FIXED: k1_fixed_counters(n_chunks, chunk, dout),
-                K1_CHUNK: n_chunks, K1_ATOMICS: 1, K1_OWNED: 1}[route]
+    counters = (k1_fixed_counters(n_chunks, chunk, dout) if route == K1_FIXED
+                else n_chunks)
+    _count_route(f"k1_{'fixed' if route == K1_FIXED else 'chunk'}_piece"
+                 f"{k1_piece(dout, msgs.data_ptr(), msgs.element_size())}")
     _launch(
         "k1_aggregate" + form, dev, msgs.data_ptr(),
         None if index is None else index.data_ptr(),
@@ -582,8 +552,8 @@ def launch_k3_messages(
 
 
 def _weighted_out(num_nodes: int, nb_out: int, din: int, out_dtype, dev):
-    """K4/K5's output ``(num_nodes, nb_out, din)`` and, for a bf16 output,
-    the f32 scratch of the rows the kernel finishes with atomics (None for
+    """K5's output ``(num_nodes, nb_out, din)`` and, for a bf16 output, the
+    f32 scratch of the rows the kernel finishes with atomics (None for
     f32: the kernel adds into the output itself)."""
     out = torch.empty((num_nodes, nb_out, din), dtype=out_dtype, device=dev)
     scratch = None
@@ -610,12 +580,14 @@ def launch_k4_weighted_aggregate(
     ``x[b, src[l]]`` for per-basis ``(nb, rows, din)`` tables; the kernel
     gathers the rows itself. ``sum_bases`` sums over ``b``. The layout's
     slots must be sorted by destination within each row block, as every
-    DstLayout builder makes them: a chunk stores the rows it owns outright.
-    ``x`` f32, or bf16 (the bf16 form, ``k4_weighted_aggregate_bf16``: each
-    weight rounded to bf16, f32 sums, ``out_dtype`` f32 or bf16 narrowed
-    once per element); ``w`` f32. Returns ``(nb or 1, num_nodes, din)`` of
-    ``out_dtype``, a view of node-major ``(num_nodes, nb or 1, din)``
-    storage."""
+    DstLayout builder makes them: a CTA (a unit of K4_SPAN slots) stores
+    the rows it owns outright and each row several CTAs share is finished by
+    the last of them from f32 parts, in unit order: one launch, no memset,
+    the same bits on every launch (csrc/k4_owned.cuh). ``x`` f32, or bf16
+    (the bf16 form, ``k4_weighted_aggregate_bf16``: each weight rounded to
+    bf16, f32 sums, ``out_dtype`` f32 or bf16 narrowed once per element);
+    ``w`` f32. Returns ``(nb or 1, num_nodes, din)`` of ``out_dtype``, a
+    view of node-major ``(num_nodes, nb or 1, din)`` storage."""
     dev = x.device
     n_chunks, chunk = local_dst.shape
     num_slots = n_chunks * chunk
@@ -638,28 +610,19 @@ def launch_k4_weighted_aggregate(
     _check_blocks(num_nodes, row_block, num_row_blocks)
     din, rows = x.shape[-1], x.shape[-2]
     nb_out = 1 if sum_bases else nb
-    owned = bool(form) and k4_bf16_route(din, x.data_ptr(), n_chunks, nb_out,
-                                         out_dtype) == K4_BF16_OWNED
-    if owned:
-        out = torch.empty((num_nodes, nb_out, din), dtype=out_dtype, device=dev)
-    else:
-        out, scratch = _weighted_out(num_nodes, nb_out, din, out_dtype, dev)
+    out = torch.empty((num_nodes, nb_out, din), dtype=out_dtype, device=dev)
     if num_nodes == 0 or din == 0 or n_chunks == 0:
         return out.zero_().permute(1, 0, 2)
-    extra, tail = (), ()
-    if owned:  # f32 scratch of two rows a unit, the units' counters
-        scratch = torch.empty(k4_bf16_scratch_floats(n_chunks, chunk, nb_out * din),
-                              dtype=torch.float32, device=dev)
-        extra = (stream_counters(dev, k4_bf16_units(n_chunks, chunk)).data_ptr(),)
-    elif form:
-        extra = (None,)
-    if form:
-        tail = (K4_BF16_OWNED if owned else K4_BF16_RUNS, K4_BF16_SPAN)
+    # f32 scratch of two rows a unit, the units' counters
+    scratch = torch.empty(
+        k4_scratch_floats(n_chunks, chunk, k4_row_floats(nb_out, din, x.element_size())),
+        dtype=torch.float32, device=dev)
+    _count_route(f"k4_owned_piece{k4_piece(din, x.data_ptr(), x.element_size())}")
     _launch("k4_weighted_aggregate" + form, dev, x.data_ptr(), src.data_ptr(),
             w.data_ptr(), local_dst.data_ptr(), chunk_block.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), *extra,
+            scratch.data_ptr(), stream_counters(dev, k4_units(n_chunks, chunk)).data_ptr(),
             n_chunks, chunk, row_block, nb, din, rows, num_nodes,
-            int(per_basis), int(sum_bases), int(out_dtype == torch.bfloat16), *tail)
+            int(per_basis), int(sum_bases), int(out_dtype == torch.bfloat16), K4_SPAN)
     return out.permute(1, 0, 2)
 
 

@@ -23,29 +23,30 @@
 // median of 513) serially, about 160x the bound.
 //
 // Design (k1_aggregate.cuh). No CTA walks more than one span of one chunk:
-// the grid is (chunk, part of the chunk), so the hub blocks are spread over
-// as many CTAs as they have chunks (261 chunks at nc-AIFB). Lanes map to
-// (slot, 16-byte column vector): a row of dout floats takes LPS lanes (the
-// power of two >= dout / 4, at most 32; wider rows loop over column
-// groups), so a warp loads 8 slots' 64-byte rows at dout 16 and 32 slots'
-// rows at dout 4 in one instruction. A dout that is not a multiple of 4
-// (or an unaligned msgs) takes scalar lanes instead. Each group of LPS
-// lanes walks K = max(8, LPS) consecutive slots, loading their local_dst
-// and index once (one per lane, shared by shuffles), issues all the row
-// loads, and sums the rows in registers while the destination stays the
-// same (build_dst_layout sorts each block's slots by destination). A CTA
-// owns the rows from its first slot's destination to the next CTA's, and
-// stores each once, zeros where no slot reaches: no memset. A run that
-// goes on into the next group is merged in group order through shared
-// memory; one that crosses into the next CTA leaves an f32 part, which the
-// last of the run's CTAs adds in CTA order. Every sum is taken in one
-// order fixed by the layout, so two launches give the same bits (the
-// atomics design before it added each run with a vector f32 atomic into a
-// memset output, in the order the warps arrived). A layout in source order
-// within its blocks (dst_sorted 0) takes chunk_sum.cuh's route instead,
-// and launches of 1,024 CTAs or more the two designs that measured faster
-// there (k1_aggregate.cuh: kAtomics for scalar lanes, kOwned for dense
-// 4-value lanes).
+// the grid is (chunk, part of the chunk, column group), so the hub blocks
+// are spread over as many CTAs as they have chunks (261 chunks at
+// nc-AIFB). Lanes map to (slot, 4 columns): a row of dout floats takes LPS
+// lanes (the power of two >= dout / 4, at most 32; wider rows take a CTA
+// a column group), so a warp loads 8 slots' 64-byte rows at dout 16 and 32
+// slots' rows at dout 4 in one instruction. A dout that is not a multiple
+// of 4 masks the row's last lane, and a lane moves its 4 values in 8- or
+// 4-byte pieces where the rows are not whole 16-byte vectors (nc-AM's
+// width 10: 3 lanes a row, two of 16 bytes and one of 8, in 8-byte
+// pieces). Each group of LPS lanes walks K = max(8, LPS) consecutive
+// slots, loading their local_dst and index once (one per lane, shared by
+// shuffles), issues all the row loads, and sums the rows in registers
+// while the destination stays the same (build_dst_layout sorts each
+// block's slots by destination). A CTA owns the rows from its first slot's
+// destination to the next CTA's, and stores each once, zeros where no slot
+// reaches: no memset. A run that goes on into the next group is merged in
+// group order through shared memory; one that crosses into the next CTA
+// leaves an f32 part, which the last of the run's CTAs adds in CTA order.
+// Every sum is taken in one order fixed by the layout, so two launches
+// give the same bits (the atomics design before it added each run with a
+// vector f32 atomic into a memset output, in the order the warps arrived;
+// it is kept for the comparison scripts in variants/). A layout in source
+// order within its blocks (dst_sorted 0) takes chunk_sum.cuh's route
+// instead.
 
 #include "k1_aggregate.cuh"
 

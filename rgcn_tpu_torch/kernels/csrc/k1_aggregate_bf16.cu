@@ -16,20 +16,17 @@
 // is 38.4 MB beside the ~100 MB of messages.
 //
 // Design: k1_aggregate.cu's (k1_aggregate.cuh), the same lane map on
-// bf16 rows (lanes of 4 values, 8-byte loads, or scalars where dout % 4 !=
-// 0 such as nc-AM's hidden width 10; groups of LPS lanes on a row, each
-// walking 8 or LPS consecutive slots with 8 row loads in flight a lane),
-// as the Pallas kernel keeps a row block's output resident across the
-// block's chunks, zeroes it at the first and writes it once
-// (pallas_aggregate.py:186-199): each destination whose slots lie in a
-// CTA's span is stored once (a bf16 output rounded from the registers that
-// summed it), the rows no slot reaches as zeros, and a destination that
-// crosses CTAs is finished by the last of them, in CTA order, from f32
-// parts. One launch, no memset, no f32 scratch of the output's size, and
-// the same bits on every launch. Launches of 1,024 CTAs or more keep the
-// designs that measured faster there (k1_aggregate.cuh: owned rows whose
-// shared rows are finished with atomics, kOwned, at e-RGCN nc-AM's
-// diagonal messages; memset and atomics, kAtomics, for scalar lanes).
+// bf16 rows (lanes of 4 values, 8-byte loads, or 4- and 2-byte pieces
+// where dout % 4 != 0 such as nc-AM's hidden width 10, a row's last lane
+// masked; groups of LPS lanes on a row, each walking 8 or LPS consecutive
+// slots with 8 row loads in flight a lane), as the Pallas kernel keeps a
+// row block's output resident across the block's chunks, zeroes it at the
+// first and writes it once (pallas_aggregate.py:186-199): each destination
+// whose slots lie in a CTA's span is stored once (a bf16 output rounded
+// from the registers that summed it), the rows no slot reaches as zeros,
+// and a destination that crosses CTAs is finished by the last of them, in
+// CTA order, from f32 parts. One launch, no memset, no f32 scratch of the
+// output's size, and the same bits on every launch, at every layout.
 
 #include "k1_aggregate.cuh"
 

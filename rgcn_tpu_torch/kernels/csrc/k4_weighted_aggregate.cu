@@ -20,48 +20,33 @@
 // the whole output once: 83 MB, 24.8 us at 3.35 TB/s, of which the output
 // write is 19.6 us.
 //
-// Design: weighted_runs.cuh, as the frame with one lane per slot, sorted by
-// destination within each row block (the layout builders guarantee it; K4
-// relies on it). One CTA per chunk sums each destination's run in registers
-// over all din columns and stores it once; a chunk owns the rows from its
-// first destination to the next chunk's, so only the rows two chunks share
-// (at most one per chunk boundary) are zeroed by a small launch before and
-// finished with atomics. No memset of the whole output. The TPU kernel
-// carried each row block's sum in VMEM from chunk to chunk in a sequential
-// grid; here chunks run in parallel, so the hub blocks (24 chunks against a
-// median of 1 at lp-WN18) are spread over as many CTAs as they have chunks.
+// Design: the owned-row kernel of k4_owned.cuh with f32 rows (16-byte
+// vectors of 4 values, or 8- and 4-byte pieces where din % 4 != 0 or the
+// table is not 16-byte aligned), as the TPU kernel carries each row
+// block's sum in VMEM from chunk to chunk in a sequential grid: the sorted
+// frame read as it is, each destination's slots summed in slot order, every
+// output row stored once, the runs that cross a unit boundary finished in
+// the same launch by their last unit from f32 parts in ``scratch`` (two
+// rows a unit of ``span`` slots) on ``counters`` (one a unit, zero on entry,
+// left zero). One launch, no memset, no atomics on the output: the same
+// bits on every launch. The hub blocks (24 chunks against a median of 1 at
+// lp-WN18) are spread over as many CTAs as they have units.
 
-#include "weighted_runs.cuh"
+#include "k4_owned.cuh"
 
 // The parameters are the bf16 form's (k4_weighted_aggregate_bf16.cu), so one
-// argument list binds both: scratch is unused here and out_bf16 must be 0.
-extern "C" int k4_weighted_aggregate(const float* x, const int* src,
-                                     const float* w, const int* local_dst,
-                                     const int* chunk_block, float* out,
-                                     float* /*scratch*/, int n_chunks, int chunk,
-                                     int row_block, int nb, int din, int table_rows,
-                                     int num_nodes, int per_basis_rows,
-                                     int sum_bases, int out_bf16, void* stream) {
+// argument list binds both: out_bf16 must be 0.
+extern "C" int k4_weighted_aggregate(const float* x, const int* src, const float* w,
+                                     const int* local_dst, const int* chunk_block, float* out,
+                                     float* scratch, unsigned* counters, int n_chunks,
+                                     int chunk, int row_block, int nb, int din, int table_rows,
+                                     int num_nodes, int per_basis_rows, int sum_bases,
+                                     int out_bf16, int span, void* stream) {
   if (out_bf16) return static_cast<int>(cudaErrorInvalidValue);
-  wruns::Args a{};
-  a.x = x;
-  a.src = src;
-  a.w = w;
-  a.local = local_dst;
-  a.chunk_block = chunk_block;
-  a.out = out;
-  a.acc = out;
-  a.num_slots = static_cast<long long>(n_chunks) * chunk;
-  a.table_plane = static_cast<long long>(table_rows) * din;
-  a.n_chunks = n_chunks;
-  a.chunk = chunk;
-  a.row_block = row_block;
-  a.kk = 1;
-  a.din = din;
-  a.num_nodes = num_nodes;
-  a.sum_bases = sum_bases;
-  a.dst_sorted = 1;  // every DstLayout builder sorts a block's slots by destination
+  const k4o::Args a = k4o::make_args(x, src, w, local_dst, chunk_block, out, scratch, counters,
+                                     n_chunks, chunk, row_block, din, table_rows, num_nodes,
+                                     sum_bases);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(per_basis_rows ? wruns::run<float, float, true>(a, nb, st)
-                                         : wruns::run<float, float, false>(a, nb, st));
+  return static_cast<int>(per_basis_rows ? k4o::run<float, float, true>(a, nb, span, st)
+                                         : k4o::run<float, float, false>(a, nb, span, st));
 }

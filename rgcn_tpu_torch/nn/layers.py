@@ -137,6 +137,7 @@ from rgcn_tpu_torch.ops.basis import (
     rel_spmm_featureless_basis_fwd,
 )
 from rgcn_tpu_torch.ops.diag import rel_spmm_diag_ad
+from rgcn_tpu_torch.ops.ordered import select_rows
 from rgcn_tpu_torch.ops.rel_spmm import rel_spmm_ad
 
 __all__ = ["RGCNConv", "DistMult", "TorchLinear", "check_plain_path", "expand_blocks"]
@@ -539,9 +540,9 @@ class DistMult(nn.Module):
         partial sums add up to the whole batch's value."""
         nodes, relations = self._fan(nodes), self._fan(self.relations)
         s, p, o = triples[:, 0], triples[:, 1], triples[:, 2]
-        per_row = (torch.mean(nodes.index_select(0, s) ** 2, dim=-1)
-                   + torch.mean(relations.index_select(0, p) ** 2, dim=-1)
-                   + torch.mean(nodes.index_select(0, o) ** 2, dim=-1))
+        per_row = (torch.mean(select_rows(nodes, s) ** 2, dim=-1)
+                   + torch.mean(select_rows(relations, p) ** 2, dim=-1)
+                   + torch.mean(select_rows(nodes, o) ** 2, dim=-1))
         if weights is None:
             return torch.mean(per_row)
         return torch.sum(per_row * weights) / (weights.sum() if total is None else total)

@@ -99,6 +99,7 @@ from typing import Optional
 import torch
 
 from rgcn_tpu_torch import kernels
+from rgcn_tpu_torch.ops.ordered import index_sum
 
 __all__ = [
     "full_f32_matmul",
@@ -337,10 +338,13 @@ def _cotangent_rows(g: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
         return torch.matmul(g, bases.float().transpose(1, 2))
 
 
-def _rel_sums(t: torch.Tensor, rel: torch.Tensor, comps: torch.Tensor) -> torch.Tensor:
-    """``dcomps[r] = Σ_{rows of rel r} t`` in f32, rounded once to the comps'
-    dtype (JAX's ``segment_sum(t).astype(comps.dtype)``)."""
-    return t.new_zeros(comps.shape).index_add_(0, rel, t).to(comps.dtype)
+def _rel_sums(t: torch.Tensor, rel: torch.Tensor, comps: torch.Tensor,
+              sorted_rel: bool = False) -> torch.Tensor:
+    """``dcomps[r] = Σ_{rows of rel r} t`` in f32 and in an order ``rel``
+    fixes (:func:`~rgcn_tpu_torch.ops.ordered.index_sum`; ``sorted_rel``:
+    ``rel`` is non-decreasing, an EdgeSet's edge order), rounded once to
+    the comps' dtype (JAX's ``segment_sum(t).astype(comps.dtype)``)."""
+    return index_sum(t, rel, comps.shape[0], sorted_index=sorted_rel).to(comps.dtype)
 
 
 def _featureless_fwd(edges, bases, comps, compute_dtype):
@@ -375,7 +379,7 @@ class _FeaturelessBasisAD(torch.autograd.Function):
         # (dst == N, val 0) read the appended zero row of g
         gd = torch.cat([gc, gc.new_zeros((1, gc.shape[1]))])[edges.dst.long()]
         t = _slot_dots(_narrow(bases, cd), edges.src.long(), gd) * edges.val[:, None]
-        return dbases, _rel_sums(t, edges.rel.long(), comps), None, None
+        return dbases, _rel_sums(t, edges.rel.long(), comps, sorted_rel=True), None, None
 
 
 def _needs_backward(*tensors) -> bool:

@@ -10,8 +10,9 @@ permutation. Two frames, each one ``torch.autograd.Function``:
   EdgeSet's arrays with ``(0, 0, 0.0)`` appended, gathered through
   ``layout.perm`` (pad slots point one past the last edge). ``dx`` is the
   same pipeline over ``edges.reverse`` with the cotangent rows in place of
-  ``x``; ``d dw[r] = Σ_{e ∈ r} val_e · x[src_e] ⊙ g[dst_e]`` is one
-  ``index_add_`` in edge order, with ``g`` read through
+  ``x``; ``d dw[r] = Σ_{e ∈ r} val_e · x[src_e] ⊙ g[dst_e]`` is summed per
+  relation run (the edges are sorted by relation) in a fixed order
+  (:func:`~rgcn_tpu_torch.ops.ordered.index_sum`), with ``g`` read through
   :func:`~rgcn_tpu_torch.ops.aggregate.gather_by_dst` (a zero row for the
   pad edges' ``dst == num_nodes``; JAX clamps that index);
 * merged (:class:`_DiagMerged`, over ``edges.merged``): parallel edges of
@@ -51,6 +52,7 @@ import torch
 
 from rgcn_tpu_torch.ops.aggregate import _zero_row, aggregate_presorted, gather_by_dst
 from rgcn_tpu_torch.ops.basis import _narrow, full_f32_matmul
+from rgcn_tpu_torch.ops.ordered import index_sum
 
 __all__ = [
     "diag_slot_messages",
@@ -85,14 +87,15 @@ def diag_weight_grad(x: torch.Tensor, g: torch.Tensor, edges,
     pad edges reading a zero row of ``g`` (their ``rel`` is their tile's,
     in range). With a compute dtype the products ``x ⊙ (g · val)`` are
     taken in it, as JAX's ``_diag_ad_bwd`` takes them, and summed in
-    f32."""
+    f32, each relation's run of edges in a fixed order (JAX's
+    ``segment_sum``)."""
     src, rel = edges.src.long(), edges.rel.long()
     if compute_dtype is None:
         t = x[src] * gather_by_dst(g, edges.dst) * edges.val[:, None]
     else:
         gv = gather_by_dst(g.to(compute_dtype), edges.dst) * edges.val.to(compute_dtype)[:, None]
         t = (x.to(compute_dtype)[src] * gv).float()
-    return t.new_zeros((edges.num_rels, x.shape[1])).index_add_(0, rel, t)
+    return index_sum(t, rel, edges.num_rels, sorted_index=True)
 
 
 class _DiagUnmerged(torch.autograd.Function):

@@ -16,6 +16,8 @@ from typing import Optional
 
 import torch
 
+from rgcn_tpu_torch.ops.ordered import select_rows
+
 __all__ = ["distmult_score", "score_head_candidates", "score_tail_candidates"]
 
 
@@ -29,15 +31,15 @@ def distmult_score(
     obias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Scores ``(B,)`` of triples ``(B, 3)``. The rows are gathered with
-    ``index_select``, whose backward is an ``index_add_``: advanced
-    indexing's backward sorts the indices first, about 4× slower on an
-    H100 for lp-WN18's 330,000 rows of 200."""
+    :func:`~rgcn_tpu_torch.ops.ordered.select_rows`: ``index_select``,
+    whose gradient sums each table's rows by index in a fixed order
+    (``index_select``'s own backward adds with atomics)."""
     s, p, o = triples[:, 0], triples[:, 1], triples[:, 2]
-    scores = torch.sum(nodes.index_select(0, s) * relations.index_select(0, p)
-                       * nodes.index_select(0, o), dim=-1)
+    scores = torch.sum(select_rows(nodes, s) * select_rows(relations, p)
+                       * select_rows(nodes, o), dim=-1)
     if sbias is not None:
-        scores = (scores + sbias.index_select(0, s) + pbias.index_select(0, p)
-                  + obias.index_select(0, o))
+        scores = (scores + select_rows(sbias, s) + select_rows(pbias, p)
+                  + select_rows(obias, o))
     return scores
 
 

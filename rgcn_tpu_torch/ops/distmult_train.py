@@ -20,8 +20,9 @@ through destination sums over layouts built on the host
   densely over ``ns`` first, then K1 over ``s_lay`` / ``o_lay`` through
   their perm (:func:`~rgcn_tpu_torch.ops.aggregate.aggregate_sorted`, as
   JAX's ``_rows_to_nodes``);
-* ``d relations``: P rows summed by relation with ``index_add_`` (the JAX
-  package's one-hot product over a small vocabulary).
+* ``d relations``: P rows summed by relation in a fixed order
+  (:func:`~rgcn_tpu_torch.ops.ordered.index_sum`; the JAX package's
+  one-hot product over a small vocabulary).
 
 Bias-free scoring with the Schlichtkrull penalty (or none) only, as
 ``LinkPredictionExperiment.structured_decoder_ok`` admits. Without
@@ -36,8 +37,8 @@ Schlichtkrull penalty), the counterparts of ``distmult_score_agg_ad`` and
 ``r[p]``, ``z[o]`` once and saves them; the backward sums each triple's
 subject and object rows into ``d nodes`` by K1 through the perm of
 :func:`build_batch_layouts`' two layouts (JAX's ``_rows_to_nodes``), and
-``d relations`` with ``index_add_`` (JAX's one-hot product: the same
-sum).
+``d relations`` by :func:`~rgcn_tpu_torch.ops.ordered.index_sum` (JAX's
+one-hot product: the same sum, in a fixed order).
 
 The structured scorer's narrow backward (``bwd_dtype``, the config's
 ``decoder.bwd_dtype``; ``pallas_distmult.py:336-413``): the ``(P, ns, d)``
@@ -64,6 +65,7 @@ import torch
 
 from rgcn_tpu_torch.ops.aggregate import aggregate_sorted, build_dst_layout
 from rgcn_tpu_torch.ops.basis import weighted_aggregate
+from rgcn_tpu_torch.ops.ordered import index_sum
 
 __all__ = ["build_batch_layouts", "build_structured_layouts",
            "distmult_score_agg", "distmult_score_spenalty_agg", "narrow_dtype",
@@ -229,8 +231,7 @@ class _Structured(torch.autograd.Function):
         pw_all = pw_pos + torch.sum(pw_neg, dim=1)
         rel_rows = (gs_pos[:, None] * zs * zo + zo * gzc_head + zs * gzc_tail
                     + (pc * pw_all)[:, None] * rp)
-        drel = rel_rows.new_zeros((ctx.num_rels, d)).index_add_(
-            0, positives[:, 1], rel_rows)
+        drel = index_sum(rel_rows, positives[:, 1], ctx.num_rels)
         return (dz.to(nodes.dtype), drel.to(ctx.rel_dtype), None, None, None, None, None,
                 None)
 
@@ -304,8 +305,7 @@ class _ScoreAgg(torch.autograd.Function):
             pen = (gp * pw[0] * (2.0 / zs.shape[-1]))[:, None]
             s_rows, o_rows = s_rows + pen * zs, o_rows + pen * zo
             rel_rows = rel_rows + pen * rp
-        drel = rel_rows.new_zeros((ctx.num_rels, rel_rows.shape[-1])).index_add_(
-            0, triples[:, 1], rel_rows)
+        drel = index_sum(rel_rows, triples[:, 1], ctx.num_rels)
         dz = aggregate_sorted(s_rows, s_lay, ctx.num_nodes)
         dz = dz + aggregate_sorted(o_rows, o_lay, ctx.num_nodes)
         return dz.to(ctx.dtypes[0]), drel.to(ctx.dtypes[1]), None, None, None

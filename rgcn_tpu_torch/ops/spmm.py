@@ -60,6 +60,7 @@ from torch.utils.checkpoint import checkpoint
 from rgcn_tpu_torch.device import check_plain_path
 from rgcn_tpu_torch.ops.aggregate import aggregate_pairs, aggregate_sorted
 from rgcn_tpu_torch.ops.basis import _narrow, full_f32_matmul
+from rgcn_tpu_torch.ops.ordered import select_rows
 
 __all__ = [
     "aggregate_messages",
@@ -212,36 +213,13 @@ def rel_spmm_featureless(edges, weights: torch.Tensor, *, aggregate=None) -> tor
     return aggregate_messages(msgs, edges.dst, edges.num_nodes)
 
 
-class _GatherWideGrad(torch.autograd.Function):
-    """``table.index_select(0, idx)`` widened to f32; the gradient summed
-    in f32 (an accumulating ``index_put_``, which on the card sorts the
-    indices and sums each row's run in a fixed order) and rounded once to
-    the table's dtype."""
-
-    @staticmethod
-    def forward(ctx, table, idx):
-        ctx.save_for_backward(idx)
-        ctx.shape, ctx.dtype = table.shape, table.dtype
-        return table.index_select(0, idx).float()
-
-    @staticmethod
-    def backward(ctx, g):
-        (idx,) = ctx.saved_tensors
-        d = g.new_zeros(ctx.shape, dtype=torch.float32).index_put_(
-            (idx,), g.float(), accumulate=True)
-        return d.to(ctx.dtype), None
-
-
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[idx]`` (``idx`` int64) widened to f32 after the gather (a
-    bf16 table's rows read at their own width); with a gradient to keep, a
-    narrow table's gradient sums the rows' f32 cotangents and rounds once
-    (widening after a plain gather would round each row's cotangent to bf16
-    before an ``index_add_`` that rounds every add)."""
-    if table.dtype == torch.float32 or not (torch.is_grad_enabled()
-                                            and table.requires_grad):
-        return table.index_select(0, idx).float()
-    return _GatherWideGrad.apply(table, idx)
+    bf16 table's rows read at their own width); with a gradient to keep,
+    the gradient sums the rows' f32 cotangents in a fixed order and rounds
+    once to a narrow table's dtype
+    (:func:`~rgcn_tpu_torch.ops.ordered.select_rows`)."""
+    return select_rows(table, idx, torch.float32)
 
 
 def _rounded(t: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -371,8 +349,9 @@ def pair_contract(table: torch.Tensor, comps: torch.Tensor, pairs, nb: int,
     dout, nb) @ (U, nb, 1)`` ``torch.bmm``: unlike the JAX package's GEMM
     form (``_expand_collapse``), no ``(U, nb·dout)`` expanded coefficient
     tensor is written and read again, and the product is the same sum per
-    pair. ``comps[pair_rel]`` is an ``index_select``, whose backward is an
-    atomic ``index_add_``. While ``U_pad·nb·dout`` exceeds
+    pair. ``comps[pair_rel]`` is gathered by
+    :func:`~rgcn_tpu_torch.ops.ordered.select_rows`, whose backward sums
+    by relation in a fixed order. While ``U_pad·nb·dout`` exceeds
     :data:`_PAIR_ELEM_BUDGET` the pairs go in groups whose size divides
     ``U_pad`` (the JAX package's search), each under
     ``torch.utils.checkpoint``, so one group's rows exist at a time and
@@ -389,8 +368,8 @@ def pair_contract(table: torch.Tensor, comps: torch.Tensor, pairs, nb: int,
     u_pad = src.shape[0]
     # rounded before the gather, widened back: the gather's backward sums in
     # f32 and the gradient rounds once to the compute (or comps') dtype
-    coef = _rounded(comps, compute_dtype).float().index_select(
-        0, pairs.pair_rel.long())  # (U_pad, nb)
+    coef = select_rows(_rounded(comps, compute_dtype).float(),
+                       pairs.pair_rel.long())  # (U_pad, nb)
     if u_pad * nb * dout <= _PAIR_ELEM_BUDGET:
         if pairs.src_layout is not None:
             rows = gather_rows_agg(table, pairs.pair_src, pairs.src_layout)

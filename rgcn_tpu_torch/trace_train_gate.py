@@ -55,6 +55,19 @@ when it failed) ``--smoke-runs`` times, each in a fresh process, and
 records each phase-5 path's final-logits distance from the CPU's and its
 gate; a gate that fails ends that process as it ends ``chip_smoke.py``,
 with its distance recorded.
+
+    python -m rgcn_tpu_torch.trace_train_gate --lp [--runs 3] [--epochs 2] \
+        [--same] [--out trace_train_gate_lp.json]
+
+instead trains ``configs/rgcn/lp-WN18.yaml`` (the structured step: the
+host-built subgraph, K4 for the basis layer and its dx and the decoder's
+corrupted entities, K1 for its positives, ``dcomps`` and ``d relations``
+by ``ops/ordered.py``) on ``wn18_like()`` for ``--epochs`` epochs ``--runs``
+times from the seed-0 initialisation, plus one run under
+``torch.use_deterministic_algorithms(True, warn_only=True)``
+(``nondeterministic_ops``), and records each run's launches, per-epoch
+losses, final MRR, and the digests of its final parameters and test
+ranks; ``same`` (and ``--same``) as above.
 """
 
 from __future__ import annotations
@@ -72,6 +85,7 @@ import torch
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(_ROOT, "configs", "rgcn", "nc-AIFB.yaml")
+LP_CONFIG = os.path.join(_ROOT, "configs", "rgcn", "lp-WN18.yaml")
 
 
 def _state(model) -> dict:
@@ -80,7 +94,8 @@ def _state(model) -> dict:
 
 def _snapshot_logger(model, store: list):
     """A quiet ScalarLogger that keeps each epoch's parameters (on the
-    host) when the trainer logs that epoch's loss."""
+    host) when the trainer logs that epoch's loss (``model`` None: keeps
+    nothing but its records)."""
     from rgcn_tpu_torch.utils.logging import ScalarLogger
 
     class Snap(ScalarLogger):
@@ -90,7 +105,7 @@ def _snapshot_logger(model, store: list):
 
         def log_scalar(self, metric, value, step=None):
             self.records.append((metric, step, float(value)))
-            if metric == "training.loss":
+            if metric == "training.loss" and model is not None:
                 store.append(_state(model))
 
     return Snap()
@@ -200,8 +215,11 @@ def _race_check(dev, data, repeats: int) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--config", default=CONFIG,
-                    help="the nc-AIFB config trained (default: the checkout's)")
+    ap.add_argument("--config", default=None,
+                    help="the config trained (default: the checkout's nc-AIFB, or "
+                         "lp-WN18 with --lp)")
+    ap.add_argument("--lp", action="store_true",
+                    help="instead: lp-WN18's structured step trained --runs times")
     ap.add_argument("--runs", type=int, default=20)
     ap.add_argument("--poison-runs", type=int, default=10)
     ap.add_argument("--epochs", type=int, default=5)
@@ -216,6 +234,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     from rgcn_tpu_torch.config import tool_config
 
+    if args.config is None:
+        args.config = LP_CONFIG if args.lp else CONFIG
     if not args.smoke_runs and not args.smoke_child:  # the smoke phases read chip_smoke's
         tool_config(ap, "--config", args.config)
     if not torch.cuda.is_available():
@@ -228,7 +248,7 @@ def main(argv=None):
     if args.smoke_runs:
         trace_smoke(args.smoke_runs, args.out)
     else:
-        summary = trace(torch.device("cuda"), args)
+        summary = (trace_lp if args.lp else trace)(torch.device("cuda"), args)
         if args.same and not summary.get("same"):
             sys.exit("trace_train_gate: the card runs did not all end with the same bits")
 
@@ -291,6 +311,57 @@ def trace_smoke(runs: int, out=None) -> dict:
     if out:
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
         with open(out, "w") as f:
+            json.dump({"summary": summary, "runs": records}, f, indent=1)
+    return summary
+
+
+def trace_lp(dev, args) -> dict:
+    """The runs of ``--lp`` on ``dev``; returns the summary."""
+    from rgcn_tpu_torch import kernels
+    from rgcn_tpu_torch.config import load_experiment
+    from rgcn_tpu_torch.data.synthetic import wn18_like
+    from rgcn_tpu_torch.train.link_prediction import LinkPredictionTrainer
+
+    base = load_experiment(args.config)
+    cfg = dataclasses.replace(base, training=dataclasses.replace(
+        base.training, epochs=args.epochs))
+    data = wn18_like()
+
+    def one_run():
+        log = _snapshot_logger(None, [])
+        t = LinkPredictionTrainer(cfg, data, device=dev, logger=log)
+        kernels.reset_launches()
+        mrr, _, ranks = t.fit(log)
+        torch.cuda.synchronize()
+        return t, log, dict(kernels.LAUNCHES), mrr, ranks
+
+    nondeterministic = _nondeterministic_ops(one_run)
+    print(json.dumps({"nondeterministic_ops": nondeterministic}), flush=True)
+    records = []
+    for i in range(args.runs):
+        t0 = time.perf_counter()
+        t, log, launches, mrr, ranks = one_run()
+        rec = {
+            "run": i, "seconds": time.perf_counter() - t0, "launches": launches,
+            "losses": [v for m, _, v in log.records if m == "training.loss"],
+            "mrr": mrr, "params_sha256": _digest(_state(t.model).values()),
+            "ranks_sha256": hashlib.sha256(np.asarray(ranks).tobytes()).hexdigest(),
+        }
+        records.append(rec)
+        print(json.dumps(rec), flush=True)
+        del t
+    device = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
+    summary = {"device": device, "config": os.path.basename(args.config),
+               "epochs": args.epochs, "runs": args.runs,
+               "nondeterministic_ops": nondeterministic,
+               "same": len({json.dumps({k: r[k] for k in ("launches", "losses", "mrr",
+                                                          "params_sha256", "ranks_sha256")})
+                            for r in records}) == 1,
+               "distinct_params": len({r["params_sha256"] for r in records})}
+    print(json.dumps({"summary": summary}), flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
             json.dump({"summary": summary, "runs": records}, f, indent=1)
     return summary
 

@@ -39,6 +39,7 @@ MODULES = [
     "rgcn_tpu_torch.ops.fused",
     "rgcn_tpu_torch.ops.rel_spmm",
     "rgcn_tpu_torch.ops.spmm",
+    "rgcn_tpu_torch.ops.ordered",
     "rgcn_tpu_torch.kernels",
     "rgcn_tpu_torch.native",
     "rgcn_tpu_torch.nn",
@@ -58,6 +59,7 @@ MODULES = [
     "rgcn_tpu_torch.compare_k3",
     "rgcn_tpu_torch.compare_k4_k5",
     "rgcn_tpu_torch.compare_k4_bf16",
+    "rgcn_tpu_torch.compare_k4",
     "rgcn_tpu_torch.compare_gathers",
     "rgcn_tpu_torch.train",
     "rgcn_tpu_torch.train.optim",
@@ -292,8 +294,8 @@ def test_compare_k1_k2_needs_cuda(monkeypatch):
 def test_fixed_order_launchers_take_scratch_and_counters(name):
     """K1's and K2's C launchers take the f32 scratch and the stream's
     counters after the output, and K1 its route where it took dst_sorted;
-    no memset is left in their fixed-order launch paths (K1's only one is
-    its kept atomics route's)."""
+    no memset is left in their launch paths (the atomics route K1 kept
+    before is a variant for the comparisons, with its memset)."""
     import ctypes
 
     from rgcn_tpu_torch import kernels
@@ -309,9 +311,10 @@ def test_fixed_order_launchers_take_scratch_and_counters(name):
     for header in ("k2_fused.cuh", "chunk_sum.cuh"):
         assert "cudaMemsetAsync" not in open(os.path.join(build.CSRC, header)).read()
     k1 = open(os.path.join(build.CSRC, "k1_aggregate.cuh")).read()
-    assert k1.count("cudaMemsetAsync") == 1
-    at = k1.index("cudaMemsetAsync")
-    assert "if (route == kAtomics)" in k1[at - 300:at]
+    assert "cudaMemsetAsync" not in k1 and "atomicAdd" not in k1
+    kept = open(os.path.join(build.CSRC, "variants", "k1_atomic_routes.cuh")).read()
+    at = kept.index("cudaMemsetAsync")
+    assert "if (route == kAtomics)" in kept[at - 300:at]
 
 
 def _layout_shape(lay, dout):
@@ -319,18 +322,17 @@ def _layout_shape(lay, dout):
 
 
 def test_k1_route_by_layout_at_the_model_shapes():
-    """K1's route is a function of the layout alone: the builders'
-    destination-sorted layouts (nc-AIFB's, dout 16; the pair path's layout
-    of slots grouped by pair, dout 10, at a small size; lp-FB-toy's, dout
-    500; lp-WN18's, 1,014 CTAs) take the fixed-order owned-row route, a
-    source-ordered one the chunk route; over 1,024 CTAs or more (AM scale)
-    scalar lanes (nc-AM's pair path at width 10) take the atomics route,
-    4-value lanes over one column group with 3 slots an output row or more
-    (e-RGCN nc-AM's diagonal, dout 32) the owned route with atomics on
-    split rows, and fewer slots a row or wider rows (the pair path's dT)
-    the fixed-order route; the scratch is two rows a
-    unit of the wider of the two lane maps, an (RB, dout) tile a chunk, or
-    a bf16 output's f32 sums; the counters one a (unit, column group)."""
+    """K1's route is a function of the layout's order alone: every
+    destination-sorted layout the configs build takes the fixed-order
+    owned-row route at any size and width (nc-AIFB's, dout 16; the pair
+    path's layout of slots grouped by pair, dout 10, at a small size;
+    lp-FB-toy's, dout 500; lp-WN18's, 1,014 CTAs; and at AM scale nc-AM's
+    pair path at width 10 and e-RGCN nc-AM's diagonal at 32, which took
+    the atomics and owned routes before), a source-ordered one the chunk
+    route; the lanes are 4 values with a masked tail, moved in pieces of
+    4, 2 or 1 values by the rows' width and the table's alignment; the
+    scratch is two rows of dout rounded up to whole lanes a unit, or an
+    (RB, dout) tile a chunk; the counters one a (unit, column group)."""
     from rgcn_tpu_torch import kernels
     from rgcn_tpu_torch.data.synthetic import aifb_like, fb_toy_like
     from rgcn_tpu_torch.graph.structure import build_edge_set
@@ -351,43 +353,44 @@ def test_k1_route_by_layout_at_the_model_shapes():
              (fes.layout, 500, fes.num_nodes)]
     assert es.layout.num_chunks == 261 and es.layout.chunk == 256
     for lay, dout, n in cases:
-        wide = dout % 4 == 0
-        assert lay.dst_sorted and kernels.k1_route(
-            True, lay.num_chunks, lay.chunk, dout, wide, n) == kernels.K1_FIXED
+        assert lay.dst_sorted and kernels.k1_route(lay.dst_sorted) == kernels.K1_FIXED
         shape = _layout_shape(lay, dout)
         units = kernels.k1_fixed_units(shape["n_chunks"], shape["chunk"], dout)
         assert units >= lay.num_chunks
-        assert kernels.k1_scratch_floats(kernels.K1_FIXED, **shape) == units * 2 * dout
-    # nc-AIFB: a CTA a chunk on either lane map (span 256)
+        assert kernels.k1_scratch_floats(kernels.K1_FIXED, **shape) == \
+            units * 2 * (-(-dout // 4) * 4)
+    # nc-AIFB: 4 lanes a row, a CTA a chunk (span 256)
     assert kernels.k1_fixed_units(261, 256, 16) == 261
-    # scalar lanes at dout 10 (16 lanes a row) and 4-value lanes (4) both span 256
+    # dout 10: 3 lanes a row (4, 4 and a masked 2) in groups of 4, span 256
     assert kernels.k1_fixed_units(100, 256, 10) == 100
-    # 4-value lanes at dout 4 (1 lane) span 2,048 slots, scalar lanes (4) 512
-    assert kernels.k1_fixed_units(10, 2048, 4) == 40
+    # dout 4: 1 lane a row, span 2,048 slots
+    assert kernels.k1_fixed_units(10, 2048, 4) == 10
     # nc-AM at AM scale: 6,925 chunks of 256 (am_like()'s destination
-    # layout); width 10 takes scalar lanes, 16 lanes a row: a CTA a chunk
-    assert kernels.k1_route(True, 6925, 256, 10, False, 300_000) == kernels.K1_ATOMICS
-    assert kernels.k1_route(True, 1000, 256, 10, False, 300_000) == kernels.K1_FIXED
-    # e-RGCN nc-AM's diagonal: 5.9 slots a row; the same CTAs over more rows
-    assert kernels.k1_route(True, 6925, 256, 32, True, 300_000) == kernels.K1_OWNED
-    assert kernels.k1_route(True, 6925, 256, 32, True, 600_000) == kernels.K1_FIXED
-    assert kernels.k1_route(True, 1023, 256, 32, True, 30_000) == kernels.K1_FIXED
-    # wider than one column group (128): the pair path's dT at 400 and 440
-    assert kernels.k1_route(True, 6925, 256, 128, True, 300_000) == kernels.K1_OWNED
-    assert kernels.k1_route(True, 6925, 256, 400, True, 300_000) == kernels.K1_FIXED
-    assert kernels.k1_route(True, 6925, 256, 440, True, 300_000) == kernels.K1_FIXED
-    # lp-WN18's 1,014 chunks at any width stay under 1,024 CTAs
-    assert kernels.k1_route(True, 1014, 256, 200, True, 40_943) == kernels.K1_FIXED
-    assert kernels.k1_scratch_floats(kernels.K1_ATOMICS, 6925, 256, 128, 10, 300_000) == \
-        3_000_000
-    assert kernels.k1_scratch_floats(kernels.K1_OWNED, 6925, 256, 128, 32, 300_000) == \
-        9_600_000
-    # lp-FB-toy's dout 500: 4 column groups of 32 lanes x 4 values (scalar
-    # lanes: 16 of 32), the counters one a (unit, column group)
+    # layout): the pair path at width 10 and e-RGCN's diagonal at 32, a
+    # CTA a chunk; the pair path's dT at 400 and 440, a CTA a (chunk,
+    # column group of 128); lp-WN18's 1,014 chunks at 200
+    for n_chunks, dout, groups in ((6925, 10, 1), (6925, 32, 1), (6925, 128, 1),
+                                   (6925, 400, 4), (6925, 440, 4), (1014, 200, 2)):
+        assert kernels.k1_route(True) == kernels.K1_FIXED
+        assert kernels.k1_fixed_units(n_chunks, 256, dout) == n_chunks
+        assert kernels.k1_fixed_counters(n_chunks, 256, dout) == n_chunks * groups
+    assert kernels.k1_scratch_floats(kernels.K1_FIXED, 6925, 256, 128, 10) == \
+        6925 * 2 * 12
+    assert kernels.k1_scratch_floats(kernels.K1_FIXED, 6925, 256, 128, 32) == \
+        6925 * 2 * 32
+    # lp-FB-toy's dout 500: 4 column groups of 32 lanes x 4 values, the
+    # counters one a (unit, column group)
     n_fb = fes.layout.num_chunks
-    assert kernels.k1_fixed_counters(n_fb, 256, 500) == n_fb * 16
-    assert kernels.k1_wide(16, 0x7f0000000010, 4) and not kernels.k1_wide(16, 0x7f0000000008, 4)
-    assert kernels.k1_wide(16, 0x7f0000000008, 2) and not kernels.k1_wide(10, 0x7f0000000000, 4)
+    assert kernels.k1_fixed_counters(n_fb, 256, 500) == n_fb * 4
+    # the pieces: 4 values on whole, aligned lanes; 2 (8-byte f32, 4-byte
+    # bf16) at width 10; 1 at an odd width or a table off its 2-value grid
+    assert kernels.k1_piece(16, 0x7f0000000010, 4) == 4
+    assert kernels.k1_piece(16, 0x7f0000000008, 4) == 2
+    assert kernels.k1_piece(16, 0x7f0000000008, 2) == 4
+    assert kernels.k1_piece(10, 0x7f0000000000, 4) == 2
+    assert kernels.k1_piece(10, 0x7f0000000000, 2) == 2
+    assert kernels.k1_piece(11, 0x7f0000000000, 4) == 1
+    assert kernels.k1_piece(10, 0x7f0000000004, 4) == 1
     by_src = build_dst_layout(es.dst, es.num_nodes, src=es.src)
     assert not by_src.dst_sorted and kernels.k1_route(False) == kernels.K1_CHUNK
     shape = _layout_shape(by_src, 16)
@@ -513,6 +516,17 @@ def test_compare_k1_k5_variant_signatures(name):
     assert argtypes == launcher
 
 
+def test_compare_k4_needs_cuda(monkeypatch):
+    """K4's launchers are compared with the design they replaced on the card
+    only: without CUDA the script raises before building anything."""
+    from rgcn_tpu_torch import compare_k4, compare_k4_bf16
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(compare_k4_bf16, "build_variants", lambda: pytest.fail("built"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compare_k4.main([])
+
+
 def test_compare_k4_bf16_needs_cuda(monkeypatch):
     """K4's bf16 designs are compared on the card only: without CUDA the
     script raises before building anything."""
@@ -546,6 +560,25 @@ def test_compare_k4_bf16_variant_signatures(name):
     assert want == launcher
 
 
+@pytest.mark.parametrize("name", ["k4_runs_f32", "k4_runs_bf16"])
+def test_k4_runs_variant_signatures(name):
+    """The design K4's launchers replaced (variants/k4_weighted_runs.cu)
+    keeps its launcher's arguments from before: no counters, no span, as
+    compare_k4_bf16 binds them; nothing of it is left in the launchers."""
+    import ctypes
+
+    from rgcn_tpu_torch import compare_k4_bf16
+    from rgcn_tpu_torch.kernels import build
+
+    src, argtypes = compare_k4_bf16.VARIANTS[name]
+    text = open(os.path.join(build.CSRC, src)).read()
+    m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
+    assert m, f"no extern C launcher {name} in {src}"
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in m.group(1).split(",")]
+    assert argtypes == want == [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    assert '#include "../weighted_runs.cuh"' in text
+
+
 @pytest.mark.parametrize("n_chunks,chunk,row_len,span,want", [
     (502, 256, 400, 256, 502 * 2 * 400),    # lp-WN18's merged frame, nb 2, din 200
     (502, 256, 200, 128, 502 * 2 * 2 * 200),  # half-chunk units: two a chunk
@@ -555,61 +588,72 @@ def test_compare_k4_bf16_variant_signatures(name):
     (7, 100, 3, 64, 7 * 2 * 2 * 3),         # a chunk of a unit and a part
 ])
 def test_k4_bf16_scratch_floats(n_chunks, chunk, row_len, span, want):
-    """K4's bf16 form's f32 scratch: two rows a unit of ``span`` slots of a
-    chunk, as csrc/k4_owned_bf16.cuh's units address it."""
+    """K4's f32 scratch (both forms): two rows a unit of ``span`` slots of a
+    chunk, as csrc/k4_owned.cuh's units address it, each row the output's
+    bases at din rounded up to whole 16-byte vectors of the table."""
     from rgcn_tpu_torch import kernels
 
-    assert kernels.k4_bf16_scratch_floats(n_chunks, chunk, row_len, span) == want
-    assert kernels.K4_BF16_SPAN == 256
+    assert kernels.k4_scratch_floats(n_chunks, chunk, row_len, span) == want
+    assert kernels.K4_SPAN == 256
+    assert kernels.k4_row_floats(2, 200, 2) == 400 and kernels.k4_row_floats(2, 200, 4) == 400
+    assert kernels.k4_row_floats(1, 10, 2) == 16 and kernels.k4_row_floats(1, 10, 4) == 12
+    assert kernels.k4_row_floats(4, 16, 2) == 64 and kernels.k4_row_floats(4, 3, 4) == 16
 
 
 @pytest.mark.parametrize("shape,din,offset,n_chunks,nb_out,out,route", [
-    ("nc-AIFB with 4 bases: the featureless layer, f32 out", 16, 0, 261, 1, "f32", "owned"),
-    ("nc-AIFB's layer-2 Agg over its merged frame", 16, 0, 260, 4, "bf16", "owned"),
-    ("nc-AIFB's layer-2 dx", 16, 0, 260, 1, "bf16", "owned"),
-    ("nc-AIFB's dbases", 16, 0, 261, 4, "f32", "owned"),
-    ("lp-WN18's forward Agg: merged frame, 2 bases, bf16 out", 200, 0, 502, 2, "bf16", "runs"),
-    ("lp-WN18's VJP dx: one output", 200, 0, 502, 1, "bf16", "owned"),
-    ("lp-WN18's merged frame with an f32 output", 200, 0, 502, 2, "f32", "owned"),
-    ("nc-AM with 4 bases: hidden 10", 10, 0, 6925, 1, "f32", "runs"),
-    ("nc-AM's width at few chunks", 10, 0, 64, 4, "bf16", "runs"),
-    ("the decoder's bwd_dtype pair over the corrupted layout", 200, 256, 1492, 1, "f32", "runs"),
-    ("a table one bf16 value off 16 bytes", 200, 2, 261, 1, "f32", "runs"),
-    ("a table 8 bytes off 16", 64, 8, 100, 2, "bf16", "runs"),
-    ("every output at the most chunks of the first bound", 200, 0, 384, 8, "bf16", "owned"),
-    ("several bf16 outputs one chunk past it", 200, 0, 385, 2, "bf16", "runs"),
-    ("one output at the most chunks", 200, 0, 1024, 1, "bf16", "owned"),
-    ("one chunk more", 200, 0, 1025, 1, "bf16", "runs"),
+    ("nc-AIFB with 4 bases: the featureless layer, f32 out", 16, 0, 261, 1, "f32", 8),
+    ("nc-AIFB's layer-2 Agg over its merged frame", 16, 0, 260, 4, "bf16", 8),
+    ("nc-AIFB's layer-2 dx", 16, 0, 260, 1, "bf16", 8),
+    ("nc-AIFB's dbases", 16, 0, 261, 4, "f32", 8),
+    ("lp-WN18's forward Agg: merged frame, 2 bases, bf16 out", 200, 0, 502, 2, "bf16", 8),
+    ("lp-WN18's VJP dx: one output", 200, 0, 502, 1, "bf16", 8),
+    ("lp-WN18's merged frame with an f32 output", 200, 0, 502, 2, "f32", 8),
+    ("nc-AM with 4 bases: hidden 10", 10, 0, 6925, 1, "f32", 2),
+    ("nc-AM's width at few chunks", 10, 0, 64, 4, "bf16", 2),
+    ("the decoder's bwd_dtype pair over the corrupted layout", 200, 256, 1492, 1, "f32", 8),
+    ("a table one bf16 value off 16 bytes", 200, 2, 261, 1, "f32", 1),
+    ("a table 8 bytes off 16", 64, 8, 100, 2, "bf16", 4),
+    ("every output at the most chunks of the first bound", 200, 0, 384, 8, "bf16", 8),
+    ("several bf16 outputs one chunk past it", 200, 0, 385, 2, "bf16", 8),
+    ("one output at the most chunks", 200, 0, 1024, 1, "bf16", 8),
+    ("one chunk more", 200, 0, 1025, 1, "bf16", 8),
 ])
 def test_k4_bf16_route_by_shape(shape, din, offset, n_chunks, nb_out, out, route):
-    """K4's bf16 form picks its kernel from the table's width and alignment,
-    the layout's chunk count and the output's bases and dtype alone: the
-    owned-row kernel for whole 16-byte vectors of a 16-byte aligned table
-    over at most 384 chunks, or at most 1,024 but for a bf16 output of
-    several bases; weighted_runs.cuh's otherwise."""
+    """Every layout takes K4's one kernel, the fixed-order owned-row kernel
+    of csrc/k4_owned.cuh (both launchers include it and nothing else, and
+    take no route), whatever its chunk count or output; the values a copy
+    and a store move (``route`` here) follow from the table's width and
+    alignment alone: whole 16-byte vectors (8 bf16, 4 f32), else the most
+    that din and the table's address allow."""
     from rgcn_tpu_torch import kernels
 
-    want = kernels.K4_BF16_OWNED if route == "owned" else kernels.K4_BF16_RUNS
-    dtype = torch.bfloat16 if out == "bf16" else torch.float32
-    got = kernels.k4_bf16_route(din, 0x7f0000000000 + offset, n_chunks, nb_out, dtype)
-    assert got == want, shape
-    assert (kernels.K4_BF16_OWNED_ALL_CHUNKS, kernels.K4_BF16_OWNED_MAX_CHUNKS) == (384, 1024)
-    src = open(os.path.join(PKG, "kernels", "csrc", "k4_weighted_aggregate_bf16.cu")).read()
-    assert "if (route == 0)" in src and "if (route != 1)" in src
+    table = 0x7f0000000000 + offset
+    assert kernels.k4_piece(din, table, 2) == route, shape
+    # an f32 table of the same width at the same address: half the values
+    assert kernels.k4_piece(din, table, 4) == {8: 4, 4: 2, 2: 2, 1: 1}[route], shape
+    for name in ("k4_weighted_aggregate.cu", "k4_weighted_aggregate_bf16.cu"):
+        src = open(os.path.join(PKG, "kernels", "csrc", name)).read()
+        assert '#include "k4_owned.cuh"' in src and "weighted_runs.cuh\"" not in src
+        assert "int route" not in src and "int span" in src
+    assert kernels.k4_units(n_chunks, 256) == n_chunks
 
 
 def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
-    """K4's and K5's sources include weighted_runs.cuh: an edit of the header
-    alone must give them a new library path, so they are rebuilt."""
+    """K4's sources include k4_owned.cuh and K5's weighted_runs.cuh: an
+    edit of a header alone must give its kernels a new library path, so
+    they are rebuilt."""
     from rgcn_tpu_torch.kernels import build
 
-    for name in ("k4_weighted_aggregate.cu", "weighted_runs.cuh"):
+    for name in ("k4_weighted_aggregate.cu", "k4_owned.cuh",
+                 "k5_weighted_aggregate_dedup.cu", "weighted_runs.cuh"):
         (tmp_path / name).write_bytes(open(os.path.join(build.CSRC, name), "rb").read())
     monkeypatch.setattr(build, "CSRC", str(tmp_path))
-    before = build.library_path("k4_weighted_aggregate")
-    with open(tmp_path / "weighted_runs.cuh", "a") as f:
-        f.write("// edited\n")
-    assert build.library_path("k4_weighted_aggregate") != before
+    for kernel, header in (("k4_weighted_aggregate", "k4_owned.cuh"),
+                           ("k5_weighted_aggregate_dedup", "weighted_runs.cuh")):
+        before = build.library_path(kernel)
+        with open(tmp_path / header, "a") as f:
+            f.write("// edited\n")
+        assert build.library_path(kernel) != before
 
 
 def test_cached_build_keeps_its_ptxas_report(tmp_path, monkeypatch):

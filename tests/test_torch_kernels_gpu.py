@@ -74,14 +74,22 @@ bf16 ops (the basis op over an unmerged, merged and dedup frame, the
 featureless basis op with 4 bases, the diagonal op in both frames, the
 pair op) on the card against the CPU's bf16 ops, forward and gradients,
 within 8e-3·max(1, max|ref|), with their exact bf16 launches. K4's bf16
-form's owned-row kernel (``csrc/k4_owned_bf16.cuh``) in every mode at 1,
-2, 4 and 8 bases and din 16, 200 and 400 (din 10 and an unaligned table:
-its route to ``weighted_runs.cuh``), on a layout with a destination over
-40 chunks and one over three, an empty block, pad-only chunks and rows
-past the output, into NaN-filled memory, its pads' weights NaN, its
-split-run counters left zero, on chunks of 16 and 64; the route rule's
-kernel read from the profile, by width, alignment and chunk count; and its
-scratch and per-stream counters. K1's and K2's fixed-order designs (K1 in
+form's owned-row kernel (``csrc/k4_owned.cuh``) in every mode at 1,
+2, 4 and 8 bases and din 16, 200, 400 and 10 (4-byte pieces, the row's
+last vector masked; an unaligned table takes 2-byte pieces), on a layout
+with a destination over 40 chunks and one over three, an empty block,
+pad-only chunks and rows past the output, into NaN-filled memory, its
+pads' weights NaN, its split-run counters left zero, on chunks of 16 and
+64; the kernel read from the profile at every width, alignment and chunk
+count (the owned-row kernel alone, one event a call); and its scratch and
+per-stream counters. K4's f32 form on the same kernel (16-byte vectors of 4
+values, 8- and 4-byte pieces at din 10, 7 and 3 and from an unaligned
+table) over the same layout and one of more than 1,024 chunks, every mode,
+the same bits on a second call. K1's lane map for widths that are not a
+multiple of 4 (4-value lanes with a masked tail, in 8-, 4- or 2-byte
+pieces) at widths 5, 6, 10, 11 and 13 and at e-RGCN nc-AM's diagonal
+shape, both message forms, the same bits twice. A two-epoch lp-WN18 run
+with the structural self-loop mask trained twice, bit-equal. K1's and K2's fixed-order designs (K1 in
 both message forms and both outputs, K2 in both forms) over adversarial
 layouts (a destination over 3+ chunks, pad-only chunks and gap quanta, a
 whole row block past num_nodes, a source-ordered layout for K1, dout 4,
@@ -1368,12 +1376,13 @@ def _k4b_layout(dev, chunk=256):
     return lay.to(dev), torch.as_tensor(src, dtype=torch.int32, device=dev)
 
 
-def _k4b_case(dev, lay, src, nb, din, per_basis, sum_bases, out, aligned=True):
-    """K4's bf16 form into NaN-filled memory against the plain version's
-    f32 sums; pads' weights NaN (never read). Returns the output."""
+def _k4b_case(dev, lay, src, nb, din, per_basis, sum_bases, out, aligned=True, table=BF16):
+    """K4's bf16 form (``table`` f32: its f32 form) into NaN-filled memory
+    against the plain version's f32 sums; pads' weights NaN (never read).
+    Returns the output."""
     rng = np.random.default_rng(nb * 1000 + din)
     shape = (nb, 1024, din) if per_basis else (1024, din)
-    flat = _t(rng, dev, int(np.prod(shape)) + 1).to(BF16)
+    flat = _t(rng, dev, int(np.prod(shape)) + 1).to(table)
     x = (flat[:-1] if aligned else flat[1:]).view(shape)
     real = lay.local_dst.reshape(-1) < lay.row_block
     w = torch.where(real, _t(rng, dev, nb, real.shape[0]), torch.full_like(real, float("nan"),
@@ -1384,7 +1393,7 @@ def _k4b_case(dev, lay, src, nb, din, per_basis, sum_bases, out, aligned=True):
     before = dict(kernels.LAUNCHES)
     got = bs.weighted_aggregate(x, src, w, lay, K4B_NODES, sum_bases=sum_bases,
                                 out_dtype=out_dtype)
-    assert _launched(before) == {"k4_weighted_aggregate_bf16": 1}
+    assert _launched(before) == {"k4_weighted_aggregate" + ("_bf16" if table == BF16 else ""): 1}
     _node_major(got, (n_out, K4B_NODES, din))
     ref = bs.weighted_aggregate_plain(x, src, w, lay, K4B_NODES, sum_bases=sum_bases)
     if out == "bf16":
@@ -1406,8 +1415,8 @@ def _k4b_case(dev, lay, src, nb, din, per_basis, sum_bases, out, aligned=True):
 def test_k4_bf16_owned_every_mode(cuda_bf16, per_basis, sum_bases, out, nb, din):
     """Every mode of K4's bf16 form (shared or per-basis tables, with and
     without sum_bases, f32 or bf16 out) at 1 to 8 bases and din 16
-    (nc-AIFB's: two 16-byte vectors a row), 200 and 400 (the owned-row
-    kernel) and 10 (nc-AM's hidden width: weighted_runs.cuh), on the
+    (nc-AIFB's: two 16-byte vectors a row), 200 and 400, and 10 (nc-AM's
+    hidden width: 4-byte pieces, the row's second vector masked), on the
     adversarial layout: a destination over 40 chunks and one over three
     (runs that cross units, finished by their last unit from two scratch
     rows a unit), an empty block, pad-only chunks, rows past the output
@@ -1423,20 +1432,20 @@ def test_k4_bf16_owned_every_mode(cuda_bf16, per_basis, sum_bases, out, nb, din)
 @pytest.mark.parametrize("out", ["f32", "bf16"])
 @pytest.mark.parametrize("per_basis", [False, True])
 def test_k4_bf16_owned_unaligned_table(cuda_bf16, per_basis, out, din):
-    """A table that is not 16-byte aligned takes weighted_runs.cuh's
-    kernel (scalar columns), with the same answers."""
+    """A table that is not 16-byte aligned (one bf16 value off) takes the
+    same owned-row kernel in 2-byte pieces, with the same answers."""
     lay, src = _k4b_layout(cuda_bf16)
     _k4b_case(cuda_bf16, lay, src, 2, din, per_basis, per_basis, out, aligned=False)
 
 
 @pytest.mark.parametrize("din,aligned,kernel", [
-    (200, True, "k4b::owned_kernel"), (16, True, "k4b::owned_kernel"),
-    (10, True, "wruns::runs_kernel"), (200, False, "wruns::runs_kernel")])
+    (200, True, "k4o::owned_kernel"), (16, True, "k4o::owned_kernel"),
+    (10, True, "k4o::owned_kernel"), (200, False, "k4o::owned_kernel")])
 def test_k4_bf16_route_runs_the_chosen_kernel(cuda_bf16, din, aligned, kernel):
-    """The kernel the route rule (kernels.k4_bf16_route) names is the one the
-    card runs, read from the profile (utils/profiling.device_split): the
-    owned-row kernel alone (one launch), or weighted_runs.cuh's with its
-    zeroing and, for a bf16 output, narrowing launches."""
+    """Every width and alignment runs the owned-row kernel alone (one event
+    a call, no zeroing or narrowing launch), read from the profile
+    (utils/profiling.device_split), in the pieces kernels.k4_piece names:
+    8 values (16 bytes), 2 at width 10, 1 from a table one value off."""
     from rgcn_tpu_torch.utils.profiling import device_split
 
     lay, src = _k4b_layout(cuda_bf16)
@@ -1444,26 +1453,21 @@ def test_k4_bf16_route_runs_the_chosen_kernel(cuda_bf16, din, aligned, kernel):
     flat = _t(rng, cuda_bf16, 1024 * din + 1).to(BF16)
     x = (flat[:-1] if aligned else flat[1:]).view(1024, din)
     w = _t(rng, cuda_bf16, 2, lay.num_chunks * lay.chunk)
-    want = kernels.K4_BF16_OWNED if kernel.startswith("k4b") else kernels.K4_BF16_RUNS
-    assert kernels.k4_bf16_route(din, x.data_ptr(), lay.num_chunks, 2, BF16) == want
+    want = 8 if aligned and din % 8 == 0 else (2 if aligned else 1)
+    assert kernels.k4_piece(din, x.data_ptr(), 2) == want
     split = device_split(lambda: bs.weighted_aggregate(x, src, w, lay, K4B_NODES,
                                                        out_dtype=BF16), iters=3)
     names = list(split["kernels_us"])
     assert any(kernel in k for k in names), names
-    if want == kernels.K4_BF16_OWNED:
-        assert len(names) == 1
-    else:
-        assert not any("k4b::" in k for k in names) and len(names) == 3
+    assert len(names) == 1 and not any("runs_kernel" in k for k in names), names
 
 
 @pytest.mark.parametrize("nb,sum_bases,out,owned", [
-    (2, False, "bf16", False), (2, True, "bf16", True), (2, False, "f32", True)])
+    (2, False, "bf16", True), (2, True, "bf16", True), (2, False, "f32", True)])
 def test_k4_bf16_route_by_chunk_count(cuda_bf16, monkeypatch, nb, sum_bases, out, owned):
-    """Past K4_BF16_OWNED_ALL_CHUNKS (lowered here to the adversarial
-    layout's chunk count less one) a bf16 output of several bases takes
-    weighted_runs.cuh's kernel, one output or an f32 output the owned-row
-    kernel; past K4_BF16_OWNED_MAX_CHUNKS every call takes
-    weighted_runs.cuh's; the same answers each way."""
+    """Whatever the chunk count and output (several bf16 bases, one output,
+    an f32 output), every call takes the owned-row kernel alone: no
+    weighted_runs.cuh kernel; the same answers and bits each call."""
     from rgcn_tpu_torch.utils.profiling import device_split
 
     lay, src = _k4b_layout(cuda_bf16)
@@ -1477,13 +1481,12 @@ def test_k4_bf16_route_by_chunk_count(cuda_bf16, monkeypatch, nb, sum_bases, out
             x, src, w, lay, K4B_NODES, sum_bases=sum_bases, out_dtype=out_dtype),
             iters=3)["kernels_us"])
 
-    for limit, takes_owned in (("K4_BF16_OWNED_ALL_CHUNKS", owned),
-                               ("K4_BF16_OWNED_MAX_CHUNKS", False)):
-        monkeypatch.setattr(kernels, limit, lay.num_chunks - 1)
-        names = kernel_names()
-        assert any("k4b::owned_kernel" in k for k in names) == takes_owned, names
-        assert any("wruns::runs_kernel" in k for k in names) != takes_owned, names
-        _k4b_case(cuda_bf16, lay, src, nb, 200, False, sum_bases, out)
+    assert owned
+    names = kernel_names()
+    assert any("k4o::owned_kernel" in k for k in names), names
+    assert not any("runs_kernel" in k for k in names), names
+    a = _k4b_case(cuda_bf16, lay, src, nb, 200, False, sum_bases, out)
+    assert _same_bits(a, _k4b_case(cuda_bf16, lay, src, nb, 200, False, sum_bases, out))
 
 
 @pytest.mark.parametrize("chunk", [64, 16])
@@ -1502,9 +1505,9 @@ def test_k4_bf16_scratch_is_two_rows_a_unit(cuda_bf16):
     chunk 256), far less than the output's rows; its counters are made once
     for the stream, and a second stream gets its own."""
     lay, src = _k4b_layout(cuda_bf16)
-    units = kernels.k4_bf16_units(lay.num_chunks, lay.chunk)
+    units = kernels.k4_units(lay.num_chunks, lay.chunk)
     assert units == lay.num_chunks
-    assert kernels.k4_bf16_scratch_floats(lay.num_chunks, lay.chunk, 400) == units * 2 * 400
+    assert kernels.k4_scratch_floats(lay.num_chunks, lay.chunk, 400) == units * 2 * 400
     assert units * 2 < K4B_NODES
     _k4b_case(cuda_bf16, lay, src, 2, 200, False, False, "bf16")
     first = kernels.stream_counters(cuda_bf16, units)
@@ -1800,19 +1803,17 @@ def _k1_kernel_names(call) -> set:
 @pytest.mark.parametrize("msg", ["f32", "bf16"])
 def test_k1_route_by_shape(cuda_bf16, msg):
     """The launcher's rule (kernels.k1_route): a destination-sorted layout,
-    small, or large and sparse, takes the fixed-order owned-row kernel
-    alone (k1_fixed_kernel: no memset, no narrowing kernel, one event a
-    call); over 1,024 CTAs or more, 4-value lanes (one column group) with
-    3 slots a row or more take the owned-row kernel with atomics on split rows
-    (k1_owned_kernel after zero_split_rows, and narrow_split_rows for a
-    bf16 output) and scalar lanes the atomics kernel after a memset (and a
-    narrowing kernel for a bf16 output); a source-ordered one
-    chunk_sum.cuh's kernel alone. Each against the plain sums."""
+    small, or large and dense or sparse (over 1,024 CTAs at dout 32 and at
+    the masked width 10, where the atomics and owned routes took it
+    before), takes the fixed-order owned-row kernel alone
+    (k1_fixed_kernel: no memset, no narrowing kernel, one event a call); a
+    source-ordered one chunk_sum.cuh's kernel alone. Each against the
+    plain sums, the same bits twice."""
     mdt = BF16 if msg == "bf16" else torch.float32
     es, rng = _edges(40_000, 5, 150_000, 9, cuda_bf16)  # ~7.5 slots a row, >1024 CTAs
     lay = es.layout
     assert lay.num_chunks >= 1024 and lay.num_chunks * lay.chunk >= 3 * 40_000
-    cases = [(es, 32, "k1_owned_kernel"), (es, 10, "k1_aggregate_kernel")]
+    cases = [(es, 32, "k1_fixed_kernel"), (es, 10, "k1_fixed_kernel")]
     small, _ = _edges(900, 5, 4000, 1, cuda_bf16)
     cases.append((small, 32, "k1_fixed_kernel"))
     # >1024 CTAs of CH 64, under 3 slots a row
@@ -1828,17 +1829,9 @@ def test_k1_route_by_shape(cuda_bf16, msg):
         for out in (torch.float32, BF16):
             call = lambda: agg.aggregate_sorted(msgs, lay, n, out_dtype=out)  # noqa: E731
             names = _k1_kernel_names(call)
-            if kernel == "k1_aggregate_kernel":  # the atomics route
-                assert any(kernel in k for k in names) and any("Memset" in k for k in names)
-                assert len(names) == (3 if out == BF16 else 2), names
-            elif kernel == "k1_owned_kernel":  # owned rows, atomics on split rows
-                assert any(kernel in k for k in names), names
-                assert any("zero_split_rows" in k for k in names), names
-                assert any("narrow_split_rows" in k for k in names) == (out == BF16), names
-                assert len(names) == (3 if out == BF16 else 2), names
-            else:
-                assert len(names) == 1 and kernel in next(iter(names)), names
+            assert len(names) == 1 and kernel in next(iter(names)), names
             (_close_bf16_out if out == BF16 else _close)(call(), ref)
+            assert _same_bits(call(), call())
         _close(agg.aggregate_sorted(msgs, lay, n), agg.aggregate_sorted_plain(msgs, lay, n))
 
 
@@ -2145,3 +2138,156 @@ def test_bf16_layer_launches_the_bf16_weight_forms(cuda):
         out = block(es, wide)
     assert out.dtype == torch.float32
     assert _launched(before) == {"k3_messages_wbf16": 1, "k1_aggregate": 1}
+
+
+# -- every training sum in a fixed order: K4's f32 form, K1's masked lanes ------
+
+def _k4_many_chunks(dev, chunk=16):
+    """A destination-sorted layout of more than 1,024 chunks (chunks of 16
+    over 1,024 nodes, a hub over hundreds of them) and its sources."""
+    rng = np.random.default_rng(43)
+    dst = np.concatenate([rng.integers(0, 1024, 15_000), np.full(3000, 77)])
+    lay = agg.build_dst_layout(dst, 1024, row_block=128, chunk=chunk)
+    assert lay.num_chunks > 1024
+    local = lay.local_dst.reshape(-1)
+    src = np.where(local < 128, rng.integers(0, 1024, local.shape[0]), 1 << 30)
+    return lay.to(dev), torch.as_tensor(src, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("din", [3, 7, 10, 16, 200])
+@pytest.mark.parametrize("nb", [1, 2, 8])
+@pytest.mark.parametrize("per_basis,sum_bases", [(False, False), (False, True),
+                                                 (True, False), (True, True)],
+                         ids=["shared", "shared-sum", "per-basis", "per-basis-sum"])
+@pytest.mark.parametrize("layout", ["hub", "many_chunks"])
+def test_k4_f32_owned_rows(cuda, layout, per_basis, sum_bases, nb, din):
+    """K4's f32 form on the owned-row kernel in every mode at 1, 2 and 8
+    bases, din 16 and 200 (16-byte vectors), 10 (8-byte pieces), 7 and 3
+    (4-byte pieces, the last vector masked), over the adversarial layout (a
+    destination over 40 chunks, pad-only chunks, an empty block, rows past
+    the output) and one of more than 1,024 chunks, into NaN-filled memory:
+    one launch, the plain sums, the same bits on a second call, the
+    split-run counters left zero."""
+    lay, src = (_k4b_layout if layout == "hub" else _k4_many_chunks)(cuda)
+    a = _k4b_case(cuda, lay, src, nb, din, per_basis, sum_bases, "f32", table=torch.float32)
+    b = _k4b_case(cuda, lay, src, nb, din, per_basis, sum_bases, "f32", table=torch.float32)
+    assert _same_bits(a, b)
+    want = 4 if din % 4 == 0 else (2 if din % 2 == 0 else 1)
+    x = torch.empty((1024, din), device=cuda)
+    assert kernels.k4_piece(din, x.data_ptr(), 4) == want
+
+
+@pytest.mark.parametrize("table", [torch.float32, BF16])
+def test_k4_owned_unaligned_and_many_chunks(cuda, table):
+    """A table one value off its 16-byte grid (4-byte pieces of f32, 2-byte
+    of bf16) and a bf16 table over more than 1,024 chunks: the owned-row
+    kernel alone, the plain sums, the same bits twice."""
+    lay, src = _k4_many_chunks(cuda)
+    outs = ("f32",) if table == torch.float32 else ("f32", "bf16")
+    for out in outs:
+        for aligned in (True, False):
+            a = _k4b_case(cuda, lay, src, 2, 200, True, False, out, aligned=aligned, table=table)
+            b = _k4b_case(cuda, lay, src, 2, 200, True, False, out, aligned=aligned, table=table)
+            assert _same_bits(a, b)
+
+
+@pytest.mark.parametrize("msg", ["f32", "bf16"])
+@pytest.mark.parametrize("dout", [5, 6, 10, 11, 13])
+@pytest.mark.parametrize("geometry", K1_GEOMETRIES[:3], ids=lambda g: "rb{}-ch{}-pad{}-n{}".format(*g))
+def test_k1_masked_lanes(cuda_bf16, geometry, dout, msg):
+    """K1's lanes at widths that are not a multiple of 4: 4-value lanes,
+    the row's last masked, moved in pieces of 2 values (even widths) or 1
+    (odd widths, or a message view one value off), through perm and in slot
+    order, both outputs, into NaN-filled memory: the plain sums, one
+    launch, the same bits on a second call."""
+    lay, n = _skew_layout(geometry, cuda_bf16)
+    rng = np.random.default_rng(dout * 31 + geometry[1])
+    mdt = BF16 if msg == "bf16" else torch.float32
+    for index, rows in ((lay.perm, lay.num_edges), (None, lay.num_chunks * lay.chunk)):
+        flat = _t(rng, cuda_bf16, rows * dout + 1).to(mdt)
+        for view in (flat[:-1], flat[1:]):
+            msgs = view.view(rows, dout)
+            piece = kernels.k1_piece(dout, msgs.data_ptr(), msgs.element_size())
+            if view.data_ptr() == flat.data_ptr():
+                assert piece == (2 if dout % 2 == 0 else 1)
+            for odt in (torch.float32, BF16):
+                if index is None:
+                    ref = agg.aggregate_presorted_plain(msgs, lay, n)
+                    call = lambda: agg.aggregate_presorted(msgs, lay, n, odt)  # noqa: E731
+                else:
+                    ref = agg.aggregate_sorted_plain(msgs, lay, n)
+                    call = lambda: agg.aggregate_sorted(msgs, lay, n, out_dtype=odt)  # noqa: E731
+                before = dict(kernels.LAUNCHES)
+                a, b = _twice_into_nan(call, (n, dout), odt)
+                assert sum(_launched(before).values()) == 2
+                (_close_bf16_out if odt == BF16 else _close)(a, ref)
+                assert _same_bits(a, b)
+
+
+@pytest.mark.parametrize("msg", ["f32", "bf16"])
+def test_k1_diagonal_shape_fixed_order(cuda_bf16, msg):
+    """K1 at e-RGCN nc-AM's diagonal shape (slot-order messages at d 32 over
+    am_like()'s destination layout, 6,925 chunks, the owned route's before)
+    on the fixed-order kernel: the plain sums, the same bits twice."""
+    from rgcn_tpu_torch.data.synthetic import am_like
+    from rgcn_tpu_torch.ops import diag as dg
+
+    am = am_like()
+    es = build_edge_set(am.triples, am.num_nodes, am.num_relations, tile_size=128,
+                        with_dst_layout=True).to(cuda_bf16)
+    rng = np.random.default_rng(32)
+    x, dw = _t(rng, cuda_bf16, es.num_nodes, 32), _t(rng, cuda_bf16, es.num_rels, 32)
+    msgs = dg.diag_slot_messages(x, dw, es, compute_dtype=BF16 if msg == "bf16" else None)
+    n = es.num_nodes
+    a, b = _twice_into_nan(lambda: agg.aggregate_presorted(msgs, es.layout, n), (n, 32),
+                           torch.float32)
+    ref = agg.aggregate_presorted_plain(msgs.double(), es.layout, n)
+    tol = 1e-5 * max(1.0, ref.abs().max().item())
+    assert (a.double() - ref).abs().max().item() <= tol
+    assert _same_bits(a, b)
+
+
+def test_lp_structural_trained_twice_bit_equal(cuda):
+    """lp-WN18 with the structural self-loop mask (wn18_like(), width 200,
+    batch 30,000) trained two epochs twice from the seed-0 initialisation:
+    the same launches, losses, parameters and test ranks bit for bit (K4,
+    K1, the comps' and relations' gradients all sum in a fixed order)."""
+    import os
+
+    from rgcn_tpu_torch.config import load_experiment
+    from rgcn_tpu_torch.data.synthetic import wn18_like
+    from rgcn_tpu_torch.train.link_prediction import LinkPredictionTrainer
+    from rgcn_tpu_torch.utils.logging import ScalarLogger
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    base = load_experiment(os.path.join(root, "configs", "rgcn", "lp-WN18.yaml"))
+    enc = base.encoder
+    cfg = dataclasses.replace(
+        base, training=dataclasses.replace(base.training, epochs=2),
+        encoder=dataclasses.replace(enc, edge_dropout=dataclasses.replace(
+            enc.edge_dropout, self_loop=0.2, self_loop_type="structural")))
+    data = wn18_like()
+
+    class Quiet(ScalarLogger):
+        def __init__(self):
+            super().__init__(verbose=False)
+            self.records = []
+
+        def log_scalar(self, metric, value, step=None):
+            self.records.append((metric, step, float(value)))
+
+    runs = []
+    for _ in range(2):
+        t = LinkPredictionTrainer(cfg, data, device=cuda, logger=Quiet())
+        before = dict(kernels.LAUNCHES)
+        log = Quiet()
+        _, _, ranks = t.fit(log)
+        torch.cuda.synchronize()
+        runs.append((_launched(before), log.records, ranks,
+                     {k: v.detach().clone() for k, v in t.model.state_dict().items()}))
+    (l0, r0, k0, s0), (l1, r1, k1, s1) = runs
+    assert l0 == l1 and r0 == r1 and np.array_equal(k0, k1)
+    for name, v in s0.items():
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[v.element_size()]
+        assert torch.equal(v.view(bits), s1[name].view(bits)), name
+
